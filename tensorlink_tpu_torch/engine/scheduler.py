@@ -1,0 +1,463 @@
+"""SLO-aware request scheduling for the continuous serving engine (a copy
+of ``tensorlink_tpu/engine/scheduler.py``: the same classes, aging,
+preemption order and backpressure).
+
+The mechanism layers below this one (the paged slot engine, the prefix
+cache and chunked prefill) make admission, eviction and re-prefill
+cheap; this module is the POLICY layer that decides *who* runs, *who*
+waits, and *who* gets preempted. It owns the queued side of the request
+lifecycle between the API/batcher front-ends and
+:class:`~tensorlink_tpu_torch.engine.continuous.ContinuousEngine`:
+
+**Priority classes.** Every request carries one of three classes —
+``interactive`` (chat turns, latency-sensitive), ``batch`` (bulk
+summarization/eval traffic), ``best_effort`` (background fill). Classes
+order admission: the queued request with the best *effective* rank wins
+the next free slot, FIFO within a rank.
+
+**Starvation-free aging.** A queued request's effective rank improves by
+one class for every ``aging_ticks`` scheduler ticks it waits (one tick =
+one admission round = one engine chunk), so sustained high-class load
+can delay low-class work but never park it forever: an aged-to-rank-0
+``best_effort`` request outranks every *newer* interactive arrival (FIFO
+within rank) and — because preemption compares against the rank a
+request held AT admission — cannot be preempted by them once running.
+Admission consumes the credit: a preempted request re-queues with its
+arrival order intact but its aging clock restarted (ticks spent running
+are not ticks spent waiting).
+
+**Cache-backed preemption.** When a request would otherwise miss
+admission (no free slot, or the page allocator is dry even after prefix-
+cache eviction), the scheduler may evict a running victim: the slot
+whose admission-time rank is strictly worse than the candidate's,
+worst-rank first, most-recently-admitted first within a rank. The engine
+tears the victim's slot down through the normal eviction path — its
+prefill-written pages are PROMOTED into the prefix cache — and the
+request re-queues with its original arrival order (so it re-admits ahead
+of its class peers). Resumption rides the exact crash-recovery contract
+the engine already pins: re-prefill of prompt + emitted tokens (walking
+the prefix cache, so the re-prefill is near-free while the pages stay
+resident) and per-token keys ``fold_in(seed, n)`` stateless in n — a
+preempted-then-resumed stream is bit-identical to an uninterrupted run.
+
+**Bounded queues + backpressure.** Each class queue has a cap;
+``admission_check`` reports (to the API layer, which turns it into a
+``429`` + ``Retry-After``) when a class is at its cap or when the
+estimated queue wait exceeds ``max_wait_s``. The estimate is queue depth
+at-or-above the class's rank over observed per-request service time —
+coarse, but honest enough for a Retry-After hint.
+
+Telemetry (queue depth, queue-wait p50/p95, admissions, rejections,
+preemptions, TTFT per class) flows ``ContinuousEngine.serving_snapshot()
+→ ContinuousBatcher.stats() → validator /stats``, riding the same paths
+the prefix-cache counters already use (including the ``GENERATE_RESP``
+snapshot for remote-mode workers).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+
+from ..core.metrics import MetricsRegistry
+
+PRIORITY_CLASSES = ("interactive", "batch", "best_effort")
+# tlint: disable=TL006(constant derived from PRIORITY_CLASSES — read-only)
+PRIORITY_RANK = {c: r for r, c in enumerate(PRIORITY_CLASSES)}
+DEFAULT_PRIORITY = "interactive"
+
+
+def normalize_priority(priority) -> str:
+    """Clamp any caller-supplied value to a known class (unknown/empty →
+    the default). The API layer validates loudly; internal paths must
+    never crash on a stale field riding an old wire frame."""
+    p = str(priority or "").strip().lower()
+    return p if p in PRIORITY_RANK else DEFAULT_PRIORITY
+
+
+class SchedulerOverloaded(RuntimeError):
+    """A class queue is at its cap (the engine-side backstop behind the
+    API layer's 429 gate). Carries what the 429 body needs."""
+
+    def __init__(self, priority: str, depth: int, cap: int, retry_after: float):
+        super().__init__(
+            f"scheduler queue full for class {priority!r} "
+            f"({depth}/{cap} queued; retry after ~{retry_after:.0f}s)"
+        )
+        self.priority = priority
+        self.queue_depth = depth
+        self.cap = cap
+        self.retry_after = retry_after
+
+
+def _percentile(samples, q: float) -> float:
+    if not samples:
+        return 0.0
+    s = sorted(samples)
+    idx = min(int(round(q * (len(s) - 1))), len(s) - 1)
+    return float(s[idx])
+
+
+class _ClassStats:
+    """Per-class typed counters (registry-backed — they ARE the /metrics
+    series) + bounded sample windows for the exact-percentile snapshot
+    keys the /stats contract pins (a fixed-bucket histogram would change
+    the reported p50/p95 values, so the deques stay as the percentile
+    source while the histograms feed /metrics)."""
+
+    def __init__(self, cls: str, metrics: MetricsRegistry):
+        self.admitted = metrics.counter(
+            "tlink_sched_admitted_total", "requests admitted", cls=cls
+        )
+        self.rejected = metrics.counter(
+            "tlink_sched_rejected_total",
+            "requests rejected (queue cap / wait bound / drain fence)",
+            cls=cls,
+        )
+        self.preempted = metrics.counter(
+            "tlink_sched_preempted_total", "slots preempted and requeued",
+            cls=cls,
+        )
+        self.queue_wait_hist = metrics.histogram(
+            "tlink_sched_queue_wait_seconds",
+            "submit-to-admission wait", cls=cls,
+        )
+        self.ttft_hist = metrics.histogram(
+            "tlink_sched_ttft_seconds",
+            "submit-to-first-token latency", cls=cls,
+        )
+        self.queue_waits: deque = deque(maxlen=512)
+        self.ttfts: deque = deque(maxlen=512)
+
+    def snapshot(self, depth: int) -> dict:
+        return {
+            "queue_depth": depth,
+            "admitted": int(self.admitted.value),
+            "rejected": int(self.rejected.value),
+            "preempted": int(self.preempted.value),
+            "queue_wait_ms_p50": round(
+                _percentile(self.queue_waits, 0.50) * 1e3, 2
+            ),
+            "queue_wait_ms_p95": round(
+                _percentile(self.queue_waits, 0.95) * 1e3, 2
+            ),
+            "ttft_ms_p50": round(_percentile(self.ttfts, 0.50) * 1e3, 2),
+            "ttft_ms_p95": round(_percentile(self.ttfts, 0.95) * 1e3, 2),
+        }
+
+
+class RequestScheduler:
+    """Priority/aging/preemption policy over the engine's queued requests.
+
+    Thread-safety contract mirrors the engine's: mutation happens under
+    the ENGINE's lock (``push`` from ``submit``, the rest from the
+    single-threaded admission loop) — this object adds no lock of its own.
+
+    Queued entries are any objects carrying the fields the engine's
+    :class:`~tensorlink_tpu_torch.engine.continuous.ContinuousRequest` has:
+    ``priority`` (class name), ``sched_seq`` (arrival order, assigned
+    here), ``enqueue_tick`` / ``enqueue_t`` (assigned here),
+    ``admit_rank`` (effective rank at admission, assigned here).
+    """
+
+    def __init__(
+        self,
+        *,
+        max_slots: int,
+        queue_cap: int = 64,
+        aging_ticks: int = 32,
+        preemption: bool = True,
+        policy: str = "slo",
+        max_wait_s: float = 60.0,
+        metrics: MetricsRegistry | None = None,
+    ):
+        if policy not in ("slo", "fcfs"):
+            raise ValueError(f"unknown scheduling policy {policy!r}")
+        self.max_slots = max(int(max_slots), 1)
+        self.queue_cap = max(int(queue_cap), 1)
+        self.aging_ticks = max(int(aging_ticks), 1)
+        self.preemption = bool(preemption) and policy == "slo"
+        self.policy = policy
+        self.max_wait_s = float(max_wait_s)
+        # the queue + its stats are raced by client threads (submit /
+        # admission_check / serving_snapshot) against the dispatcher; every
+        # touch happens with the ENGINE's lock held by the caller, so
+        # touching methods carry `# tlint: holds-lock(the engine lock)`
+        self._queued: list = []  #: guarded by the engine lock
+        # drain fence (live slot migration, docs/FAILURE_MODEL.md): a
+        # draining engine takes no new work — push fails fast and
+        # admission_check rejects, so the drain loop never races fresh
+        # arrivals while it sheds the live slots
+        self.draining = False  #: guarded by the engine lock
+        self._seq = 0
+        self._admit_seq = 0  # admission order — victim-recency tiebreak
+        self._tick = 0
+        # EWMA of per-request service time (admit→finish wall seconds):
+        # the unit the wait estimator scales queue depth by
+        self._service_ewma = 0.0  #: guarded by the engine lock
+        # typed counters/histograms (core/metrics.py): the engine shares
+        # its registry so one /metrics render covers both layers; a
+        # standalone scheduler (unit tests) gets its own
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.by_class = {  #: guarded by the engine lock
+            c: _ClassStats(c, self.metrics) for c in PRIORITY_CLASSES
+        }
+        self.metrics.gauge(
+            "tlink_sched_queue_depth", "queued (not yet admitted) requests",
+            fn=lambda: len(self._queued),
+        )
+        self.metrics.gauge(
+            "tlink_sched_service_ewma_seconds",
+            "EWMA of per-request service time",
+            fn=lambda: self._service_ewma,
+        )
+
+    # -- introspection ---------------------------------------------------
+    # tlint: holds-lock(the engine lock)
+    def __len__(self) -> int:
+        return len(self._queued)
+
+    # tlint: holds-lock(the engine lock)
+    def pending(self) -> list:
+        return list(self._queued)
+
+    # tlint: holds-lock(the engine lock)
+    def depth(self, priority: str | None = None) -> int:
+        if priority is None:
+            return len(self._queued)
+        return sum(1 for r in self._queued if r.priority == priority)
+
+    def effective_rank(self, req, tick: int | None = None) -> int:
+        """Static class rank minus one per ``aging_ticks`` ticks waited,
+        floored at 0 — the starvation-free ordering key."""
+        if self.policy == "fcfs":
+            return 0
+        t = self._tick if tick is None else tick
+        waited = max(t - req.enqueue_tick, 0)
+        return max(PRIORITY_RANK[req.priority] - waited // self.aging_ticks, 0)
+
+    # -- queue side ------------------------------------------------------
+    # tlint: holds-lock(the engine lock)
+    def push(self, req) -> None:
+        """Enqueue; raises :class:`SchedulerOverloaded` past the class
+        cap (the backstop — the API layer's admission_check normally
+        rejects before the request gets this far)."""
+        req.priority = normalize_priority(getattr(req, "priority", None))
+        depth = self.depth(req.priority)
+        if self.draining:
+            # the admission fence: a draining engine is shedding its live
+            # slots — new work must land on the destination instead
+            self.by_class[req.priority].rejected.inc()
+            raise SchedulerOverloaded(req.priority, depth, self.queue_cap, 1.0)
+        if depth >= self.queue_cap:
+            self.by_class[req.priority].rejected.inc()
+            raise SchedulerOverloaded(
+                req.priority, depth, self.queue_cap,
+                self.estimate_wait(req.priority),
+            )
+        self._seq += 1
+        req.sched_seq = self._seq
+        req.enqueue_tick = self._tick
+        req.enqueue_t = time.monotonic()
+        self._queued.append(req)
+
+    # tlint: holds-lock(the engine lock)
+    def requeue(self, req) -> None:
+        """Re-queue a PREEMPTED request: keeps its original arrival seq
+        (so it re-admits ahead of class peers that arrived later) but
+        RESTARTS its aging clock — admission consumed the queued-wait
+        credit, and ticks spent RUNNING must not count as waiting, or a
+        long-running victim would instantly outrank the very candidate
+        it was preempted for and win the freed slot back (a futile
+        teardown instead of a preemption). Never counts against the cap
+        — the request was already admitted once."""
+        req.enqueue_tick = self._tick
+        req.enqueue_t = time.monotonic()
+        self._queued.append(req)
+        self.by_class[req.priority].preempted.inc()
+
+    # tlint: holds-lock(the engine lock)
+    def set_draining(self, draining: bool) -> None:
+        """Raise/lower the drain admission fence (live slot migration —
+        the engine's ``begin_drain`` flips this before shedding slots)."""
+        self.draining = bool(draining)
+
+    def tick(self) -> int:
+        """One admission round has begun (the engine calls this once per
+        chunk) — the aging clock."""
+        self._tick += 1
+        return self._tick
+
+    # tlint: holds-lock(the engine lock)
+    def select(self):
+        """The queued request the next free slot should go to: best
+        (effective rank, arrival seq). Returns None when idle. The caller
+        admits it and then calls :meth:`remove` — selection does not pop,
+        matching the engine's head-of-line page-wait retry shape."""
+        if not self._queued:
+            return None
+        return min(
+            self._queued,
+            key=lambda r: (self.effective_rank(r), r.sched_seq),
+        )
+
+    # tlint: holds-lock(the engine lock)
+    def remove(self, req) -> None:
+        try:
+            self._queued.remove(req)
+        # tlint: disable=TL005(remove() is idempotent by contract — the head-of-line retry path re-removes)
+        except ValueError:
+            pass
+
+    # tlint: holds-lock(the engine lock)
+    def note_admitted(self, req) -> None:
+        """Record admission: queue-wait sample, admission-time effective
+        rank (the preemption shield — see :meth:`victim`), admission
+        order (the victim-recency key — a re-admission gets a fresh seq,
+        so "recently admitted" really means "least sunk work since its
+        latest (re)admission")."""
+        req.admit_rank = self.effective_rank(req)
+        self._admit_seq += 1
+        req.admit_seq = self._admit_seq
+        st = self.by_class[req.priority]
+        st.admitted.inc()
+        wait = max(time.monotonic() - req.enqueue_t, 0.0)
+        st.queue_waits.append(wait)
+        st.queue_wait_hist.observe(wait)
+
+    # tlint: holds-lock(the engine lock)
+    def note_first_token(self, req, ttft_s: float) -> None:
+        st = self.by_class[req.priority]
+        ttft = max(float(ttft_s), 0.0)
+        st.ttfts.append(ttft)
+        st.ttft_hist.observe(ttft)
+
+    # tlint: holds-lock(the engine lock)
+    def note_finished(self, req, service_s: float) -> None:
+        a = 0.2  # EWMA weight: a few requests settle the estimate
+        s = max(float(service_s), 1e-3)
+        self._service_ewma = (
+            s if self._service_ewma == 0.0
+            else (1 - a) * self._service_ewma + a * s
+        )
+
+    # -- preemption ------------------------------------------------------
+    def victim(self, running: list, candidate) -> object | None:
+        """Pick the running request ``candidate`` may preempt, or None.
+
+        Eligible victims hold an ADMISSION-TIME rank strictly worse than
+        the candidate's current effective rank — comparing against
+        ``admit_rank`` (not the static class) means a request that aged
+        its way into a slot keeps it, which is what makes aging a real
+        no-starvation guarantee rather than a re-preemption treadmill.
+        Among eligible victims: worst rank first, most-recently-ADMITTED
+        first within a rank (the request whose latest (re)admission is
+        newest has the least sunk decode work to re-prefill — arrival
+        order says nothing about that, an early arrival may have just
+        re-admitted).
+        """
+        if candidate is None:
+            return None
+        return self.victim_for_rank(running, self.effective_rank(candidate))
+
+    # tlint: holds-lock(the engine lock)
+    def victim_for_rank(self, running: list, cand_rank: int) -> object | None:
+        """:meth:`victim` against an externally-computed candidate rank —
+        how a co-hosted pool (the JAX package's SharedPagePool) applies
+        THIS scheduler's admission-time-rank preemption shield to a
+        candidate queued on ANOTHER tenant's scheduler: the rank value is
+        the cross-model currency, the victim rules are unchanged."""
+        if not self.preemption:
+            return None
+        eligible = [
+            r for r in running
+            if r is not None
+            and getattr(r, "admit_rank", PRIORITY_RANK[r.priority]) > cand_rank
+        ]
+        if not eligible:
+            return None
+        return max(
+            eligible,
+            key=lambda r: (
+                getattr(r, "admit_rank", PRIORITY_RANK[r.priority]),
+                getattr(r, "admit_seq", r.sched_seq),
+                r.sched_seq,
+            ),
+        )
+
+    # -- backpressure ----------------------------------------------------
+    # tlint: holds-lock(the engine lock)
+    def estimate_wait(self, priority: str) -> float:
+        """Rough seconds until a NEW request of this class would reach a
+        slot: requests queued at-or-above its rank, over the slot count,
+        times observed per-request service time. Zero when a slot is
+        plausibly free now (the engine admits within one chunk)."""
+        rank = PRIORITY_RANK[normalize_priority(priority)]
+        ahead = sum(
+            1 for r in self._queued if self.effective_rank(r) <= rank
+        )
+        if ahead == 0:
+            return 0.0
+        svc = self._service_ewma or 1.0
+        return ahead / self.max_slots * svc
+
+    # tlint: holds-lock(the engine lock)
+    def admission_check(self, priority, n: int = 1) -> dict | None:
+        """The API layer's backpressure gate: None = admit, else a
+        rejection record ``{priority, queue_depth, cap, retry_after}``
+        the server turns into ``429`` + ``Retry-After``. Rejects when the
+        class queue cannot take ``n`` more, or when the estimated wait
+        exceeds ``max_wait_s`` (0 disables the wait check)."""
+        cls = normalize_priority(priority)
+        depth = self.depth(cls)
+        if self.draining:
+            self.by_class[cls].rejected.inc(n)
+            return {
+                "priority": cls,
+                "queue_depth": depth,
+                "cap": self.queue_cap,
+                "retry_after": 1.0,
+                "draining": True,
+            }
+        est = self.estimate_wait(cls)
+        if depth + n > self.queue_cap or (
+            self.max_wait_s > 0 and est > self.max_wait_s
+        ):
+            self.by_class[cls].rejected.inc(n)
+            return {
+                "priority": cls,
+                "queue_depth": depth,
+                "cap": self.queue_cap,
+                "retry_after": max(1.0, min(est, 600.0)),
+            }
+        return None
+
+    # -- telemetry -------------------------------------------------------
+    # tlint: holds-lock(the engine lock)
+    def snapshot(self) -> dict:
+        """Flat-ish JSON-safe counters for ``serving_snapshot()``."""
+        classes = {
+            c: st.snapshot(self.depth(c)) for c, st in self.by_class.items()
+        }
+        return {
+            "sched_policy": self.policy,
+            "sched_queue_depth": len(self._queued),
+            "sched_preemptions": sum(
+                int(st.preempted.value) for st in self.by_class.values()
+            ),
+            "sched_rejected": sum(
+                int(st.rejected.value) for st in self.by_class.values()
+            ),
+            "sched_service_ewma_s": round(self._service_ewma, 4),
+            "sched_classes": classes,
+        }
+
+
+__all__ = [
+    "DEFAULT_PRIORITY",
+    "PRIORITY_CLASSES",
+    "PRIORITY_RANK",
+    "RequestScheduler",
+    "SchedulerOverloaded",
+    "normalize_priority",
+]
