@@ -21,11 +21,12 @@ Phases (any failure raises and exits non-zero):
    their plain versions — tokens, counts and lengths equal; every layer,
    fed the same input on both paths, within rtol = atol = 2e-5 on its
    output and pages; the free-running pages, where the per-layer
-   differences add up over 28 layers, within 28 times that bound.
+   differences add up over 28 layers, within 4 times that bound.
 5. Serving: qwen3-0p6b at full width in bfloat16 behind a
    ContinuousBatcher — 16 requests from 4 threads — with the kernels'
-   launch counts checked against the chunks run and the plain versions
-   never called.
+   launch counts checked against the chunks run, the plain versions
+   never called, and a greedy request re-run alone equal to its
+   co-batched stream.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -55,6 +56,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+# free-running f32 pages after 3 chunks over 28 layers, in units of the
+# per-layer 2e-5 bound: earlier H100 runs read 2.1-2.3
+FREE_RUNNING_X = 4.0
 MAIN = dict(S=8, C=128, Hq=16, Hkv=8, hd=128, page=16, n_pp=256)
 MAIN_STARTS = [0, 896, 1536, 3071, 2000, 57, 4000, 0]
 MAIN_NVALID = [128, 128, 1, 1, 1, 1, 1, 0]  # 2 prefills, 5 decodes, idle
@@ -231,7 +235,8 @@ def kernel_timings() -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     live = sum(st + nv for st, nv in zip(starts, nvs) if nv > 0)
     pairs = sum(st + j + 1 for st, nv in zip(starts, nvs) for j in range(nv))
-    n_bytes = (2 * c["q"].numel() * elt  # q in, out
+    n_bytes = (sum(nvs) * Hq * hd * elt  # q: the valid rows only
+               + c["q"].numel() * elt  # every output row (zeros included)
                + 2 * live * Hkv * hd * elt  # live K and V, read once
                + sum(-(-(st + nv) // m["page"]) for st, nv in
                      zip(starts, nvs) if nv > 0) * 4 + 2 * S * 4)
@@ -247,7 +252,8 @@ def kernel_timings() -> dict:
     dmask = (pos[None, :] < torch.tensor(lens, device="cuda")[:, None])
     dmask[:, 0] = True  # length-0 slot: keep SDPA finite (timing only)
     qd = c["q"][:, 0].contiguous()[:, :, None]  # [S, Hq, 1, hd]
-    n_bytes = (2 * qd.numel() * elt + 2 * sum(lens) * Hkv * hd * elt
+    n_live = sum(1 for n in lens if n > 0)  # a length-0 slot reads no q
+    n_bytes = ((n_live + S) * Hq * hd * elt + 2 * sum(lens) * Hkv * hd * elt
                + sum(-(-n // m["page"]) for n in lens) * 4 + S * 4)
     out["paged_attention"] = dict(
         ms=_time_ms(lambda: _decode(c, True)),
@@ -361,7 +367,7 @@ def step_parity() -> None:
                 paged_ragged_step(
                     params, blk_t, cache, st_t, nv_t, ns_t, em_t, sd_t,
                     stp_t, tmp_t, tk_t, tp_t, pr_t, fq_t, counts, rem, eos,
-                    cfg, 8, 1, kernel,
+                    cfg, 8, 1, kernel=kernel,
                 )
             toks, n_tok = toks.cpu().numpy(), n_tok.cpu().numpy()
             lens = cache.lengths.cpu().tolist()
@@ -381,9 +387,10 @@ def step_parity() -> None:
     if trace_k != trace_p:
         raise AssertionError(f"step parity: tokens/lengths differ\n"
                              f"kernel {trace_k}\nplain  {trace_p}")
-    # (a) free running: per-layer differences add up over 28 layers, so
-    # the pages (scratch page 0 excluded) are held to n_layers x the
-    # per-layer bound: |a - b| <= L * (2e-5 + 2e-5 |b|)
+    # (a) free running: per-layer differences add up over 28 layers; the
+    # pages (scratch page 0 excluded) read 2.1-2.3x the per-layer bound
+    # |a - b| <= 2e-5 + 2e-5 |b| on the H100, so they are held to
+    # FREE_RUNNING_X times it
     worst, ratio = 0.0, 0.0
     for a, b in ((cache_k.k, cache_p.k), (cache_k.v, cache_p.v)):
         for layer in range(cfg.n_layers):
@@ -393,10 +400,10 @@ def step_parity() -> None:
             d = (x - y).abs()
             worst = max(worst, float(d.max()))
             ratio = max(ratio, float((d / (2e-5 + 2e-5 * y.abs())).max()))
-    if ratio > cfg.n_layers:
+    if ratio > FREE_RUNNING_X:
         raise AssertionError(
             f"step parity: free-running pages differ by {worst:.3e}, "
-            f"{ratio:.2f}x the per-layer bound (> {cfg.n_layers} layers)"
+            f"{ratio:.2f}x the per-layer bound (> {FREE_RUNNING_X})"
         )
     # (b) teacher forced: every layer from the same input, rtol = atol =
     # 2e-5 on its output and its pages (the first chunk's mixed block)
@@ -411,7 +418,8 @@ def step_parity() -> None:
     log(f"step parity (qwen3-0p6b f32, 3 chunks, kernel vs plain): tokens, "
         f"n_tok, lengths equal; free-running pages max abs diff "
         f"{worst:.3e} ({ratio:.3f}x the per-layer 2e-5 bound over "
-        f"{cfg.n_layers} layers); teacher-forced per layer "
+        f"{cfg.n_layers} layers, limit {FREE_RUNNING_X}x); teacher-forced "
+        f"per layer "
         f"{tf_ratio:.3f}x the 2e-5 bound; {time.monotonic() - t0:.1f}s")
     del params, base, cache_k, cache_p
     torch.cuda.empty_cache()
@@ -497,6 +505,9 @@ def serving_phase() -> dict:
     cont.check_page_conservation()
     # determinism on the card: a greedy request re-run alone
     solo = b.generate(reqs[0][0], max_new_tokens=64)
+    if solo != results[0]:
+        raise AssertionError("serving: a greedy re-run alone differs from "
+                             "its co-batched stream")
     snap = b.stats()["engine"]
     b.close()  # closes the engine, which checks page conservation again
     tt = sorted(ttft.values())
@@ -507,7 +518,6 @@ def serving_phase() -> dict:
         chunks=chunks, launches=launches,
         prefill_tokens_skipped=skipped,
         prompt_tokens=sum(len(r[0]) for r in reqs),
-        solo_rerun_equal=solo == results[0],
         decode_steps=snap["decode_steps"],
     )
     log(f"serving (qwen3-0p6b bf16, 8 slots, 16 requests x 64 tokens): "

@@ -179,9 +179,7 @@ class ContinuousEngine:
         chunk_steps: int = 8,
         prefill_chunk: int = 128,
         prefix_cache: bool = True,
-        host_tier_pages: int = 0,
         kv_quant: str = "none",
-        prefill_budget: int = 0,
         spec_decode: bool = False,
         sched_queue_cap: int = 64,
         sched_aging_ticks: int = 32,
@@ -191,7 +189,6 @@ class ContinuousEngine:
         default_priority: str = DEFAULT_PRIORITY,
         trace_site: str = "",
         metrics: MetricsRegistry | None = None,
-        flight_capacity: int = 256,
         pool=None,
         tensor_parallel: int = 1,
     ):
@@ -210,8 +207,6 @@ class ContinuousEngine:
             raise _later("tensor_parallel > 1", "tensor-parallel")
         if pool is not None:
             raise _later("a shared page pool (pool=)", "co-hosting")
-        if int(host_tier_pages) > 0:
-            raise _later("the host-RAM tier (host_tier_pages)", "kvtier")
         self.kv_quant = "none"
         self.engine = engine
         self.cfg = engine.cfg
@@ -236,14 +231,12 @@ class ContinuousEngine:
         self.prefix = PrefixCache(self.page_size) if prefix_cache else None
         self._prefix_digest: dict = {}
         self._digest_version = -1
-        self.prefill_budget = int(prefill_budget)
         self._prefilling: dict[int, ContinuousRequest] = {}
-        self._pack_phase = 0
         self._lock = threading.Lock()
         self.default_priority = normalize_priority(default_priority)
         self.tracer = get_tracer()
         self.trace_site = str(trace_site)
-        self.recorder = FlightRecorder(flight_capacity)
+        self.recorder = FlightRecorder()
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._stat = {
             key: self.metrics.counter(name, help)
@@ -776,12 +769,7 @@ class ContinuousEngine:
             - self._prefilling[s].prefill_pos
             for s in pf_slots
         ]
-        budgets = pack_prefill_budgets(
-            pf_rem, C,
-            self.prefill_budget if self.prefill_budget > 0 else None,
-            phase=self._pack_phase,
-        )
-        self._pack_phase += 1
+        budgets = pack_prefill_budgets(pf_rem, C)
         for s, g in zip(pf_slots, budgets):
             req = self._prefilling[s]
             if g <= 0:
@@ -842,7 +830,7 @@ class ContinuousEngine:
                 up(self._topk), up(self._topp), up(self._pres),
                 up(self._freq), self._counts, up(remaining), up(eos_arr),
                 self.cfg, self.chunk_steps, self.spec_width,
-                self.use_kernel,
+                kernel=self.use_kernel,
             )
         # the chunk's one host sync: the results the delivery loop reads
         toks_host = tokens.cpu().numpy()

@@ -47,6 +47,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..core.devices import resolve_device
 from ..models.base import ModelConfig
 from ..models.quant import matmul as _mm
 from ..models.transformer import (
@@ -96,13 +97,15 @@ class PagedKVCache:
         dtype: torch.dtype | None = None,
         kv_quant: str | None = None,
         n_pages: int | None = None,
-        device="cpu",
+        device=None,
     ) -> "PagedKVCache":
         """Zeroed pages for ``max_slots`` slots of ``max_len`` positions
-        (plus scratch page 0), or ``n_pages`` pages when given."""
+        (plus scratch page 0), or ``n_pages`` pages when given, on
+        ``device`` (None = the CUDA card)."""
         mode = kv_quant or "none"
         if mode != "none":
             raise NotImplementedError(_KV_QUANT_LATER.format(mode=mode))
+        device = resolve_device(device)
         S_max = max_len or cfg.max_seq_len
         n_pp = -(-S_max // page_size)
         P = n_pages if n_pages is not None else 1 + max_slots * n_pp
@@ -616,12 +619,14 @@ def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
 
 
 def paged_decode_step(params, tok, cache: PagedKVCache, active,
-                      cfg: ModelConfig, kernel: bool = False,
+                      cfg: ModelConfig, *, kernel: bool,
                       layers: list | None = None):
     """ONE fixed-shape decode step over every serving slot. Returns
     ``(logits [S, V], cache)`` with each active slot's new KV written to
     its pages (in place) and its length advanced by one. Idle slots write
-    their masked token to the scratch page and attend over nothing."""
+    their masked token to the scratch page and attend over nothing.
+    ``kernel`` (required) selects :func:`paged_attention` or its plain
+    version."""
     layers = layers if layers is not None else _layers(params)
     lengths = cache.lengths
     page, n_pp = cache.page_size, cache.pages_per_slot
@@ -665,7 +670,7 @@ def _decode_loop_body(params, layers, seeds, temp, top_k, top_p, pres, freq,
         tok, cache, done, steps, counts, remaining, col, tokens, n_exec = st
         run = ~done.all()
         logits, cache = paged_decode_step(
-            params, tok, cache, ~done, cfg, kernel, layers
+            params, tok, cache, ~done, cfg, kernel=kernel, layers=layers
         )
         keys = _row_keys(seeds, steps)
         nxt = _sample_rows(
@@ -765,16 +770,17 @@ def paged_ragged_step(
     cfg: ModelConfig,
     n_steps: int,
     spec_width: int = 1,
-    kernel: bool = False,
+    *,
+    kernel: bool,
 ):
     """THE serving hot loop's step: one ragged prefill+decode forward over
     the packed ``[S, C]`` block, sampling of each emitting slot's last
     valid row, then ``n_steps - 1`` decode-continuation steps. Every
     slot's role is data: a decode slot carries its current token at
     ``starts = length``, a mid-prefill slot its next prompt piece, an
-    idle slot nothing. ``kernel`` selects the CUDA attention kernels (on
-    CPU tensors their wrappers take the plain versions); ``False`` runs
-    the plain versions everywhere.
+    idle slot nothing. ``kernel`` (a required keyword) selects the CUDA
+    attention kernels (on CPU tensors their wrappers take the plain
+    versions); ``False`` runs the plain versions everywhere.
 
     Returns ``(tokens [S, n_steps + spec_width - 1], n_tok [S], spec_m
     [S], n_exec, cache, done, steps, counts, remaining)`` as the JAX step

@@ -10,8 +10,9 @@ own contracts.
   equal to the JAX engine's, and the allocator/trie end in the same state.
 - Bitwise, inside the port: solo == co-batched == mid-flight, prefix cache
   on == off, page conservation after the run.
-- ``chain_hash``/``prompt_chain_hashes`` digests and a scripted
-  allocator/trie sequence equal the JAX package's.
+- ``chain_hash``/``prompt_chain_hashes`` digests, a scripted
+  allocator/trie sequence and ``pack_prefill_budgets`` equal the JAX
+  package's.
 - ``ContinuousBatcher(engine=…)`` answers 4 threaded ``generate`` calls.
 """
 
@@ -26,6 +27,8 @@ import torch
 
 from tensorlink_tpu.engine import paged as jpaged
 from tensorlink_tpu.engine.continuous import ContinuousEngine as JEngine
+from tensorlink_tpu.engine.continuous import \
+    pack_prefill_budgets as j_pack_prefill_budgets
 from tensorlink_tpu.engine.generate import GenerationEngine as JGen
 from tensorlink_tpu.engine.sampling import SamplingParams as JSP
 from tensorlink_tpu.models import ModelConfig as JModelConfig
@@ -33,7 +36,10 @@ from tensorlink_tpu.models import init_params as j_init_params
 from tensorlink_tpu_torch.convert import config_from_jax, params_from_jax
 from tensorlink_tpu_torch.core.devices import resolve_device
 from tensorlink_tpu_torch.engine import paged as tpaged
-from tensorlink_tpu_torch.engine.continuous import ContinuousEngine
+from tensorlink_tpu_torch.engine.continuous import (
+    ContinuousEngine,
+    pack_prefill_budgets,
+)
 from tensorlink_tpu_torch.engine.generate import GenerationEngine
 from tensorlink_tpu_torch.engine.sampling import SamplingParams
 from tensorlink_tpu_torch.ml.batching import ContinuousBatcher
@@ -116,7 +122,7 @@ def test_one_ragged_step_matches_jax(models, kernel):
              for n in ORDER]
     jout = jpaged.paged_ragged_step(jgen.params, *jargs, JCFG, 4, 1, False)
     tout = tpaged.paged_ragged_step(tgen.params, *targs, tgen.cfg, 4, 1,
-                                    kernel)
+                                    kernel=kernel)
     names = ("tokens", "n_tok", "spec_m", "n_exec", "cache", "done", "steps",
              "counts", "remaining")
     for name, j, t in zip(names, jout, tout):
@@ -280,6 +286,27 @@ def _script(mod):
 def test_allocator_and_trie_script_equals_jax():
     assert _script(tpaged) == _script(jpaged)
     assert tpaged.pages_needed(33, 16) == jpaged.pages_needed(33, 16)
+
+
+@pytest.mark.parametrize("budget", [None, 0, 5, 17, 40, 1000])
+def test_pack_prefill_budgets_equal_jax(budget):
+    rng = np.random.default_rng(3)
+    for phase in range(6):
+        rem = [int(r) for r in rng.integers(-2, 40, size=phase + 1)]
+        assert pack_prefill_budgets(rem, 16, budget, phase) == \
+            j_pack_prefill_budgets(rem, 16, budget, phase)
+
+
+def test_device_and_kernel_must_be_asked_for():
+    cfg = config_from_jax(dataclasses.asdict(JCFG))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpaged.PagedKVCache.init(cfg, 2, page_size=8, max_len=16)
+    cache = tpaged.PagedKVCache.init(cfg, 2, page_size=8, max_len=16,
+                                     device="cpu")
+    assert cache.k.device.type == "cpu"
+    with pytest.raises(TypeError, match="kernel"):
+        tpaged.paged_decode_step(None, None, cache, None, cfg)
 
 
 # -- the batcher --------------------------------------------------------
