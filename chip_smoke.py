@@ -10,23 +10,32 @@ Phases (any failure raises and exits non-zero):
    turns TF32 off for float32 products and convolutions.
 2. Build: compiles the CUDA kernels from tensorlink_tpu_torch/ops/csrc/
    (one nvcc per source, started together) into build/tensorlink_tpu_torch/.
-3. Kernels: each kernel against its plain PyTorch version at the main
-   path's shapes and at small edge cases (float32 rtol = atol = 2e-5;
-   bfloat16 compared in float32 at 1.6e-2), then timed at the main path's
-   shape (CUDA events, median of 30 runs after warm-up) beside its plain
-   version, torch's scaled_dot_product_attention over pre-gathered KV,
-   and its bound on the card.
+3. Kernels: each kernel over full-precision, int8 and packed-int4 pages,
+   and paged_prefill_attention, against its plain PyTorch version at the
+   main path's shapes and at small edge cases (float32 rtol = atol =
+   2e-5; bfloat16 q compared in float32 at 1.6e-2); a known-answer check
+   of the int4 split-half nibble order inside the kernels; then each
+   variant timed at the main path's shape in bfloat16 (CUDA events,
+   median of 30 runs after warm-up) beside its plain version, torch's
+   scaled_dot_product_attention over pre-gathered KV where one call
+   computes the same function, and its bound on the card.
 4. Step parity: qwen3-0p6b at full width in float32, three
    paged_ragged_step chunks on a mixed block with the kernels and with
-   their plain versions — tokens, counts and lengths equal; every layer,
-   fed the same input on both paths, within rtol = atol = 2e-5 on its
-   output and pages; the free-running pages, where the per-layer
-   differences add up over 28 layers, within 4 times that bound.
+   their plain versions, over fp, int8 and int4 pages — counts and
+   lengths equal; the logits of every draw made from equal tokens on
+   both paths within a limit per page format, and tokens equal (int4: a
+   slot's tokens may part only where the plain logits' top two lie
+   within that limit); every layer, fed the same input on both paths,
+   within rtol = atol = 2e-5 on its output and with byte-equal quantized
+   pages and scales (fp pages within 2e-5); free running, fp pages within
+   4 times that bound and quantized codes within 1 of each other.
 5. Serving: qwen3-0p6b at full width in bfloat16 behind a
-   ContinuousBatcher — 16 requests from 4 threads — with the kernels'
-   launch counts checked against the chunks run, the plain versions
-   never called, and a greedy request re-run alone equal to its
-   co-batched stream.
+   ContinuousBatcher, three runs — fp pages (16 requests from 4
+   threads), int8 pages (the same 16), and int8 weights over int4 pages
+   (8 of them) — each with the kernels' launch counts checked against
+   the chunks run and all in the run's page format, the plain versions
+   never called, the prefix cache hit, pages conserved, and a greedy
+   request re-run alone equal to its co-batched stream.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -49,6 +58,12 @@ from tensorlink_tpu_torch.engine import paged
 from tensorlink_tpu_torch.engine.paged import PagedKVCache, paged_ragged_step
 from tensorlink_tpu_torch.ml.batching import ContinuousBatcher
 from tensorlink_tpu_torch.models import config_presets, init_params
+from tensorlink_tpu_torch.models.quant import (
+    pack_int4,
+    quantize_kv,
+    quantize_kv4,
+    unpack_int4,
+)
 from tensorlink_tpu_torch.ops import _build
 from tensorlink_tpu_torch.ops import attention as att
 
@@ -59,18 +74,39 @@ BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
 # free-running f32 pages after 3 chunks over 28 layers, in units of the
 # per-layer 2e-5 bound: earlier H100 runs read 2.1-2.3
 FREE_RUNNING_X = 4.0
+# free-running f32 logits, |kernel - plain| at every draw made from equal
+# tokens, per page format: H100 readings 3.2e-5, 1.5e-3 and 1.1e-2 (the
+# int4 slot that parts does so at a plain top-two gap of 3.8e-4)
+FREE_RUNNING_LOGITS = {"fp": 1e-4, "int8": 5e-3, "int4": 3e-2}
+KV_BYTES_PER_TOKEN = {"fp": 114_688, "int8": 59_136, "int4": 30_464}
 MAIN = dict(S=8, C=128, Hq=16, Hkv=8, hd=128, page=16, n_pp=256)
 MAIN_STARTS = [0, 896, 1536, 3071, 2000, 57, 4000, 0]
 MAIN_NVALID = [128, 128, 1, 1, 1, 1, 1, 0]  # 2 prefills, 5 decodes, idle
 MAIN_LENGTHS = [0, 1, 17, 777, 2048, 3100, 4000, 4096]
+FORMATS = att.FORMATS  # "fp", "int8", "int4"
 REPLACES = {
     "ragged_paged_attention": "tensorlink_tpu/ops/attention.py:711",
     "paged_attention": "tensorlink_tpu/ops/attention.py:899",
+    "paged_prefill_attention": "tensorlink_tpu/ops/attention.py:451",
 }
+SOURCE = {
+    "ragged_paged_attention": "ragged_paged_attention.cu",
+    "paged_attention": "paged_attention.cu",
+    "paged_prefill_attention": "ragged_paged_attention.cu",
+}
+SERVE_RUNS = (  # (page format, weight quant, requests)
+    ("none", None, 16),
+    ("int8", None, 16),
+    ("int4", "int8", 8),
+)
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _fmt(kv_quant: str) -> str:
+    return "fp" if kv_quant == "none" else kv_quant
 
 
 # -- phase 1 -----------------------------------------------------------
@@ -102,22 +138,37 @@ def build_phase() -> None:
 
 
 # -- phase 3 -----------------------------------------------------------
-def _case(rng, S, C, Hq, Hkv, hd, page, n_pp, starts, nv, lens, dtype):
+def _pages(P, Hkv, page, hd, dtype, fmt, gen):
+    """K and V page pools of random normals, in ``dtype`` for fp pages or
+    quantized by the port's quantize_kv / quantize_kv4: ``(k, v, scales)``
+    with ``scales`` the k_scale / v_scale keywords (empty for fp)."""
+    dev = torch.device("cuda")
+    out = []
+    for _ in range(2):
+        x = torch.randn((P, Hkv, page, hd), generator=gen, device=dev)
+        if fmt == "fp":
+            out.append((x.to(dtype), None))
+        else:
+            out.append((quantize_kv if fmt == "int8" else quantize_kv4)(x))
+    (k, ks), (v, vs) = out
+    return k, v, ({} if ks is None else dict(k_scale=ks, v_scale=vs))
+
+
+def _case(rng, S, C, Hq, Hkv, hd, page, n_pp, starts, nv, lens, dtype,
+          fmt="fp"):
     dev = torch.device("cuda")
     P = 1 + S * n_pp
     bt = rng.permutation(np.arange(1, P))[: S * n_pp].reshape(S, n_pp)
-
-    def randn(*shape):
-        return torch.from_numpy(
-            rng.standard_normal(shape, dtype=np.float32)
-        ).to(dev, dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
 
     def i32(a):
         return torch.tensor(np.asarray(a, np.int32), device=dev)
 
+    q = torch.from_numpy(rng.standard_normal((S, C, Hq, hd), np.float32))
+    k, v, sc = _pages(P, Hkv, page, hd, dtype, fmt, gen)
     return dict(
-        q=randn(S, C, Hq, hd), k=randn(P, Hkv, page, hd),
-        v=randn(P, Hkv, page, hd), bt=i32(bt), starts=i32(starts),
+        q=q.to(dev, dtype), k=k, v=v, sc=sc, bt=i32(bt), starts=i32(starts),
         nv=i32(nv), lens=i32(lens), scale=hd**-0.5,
     )
 
@@ -126,13 +177,22 @@ def _ragged(c, kernel):
     fn = att.ragged_paged_attention if kernel else \
         att.ragged_paged_attention_ref
     return fn(c["q"], c["k"], c["v"], c["bt"], c["starts"], c["nv"],
-              scale=c["scale"])
+              scale=c["scale"], **c["sc"])
 
 
 def _decode(c, kernel):
     fn = att.paged_attention if kernel else att.paged_attention_ref
     return fn(c["q"][:, 0].contiguous(), c["k"], c["v"], c["bt"], c["lens"],
-              scale=c["scale"])
+              scale=c["scale"], **c["sc"])
+
+
+def _prefill(c, kernel, slot=1):
+    """Slot ``slot`` of a case as one paged_prefill_attention call: its
+    whole query block at its start, over its block-table row."""
+    fn = att.paged_prefill_attention if kernel else \
+        att.paged_prefill_attention_ref
+    return fn(c["q"][slot], c["k"], c["v"], c["bt"][slot],
+              c["starts"][slot], scale=c["scale"], **c["sc"])
 
 
 EDGE_CASES = [
@@ -144,6 +204,14 @@ EDGE_CASES = [
     (2, 4, 32, 2, 256, 16, 3, [20, 1], [4, 3], [47, 16]),  # G 16, hd 256
     (2, 3, 48, 2, 128, 32, 2, [5, 60], [3, 1], [63, 33]),  # G 24: 2 tiles
 ]
+# paged_prefill_attention: tests/test_ops.py's small cases the kernel takes
+# (its head_dim must be a multiple of 32), as (C, Hq, Hkv, hd, page, n_pp,
+# start), plus MAIN's second slot (C 128 at start 896, n_pp 256)
+PREFILL_CASES = [
+    (8, 8, 2, 32, 8, 4, 0),
+    (8, 8, 2, 32, 8, 4, 13),
+    (4, 8, 1, 64, 4, 8, 27),
+]
 
 
 def _err(a, b, tol):
@@ -154,33 +222,93 @@ def _err(a, b, tol):
     return float((a - b).abs().max())
 
 
+def _variants():
+    return [(n, f) for n in REPLACES for f in FORMATS]
+
+
 def kernel_checks() -> dict:
+    """Every kernel variant against its plain version; returns the max
+    abs error per (kernel, format) and dtype."""
     rng = np.random.default_rng(0)
     m = MAIN
-    errs = {n: {"float32": 0.0, "bfloat16": 0.0} for n in REPLACES}
+    errs = {v: {"float32": 0.0, "bfloat16": 0.0} for v in _variants()}
     cases = [(m["S"], m["C"], m["Hq"], m["Hkv"], m["hd"], m["page"],
               m["n_pp"], MAIN_STARTS, MAIN_NVALID, MAIN_LENGTHS)]
     cases += EDGE_CASES
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for spec in cases:
-            c = _case(rng, *spec, dtype=dtype)
-            got, want = _ragged(c, True), _ragged(c, False)
-            torch.cuda.synchronize()
-            e = _err(got, want, tol)
-            for s, nv in enumerate(spec[8]):  # rows past n_valid: zeros
-                tail = got[s, nv:]
-                if tail.numel() and float(tail.abs().max()) != 0.0:
-                    raise AssertionError("a row past n_valid is not zero")
-            name = str(dtype).split(".")[1]
-            errs["ragged_paged_attention"][name] = max(
-                errs["ragged_paged_attention"][name], e)
-            got, want = _decode(c, True), _decode(c, False)
-            torch.cuda.synchronize()
-            e = _err(got, want, tol)
-            errs["paged_attention"][name] = max(
-                errs["paged_attention"][name], e)
-    log(f"kernels vs plain versions: max abs err {json.dumps(errs)}")
+        dname = str(dtype).split(".")[1]
+
+        def note(key, e):
+            errs[key][dname] = max(errs[key][dname], e)
+
+        for fmt in FORMATS:
+            for i, spec in enumerate(cases):
+                c = _case(rng, *spec, dtype=dtype, fmt=fmt)
+                got, want = _ragged(c, True), _ragged(c, False)
+                torch.cuda.synchronize()
+                note(("ragged_paged_attention", fmt), _err(got, want, tol))
+                for s, nv in enumerate(spec[8]):  # rows past n_valid: zeros
+                    tail = got[s, nv:]
+                    if tail.numel() and float(tail.abs().max()) != 0.0:
+                        raise AssertionError("a row past n_valid is not zero")
+                got, want = _decode(c, True), _decode(c, False)
+                torch.cuda.synchronize()
+                note(("paged_attention", fmt), _err(got, want, tol))
+                if i == 0:  # MAIN's slot 1: C 128 at 896 over 256 pages
+                    got, want = _prefill(c, True), _prefill(c, False)
+                    torch.cuda.synchronize()
+                    note(("paged_prefill_attention", fmt),
+                         _err(got, want, tol))
+            for C, Hq, Hkv, hd, page, n_pp, start in PREFILL_CASES:
+                # slot 1 of a 2-slot case: its table row, its start
+                c = _case(rng, 2, C, Hq, Hkv, hd, page, n_pp, [0, start],
+                          [C, C], [0, 0], dtype=dtype, fmt=fmt)
+                got, want = _prefill(c, True), _prefill(c, False)
+                torch.cuda.synchronize()
+                note(("paged_prefill_attention", fmt), _err(got, want, tol))
+    log("kernels vs plain versions: max abs err " + json.dumps(
+        {f"{n}/{f}": e for (n, f), e in errs.items()}))
     return errs
+
+
+def nibble_order_check() -> None:
+    """Known answer for the int4 split-half layout inside both kernels:
+    V row 0 of a one-page slot holds codes c_d = (d % 15) - 7 (packed by
+    pack_int4, scale 1), the query sees only position 0, so the output
+    must be c_d exactly. An interleaved unpack would give element 2b the
+    code of element b."""
+    dev = torch.device("cuda")
+    hd, page = 128, 16
+    codes = torch.randint(-7, 8, (2, 1, page, hd), device=dev,
+                          dtype=torch.int32)
+    want = torch.arange(hd, device=dev) % 15 - 7
+    codes[1, 0, 0] = want
+    v = pack_int4(codes)
+    k = pack_int4(torch.zeros_like(codes))
+    if not torch.equal(unpack_int4(v), codes):
+        raise AssertionError("pack_int4/unpack_int4 do not round-trip")
+    ones = torch.ones((2, 1, page), device=dev)
+    sc = dict(k_scale=ones, v_scale=ones.clone())
+    bt = torch.ones((1, 1), dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    q = torch.randn((1, 1, 2, hd), device=dev)  # 2 query heads, G 2
+    outs = {
+        "paged_attention": att.paged_attention(q[:, 0], k, v, bt, one,
+                                               scale=1.0, **sc)[0],
+        "ragged_paged_attention": att.ragged_paged_attention(
+            q, k, v, bt, zero, one, scale=1.0, **sc)[0, 0],
+        "paged_prefill_attention": att.paged_prefill_attention(
+            q[0], k, v, bt[0], 0, scale=1.0, **sc)[0],
+    }
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        for h in range(out.shape[0]):
+            if not torch.equal(out[h], want.float()):
+                bad = int((out[h] != want.float()).sum())
+                raise AssertionError(f"{name}: int4 nibble order wrong "
+                                     f"({bad} of {hd} elements)")
+    log("int4 nibble order (split-half) inside the kernels: exact")
 
 
 def _time_ms(fn, runs=30, warmup=3) -> float:
@@ -199,87 +327,142 @@ def _time_ms(fn, runs=30, warmup=3) -> float:
     return statistics.median(ts)
 
 
-def _gathered(c):
-    """Per-slot contiguous KV [S, Hkv, K, hd] for the library yardstick
-    (gathered once, outside the timed region)."""
-    S, n_pp = c["bt"].shape
+def _gathered(c, rows=None):
+    """Per-slot contiguous KV [S, Hkv, K, hd] of fp pages for the library
+    yardstick (gathered once, outside the timed region); ``rows`` picks
+    slots."""
+    bt = c["bt"] if rows is None else c["bt"][rows]
+    S, n_pp = bt.shape
     _, Hkv, page, hd = c["k"].shape
 
     def g(p):
-        x = p[c["bt"].long()]  # [S, n_pp, Hkv, page, hd]
+        x = p[bt.long()]  # [S, n_pp, Hkv, page, hd]
         return x.permute(0, 2, 1, 3, 4).reshape(S, Hkv, n_pp * page, hd)
 
     return g(c["k"]).contiguous(), g(c["v"]).contiguous()
 
 
+def _kv_bytes_per_position(fmt, hd, elt):
+    """Bytes of one position's K or V row of one kv head: the codes plus
+    its f32 scale for quantized pages."""
+    return {"fp": hd * elt, "int8": hd + 4, "int4": hd // 2 + 4}[fmt]
+
+
 def kernel_timings() -> dict:
+    """Each variant at the main path's shape in bfloat16 q: kernel, plain
+    version and (fp pages only) one SDPA call, with the bound computed
+    from this run's inputs."""
     m = MAIN
     dtype = torch.bfloat16
-    c = _case(np.random.default_rng(1), m["S"], m["C"], m["Hq"], m["Hkv"],
-              m["hd"], m["page"], m["n_pp"], MAIN_STARTS, MAIN_NVALID,
-              MAIN_LENGTHS, dtype)
     S, C, Hq, Hkv, hd = m["S"], m["C"], m["Hq"], m["Hkv"], m["hd"]
-    G, K, elt = Hq // Hkv, m["n_pp"] * m["page"], 2
-    kg, vg = (x.repeat_interleave(G, dim=1) for x in _gathered(c))
-    pos = torch.arange(K, device="cuda")
-    out = {}
-
-    # ragged: rows (s, c) valid when c < n_valid; row sees keys <= start+c
-    starts, nvs = MAIN_STARTS, MAIN_NVALID
-    q_pos = torch.tensor(starts, device="cuda")[:, None] + \
-        torch.arange(C, device="cuda")[None, :]
-    mask = pos[None, None, :] <= q_pos[:, :, None]  # [S, C, K]
-    mask[:, :, 0] = True  # idle rows: keep SDPA finite (timing only)
-    mask = mask[:, None]
-    qs = c["q"].permute(0, 2, 1, 3)  # [S, Hq, C, hd]
+    G, K, elt, page = Hq // Hkv, m["n_pp"] * m["page"], 2, m["page"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    live = sum(st + nv for st, nv in zip(starts, nvs) if nv > 0)
-    pairs = sum(st + j + 1 for st, nv in zip(starts, nvs) for j in range(nv))
-    n_bytes = (sum(nvs) * Hq * hd * elt  # q: the valid rows only
-               + c["q"].numel() * elt  # every output row (zeros included)
-               + 2 * live * Hkv * hd * elt  # live K and V, read once
-               + sum(-(-(st + nv) // m["page"]) for st, nv in
-                     zip(starts, nvs) if nv > 0) * 4 + 2 * S * 4)
-    flops = 4 * hd * Hq * pairs
-    out["ragged_paged_attention"] = dict(
-        ms=_time_ms(lambda: _ragged(c, True)),
-        plain_ms=_time_ms(lambda: _ragged(c, False), runs=20),
-        library_ms=_time_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
-        bytes=n_bytes, flops=flops,
-    )
+    pos = torch.arange(K, device="cuda")
+    starts, nvs, lens = MAIN_STARTS, MAIN_NVALID, MAIN_LENGTHS
+    out = {}
+    for fmt in FORMATS:
+        c = _case(np.random.default_rng(1), S, C, Hq, Hkv, hd, page,
+                  m["n_pp"], starts, nvs, lens, dtype, fmt)
+        row = _kv_bytes_per_position(fmt, hd, elt)
+        lib = {}
+        if fmt == "fp":
+            kg, vg = (x.repeat_interleave(G, dim=1) for x in _gathered(c))
+            q_pos = torch.tensor(starts, device="cuda")[:, None] + \
+                torch.arange(C, device="cuda")[None, :]
+            mask = pos[None, None, :] <= q_pos[:, :, None]  # [S, C, K]
+            mask[:, :, 0] = True  # idle rows: keep SDPA finite (timing only)
+            qs = c["q"].permute(0, 2, 1, 3)  # [S, Hq, C, hd]
+            lib["ragged_paged_attention"] = lambda: sdpa(
+                qs, kg, vg, attn_mask=mask[:, None])
+            dmask = pos[None, :] < torch.tensor(lens, device="cuda")[:, None]
+            dmask[:, 0] = True  # length-0 slot: keep SDPA finite
+            qd = c["q"][:, 0].contiguous()[:, :, None]  # [S, Hq, 1, hd]
+            lib["paged_attention"] = lambda: sdpa(
+                qd, kg, vg, attn_mask=dmask[:, None, None])
+            # the prefill slot alone: its KV up to start + C, causal rows
+            kp, vp = (x.repeat_interleave(G, dim=1)
+                      for x in _gathered(c, rows=[1]))
+            pmask = pos[None, :] <= (starts[1] + torch.arange(
+                C, device="cuda"))[:, None]
+            qp = c["q"][1:2].permute(0, 2, 1, 3)
+            lib["paged_prefill_attention"] = lambda: sdpa(
+                qp, kp, vp, attn_mask=pmask[None, None])
 
-    lens = MAIN_LENGTHS
-    dmask = (pos[None, :] < torch.tensor(lens, device="cuda")[:, None])
-    dmask[:, 0] = True  # length-0 slot: keep SDPA finite (timing only)
-    qd = c["q"][:, 0].contiguous()[:, :, None]  # [S, Hq, 1, hd]
-    n_live = sum(1 for n in lens if n > 0)  # a length-0 slot reads no q
-    n_bytes = ((n_live + S) * Hq * hd * elt + 2 * sum(lens) * Hkv * hd * elt
-               + sum(-(-n // m["page"]) for n in lens) * 4 + S * 4)
-    out["paged_attention"] = dict(
-        ms=_time_ms(lambda: _decode(c, True)),
-        plain_ms=_time_ms(lambda: _decode(c, False), runs=20),
-        library_ms=_time_ms(lambda: sdpa(qd, kg, vg,
-                                          attn_mask=dmask[:, None, None])),
-        bytes=n_bytes, flops=4 * hd * Hq * sum(lens),
-    )
-    for name, r in out.items():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["flops"] / PEAK_FLOPS[dtype] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"{name} (bf16, main-path shape): kernel_ms {r['ms']:.4f} "
-            f"plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
-            f"bound_ms {r['bound_ms']:.5f} ({r['bound_by']}: "
-            f"{r['bytes']} B, {r['flops']} flop)")
+        # ragged: rows (s, c) valid when c < n_valid; row sees keys <= start+c
+        live = sum(st + nv for st, nv in zip(starts, nvs) if nv > 0)
+        pairs = sum(st + j + 1 for st, nv in zip(starts, nvs)
+                    for j in range(nv))
+        n_bytes = (sum(nvs) * Hq * hd * elt  # q: the valid rows only
+                   + c["q"].numel() * elt  # every output row (zeros too)
+                   + 2 * live * Hkv * row  # live K and V (+ scales), once
+                   + sum(-(-(st + nv) // page) for st, nv in
+                         zip(starts, nvs) if nv > 0) * 4 + 2 * S * 4)
+        out[("ragged_paged_attention", fmt)] = dict(
+            fn=lambda c=c: _ragged(c, True),
+            plain=lambda c=c: _ragged(c, False),
+            bytes=n_bytes, flops=4 * hd * Hq * pairs,
+        )
+        n_live = sum(1 for n in lens if n > 0)  # a length-0 slot reads no q
+        n_bytes = ((n_live + S) * Hq * hd * elt + 2 * sum(lens) * Hkv * row
+                   + sum(-(-n // page) for n in lens) * 4 + S * 4)
+        out[("paged_attention", fmt)] = dict(
+            fn=lambda c=c: _decode(c, True),
+            plain=lambda c=c: _decode(c, False),
+            bytes=n_bytes, flops=4 * hd * Hq * sum(lens),
+        )
+        st, n = starts[1], nvs[1]
+        n_bytes = (2 * n * Hq * hd * elt + 2 * (st + n) * Hkv * row
+                   + -(-(st + n) // page) * 4 + 2 * 4)
+        out[("paged_prefill_attention", fmt)] = dict(
+            fn=lambda c=c: _prefill(c, True),
+            plain=lambda c=c: _prefill(c, False), bytes=n_bytes,
+            flops=4 * hd * Hq * sum(st + j + 1 for j in range(n)),
+        )
+        for name in REPLACES:
+            r = out[(name, fmt)]
+            r["ms"] = _time_ms(r.pop("fn"))
+            r["plain_ms"] = _time_ms(r.pop("plain"), runs=20)
+            r["library_ms"] = _time_ms(lib[name]) if name in lib else None
+            t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+            t_ops = r["flops"] / PEAK_FLOPS[dtype] * 1e3
+            r["bound_ms"] = max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            lib_s = "null" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            log(f"{name}/{fmt} (bf16 q, main-path shape): kernel_ms "
+                f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+                f"{lib_s} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}: "
+                f"{r['bytes']} B, {r['flops']} flop)")
+        del c
+        torch.cuda.empty_cache()
     return out
 
 
 # -- phase 4 -----------------------------------------------------------
+def _fill_quantized(cache, packed, gen):
+    """Seeded random codes and scales (about the scale of N(0, 1) rows)
+    under every page of a quantized cache."""
+    levels = 7 if packed else 127
+    lo = -128 if packed else -127  # int4: any packed byte
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randint(lo, 128, t.shape, generator=gen,
+                              device=t.device, dtype=torch.int8))
+    for t in (cache.k_scale, cache.v_scale):
+        t.copy_((2.5 + torch.rand(t.shape, generator=gen, device=t.device))
+                / levels)
+
+
+def _codes(pages, packed):
+    return unpack_int4(pages) if packed else pages.to(torch.int32)
+
+
 def _teacher_forced_layers(cfg, params, cache, arrays) -> float:
     """Both attention paths through each layer from the SAME layer input
     (the plain path's output feeds the next layer): each layer's output
-    and pages within rtol = atol = 2e-5. Returns the worst
-    |diff| / (2e-5 + 2e-5 |plain|) ratio (<= 1 passes)."""
+    within rtol = atol = 2e-5, fp pages within that bound, quantized
+    pages and scales byte-equal (the same quantize code on the same
+    k/v). Returns the worst |diff| / (2e-5 + 2e-5 |plain|) ratio (<= 1
+    passes)."""
     blk, starts, nv = arrays
     page, n_pp = cache.page_size, cache.pages_per_slot
     bt = cache.block_tables
@@ -292,105 +475,30 @@ def _teacher_forced_layers(cfg, params, cache, arrays) -> float:
     for i, lp in enumerate(paged._layers(params)):
         outs = []
         for kernel in (True, False):
-            kv = (cache.k[i].clone(), cache.v[i].clone())
+            kv = tuple(t.clone() for t in cache.layer_kv(i))
             y, kv = paged._ragged_block(x, lp, cfg, cos, sin, kv, write_pg,
                                         write_off, bt, starts, nv, kernel)
             outs.append((y, kv))
-        (yk, (kk, vk)), (yp, (kp, vp)) = outs
+        (yk, kvk), (yp, kvp) = outs
+        pairs = [(yk, yp)]
         # page 0 is scratch: padding rows race to write it, nothing reads it
-        for a, b in ((yk, yp), (kk[1:], kp[1:]), (vk[1:], vp[1:])):
+        if cache.quantized:
+            for a, b in zip(kvk, kvp):
+                if not torch.equal(a[1:], b[1:]):
+                    raise AssertionError(f"layer {i}: quantized pages or "
+                                         "scales differ between the paths")
+        else:
+            pairs += [(kvk[0][1:], kvp[0][1:]), (kvk[1][1:], kvp[1][1:])]
+        for a, b in pairs:
             d = (a - b).abs() / (2e-5 + 2e-5 * b.abs())
             worst = max(worst, float(d.max()))
         x = yp
     return worst
 
 
-def step_parity() -> None:
-    cfg = config_presets()["qwen3-0p6b"].with_(dtype=torch.float32)
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev)
-    g.manual_seed(1234)
-    params = init_params(cfg, g, device=dev)
-    S, C, page, max_len = 8, 128, 16, 2048
-    base = PagedKVCache.init(cfg, S, page_size=page, max_len=max_len,
-                             device=dev)
-    n_pp = base.pages_per_slot
-    rng = np.random.default_rng(7)
-    perm = rng.permutation(np.arange(1, base.n_pages))[: S * n_pp]
-    base.block_tables.copy_(torch.from_numpy(
-        perm.reshape(S, n_pp).astype(np.int32)))
-    # existing context: seeded random KV under every slot's pages
-    gk = torch.Generator(device=dev)
-    gk.manual_seed(99)
-    base.k.normal_(generator=gk)
-    base.v.normal_(generator=gk)
-    lengths = [100, 250, 37, 300, 511, 1000, 1500, 1900]
-    base.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
-    prompts = {s: rng.integers(0, cfg.vocab_size, size=3 * C) for s in (0, 1)}
-    V = cfg.vocab_size
-
-    def run(kernel):
-        cache = base.clone()
-        counts = torch.zeros((S, V), dtype=torch.int32, device=dev)
-        cur = [int(t) for t in rng_tok]
-        lens = list(lengths)
-        fed = {0: 0, 1: 0}
-        trace = []
-        for chunk in range(3):
-            blk = np.zeros((S, C), np.int32)
-            starts = np.array(lens, np.int32)
-            nv = np.zeros(S, np.int32)
-            emit = np.zeros(S, bool)
-            for s in range(S):
-                if s in fed and fed[s] < 2 * C:  # prefill at an offset
-                    blk[s] = prompts[s][fed[s]:fed[s] + C]
-                    nv[s] = C
-                    fed[s] += C
-                    emit[s] = fed[s] >= 2 * C
-                else:
-                    blk[s, 0] = cur[s]
-                    nv[s] = 1
-                    emit[s] = True
-            if chunk == 0:
-                first_block[:] = [blk.copy(), starts.copy(), nv.copy()]
-            up = [torch.tensor(a, device=dev) for a in (
-                blk, starts, nv, np.zeros(S, np.int32), emit,
-                np.arange(S, dtype=np.int32), np.zeros(S, np.int32),
-                np.zeros(S, np.float32), np.zeros(S, np.int32),
-                np.ones(S, np.float32), np.zeros(S, np.float32),
-                np.zeros(S, np.float32))]
-            blk_t, st_t, nv_t, ns_t, em_t, sd_t, stp_t, tmp_t, tk_t, tp_t, \
-                pr_t, fq_t = up
-            rem = torch.full((S,), 64, dtype=torch.int32, device=dev)
-            eos = torch.full((S, 8), -1, dtype=torch.int32, device=dev)
-            toks, n_tok, _m, n_exec, cache, _d, _s, counts, _r = \
-                paged_ragged_step(
-                    params, blk_t, cache, st_t, nv_t, ns_t, em_t, sd_t,
-                    stp_t, tmp_t, tk_t, tp_t, pr_t, fq_t, counts, rem, eos,
-                    cfg, 8, 1, kernel=kernel,
-                )
-            toks, n_tok = toks.cpu().numpy(), n_tok.cpu().numpy()
-            lens = cache.lengths.cpu().tolist()
-            for s in range(S):
-                if n_tok[s]:
-                    cur[s] = int(toks[s, n_tok[s] - 1])
-            trace.append((toks.tolist(), n_tok.tolist(), lens,
-                          int(n_exec)))
-        return trace, cache
-
-    rng_tok = rng.integers(0, V, size=S)
-    first_block: list = []
-    t0 = time.monotonic()
-    trace_k, cache_k = run(True)
-    trace_p, cache_p = run(False)
-    blk0, starts0, nv0 = first_block
-    if trace_k != trace_p:
-        raise AssertionError(f"step parity: tokens/lengths differ\n"
-                             f"kernel {trace_k}\nplain  {trace_p}")
-    # (a) free running: per-layer differences add up over 28 layers; the
-    # pages (scratch page 0 excluded) read 2.1-2.3x the per-layer bound
-    # |a - b| <= 2e-5 + 2e-5 |b| on the H100, so they are held to
-    # FREE_RUNNING_X times it
+def _free_running_pages(cfg, cache_k, cache_p) -> str:
+    """Compare the two paths' fp pages after free running: held to
+    FREE_RUNNING_X times the per-layer bound."""
     worst, ratio = 0.0, 0.0
     for a, b in ((cache_k.k, cache_p.k), (cache_k.v, cache_p.v)):
         for layer in range(cfg.n_layers):
@@ -405,41 +513,246 @@ def step_parity() -> None:
             f"step parity: free-running pages differ by {worst:.3e}, "
             f"{ratio:.2f}x the per-layer bound (> {FREE_RUNNING_X})"
         )
+    return (f"free-running pages max abs diff {worst:.3e} ({ratio:.3f}x "
+            f"the per-layer 2e-5 bound over {cfg.n_layers} layers, limit "
+            f"{FREE_RUNNING_X}x)")
+
+
+def _free_running_codes(cfg, cache_k, cache_p, upto) -> str:
+    """Compare the two paths' quantized pages after free running, slot by
+    slot over positions ``0 .. upto[s] - 1`` (read through the slot's
+    block table): every code within 1. Returns a report: the share of
+    codes that differ and the scales' worst relative difference."""
+    packed = cache_k.k.shape[-1] != cfg.head_dim
+    page = cache_k.page_size
+    n_diff, n_all, dmax, srel = 0, 0, 0, 0.0
+    for s, n in enumerate(upto):
+        pos = torch.arange(n, device=cache_k.k.device)
+        pg = cache_k.block_tables[s].long()[pos // page]
+        off = pos % page
+        for a, b in ((cache_k.k, cache_p.k), (cache_k.v, cache_p.v)):
+            d = (_codes(a[:, pg, :, off], packed)
+                 - _codes(b[:, pg, :, off], packed)).abs()
+            dmax = max(dmax, int(d.max()))
+            n_diff += int((d > 0).sum())
+            n_all += d.numel()
+        for a, b in ((cache_k.k_scale, cache_p.k_scale),
+                     (cache_k.v_scale, cache_p.v_scale)):
+            x, y = a[:, pg, :, off], b[:, pg, :, off]
+            if not torch.isfinite(x).all():
+                raise AssertionError("scales are not finite")
+            srel = max(srel, float(((x - y).abs()
+                                    / y.abs().clamp_min(1e-30)).max()))
+    if dmax > 1:
+        raise AssertionError(f"step parity: free-running codes differ by "
+                             f"{dmax} (> 1)")
+    return (f"free-running codes: {n_diff} of {n_all} differ "
+            f"({n_diff / n_all:.3e}), all within 1; scales max rel diff "
+            f"{srel:.3e}")
+
+
+def _recording_sampler(store: list):
+    """``paged._sample_rows`` unchanged, but keeping a copy of every
+    logits batch it samples from, in draw order."""
+    real = paged._sample_rows
+
+    def rec(logits, *args):
+        store.append(logits.clone())
+        return real(logits, *args)
+
+    return rec
+
+
+def _stream_parity(trace_k, trace_p, logits_k, logits_p, n_steps) -> dict:
+    """Walk both paths' draws in order (a chunk's column j is its j-th
+    draw). Every draw a slot makes from equal inputs on both paths (its
+    tokens equal so far) compares the logits it sampled from. Returns the
+    worst |logit diff|, the draws compared, the plain logits' mean row
+    std, and for each slot whose tokens differ: the position that gave
+    the first differing token and both paths' top-2 gaps there."""
+    S = len(trace_k[0][1])
+    worst, n_cmp, stds, div = 0.0, 0, [], {}
+    for ci, ((tk, nk, _, _), (tp, _, lens, _)) in enumerate(
+            zip(trace_k, trace_p)):
+        for j in range(n_steps):
+            a, b = logits_k[ci * n_steps + j], logits_p[ci * n_steps + j]
+            for s in range(S):
+                if s in div or j >= nk[s]:
+                    continue
+                if not torch.isfinite(a[s]).all():
+                    raise AssertionError("step parity: logits not finite")
+                worst = max(worst, float((a[s] - b[s]).abs().max()))
+                stds.append(float(b[s].std()))
+                n_cmp += 1
+                ta, tb = tk[s][j], tp[s][j]
+                if ta != tb:
+                    div[s] = dict(
+                        pos=lens[s] - nk[s] + j,
+                        gap_plain=float(b[s, tb] - b[s, ta]),
+                        gap_kernel=float(a[s, ta] - a[s, tb]),
+                    )
+    return dict(worst=worst, draws=n_cmp, std=statistics.fmean(stds),
+                div=div)
+
+
+def step_parity(kv_quant: str = "none") -> None:
+    cfg = config_presets()["qwen3-0p6b"].with_(dtype=torch.float32)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+    params = init_params(cfg, g, device=dev)
+    S, C, page, max_len, n_steps = 8, 128, 16, 2048, 8
+    base = PagedKVCache.init(cfg, S, page_size=page, max_len=max_len,
+                             kv_quant=kv_quant, device=dev)
+    n_pp = base.pages_per_slot
+    rng = np.random.default_rng(7)
+    perm = rng.permutation(np.arange(1, base.n_pages))[: S * n_pp]
+    base.block_tables.copy_(torch.from_numpy(
+        perm.reshape(S, n_pp).astype(np.int32)))
+    # existing context: seeded random KV under every slot's pages
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(99)
+    if base.quantized:
+        _fill_quantized(base, kv_quant == "int4", gk)
+    else:
+        base.k.normal_(generator=gk)
+        base.v.normal_(generator=gk)
+    lengths = [100, 250, 37, 300, 511, 1000, 1500, 1900]
+    base.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    prompts = {s: rng.integers(0, cfg.vocab_size, size=3 * C) for s in (0, 1)}
+    V = cfg.vocab_size
+
+    def run(kernel):
+        cache = base.clone()
+        counts = torch.zeros((S, V), dtype=torch.int32, device=dev)
+        cur = [int(t) for t in rng_tok]
+        lens = list(lengths)
+        fed = {0: 0, 1: 0}
+        trace, logits = [], []
+        real = paged._sample_rows
+        paged._sample_rows = _recording_sampler(logits)
+        try:
+            for chunk in range(3):
+                cache, counts, lens = _chunk(chunk, kernel, cache, counts,
+                                             cur, lens, fed, trace)
+        finally:
+            paged._sample_rows = real
+        if len(logits) != 3 * n_steps:
+            raise AssertionError(f"step parity: {len(logits)} draws")
+        return trace, cache, counts, logits
+
+    def _chunk(chunk, kernel, cache, counts, cur, lens, fed, trace):
+        blk = np.zeros((S, C), np.int32)
+        starts = np.array(lens, np.int32)
+        nv = np.zeros(S, np.int32)
+        emit = np.zeros(S, bool)
+        for s in range(S):
+            if s in fed and fed[s] < 2 * C:  # prefill at an offset
+                blk[s] = prompts[s][fed[s]:fed[s] + C]
+                nv[s] = C
+                fed[s] += C
+                emit[s] = fed[s] >= 2 * C
+            else:
+                blk[s, 0] = cur[s]
+                nv[s] = 1
+                emit[s] = True
+        if chunk == 0:
+            first_block[:] = [blk.copy(), starts.copy(), nv.copy()]
+        up = [torch.tensor(a, device=dev) for a in (
+            blk, starts, nv, np.zeros(S, np.int32), emit,
+            np.arange(S, dtype=np.int32), np.zeros(S, np.int32),
+            np.zeros(S, np.float32), np.zeros(S, np.int32),
+            np.ones(S, np.float32), np.zeros(S, np.float32),
+            np.zeros(S, np.float32))]
+        blk_t, st_t, nv_t, ns_t, em_t, sd_t, stp_t, tmp_t, tk_t, tp_t, \
+            pr_t, fq_t = up
+        rem = torch.full((S,), 64, dtype=torch.int32, device=dev)
+        eos = torch.full((S, 8), -1, dtype=torch.int32, device=dev)
+        toks, n_tok, _m, n_exec, cache, _d, _s, counts, _r = \
+            paged_ragged_step(
+                params, blk_t, cache, st_t, nv_t, ns_t, em_t, sd_t,
+                stp_t, tmp_t, tk_t, tp_t, pr_t, fq_t, counts, rem, eos,
+                cfg, n_steps, 1, kernel=kernel,
+            )
+        toks, n_tok = toks.cpu().numpy(), n_tok.cpu().numpy()
+        lens = cache.lengths.cpu().tolist()
+        for s in range(S):
+            if n_tok[s]:
+                cur[s] = int(toks[s, n_tok[s] - 1])
+        trace.append((toks.tolist(), n_tok.tolist(), lens, int(n_exec)))
+        return cache, counts, lens
+
+    rng_tok = rng.integers(0, V, size=S)
+    first_block: list = []
+    t0 = time.monotonic()
+    att.reset_counts()
+    trace_k, cache_k, counts_k, logits_k = run(True)
+    fmt = _fmt(kv_quant)
+    for fn in (att.ragged_paged_attention, att.paged_attention):
+        if fn.launches_by_format[fmt] != fn.launches or not fn.launches:
+            raise AssertionError(f"step parity ({fmt}): kernel launches "
+                                 f"{fn.launches_by_format}")
+    trace_p, cache_p, counts_p, logits_p = run(False)
+    blk0, starts0, nv0 = first_block
+    # (a) free running: per-layer differences add up over 28 layers. Token
+    # counts, lengths and n_exec never depend on token values here (no EOS,
+    # budget 64), so they are equal in every format.
+    if [t[1:] for t in trace_k] != [t[1:] for t in trace_p]:
+        raise AssertionError(f"step parity ({fmt}): counts or lengths "
+                             f"differ\nkernel {trace_k}\nplain  {trace_p}")
+    par = _stream_parity(trace_k, trace_p, logits_k, logits_p, n_steps)
+    div, limit = par["div"], FREE_RUNNING_LOGITS[fmt]
+    free = (f"logits of {par['draws']} draws from equal inputs within "
+            f"{par['worst']:.3e} (limit {limit:.1e}; plain logits' row std "
+            f"{par['std']:.3f})")
+    if par["worst"] > limit:
+        raise AssertionError(f"step parity ({fmt}): {free}")
+    # int4 only: one code a level off moves its value by amax/7, and the
+    # random-weight model's greedy argmax may then flip, but only at a
+    # near-tie: the plain path's top two logits within the limit
+    if fmt != "int4" or any(d["gap_plain"] > limit for d in div.values()):
+        if div:
+            raise AssertionError(
+                f"step parity ({fmt}): tokens differ in slots {div} "
+                f"(limit {limit:.1e})\nkernel {trace_k}\nplain  {trace_p}")
+    held = [s for s in range(S) if s not in div]
+    if not all(torch.equal(counts_k[s], counts_p[s]) for s in held):
+        raise AssertionError(f"step parity ({fmt}): counts differ")
+    if div:
+        free += f"; tokens equal in slots {held}, diverged at {div}"
+    if fmt == "fp":
+        free += "; " + _free_running_pages(cfg, cache_k, cache_p)
+    else:
+        # positions 0 .. p (p's own KV included) were written from equal
+        # tokens on both paths
+        upto = [div[s]["pos"] + 1 if s in div else trace_p[-1][2][s]
+                for s in range(S)]
+        free += "; " + _free_running_codes(cfg, cache_k, cache_p, upto)
     # (b) teacher forced: every layer from the same input, rtol = atol =
-    # 2e-5 on its output and its pages (the first chunk's mixed block)
+    # 2e-5 on its output (the first chunk's mixed block)
     first = (torch.tensor(blk0, device=dev), torch.tensor(starts0, device=dev),
              torch.tensor(nv0, device=dev))
     tf_ratio = _teacher_forced_layers(cfg, params, base, first)
     if tf_ratio > 1.0:
         raise AssertionError(
-            f"step parity: a layer's output or pages differ beyond rtol = "
-            f"atol = 2e-5 ({tf_ratio:.2f}x the bound)"
+            f"step parity ({fmt}): a layer's output or pages differ beyond "
+            f"rtol = atol = 2e-5 ({tf_ratio:.2f}x the bound)"
         )
-    log(f"step parity (qwen3-0p6b f32, 3 chunks, kernel vs plain): tokens, "
-        f"n_tok, lengths equal; free-running pages max abs diff "
-        f"{worst:.3e} ({ratio:.3f}x the per-layer 2e-5 bound over "
-        f"{cfg.n_layers} layers, limit {FREE_RUNNING_X}x); teacher-forced "
-        f"per layer "
-        f"{tf_ratio:.3f}x the 2e-5 bound; {time.monotonic() - t0:.1f}s")
+    pages = "pages and scales byte-equal" if base.quantized else \
+        "output and pages"
+    log(f"step parity (qwen3-0p6b f32, {fmt} pages, 3 chunks, kernel vs "
+        f"plain): {free}; "
+        f"teacher-forced per layer {pages}, output {tf_ratio:.3f}x the 2e-5 "
+        f"bound; {time.monotonic() - t0:.1f}s")
     del params, base, cache_k, cache_p
     torch.cuda.empty_cache()
 
 
 # -- phase 5 -----------------------------------------------------------
-def serving_phase() -> dict:
-    cfg = config_presets()["qwen3-0p6b"]  # bfloat16
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev)
-    g.manual_seed(5678)
-    params = init_params(cfg, g, device=dev)
-    eng = GenerationEngine(cfg, params, max_seq_len=4096, device="cuda")
-    b = ContinuousBatcher(engine=eng, max_slots=8, page_size=16,
-                          chunk_steps=8, prefill_chunk=128,
-                          prefix_cache=True, seed=0)
-    cont = b.engine
+def _requests(cfg):
     rng = np.random.default_rng(2024)
     V = cfg.vocab_size
-    b.generate(rng.integers(0, V, 64).tolist(), max_new_tokens=8)  # warm-up
+    warm = rng.integers(0, V, 64).tolist()
     shared = rng.integers(0, V, 512).tolist()
     reqs = []
     for i in range(16):
@@ -451,6 +764,30 @@ def serving_phase() -> dict:
         knobs = {} if i % 2 == 0 else dict(temperature=0.8, top_k=50,
                                            top_p=0.95)
         reqs.append((ids, knobs))
+    return warm, reqs
+
+
+def serving_phase(kv_quant: str = "none", quant: str | None = None,
+                  n_req: int = 16) -> dict:
+    cfg = config_presets()["qwen3-0p6b"]  # bfloat16
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5678)
+    params = init_params(cfg, g, device=dev)
+    eng = GenerationEngine(cfg, params, max_seq_len=4096, quant=quant,
+                           device="cuda")
+    del params
+    b = ContinuousBatcher(engine=eng, max_slots=8, page_size=16,
+                          chunk_steps=8, prefill_chunk=128,
+                          prefix_cache=True, kv_quant=kv_quant, seed=0)
+    cont = b.engine
+    fmt = _fmt(kv_quant)
+    V = cfg.vocab_size
+    warm, all_reqs = _requests(cfg)
+    # 8 requests: thread 0 runs request 0 and then 5, a sharer of its prefix
+    pick = range(16) if n_req == 16 else (0, 1, 2, 3, 5, 6, 7, 9)
+    reqs = [all_reqs[i] for i in pick]
+    b.generate(warm, max_new_tokens=8)  # warm-up
     results, ttft = {}, {}
     errors = []
     chunks0, skipped0 = cont.chunks, cont.stats["prefill_tokens_skipped"]
@@ -458,7 +795,7 @@ def serving_phase() -> dict:
 
     def worker(t):
         try:
-            for i in range(t, 16, 4):
+            for i in range(t, n_req, 4):
                 ids, knobs = reqs[i]
                 t_sub = time.monotonic()
                 first = []
@@ -482,21 +819,27 @@ def serving_phase() -> dict:
     wall = time.monotonic() - t0
     if errors:
         raise errors[0]
-    if any(t.is_alive() for t in threads) or len(results) != 16:
+    if any(t.is_alive() for t in threads) or len(results) != n_req:
         raise AssertionError("serving: not every request finished")
     chunks = cont.chunks - chunks0
-    launches = {"ragged_paged_attention": att.ragged_paged_attention.launches,
-                "paged_attention": att.paged_attention.launches}
-    plain_calls = att.ragged_paged_attention_ref.calls + \
-        att.paged_attention_ref.calls
+    launches = {n: getattr(att, n).launches for n in REPLACES}
+    by_format = {n: dict(getattr(att, n).launches_by_format)
+                 for n in REPLACES}
+    plain_calls = sum(getattr(att, n + "_ref").calls for n in REPLACES)
     for i, toks in results.items():
         if len(toks) != 64 or not all(0 <= t < V for t in toks):
             raise AssertionError(f"request {i}: bad output {len(toks)} tokens")
     L = cfg.n_layers
-    if launches["ragged_paged_attention"] != L * chunks:
-        raise AssertionError(f"ragged launches {launches} vs {chunks} chunks")
-    if launches["paged_attention"] != L * (8 - 1) * chunks:
-        raise AssertionError(f"decode launches {launches} vs {chunks} chunks")
+    # paged_prefill_attention has no engine caller: the run launches it 0
+    # times, and its entry in the kernels line says so from this count
+    want = {"ragged_paged_attention": L * chunks,
+            "paged_attention": L * (8 - 1) * chunks,
+            "paged_prefill_attention": 0}
+    for name, n in want.items():
+        if launches[name] != n or by_format[name][fmt] != n:
+            raise AssertionError(f"{name}: launches {launches[name]} "
+                                 f"{by_format[name]} vs {n} in {fmt} for "
+                                 f"{chunks} chunks")
     if plain_calls:
         raise AssertionError(f"plain attention ran {plain_calls} times")
     skipped = cont.stats["prefill_tokens_skipped"] - skipped0
@@ -509,44 +852,81 @@ def serving_phase() -> dict:
         raise AssertionError("serving: a greedy re-run alone differs from "
                              "its co-batched stream")
     snap = b.stats()["engine"]
+    kv_bytes_per_token = snap["kv_page_bytes"] // cont.cache.page_size
+    if kv_bytes_per_token != KV_BYTES_PER_TOKEN[fmt]:
+        raise AssertionError(f"serving: {kv_bytes_per_token} KV bytes per "
+                             f"token, not {KV_BYTES_PER_TOKEN[fmt]}")
     b.close()  # closes the engine, which checks page conservation again
     tt = sorted(ttft.values())
     gen_tokens = sum(len(t) for t in results.values())
     res = dict(
-        requests=16, wall_s=wall, tokens_per_s=gen_tokens / wall,
+        kv_quant=kv_quant, weight_quant=snap["weight_quant"],
+        requests=n_req, wall_s=wall, tokens_per_s=gen_tokens / wall,
         ttft_p50_s=tt[len(tt) // 2], ttft_p95_s=tt[int(0.95 * (len(tt) - 1))],
-        chunks=chunks, launches=launches,
+        chunks=chunks, launches=launches, launches_by_format=by_format,
         prefill_tokens_skipped=skipped,
         prompt_tokens=sum(len(r[0]) for r in reqs),
         decode_steps=snap["decode_steps"],
+        kv_bytes_per_token=kv_bytes_per_token,
+        kv_page_bytes=snap["kv_page_bytes"],
     )
-    log(f"serving (qwen3-0p6b bf16, 8 slots, 16 requests x 64 tokens): "
+    log(f"serving (qwen3-0p6b bf16, {fmt} pages, weights "
+        f"{quant or 'bf16'}, 8 slots, {n_req} requests x 64 tokens): "
         f"{json.dumps(res)}")
+    del eng, b, cont
+    torch.cuda.empty_cache()
     return res
 
 
+def _phase(name, fn, *args):
+    t0 = time.monotonic()
+    out = fn(*args)
+    log(f"phase {name}: {time.monotonic() - t0:.1f}s")
+    return out
+
+
 def main() -> None:
-    device_phase()
-    build_phase()
-    errs = kernel_checks()
-    times = kernel_timings()
-    step_parity()
-    serving = serving_phase()
+    _phase("device", device_phase)
+    _phase("build", build_phase)
+    errs = _phase("kernels", kernel_checks)
+    _phase("nibble order", nibble_order_check)
+    times = _phase("kernel timings", kernel_timings)
+    for kv_quant in ("none", "int8", "int4"):
+        _phase(f"step parity {kv_quant}", step_parity, kv_quant)
+    serving = {}
+    for kv_quant, quant, n_req in SERVE_RUNS:
+        serving[_fmt(kv_quant)] = _phase(f"serving {kv_quant}", serving_phase,
+                                         kv_quant, quant, n_req)
     kernels = []
-    for name in ("ragged_paged_attention", "paged_attention"):
-        t = times[name]
-        kernels.append({
+    for name, fmt in _variants():
+        t = times[(name, fmt)]
+        on_path = name != "paged_prefill_attention"
+        entry = {
             "name": name, "route": "cuda",
-            "source": f"tensorlink_tpu_torch/ops/csrc/{name}.cu",
+            "source": f"tensorlink_tpu_torch/ops/csrc/{SOURCE[name]}",
             "replaces": REPLACES[name],
-            "launches": serving["launches"][name],
-            "max_abs_err": errs[name]["float32"],
-            "max_abs_err_bf16": errs[name]["bfloat16"],
+            "launches": serving[fmt]["launches_by_format"][name][fmt],
+            "max_abs_err": errs[(name, fmt)]["float32"],
+            "max_abs_err_bf16": errs[(name, fmt)]["bfloat16"],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "library_call": "torch.nn.functional.scaled_dot_product_attention",
-        })
+        }
+        if fmt == "fp":
+            entry["library_call"] = \
+                "torch.nn.functional.scaled_dot_product_attention"
+        else:
+            entry["library_call"] = None
+            entry["library_note"] = ("no single PyTorch call consumes int8 "
+                                     "or packed-int4 pages")
+        if name != "paged_prefill_attention" and fmt == "fp":
+            kernels.append(entry)  # PR 1's two entries, as they were
+            continue
+        entry["format"] = fmt
+        if not on_path:
+            entry["launches_note"] = ("no engine caller: the main path "
+                                      "never launches it")
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

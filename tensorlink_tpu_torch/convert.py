@@ -4,6 +4,8 @@ Both packages keep weights as ``[in, out]`` matrices stacked ``[L, …]``
 under the same leaf names, so a JAX tree becomes a port tree by a pure
 relayout: no transposes, no renames. The caller hands the tree over as
 numpy arrays (``jax.device_get``), which keeps this module free of JAX.
+A weight-only int8 leaf (the JAX ``QTensor``) arrives as any object with
+numpy ``.q`` and ``.scale`` and becomes the port's ``QTensor``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.devices import resolve_device
 from .models.base import ModelConfig
+from .models.quant import QTensor
 
 _TORCH_DTYPES = {
     "float32": torch.float32,
@@ -50,12 +54,20 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax(tree, device="cpu", dtype: torch.dtype | None = None):
+def params_from_jax(tree, device=None, dtype: torch.dtype | None = None):
     """A JAX parameter tree given as (nested dicts of) numpy arrays → the
-    port's dict of tensors on ``device``, cast to ``dtype`` when given.
-    Leaf names and shapes are kept exactly."""
+    port's dict of tensors on ``device`` (None = the CUDA card), float
+    leaves cast to ``dtype`` when given. Leaf names and shapes are kept
+    exactly; a quantized leaf keeps its int8 codes and f32 scales."""
+    return _convert(tree, resolve_device(device), dtype)
+
+
+def _convert(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):  # a JAX QTensor
+        return QTensor(q=_tensor(tree.q, device, None),
+                       scale=_tensor(tree.scale, device, None))
     return _tensor(tree, device, dtype)
 
 

@@ -20,10 +20,11 @@ request runs alone, co-batched, admitted mid-flight or resumed after a
 preemption, with the prefix cache on or off.
 
 On a CUDA device the step's attention runs the CUDA kernels
-(``use_kernel``); on the CPU it runs their plain versions. Not in this
-slice (each raises naming the later slice): int8/int4 KV pages
-(``kv_quant``), speculative decoding, tensor parallelism, the shared page
-pool, the host-RAM tier, and live migration/handoff.
+(``use_kernel``); on the CPU it runs their plain versions. KV pages are
+full precision, int8 or packed int4 (``kv_quant``; a ``quant="int8+kv"``
+engine forces int8). Not in this slice (each raises naming the later
+slice): speculative decoding, tensor parallelism, the shared page pool,
+the host-RAM tier, and live migration/handoff.
 """
 
 from __future__ import annotations
@@ -64,6 +65,10 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
         f"{what} is not ported yet — it arrives with the {slice_name} slice "
         "of the port"
     )
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def pack_prefill_budgets(
@@ -199,15 +204,19 @@ class ContinuousEngine:
             )
         if int(prefill_chunk) <= 0:
             raise ValueError("prefill_chunk must be >= 1")
-        if str(kv_quant or "none") != "none" or engine.cache_quant:
-            raise _later(f"kv_quant={kv_quant!r}", "int8/int4")
+        kv_quant = str(kv_quant or "none")
+        if engine.cache_quant and kv_quant == "none":
+            # the model spec asked for an int8 KV cache ("int8+kv")
+            kv_quant = "int8"
+        if kv_quant not in ("none", "int8", "int4"):
+            raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
         if spec_decode:
             raise _later("spec_decode=True", "speculative-decoding")
         if int(tensor_parallel or 1) > 1:
             raise _later("tensor_parallel > 1", "tensor-parallel")
         if pool is not None:
             raise _later("a shared page pool (pool=)", "co-hosting")
-        self.kv_quant = "none"
+        self.kv_quant = kv_quant
         self.engine = engine
         self.cfg = engine.cfg
         self.device = engine.device
@@ -224,7 +233,7 @@ class ContinuousEngine:
         self.cache = PagedKVCache.init(
             self.cfg, self.max_slots, page_size=self.page_size,
             max_len=self.max_seq_len, dtype=engine.cache_dtype,
-            device=self.device,
+            kv_quant=kv_quant, device=self.device,
         )
         self.alloc = PageAllocator(self.cache.n_pages)
         self.prefill_chunk = min(int(prefill_chunk), self.max_seq_len)
@@ -659,12 +668,11 @@ class ContinuousEngine:
         keys."""
         out = dict(self.stats)
         c = self.cache
-        page_bytes = (
-            c.k.numel() * c.k.element_size() + c.v.numel() * c.v.element_size()
-        ) // c.n_pages
+        kv = [c.k, c.v] + ([c.k_scale, c.v_scale] if c.quantized else [])
+        page_bytes = sum(_nbytes(t) // c.n_pages for t in kv)
         out.update({
             "kv_quant": self.kv_quant,
-            "weight_quant": "none",
+            "weight_quant": self.engine.quant or "none",
             "kv_pages_total": c.n_pages - 1,
             "kv_pages_free": self.alloc.n_free,
             "kv_page_bytes": int(page_bytes),

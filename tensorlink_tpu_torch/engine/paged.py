@@ -35,8 +35,15 @@ The host half (:class:`PageAllocator`, :func:`chain_hash`,
 is a verbatim copy of the JAX package's pure-Python code, so digests and
 allocator/trie state match it exactly.
 
-Not in this slice: int8/int4 pages, ``SharedPagePool``, the tensor-
-parallel step, and the migration page gather/scatter.
+Quantized pages (``kv_quant="int8"``/``"int4"``): ``k``/``v`` hold int8
+codes (packed two per byte for int4, trailing dim ``hd / 2``) and
+``k_scale``/``v_scale`` ``[L, P, n_kv, page]`` one f32 scale per
+(page, position, head). :func:`_scatter_kv` is the one quantize site, and
+every page operation (``copy_page``, ``clone``) moves payload and scales
+together.
+
+Not in this slice: ``SharedPagePool``, the tensor-parallel step, and the
+migration page gather/scatter.
 """
 
 from __future__ import annotations
@@ -49,7 +56,10 @@ import torch
 
 from ..core.devices import resolve_device
 from ..models.base import ModelConfig
+from ..models.quant import QTensor
 from ..models.quant import matmul as _mm
+from ..models.quant import quantize_kv as _quant_kv
+from ..models.quant import quantize_kv4 as _quant_kv4
 from ..models.transformer import (
     _embed_tokens,
     _logits,
@@ -68,23 +78,24 @@ from ..ops.attention import (
 )
 from .sampling import _row_keys, _sample_rows
 
-_KV_QUANT_LATER = (
-    "kv_quant={mode!r}: int8/int4 KV pages are not ported yet — they "
-    "arrive with the int8/int4 slice of the port"
-)
-
 
 @dataclass
 class PagedKVCache:
     """Paged decode cache: ``k``/``v`` are ``[L, P, n_kv, page, hd]``,
     ``block_tables`` maps each serving slot to its pages ``[S, n_pp]``
     (0 = the reserved scratch page), ``lengths`` counts valid positions
-    per slot ``[S]`` (both int32, on the pages' device)."""
+    per slot ``[S]`` (both int32, on the pages' device).
+
+    int8/int4 mode (``quantized``): ``k``/``v`` hold int8 codes (int4:
+    packed, last dim ``hd / 2``) and ``k_scale``/``v_scale``
+    ``[L, P, n_kv, page]`` the f32 per-(page, position, head) scales."""
 
     k: torch.Tensor
     v: torch.Tensor
     block_tables: torch.Tensor
     lengths: torch.Tensor
+    k_scale: torch.Tensor | None = None  # f32 [L, P, n_kv, page]
+    v_scale: torch.Tensor | None = None
 
     @classmethod
     def init(
@@ -101,16 +112,33 @@ class PagedKVCache:
     ) -> "PagedKVCache":
         """Zeroed pages for ``max_slots`` slots of ``max_len`` positions
         (plus scratch page 0), or ``n_pages`` pages when given, on
-        ``device`` (None = the CUDA card)."""
+        ``device`` (None = the CUDA card). ``kv_quant`` is ``"none"``
+        (pages in ``dtype``), ``"int8"`` or ``"int4"`` (int8 pages, packed
+        to ``hd / 2`` for int4, with zeroed f32 scales)."""
         mode = kv_quant or "none"
-        if mode != "none":
-            raise NotImplementedError(_KV_QUANT_LATER.format(mode=mode))
+        if mode not in ("none", "int8", "int4"):
+            raise ValueError(f"unknown kv_quant mode {mode!r}")
+        hd = cfg.head_dim
+        if mode == "int4":
+            if hd % 2:
+                raise ValueError(
+                    f"kv_quant='int4' packs two values per byte — "
+                    f"head_dim {hd} must be even"
+                )
+            hd //= 2
         device = resolve_device(device)
         S_max = max_len or cfg.max_seq_len
         n_pp = -(-S_max // page_size)
         P = n_pages if n_pages is not None else 1 + max_slots * n_pp
-        shape = (cfg.n_layers, P, cfg.n_kv_heads, page_size, cfg.head_dim)
-        dt = dtype or cfg.dtype
+        shape = (cfg.n_layers, P, cfg.n_kv_heads, page_size, hd)
+        dt = torch.int8 if mode != "none" else (dtype or cfg.dtype)
+
+        def scales():
+            if mode == "none":
+                return None
+            return torch.zeros(shape[:-1], dtype=torch.float32,
+                               device=device)
+
         return cls(
             k=torch.zeros(shape, dtype=dt, device=device),
             v=torch.zeros(shape, dtype=dt, device=device),
@@ -119,11 +147,13 @@ class PagedKVCache:
             ),
             lengths=torch.zeros((max_slots,), dtype=torch.int32,
                                 device=device),
+            k_scale=scales(),
+            v_scale=scales(),
         )
 
     @property
     def quantized(self) -> bool:
-        return False
+        return self.k_scale is not None
 
     @property
     def page_size(self) -> int:
@@ -147,7 +177,17 @@ class PagedKVCache:
             k=self.k.clone(), v=self.v.clone(),
             block_tables=self.block_tables.clone(),
             lengths=self.lengths.clone(),
+            k_scale=None if self.k_scale is None else self.k_scale.clone(),
+            v_scale=None if self.v_scale is None else self.v_scale.clone(),
         )
+
+    def layer_kv(self, i: int) -> tuple:
+        """Layer ``i``'s page views: ``(k, v)`` for fp pages, ``(k, v,
+        k_scale, v_scale)`` for quantized ones — the blocks branch on the
+        arity, as the JAX package's ``_cache_kv`` tuples do."""
+        if self.k_scale is None:
+            return (self.k[i], self.v[i])
+        return (self.k[i], self.v[i], self.k_scale[i], self.v_scale[i])
 
 
 class PageAllocator:
@@ -506,12 +546,15 @@ class PrefixCache:
 
 def _layers(params: dict) -> list[dict]:
     """Per-layer views of the stacked ``params["layers"]`` tree — the
-    port's counterpart of ``lax.scan`` slicing the leading ``L`` axis."""
+    port's counterpart of ``lax.scan`` slicing the leading ``L`` axis. A
+    ``QTensor`` slices its ``q`` and its ``[L, 1, out]`` scale together."""
     tree = params["layers"]
 
     def take(t, i):
         if isinstance(t, dict):
             return {k: take(v, i) for k, v in t.items()}
+        if isinstance(t, QTensor):
+            return QTensor(q=t.q[i], scale=t.scale[i])
         return t[i]
 
     n = tree["attn"]["wq"].shape[0]
@@ -595,11 +638,33 @@ def _ragged_write_indices(block_tables, starts, n_valid, page, n_pp, C):
 def _scatter_kv(cache_kv: tuple, write_pg, write_off, k, v) -> tuple:
     """THE one page-write path's scatter, in place: land this block's KV
     rows ``[..., Hkv, hd]`` at their ``(page, offset)`` targets in one
-    layer's pages ``[P, Hkv, page, hd]``."""
+    layer's pages ``[P, Hkv, page, hd]``. For quantized pages (a 4-tuple
+    with the scales) this is the single quantize site: each row
+    quantizes on its own (``quantize_kv4`` when the page dim is half the
+    row's, else ``quantize_kv``) and codes and scales land together."""
+    if len(cache_kv) == 4:
+        ck, cv, cks, cvs = cache_kv
+        quant = _quant_kv4 if ck.shape[-1] != k.shape[-1] else _quant_kv
+        k8, ks = quant(k)
+        v8, vs = quant(v)
+        ck[write_pg, :, write_off] = k8
+        cv[write_pg, :, write_off] = v8
+        cks[write_pg, :, write_off] = ks
+        cvs[write_pg, :, write_off] = vs
+        return ck, cv, cks, cvs
     ck, cv = cache_kv
     ck[write_pg, :, write_off] = k.to(ck.dtype)
     cv[write_pg, :, write_off] = v.to(cv.dtype)
     return ck, cv
+
+
+def _attn_pages(kv: tuple, dtype) -> tuple:
+    """What attention reads from one layer's pages: ``(k, v, scales)``.
+    Quantized pages go as stored with their scales (the kernels and plain
+    versions dequantize them); only fp pages are cast, to q's dtype."""
+    if len(kv) == 4:
+        return kv[0], kv[1], dict(k_scale=kv[2], v_scale=kv[3])
+    return kv[0].to(dtype), kv[1].to(dtype), {}
 
 
 def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
@@ -611,9 +676,10 @@ def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
     q, k, v = _paged_qkv(h, lp, cfg, cos, sin)  # [S, 1, H, hd]
     kv = _scatter_kv(cache_kv, write_pg, write_off, k[:, 0], v[:, 0])
     attn = paged_attention if kernel else paged_attention_ref
+    kp, vp, sc = _attn_pages(kv, q.dtype)
     attn_raw = attn(
-        q[:, 0].contiguous(), kv[0].to(q.dtype), kv[1].to(q.dtype),
-        block_tables, att_len, scale=_attn_scale(cfg),
+        q[:, 0].contiguous(), kp, vp, block_tables, att_len,
+        scale=_attn_scale(cfg), **sc,
     )[:, None]  # [S, 1, Hq, hd]
     return _paged_residual(x, attn_raw, lp, cfg), kv
 
@@ -645,7 +711,7 @@ def paged_decode_step(params, tok, cache: PagedKVCache, active,
         cos, sin = rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     for i, lp in enumerate(layers):
         x, _ = _paged_block(
-            x, lp, cfg, cos, sin, (cache.k[i], cache.v[i]), write_pg,
+            x, lp, cfg, cos, sin, cache.layer_kv(i), write_pg,
             write_off, att_len, cache.block_tables, kernel,
         )
     x = _norm(x, params["final_norm"], cfg)
@@ -742,9 +808,10 @@ def _ragged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
     q, k, v = _paged_qkv(h, lp, cfg, cos, sin)  # [S, C, H, hd]
     kv = _scatter_kv(cache_kv, write_pg, write_off, k, v)
     attn = ragged_paged_attention if kernel else ragged_paged_attention_ref
+    kp, vp, sc = _attn_pages(kv, q.dtype)
     attn_raw = attn(
-        q.contiguous(), kv[0].to(q.dtype), kv[1].to(q.dtype), block_tables,
-        starts, n_valid, scale=_attn_scale(cfg),
+        q.contiguous(), kp, vp, block_tables, starts, n_valid,
+        scale=_attn_scale(cfg), **sc,
     )  # [S, C, Hq, hd]
     return _paged_residual(x, attn_raw, lp, cfg), kv
 
@@ -803,7 +870,7 @@ def paged_ragged_step(
         cos, sin = rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
     for i, lp in enumerate(layers):
         x, _ = _ragged_block(
-            x, lp, cfg, cos, sin, (cache.k[i], cache.v[i]), write_pg,
+            x, lp, cfg, cos, sin, cache.layer_kv(i), write_pg,
             write_off, bt, starts, n_valid, kernel,
         )
     x = _norm(x, params["final_norm"], cfg)
@@ -848,9 +915,14 @@ def paged_ragged_step(
 
 def copy_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
     """Copy-on-write: duplicate a cached page's KV (every layer) into a
-    page the admitting slot owns, in place."""
+    page the admitting slot owns, in place. Quantized pages move their
+    scale rows with the payload, so the copy dequantizes exactly as the
+    original does."""
     cache.k[:, dst] = cache.k[:, src]
     cache.v[:, dst] = cache.v[:, src]
+    if cache.k_scale is not None:
+        cache.k_scale[:, dst] = cache.k_scale[:, src]
+        cache.v_scale[:, dst] = cache.v_scale[:, src]
     return cache
 
 

@@ -35,11 +35,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "paged_attention": (
         "tl_paged_attention",
-        [_P] * 8 + [_I] * 7 + [_F, _P],
+        [_P] * 10 + [_I] * 8 + [_F, _P],
     ),
     "ragged_paged_attention": (
         "tl_ragged_paged_attention",
-        [_P] * 9 + [_I] * 8 + [_F, _P],
+        [_P] * 11 + [_I] * 9 + [_F, _P],
     ),
 }
 

@@ -19,6 +19,14 @@
 // and stages them as f32 through shared memory, only G of the tile's 16
 // rows are live, and the scalar dot products leave most threads idle at
 // G = 2.
+//
+// Quantized variants (kv_format 1 and 2) replace the same Pallas kernel
+// with quantized=True: int8 pages, and packed int4 pages (`packed`, two
+// codes per byte, split-half). They are bound by bytes: about half (int8)
+// or a quarter (int4) of the fp KV bytes, plus 8 B of scales (one f32 for
+// K and one for V) per live position per kv head. The design dequantizes
+// at the page load (load_page in paged_common.cuh) into the same f32
+// shared-memory tiles, so the arithmetic after the load is unchanged.
 
 #include "paged_common.cuh"
 
@@ -43,31 +51,30 @@ struct DecodeRows {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/out [S, Hq, hd]; pages
-// [P, Hkv, page, hd]; block_tables int32 [S, n_pp]; lengths int32 [S];
-// ws_acc / ws_ml f32 workspaces of S*Hkv*n_tiles*n_splits partials
-// (n_tiles = ceil(G/16), n_splits = ceil(n_pp/16)) of 16*hd and 16*2
-// floats; all contiguous on the current device. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, out, and fp pages). kv_format: 0
+// = pages in q's dtype [P, Hkv, page, hd] (scales null), 1 = int8
+// [P, Hkv, page, hd], 2 = packed int4 [P, Hkv, page, hd/2], both with f32
+// k_scale / v_scale [P, Hkv, page]. q/out [S, Hq, hd]; block_tables int32
+// [S, n_pp]; lengths int32 [S]; ws_acc / ws_ml f32 workspaces of
+// S*Hkv*n_tiles*n_splits partials (n_tiles = ceil(G/16), n_splits =
+// ceil(n_pp/16)) of 16*hd and 16*2 floats; all contiguous on the current
+// device. Returns a cudaError_t.
 extern "C" int tl_paged_attention(const void* q, const void* k_pages,
-                                  const void* v_pages,
+                                  const void* v_pages, const void* k_scale,
+                                  const void* v_scale,
                                   const void* block_tables,
                                   const void* lengths, void* out,
-                                  void* ws_acc, void* ws_ml, int dtype, int S,
-                                  int Hq, int Hkv, int hd, int page, int n_pp,
-                                  float scale, void* stream) {
+                                  void* ws_acc, void* ws_ml, int dtype,
+                                  int kv_format, int S, int Hq, int Hkv,
+                                  int hd, int page, int n_pp, float scale,
+                                  void* stream) {
   if (!tl::shape_ok(Hq, Hkv, hd, page) || S <= 0 || n_pp <= 0)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const int n_tiles = (G + tl::TILE_ROWS - 1) / tl::TILE_ROWS;
   DecodeRows rows{(const int*)lengths, Hq, G, hd};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)tl::launch_two_pass<float>(
-        q, k_pages, v_pages, block_tables, rows, out, (float*)ws_acc,
-        (float*)ws_ml, S, Hkv, hd, page, n_pp, n_tiles, scale, st);
-  if (dtype == 1)
-    return (int)tl::launch_two_pass<__nv_bfloat16>(
-        q, k_pages, v_pages, block_tables, rows, out, (float*)ws_acc,
-        (float*)ws_ml, S, Hkv, hd, page, n_pp, n_tiles, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)tl::launch(dtype, kv_format, q, k_pages, v_pages, k_scale,
+                         v_scale, block_tables, rows, out, ws_acc, ws_ml, S,
+                         Hkv, hd, page, n_pp, n_tiles, scale,
+                         (cudaStream_t)stream);
 }

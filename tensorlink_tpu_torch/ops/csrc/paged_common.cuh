@@ -24,6 +24,10 @@
 //     unmasked key keeps l = 0 and writes exact zeros, as the TPU
 //     kernels do.
 //
+// Pages are full precision (q's dtype), int8 or packed int4 (PageFormat
+// below); quantized pages dequantize into the f32 tiles at the load, so
+// everything after the load is one code path for the three formats.
+//
 // All arithmetic is f32 with scalar FMAs; the output rounds once.
 
 #pragma once
@@ -71,18 +75,44 @@ __device__ __forceinline__ int tile_pages(int max_limit, int page, int n_pp) {
   return n < n_pp ? n : n_pp;
 }
 
-// Loads one page tile of `page * hd` contiguous elements as f32 into
-// shared memory, 16 bytes per thread per load (hd is a multiple of 32, so
-// a vector never crosses a row); K rows are padded to hd + 1 floats. All
-// of a thread's loads are issued before any is stored.
-template <typename T>
-__device__ __forceinline__ void load_page(const T* __restrict__ k_src,
-                                          const T* __restrict__ v_src,
+// Page storage formats (the C entry points' `kv_format` argument):
+// full precision in q's dtype, int8 codes, or packed int4 codes (two per
+// byte, split-half: byte b of a row holds element b in its low nibble and
+// element b + hd/2 in its high nibble). Quantized pages carry one f32
+// scale per (page, position, head) in [P, Hkv, page] arrays.
+enum PageFormat { FMT_FP = 0, FMT_I8 = 1, FMT_I4 = 2 };
+
+// Bytes of one stored page row (hd values of one position and head).
+template <typename T, int FMT>
+__host__ __device__ __forceinline__ int row_bytes(int hd) {
+  return FMT == FMT_FP ? hd * (int)sizeof(T) : (FMT == FMT_I8 ? hd : hd / 2);
+}
+
+// Sign-extends a 4-bit two's-complement code, as models/quant.py's
+// unpack_int4 does.
+__device__ __forceinline__ float nibble(int x) {
+  return (float)(((x & 0xF) ^ 8) - 8);
+}
+
+// Loads one K and one V page tile (`page` rows of `row_bytes` each) as f32
+// into shared memory, 16 bytes per thread per load (hd is a multiple of
+// 32, so a vector never crosses a row); K rows are padded to hd + 1
+// floats. Quantized pages dequantize here, at the load: element d of row
+// j becomes float(code) * scale[j], the reference's f32 product. A
+// 16-byte vector holds 16 int8 codes, or 16 packed bytes = 32 int4 codes
+// (elements b..b+15 in the low nibbles, b+hd/2..b+hd/2+15 in the high).
+// All of a thread's loads are issued before any is stored.
+template <typename T, int FMT>
+__device__ __forceinline__ void load_page(const char* __restrict__ k_src,
+                                          const char* __restrict__ v_src,
+                                          const float* __restrict__ k_sc,
+                                          const float* __restrict__ v_sc,
                                           float* ks, float* vs, int page,
                                           int hd) {
-  constexpr int VEC = 16 / sizeof(T);
   constexpr int PER = 4;  // vectors in flight per thread and array
-  const int n_vec = page * hd / VEC;
+  const int rb = row_bytes<T, FMT>(hd);
+  const int n_vec = page * rb / 16;
+  const int hp = hd + 1;
   const uint4* kv = reinterpret_cast<const uint4*>(k_src);
   const uint4* vv = reinterpret_cast<const uint4*>(v_src);
   for (int v0 = threadIdx.x; v0 < n_vec; v0 += PER * blockDim.x) {
@@ -99,13 +129,41 @@ __device__ __forceinline__ void load_page(const T* __restrict__ k_src,
     for (int u = 0; u < PER; ++u) {
       const int vi = v0 + u * blockDim.x;
       if (vi >= n_vec) break;
-      const int e = vi * VEC, j = e / hd, d = e - j * hd;
-      const T* kt = reinterpret_cast<const T*>(&kr[u]);
-      const T* vt = reinterpret_cast<const T*>(&vr[u]);
+      const int byte = vi * 16, j = byte / rb, b = byte - j * rb;
+      if constexpr (FMT == FMT_FP) {
+        constexpr int VEC = 16 / sizeof(T);
+        const int d = b / (int)sizeof(T);
+        const T* kt = reinterpret_cast<const T*>(&kr[u]);
+        const T* vt = reinterpret_cast<const T*>(&vr[u]);
 #pragma unroll
-      for (int x = 0; x < VEC; ++x) {
-        ks[j * (hd + 1) + d + x] = to_f32(kt[x]);
-        vs[e + x] = to_f32(vt[x]);
+        for (int x = 0; x < VEC; ++x) {
+          ks[j * hp + d + x] = to_f32(kt[x]);
+          vs[j * hd + d + x] = to_f32(vt[x]);
+        }
+      } else if constexpr (FMT == FMT_I8) {
+        const float sk = __ldg(k_sc + j), sv = __ldg(v_sc + j);
+        const signed char* kt = reinterpret_cast<const signed char*>(&kr[u]);
+        const signed char* vt = reinterpret_cast<const signed char*>(&vr[u]);
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          ks[j * hp + b + x] = (float)kt[x] * sk;
+          vs[j * hd + b + x] = (float)vt[x] * sv;
+        }
+      } else {
+        const float sk = __ldg(k_sc + j), sv = __ldg(v_sc + j);
+        const unsigned char* kt =
+            reinterpret_cast<const unsigned char*>(&kr[u]);
+        const unsigned char* vt =
+            reinterpret_cast<const unsigned char*>(&vr[u]);
+        const int h2 = hd / 2;
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          const int kb = kt[x], vb = vt[x];
+          ks[j * hp + b + x] = nibble(kb) * sk;
+          ks[j * hp + b + h2 + x] = nibble(kb >> 4) * sk;
+          vs[j * hd + b + x] = nibble(vb) * sv;
+          vs[j * hd + b + h2 + x] = nibble(vb >> 4) * sv;
+        }
       }
     }
   }
@@ -125,10 +183,12 @@ __device__ __forceinline__ long long part_index(int s, int h, int tile,
   return (((long long)s * Hkv + h) * n_tiles + tile) * n_splits + split;
 }
 
-template <typename T, typename Rows>
+template <typename T, int FMT, typename Rows>
 __global__ void __launch_bounds__(THREADS)
-    attend_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                  const T* __restrict__ v_pages,
+    attend_kernel(const T* __restrict__ q, const char* __restrict__ k_pages,
+                  const char* __restrict__ v_pages,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
                   const int* __restrict__ block_tables, Rows rows,
                   float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                   int Hkv, int hd, int page, int n_pp, int n_tiles,
@@ -159,6 +219,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int* bt_row = block_tables + (long long)s * n_pp;
+  const int rb = row_bytes<T, FMT>(hd);
 
   for (int e = tid; e < n_rows * hd; e += nt) {
     const int r = e / hd, d = e - r * hd;
@@ -170,9 +231,13 @@ __global__ void __launch_bounds__(THREADS)
     l[r] = 0.f;
   }
   for (int i = p_lo; i < p_hi; ++i) {
-    const long long base = ((long long)bt_row[i] * Hkv + h) * page * hd;
+    // (page, kv head) index: page rows and scales are [P, Hkv, page, ..]
+    const long long ph = ((long long)bt_row[i] * Hkv + h) * page;
     __syncthreads();  // the previous page's readers are done
-    load_page<T>(k_pages + base, v_pages + base, ks, vs, page, hd);
+    load_page<T, FMT>(k_pages + ph * rb, v_pages + ph * rb,
+                      FMT == FMT_FP ? nullptr : k_scale + ph,
+                      FMT == FMT_FP ? nullptr : v_scale + ph, ks, vs, page,
+                      hd);
     __syncthreads();
     const int k0 = i * page;
     for (int pr = tid; pr < n_rows * page; pr += nt) {
@@ -288,25 +353,55 @@ inline bool shape_ok(int Hq, int Hkv, int hd, int page) {
 }
 
 // Both passes on `stream`; returns the first error.
-template <typename T, typename Rows>
+template <typename T, int FMT, typename Rows>
 cudaError_t launch_two_pass(const void* q, const void* k, const void* v,
-                            const void* bt, Rows rows, void* out, float* ws_acc,
-                            float* ws_ml, int S, int Hkv, int hd, int page,
-                            int n_pp, int n_tiles, float scale,
-                            cudaStream_t stream) {
+                            const void* k_scale, const void* v_scale,
+                            const void* bt, Rows rows, void* out,
+                            float* ws_acc, float* ws_ml, int S, int Hkv,
+                            int hd, int page, int n_pp, int n_tiles,
+                            float scale, cudaStream_t stream) {
   const int n_splits = (n_pp + SPLIT_PAGES - 1) / SPLIT_PAGES;
   const size_t smem = tile_smem_bytes(hd, page);
-  cudaError_t err = allow_smem(attend_kernel<T, Rows>, smem);
+  cudaError_t err = allow_smem(attend_kernel<T, FMT, Rows>, smem);
   if (err != cudaSuccess) return err;
-  attend_kernel<T, Rows><<<dim3(S * n_tiles * n_splits, Hkv), THREADS, smem,
-                           stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)bt, rows, ws_acc,
-      ws_ml, Hkv, hd, page, n_pp, n_tiles, n_splits, scale);
+  attend_kernel<T, FMT, Rows><<<dim3(S * n_tiles * n_splits, Hkv), THREADS,
+                                smem, stream>>>(
+      (const T*)q, (const char*)k, (const char*)v, (const float*)k_scale,
+      (const float*)v_scale, (const int*)bt, rows, ws_acc, ws_ml, Hkv, hd,
+      page, n_pp, n_tiles, n_splits, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   combine_kernel<T, Rows><<<dim3(S * n_tiles, Hkv), THREADS, 0, stream>>>(
       (T*)out, rows, ws_acc, ws_ml, Hkv, hd, page, n_pp, n_tiles, n_splits);
   return cudaGetLastError();
+}
+
+// The entry points' dispatch: dtype 0 = float32, 1 = bfloat16 (q, out and
+// fp pages); kv_format a PageFormat. Quantized formats need both scales.
+template <typename Rows>
+cudaError_t launch(int dtype, int kv_format, const void* q, const void* k,
+                   const void* v, const void* k_scale, const void* v_scale,
+                   const void* bt, Rows rows, void* out, void* ws_acc,
+                   void* ws_ml, int S, int Hkv, int hd, int page, int n_pp,
+                   int n_tiles, float scale, cudaStream_t stream) {
+  if (kv_format != FMT_FP && (k_scale == nullptr || v_scale == nullptr))
+    return cudaErrorInvalidValue;
+#define TL_TWO_PASS(T, F)                                                  \
+  return launch_two_pass<T, F, Rows>(q, k, v, k_scale, v_scale, bt, rows, \
+                                     out, (float*)ws_acc, (float*)ws_ml,  \
+                                     S, Hkv, hd, page, n_pp, n_tiles,     \
+                                     scale, stream)
+  if (dtype == 0) {
+    if (kv_format == FMT_FP) TL_TWO_PASS(float, FMT_FP);
+    if (kv_format == FMT_I8) TL_TWO_PASS(float, FMT_I8);
+    if (kv_format == FMT_I4) TL_TWO_PASS(float, FMT_I4);
+  } else if (dtype == 1) {
+    if (kv_format == FMT_FP) TL_TWO_PASS(__nv_bfloat16, FMT_FP);
+    if (kv_format == FMT_I8) TL_TWO_PASS(__nv_bfloat16, FMT_I8);
+    if (kv_format == FMT_I4) TL_TWO_PASS(__nv_bfloat16, FMT_I4);
+  }
+#undef TL_TWO_PASS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tl

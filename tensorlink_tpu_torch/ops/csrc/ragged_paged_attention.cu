@@ -20,6 +20,20 @@
 // tensor-core tiles), page loads are not double-buffered (no cp.async/TMA
 // pipeline), every row tile of a slot re-reads the slot's pages, and a
 // decode slot's tile carries G valid rows of its 16.
+//
+// Quantized variants (kv_format 1 and 2) replace the same Pallas kernel
+// with quantized=True: int8 pages, and packed int4 pages (`packed`, two
+// codes per byte, split-half). They are bound by bytes too, and move about
+// half (int8) or a quarter (int4) of the fp KV bytes, plus 8 B of scales
+// (one f32 for K and one for V) per live position per kv head. The design
+// dequantizes at the page load (load_page in paged_common.cuh): the codes
+// arrive as 16-byte vectors, each scaled by its position's scale into the
+// same f32 shared-memory tiles, so the score loop, the online softmax, the
+// split over pages and the combine pass are those of the fp kernel.
+//
+// paged_prefill_attention (tensorlink_tpu/ops/attention.py, the Pallas
+// kernel _paged_prefill_kernel) is a launch of this kernel with S = 1,
+// starts = [start] and n_valid = [C], in all three formats.
 
 #include "paged_common.cuh"
 
@@ -48,29 +62,27 @@ struct RaggedRows {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/out [S, C, Hq, hd]; pages
-// [P, Hkv, page, hd]; block_tables int32 [S, n_pp]; starts, n_valid int32
-// [S]; ws_acc / ws_ml f32 workspaces of S*Hkv*n_tiles*n_splits partials
-// (n_tiles = ceil(C*G/16), n_splits = ceil(n_pp/16)) of 16*hd and 16*2
-// floats; all contiguous on the current device. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q, out, and fp pages). kv_format: 0
+// = pages in q's dtype [P, Hkv, page, hd] (scales null), 1 = int8
+// [P, Hkv, page, hd], 2 = packed int4 [P, Hkv, page, hd/2], both with f32
+// k_scale / v_scale [P, Hkv, page]. q/out [S, C, Hq, hd]; block_tables
+// int32 [S, n_pp]; starts, n_valid int32 [S]; ws_acc / ws_ml f32
+// workspaces of S*Hkv*n_tiles*n_splits partials (n_tiles = ceil(C*G/16),
+// n_splits = ceil(n_pp/16)) of 16*hd and 16*2 floats; all contiguous on
+// the current device. Returns a cudaError_t.
 extern "C" int tl_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* block_tables, const void* starts, const void* n_valid,
-    void* out, void* ws_acc, void* ws_ml, int dtype, int S, int C, int Hq,
-    int Hkv, int hd, int page, int n_pp, float scale, void* stream) {
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* starts, const void* n_valid, void* out, void* ws_acc,
+    void* ws_ml, int dtype, int kv_format, int S, int C, int Hq, int Hkv,
+    int hd, int page, int n_pp, float scale, void* stream) {
   if (!tl::shape_ok(Hq, Hkv, hd, page) || S <= 0 || C <= 0 || n_pp <= 0)
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const int n_tiles = (C * G + tl::TILE_ROWS - 1) / tl::TILE_ROWS;
   RaggedRows rows{(const int*)starts, (const int*)n_valid, C, Hq, G, hd};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)tl::launch_two_pass<float>(
-        q, k_pages, v_pages, block_tables, rows, out, (float*)ws_acc,
-        (float*)ws_ml, S, Hkv, hd, page, n_pp, n_tiles, scale, st);
-  if (dtype == 1)
-    return (int)tl::launch_two_pass<__nv_bfloat16>(
-        q, k_pages, v_pages, block_tables, rows, out, (float*)ws_acc,
-        (float*)ws_ml, S, Hkv, hd, page, n_pp, n_tiles, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)tl::launch(dtype, kv_format, q, k_pages, v_pages, k_scale,
+                         v_scale, block_tables, rows, out, ws_acc, ws_ml, S,
+                         Hkv, hd, page, n_pp, n_tiles, scale,
+                         (cudaStream_t)stream);
 }

@@ -4,12 +4,17 @@ own contracts.
 
 - One ``paged_ragged_step`` on a mixed block (two prefills at offsets, a
   decode, an idle slot): integers exact (tokens, n_tok, spec_m, n_exec,
-  lengths, write indices, histograms), pages within float32 2e-5.
+  lengths, write indices, histograms), pages within float32 2e-5; over
+  int8 and packed int4 pages, written codes within 1 of JAX's, scales
+  within 2e-5, and every unwritten position byte-equal.
 - ``ContinuousEngine`` on the same requests (greedy and sampled, one
   admitted mid-flight, two sharing a 2-page prefix): every stream token-
   equal to the JAX engine's, and the allocator/trie end in the same state.
+- The same for ``kv_quant="int8"`` and ``"int4"``: streams token-equal
+  to the JAX engine's, allocator and trie state identical.
 - Bitwise, inside the port: solo == co-batched == mid-flight, prefix cache
-  on == off, page conservation after the run.
+  on == off, page conservation after the run; for quantized pages also
+  the codes and scales a copy-on-write landing leaves behind.
 - ``chain_hash``/``prompt_chain_hashes`` digests, a scripted
   allocator/trie sequence and ``pack_prefill_budgets`` equal the JAX
   package's.
@@ -60,7 +65,7 @@ SHARED = (17, 3, 99, 42, 8, 250, 61, 5, 77, 12, 190, 33, 4, 120, 7, 88)
 def models():
     jparams = j_init_params(JCFG, jax.random.PRNGKey(0))
     cfg = config_from_jax(dataclasses.asdict(JCFG))
-    tparams = params_from_jax(jax.device_get(jparams))
+    tparams = params_from_jax(jax.device_get(jparams), device="cpu")
     jgen = JGen(JCFG, jparams, seq_buckets=(8, 32), batch_buckets=(1,),
                 max_seq_len=64)
     tgen = GenerationEngine(cfg, tparams, max_seq_len=64, device="cpu")
@@ -103,19 +108,79 @@ ORDER = ("blk", "cache", "starts", "n_valid", "n_spec", "emit", "seeds",
          "remaining", "eos")
 
 
-@pytest.mark.parametrize("kernel", [False, True])
-def test_one_ragged_step_matches_jax(models, kernel):
+def _codes(a, kv_quant):
+    """int8 codes of a page array (packed int4 unpacked), as int32."""
+    from tensorlink_tpu.models.quant import unpack_int4
+
+    a = np.asarray(a)
+    if kv_quant == "int4":
+        return np.asarray(unpack_int4(jnp.asarray(a)))
+    return a.astype(np.int32)
+
+
+def _check_quantized_pages(j, t, init, kv_quant):
+    """The caches after one step over quantized pages: the same positions
+    were written (per layer, page, head and offset); there the codes
+    differ by at most 1 (the two frameworks' f32 k/v rows may straddle a
+    rounding boundary) and the scales by 2e-5 relative; everywhere else
+    both equal the initial bytes. Returns the count of codes that differ."""
+    k0, v0, ks0, vs0 = init
+    n_diff = 0
+    for jp, tp, p0, js, ts, s0 in ((j.k, t.k, k0, j.k_scale, t.k_scale, ks0),
+                                   (j.v, t.v, v0, j.v_scale, t.v_scale, vs0)):
+        jp, tp, js, ts = (np.asarray(jp), tp.numpy(), np.asarray(js),
+                          ts.numpy())
+        # page 0 is scratch: padding rows race to write it, unread
+        jp, tp, p0, js, ts, s0 = (a[:, 1:] for a in (jp, tp, p0, js, ts, s0))
+        written = js != s0
+        assert np.array_equal(written, ts != s0)
+        assert written.any()
+        np.testing.assert_allclose(ts[written], js[written], rtol=2e-5,
+                                   atol=0)
+        assert np.array_equal(ts[~written], s0[~written])
+        assert np.array_equal(tp[~written], p0[~written])
+        assert np.array_equal(jp[~written], p0[~written])
+        dc = np.abs(_codes(tp, kv_quant) - _codes(jp, kv_quant))
+        assert dc.max() <= 1, dc.max()
+        n_diff += int((dc > 0).sum())
+    return n_diff
+
+
+STEP_CASES = (
+    pytest.param(False, "none", id="False"),
+    pytest.param(True, "none", id="True"),
+    pytest.param(False, "int8", id="int8-False"),
+    pytest.param(True, "int8", id="int8-True"),
+    pytest.param(False, "int4", id="int4-False"),
+    pytest.param(True, "int4", id="int4-True"),
+)
+
+
+@pytest.mark.parametrize("kernel,kv_quant", STEP_CASES)
+def test_one_ragged_step_matches_jax(models, kernel, kv_quant):
     jgen, tgen = models
     rng = np.random.default_rng(5)
     (k, v, bt, lengths), arrays = _step_inputs(rng)
+    ks = vs = None
+    if kv_quant != "none":
+        # pages quantized once from the same floats, handed to both sides
+        from tensorlink_tpu.models import quant as jq
+
+        quant = jq.quantize_kv if kv_quant == "int8" else jq.quantize_kv4
+        (k, ks), (v, vs) = (tuple(np.asarray(a) for a in quant(jnp.asarray(x)))
+                            for x in (k, v))
     jcache = jpaged.PagedKVCache(
         k=jnp.asarray(k), v=jnp.asarray(v), block_tables=jnp.asarray(bt),
         lengths=jnp.asarray(lengths),
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs),
     )
     tcache = tpaged.PagedKVCache(
         k=torch.from_numpy(k.copy()), v=torch.from_numpy(v.copy()),
         block_tables=torch.from_numpy(bt.copy()),
         lengths=torch.from_numpy(lengths.copy()),
+        k_scale=None if ks is None else torch.from_numpy(ks.copy()),
+        v_scale=None if vs is None else torch.from_numpy(vs.copy()),
     )
     jargs = [jcache if n == "cache" else jnp.asarray(arrays[n]) for n in ORDER]
     targs = [tcache if n == "cache" else torch.from_numpy(arrays[n].copy())
@@ -130,6 +195,11 @@ def test_one_ragged_step_matches_jax(models, kernel):
             assert np.array_equal(np.asarray(j.lengths), t.lengths.numpy())
             assert np.array_equal(np.asarray(j.block_tables),
                                   t.block_tables.numpy())
+            if kv_quant != "none":
+                n_diff = _check_quantized_pages(j, t, (k, v, ks, vs),
+                                                kv_quant)
+                print(f"{kv_quant}: {n_diff} written codes differ by 1")
+                continue
             # page 0 is scratch: padding rows race to write it, unread
             for jt, tt in ((j.k, t.k), (j.v, t.v)):
                 np.testing.assert_allclose(tt.numpy()[:, 1:],
@@ -226,14 +296,109 @@ def test_port_solo_cobatched_and_prefix_cache_bitwise(models, served):
     off.close()
 
 
+# -- quantized pages: int8 and packed int4 --------------------------------
+@pytest.fixture(scope="module", params=["int8", "int4"])
+def served_q(request, models):
+    jgen, tgen = models
+    kv = request.param
+    jce, jstreams = _run(JEngine, jgen, JSP, REQS, LATE, kv_quant=kv)
+    tce, tstreams = _run(ContinuousEngine, tgen, SamplingParams, REQS, LATE,
+                         kv_quant=kv)
+    assert tce.cache.quantized and tce.kv_quant == kv
+    return kv, jce, jstreams, tce, tstreams
+
+
+def test_quantized_engine_streams_token_equal_to_jax(served_q):
+    _, jce, jstreams, tce, tstreams = served_q
+    assert tstreams == jstreams
+    assert [len(s) for s in tstreams] == [3, 10, 8, 8]
+    assert tce.stats["prefill_tokens_skipped"] > 0
+    for key in tce.stats:
+        assert tce.stats[key] == jce.stats[key], key
+
+
+def test_quantized_engine_allocator_and_trie_state_equal_jax(served_q):
+    kv, jce, _, tce, _ = served_q
+    assert tce.alloc._free == jce.alloc._free
+    assert tce.prefix.stats == jce.prefix.stats
+    assert tce.prefix.resident_pages == jce.prefix.resident_pages
+    assert tce.prefix.digest() == jce.prefix.digest()
+    tsnap, jsnap = tce.serving_snapshot(), jce.serving_snapshot()
+    for key in ("kv_quant", "weight_quant", "kv_page_bytes",
+                "kv_pages_total"):
+        assert tsnap[key] == jsnap[key], key
+    assert tsnap["kv_quant"] == kv
+    tce.check_page_conservation()
+
+
+def _landed_kv(ce, req):
+    """A request's codes and scales at positions ``0 .. len(prompt) - 1``,
+    read through its slot's block table (the slot stays bound until the
+    request is evicted)."""
+    c, page = ce.cache, ce.page_size
+    n = len(req.prompt)
+    pos = torch.arange(n)
+    pg = c.block_tables[req.slot].long()[pos // page]
+    off = pos % page
+    return [t[:, pg, :, off] for t in (c.k, c.v, c.k_scale, c.v_scale)]
+
+
+def _prefill_only(ce, prompt, seed=0):
+    """Admit ``prompt`` and step until its prompt is in its pages."""
+    req = ce.submit(prompt, max_new_tokens=40, seed=seed)
+    while req.prefill_pos < len(prompt) and not req.finished:
+        ce.step_chunk()
+    assert not req.finished and req.slot >= 0
+    return req
+
+
+def test_port_quantized_solo_cobatched_prefix_and_cow_bitwise(models,
+                                                               served_q):
+    """Within the port, for each quantized page mode: solo == co-batched
+    == prefix cache off, and a copy-on-write landing leaves exactly the
+    codes and scales a cold prefill writes (a copy_page that dropped the
+    scale rows would leave the destination page's stale ones)."""
+    _, tgen = models
+    kv, _, _, _, tstreams = served_q
+    for (p, n, s, sd), want in zip((*REQS, LATE), tstreams):
+        _, solo = _run(ContinuousEngine, tgen, SamplingParams,
+                       [(p, n, s, sd)], None, kv_quant=kv)
+        assert solo[0] == want
+    off, streams = _run(ContinuousEngine, tgen, SamplingParams, REQS, LATE,
+                        prefix_cache=False, kv_quant=kv)
+    assert streams == tstreams
+    off.check_page_conservation()
+    off.close()
+
+    base = [*SHARED, 21, 22, 23, 24, 25, 26, 27, 28, 29]
+    fork = [*SHARED, 21, 22, 23, 24, 99, 98, 97]  # diverges mid-page 2
+    hot = ContinuousEngine(tgen, **{**ENGINE_KW, "kv_quant": kv})
+    warm = hot.submit(base, max_new_tokens=2, seed=0)
+    hot.run_until_idle()
+    assert warm.finished and hot.prefix.n_resident >= 3
+    got = _landed_kv(hot, _prefill_only(hot, fork))
+    assert hot.prefix.stats["cow_copies"] >= 1
+    cold = ContinuousEngine(tgen, **{**ENGINE_KW, "kv_quant": kv,
+                                     "prefix_cache": False})
+    want = _landed_kv(cold, _prefill_only(cold, fork))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for ce in (hot, cold):
+        ce.run_until_idle()
+        ce.check_page_conservation()
+        ce.close()
+
+
 def test_unported_variants_are_refused(models):
     _, tgen = models
-    for kw, what in ((dict(kv_quant="int8"), "int8/int4"),
-                     (dict(spec_decode=True), "speculative"),
+    for kw, what in ((dict(spec_decode=True), "speculative"),
                      (dict(tensor_parallel=2), "tensor-parallel"),
                      (dict(pool=object()), "co-hosting")):
         with pytest.raises(NotImplementedError, match=what):
             ContinuousEngine(tgen, **ENGINE_KW, **kw)
+    # int8/int4 pages are served now; an unknown mode is refused as JAX does
+    with pytest.raises(ValueError, match="kv_quant"):
+        ContinuousEngine(tgen, **ENGINE_KW, kv_quant="nf4")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device(None)

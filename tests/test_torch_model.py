@@ -2,7 +2,7 @@
 functions on the same inputs and weights — float32, rtol = atol = 2e-5 —
 plus the parameter-tree contracts: the port's ``init_params`` has the JAX
 tree's leaf names and shapes, and ``params_from_jax`` carries a JAX tree
-over leaf for leaf."""
+(plain or weight-only int8) over leaf for leaf."""
 
 import dataclasses
 
@@ -33,7 +33,7 @@ JCFG = JModelConfig(
 @pytest.fixture(scope="module")
 def trees():
     jp = jax.device_get(j_init_params(JCFG, jax.random.PRNGKey(0)))
-    return jp, params_from_jax(jp)
+    return jp, params_from_jax(jp, device="cpu")
 
 
 def _leaves(tree, prefix=""):
@@ -141,6 +141,44 @@ def test_norms_rope_mlp_logits_match_jax(trees):
     assert ttr._rope_dim(cfg.with_(rope_pct=0.25)) == jtr._rope_dim(
         JCFG.with_(rope_pct=0.25)
     )
+
+
+def test_params_from_jax_carries_a_quantized_tree(trees):
+    """A JAX tree after ``quantize_params`` (``QTensor`` leaves, numpy
+    ``.q``/``.scale`` after ``device_get``) becomes the port's QTensors
+    with the same codes and scales, and serves the same logits."""
+    from tensorlink_tpu.models.quant import quantize_params as jqp
+    from tensorlink_tpu_torch.models.quant import QTensor
+
+    jp, _ = trees
+    jq = jax.device_get(jqp(jax.tree.map(jnp.asarray, jp), min_size=0))
+    tq = params_from_jax(jq, device="cpu")
+    wq_j, wq_t = jq["layers"]["attn"]["wq"], tq["layers"]["attn"]["wq"]
+    assert isinstance(wq_t, QTensor)
+    assert wq_t.q.dtype == torch.int8 and wq_t.scale.dtype == torch.float32
+    assert np.array_equal(wq_t.q.numpy(), np.asarray(wq_j.q))
+    assert np.array_equal(wq_t.scale.numpy(), np.asarray(wq_j.scale))
+    cfg = config_from_jax(dataclasses.asdict(JCFG))
+    x = np.random.default_rng(4).normal(size=(2, 3, 64)).astype(np.float32)
+    lp_j = jax.tree.map(lambda a: a[0], jq["layers"])
+    lp_t = {"mlp": {k: QTensor(q=v.q[0], scale=v.scale[0])
+                    for k, v in tq["layers"]["mlp"].items()}}
+    np.testing.assert_allclose(
+        ttr._mlp(torch.from_numpy(x), lp_t["mlp"], cfg).numpy(),
+        np.asarray(jtr._mlp(jnp.asarray(x), lp_j["mlp"], JCFG)), **TOL,
+    )
+
+
+def test_params_from_jax_needs_a_device_or_cpu(trees):
+    """``device=None`` means the CUDA card, as at every other entry
+    point: without one the call raises instead of landing on the CPU."""
+    jp, _ = trees
+    if torch.cuda.is_available():
+        tp = params_from_jax(jp)
+        assert tp["final_norm"]["scale"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            params_from_jax(jp)
 
 
 def test_moe_is_refused_until_its_slice():
