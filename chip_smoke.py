@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -18,7 +18,11 @@ Phases (any failure raises and exits non-zero):
    variant timed at the main path's shape in bfloat16 (CUDA events,
    median of 30 runs after warm-up) beside its plain version, torch's
    scaled_dot_product_attention over pre-gathered KV where one call
-   computes the same function, and its bound on the card.
+   computes the same function, and its bound on the card. The flash
+   kernel likewise: against its plain version on the main shape (B 4, T
+   2048, Hq 16, Hkv 8, hd 128), tests/test_ops.py's shapes, three sliding
+   windows, T 100 and 37 and head_dim 64 and 256; timed at the main shape
+   beside one causal GQA scaled_dot_product_attention call.
 4. Step parity: qwen3-0p6b at full width in float32, three
    paged_ragged_step chunks on a mixed block with the kernels and with
    their plain versions, over fp, int8 and int4 pages — counts and
@@ -36,6 +40,18 @@ Phases (any failure raises and exits non-zero):
    the chunks run and all in the run's page format, the plain versions
    never called, the prefix cache hit, pages conserved, and a greedy
    request re-run alone equal to its co-batched stream.
+6. Dense parity: qwen3-0p6b at full width in float32 with
+   flash_attention on, GenerationEngine's prefill of two prompts through
+   the flash kernel and through its plain version — every layer from the
+   same input within rtol = atol = 2e-5, last-token logits within a limit
+   set from readings — and greedy generate_compiled, beam and lookahead
+   token-equal on both paths.
+7. Dense serving: qwen3-0p6b at full width in bfloat16 with
+   flash_attention on: generate_compiled and generate_chunked (equal
+   tokens) on 8 mixed greedy/sampled requests, a 3000-token prompt
+   (chunked prefill), beam, lookahead, and an int8 weights + int8 dense
+   cache engine; the flash kernel's launches equal n_layers x the flash
+   prefills the engines counted, and no plain attention runs.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -43,6 +59,7 @@ the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -56,8 +73,10 @@ import torch
 from tensorlink_tpu_torch.engine.generate import GenerationEngine
 from tensorlink_tpu_torch.engine import paged
 from tensorlink_tpu_torch.engine.paged import PagedKVCache, paged_ragged_step
+from tensorlink_tpu_torch.engine.sampling import SamplingParams
 from tensorlink_tpu_torch.ml.batching import ContinuousBatcher
 from tensorlink_tpu_torch.models import config_presets, init_params
+from tensorlink_tpu_torch.models import transformer as ttr
 from tensorlink_tpu_torch.models.quant import (
     pack_int4,
     quantize_kv,
@@ -94,6 +113,11 @@ SOURCE = {
     "paged_attention": "paged_attention.cu",
     "paged_prefill_attention": "ragged_paged_attention.cu",
 }
+# dense parity: f32 last-token logits, |kernel - plain| after 28 layers of
+# a flash prefill: H100 reading 6.5e-6 (plain logits std 0.64)
+DENSE_LOGITS = 2e-5
+DENSE_SEQ_BUCKETS = (128, 256, 512, 1024, 2048)
+DENSE_NEW = 64  # new tokens per request in the dense serving run
 SERVE_RUNS = (  # (page format, weight quant, requests)
     ("none", None, 16),
     ("int8", None, 16),
@@ -436,6 +460,104 @@ def kernel_timings() -> dict:
         del c
         torch.cuda.empty_cache()
     return out
+
+
+# flash_attention: (B, T, Hq, Hkv, hd, window). The main shape first (k/v
+# read in place from a longer cache, as the engine passes them), then
+# tests/test_ops.py's shapes the kernel takes (head_dim a multiple of 32),
+# its three windows, two T that are no multiple of the kernel's tiles,
+# and head_dim 64 and 256
+FLASH_MAIN = (4, 2048, 16, 8, 128, None)
+FLASH_CASES = [
+    FLASH_MAIN,
+    (2, 256, 8, 2, 64, None), (1, 128, 4, 4, 32, None),
+    (1, 64, 2, 2, 128, None),
+    (1, 128, 4, 2, 32, 8), (1, 128, 4, 2, 32, 64), (1, 128, 4, 2, 32, 200),
+    (2, 100, 16, 8, 128, None), (3, 37, 16, 8, 128, None),
+    (2, 512, 8, 2, 64, 200), (1, 256, 8, 1, 256, None), (2, 37, 8, 4, 256, 16),
+]
+
+
+def _flash_case(rng, B, T, Hq, Hkv, hd, window, dtype, pad=64):
+    """Seeded q and k/v views ``[:, :T]`` of a ``[B, T + pad, Hkv, hd]``
+    cache (the engine's layout), in ``dtype`` on the card."""
+    dev = torch.device("cuda")
+
+    def rand(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, dtype)
+
+    q = rand((B, T, Hq, hd))
+    k = rand((B, T + pad, Hkv, hd))[:, :T]
+    v = rand((B, T + pad, Hkv, hd))[:, :T]
+    return dict(q=q, k=k, v=v, scale=hd**-0.5, window=window)
+
+
+def _flash(c, kernel):
+    fn = att.flash_attention if kernel else att.flash_attention_ref
+    return fn(c["q"], c["k"], c["v"], scale=c["scale"], window=c["window"])
+
+
+def flash_checks() -> dict:
+    """flash_attention against its plain version on every FLASH_CASES
+    shape in float32 (rtol = atol = 2e-5) and bfloat16 (1.6e-2); returns
+    the max abs error per dtype."""
+    rng = np.random.default_rng(11)
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        dname = str(dtype).split(".")[1]
+        for spec in FLASH_CASES:
+            c = _flash_case(rng, *spec, dtype=dtype)
+            got, want = _flash(c, True), _flash(c, False)
+            torch.cuda.synchronize()
+            try:
+                e = _err(got, want, tol)
+            except AssertionError as exc:
+                raise AssertionError(f"flash_attention {spec} {dname}: "
+                                     f"{exc}") from None
+            errs[dname] = max(errs[dname], e)
+    try:
+        c = _flash_case(rng, 1, 100, 4, 2, 32, None, torch.float32)
+        att.flash_attention(c["q"], c["k"], c["v"], scale=1.0, block_q=64,
+                            block_k=64)
+        raise AssertionError("flash_attention took T 100 with 64-row blocks")
+    except ValueError:
+        pass
+    log(f"flash_attention vs plain version over {len(FLASH_CASES)} shapes: "
+        f"max abs err {json.dumps(errs)}")
+    return errs
+
+
+def flash_timing() -> dict:
+    """flash_attention at FLASH_MAIN in bfloat16: kernel, plain version and
+    one scaled_dot_product_attention call (causal, GQA), with the bound
+    from this run's shape."""
+    B, T, Hq, Hkv, hd, _ = FLASH_MAIN
+    dtype = torch.bfloat16
+    c = _flash_case(np.random.default_rng(12), *FLASH_MAIN, dtype=dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (c[n].transpose(1, 2) for n in ("q", "k", "v"))
+    r = dict(
+        ms=_time_ms(lambda: _flash(c, True)),
+        plain_ms=_time_ms(lambda: _flash(c, False), runs=10),
+        library_ms=_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)),
+        # each input read once, the output written once; 4 * hd FLOPs per
+        # visible (query head, key) pair: T (T + 1) / 2 pairs per head
+        bytes=(2 * B * T * Hq * hd + 2 * B * T * Hkv * hd) * 2,
+        flops=4 * hd * Hq * B * T * (T + 1) // 2,
+    )
+    t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = r["flops"] / PEAK_FLOPS[dtype] * 1e3
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"flash_attention (bf16, B {B} T {T} Hq {Hq} Hkv {Hkv} hd {hd}): "
+        f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
+        f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
+        f"({r['bound_by']}: {r['bytes']} B, {r['flops']} flop)")
+    del c, qt, kt, vt
+    torch.cuda.empty_cache()
+    return r
 
 
 # -- phase 4 -----------------------------------------------------------
@@ -878,6 +1000,243 @@ def serving_phase(kv_quant: str = "none", quant: str | None = None,
     return res
 
 
+# -- phase 6 -----------------------------------------------------------
+@contextlib.contextmanager
+def _plain_flash():
+    """The dense engine's flash calls take the plain version while inside
+    (the parity phase's reference path; the engine reads the wrapper from
+    ``ops.attention`` at each forward)."""
+    real = att.flash_attention
+
+    def plain(q, k, v, *, scale, window=None, **_blocks):
+        return att.flash_attention_ref(q, k, v, scale=scale, window=window)
+
+    att.flash_attention = plain
+    try:
+        yield
+    finally:
+        att.flash_attention = real
+
+
+def _dense_teacher_forced(eng, toks, mask) -> float:
+    """Each layer of a fresh-cache flash prefill run twice from the SAME
+    input, through the kernel and through the plain version (the plain
+    path's output feeds the next layer): returns the worst |diff| / (2e-5
+    + 2e-5 |plain|) over the layers' outputs (<= 1 passes)."""
+    cfg, params, dev = eng.cfg, eng.params, eng.device
+    B, T = toks.shape
+    cache = eng.new_cache(B)
+    tok_t = torch.tensor(toks, device=dev).long()
+    pos = torch.arange(T, device=dev)[None].expand(B, T)
+    cos, sin = ttr.rope_tables(pos, ttr._rope_dim(cfg), cfg.rope_theta)
+    x = ttr._embed_tokens(params, tok_t, cfg)
+    worst = 0.0
+    for i, lp in enumerate(ttr._layers(params)):
+        outs = []
+        for fn in (att.flash_attention, att.flash_attention_ref):
+            def attn(q, k, v, _bias, scale, fn=fn):
+                return fn(q, k, v, scale=scale, window=cfg.sliding_window)
+
+            kv = tuple(t.clone() for t in cache.layer_kv(i))
+            outs.append(ttr._block(x, lp, cfg, cos, sin, None, kv,
+                                   cache.length, attn, T))
+        yk, yp = outs
+        worst = max(worst, float(((yk - yp).abs()
+                                  / (2e-5 + 2e-5 * yp.abs())).max()))
+        x = yp
+    return worst
+
+
+def dense_parity() -> dict:
+    """qwen3-0p6b at full width in float32 with flash_attention on: one
+    prefill of two prompts (300 and 512 tokens, bucket 512) through the
+    kernel and through the plain version — each layer from the same input
+    within rtol = atol = 2e-5, the last-token logits within
+    DENSE_LOGITS — and greedy generate_compiled, generate_beam and
+    generate_lookahead token-equal on both paths (lookahead also equal to
+    generate_compiled)."""
+    cfg = config_presets()["qwen3-0p6b"].with_(dtype=torch.float32,
+                                                flash_attention=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    params = init_params(cfg, g, device=dev)
+    eng = GenerationEngine(cfg, params, max_seq_len=1024,
+                           seq_buckets=(128, 256, 512), device="cuda")
+    del params
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300,
+                                                                      512)]
+    toks = np.zeros((2, 512), np.int32)
+    mask = np.zeros((2, 512), bool)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)], mask[i, :len(p)] = p, True
+    t0 = time.monotonic()
+    att.reset_counts()
+    tf_ratio = _dense_teacher_forced(eng, toks, mask)
+    if tf_ratio > 1.0:
+        raise AssertionError(f"dense parity: a layer's output differs beyond "
+                             f"rtol = atol = 2e-5 ({tf_ratio:.2f}x the bound)")
+    rep = (prompts[0][:40] * 5)[:200]  # repetitive: lookahead drafts hit
+
+    def run():
+        eng.flash_prefills = 0
+        logits, _c, lens, _b = eng.prefill(prompts)
+        out = dict(
+            logits=logits[:len(lens)].float(),
+            greedy=eng.generate_compiled(prompts, max_new_tokens=16).sequences,
+            beam=eng.generate_beam([prompts[0]], num_beams=4,
+                                   max_new_tokens=8).sequences,
+            look=eng.generate_lookahead([rep], max_new_tokens=24).sequences,
+            look_ref=eng.generate_compiled([rep],
+                                           max_new_tokens=24).sequences,
+            flash_prefills=eng.flash_prefills,
+        )
+        torch.cuda.synchronize()
+        return out
+
+    att.reset_counts()
+    k = run()
+    launches = att.flash_attention.launches
+    with _plain_flash():
+        p = run()
+    if launches != cfg.n_layers * k["flash_prefills"] or not launches:
+        raise AssertionError(f"dense parity: {launches} flash launches for "
+                             f"{k['flash_prefills']} flash prefills")
+    if not torch.isfinite(k["logits"]).all():
+        raise AssertionError("dense parity: prefill logits not finite")
+    dl = float((k["logits"] - p["logits"]).abs().max())
+    if dl > DENSE_LOGITS:
+        raise AssertionError(f"dense parity: last-token logits differ by "
+                             f"{dl:.3e} (> {DENSE_LOGITS:.1e})")
+    for name in ("greedy", "beam", "look"):
+        if k[name] != p[name]:
+            raise AssertionError(f"dense parity: {name} tokens differ\n"
+                                 f"kernel {k[name]}\nplain  {p[name]}")
+    if k["look"] != k["look_ref"]:
+        raise AssertionError("dense parity: lookahead differs from "
+                             "generate_compiled")
+    res = dict(layer_ratio=tf_ratio, logits_max_abs_diff=dl,
+               logits_std=float(p["logits"].std()),
+               flash_launches=launches, flash_prefills=k["flash_prefills"],
+               greedy_tokens=sum(len(s) for s in k["greedy"]))
+    log(f"dense parity (qwen3-0p6b f32, flash kernel vs plain, prompts 300 + "
+        f"512 in bucket 512): teacher-forced per layer {tf_ratio:.3f}x the "
+        f"2e-5 bound; last-token logits max abs diff {dl:.3e} (limit "
+        f"{DENSE_LOGITS:.1e}, plain logits std {res['logits_std']:.3f}); "
+        f"greedy generate_compiled, beam 4 and lookahead token-equal; "
+        f"{time.monotonic() - t0:.1f}s")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 7 -----------------------------------------------------------
+def _sync_s(fn):
+    """Run ``fn`` and return ``(its result, wall seconds to the device's
+    end)``."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def dense_serving() -> dict:
+    """qwen3-0p6b at full width in bfloat16 with flash_attention on,
+    through GenerationEngine: generate_compiled and generate_chunked on 8
+    of _requests' prompts (greedy and sampled) x DENSE_NEW tokens, equal
+    to each other; a 3000-token prompt (chunked prefill, flash on its
+    first chunk); generate_beam and generate_lookahead; and generate_compiled
+    on an int8 weights + int8 dense cache engine. The kernel's launches
+    must equal n_layers x the flash prefills the engines counted, and no
+    plain attention runs."""
+    cfg = config_presets()["qwen3-0p6b"].with_(flash_attention=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(8765)
+    params = init_params(cfg, g, device=dev)
+    kw = dict(max_seq_len=4096, seq_buckets=DENSE_SEQ_BUCKETS,
+              batch_buckets=(1, 2, 4, 8), device="cuda")
+    eng = GenerationEngine(cfg, params, **kw)
+    eng8 = GenerationEngine(cfg, params, quant="int8+kv", **kw)
+    del params
+    V = cfg.vocab_size
+    _warm, reqs = _requests(cfg)
+    reqs = reqs[:8]
+    prompts = [r[0] for r in reqs]
+    sp = SamplingParams.stack([SamplingParams.make(**r[1]) for r in reqs],
+                              pad_to=8)
+    rng = np.random.default_rng(77)
+    long = rng.integers(0, V, 3000).tolist()
+    rep = (prompts[1][:48] * 6)[:256]
+    eng.generate_compiled([prompts[0][:64]], max_new_tokens=4)  # warm-up
+    eng8.generate_compiled([prompts[0][:64]], max_new_tokens=4)
+    att.reset_counts()
+    eng.flash_prefills = eng8.flash_prefills = 0
+    new = DENSE_NEW
+    comp, t_comp = _sync_s(lambda: eng.generate_compiled(
+        prompts, max_new_tokens=new, sampling=sp, seed=3))
+    first = []
+    t_sub = time.monotonic()
+
+    def cb(_toks):
+        if not first:
+            first.append(time.monotonic() - t_sub)
+
+    chunked, t_chunk = _sync_s(lambda: eng.generate_chunked(
+        prompts, max_new_tokens=new, sampling=sp, seed=3, chunk_steps=8,
+        stream_cb=cb))
+    n_flash_8 = eng.flash_prefills
+    one, t_long = _sync_s(lambda: eng.generate_compiled(
+        [long], max_new_tokens=16))
+    n_flash_long = eng.flash_prefills - n_flash_8
+    beam, t_beam = _sync_s(lambda: eng.generate_beam(
+        [prompts[2]], num_beams=4, max_new_tokens=16))
+    look, t_look = _sync_s(lambda: eng.generate_lookahead(
+        [rep], max_new_tokens=32))
+    q8, t_q8 = _sync_s(lambda: eng8.generate_compiled(
+        prompts, max_new_tokens=new, sampling=sp, seed=3))
+    launches = att.flash_attention.launches
+    plain = {f.__name__: f.calls for f in att._REFS if f.calls}
+    n_prefills = eng.flash_prefills + eng8.flash_prefills
+    L = cfg.n_layers
+    if launches != L * n_prefills or not launches:
+        raise AssertionError(f"dense serving: {launches} flash launches for "
+                             f"{n_prefills} flash prefills x {L} layers")
+    if plain:
+        raise AssertionError(f"dense serving: plain attention ran {plain}")
+    if n_flash_8 != 2 or n_flash_long != 1:
+        raise AssertionError(f"dense serving: flash prefills {n_flash_8} "
+                             f"(8 prompts, twice) and {n_flash_long} (the "
+                             "3000-token prompt, first chunk only)")
+    if chunked.sequences != comp.sequences:
+        raise AssertionError("dense serving: generate_chunked differs from "
+                             "generate_compiled")
+    for name, r, n in (("compiled", comp, new), ("int8+kv", q8, new),
+                       ("long", one, 16), ("beam", beam, 16),
+                       ("lookahead", look, 32)):
+        for s in r.sequences:
+            if len(s) != n or not all(0 <= t < V for t in s):
+                raise AssertionError(f"dense serving {name}: bad output "
+                                     f"{len(s)} tokens")
+    gen = sum(len(s) for s in comp.sequences)
+    res = dict(
+        requests=len(prompts), prompt_tokens=sum(len(p) for p in prompts),
+        new_tokens=new, compiled_s=t_comp, compiled_tokens_per_s=gen / t_comp,
+        chunked_s=t_chunk, chunked_ttft_s=first[0],
+        long_prompt_s=t_long, beam_s=t_beam, lookahead_s=t_look,
+        lookahead=eng.last_lookahead_stats, int8_kv_s=t_q8,
+        int8_kv_tokens_per_s=gen / t_q8,
+        flash_prefills=n_prefills, launches=launches,
+    )
+    log(f"dense serving (qwen3-0p6b bf16, flash on, GenerationEngine): "
+        f"{json.dumps(res)}")
+    del eng, eng8
+    torch.cuda.empty_cache()
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -890,13 +1249,17 @@ def main() -> None:
     _phase("build", build_phase)
     errs = _phase("kernels", kernel_checks)
     _phase("nibble order", nibble_order_check)
+    ferrs = _phase("flash kernel", flash_checks)
     times = _phase("kernel timings", kernel_timings)
+    ftime = _phase("flash timing", flash_timing)
     for kv_quant in ("none", "int8", "int4"):
         _phase(f"step parity {kv_quant}", step_parity, kv_quant)
+    _phase("dense parity", dense_parity)
     serving = {}
     for kv_quant, quant, n_req in SERVE_RUNS:
         serving[_fmt(kv_quant)] = _phase(f"serving {kv_quant}", serving_phase,
                                          kv_quant, quant, n_req)
+    dense = _phase("dense serving", dense_serving)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -927,6 +1290,17 @@ def main() -> None:
             entry["launches_note"] = ("no engine caller: the main path "
                                       "never launches it")
         kernels.append(entry)
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "tensorlink_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "tensorlink_tpu/ops/attention.py:151",
+        "launches": dense["launches"],
+        "max_abs_err": ferrs["float32"], "max_abs_err_bf16": ferrs["bfloat16"],
+        "ms": ftime["ms"], "kernel_ms": ftime["ms"],
+        "plain_ms": ftime["plain_ms"], "bound_ms": ftime["bound_ms"],
+        "bound_by": ftime["bound_by"], "library_ms": ftime["library_ms"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention",
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,10 @@ under the same leaf names, so a JAX tree becomes a port tree by a pure
 relayout: no transposes, no renames. The caller hands the tree over as
 numpy arrays (``jax.device_get``), which keeps this module free of JAX.
 A weight-only int8 leaf (the JAX ``QTensor``) arrives as any object with
-numpy ``.q`` and ``.scale`` and becomes the port's ``QTensor``.
+numpy ``.q`` and ``.scale`` and becomes the port's ``QTensor``. A dense
+JAX ``KVCache`` (fp, or int8 with scales) arrives the same way, as an
+object with numpy ``.k``/``.v``/``.length`` (and ``.k_scale``/
+``.v_scale``), and becomes the port's ``KVCache`` with the same layout.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from .core.devices import resolve_device
-from .models.base import ModelConfig
+from .models.base import KVCache, ModelConfig
 from .models.quant import QTensor
 
 _TORCH_DTYPES = {
@@ -71,6 +74,21 @@ def _convert(tree, device, dtype):
     return _tensor(tree, device, dtype)
 
 
+def kv_cache_from_jax(cache, device=None) -> KVCache:
+    """A JAX dense ``KVCache`` given with numpy leaves (``jax.device_get``)
+    → the port's ``KVCache`` on ``device`` (None = the CUDA card): the
+    same ``[L, B, S, n_kv, hd]`` payload bytes, ``length``, and in int8
+    mode the f32 ``[L, B, S, n_kv, 1]`` scales."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return None if a is None else _tensor(a, dev, None)
+
+    return KVCache(k=t(cache.k), v=t(cache.v), length=t(cache.length),
+                   k_scale=t(getattr(cache, "k_scale", None)),
+                   v_scale=t(getattr(cache, "v_scale", None)))
+
+
 def config_from_jax(fields: dict) -> ModelConfig:
     """A JAX ``ModelConfig`` given as a field dict
     (``dataclasses.asdict``) → the port's config; ``dtype`` may be a
@@ -81,4 +99,5 @@ def config_from_jax(fields: dict) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-__all__ = ["config_from_jax", "params_from_jax", "torch_dtype"]
+__all__ = ["config_from_jax", "kv_cache_from_jax", "params_from_jax",
+           "torch_dtype"]

@@ -56,18 +56,17 @@ import torch
 
 from ..core.devices import resolve_device
 from ..models.base import ModelConfig
-from ..models.quant import QTensor
-from ..models.quant import matmul as _mm
 from ..models.quant import quantize_kv as _quant_kv
 from ..models.quant import quantize_kv4 as _quant_kv4
 from ..models.transformer import (
+    _attn_scale,
     _embed_tokens,
+    _layers,
     _logits,
-    _mlp,
     _norm,
-    _rms_head_norm,
+    _qkv,
+    _residual,
     _rope_dim,
-    apply_rope,
     rope_tables,
 )
 from ..ops.attention import (
@@ -544,79 +543,6 @@ class PrefixCache:
         return self.evict(len(self._by_page))
 
 
-def _layers(params: dict) -> list[dict]:
-    """Per-layer views of the stacked ``params["layers"]`` tree — the
-    port's counterpart of ``lax.scan`` slicing the leading ``L`` axis. A
-    ``QTensor`` slices its ``q`` and its ``[L, 1, out]`` scale together."""
-    tree = params["layers"]
-
-    def take(t, i):
-        if isinstance(t, dict):
-            return {k: take(v, i) for k, v in t.items()}
-        if isinstance(t, QTensor):
-            return QTensor(q=t.q[i], scale=t.scale[i])
-        return t[i]
-
-    n = tree["attn"]["wq"].shape[0]
-    return [take(tree, i) for i in range(n)]
-
-
-def _paged_qkv(h, lp, cfg: ModelConfig, cos, sin):
-    """Shared projection prologue of the paged blocks — q/k/v with
-    biases, both qk-norm variants and (partial-dim) rope, over a
-    ``[B, T, d]`` input."""
-    B, T = h.shape[:2]
-    ap = lp["attn"]
-    q = _mm(h, ap["wq"])
-    k = _mm(h, ap["wk"])
-    v = _mm(h, ap["wv"])
-    if "bq" in ap:
-        q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    if cfg.qk_norm_full:
-        q = _rms_head_norm(q, ap["q_norm"], cfg.norm_eps)
-        k = _rms_head_norm(k, ap["k_norm"], cfg.norm_eps)
-    q = q.reshape(B, T, -1, cfg.head_dim)
-    k = k.reshape(B, T, -1, cfg.head_dim)
-    v = v.reshape(B, T, -1, cfg.head_dim)
-    if cfg.qk_norm:
-        q = _rms_head_norm(q, ap["q_norm"], cfg.norm_eps)
-        k = _rms_head_norm(k, ap["k_norm"], cfg.norm_eps)
-    if cos is not None:
-        rd = cos.shape[-1]
-        if rd == cfg.head_dim:
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-        else:
-            q = torch.cat([apply_rope(q[..., :rd], cos, sin), q[..., rd:]],
-                          dim=-1)
-            k = torch.cat([apply_rope(k[..., :rd], cos, sin), k[..., rd:]],
-                          dim=-1)
-    return q, k, v
-
-
-def _paged_residual(x, attn_raw, lp, cfg: ModelConfig):
-    """Shared epilogue: output projection (+bias) and the norm-position /
-    parallel-residual wiring. ``attn_raw`` is ``[B, T, Hq, hd]``."""
-    B, T = attn_raw.shape[:2]
-    ap = lp["attn"]
-    attn_out = _mm(attn_raw.reshape(B, T, -1), ap["wo"])
-    if "bo" in ap:
-        attn_out = attn_out + ap["bo"]
-    if cfg.norm_position == "post":
-        x = x + _norm(attn_out, lp["ln1"], cfg)
-        x = x + _norm(_mlp(x, lp["mlp"], cfg), lp["ln2"], cfg)
-    elif cfg.parallel_residual:
-        x = x + attn_out + _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
-    else:
-        x = x + attn_out
-        x = x + _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
-    return x
-
-
-def _attn_scale(cfg: ModelConfig) -> float:
-    return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim**-0.5
-
-
 def _ragged_write_indices(block_tables, starts, n_valid, page, n_pp, C):
     """Physical ``(page, offset)`` write targets for a ragged ``[S, C]``
     token block: position ``j`` of slot ``s`` lands at absolute position
@@ -673,7 +599,7 @@ def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
     reading and writing KV through pages; attention is
     :func:`paged_attention` (``kernel``) or its plain version."""
     h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
-    q, k, v = _paged_qkv(h, lp, cfg, cos, sin)  # [S, 1, H, hd]
+    q, k, v = _qkv(h, lp, cfg, cos, sin)  # [S, 1, H, hd]
     kv = _scatter_kv(cache_kv, write_pg, write_off, k[:, 0], v[:, 0])
     attn = paged_attention if kernel else paged_attention_ref
     kp, vp, sc = _attn_pages(kv, q.dtype)
@@ -681,7 +607,7 @@ def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
         q[:, 0].contiguous(), kp, vp, block_tables, att_len,
         scale=_attn_scale(cfg), **sc,
     )[:, None]  # [S, 1, Hq, hd]
-    return _paged_residual(x, attn_raw, lp, cfg), kv
+    return _residual(x, attn_raw, lp, cfg), kv
 
 
 def paged_decode_step(params, tok, cache: PagedKVCache, active,
@@ -805,7 +731,7 @@ def _ragged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
     :func:`ragged_paged_attention` (``kernel``) or its plain version over
     every slot's pages at once."""
     h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
-    q, k, v = _paged_qkv(h, lp, cfg, cos, sin)  # [S, C, H, hd]
+    q, k, v = _qkv(h, lp, cfg, cos, sin)  # [S, C, H, hd]
     kv = _scatter_kv(cache_kv, write_pg, write_off, k, v)
     attn = ragged_paged_attention if kernel else ragged_paged_attention_ref
     kp, vp, sc = _attn_pages(kv, q.dtype)
@@ -813,7 +739,7 @@ def _ragged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
         q.contiguous(), kp, vp, block_tables, starts, n_valid,
         scale=_attn_scale(cfg), **sc,
     )  # [S, C, Hq, hd]
-    return _paged_residual(x, attn_raw, lp, cfg), kv
+    return _residual(x, attn_raw, lp, cfg), kv
 
 
 def paged_ragged_step(

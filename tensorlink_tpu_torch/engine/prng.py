@@ -11,6 +11,8 @@ bits. Vectorised over any leading shape, on any device.
 - ``PRNGKey(seed)`` = ``(seed >> 32, seed & 0xFFFFFFFF)``: ``(0, seed mod
   2**32)`` for an int32 seed.
 - ``fold_in(key, d)`` = ``threefry2x32(key, (0, d))``.
+- ``split(key, num)`` (the fold-like split): key ``i`` is
+  ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``, both output words.
 - ``random_bits(key, shape)`` (32-bit, partitionable): the counter of
   element ``i`` (row-major) is the 64-bit ``i`` split ``(hi, lo)``; the
   bits are ``x0 ^ x1`` of ``threefry2x32(key, (hi, lo))``.
@@ -49,9 +51,11 @@ def threefry2x32(k1, k2, x0, x1):
     return x0, x1
 
 
-def PRNGKey(seed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.random.PRNGKey`` of int32 seeds (any shape): ``(0, seed mod
-    2**32)``."""
+def PRNGKey(seed, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.random.PRNGKey`` of int32 seeds (a tensor of any shape, or a
+    Python int placed on ``device``): ``(0, seed mod 2**32)``."""
+    if not isinstance(seed, torch.Tensor):
+        seed = torch.tensor(int(seed), dtype=torch.int64, device=device)
     s = seed.to(torch.int64) & _MASK
     return torch.zeros_like(s), s
 
@@ -61,6 +65,17 @@ def fold_in(key, data: torch.Tensor):
     k1, k2 = key
     d = data.to(torch.int64) & _MASK
     return threefry2x32(k1, k2, torch.zeros_like(d), d)
+
+
+def split(key, num: int = 2) -> tuple:
+    """``jax.random.split``: ``num`` new keys, each a ``(k1, k2)`` pair of
+    the input key's shape — so ``key, sub = split(key)`` walks the chain
+    as the JAX engine does."""
+    k1, k2 = key
+    idx = torch.arange(int(num), dtype=torch.int64, device=k1.device)
+    y0, y1 = threefry2x32(k1[..., None], k2[..., None], idx >> 32,
+                          idx & _MASK)
+    return tuple((y0[..., i], y1[..., i]) for i in range(int(num)))
 
 
 def random_bits(key, shape) -> torch.Tensor:
@@ -107,6 +122,7 @@ __all__ = [
     "fold_in",
     "gumbel",
     "random_bits",
+    "split",
     "threefry2x32",
     "uniform",
 ]

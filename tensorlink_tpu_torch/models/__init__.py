@@ -1,7 +1,8 @@
-"""Model configuration, presets and the decoder building blocks."""
+"""Model configuration, presets, the dense KV cache and the decoder."""
 
-from .base import ModelConfig
+from .base import KVCache, ModelConfig
 from .registry import config_presets
-from .transformer import init_params
+from .transformer import forward, init_params
 
-__all__ = ["ModelConfig", "config_presets", "init_params"]
+__all__ = ["KVCache", "ModelConfig", "config_presets", "forward",
+           "init_params"]

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tensorlink_tpu_torch"
-KERNELS = ("paged_attention", "ragged_paged_attention")
+KERNELS = ("flash_attention", "paged_attention", "ragged_paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +33,10 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (ctypes passes an undeclared pointer as a 32-bit int)
 _ARGTYPES = {
+    "flash_attention": (
+        "tl_flash_attention",
+        [_P] * 4 + [_I] * 6 + [ctypes.c_longlong] * 6 + [_I, _F, _P],
+    ),
     "paged_attention": (
         "tl_paged_attention",
         [_P] * 10 + [_I] * 8 + [_F, _P],

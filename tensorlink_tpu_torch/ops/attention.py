@@ -1,7 +1,12 @@
-"""Paged attention for the serving step (port of
-``tensorlink_tpu/ops/attention.py``).
+"""Attention kernels (port of ``tensorlink_tpu/ops/attention.py``).
 
-Three functions, each over full-precision, int8 or packed-int4 pages:
+:func:`flash_attention` — causal offset-0 attention over dense ``[B, T,
+H, hd]`` tensors with an online softmax and an optional sliding window:
+the dense engine's fresh-cache prefill (``models/transformer.py::
+forward`` with ``flash_prefill``).
+
+Three paged functions, each over full-precision, int8 or packed-int4
+pages:
 
 - :func:`ragged_paged_attention` — the unified prefill+decode step's
   attention over a fixed ``[S, C]`` query block with per-slot ``(start,
@@ -25,8 +30,7 @@ Pages are ``[P, Hkv, page, hd]`` (kv-head-major, the JAX layout), block
 tables int32 ``[S, n_pp]``. Quantized pages are int8 with f32 scales
 ``[P, Hkv, page]`` (``k_scale``/``v_scale``, one per position and head);
 packed int4 pages have a trailing dim of ``hd / 2``, two values per byte
-in the split-half layout of ``models/quant.py``. ``flash_attention`` is
-not in this slice.
+in the split-half layout of ``models/quant.py``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,116 @@ _MAX_SMEM = 232448  # bytes of shared memory a Hopper block may use
 _TILE_ROWS = 16  # query rows per tile: ops/csrc/paged_common.cuh
 _SPLIT_PAGES = 16  # pages per attend block: ops/csrc/paged_common.cuh
 FORMATS = ("fp", "int8", "int4")  # page format codes 0, 1, 2 of the kernels
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, T, Hq, hd]
+    k: torch.Tensor,  # [B, T, Hkv, hd]
+    v: torch.Tensor,  # [B, T, Hkv, hd]
+    *,
+    scale: float,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Plain causal offset-0 attention — the CPU path and what the CUDA
+    kernel is held against. What the Pallas ``_flash_kernel`` computes:
+    float32 scores, query ``i`` sees keys ``j <= i`` (and ``j > i -
+    window`` with a window), softmax and PV in float32 with the kernel's
+    guards (a row with no visible key gives zeros, the denominator is
+    floored at 1e-30), one cast to q's dtype at the end. Unlike the einsum
+    ``attention``, the weights are not cast to v's dtype before PV."""
+    flash_attention_ref.calls += 1
+    B, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, hd).float()
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
+    i = torch.arange(T, device=q.device)[:, None]
+    j = torch.arange(T, device=q.device)[None, :]
+    ok = j <= i
+    if window is not None:
+        ok &= j > i - window
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    w = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgts,bskd->btkgd", w, v.float())
+    return out.reshape(B, T, Hq, hd).to(q.dtype)
+
+
+def _check_flash(q, k, v, window) -> None:
+    """The flash wrapper's contract for a CUDA launch: raise on anything
+    the kernel does not take."""
+    name = "flash_attention"
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: k and v must be {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q must be [B, T, Hq, hd], k/v [B, T, Hkv, "
+                         "hd]")
+    B, T, Hq, hd = q.shape
+    if k.shape[0] != B or k.shape[1] != T or k.shape[3] != hd:
+        raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if Hq % k.shape[2]:
+        raise ValueError(f"{name}: q heads do not divide over the kv heads")
+    if hd % 32 or hd > 256:
+        raise ValueError(f"{name}: head_dim must be a multiple of 32, <= 256")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be positive, got {window}")
+    elt = q.element_size()
+    for t in (q, k, v):
+        # rows are read in place: heads packed, 16-byte aligned rows
+        if t.stride(3) != 1 or t.stride(2) != hd:
+            raise ValueError(f"{name}: each token's heads must be packed "
+                             "[H, hd] rows")
+        if t.data_ptr() % 16 or (t.stride(0) * elt) % 16 \
+                or (t.stride(1) * elt) % 16:
+            raise ValueError(f"{name}: rows must be 16-byte aligned")
+    if q.device.type != "cuda":
+        raise TypeError(f"{name}: tensors must be on a CUDA device or the CPU")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: all tensors must be on {q.device}")
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, T, Hq, hd]
+    k: torch.Tensor,  # [B, T, Hkv, hd]
+    v: torch.Tensor,  # [B, T, Hkv, hd]
+    *,
+    scale: float,
+    block_q: int = 128,
+    block_k: int = 128,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Causal offset-0 attention; returns ``[B, T, Hq, hd]`` in q's dtype.
+    ``window`` applies Mistral-style sliding-window masking (key ``j``
+    visible from ``i`` iff ``i - window < j <= i``). Keeps the JAX
+    contract that ``T`` is a multiple of ``min(block_q, T)`` and
+    ``min(block_k, T)`` (``ValueError`` otherwise); the CUDA kernel tiles
+    on its own. CPU tensors take :func:`flash_attention_ref`; CUDA
+    tensors launch ``ops/csrc/flash_attention.cu`` on the current stream,
+    with no synchronisation, reading q/k/v in place through their batch
+    and token strides, or raise."""
+    B, T, Hq, hd = q.shape
+    bq, bk = min(block_q, T), min(block_k, T)
+    if T % bq or T % bk:
+        raise ValueError(
+            f"seq len {T} must divide block sizes ({bq}, {bk}) — the "
+            "engine's bucketed prefill shapes guarantee this"
+        )
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale=scale, window=window)
+    _check_flash(q, k, v, window)
+    out = torch.empty((B, T, Hq, hd), dtype=q.dtype, device=q.device)
+    _launch(
+        "flash_attention", "tl_flash_attention", q,
+        (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+         int(q.dtype == torch.bfloat16), B, T, Hq, k.shape[2], hd,
+         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+         v.stride(1), 0 if window is None else int(window), float(scale)),
+    )
+    flash_attention.launches += 1
+    return out
 
 
 def _gather_pages(pages, scales, block_tables, shape):
@@ -410,7 +524,7 @@ def paged_attention(
 
 _WRAPPERS = (ragged_paged_attention, paged_attention, paged_prefill_attention)
 _REFS = (ragged_paged_attention_ref, paged_attention_ref,
-         paged_prefill_attention_ref)
+         paged_prefill_attention_ref, flash_attention_ref)
 
 
 def reset_counts() -> None:
@@ -418,6 +532,7 @@ def reset_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
         fn.launches_by_format = dict.fromkeys(FORMATS, 0)
+    flash_attention.launches = 0
     for fn in _REFS:
         fn.calls = 0
 
@@ -426,6 +541,8 @@ reset_counts()
 
 __all__ = [
     "FORMATS",
+    "flash_attention",
+    "flash_attention_ref",
     "paged_attention",
     "paged_attention_ref",
     "paged_prefill_attention",

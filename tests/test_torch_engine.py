@@ -49,7 +49,9 @@ from tensorlink_tpu_torch.engine.generate import GenerationEngine
 from tensorlink_tpu_torch.engine.sampling import SamplingParams
 from tensorlink_tpu_torch.ml.batching import ContinuousBatcher
 
-torch.set_num_threads(2)
+# one intra-op thread: a JAX call in this process can leave torch's worker
+# threads computing exp off by up to 1e-4 (tests/test_torch_flash.py)
+torch.set_num_threads(1)
 
 JCFG = JModelConfig(
     family="qwen3", vocab_size=258, d_model=64, n_layers=2, n_heads=4,

@@ -27,7 +27,9 @@ from tensorlink_tpu_torch.engine.sampling import (
     sample,
 )
 
-torch.set_num_threads(2)
+# one intra-op thread: a JAX call in this process can leave torch's worker
+# threads computing exp off by up to 1e-4 (tests/test_torch_flash.py)
+torch.set_num_threads(1)
 
 SEEDS = (0, 1, -1, 7, 12345, 2**31 - 1, -(2**31), -987654321)
 STEPS = (0, 1, 2, 63, 1000, 2**31 - 1)
