@@ -14,15 +14,22 @@ Phases (any failure raises and exits non-zero):
    and paged_prefill_attention, against its plain PyTorch version at the
    main path's shapes and at small edge cases (float32 rtol = atol =
    2e-5; bfloat16 q compared in float32 at 1.6e-2); a known-answer check
-   of the int4 split-half nibble order inside the kernels; then each
-   variant timed at the main path's shape in bfloat16 (CUDA events,
-   median of 30 runs after warm-up) beside its plain version, torch's
+   of the int4 split-half nibble order inside the kernels; the ragged
+   kernel's bf16 rows bitwise equal however a chunk is framed; then each
+   variant timed at the main path's shape in bfloat16 (kernel_ms and
+   library_ms eager: median of 30 calls between CUDA events, the host
+   work of each call included; device_ms and library_device_ms: 10 calls
+   captured in a CUDA graph, median of 30 replays) beside its plain
+   version, torch's
    scaled_dot_product_attention over pre-gathered KV where one call
    computes the same function, and its bound on the card. The flash
    kernel likewise: against its plain version on the main shape (B 4, T
    2048, Hq 16, Hkv 8, hd 128), tests/test_ops.py's shapes, three sliding
    windows, T 100 and 37 and head_dim 64 and 256; timed at the main shape
-   beside one causal GQA scaled_dot_product_attention call.
+   beside one causal GQA scaled_dot_product_attention call. bfloat16 runs
+   the tensor-core bodies of flash and of the ragged kernel (also at
+   head_dim 16, test_ops.py's MQA and prefill shapes), float32 and
+   paged_attention the scalar bodies.
 4. Step parity: qwen3-0p6b at full width in float32, three
    paged_ragged_step chunks on a mixed block with the kernels and with
    their plain versions, over fp, int8 and int4 pages — counts and
@@ -45,7 +52,12 @@ Phases (any failure raises and exits non-zero):
    the flash kernel and through its plain version — every layer from the
    same input within rtol = atol = 2e-5, last-token logits within a limit
    set from readings — and greedy generate_compiled, beam and lookahead
-   token-equal on both paths.
+   token-equal on both paths. Then bf16 parity: qwen3-0p6b in bfloat16,
+   the tensor-core bodies on real activations: one ragged chunk's layers
+   over MAIN's mixed block (fp pages) and one flash prefill of two
+   prompts, each layer's attention output from the kernel against the
+   plain version's on the same inputs, per row max |diff| within 1.6e-2
+   x the row's max |plain|; a planted off-by-one mask must fail that.
 7. Dense serving: qwen3-0p6b at full width in bfloat16 with
    flash_attention on: generate_compiled and generate_chunked (equal
    tokens) on 8 mixed greedy/sampled requests, a 3000-token prompt
@@ -61,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -113,9 +126,38 @@ SOURCE = {
     "paged_attention": "paged_attention.cu",
     "paged_prefill_attention": "ragged_paged_attention.cu",
 }
+_RAGGED_DESIGN = (
+    "bf16: tensor cores (mma.sync m16n8k16, f32 accumulators), 64-row "
+    "tiles of one (slot, kv head), 64-position key stages gathered through "
+    "the block table by cp.async into a 2- or 3-stage ring (2 for fp pages "
+    "at hd 128: two blocks an SM), 512-position splits "
+    "merged by a combine pass; int8/int4 codes widened exactly to bf16, K "
+    "scales on score columns, V scales folded into P. f32: scalar f32 "
+    "FMAs over 16-row tiles, 16 pages per block, dequantized at the load")
+DESIGN = {
+    "ragged_paged_attention": _RAGGED_DESIGN,
+    "paged_prefill_attention": "the ragged kernel with S = 1; "
+                               + _RAGGED_DESIGN,
+    "paged_attention": "bf16 and f32: scalar f32 FMAs over 16-row tiles, "
+                       "16 pages per block, dequantized at the load",
+    "flash_attention": (
+        "bf16: warpgroup tensor cores (wgmma m64nNk16 from 128B-swizzled "
+        "shared tiles, f32 accumulators, P in registers as the PV A "
+        "operand), 2 warpgroups x 64 rows over the G heads of a kv head, "
+        "64-key K/V tiles through a 2-stage cp.async ring, 2 blocks per "
+        "SM at hd <= 128, q tiles with the most keys first. f32: scalar "
+        "f32 FMAs, 64-row x 32-key tiles per query head"),
+}
 # dense parity: f32 last-token logits, |kernel - plain| after 28 layers of
 # a flash prefill: H100 reading 6.5e-6 (plain logits std 0.64)
 DENSE_LOGITS = 2e-5
+# bf16 parity: each full-width layer's attention output (before o_proj and
+# the residual), the tensor-core kernel against its plain version on the
+# same inputs, per row: max |diff| within this times the row's max
+# |plain| (the kernels' own bf16 tolerance, per output row). A planted
+# fault, the plain version with each row's own key masked (an off-by-one
+# causal mask), must read above it
+BF16_ATTN_TOL = 1.6e-2
 DENSE_SEQ_BUCKETS = (128, 256, 512, 1024, 2048)
 DENSE_NEW = 64  # new tokens per request in the dense serving run
 SERVE_RUNS = (  # (page format, weight quant, requests)
@@ -156,9 +198,40 @@ def build_phase() -> None:
     secs = _build.build_all()
     log(f"build: {json.dumps(secs)} wall {time.monotonic() - t0:.2f}s")
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for fn, usage in _ptxas_usage(_build.build_log(name)):
+            log(f"  ptxas {name} {fn}: {usage}")
+
+
+def _ptxas_usage(text: str) -> list:
+    """``(kernel<template args>, "registers, static shared memory;
+    spills")`` per entry function in ``nvcc -Xptxas -v`` output. Dynamic
+    shared memory is set at the launch (each source's shape structs)."""
+    out, fn, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = _kernel_name(m.group(1)), ""
+        elif fn and "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif fn and "registers" in line:
+            out.append((fn, f"{line.split(':', 1)[-1].strip()}; {spill}"))
+            fn = None
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel: its identifier and template
+    arguments (dtype, integers)."""
+    m = re.search(r"(flash_bf16_kernel|flash_kernel|attend_bf16|"
+                  r"combine_bf16|attend_kernel|combine_kernel)(I.*)?",
+                  mangled)
+    if not m:
+        return mangled
+    targs = (m.group(2) or "")[1:]
+    args = ["float"] if targs.startswith("f") else \
+        ["bf16"] if targs.startswith("13__nv_bfloat16") else []
+    ints = re.findall(r"Li(\d+)E", targs)
+    return m.group(1) + (f"<{','.join(args + ints)}>" if targs else "")
 
 
 # -- phase 3 -----------------------------------------------------------
@@ -227,15 +300,35 @@ EDGE_CASES = [
     (2, 8, 4, 2, 32, 8, 4, [13, 0], [5, 0], [14, 3]),  # verify-style rows
     (2, 4, 32, 2, 256, 16, 3, [20, 1], [4, 3], [47, 16]),  # G 16, hd 256
     (2, 3, 48, 2, 128, 32, 2, [5, 60], [3, 1], [63, 33]),  # G 24: 2 tiles
+    # pages that neither divide the bf16 body's 64-position stages nor are
+    # multiples of them: 24, 96, and 48 across a 512-position split
+    (3, 16, 8, 2, 128, 24, 6, [0, 40, 100], [16, 16, 1], [24, 130, 101]),
+    (2, 4, 8, 2, 64, 96, 3, [200, 5], [4, 1], [204, 6]),
+    (2, 16, 4, 2, 32, 48, 12, [500, 0], [16, 3], [516, 575]),
+    # head_dim 16: bf16 only (the scalar bodies need a multiple of 32, so
+    # f32 and paged_attention skip these); the page-24 case's int4 rows
+    # are 8 bytes
+    (3, 8, 8, 1, 16, 8, 4, [0, 3, 17], [8, 8, 1], [5, 9, 18]),
+    (2, 16, 4, 2, 16, 16, 3, [0, 20], [16, 1], [16, 21]),
+    (2, 8, 4, 1, 16, 24, 4, [30, 3], [8, 1], [40, 90]),
 ]
-# paged_prefill_attention: tests/test_ops.py's small cases the kernel takes
-# (its head_dim must be a multiple of 32), as (C, Hq, Hkv, hd, page, n_pp,
-# start), plus MAIN's second slot (C 128 at start 896, n_pp 256)
+# paged_prefill_attention: tests/test_ops.py's small cases, as (C, Hq, Hkv,
+# hd, page, n_pp, start), plus MAIN's second slot (C 128 at start 896,
+# n_pp 256) and a page of 24; its head_dim 16 case in bf16 only
 PREFILL_CASES = [
     (8, 8, 2, 32, 8, 4, 0),
     (8, 8, 2, 32, 8, 4, 13),
     (4, 8, 1, 64, 4, 8, 27),
+    (8, 8, 2, 128, 24, 4, 50),
+    (16, 4, 4, 16, 16, 3, 16),
 ]
+
+
+def _scalar_takes(hd: int) -> bool:
+    """The scalar bodies (every f32 launch, and paged_attention in either
+    dtype) need head_dim a multiple of 32; the bf16 tensor-core bodies
+    take any multiple of 16."""
+    return hd % 32 == 0
 
 
 def _err(a, b, tol):
@@ -267,6 +360,9 @@ def kernel_checks() -> dict:
 
         for fmt in FORMATS:
             for i, spec in enumerate(cases):
+                scalar = _scalar_takes(spec[4])
+                if dtype == torch.float32 and not scalar:
+                    continue
                 c = _case(rng, *spec, dtype=dtype, fmt=fmt)
                 got, want = _ragged(c, True), _ragged(c, False)
                 torch.cuda.synchronize()
@@ -275,15 +371,18 @@ def kernel_checks() -> dict:
                     tail = got[s, nv:]
                     if tail.numel() and float(tail.abs().max()) != 0.0:
                         raise AssertionError("a row past n_valid is not zero")
-                got, want = _decode(c, True), _decode(c, False)
-                torch.cuda.synchronize()
-                note(("paged_attention", fmt), _err(got, want, tol))
+                if scalar:
+                    got, want = _decode(c, True), _decode(c, False)
+                    torch.cuda.synchronize()
+                    note(("paged_attention", fmt), _err(got, want, tol))
                 if i == 0:  # MAIN's slot 1: C 128 at 896 over 256 pages
                     got, want = _prefill(c, True), _prefill(c, False)
                     torch.cuda.synchronize()
                     note(("paged_prefill_attention", fmt),
                          _err(got, want, tol))
             for C, Hq, Hkv, hd, page, n_pp, start in PREFILL_CASES:
+                if dtype == torch.float32 and not _scalar_takes(hd):
+                    continue
                 # slot 1 of a 2-slot case: its table row, its start
                 c = _case(rng, 2, C, Hq, Hkv, hd, page, n_pp, [0, start],
                           [C, C], [0, 0], dtype=dtype, fmt=fmt)
@@ -335,6 +434,30 @@ def nibble_order_check() -> None:
     log("int4 nibble order (split-half) inside the kernels: exact")
 
 
+def framing_check() -> None:
+    """Chunk-framing invariance of the ragged kernel's bf16 body, which
+    the prefix cache's bitwise reuse rests on: a prefill slot's 128 rows
+    at start 300, run whole and as the chunks [0, 40), [40, 128),
+    [0, 64) and [64, 128) (each at its own start, beside an idle slot),
+    give bitwise-equal rows in every page format."""
+    dev = torch.device("cuda")
+    for fmt in FORMATS:
+        c = _case(np.random.default_rng(5), 2, 128, 16, 8, 128, 16, 64,
+                  [300, 0], [128, 0], [0, 0], torch.bfloat16, fmt)
+        full = _ragged(c, True)
+        for a, b in ((0, 40), (40, 128), (0, 64), (64, 128)):
+            part = att.ragged_paged_attention(
+                c["q"][:, a:b].contiguous(), c["k"], c["v"], c["bt"],
+                torch.tensor([300 + a, 0], dtype=torch.int32, device=dev),
+                torch.tensor([b - a, 0], dtype=torch.int32, device=dev),
+                scale=c["scale"], **c["sc"])
+            if not torch.equal(part[0], full[0, a:b]):
+                raise AssertionError(f"ragged {fmt}: rows [{a}, {b}) differ "
+                                     "bitwise from the whole chunk's")
+    log("ragged chunk framing (bf16; fp, int8, int4 pages): rows bitwise "
+        "equal over 4 framings of a 128-row chunk")
+
+
 def _time_ms(fn, runs=30, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -348,6 +471,37 @@ def _time_ms(fn, runs=30, warmup=3) -> float:
         b.record()
         b.synchronize()
         ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def _graph_ms(fn, reps=10, runs=30) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, the graph replayed between CUDA events (median of ``runs``
+    replays after warm-up), divided by ``reps``. The wrappers' host work
+    (checks, allocation, the launch itself) is outside the timed region,
+    which _time_ms (eager) includes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / reps)
+    del graph
     return statistics.median(ts)
 
 
@@ -444,19 +598,24 @@ def kernel_timings() -> dict:
         )
         for name in REPLACES:
             r = out[(name, fmt)]
-            r["ms"] = _time_ms(r.pop("fn"))
+            fn = r.pop("fn")
+            r["ms"] = _time_ms(fn)
+            r["device_ms"] = _graph_ms(fn)
             r["plain_ms"] = _time_ms(r.pop("plain"), runs=20)
-            r["library_ms"] = _time_ms(lib[name]) if name in lib else None
+            has = name in lib
+            r["library_ms"] = _time_ms(lib[name]) if has else None
+            r["library_device_ms"] = _graph_ms(lib[name]) if has else None
             t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = r["flops"] / PEAK_FLOPS[dtype] * 1e3
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            lib_s = "null" if r["library_ms"] is None else \
-                f"{r['library_ms']:.4f}"
+            lib_s, lib_d = ("null", "null") if not has else (
+                f"{r['library_ms']:.4f}", f"{r['library_device_ms']:.4f}")
             log(f"{name}/{fmt} (bf16 q, main-path shape): kernel_ms "
                 f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
                 f"{lib_s} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}: "
-                f"{r['bytes']} B, {r['flops']} flop)")
+                f"{r['bytes']} B, {r['flops']} flop); device kernel_ms "
+                f"{r['device_ms']:.4f} library_ms {lib_d}")
         del c
         torch.cuda.empty_cache()
     return out
@@ -464,9 +623,10 @@ def kernel_timings() -> dict:
 
 # flash_attention: (B, T, Hq, Hkv, hd, window). The main shape first (k/v
 # read in place from a longer cache, as the engine passes them), then
-# tests/test_ops.py's shapes the kernel takes (head_dim a multiple of 32),
-# its three windows, two T that are no multiple of the kernel's tiles,
-# and head_dim 64 and 256
+# tests/test_ops.py's shapes, its three windows, two T that are no
+# multiple of the kernel's tiles, and head_dim 64 and 256; the head_dim 16
+# shapes (test_ops.py's MQA shape, and windows 8 and 16 below a tile) run
+# in bf16 only (the f32 scalar body needs a multiple of 32)
 FLASH_MAIN = (4, 2048, 16, 8, 128, None)
 FLASH_CASES = [
     FLASH_MAIN,
@@ -475,6 +635,7 @@ FLASH_CASES = [
     (1, 128, 4, 2, 32, 8), (1, 128, 4, 2, 32, 64), (1, 128, 4, 2, 32, 200),
     (2, 100, 16, 8, 128, None), (3, 37, 16, 8, 128, None),
     (2, 512, 8, 2, 64, 200), (1, 256, 8, 1, 256, None), (2, 37, 8, 4, 256, 16),
+    (2, 128, 8, 1, 16, None), (1, 128, 4, 2, 16, 8), (2, 100, 8, 2, 16, 16),
 ]
 
 
@@ -507,6 +668,8 @@ def flash_checks() -> dict:
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         dname = str(dtype).split(".")[1]
         for spec in FLASH_CASES:
+            if dtype == torch.float32 and not _scalar_takes(spec[4]):
+                continue
             c = _flash_case(rng, *spec, dtype=dtype)
             got, want = _flash(c, True), _flash(c, False)
             torch.cuda.synchronize()
@@ -537,11 +700,16 @@ def flash_timing() -> dict:
     c = _flash_case(np.random.default_rng(12), *FLASH_MAIN, dtype=dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (c[n].transpose(1, 2) for n in ("q", "k", "v"))
+    def kernel():
+        return _flash(c, True)
+
+    def library():
+        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
     r = dict(
-        ms=_time_ms(lambda: _flash(c, True)),
+        ms=_time_ms(kernel), device_ms=_graph_ms(kernel),
         plain_ms=_time_ms(lambda: _flash(c, False), runs=10),
-        library_ms=_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)),
+        library_ms=_time_ms(library), library_device_ms=_graph_ms(library),
         # each input read once, the output written once; 4 * hd FLOPs per
         # visible (query head, key) pair: T (T + 1) / 2 pairs per head
         bytes=(2 * B * T * Hq * hd + 2 * B * T * Hkv * hd) * 2,
@@ -554,7 +722,9 @@ def flash_timing() -> dict:
     log(f"flash_attention (bf16, B {B} T {T} Hq {Hq} Hkv {Hkv} hd {hd}): "
         f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} library_ms "
         f"{r['library_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
-        f"({r['bound_by']}: {r['bytes']} B, {r['flops']} flop)")
+        f"({r['bound_by']}: {r['bytes']} B, {r['flops']} flop); device "
+        f"kernel_ms {r['device_ms']:.4f} library_ms "
+        f"{r['library_device_ms']:.4f}")
     del c, qt, kt, vt
     torch.cuda.empty_cache()
     return r
@@ -1131,6 +1301,155 @@ def dense_parity() -> dict:
     return res
 
 
+def _attn_ratio(got, want, tol) -> float:
+    """The worst attention-output row's max |got - want| over tol times
+    that row's max |want| (<= 1 passes; a row of plain zeros must be
+    zeros)."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    ref = want.float().abs().amax(-1)
+    return float((d / (tol * ref.clamp_min(1e-30))).max())
+
+
+def _held(real, plain, fault, readings: list):
+    """``real`` (a kernel wrapper) wrapped so that every call is also
+    computed by ``plain`` and by ``fault`` on the same inputs, appending
+    ``(the kernel's _attn_ratio, the fault's)`` to ``readings``."""
+
+    def held(*a, **kw):
+        out = real(*a, **kw)
+        want = plain(*a, **kw)
+        readings.append((_attn_ratio(out, want, BF16_ATTN_TOL),
+                         _attn_ratio(fault(*a, **kw), want, BF16_ATTN_TOL)))
+        return out
+
+    return held
+
+
+def _ragged_plain(q, kp, vp, bt, starts, nv, **kw):
+    return att.ragged_paged_attention_ref(q, kp, vp, bt, starts, nv, **kw)
+
+
+def _ragged_fault(q, kp, vp, bt, starts, nv, **kw):
+    """The plain version with each row's own key masked: every row sits
+    one position earlier."""
+    return att.ragged_paged_attention_ref(q, kp, vp, bt, starts - 1, nv, **kw)
+
+
+def _flash_plain(q, k, v, *, scale, window=None, **_blocks):
+    return att.flash_attention_ref(q, k, v, scale=scale, window=window)
+
+
+def _flash_fault(q, k, v, *, scale, window=None, **_blocks):
+    """The plain version with each row's own key masked: row t over keys
+    before t (row 0 sees none and gives zeros)."""
+    rest = att.flash_attention_ref(q[:, 1:], k[:, :-1], v[:, :-1],
+                                   scale=scale, window=window)
+    return torch.cat([torch.zeros_like(q[:, :1]), rest], dim=1)
+
+
+def bf16_parity() -> dict:
+    """qwen3-0p6b at full width in bfloat16, where the tensor-core bodies
+    run on the model's own (qk-normed) activations: (a) one ragged chunk's
+    layers over MAIN's mixed block (2 prefills, 5 decodes, an idle slot)
+    with fp pages of seeded random context, and (b) one flash prefill of
+    the dense engine over two prompts (300 and 512 tokens, bucket 512).
+    Each layer's attention output, the kernel's against the plain
+    version's on the same inputs, is held per row to BF16_ATTN_TOL; the
+    planted fault (each row's own key masked) must read above it at every
+    layer."""
+    cfg = config_presets()["qwen3-0p6b"]  # bfloat16
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2468)
+    params = init_params(cfg, g, device=dev)
+    S, C, page = MAIN["S"], MAIN["C"], MAIN["page"]
+    cache = PagedKVCache.init(cfg, S, page_size=page,
+                              max_len=MAIN["n_pp"] * page, device=dev)
+    n_pp = cache.pages_per_slot
+    rng = np.random.default_rng(8)
+    perm = rng.permutation(np.arange(1, cache.n_pages))[: S * n_pp]
+    cache.block_tables.copy_(torch.from_numpy(
+        perm.reshape(S, n_pp).astype(np.int32)))
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(97)
+    cache.k.normal_(generator=gk)
+    cache.v.normal_(generator=gk)
+    blk = torch.tensor(rng.integers(0, cfg.vocab_size, size=(S, C)),
+                       dtype=torch.int32, device=dev)
+    starts, nv = (torch.tensor(a, dtype=torch.int32, device=dev)
+                  for a in (MAIN_STARTS, MAIN_NVALID))
+    t0 = time.monotonic()
+    att.reset_counts()
+    paged_r: list = []
+    real = paged.ragged_paged_attention  # what _ragged_block launches
+    paged.ragged_paged_attention = _held(real, _ragged_plain, _ragged_fault,
+                                         paged_r)
+    try:
+        bt = cache.block_tables
+        write_pg, write_off, pos, _ = paged._ragged_write_indices(
+            bt, starts, nv, page, n_pp, C)
+        x = paged._embed_tokens(params, blk.long(), cfg)
+        cos, sin = paged.rope_tables(pos, paged._rope_dim(cfg),
+                                     cfg.rope_theta)
+        for i, lp in enumerate(paged._layers(params)):
+            x, _ = paged._ragged_block(x, lp, cfg, cos, sin,
+                                       cache.layer_kv(i), write_pg,
+                                       write_off, bt, starts, nv, True)
+    finally:
+        paged.ragged_paged_attention = real
+    launches = att.ragged_paged_attention.launches_by_format["fp"]
+    if launches != cfg.n_layers or len(paged_r) != cfg.n_layers:
+        raise AssertionError(f"bf16 parity: {launches} ragged launches for "
+                             f"{cfg.n_layers} layers")
+    del cache
+    eng = GenerationEngine(cfg.with_(flash_attention=True), params,
+                           max_seq_len=1024, seq_buckets=(128, 256, 512),
+                           device="cuda")
+    del params
+    toks = np.zeros((2, 512), np.int32)
+    for i, n in enumerate((300, 512)):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    att.reset_counts()
+    dense_r: list = []
+    flash = _held(att.flash_attention, _flash_plain, _flash_fault, dense_r)
+    dcache = eng.new_cache(2)
+    tok_t = torch.tensor(toks, device=dev).long()
+    pos = torch.arange(512, device=dev)[None].expand(2, 512)
+    cos, sin = ttr.rope_tables(pos, ttr._rope_dim(cfg), cfg.rope_theta)
+    x = ttr._embed_tokens(eng.params, tok_t, cfg)
+
+    def attn(q, k, v, _bias, scale):
+        return flash(q, k, v, scale=scale, window=cfg.sliding_window)
+
+    for i, lp in enumerate(ttr._layers(eng.params)):
+        x = ttr._block(x, lp, cfg, cos, sin, None, dcache.layer_kv(i),
+                       dcache.length, attn, 512)
+    if att.flash_attention.launches != cfg.n_layers \
+            or len(dense_r) != cfg.n_layers:
+        raise AssertionError(f"bf16 parity: {att.flash_attention.launches} "
+                             f"flash launches for {cfg.n_layers} layers")
+    res = {}
+    for key, r in (("ragged", paged_r), ("flash", dense_r)):
+        res[key] = max(k for k, _ in r)
+        res[f"{key}_fault"] = min(f for _, f in r)
+    log(f"bf16 parity (qwen3-0p6b bf16, each layer's attention output, "
+        f"kernel vs plain on the same inputs, per row max |diff| within "
+        f"{BF16_ATTN_TOL} x the row's max |plain|): ragged chunk over "
+        f"MAIN's block {res['ragged']:.3f}x the bound (own-key fault, least "
+        f"over layers: {res['ragged_fault']:.3f}x), flash prefill "
+        f"{res['flash']:.3f}x (fault {res['flash_fault']:.3f}x); "
+        f"{time.monotonic() - t0:.1f}s")
+    if max(res["ragged"], res["flash"]) > 1.0:
+        raise AssertionError(f"bf16 parity: an attention output differs "
+                             f"beyond the bound: {res}")
+    if min(res["ragged_fault"], res["flash_fault"]) <= 1.0:
+        raise AssertionError(f"bf16 parity: the planted fault passes the "
+                             f"check, which then proves nothing: {res}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
 # -- phase 7 -----------------------------------------------------------
 def _sync_s(fn):
     """Run ``fn`` and return ``(its result, wall seconds to the device's
@@ -1249,12 +1568,14 @@ def main() -> None:
     _phase("build", build_phase)
     errs = _phase("kernels", kernel_checks)
     _phase("nibble order", nibble_order_check)
+    _phase("chunk framing", framing_check)
     ferrs = _phase("flash kernel", flash_checks)
     times = _phase("kernel timings", kernel_timings)
     ftime = _phase("flash timing", flash_timing)
     for kv_quant in ("none", "int8", "int4"):
         _phase(f"step parity {kv_quant}", step_parity, kv_quant)
     _phase("dense parity", dense_parity)
+    _phase("bf16 parity", bf16_parity)
     serving = {}
     for kv_quant, quant, n_req in SERVE_RUNS:
         serving[_fmt(kv_quant)] = _phase(f"serving {kv_quant}", serving_phase,
@@ -1271,9 +1592,12 @@ def main() -> None:
             "launches": serving[fmt]["launches_by_format"][name][fmt],
             "max_abs_err": errs[(name, fmt)]["float32"],
             "max_abs_err_bf16": errs[(name, fmt)]["bfloat16"],
-            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "kernel_ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "design": DESIGN[name],
         }
         if fmt == "fp":
             entry["library_call"] = \
@@ -1297,9 +1621,12 @@ def main() -> None:
         "launches": dense["launches"],
         "max_abs_err": ferrs["float32"], "max_abs_err_bf16": ferrs["bfloat16"],
         "ms": ftime["ms"], "kernel_ms": ftime["ms"],
+        "device_ms": ftime["device_ms"],
         "plain_ms": ftime["plain_ms"], "bound_ms": ftime["bound_ms"],
         "bound_by": ftime["bound_by"], "library_ms": ftime["library_ms"],
+        "library_device_ms": ftime["library_device_ms"],
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
+        "design": DESIGN["flash_attention"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,9 @@ NEG_INF = -1e30
 _MAX_SMEM = 232448  # bytes of shared memory a Hopper block may use
 _TILE_ROWS = 16  # query rows per tile: ops/csrc/paged_common.cuh
 _SPLIT_PAGES = 16  # pages per attend block: ops/csrc/paged_common.cuh
+# the ragged kernel's bf16 body (ops/csrc/ragged_paged_attention.cu):
+_TC_TILE_ROWS = 64  # query rows per tile
+_SPLIT_KEYS = 512  # key positions per attend block
 FORMATS = ("fp", "int8", "int4")  # page format codes 0, 1, 2 of the kernels
 
 
@@ -79,6 +82,16 @@ def flash_attention_ref(
     return out.reshape(B, T, Hq, hd).to(q.dtype)
 
 
+def _check_head_dim(name, hd, tensor_cores) -> None:
+    """The bf16 tensor-core bodies take a product depth of 16; the scalar
+    bodies (f32, and paged_attention in either dtype) load 16-byte vectors
+    of f32 and need a multiple of 32."""
+    mult, body = (16, "bf16 tensor-core") if tensor_cores else (32, "scalar")
+    if hd % mult or hd > 256:
+        raise ValueError(f"{name}: head_dim must be a multiple of {mult}, "
+                         f"<= 256 (the {body} kernel)")
+
+
 def _check_flash(q, k, v, window) -> None:
     """The flash wrapper's contract for a CUDA launch: raise on anything
     the kernel does not take."""
@@ -96,8 +109,7 @@ def _check_flash(q, k, v, window) -> None:
                          f"{tuple(q.shape)}")
     if Hq % k.shape[2]:
         raise ValueError(f"{name}: q heads do not divide over the kv heads")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"{name}: head_dim must be a multiple of 32, <= 256")
+    _check_head_dim(name, hd, q.dtype == torch.bfloat16)
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be positive, got {window}")
     elt = q.element_size()
@@ -316,62 +328,92 @@ def _page_format(name, q, k_pages, v_pages, k_scale, v_scale) -> int:
                      f"(int8) or {hd // 2} (packed int4)")
 
 
-def _check_launch(name, q, k_pages, v_pages, ints, k_scale, v_scale):
+def _check_launch(name, q, k_pages, v_pages, ints, k_scale, v_scale,
+                  tensor_cores=False):
     """The wrapper's contract for a CUDA launch: raise on anything the
-    kernel does not take. Returns ``(Hkv, page, hd, fmt)`` with ``fmt``
-    the page format code of :func:`_page_format`."""
+    kernel does not take. ``tensor_cores``: the launch goes to the ragged
+    kernel's bf16 body (bf16 q), which takes head_dim a multiple of 16
+    and any page size; otherwise to a scalar body (head_dim a multiple of
+    32, the page's f32 tiles within a block's shared memory). Returns
+    ``(Hkv, page, hd, fmt)`` with
+    ``fmt`` the page format code of :func:`_page_format`."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
     fmt = _page_format(name, q, k_pages, v_pages, k_scale, v_scale)
-    if q.device.type != "cuda":
-        raise TypeError(f"{name}: tensors must be on a CUDA device or the CPU")
     _, Hkv, page, _ = k_pages.shape
     hd = q.shape[-1]
+    if q.shape[-2] % Hkv:
+        raise ValueError(f"{name}: q heads do not divide over the kv heads")
+    _check_head_dim(name, hd, tensor_cores)
+    if not tensor_cores:
+        smem = 4 * (_TILE_ROWS * (hd + 1) + page * (hd + 1) + page * hd
+                    + _TILE_ROWS * page + _TILE_ROWS * hd + 3 * _TILE_ROWS)
+        if smem > _MAX_SMEM:
+            raise ValueError(
+                f"{name}: page {page} x head_dim {hd} needs {smem} bytes "
+                f"of shared memory, more than a block's {_MAX_SMEM}"
+            )
+    dev = q.device
+    if dev.type != "cuda":
+        raise TypeError(f"{name}: tensors must be on a CUDA device or the CPU")
     scales = () if k_scale is None else (k_scale, v_scale)
     for t in (k_pages, v_pages, *scales, *ints):
-        if t.device != q.device:
-            raise ValueError(f"{name}: all tensors must be on {q.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index tensors must be int32")
     for t in (q, k_pages, v_pages, *scales, *ints):
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    # 16-byte vector loads: a page's bytes (page * row * elt) stay 16-byte
-    # multiples because row is a multiple of 16 elements (hd % 32 == 0)
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError(f"{name}: pages must be 16-byte aligned")
-    if q.shape[-2] % Hkv:
-        raise ValueError(f"{name}: q heads do not divide over the kv heads")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"{name}: head_dim must be a multiple of 32, <= 256")
-    smem = 4 * (_TILE_ROWS * (hd + 1) + page * (hd + 1) + page * hd
-                + _TILE_ROWS * page + _TILE_ROWS * hd + 3 * _TILE_ROWS)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"{name}: page {page} x head_dim {hd} needs {smem} bytes of "
-            f"shared memory, more than a block's {_MAX_SMEM}"
-        )
     return Hkv, page, hd, fmt
 
 
-def _workspace(q, S, Hkv, n_rows, hd, n_pp):
+def _workspace(q, S, Hkv, n_rows, hd, n_pp, page, tensor_cores=False):
     """The two-pass kernels' f32 partials: per (slot, kv head, row tile,
-    split) a tile of accumulators and its (max, denominator) pairs."""
-    n = S * Hkv * -(-n_rows // _TILE_ROWS) * -(-n_pp // _SPLIT_PAGES)
-    acc = torch.empty(n * _TILE_ROWS * hd, dtype=torch.float32,
-                      device=q.device)
-    ml = torch.empty(n * _TILE_ROWS * 2, dtype=torch.float32, device=q.device)
-    return acc, ml
+    split) a tile of accumulators and its (max, denominator) pairs. The
+    scalar bodies split 16 pages at a time over 16-row tiles; the bf16
+    body 512 key positions at a time over 64-row tiles. One allocation,
+    the accumulators first: returns ``(workspace, acc pointer, (m, l)
+    pointer)``."""
+    if tensor_cores:
+        rows, n_splits = _TC_TILE_ROWS, -(-(n_pp * page) // _SPLIT_KEYS)
+    else:
+        rows, n_splits = _TILE_ROWS, -(-n_pp // _SPLIT_PAGES)
+    n = S * Hkv * -(-n_rows // rows) * n_splits
+    ws = torch.empty(n * rows * (hd + 2), dtype=torch.float32,
+                     device=q.device)
+    acc = ws.data_ptr()
+    return ws, acc, acc + n * rows * hd * 4
+
+
+# A device's current stream as a raw handle: torch's own binding, which
+# its compiled kernels launch on; building the public Stream object on
+# every call was a large share of a launch's host work.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def _launch(name, fn_name, q, args):
+    """Call the entry point on q's device's current stream (switching the
+    current device only when q lies on another)."""
     from . import _build  # nvcc/ctypes only on the launch path
 
     lib = _build.load(name)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
+    fn = getattr(lib, fn_name)
+    index = q.device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _stream(index))
     if err:
         raise RuntimeError(
             f"{name} kernel launch failed: "
@@ -391,11 +433,12 @@ def _count(fn, fmt):
 def _ragged_launch(name, q, k_pages, v_pages, block_tables, starts,
                    n_valid, scale, k_scale, v_scale) -> tuple:
     """Check and launch ``ops/csrc/ragged_paged_attention.cu`` (its
-    attend and combine passes) on the current stream; returns ``(out,
-    fmt)``."""
+    attend and combine passes; bf16 q takes its tensor-core body, f32 q
+    its scalar one) on the current stream; returns ``(out, fmt)``."""
     ints = (block_tables, starts, n_valid)
+    tc = q.dtype == torch.bfloat16
     Hkv, page, hd, fmt = _check_launch(name, q, k_pages, v_pages, ints,
-                                       k_scale, v_scale)
+                                       k_scale, v_scale, tensor_cores=tc)
     if q.dim() != 4 or block_tables.dim() != 2:
         raise ValueError(f"{name}: q must be [S, C, Hq, hd], tables [S, n_pp]")
     S, C, Hq, _ = q.shape
@@ -404,14 +447,14 @@ def _ragged_launch(name, q, k_pages, v_pages, block_tables, starts,
         raise ValueError(f"{name}: per-slot tensors must have {S} rows")
     n_pp = block_tables.shape[1]
     out = torch.empty_like(q)
-    ws_acc, ws_ml = _workspace(q, S, Hkv, C * (Hq // Hkv), hd, n_pp)
+    _ws, ws_acc, ws_ml = _workspace(q, S, Hkv, C * (Hq // Hkv), hd, n_pp,
+                                    page, tensor_cores=tc)
     _launch(
         "ragged_paged_attention", "tl_ragged_paged_attention", q,
         (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
          _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-         starts.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-         ws_acc.data_ptr(), ws_ml.data_ptr(), int(q.dtype == torch.bfloat16),
-         fmt, S, C, Hq, Hkv, hd, page, n_pp, float(scale)),
+         starts.data_ptr(), n_valid.data_ptr(), out.data_ptr(), ws_acc,
+         ws_ml, int(tc), fmt, S, C, Hq, Hkv, hd, page, n_pp, float(scale)),
     )
     return out, fmt
 
@@ -509,14 +552,14 @@ def paged_attention(
         raise ValueError(f"{name}: per-slot tensors must have {S} rows")
     n_pp = block_tables.shape[1]
     out = torch.empty_like(q)
-    ws_acc, ws_ml = _workspace(q, S, Hkv, Hq // Hkv, hd, n_pp)
+    _ws, ws_acc, ws_ml = _workspace(q, S, Hkv, Hq // Hkv, hd, n_pp, page)
     _launch(
         name, "tl_paged_attention", q,
         (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
          _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-         lengths.data_ptr(), out.data_ptr(), ws_acc.data_ptr(),
-         ws_ml.data_ptr(), int(q.dtype == torch.bfloat16), fmt, S, Hq, Hkv,
-         hd, page, n_pp, float(scale)),
+         lengths.data_ptr(), out.data_ptr(), ws_acc, ws_ml,
+         int(q.dtype == torch.bfloat16), fmt, S, Hq, Hkv, hd, page, n_pp,
+         float(scale)),
     )
     _count(paged_attention, fmt)
     return out

@@ -340,6 +340,57 @@ def test_quantized_launch_contract_refuses(bad, err, match):
         tatt._check_launch("ragged_paged_attention", q, kp, kp, (), ks, vs)
 
 
+@pytest.mark.parametrize("name,hd,kind,page,err,match", [
+    # bf16 ragged and prefill launches take the tensor-core body
+    ("ragged_paged_attention", 16, "fp", 8, TypeError, "CUDA device"),
+    ("paged_prefill_attention", 16, "int8", 8, TypeError, "CUDA device"),
+    ("ragged_paged_attention", 16, "int4", 8, TypeError, "CUDA device"),
+    ("ragged_paged_attention", 48, "fp", 128, TypeError, "CUDA device"),
+    ("ragged_paged_attention", 24, "fp", 8, ValueError, "multiple of 16"),
+    ("paged_prefill_attention", 8, "fp", 8, ValueError, "multiple of 16"),
+    # any page size: each position's row is gathered on its own
+    ("ragged_paged_attention", 16, "fp", 12, TypeError, "CUDA device"),
+    ("ragged_paged_attention", 16, "int4", 1, TypeError, "CUDA device"),
+    ("paged_prefill_attention", 128, "int8", 24, TypeError, "CUDA device"),
+    ("ragged_paged_attention", 48, "int4", 96, TypeError, "CUDA device"),
+    # paged_attention keeps its scalar body in both dtypes
+    ("paged_attention", 16, "fp", 8, ValueError, "multiple of 32"),
+])
+def test_launch_contract_head_dim_by_body(name, hd, kind, page, err, match):
+    """The bf16 tensor-core body of the ragged kernel (ragged and prefill
+    launches) takes head_dim a multiple of 16 and any page size;
+    paged_attention's scalar body still needs a multiple of 32. A
+    well-formed CPU launch stops at the device check."""
+    q = torch.zeros(1, 4, hd, dtype=torch.bfloat16)
+    if kind == "fp":
+        kp, sc = torch.zeros(2, 1, page, hd, dtype=torch.bfloat16), None
+    else:
+        row = hd if kind == "int8" else hd // 2
+        kp = torch.zeros(2, 1, page, row, dtype=torch.int8)
+        sc = torch.ones(2, 1, page)
+    tc = name != "paged_attention"
+    with pytest.raises(err, match=match):
+        tatt._check_launch(name, q, kp, kp, (), sc, sc, tensor_cores=tc)
+
+
+@pytest.mark.parametrize("tc,rows,split", [
+    (False, 16, 16),  # scalar bodies: 16-row tiles, 16 pages per split
+    (True, 64, 512 // 16),  # bf16 body: 64-row tiles, 512 positions
+])
+def test_workspace_follows_the_kernel_tiles(tc, rows, split):
+    """The partials the wrapper allocates: one per (slot, kv head, row
+    tile, split), each ``rows x hd`` accumulators and ``rows x 2`` (m, l),
+    at MAIN's shape (S 8, C 128, G 2, hd 128, page 16, n_pp 256), in one
+    f32 allocation with the (m, l) pairs after the accumulators."""
+    q = torch.zeros(1)
+    S, Hkv, n_rows, hd, n_pp, page = 8, 8, 128 * 2, 128, 256, 16
+    ws, acc, ml = tatt._workspace(q, S, Hkv, n_rows, hd, n_pp, page,
+                                  tensor_cores=tc)
+    n = S * Hkv * -(-n_rows // rows) * -(-n_pp // split)
+    assert ws.numel() == n * rows * (hd + 2) and ws.dtype == torch.float32
+    assert acc == ws.data_ptr() and ml - acc == n * rows * hd * 4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernels_match_plain_versions(dtype):

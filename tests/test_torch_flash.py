@@ -10,9 +10,9 @@ against the einsum.
 - The wrapper keeps the JAX contract: ``ValueError`` when T is no
   multiple of its blocks; CPU tensors take the plain version (counted),
   never a launch.
-- The CUDA launch contract refuses what the kernel does not take
-  (head_dim 16 — test_ops.py's MQA shape is held on the CPU only — mixed
-  dtypes, unpacked heads, a non-positive window).
+- The CUDA launch contract refuses what the kernel does not take (f32
+  head_dim 16, mixed dtypes, unpacked heads, a non-positive window); bf16
+  takes any head_dim that is a multiple of 16 (test_ops.py's MQA shape).
 - On the card (``cuda`` marker, skipped without one): the kernel against
   the plain version at f32 2e-5 and bf16 1.6e-2.
 """
@@ -146,6 +146,23 @@ def test_flash_launch_contract_refuses(bad, err, match):
         k = torch.zeros((1, 8, hd, 2)).transpose(2, 3)
     with pytest.raises(err, match=match):
         tatt._check_flash(q, k, v, window)
+
+
+@pytest.mark.parametrize("hd,dtype,err,match", [
+    (16, torch.bfloat16, TypeError, "CUDA device"),  # every shape check passes
+    (48, torch.bfloat16, TypeError, "CUDA device"),
+    (24, torch.bfloat16, ValueError, "multiple of 16"),
+    (8, torch.bfloat16, ValueError, "multiple of 16"),
+    (48, torch.float32, ValueError, "multiple of 32"),
+])
+def test_flash_launch_contract_head_dim_by_dtype(hd, dtype, err, match):
+    """bf16 launches take the tensor-core kernel (head_dim a multiple of
+    16, test_ops.py's MQA shape included); f32 keeps the scalar kernel's
+    multiple of 32. A well-formed CPU launch stops at the device check."""
+    q = torch.zeros((2, 8, 8, hd), dtype=dtype)
+    k = torch.zeros((2, 8, 1, hd), dtype=dtype)
+    with pytest.raises(err, match=match):
+        tatt._check_flash(q, k, k.clone(), None)
 
 
 @pytest.mark.cuda
