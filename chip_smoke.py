@@ -15,7 +15,11 @@ Phases (any failure raises and exits non-zero):
    main path's shapes and at small edge cases (float32 rtol = atol =
    2e-5; bfloat16 q compared in float32 at 1.6e-2); a known-answer check
    of the int4 split-half nibble order inside the kernels; the ragged
-   kernel's bf16 rows bitwise equal however a chunk is framed; then each
+   kernel's bf16 rows bitwise equal however a chunk is framed (chunks of
+   1 to 88 positions: narrow and wide tiles); paged_attention's rows
+   bitwise equal to the ragged kernel's rows at the same positions, in a
+   decode slot, a 4-row verify slot and a 128-row prefill chunk, bf16 and
+   f32, every page format (decode_rows_check); then each
    variant timed at the main path's shape in bfloat16 (kernel_ms and
    library_ms eager: median of 30 calls between CUDA events, the host
    work of each call included; device_ms and library_device_ms: 10 calls
@@ -27,9 +31,9 @@ Phases (any failure raises and exits non-zero):
    2048, Hq 16, Hkv 8, hd 128), tests/test_ops.py's shapes, three sliding
    windows, T 100 and 37 and head_dim 64 and 256; timed at the main shape
    beside one causal GQA scaled_dot_product_attention call. bfloat16 runs
-   the tensor-core bodies of flash and of the ragged kernel (also at
-   head_dim 16, test_ops.py's MQA and prefill shapes), float32 and
-   paged_attention the scalar bodies.
+   the tensor-core bodies of flash and of the ragged kernel, whose one-row
+   launch paged_attention is (also at head_dim 16, test_ops.py's MQA and
+   prefill shapes), float32 the scalar bodies.
 4. Step parity: qwen3-0p6b at full width in float32, three
    paged_ragged_step chunks on a mixed block with the kernels and with
    their plain versions, over fp, int8 and int4 pages — counts and
@@ -54,8 +58,9 @@ Phases (any failure raises and exits non-zero):
    set from readings — and greedy generate_compiled, beam and lookahead
    token-equal on both paths. Then bf16 parity: qwen3-0p6b in bfloat16,
    the tensor-core bodies on real activations: one ragged chunk's layers
-   over MAIN's mixed block (fp pages) and one flash prefill of two
-   prompts, each layer's attention output from the kernel against the
+   over MAIN's mixed block (fp pages), one decode step of its slots after
+   it, and one flash prefill of two prompts, each layer's attention
+   output from the kernel against the
    plain version's on the same inputs, per row max |diff| within 1.6e-2
    x the row's max |plain|; a planted off-by-one mask must fail that.
 7. Dense serving: qwen3-0p6b at full width in bfloat16 with
@@ -123,7 +128,7 @@ REPLACES = {
 }
 SOURCE = {
     "ragged_paged_attention": "ragged_paged_attention.cu",
-    "paged_attention": "paged_attention.cu",
+    "paged_attention": "ragged_paged_attention.cu",
     "paged_prefill_attention": "ragged_paged_attention.cu",
 }
 _RAGGED_DESIGN = (
@@ -138,8 +143,13 @@ DESIGN = {
     "ragged_paged_attention": _RAGGED_DESIGN,
     "paged_prefill_attention": "the ragged kernel with S = 1; "
                                + _RAGGED_DESIGN,
-    "paged_attention": "bf16 and f32: scalar f32 FMAs over 16-row tiles, "
-                       "16 pages per block, dequantized at the load",
+    "paged_attention": (
+        "the ragged kernel's one-row (C = 1) launch, each slot's row at its "
+        "length - 1 read from lengths in the kernel; bf16: its tensor-core "
+        "body on narrow tiles, all 4 warps on each 64-position stage (QK^T "
+        "by key columns, P exchanged in shared memory, PV by output "
+        "columns), bitwise equal to the ragged kernel's row at the same "
+        "position; " + _RAGGED_DESIGN),
     "flash_attention": (
         "bf16: warpgroup tensor cores (wgmma m64nNk16 from 128B-swizzled "
         "shared tiles, f32 accumulators, P in registers as the PV A "
@@ -325,9 +335,8 @@ PREFILL_CASES = [
 
 
 def _scalar_takes(hd: int) -> bool:
-    """The scalar bodies (every f32 launch, and paged_attention in either
-    dtype) need head_dim a multiple of 32; the bf16 tensor-core bodies
-    take any multiple of 16."""
+    """The scalar bodies (every f32 launch) need head_dim a multiple of
+    32; the bf16 tensor-core bodies take any multiple of 16."""
     return hd % 32 == 0
 
 
@@ -360,8 +369,7 @@ def kernel_checks() -> dict:
 
         for fmt in FORMATS:
             for i, spec in enumerate(cases):
-                scalar = _scalar_takes(spec[4])
-                if dtype == torch.float32 and not scalar:
+                if dtype == torch.float32 and not _scalar_takes(spec[4]):
                     continue
                 c = _case(rng, *spec, dtype=dtype, fmt=fmt)
                 got, want = _ragged(c, True), _ragged(c, False)
@@ -371,10 +379,9 @@ def kernel_checks() -> dict:
                     tail = got[s, nv:]
                     if tail.numel() and float(tail.abs().max()) != 0.0:
                         raise AssertionError("a row past n_valid is not zero")
-                if scalar:
-                    got, want = _decode(c, True), _decode(c, False)
-                    torch.cuda.synchronize()
-                    note(("paged_attention", fmt), _err(got, want, tol))
+                got, want = _decode(c, True), _decode(c, False)
+                torch.cuda.synchronize()
+                note(("paged_attention", fmt), _err(got, want, tol))
                 if i == 0:  # MAIN's slot 1: C 128 at 896 over 256 pages
                     got, want = _prefill(c, True), _prefill(c, False)
                     torch.cuda.synchronize()
@@ -434,18 +441,28 @@ def nibble_order_check() -> None:
     log("int4 nibble order (split-half) inside the kernels: exact")
 
 
+# chunks of a 128-position prefill that framing_check runs on their own:
+# wide tiles, and chunks of 1, 4 and 8 positions (2, 8 and 16 rows at G 2:
+# narrow tiles, whose four warps split each key stage). At start 300 the
+# whole chunk's warps hold positions 316..323 and 380..387, across the key
+# stages at 320 and 384: the chunks [16, 20) and [80, 84) see no key of
+# the later stage, which the whole chunk computes for them fully masked
+FRAMINGS = ((0, 40), (40, 128), (0, 64), (64, 128), (0, 1), (127, 128),
+            (40, 44), (62, 66), (56, 64), (120, 128), (16, 20), (80, 84))
+
+
 def framing_check() -> None:
     """Chunk-framing invariance of the ragged kernel's bf16 body, which
     the prefix cache's bitwise reuse rests on: a prefill slot's 128 rows
-    at start 300, run whole and as the chunks [0, 40), [40, 128),
-    [0, 64) and [64, 128) (each at its own start, beside an idle slot),
-    give bitwise-equal rows in every page format."""
+    at start 300, run whole and as each chunk of FRAMINGS (each at its own
+    start, beside an idle slot), give bitwise-equal rows in every page
+    format."""
     dev = torch.device("cuda")
     for fmt in FORMATS:
         c = _case(np.random.default_rng(5), 2, 128, 16, 8, 128, 16, 64,
                   [300, 0], [128, 0], [0, 0], torch.bfloat16, fmt)
         full = _ragged(c, True)
-        for a, b in ((0, 40), (40, 128), (0, 64), (64, 128)):
+        for a, b in FRAMINGS:
             part = att.ragged_paged_attention(
                 c["q"][:, a:b].contiguous(), c["k"], c["v"], c["bt"],
                 torch.tensor([300 + a, 0], dtype=torch.int32, device=dev),
@@ -454,8 +471,92 @@ def framing_check() -> None:
             if not torch.equal(part[0], full[0, a:b]):
                 raise AssertionError(f"ragged {fmt}: rows [{a}, {b}) differ "
                                      "bitwise from the whole chunk's")
-    log("ragged chunk framing (bf16; fp, int8, int4 pages): rows bitwise "
-        "equal over 4 framings of a 128-row chunk")
+    log(f"ragged chunk framing (bf16; fp, int8, int4 pages): rows bitwise "
+        f"equal over {len(FRAMINGS)} framings of a 128-row chunk (chunks of "
+        f"1 to 88 positions)")
+
+
+# decode_rows_check: (S, Hq, Hkv, hd, page, n_pp, lengths). MAIN's decode
+# slots, then head_dim 16 (bf16 only: the f32 scalar body needs a multiple
+# of 32; G 8 fills half a narrow tile) and pages of 24 and 96
+DECODE_ROWS_CASES = [
+    (MAIN["S"], MAIN["Hq"], MAIN["Hkv"], MAIN["hd"], MAIN["page"],
+     MAIN["n_pp"], MAIN_LENGTHS),
+    (3, 8, 1, 16, 8, 20, [5, 9, 150]),
+    (2, 4, 1, 16, 24, 8, [40, 190]),
+    (3, 8, 2, 128, 24, 8, [24, 130, 101]),
+    (2, 8, 2, 64, 96, 3, [204, 6]),
+]
+# (C, valid rows) of the ragged launches a decode row is held to: a
+# one-row slot and a verify-style slot of 4 (launches of narrow tiles only),
+# one valid row in a 128-row launch (a narrow tile of the general kernel,
+# as the decode slots of the unified step), and a 128-row prefill chunk
+# (wide tiles)
+DECODE_ROW_CHUNKS = ((1, 1), (4, 4), (128, 1), (128, 128))
+
+
+def decode_rows_check() -> int:
+    """The contract speculative decoding's verify == sequential decode
+    rests on: a paged_attention row at length p + 1 is bitwise the
+    ragged kernel's row at position p, whether that row sits in a one-row
+    slot, in a 4-row verify-style slot (each of its rows checked), alone
+    in a 128-row launch or in a 128-row prefill chunk (DECODE_ROW_CHUNKS),
+    in bf16 (the tensor-core body: narrow and wide tiles) and in f32 (the
+    scalar body), over fp, int8 and int4 pages. Returns the rows
+    compared."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    n_rows = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for fmt in FORMATS:
+            for S, Hq, Hkv, hd, page, n_pp, lens in DECODE_ROWS_CASES:
+                if dtype == torch.float32 and not _scalar_takes(hd):
+                    continue
+                cap = n_pp * page
+                c = _case(rng, S, 1, Hq, Hkv, hd, page, n_pp, [0] * S,
+                          [0] * S, lens, dtype, fmt)
+                for C, n_v in DECODE_ROW_CHUNKS:
+                    C = min(C, cap)
+                    n_v = min(n_v, C)
+                    st = [min(max(n - n_v, 0), cap - n_v) for n in lens]
+                    nv = [n_v if n > 0 else 0 for n in lens]
+                    q = torch.from_numpy(rng.standard_normal(
+                        (S, C, Hq, hd), np.float32)).to(dev, dtype)
+                    rag = att.ragged_paged_attention(
+                        q, c["k"], c["v"], c["bt"],
+                        torch.tensor(st, dtype=torch.int32, device=dev),
+                        torch.tensor(nv, dtype=torch.int32, device=dev),
+                        scale=c["scale"], **c["sc"])
+                    # the rows checked: every row of a verify slot, the
+                    # last valid position's row otherwise
+                    rows = range(n_v) if n_v == 4 else [None]
+                    for j in rows:
+                        at = [(n - 1 - a) if j is None else j
+                              for n, a in zip(lens, st)]
+                        at = [max(x, 0) for x in at]
+                        dlen = [a + x + 1 if n > 0 else 0
+                                for n, a, x in zip(lens, st, at)]
+                        qd = q[torch.arange(S, device=dev),
+                               torch.tensor(at, device=dev)].contiguous()
+                        dec = att.paged_attention(
+                            qd, c["k"], c["v"], c["bt"],
+                            torch.tensor(dlen, dtype=torch.int32,
+                                         device=dev),
+                            scale=c["scale"], **c["sc"])
+                        for s in range(S):
+                            if dlen[s] == 0:
+                                continue
+                            if not torch.equal(dec[s], rag[s, at[s]]):
+                                raise AssertionError(
+                                    f"decode rows ({dtype}, {fmt}, hd {hd}, "
+                                    f"page {page}, {n_v} of {C} rows): slot "
+                                    f"{s} at length {dlen[s]} differs from "
+                                    f"the ragged row at {dlen[s] - 1}")
+                            n_rows += 1
+    torch.cuda.synchronize()
+    log(f"decode rows == ragged rows bitwise (bf16 and f32; fp, int8, int4 "
+        f"pages; (C, valid rows) {DECODE_ROW_CHUNKS}): {n_rows} rows")
+    return n_rows
 
 
 def _time_ms(fn, runs=30, warmup=3) -> float:
@@ -618,6 +719,119 @@ def kernel_timings() -> dict:
                 f"{r['device_ms']:.4f} library_ms {lib_d}")
         del c
         torch.cuda.empty_cache()
+    return out
+
+
+def kernel_profile(runs: int = 20) -> dict:
+    """Device time of each CUDA kernel that one paged_attention and one
+    ragged_paged_attention call launch at MAIN's shapes in bfloat16 (the
+    attend and combine passes apart), per page format: ``runs`` calls of
+    each under torch.profiler, mean microseconds per call by kernel
+    name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for fmt in FORMATS:
+        c = _case(np.random.default_rng(1), MAIN["S"], MAIN["C"], MAIN["Hq"],
+                  MAIN["Hkv"], MAIN["hd"], MAIN["page"], MAIN["n_pp"],
+                  MAIN_STARTS, MAIN_NVALID, MAIN_LENGTHS, torch.bfloat16,
+                  fmt)
+        for name, fn in (("paged_attention", lambda: _decode(c, True)),
+                         ("ragged_paged_attention", lambda: _ragged(c, True))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
+            times = {}
+            for e in prof.key_averages():
+                t = getattr(e, "device_time_total", None)
+                if t is None:
+                    t = getattr(e, "cuda_time_total", 0.0)
+                if t > 0:  # "void (anonymous namespace)::attend_bf16<..>(.."
+                    key = re.sub(r"\(.*", "", e.key.replace(
+                        "(anonymous namespace)::", "")).replace("void ", "")
+                    times[key] = t / runs
+            out[(name, fmt)] = times
+            log(f"profile {name}/{fmt} (bf16 q, main-path shape): device us "
+                f"per call by kernel {json.dumps(times)}")
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _patched_kernels(name: str, patches):
+    """Launches inside use kernels built from a copy of ops/csrc under
+    build/<name>/ in which each ``(old, new)`` of ``patches`` replaces
+    its text, found exactly once, in ragged_paged_attention.cu."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / name
+    src = root / "csrc"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_build.CSRC, src)
+    cu = src / "ragged_paged_attention.cu"
+    text = cu.read_text()
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise AssertionError(f"{name}: patch target not found once: "
+                                 f"{old!r}")
+        text = text.replace(old, new)
+    cu.write_text(text)
+    saved = _build.CSRC, _build.BUILD_DIR, _build._libs
+    _build.CSRC, _build.BUILD_DIR, _build._libs = src, root / "lib", {}
+    try:
+        yield
+    finally:
+        _build.CSRC, _build.BUILD_DIR, _build._libs = saved
+
+
+NARROW_TEST = "bool narrow_rows(int rows) { return rows <= NR; }"
+
+
+def wide_tile_timings() -> dict:
+    """kernel_timings() of the ragged kernel with its narrow tiles
+    switched off (NARROW_TEST answering false): every tile wide, so a
+    decode tile's products run on one warp while three wait (PR 4's
+    tile). Not a phase of main(): run it beside kernel_timings() in one
+    process to see what the narrow tiles buy."""
+    off = NARROW_TEST.replace("rows <= NR", "false")
+    with _patched_kernels("wide_tiles", [(NARROW_TEST, off)]):
+        log("wide tiles only (narrow tiles off):")
+        return kernel_timings()
+
+
+# the attend pass with its products and softmax skipped (every stage's
+# copies still made), and with its copies skipped (every stage computed on
+# what shared memory holds): what each costs alone
+ATTEND_PARTS_OFF = {
+    "compute off": [
+        ("    if (narrow) {\n      // Each warp takes",
+         "    if (k0 < 0) {\n      // Each warp takes"),
+        ("    } else if (warp_live && k0 <= lim_hi) {",
+         "    } else if (k0 < 0) {"),
+    ],
+    "copies off": [
+        ("  auto load_stage = [&](int k0, int st) {\n",
+         "  auto load_stage = [&](int k0, int st) {\n"
+         "    if (k0 >= 0) return;\n"),
+    ],
+}
+
+
+def attend_parts_profile() -> dict:
+    """kernel_profile() of builds with each part of the attend pass in
+    ATTEND_PARTS_OFF switched off (their outputs are garbage; only the
+    times count). Not a phase of main()."""
+    out = {}
+    for name, patches in ATTEND_PARTS_OFF.items():
+        with _patched_kernels(name.replace(" ", "_"), patches):
+            log(f"attend pass, {name}:")
+            out[name] = kernel_profile()
     return out
 
 
@@ -1335,6 +1549,16 @@ def _ragged_fault(q, kp, vp, bt, starts, nv, **kw):
     return att.ragged_paged_attention_ref(q, kp, vp, bt, starts - 1, nv, **kw)
 
 
+def _decode_plain(q, kp, vp, bt, lengths, **kw):
+    return att.paged_attention_ref(q, kp, vp, bt, lengths, **kw)
+
+
+def _decode_fault(q, kp, vp, bt, lengths, **kw):
+    """The plain version with each row's own key masked: every slot one
+    position shorter."""
+    return att.paged_attention_ref(q, kp, vp, bt, lengths - 1, **kw)
+
+
 def _flash_plain(q, k, v, *, scale, window=None, **_blocks):
     return att.flash_attention_ref(q, k, v, scale=scale, window=window)
 
@@ -1351,8 +1575,10 @@ def bf16_parity() -> dict:
     """qwen3-0p6b at full width in bfloat16, where the tensor-core bodies
     run on the model's own (qk-normed) activations: (a) one ragged chunk's
     layers over MAIN's mixed block (2 prefills, 5 decodes, an idle slot)
-    with fp pages of seeded random context, and (b) one flash prefill of
-    the dense engine over two prompts (300 and 512 tokens, bucket 512).
+    with fp pages of seeded random context, then one paged_decode_step of
+    every slot after it (paged_attention's decode tiles), and (b) one
+    flash prefill of the dense engine over two prompts (300 and 512
+    tokens, bucket 512).
     Each layer's attention output, the kernel's against the plain
     version's on the same inputs, is held per row to BF16_ATTN_TOL; the
     planted fault (each row's own key masked) must read above it at every
@@ -1401,6 +1627,27 @@ def bf16_parity() -> dict:
     if launches != cfg.n_layers or len(paged_r) != cfg.n_layers:
         raise AssertionError(f"bf16 parity: {launches} ragged launches for "
                              f"{cfg.n_layers} layers")
+    # one decode step of every slot after the chunk (the idle slot stays
+    # idle), each layer's paged_attention held the same way
+    lens = [st + n for st, n in zip(MAIN_STARTS, MAIN_NVALID)]
+    cache.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+    tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=S),
+                       dtype=torch.int32, device=dev)
+    decode_r: list = []
+    real_dec = paged.paged_attention  # what _paged_block launches
+    paged.paged_attention = _held(real_dec, _decode_plain, _decode_fault,
+                                  decode_r)
+    try:
+        logits, _ = paged.paged_decode_step(
+            params, tok, cache, cache.lengths > 0, cfg, kernel=True)
+    finally:
+        paged.paged_attention = real_dec
+    launches = att.paged_attention.launches_by_format["fp"]
+    if launches != cfg.n_layers or len(decode_r) != cfg.n_layers:
+        raise AssertionError(f"bf16 parity: {launches} paged_attention "
+                             f"launches for {cfg.n_layers} layers")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("bf16 parity: decode step logits not finite")
     del cache
     eng = GenerationEngine(cfg.with_(flash_attention=True), params,
                            max_seq_len=1024, seq_buckets=(128, 256, 512),
@@ -1429,20 +1676,23 @@ def bf16_parity() -> dict:
         raise AssertionError(f"bf16 parity: {att.flash_attention.launches} "
                              f"flash launches for {cfg.n_layers} layers")
     res = {}
-    for key, r in (("ragged", paged_r), ("flash", dense_r)):
+    for key, r in (("ragged", paged_r), ("decode", decode_r),
+                   ("flash", dense_r)):
         res[key] = max(k for k, _ in r)
         res[f"{key}_fault"] = min(f for _, f in r)
     log(f"bf16 parity (qwen3-0p6b bf16, each layer's attention output, "
         f"kernel vs plain on the same inputs, per row max |diff| within "
         f"{BF16_ATTN_TOL} x the row's max |plain|): ragged chunk over "
         f"MAIN's block {res['ragged']:.3f}x the bound (own-key fault, least "
-        f"over layers: {res['ragged_fault']:.3f}x), flash prefill "
-        f"{res['flash']:.3f}x (fault {res['flash_fault']:.3f}x); "
+        f"over layers: {res['ragged_fault']:.3f}x), the decode step after "
+        f"it {res['decode']:.3f}x (fault {res['decode_fault']:.3f}x), flash "
+        f"prefill {res['flash']:.3f}x (fault {res['flash_fault']:.3f}x); "
         f"{time.monotonic() - t0:.1f}s")
-    if max(res["ragged"], res["flash"]) > 1.0:
+    if max(res["ragged"], res["decode"], res["flash"]) > 1.0:
         raise AssertionError(f"bf16 parity: an attention output differs "
                              f"beyond the bound: {res}")
-    if min(res["ragged_fault"], res["flash_fault"]) <= 1.0:
+    if min(res["ragged_fault"], res["decode_fault"],
+           res["flash_fault"]) <= 1.0:
         raise AssertionError(f"bf16 parity: the planted fault passes the "
                              f"check, which then proves nothing: {res}")
     del eng
@@ -1569,6 +1819,7 @@ def main() -> None:
     errs = _phase("kernels", kernel_checks)
     _phase("nibble order", nibble_order_check)
     _phase("chunk framing", framing_check)
+    _phase("decode rows", decode_rows_check)
     ferrs = _phase("flash kernel", flash_checks)
     times = _phase("kernel timings", kernel_timings)
     ftime = _phase("flash timing", flash_timing)

@@ -2,7 +2,8 @@
 
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` into a shared library
 with a plain C interface, ``build/tensorlink_tpu_torch/<name>-<hash>.so``
-at the root of the checkout, loaded with ``ctypes``. Nothing includes
+at the root of the checkout, loaded with ``ctypes``; ``ENTRY_POINTS``
+names the C functions each library exports. Nothing includes
 PyTorch's headers, so a build takes seconds. The file name carries a hash
 of the sources and flags: an edited source never loads a stale build.
 
@@ -24,25 +25,26 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tensorlink_tpu_torch"
-KERNELS = ("flash_attention", "paged_attention", "ragged_paged_attention")
+KERNELS = ("flash_attention", "ragged_paged_attention")  # csrc/<name>.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures (ctypes passes an undeclared pointer as a 32-bit int)
-_ARGTYPES = {
-    "flash_attention": (
-        "tl_flash_attention",
+# C entry points: the source that defines each, and its argument types
+# (ctypes passes an undeclared pointer as a 32-bit int)
+ENTRY_POINTS = {
+    "tl_flash_attention": (
+        "flash_attention",
         [_P] * 4 + [_I] * 6 + [ctypes.c_longlong] * 6 + [_I, _F, _P],
     ),
-    "paged_attention": (
-        "tl_paged_attention",
+    "tl_paged_attention": (
+        "ragged_paged_attention",
         [_P] * 10 + [_I] * 8 + [_F, _P],
     ),
-    "ragged_paged_attention": (
-        "tl_ragged_paged_attention",
+    "tl_ragged_paged_attention": (
+        "ragged_paged_attention",
         [_P] * 11 + [_I] * 9 + [_F, _P],
     ),
 }
@@ -118,8 +120,8 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building it first if
-    needed; its C entry point has ``argtypes``/``restype`` declared."""
+    """The loaded library of source ``name``, building it first if
+    needed; its C entry points have ``argtypes``/``restype`` declared."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
@@ -129,14 +131,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_target(name)))
-            fn_name, argtypes = _ARGTYPES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, (src, argtypes) in ENTRY_POINTS.items():
+                if src == name:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             lib.tl_error_string.argtypes = [ctypes.c_int]
             lib.tl_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 
 
-__all__ = ["BUILD_DIR", "KERNELS", "build_all", "build_log", "load"]
+__all__ = ["BUILD_DIR", "ENTRY_POINTS", "KERNELS", "build_all", "build_log",
+           "load"]

@@ -84,8 +84,8 @@ def flash_attention_ref(
 
 def _check_head_dim(name, hd, tensor_cores) -> None:
     """The bf16 tensor-core bodies take a product depth of 16; the scalar
-    bodies (f32, and paged_attention in either dtype) load 16-byte vectors
-    of f32 and need a multiple of 32."""
+    bodies (every f32 launch) load 16-byte vectors of f32 and need a
+    multiple of 32."""
     mult, body = (16, "bf16 tensor-core") if tensor_cores else (32, "scalar")
     if hd % mult or hd > 256:
         raise ValueError(f"{name}: head_dim must be a multiple of {mult}, "
@@ -333,8 +333,9 @@ def _check_launch(name, q, k_pages, v_pages, ints, k_scale, v_scale,
     """The wrapper's contract for a CUDA launch: raise on anything the
     kernel does not take. ``tensor_cores``: the launch goes to the ragged
     kernel's bf16 body (bf16 q), which takes head_dim a multiple of 16
-    and any page size; otherwise to a scalar body (head_dim a multiple of
-    32, the page's f32 tiles within a block's shared memory). Returns
+    and any page size; otherwise to its scalar f32 body (head_dim a
+    multiple of 32, the page's f32 tiles within a block's shared
+    memory). Returns
     ``(Hkv, page, hd, fmt)`` with
     ``fmt`` the page format code of :func:`_page_format`."""
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -402,11 +403,11 @@ def _stream(index: int) -> int:
 
 
 def _launch(name, fn_name, q, args):
-    """Call the entry point on q's device's current stream (switching the
-    current device only when q lies on another)."""
+    """Call the C entry point ``fn_name`` on q's device's current stream
+    (switching the current device only when q lies on another)."""
     from . import _build  # nvcc/ctypes only on the launch path
 
-    lib = _build.load(name)
+    lib = _build.load(_build.ENTRY_POINTS[fn_name][0])
     fn = getattr(lib, fn_name)
     index = q.device.index
     if index == torch.cuda.current_device():
@@ -532,10 +533,14 @@ def paged_attention(
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Paged decode attention; returns ``[S, Hq, hd]`` in q's dtype. CPU
-    tensors take :func:`paged_attention_ref`; CUDA tensors launch
-    ``ops/csrc/paged_attention.cu`` (its attend and combine passes,
-    counted as one launch) in the pages' format on the current stream,
-    with no synchronisation, or raise."""
+    tensors take :func:`paged_attention_ref`; CUDA tensors launch the
+    ragged kernel's one-row entry point (``tl_paged_attention`` in
+    ``ops/csrc/ragged_paged_attention.cu``: each slot's row at its length
+    - 1, read from ``lengths`` in the kernel; its attend and combine
+    passes counted as one launch) in the pages' format on the current
+    stream, with no synchronisation, or raise. bf16 q takes the
+    tensor-core body, so a decode row equals bitwise the ragged kernel's
+    row at the same position; f32 q the scalar body."""
     if q.device.type == "cpu":
         return paged_attention_ref(
             q, k_pages, v_pages, block_tables, lengths, scale=scale,
@@ -543,8 +548,9 @@ def paged_attention(
         )
     name = "paged_attention"
     ints = (block_tables, lengths)
+    tc = q.dtype == torch.bfloat16
     Hkv, page, hd, fmt = _check_launch(name, q, k_pages, v_pages, ints,
-                                       k_scale, v_scale)
+                                       k_scale, v_scale, tensor_cores=tc)
     if q.dim() != 3 or block_tables.dim() != 2:
         raise ValueError(f"{name}: q must be [S, Hq, hd], tables [S, n_pp]")
     S, Hq, _ = q.shape
@@ -552,14 +558,14 @@ def paged_attention(
         raise ValueError(f"{name}: per-slot tensors must have {S} rows")
     n_pp = block_tables.shape[1]
     out = torch.empty_like(q)
-    _ws, ws_acc, ws_ml = _workspace(q, S, Hkv, Hq // Hkv, hd, n_pp, page)
+    _ws, ws_acc, ws_ml = _workspace(q, S, Hkv, Hq // Hkv, hd, n_pp, page,
+                                    tensor_cores=tc)
     _launch(
         name, "tl_paged_attention", q,
         (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
          _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
-         lengths.data_ptr(), out.data_ptr(), ws_acc, ws_ml,
-         int(q.dtype == torch.bfloat16), fmt, S, Hq, Hkv, hd, page, n_pp,
-         float(scale)),
+         lengths.data_ptr(), out.data_ptr(), ws_acc, ws_ml, int(tc), fmt, S,
+         Hq, Hkv, hd, page, n_pp, float(scale)),
     )
     _count(paged_attention, fmt)
     return out

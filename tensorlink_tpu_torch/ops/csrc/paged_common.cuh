@@ -1,11 +1,12 @@
-// Shared body of the two paged attention kernels (sm_90a).
+// The scalar f32 body of the paged attention kernels (sm_90a): every
+// float32 launch of ragged_paged_attention.cu's two entry points.
 //
 // A query-row TILE is up to TILE_ROWS query rows of one (slot, kv head);
 // row r carries the element offset of its query (and output) row and
 // `limit[r]`, the last key position it may see (inclusive), or -1 for a
-// row that must come out as zeros. The kernels differ only in how they
-// lay rows out (a `Rows` policy: ragged_paged_attention.cu,
-// paged_attention.cu); everything else is here.
+// row that must come out as zeros. The ragged and decode launches differ
+// only in how they lay rows out (a `Rows` policy: RaggedRows and
+// DecodeRows in ragged_paged_attention.cu); everything else is here.
 //
 // Two passes, flash-decoding style:
 //  1. attend_kernel: one thread block per (slot, tile, split, kv head),
@@ -32,7 +33,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tl {
@@ -43,18 +43,11 @@ constexpr int SPLIT_PAGES = 16;    // pages per attend block
 constexpr int THREADS = 128;       // threads per block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Dynamic shared memory of one attend block, in bytes. K and q rows are
 // padded to hd + 1 floats so that the score loop (thread per (row, key)
@@ -374,34 +367,6 @@ cudaError_t launch_two_pass(const void* q, const void* k, const void* v,
   combine_kernel<T, Rows><<<dim3(S * n_tiles, Hkv), THREADS, 0, stream>>>(
       (T*)out, rows, ws_acc, ws_ml, Hkv, hd, page, n_pp, n_tiles, n_splits);
   return cudaGetLastError();
-}
-
-// The entry points' dispatch: dtype 0 = float32, 1 = bfloat16 (q, out and
-// fp pages); kv_format a PageFormat. Quantized formats need both scales.
-template <typename Rows>
-cudaError_t launch(int dtype, int kv_format, const void* q, const void* k,
-                   const void* v, const void* k_scale, const void* v_scale,
-                   const void* bt, Rows rows, void* out, void* ws_acc,
-                   void* ws_ml, int S, int Hkv, int hd, int page, int n_pp,
-                   int n_tiles, float scale, cudaStream_t stream) {
-  if (kv_format != FMT_FP && (k_scale == nullptr || v_scale == nullptr))
-    return cudaErrorInvalidValue;
-#define TL_TWO_PASS(T, F)                                                  \
-  return launch_two_pass<T, F, Rows>(q, k, v, k_scale, v_scale, bt, rows, \
-                                     out, (float*)ws_acc, (float*)ws_ml,  \
-                                     S, Hkv, hd, page, n_pp, n_tiles,     \
-                                     scale, stream)
-  if (dtype == 0) {
-    if (kv_format == FMT_FP) TL_TWO_PASS(float, FMT_FP);
-    if (kv_format == FMT_I8) TL_TWO_PASS(float, FMT_I8);
-    if (kv_format == FMT_I4) TL_TWO_PASS(float, FMT_I4);
-  } else if (dtype == 1) {
-    if (kv_format == FMT_FP) TL_TWO_PASS(__nv_bfloat16, FMT_FP);
-    if (kv_format == FMT_I8) TL_TWO_PASS(__nv_bfloat16, FMT_I8);
-    if (kv_format == FMT_I4) TL_TWO_PASS(__nv_bfloat16, FMT_I4);
-  }
-#undef TL_TWO_PASS
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace tl

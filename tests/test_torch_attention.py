@@ -109,6 +109,37 @@ def test_ragged_ref_matches_jax_ref_and_pallas(S, C, Hq, Hkv, hd, page, n_pp,
     assert tatt.ragged_paged_attention_ref.calls == 1
 
 
+@pytest.mark.parametrize("kind", ["fp", "int8", "int4"])
+def test_verify_rows_are_sequential_decode_rows_bitwise(kind):
+    """The port's own form of tests/test_ops.py's ragged-verify pin: a
+    verify-style slot's row j (start 13, 4 rows, beside a fresh prefill
+    slot) is bitwise the plain decode at length 13 + j + 1, over fp, int8
+    and packed-int4 pages. Speculative decoding's verify == sequential
+    decode rests on it; the CUDA kernels are held to it on the card."""
+    rng = np.random.default_rng(12)
+    S, C, Hq, Hkv, hd, page, n_pp, start = 2, 4, 8, 2, 32, 8, 4, 13
+    P = 1 + S * n_pp
+    if kind == "fp":
+        k, v = (rng.normal(size=(P, Hkv, page, hd)).astype(np.float32)
+                for _ in range(2))
+        sc = {}
+    else:
+        k, v, ks, vs = _quant_pages(rng, kind, P, Hkv, page, hd)
+        sc = dict(zip(("k_scale", "v_scale"), _t(ks, vs)))
+    bt = _bt(rng, S, n_pp, P)
+    q = rng.normal(size=(S, C, Hq, hd)).astype(np.float32)
+    tq, tk, tv, tbt = _t(q, k, v, bt)
+    scale = hd**-0.5
+    rag = tatt.ragged_paged_attention_ref(
+        tq, tk, tv, tbt, torch.tensor([start, 0], dtype=torch.int32),
+        torch.tensor([C, C], dtype=torch.int32), scale=scale, **sc)
+    for j in range(C):
+        lens = torch.tensor([start + j + 1, j + 1], dtype=torch.int32)
+        dec = tatt.paged_attention_ref(tq[:, j].contiguous(), tk, tv, tbt,
+                                       lens, scale=scale, **sc)
+        assert torch.equal(dec, rag[:, j]), (kind, j)
+
+
 def test_decode_slot_is_the_one_row_ragged_case_bitwise():
     """A decode slot of the plain paged attention runs the ragged plain
     version's code path: bitwise the ragged output of a 1-valid-row slot
@@ -341,7 +372,8 @@ def test_quantized_launch_contract_refuses(bad, err, match):
 
 
 @pytest.mark.parametrize("name,hd,kind,page,err,match", [
-    # bf16 ragged and prefill launches take the tensor-core body
+    # bf16 launches take the tensor-core body (kind "f32": f32 q and
+    # pages, the scalar body)
     ("ragged_paged_attention", 16, "fp", 8, TypeError, "CUDA device"),
     ("paged_prefill_attention", 16, "int8", 8, TypeError, "CUDA device"),
     ("ragged_paged_attention", 16, "int4", 8, TypeError, "CUDA device"),
@@ -353,40 +385,56 @@ def test_quantized_launch_contract_refuses(bad, err, match):
     ("ragged_paged_attention", 16, "int4", 1, TypeError, "CUDA device"),
     ("paged_prefill_attention", 128, "int8", 24, TypeError, "CUDA device"),
     ("ragged_paged_attention", 48, "int4", 96, TypeError, "CUDA device"),
-    # paged_attention keeps its scalar body in both dtypes
-    ("paged_attention", 16, "fp", 8, ValueError, "multiple of 32"),
+    # paged_attention is the ragged kernel's one-row launch: the same body
+    ("paged_attention", 16, "fp", 8, TypeError, "CUDA device"),
+    ("paged_attention", 16, "int8", 24, TypeError, "CUDA device"),
+    ("paged_attention", 48, "int4", 96, TypeError, "CUDA device"),
+    ("paged_attention", 128, "int4", 16, TypeError, "CUDA device"),
+    ("paged_attention", 8, "fp", 8, ValueError, "multiple of 16"),
+    # f32 launches keep the scalar body, which needs a multiple of 32
+    ("paged_attention", 16, "f32", 8, ValueError, "multiple of 32"),
+    ("ragged_paged_attention", 48, "f32", 8, ValueError, "multiple of 32"),
+    ("paged_attention", 64, "f32", 8, TypeError, "CUDA device"),
 ])
 def test_launch_contract_head_dim_by_body(name, hd, kind, page, err, match):
-    """The bf16 tensor-core body of the ragged kernel (ragged and prefill
-    launches) takes head_dim a multiple of 16 and any page size;
-    paged_attention's scalar body still needs a multiple of 32. A
-    well-formed CPU launch stops at the device check."""
-    q = torch.zeros(1, 4, hd, dtype=torch.bfloat16)
-    if kind == "fp":
-        kp, sc = torch.zeros(2, 1, page, hd, dtype=torch.bfloat16), None
+    """The bf16 tensor-core body of the ragged kernel (ragged, prefill and
+    decode launches) takes head_dim a multiple of 16 and any page size;
+    the f32 scalar body still needs a multiple of 32. A well-formed CPU
+    launch stops at the device check."""
+    dt = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.zeros(1, 4, hd, dtype=dt)
+    if kind in ("fp", "f32"):
+        kp, sc = torch.zeros(2, 1, page, hd, dtype=dt), None
     else:
         row = hd if kind == "int8" else hd // 2
         kp = torch.zeros(2, 1, page, row, dtype=torch.int8)
         sc = torch.ones(2, 1, page)
-    tc = name != "paged_attention"
+    tc = dt == torch.bfloat16  # as the wrappers choose the body
     with pytest.raises(err, match=match):
         tatt._check_launch(name, q, kp, kp, (), sc, sc, tensor_cores=tc)
 
 
-@pytest.mark.parametrize("tc,rows,split", [
-    (False, 16, 16),  # scalar bodies: 16-row tiles, 16 pages per split
-    (True, 64, 512 // 16),  # bf16 body: 64-row tiles, 512 positions
+@pytest.mark.parametrize("tc,rows,split,n_rows,tiles", [
+    # scalar bodies: 16-row tiles, 16 pages per split
+    pytest.param(False, 16, 16, 128 * 2, 16, id="False-16-16"),
+    # bf16 body: 64-row tiles, 512 positions
+    pytest.param(True, 64, 512 // 16, 128 * 2, 4, id="True-64-32"),
+    # the decode launch (C = 1, G 2 rows a slot): one tile per (slot, kv
+    # head), in either body
+    pytest.param(True, 64, 512 // 16, 2, 1, id="decode-bf16"),
+    pytest.param(False, 16, 16, 2, 1, id="decode-f32"),
 ])
-def test_workspace_follows_the_kernel_tiles(tc, rows, split):
+def test_workspace_follows_the_kernel_tiles(tc, rows, split, n_rows, tiles):
     """The partials the wrapper allocates: one per (slot, kv head, row
     tile, split), each ``rows x hd`` accumulators and ``rows x 2`` (m, l),
-    at MAIN's shape (S 8, C 128, G 2, hd 128, page 16, n_pp 256), in one
-    f32 allocation with the (m, l) pairs after the accumulators."""
+    at MAIN's shape (S 8, C 128 or 1, G 2, hd 128, page 16, n_pp 256), in
+    one f32 allocation with the (m, l) pairs after the accumulators."""
     q = torch.zeros(1)
-    S, Hkv, n_rows, hd, n_pp, page = 8, 8, 128 * 2, 128, 256, 16
+    S, Hkv, hd, n_pp, page = 8, 8, 128, 256, 16
     ws, acc, ml = tatt._workspace(q, S, Hkv, n_rows, hd, n_pp, page,
                                   tensor_cores=tc)
-    n = S * Hkv * -(-n_rows // rows) * -(-n_pp // split)
+    assert -(-n_rows // rows) == tiles
+    n = S * Hkv * tiles * -(-n_pp // split)
     assert ws.numel() == n * rows * (hd + 2) and ws.dtype == torch.float32
     assert acc == ws.data_ptr() and ml - acc == n * rows * hd * 4
 
@@ -438,3 +486,18 @@ def test_cuda_kernels_match_plain_versions(dtype):
             torch.cuda.synchronize()
             np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
                                        **tol)
+        # a decode row is bitwise the ragged kernel's row at its position:
+        # each row of a verify-style slot (4 rows at 37, beside a 16-row
+        # prefill at 0), and a decode tile's one row
+        vq = tq[:, :4].contiguous()
+        for nvs in ((4, 4, 4, 4), (1, 1, 1, 1)):
+            rag = tatt.ragged_paged_attention(
+                vq, tk, tv, tbt, tst, torch.tensor(nvs, dtype=torch.int32,
+                                                   device=dev),
+                scale=scale, **sc)
+            for j in range(nvs[0]):
+                lens = (tst + j + 1).to(torch.int32)
+                dec = tatt.paged_attention(vq[:, j].contiguous(), tk, tv, tbt,
+                                           lens, scale=scale, **sc)
+                torch.cuda.synchronize()
+                assert torch.equal(dec, rag[:, j]), (kind, nvs, j)
