@@ -18,7 +18,8 @@ Phases (any failure raises and exits non-zero):
    kernel's bf16 rows bitwise equal however a chunk is framed (chunks of
    1 to 88 positions: narrow and wide tiles); paged_attention's rows
    bitwise equal to the ragged kernel's rows at the same positions, in a
-   decode slot, a 4-row verify slot and a 128-row prefill chunk, bf16 and
+   decode slot, verify slots of 4 and 9 positions (3 and 8 drafts) and a
+   128-row prefill chunk, bf16 and
    f32, every page format (decode_rows_check); then each
    variant timed at the main path's shape in bfloat16 (kernel_ms and
    library_ms eager: median of 30 calls between CUDA events, the host
@@ -69,6 +70,24 @@ Phases (any failure raises and exits non-zero):
    (chunked prefill), beam, lookahead, and an int8 weights + int8 dense
    cache engine; the flash kernel's launches equal n_layers x the flash
    prefills the engines counted, and no plain attention runs.
+
+8. The rest of the single-card engine, qwen3-0p6b in bfloat16 at full
+   width, every engine on the CUDA kernels (each phase resets the
+   counts, then checks one ragged launch a layer per chunk and
+   chunk_steps - 1 decode launches, and no plain version): speculative
+   serving over fp and int8 pages (16 requests, half repetitive, spec on
+   and off: greedy streams equal or parted only at a near-tie, the plain
+   top-two gap logged; drafts packed, more than one token per verify
+   pass, verify slots of 8 drafts; tokens/s both ways as readings);
+   migration over fp, int8 and int4 pages between two engines (a stream
+   frozen mid-decode, shipped through the TLTS frame and adopted, equal
+   to its uninterrupted run; nothing left in transit; int4 → int8
+   refused), one prefill→decode handoff and a drain that sheds its queue;
+   the host-RAM tier (a prefix churned out and promoted back) and one
+   fleet pull; two tenants (bf16 and int8 weights) on one shared page
+   pool, each equal to its solo runs within its quota; and a live weight
+   publish mid-stream. gemm_rows reads whether a row's bits depend on the
+   GEMM's height (also on the host: c.gemm_rows("cpu")).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -488,18 +507,19 @@ DECODE_ROWS_CASES = [
     (2, 8, 2, 64, 96, 3, [204, 6]),
 ]
 # (C, valid rows) of the ragged launches a decode row is held to: a
-# one-row slot and a verify-style slot of 4 (launches of narrow tiles only),
-# one valid row in a 128-row launch (a narrow tile of the general kernel,
-# as the decode slots of the unified step), and a 128-row prefill chunk
-# (wide tiles)
-DECODE_ROW_CHUNKS = ((1, 1), (4, 4), (128, 1), (128, 128))
+# one-row slot and verify slots of 4 and of 9 positions (3 and 8 drafts;
+# at G = 2 the 9-position slot is 18 rows, a wide tile), one valid row in
+# a 128-row launch (a narrow tile of the general kernel, as the decode
+# slots of the unified step), and a 128-row prefill chunk (wide tiles)
+DECODE_ROW_CHUNKS = ((1, 1), (4, 4), (9, 9), (128, 1), (128, 128))
+VERIFY_SLOTS = (4, 9)  # valid rows of the chunks whose every row is held
 
 
 def decode_rows_check() -> int:
     """The contract speculative decoding's verify == sequential decode
     rests on: a paged_attention row at length p + 1 is bitwise the
     ragged kernel's row at position p, whether that row sits in a one-row
-    slot, in a 4-row verify-style slot (each of its rows checked), alone
+    slot, in a verify slot of 4 or 9 positions (each row checked), alone
     in a 128-row launch or in a 128-row prefill chunk (DECODE_ROW_CHUNKS),
     in bf16 (the tensor-core body: narrow and wide tiles) and in f32 (the
     scalar body), over fp, int8 and int4 pages. Returns the rows
@@ -529,7 +549,7 @@ def decode_rows_check() -> int:
                         scale=c["scale"], **c["sc"])
                     # the rows checked: every row of a verify slot, the
                     # last valid position's row otherwise
-                    rows = range(n_v) if n_v == 4 else [None]
+                    rows = range(n_v) if n_v in VERIFY_SLOTS else [None]
                     for j in rows:
                         at = [(n - 1 - a) if j is None else j
                               for n, a in zip(lens, st)]
@@ -1806,6 +1826,647 @@ def dense_serving() -> dict:
     return res
 
 
+# -- phase 8: the rest of the single-card engine -------------------------
+# speculative decoding, live migration with drain and handoff, the
+# host-RAM prefix tier and the fleet pull, co-hosting on a shared page
+# pool, and live weight publish — all qwen3-0p6b in bf16 at full width,
+# through the CUDA kernels
+NEW_PATHS = ("ragged_paged_attention", "paged_attention")
+# spec == plain on the card: a greedy stream may part only where the plain
+# run's top-two logit gap is within this (bf16 logits; H100 readings: the
+# streams that part do so at gaps of 0 and 0.015625, and the top logits
+# of draws made from equal tokens differ by at most 0.03125)
+SPEC_TIE = 0.0625
+GEMM_ROWS_M = (8, 72, 1024)  # decode slots, 8 verify slots of 9, a block
+_MODEL: dict = {}
+
+
+def gemm_rows(device: str = "cuda") -> dict:
+    """Whether a row's bits depend on the GEMM's height: the same rows
+    through ``models/quant.py::matmul`` at M = 8 and 72 against the same
+    rows inside M = 1024 (qwen3-0p6b's q, kv, MLP and output widths), and
+    through one whole layer's non-attention work (norm, q/k/v projections
+    with qk-norm and rope, output projection, MLP) as a [8, 1] decode
+    batch against the same rows of an [8, 128] block. bf16 and f32 (TF32
+    off); weights random from a seed. Returns and prints, per case, rows
+    bitwise equal or the max |diff|. Runs on the card or, with
+    ``device="cpu"``, on the host (python -c "import chip_smoke as c;
+    c.gemm_rows('cpu')")."""
+    from tensorlink_tpu_torch.models.quant import matmul
+
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    out: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        cfg = config_presets()["qwen3-0p6b"].with_(
+            n_layers=1, vocab_size=1024, dtype=dtype)
+        g = torch.Generator(device=dev)
+        g.manual_seed(31)
+        params = init_params(cfg, g, device=dev)
+        lp = ttr._layers(params)[0]
+        d = cfg.d_model
+        for name, w in (("wq", lp["attn"]["wq"]), ("wk", lp["attn"]["wk"]),
+                        ("w_up", lp["mlp"]["w_up"]),
+                        ("w_down", lp["mlp"]["w_down"])):
+            x = torch.randn((1024, w.shape[0]), generator=g, device=dev)
+            x = x.to(dtype)
+            full = matmul(x, w)
+            for m in GEMM_ROWS_M[:-1]:
+                part = matmul(x[:m], w)
+                diff = (part.float() - full[:m].float()).abs().max().item()
+                out[f"{dt} matmul {name} M={m} vs 1024"] = (
+                    "bitwise" if torch.equal(part, full[:m]) else diff)
+        S, C = 8, 128
+        x = torch.randn((S, C, d), generator=g, device=dev).to(dtype)
+        pos = torch.arange(C, device=dev)[None, :].expand(S, C) + 300
+        cols = torch.arange(S, device=dev) * 13 % C
+        rows = torch.arange(S, device=dev)
+
+        def layer(xb, pb):
+            cos, sin = ttr.rope_tables(pb, ttr._rope_dim(cfg),
+                                       cfg.rope_theta)
+            h = ttr._norm(xb, lp["ln1"], cfg)
+            q, k, v = ttr._qkv(h, lp, cfg, cos, sin)
+            return k, v, ttr._residual(xb, q, lp, cfg)
+
+        blk = layer(x, pos)
+        dec = layer(x[rows, cols][:, None].contiguous(),
+                    pos[rows, cols][:, None].contiguous())
+        for name, a, b in zip(("k", "v", "out"), dec, blk):
+            a, b = a[:, 0], b[rows, cols]
+            out[f"{dt} layer {name} [8,1] vs [8,128]"] = (
+                "bitwise" if torch.equal(a, b)
+                else (a.float() - b.float()).abs().max().item())
+    log(f"gemm rows ({device}): {json.dumps(out)}")
+    return out
+
+
+def _model():
+    """qwen3-0p6b in bf16 at full width, random weights from a seed (one
+    copy for every engine of phase 8)."""
+    if not _MODEL:
+        cfg = config_presets()["qwen3-0p6b"]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(4321)
+        _MODEL.update(cfg=cfg, params=init_params(cfg, g, device="cuda"))
+    return _MODEL["cfg"], _MODEL["params"]
+
+
+def _gen(max_seq_len=4096, quant=None):
+    cfg, params = _model()
+    return GenerationEngine(cfg, params, max_seq_len=max_seq_len,
+                            quant=quant, device="cuda")
+
+
+def _cont(gen, **kw):
+    from tensorlink_tpu_torch.engine.continuous import ContinuousEngine
+
+    for k, v in dict(max_slots=8, page_size=16, chunk_steps=8,
+                     prefill_chunk=128).items():
+        kw.setdefault(k, v)
+    return ContinuousEngine(gen, **kw)
+
+
+class _Launches:
+    """The kernel counts of one phase: reset on entry; on :meth:`check`,
+    every engine of the phase took the CUDA kernels (one ragged launch a
+    layer per chunk, chunk_steps - 1 decode launches a layer per chunk),
+    in the expected page formats, and no plain version ran."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.engines: list = []
+        att.reset_counts()
+
+    def add(self, ce):
+        if not ce.use_kernel:
+            raise AssertionError(f"{self.label}: an engine off the kernels")
+        ce._chunks0 = ce.chunks
+        self.engines.append(ce)
+        return ce
+
+    def check(self) -> dict:
+        L = _MODEL["cfg"].n_layers
+        chunks = sum(e.chunks - e._chunks0 for e in self.engines)
+        steps = {e.chunk_steps for e in self.engines}
+        if chunks == 0 or len(steps) != 1:
+            raise AssertionError(f"{self.label}: {chunks} chunks")
+        want = {"ragged_paged_attention": L * chunks,
+                "paged_attention": L * (steps.pop() - 1) * chunks}
+        got = {n: getattr(att, n).launches for n in NEW_PATHS}
+        plain = {f.__name__: f.calls for f in att._REFS if f.calls}
+        if got != want or plain:
+            raise AssertionError(f"{self.label}: launches {got} vs {want}, "
+                                 f"plain versions {plain}")
+        fmts = {n: {f: c for f, c in getattr(att, n).launches_by_format
+                    .items() if c} for n in NEW_PATHS}
+        return dict(chunks=chunks, launches=got, by_format=fmts)
+
+
+def _equal_stream(label, got, want) -> bool:
+    """A path that computes every row at the same GEMM heights as its
+    reference must give the reference's greedy stream exactly."""
+    if list(got) != list(want):
+        i = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                 min(len(got), len(want)))
+        raise AssertionError(f"{label}: the stream parts at token {i}")
+    return True
+
+
+def _spec_prompts(cfg):
+    """8 repetitive prompts (two-token and five-token cycles, and a
+    "code-like" block repeated) and 8 of _requests' prompts with their
+    knobs (half greedy, half sampled)."""
+    rng = np.random.default_rng(99)
+    V = cfg.vocab_size
+    reps = []
+    for i in range(8):
+        unit = rng.integers(0, V, (2, 5, 24, 3)[i % 4]).tolist()
+        reps.append(((unit * (600 // len(unit)))[: 200 + 50 * i], {}))
+    _warm, reqs = _requests(cfg)
+    return reps + [reqs[i] for i in range(8)]
+
+
+def _draw_recorder(store: list):
+    """Wrappers for ``paged._row_keys``/``paged._sample_rows`` that keep,
+    per draw, each row's (seed, step) and its logits' top two values and
+    ids — on the card, read once after the run."""
+    real_keys, real_sample = paged._row_keys, paged._sample_rows
+    cur = {}
+
+    def keys(seeds, steps):
+        cur["ids"] = (seeds, steps)
+        return real_keys(seeds, steps)
+
+    def sample(logits, *a):
+        v, i = torch.topk(logits.float(), 2, dim=-1)
+        store.append((*cur["ids"], v, i))
+        return real_sample(logits, *a)
+
+    return keys, sample
+
+
+def _draws(store) -> dict:
+    """(seed, step) → (top-two values, ids) of the draw made there: the
+    LAST row recorded under that key (a row the verify walk stopped, or a
+    finished slot's frozen row, is recorded earlier or under a step no
+    draw uses)."""
+    out = {}
+    for seeds, steps, v, i in store:
+        seeds, steps = seeds.tolist(), steps.tolist()
+        v, i = v.tolist(), i.tolist()
+        for r in range(len(seeds)):
+            out[(seeds[r], steps[r])] = (v[r], i[r])
+    return out
+
+
+def _top_is(v, ids, tok) -> bool:
+    """``tok`` is a greedy draw of these top two (ties both count)."""
+    return ids[0] == tok or (ids[1] == tok and v[1] == v[0])
+
+
+def spec_serving(kv_quant: str) -> dict:
+    """Speculative decoding at full width: 16 requests x 64 tokens (8
+    repetitive, 8 of _requests'), all opted in, on 8 slots with
+    spec_draft 8, then the same requests with spec off, each draw's top
+    two logits recorded. Greedy streams equal, or parted only where the
+    plain run's top-two gap is within SPEC_TIE (logged with the largest
+    |spec - plain| top logit over the draws made from equal tokens);
+    spec_drafted > 0, more than one token per verify pass, and ragged
+    launches whose verify slots carry 8 drafts (9 positions, 18 rows at
+    G = 2)."""
+    cfg, _ = _model()
+    gen = _gen()
+    prompts = _spec_prompts(cfg)
+    runs = {}
+    for spec in (True, False):
+        ce = _cont(gen, kv_quant=kv_quant, spec_decode=spec, spec_draft=8)
+        lc = _Launches(f"spec serving {kv_quant} spec={spec}")
+        lc.add(ce)
+        widest = [0]
+        real = ce._pack_drafts
+
+        def pack(blk, n_valid, remaining, real=real, widest=widest):
+            n_spec = real(blk, n_valid, remaining)
+            widest[0] = max(widest[0], int(n_spec.max()))
+            return n_spec
+
+        ce._pack_drafts = pack
+        store: list = []
+        real_fns = paged._row_keys, paged._sample_rows
+        paged._row_keys, paged._sample_rows = _draw_recorder(store)
+        try:
+            reqs = [ce.submit(ids, max_new_tokens=64, seed=100 + i,
+                              sampling=SamplingParams.make(**knobs),
+                              speculative=True)
+                    for i, (ids, knobs) in enumerate(prompts)]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            ce.run_until_idle()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            paged._row_keys, paged._sample_rows = real_fns
+        if not all(r.finished and len(r.tokens) == 64 for r in reqs):
+            raise AssertionError(f"spec serving {kv_quant}: a request "
+                                 "did not finish")
+        ce.check_page_conservation()
+        snap = ce.serving_snapshot()
+        runs[spec] = dict(
+            streams=[list(r.tokens) for r in reqs], wall_s=wall,
+            tokens_per_s=64 * len(reqs) / wall, widest=widest[0],
+            launches=lc.check(), snap=snap, draws=_draws(store),
+        )
+        ce.close()
+        del ce
+    on, off = runs[True], runs[False]
+    if not on["snap"]["spec_drafted"] > 0:
+        raise AssertionError("spec serving: nothing was drafted")
+    if not on["snap"]["spec_tokens_per_pass"] > 1:
+        raise AssertionError("spec serving: tokens per pass "
+                             f"{on['snap']['spec_tokens_per_pass']}")
+    if on["widest"] != 8:
+        raise AssertionError(f"spec serving: widest verify slot "
+                             f"{on['widest']} drafts, not 8")
+    parted, sampled, noise, n_cmp = [], [], 0.0, 0
+    for i, ((ids, knobs), a, b) in enumerate(zip(prompts, on["streams"],
+                                                 off["streams"])):
+        if knobs:
+            sampled.append(a == b)
+            continue
+        at = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                  len(b))
+        for n in range(at + (at < len(b))):
+            (vs, ids_s), (vp, ids_p) = (on["draws"][(100 + i, n)],
+                                        off["draws"][(100 + i, n)])
+            if not (_top_is(vp, ids_p, b[n]) and _top_is(vs, ids_s, a[n])):
+                raise AssertionError(f"spec serving: draw {n} of request "
+                                     f"{i} not recorded")
+            if n < at:
+                noise = max(noise, abs(vs[0] - vp[0]))
+                n_cmp += 1
+        if at < len(b):
+            gap = vp[0] - vp[1]
+            parted.append(dict(request=i, at=at, gap=gap))
+            log(f"spec serving {kv_quant} request {i}: parts at token {at} "
+                f"of 64, plain top-two gap {gap:.6g}")
+    worst = max((p["gap"] for p in parted), default=0.0)
+    res = dict(
+        kv_quant=kv_quant, requests=len(prompts),
+        tokens_per_s_spec_on=on["tokens_per_s"],
+        tokens_per_s_spec_off=off["tokens_per_s"],
+        wall_s_spec_on=on["wall_s"], wall_s_spec_off=off["wall_s"],
+        spec_drafted=on["snap"]["spec_drafted"],
+        spec_accepted=on["snap"]["spec_accepted"],
+        spec_verify_passes=on["snap"]["spec_verify_passes"],
+        spec_killed=on["snap"]["spec_killed"],
+        spec_tokens_per_pass=on["snap"]["spec_tokens_per_pass"],
+        widest_verify_drafts=on["widest"],
+        greedy_parted=parted,
+        greedy_equal=f"{16 - len(sampled) - len(parted)} of "
+                     f"{16 - len(sampled)}",
+        top_logit_diff_at_equal_draws=noise, equal_draws=n_cmp,
+        sampled_equal=f"{sum(sampled)} of {len(sampled)}",
+        launches_on=on["launches"], launches_off=off["launches"],
+    )
+    log(f"spec serving (qwen3-0p6b bf16, {_fmt(kv_quant)} pages, 8 slots, "
+        f"spec_draft 8; readings, not a claim): {json.dumps(res)}")
+    if worst > SPEC_TIE:
+        raise AssertionError(f"spec serving {kv_quant}: a greedy stream "
+                             f"parts at a plain top-two gap {worst} > "
+                             f"{SPEC_TIE}")
+    del gen
+    torch.cuda.empty_cache()
+    return res
+
+def _ship(src, dst, req, mig_id):
+    """Freeze ``req``'s slot on ``src``, export through the TLTS frame,
+    stage on ``dst``, commit, and resubmit with the ticket."""
+    from tensorlink_tpu_torch.core import serialization as ser
+
+    slot = req.slot
+    src.freeze_slot(slot)
+    src.check_page_conservation()
+    chain, limit = src.migration_chain(slot)
+    blob = src.export_slot(slot, n_skip=dst.resident_prefix_pages(chain,
+                                                                  limit))
+    blob = ser.decode(ser.encode(blob), copy=True)
+    if not dst.stage_migration(mig_id, blob):
+        raise AssertionError(f"migration {mig_id}: staging refused")
+    moved = src.commit_migration(slot)
+    return dst.submit(
+        moved.prompt + moved.tokens,
+        max_new_tokens=moved.budget - len(moved.tokens),
+        sampling=moved.sampling, seed=moved.seed,
+        start_step=moved.start_step + len(moved.tokens), adopt=mig_id,
+    ), moved, int(blob["k"].shape[0])
+
+
+def migration_phase() -> dict:
+    """Two ContinuousEngines on the card, for fp, int8 and int4 pages: a
+    greedy stream frozen mid-decode (with a neighbour decoding on each
+    engine), exported, staged and adopted, equal to its uninterrupted
+    run; pages in transit 0 and conservation on both; an int4 → int8
+    staging refused. Then one prefill→decode handoff and a drain that
+    sheds the queue onto the other engine. Streams are held equal token
+    for token: every row runs at its reference's GEMM heights."""
+    cfg, _ = _model()
+    gen = _gen()
+    rng = np.random.default_rng(55)
+    prompt = rng.integers(0, cfg.vocab_size, 700).tolist()
+    res: dict = {}
+    exported: dict = {}
+    for kv_quant in ("none", "int8", "int4"):
+        lc = _Launches(f"migration {kv_quant}")
+        ref = lc.add(_cont(gen, kv_quant=kv_quant))
+        want = ref.submit(prompt, max_new_tokens=48, seed=3)
+        ref.run_until_idle()
+        src = lc.add(_cont(gen, kv_quant=kv_quant))
+        dst = lc.add(_cont(gen, kv_quant=kv_quant))
+        src.submit(prompt[:300], max_new_tokens=64, seed=4)
+        dst.submit(prompt[100:500], max_new_tokens=64, seed=5)
+        r = src.submit(prompt, max_new_tokens=48, seed=3)
+        while len(r.tokens) < 20:
+            src.step_chunk()
+        dst.step_chunk()
+        r2, moved, n_pages = _ship(src, dst, r, f"m-{kv_quant}")
+        src.run_until_idle()
+        dst.run_until_idle()
+        got = moved.tokens + r2.tokens
+        same = _equal_stream(f"migration {kv_quant}", got, want.tokens)
+        for e in (src, dst):
+            if e.serving_snapshot()["pages_in_transit"]:
+                raise AssertionError("migration: pages left in transit")
+            e.check_page_conservation()
+        if dst.stats["migrations_adopted"] != 1:
+            raise AssertionError("migration: the ticket was not adopted")
+        exported[kv_quant] = src
+        res[_fmt(kv_quant)] = dict(stream=same, pages_shipped=n_pages,
+                                   launches=lc.check())
+        for e in (ref, dst):
+            e.close()
+    # int4 pages cannot land in an int8 engine (same byte dtype)
+    src, dst = exported["int4"], _cont(gen, kv_quant="int8")
+    r = src.submit(prompt[:200], max_new_tokens=32, seed=6)
+    while len(r.tokens) < 10:
+        src.step_chunk()
+    src.freeze_slot(r.slot)
+    if dst.stage_migration("x", src.export_slot(r.slot)):
+        raise AssertionError("migration: int4 pages staged into int8")
+    dst.check_page_conservation()
+    src.abort_migration(r.slot)
+    src.run_until_idle()
+    for e in list(exported.values()) + [dst]:
+        e.close()
+    res["int4_to_int8_refused"] = True
+
+    # one prefill→decode handoff and one drain
+    lc = _Launches("handoff and drain")
+    ref = lc.add(_cont(gen))
+    want = ref.submit(prompt[:400], max_new_tokens=32, seed=8)
+    ref.run_until_idle()
+    pre = lc.add(_cont(gen, handoff_after_prefill=True,
+                       worker_role="prefill"))
+    dec = lc.add(_cont(gen, worker_role="decode"))
+    pre.submit(prompt[:400], max_new_tokens=32, seed=8, handoff=True)
+    manifest = []
+    while not manifest:
+        pre.step_chunk()
+        manifest = pre.handoff_manifest()
+    (slot, req), = manifest
+    chain, limit = pre.migration_chain(slot)
+    blob = pre.export_slot(slot, n_skip=dec.resident_prefix_pages(chain,
+                                                                  limit))
+    if not dec.stage_migration("h", blob):
+        raise AssertionError("handoff: staging refused")
+    moved = pre.commit_handoff(slot)
+    r2 = dec.submit(moved.prompt, max_new_tokens=moved.budget,
+                    seed=moved.seed, adopt="h")
+    dec.run_until_idle()
+    hand = _equal_stream("handoff", r2.tokens, want.tokens)
+    if pre.stats["handoffs_completed"] != 1 or moved.tokens:
+        raise AssertionError("handoff: not completed at the boundary")
+    queued = [pre.submit(prompt[i:i + 200], max_new_tokens=16, seed=i)
+              for i in range(0, 80, 8)]
+    pre.begin_drain()
+    shed = pre.shed_queued()
+    if len(shed) != len(queued) or pre.submit([1, 2],
+                                              max_new_tokens=2).error is None:
+        raise AssertionError("drain: the fence did not hold")
+    moved_q = [dec.submit(q.prompt, max_new_tokens=q.budget, seed=q.seed)
+               for q in shed]
+    dec.run_until_idle()
+    if not all(q.finished and len(q.tokens) == 16 for q in moved_q):
+        raise AssertionError("drain: a shed request did not finish")
+    for e in (pre, dec, ref):
+        e.check_page_conservation()
+        e.close()
+    res["handoff"] = dict(stream=hand, launches=lc.check(),
+                          drained=len(shed))
+    log(f"migration (qwen3-0p6b bf16, 700-token prompt, frozen at 20 of 48 "
+        f"tokens): {json.dumps(res)}")
+    del gen
+    torch.cuda.empty_cache()
+    return res
+
+
+def host_tier_phase() -> dict:
+    """The host-RAM tier: 2 slots over a 512-position engine (65 pages),
+    a 256-token shared prefix served, then three 400-token prompts of
+    churn that force its pages out of the trie into the host tier; the
+    re-request is promoted back (host_tier_hits > 0, prefill skipped) and
+    equal to the first run. Then one fleet pull between two engines
+    through make_fleet_fetcher over their router snapshots."""
+    from tensorlink_tpu_torch.fleet.prefixmap import make_fleet_fetcher
+
+    cfg, _ = _model()
+    gen = _gen(max_seq_len=512)
+    rng = np.random.default_rng(66)
+    V = cfg.vocab_size
+    shared = rng.integers(0, V, 256).tolist()
+    oracle = shared + rng.integers(0, V, 40).tolist()
+    churn = [rng.integers(0, V, 400).tolist() for _ in range(3)]
+    lc = _Launches("host tier")
+    ce = lc.add(_cont(gen, max_slots=2, host_tier_pages=64))
+    first = ce.submit(oracle, max_new_tokens=32, seed=1)
+    ce.run_until_idle()
+    for i, p in enumerate(churn):
+        ce.submit(p, max_new_tokens=32, seed=10 + i)
+        ce.run_until_idle()
+    demoted = ce.stats["prefix_demotions"]
+    skipped0 = ce.stats["prefill_tokens_skipped"]
+    again = ce.submit(oracle, max_new_tokens=32, seed=1)
+    ce.run_until_idle()
+    if demoted <= 0 or ce.stats["host_tier_hits"] <= 0 or \
+            again.cache_tier != "host":
+        raise AssertionError(f"host tier: demotions {demoted}, hits "
+                             f"{ce.stats['host_tier_hits']}, tier "
+                             f"{again.cache_tier}")
+    skipped = ce.stats["prefill_tokens_skipped"] - skipped0
+    if skipped <= 0:
+        raise AssertionError("host tier: no prefill skipped")
+    tier = _equal_stream("host tier", again.tokens, first.tokens)
+    ce.check_page_conservation()
+    snap = ce.serving_snapshot()
+    ce.close()
+    # the fleet pull: r1 served the prompt, r0 never saw it
+    r0 = lc.add(_cont(gen, max_slots=2))
+    r1 = lc.add(_cont(gen, max_slots=2))
+    cold = r1.submit(oracle, max_new_tokens=32, seed=1)
+    r1.run_until_idle()
+    engines = {"r0": r0, "r1": r1}
+    r0.fetch_prefix = make_fleet_fetcher(
+        "r0", r0.page_size,
+        lambda: {rid: e.router_snapshot() for rid, e in engines.items()},
+        {rid: (lambda ch, lim, ns, e=e: e.export_prefix_pages(
+            ch, lim, n_skip=ns)) for rid, e in engines.items()},
+    )
+    pulled = r0.submit(oracle, max_new_tokens=32, seed=1)
+    r0.run_until_idle()
+    if r0.stats["fleet_pulls"] != 1 or pulled.cache_tier != "fleet":
+        raise AssertionError(f"fleet pull: {r0.stats['fleet_pulls']} pulls, "
+                             f"tier {pulled.cache_tier}")
+    pull = _equal_stream("fleet pull", pulled.tokens, cold.tokens)
+    for e in (r0, r1):
+        e.check_page_conservation()
+        e.close()
+    res = dict(
+        demotions=demoted, host_tier_hits=snap["host_tier_hits"],
+        prefill_tokens_skipped=skipped, stream=tier,
+        tier_fetch_ms_count=snap["tier_fetch_ms_count"],
+        tier_fetch_ms_sum=snap["tier_fetch_ms_sum"],
+        fleet_pull=dict(stream=pull,
+                        skipped=r0.stats["prefill_tokens_skipped"]),
+        launches=lc.check(),
+    )
+    log(f"host tier (qwen3-0p6b bf16, fp pages, 64-page host tier): "
+        f"{json.dumps(res)}")
+    del gen
+    torch.cuda.empty_cache()
+    return res
+
+
+def cohost_phase() -> dict:
+    """Two tenants of one geometry on a SharedPagePool of 600 pages (bf16
+    weights, and int8 weights over the same checkpoint), quotas 300 each,
+    4 requests each stepped from one thread: each tenant's greedy streams
+    equal its solo runs, each within its quota, the pool conserved at
+    every boundary and whole at the end."""
+    from tensorlink_tpu_torch.engine.paged import SharedPagePool
+
+    cfg, _ = _model()
+    gens = {"bf16": _gen(max_seq_len=2048),
+            "int8": _gen(max_seq_len=2048, quant="int8")}
+    rng = np.random.default_rng(77)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (300, 700, 150, 1000)]
+    lc = _Launches("co-hosting")
+    solo = {}
+    for name, gen in gens.items():
+        ce = lc.add(_cont(gen, max_slots=4))
+        rs = [ce.submit(p, max_new_tokens=32, seed=i)
+              for i, p in enumerate(prompts)]
+        ce.run_until_idle()
+        solo[name] = [list(r.tokens) for r in rs]
+        ce.close()
+    pool = SharedPagePool(cfg, 600, page_size=16, device="cuda")
+    tenants = {name: lc.add(_cont(gen, max_slots=4, pool=pool,
+                                  model_id=name, page_quota=300))
+               for name, gen in gens.items()}
+    a, b = tenants.values()
+    if a.cache.k is not b.cache.k:
+        raise AssertionError("co-hosting: tenants hold separate pages")
+    reqs = {name: [ce.submit(p, max_new_tokens=32, seed=i)
+                   for i, p in enumerate(prompts)]
+            for name, ce in tenants.items()}
+    peak = {name: 0 for name in tenants}
+    while a.step_chunk() | b.step_chunk():
+        pool.check_page_conservation()
+        for name, ce in tenants.items():
+            peak[name] = max(peak[name], ce.alloc.used)
+            if ce.alloc.used > ce.alloc.quota:
+                raise AssertionError(f"co-hosting: {name} over its quota")
+    streams = {}
+    for name in tenants:
+        streams[name] = [
+            _equal_stream(f"co-hosting {name} request {i}", r.tokens,
+                          solo[name][i])
+            for i, r in enumerate(reqs[name])]
+    for ce in tenants.values():
+        ce.close()
+    if pool.alloc.n_free != 600 or pool.tenants:
+        raise AssertionError("co-hosting: pages not returned at close")
+    res = dict(streams=streams, peak_pages_used=peak, quota=300,
+               launches=lc.check())
+    log(f"co-hosting (qwen3-0p6b bf16 + int8 weights, one pool): "
+        f"{json.dumps(res)}")
+    del gens
+    torch.cuda.empty_cache()
+    return res
+
+
+def publish_phase() -> dict:
+    """publish_weights of a perturbed copy while a stream decodes: the
+    stream runs to its full length, weights_version grows, the prefix
+    trie is fenced, and no parameter or page tensor changes shape, dtype
+    or device."""
+    cfg, params = _model()
+    gen = _gen()
+    lc = _Launches("publish")
+    ce = lc.add(_cont(gen))
+    rng = np.random.default_rng(88)
+    warm = rng.integers(0, cfg.vocab_size, 300).tolist()
+    ce.submit(warm, max_new_tokens=4, seed=1)
+    ce.run_until_idle()
+    resident = ce.prefix.n_resident
+    live = ce.submit(rng.integers(0, cfg.vocab_size, 500).tolist(),
+                     max_new_tokens=64, seed=2)
+    while len(live.tokens) < 16:
+        ce.step_chunk()
+
+    def layout():
+        leaves = []
+
+        def walk(t, path):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{path}/{k}")
+            else:
+                leaves.append((path, tuple(t.shape), t.dtype, t.device))
+
+        walk(gen.params, "")
+        c = ce.cache
+        return leaves + [(n, tuple(t.shape), t.dtype, t.device)
+                         for n, t in (("k", c.k), ("v", c.v),
+                                      ("bt", c.block_tables))]
+
+    before = layout()
+    new = {k: v for k, v in params.items()}
+    new["final_norm"] = {"scale": params["final_norm"]["scale"] * 1.01}
+    version = ce.publish_weights(new)
+    fenced = ce.prefix.n_resident == 0 and not ce.prefix.match(
+        warm, len(warm) - 1)
+    ce.run_until_idle()
+    after = layout()
+    if not (live.finished and len(live.tokens) == 64):
+        raise AssertionError("publish: the live stream did not finish")
+    if version != 2 or ce.weights_version != 2 or not fenced:
+        raise AssertionError(f"publish: version {version}, fenced {fenced}")
+    if before != after:
+        raise AssertionError("publish: a tensor changed shape, dtype or "
+                             "device")
+    ce.check_page_conservation()
+    ce.close()
+    res = dict(weights_version=version, resident_before=resident,
+               fenced=fenced, tensors=len(before), launches=lc.check())
+    log(f"publish (qwen3-0p6b bf16, mid-stream): {json.dumps(res)}")
+    del gen
+    torch.cuda.empty_cache()
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -1832,6 +2493,18 @@ def main() -> None:
         serving[_fmt(kv_quant)] = _phase(f"serving {kv_quant}", serving_phase,
                                          kv_quant, quant, n_req)
     dense = _phase("dense serving", dense_serving)
+    _phase("gemm rows", gemm_rows)
+    new_paths = {}
+    for kv_quant in ("none", "int8"):
+        r = _phase(f"spec serving {kv_quant}", spec_serving, kv_quant)
+        new_paths[f"spec {_fmt(kv_quant)}"] = r["launches_on"]
+    mig = _phase("migration", migration_phase)
+    for fmt in FORMATS:
+        new_paths[f"migration {fmt}"] = mig[fmt]["launches"]
+    new_paths["handoff and drain"] = mig["handoff"]["launches"]
+    new_paths["host tier"] = _phase("host tier", host_tier_phase)["launches"]
+    new_paths["co-hosting"] = _phase("co-hosting", cohost_phase)["launches"]
+    new_paths["publish"] = _phase("publish", publish_phase)["launches"]
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -1857,6 +2530,12 @@ def main() -> None:
             entry["library_call"] = None
             entry["library_note"] = ("no single PyTorch call consumes int8 "
                                      "or packed-int4 pages")
+        if name in NEW_PATHS:
+            entry["launches_new_paths"] = {
+                label: r["by_format"][name].get(fmt, 0)
+                for label, r in new_paths.items()
+                if r["by_format"][name].get(fmt, 0)
+            }
         if name != "paged_prefill_attention" and fmt == "fp":
             kernels.append(entry)  # PR 1's two entries, as they were
             continue

@@ -9,6 +9,13 @@ numpy ``.q`` and ``.scale`` and becomes the port's ``QTensor``. A dense
 JAX ``KVCache`` (fp, or int8 with scales) arrives the same way, as an
 object with numpy ``.k``/``.v``/``.length`` (and ``.k_scale``/
 ``.v_scale``), and becomes the port's ``KVCache`` with the same layout.
+
+Serving state crosses too: a JAX engine's migration or prefix blob
+(``export_slot``, ``export_prefix_pages``) becomes a blob the port's
+``stage_migration``/``stage_prefix`` take (:func:`blob_from_jax`), and a
+JAX ``HostPagePool``'s entries load into the port's
+(:func:`host_pool_from_jax`) — the same bytes, bfloat16 payloads carried
+as their 16 bits.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from .core.devices import resolve_device
+from .core.serialization import BFLOAT16
 from .models.base import KVCache, ModelConfig
 from .models.quant import QTensor
 
@@ -89,6 +97,38 @@ def kv_cache_from_jax(cache, device=None) -> KVCache:
                    v_scale=t(getattr(cache, "v_scale", None)))
 
 
+def _host(a):
+    """A numpy payload as the port keeps it on the host: an ``ml_dtypes``
+    bfloat16 array becomes its 16-bit payload under ``BFLOAT16``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" and a.dtype != BFLOAT16:
+        return a.view(np.uint16).view(BFLOAT16)
+    return a
+
+
+def blob_from_jax(blob: dict) -> dict:
+    """A JAX engine's migration or prefix blob (numpy leaves, e.g. after
+    ``jax.device_get`` or a TLTS round trip) → the port's blob: every key
+    and value kept, payload arrays in the port's host representation."""
+    return {k: _host(v) if isinstance(v, np.ndarray) else v
+            for k, v in blob.items()}
+
+
+def host_pool_from_jax(jax_pool, pool) -> int:
+    """Load a JAX ``HostPagePool``'s entries into the port's ``pool``
+    (least recently used first, so the LRU order carries over). Returns
+    the entries loaded."""
+    entries = sorted(jax_pool._entries.values(), key=lambda e: e.tick)
+    for e in entries:
+        pool.put(
+            e.blocks, _host(e.k), _host(e.v),
+            None if e.k_scale is None else _host(e.k_scale),
+            None if e.v_scale is None else _host(e.v_scale),
+            weights_version=e.weights_version,
+        )
+    return len(entries)
+
+
 def config_from_jax(fields: dict) -> ModelConfig:
     """A JAX ``ModelConfig`` given as a field dict
     (``dataclasses.asdict``) → the port's config; ``dtype`` may be a
@@ -99,5 +139,5 @@ def config_from_jax(fields: dict) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-__all__ = ["config_from_jax", "kv_cache_from_jax", "params_from_jax",
-           "torch_dtype"]
+__all__ = ["blob_from_jax", "config_from_jax", "host_pool_from_jax",
+           "kv_cache_from_jax", "params_from_jax", "torch_dtype"]

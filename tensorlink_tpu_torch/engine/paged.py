@@ -42,8 +42,13 @@ codes (packed two per byte for int4, trailing dim ``hd / 2``) and
 every page operation (``copy_page``, ``clone``) moves payload and scales
 together.
 
-Not in this slice: ``SharedPagePool``, the tensor-parallel step, and the
-migration page gather/scatter.
+Pages move between engines and tiers through :func:`gather_page` (one
+page of every layer copied to host numpy, bfloat16 as its 16-bit
+payload) and :func:`scatter_page` (the inverse, in place), byte-exactly.
+:class:`SharedPagePool` holds one set of page tensors for several
+co-hosted tenant engines under per-tenant quotas (:class:`PoolTenant`).
+
+Not in this slice: the tensor-parallel step.
 """
 
 from __future__ import annotations
@@ -54,7 +59,10 @@ from dataclasses import dataclass, replace
 
 import torch
 
+import numpy as np
+
 from ..core.devices import resolve_device
+from ..core.serialization import BFLOAT16
 from ..models.base import ModelConfig
 from ..models.quant import quantize_kv as _quant_kv
 from ..models.quant import quantize_kv4 as _quant_kv4
@@ -214,6 +222,263 @@ class PageAllocator:
             if p > 0:
                 self._free.append(p)
 
+
+# ---------------------------------------------------------------------------
+# Shared multi-tenant page pool (co-hosted models)
+# ---------------------------------------------------------------------------
+
+
+class PoolTenant:
+    """One co-hosted model's quota-bounded allocator over a
+    :class:`SharedPagePool`: the ``PageAllocator`` interface a
+    ``ContinuousEngine`` consumes (``n_free``/``alloc``/``free``), where an
+    allocation must fit BOTH the shared free list and this tenant's page
+    quota, and every page the tenant holds (slot-owned, prefix-cache
+    resident or in transit) counts against ``used`` until it returns
+    through :meth:`free`."""
+
+    def __init__(self, pool: "SharedPagePool", model_id: str, quota: int):
+        self.pool = pool
+        self.model_id = str(model_id)
+        # 0 = uncapped (bounded by the pool alone)
+        self.quota = int(quota) if quota else pool.n_pages - 1
+        self.used = 0
+        self.engine = None  # bound by SharedPagePool.attach
+
+    @property
+    def n_free(self) -> int:
+        return min(self.pool.alloc.n_free, self.quota - self.used)
+
+    @property
+    def _free(self):
+        # page_accounting reads the authoritative (shared) free list
+        return self.pool.alloc._free
+
+    def alloc(self, n: int) -> list[int] | None:
+        if self.used + n > self.quota:
+            return None  # quota dry: this tenant's own ladder reclaims
+        pages = self.pool.alloc.alloc(n)
+        if pages is not None:
+            self.used += len(pages)
+        return pages
+
+    def free(self, pages: list[int]) -> None:
+        n = sum(1 for p in pages if p > 0)
+        self.pool.alloc.free(pages)
+        self.used -= n
+        assert self.used >= 0, (
+            f"tenant {self.model_id!r} freed more pages than it held"
+        )
+
+
+class SharedPagePool:
+    """ONE set of physical KV page tensors shared by several co-hosted
+    tenant engines of the same page geometry (layers, kv heads, head_dim,
+    page size, storage mode, dtype). Each tenant keeps its own block
+    tables, slots, scheduler and prefix cache; the pages and the free list
+    are shared under per-tenant quotas.
+
+    Every attached engine must be stepped from one thread: a
+    tenant's step writes the shared page tensors in place, the next
+    tenant's step reads them, and cross-tenant reclaim and preemption walk
+    another tenant's host state.
+
+    Cross-tenant policy: when a tenant's allocation fails on the SHARED
+    free list (not its quota), admission may (1) evict other tenants'
+    refcount-0 prefix pages LRU-first (:meth:`reclaim_cache`), then (2)
+    preempt another tenant's strictly-lower-ranked running slot
+    (:meth:`cross_model_victim`) through that engine's own preemption
+    path."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        n_pages: int,
+        *,
+        page_size: int = 16,
+        dtype: torch.dtype | None = None,
+        kv_quant: str = "none",
+        device=None,
+    ):
+        self.page_size = int(page_size)
+        self.kv_quant = str(kv_quant or "none")
+        proto = PagedKVCache.init(
+            cfg, 0, page_size=self.page_size, max_len=self.page_size,
+            dtype=dtype, kv_quant=self.kv_quant, n_pages=1 + int(n_pages),
+            device=device,
+        )
+        self.device = proto.k.device
+        # the canonical layer-stacked page tensors: tenant engines read
+        # them through their cache view and their steps write them in place
+        self.kv: tuple = (
+            (proto.k, proto.v) if proto.k_scale is None
+            else (proto.k, proto.v, proto.k_scale, proto.v_scale)
+        )
+        self.alloc = PageAllocator(1 + int(n_pages))
+        self.tenants: dict[str, PoolTenant] = {}
+        self.geometry = (
+            cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, self.page_size,
+            self.kv_quant, dtype_name(proto.k.dtype),
+        )
+        self.cross_preemptions = 0
+        self.cache_reclaims = 0
+
+    @property
+    def n_pages(self) -> int:
+        return self.kv[0].shape[1]
+
+    @property
+    def n_free(self) -> int:
+        return self.alloc.n_free
+
+    def attach(self, model_id: str, engine, *, quota: int = 0) -> PoolTenant:
+        """Register a tenant engine. Its geometry (and device) must match
+        the pool's — a mismatched model cannot share physical pages."""
+        t_dtype = (
+            "int8" if engine.kv_quant in ("int8", "int4")
+            else dtype_name(engine.engine.cache_dtype)
+        )
+        geo = (
+            engine.cfg.n_layers, engine.cfg.n_kv_heads,
+            engine.cfg.head_dim, engine.page_size, engine.kv_quant,
+            t_dtype,
+        )
+        if geo != self.geometry:
+            raise ValueError(
+                f"tenant {model_id!r} page geometry {geo} does not match "
+                f"the shared pool's {self.geometry} — co-hosted models "
+                "must share (layers, kv_heads, head_dim, page_size, "
+                "kv_quant, dtype)"
+            )
+        if engine._counts.device != self.device:
+            raise ValueError(
+                f"tenant {model_id!r} runs on {engine._counts.device}, the "
+                f"shared pool's pages live on {self.device}"
+            )
+        if model_id in self.tenants:
+            raise ValueError(f"tenant {model_id!r} already attached")
+        t = PoolTenant(self, model_id, quota)
+        t.engine = engine
+        self.tenants[model_id] = t
+        return t
+
+    def detach(self, model_id: str) -> None:
+        t = self.tenants.pop(model_id, None)
+        assert t is None or t.used == 0, (
+            f"tenant {model_id!r} detached holding {t.used} pages"
+        )
+
+    # -- cross-tenant reclaim / preemption (single stepping thread) -----
+    def reclaim_cache(self, n: int, exclude) -> int:
+        """Evict up to ``n`` refcount-0 prefix-cache pages from OTHER
+        tenants (LRU within each trie) back to the shared free list.
+        Returns how many pages came back."""
+        freed = 0
+        for t in self.tenants.values():
+            if t.engine is exclude or t.engine.prefix is None:
+                continue
+            need = n - freed
+            if need <= 0:
+                break
+            pages = t.engine.prefix.evict(need)
+            if pages:
+                t.engine.alloc.free(pages)
+                freed += len(pages)
+        self.cache_reclaims += freed
+        return freed
+
+    def cross_model_victim(self, cand_rank: int, exclude):
+        """The running request another tenant should preempt for a
+        candidate of effective rank ``cand_rank``, or None: only slots
+        whose admission-time rank is strictly worse are eligible, worst
+        rank first, ties toward the tenant holding the most pages.
+        Returns ``(engine, request)``."""
+        best = None
+        for t in self.tenants.values():
+            eng = t.engine
+            if eng is exclude:
+                continue
+            with eng._lock:
+                v = eng.sched.victim_for_rank(eng._preemptable(), cand_rank)
+            if v is None:
+                continue
+            key = (v.admit_rank, t.used)
+            if best is None or key > best[0]:
+                best = (key, eng, v)
+        if best is None:
+            return None
+        self.cross_preemptions += 1
+        return best[1], best[2]
+
+    # -- conservation ----------------------------------------------------
+    def check_page_conservation(self) -> None:
+        """Shared free + Σ per tenant (slot-owned + cache-resident +
+        in-transit + tier-pinned) == total usable pages, every set
+        pairwise disjoint ACROSS tenants, each tenant's ``used`` equal to
+        what its engine holds, scratch page 0 nowhere. Raises
+        AssertionError on violation."""
+        problems: list[str] = []
+        free = set(self.alloc._free)
+        if len(free) != len(self.alloc._free):
+            problems.append("shared free-list holds a duplicate page")
+        seen: dict[int, str] = {p: "free" for p in free}
+        total_held = 0
+        for mid, t in self.tenants.items():
+            acc = t.engine.page_accounting()
+            slots, cached = list(acc["slots"]), set(acc["cached"])
+            transit = list(acc["in_transit"]) + list(acc["host_tier"])
+            if len(slots) != len(set(slots)):
+                problems.append(f"[{mid}] a page is owned by two slots")
+            if len(transit) != len(set(transit)):
+                problems.append(f"[{mid}] a page is in transit twice")
+            held = set(slots) | cached | set(transit)
+            if len(held) != len(slots) + len(cached) + len(transit):
+                problems.append(f"[{mid}] page in two ownership classes")
+            for p in held:
+                prev = seen.get(p)
+                if prev is not None:
+                    problems.append(
+                        f"page {p} held by both {prev} and {mid}"
+                    )
+                seen[p] = mid
+            n_held = len(slots) + len(cached) + len(transit)
+            total_held += n_held
+            if n_held != t.used:
+                problems.append(
+                    f"[{mid}] quota accounting drifted: engine holds "
+                    f"{n_held} pages, tenant.used={t.used}"
+                )
+            if t.used > t.quota:
+                problems.append(
+                    f"[{mid}] over quota: used={t.used} > {t.quota}"
+                )
+        if 0 in seen:
+            problems.append("scratch page 0 entered an ownership set")
+        total = self.n_pages - 1
+        if len(free) + total_held != total:
+            problems.append(
+                f"leak: free={len(free)} + held={total_held} != "
+                f"total={total}"
+            )
+        if problems:
+            raise AssertionError(
+                "pool page conservation violated: " + "; ".join(problems)
+            )
+
+    def snapshot(self) -> dict:
+        """Pool-level telemetry (each tenant merges it into its
+        ``serving_snapshot``)."""
+        return {
+            "pool_pages_total": self.n_pages - 1,
+            "pool_pages_free": self.alloc.n_free,
+            "pool_tenants": len(self.tenants),
+            "pool_cross_preemptions": self.cross_preemptions,
+            "pool_cache_reclaims": self.cache_reclaims,
+            "pool_used": {
+                mid: {"used": t.used, "quota": t.quota}
+                for mid, t in self.tenants.items()
+            },
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -871,6 +1136,66 @@ def clear_slot(cache: PagedKVCache, slot: int) -> PagedKVCache:
     return cache
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype's numpy-style name (``"bfloat16"``, ``"float32"``,
+    ``"int8"``): the ``"dtype"`` field of a migration or prefix blob and
+    of the storage-mode triple, as the JAX package writes it."""
+    return str(dtype).removeprefix("torch.")
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host numpy COPY of ``t`` (synchronizes with the card): bfloat16
+    as its 16-bit payload under ``BFLOAT16``, every other dtype as
+    itself."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BFLOAT16)
+    return t.numpy()
+
+
+def device_tensor(a, device) -> torch.Tensor:
+    """The inverse of :func:`host_array`: a numpy page payload (bfloat16
+    as ``BFLOAT16`` or an ``ml_dtypes`` bfloat16 array) as a tensor on
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.ascontiguousarray(a)
+    if a.dtype == BFLOAT16 or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def gather_page(cache: PagedKVCache, page: int) -> tuple:
+    """Read one physical page's KV across every layer to the host: the
+    migration EXPORT and the host-tier demote path. Returns host numpy
+    copies ``(k, v)`` (``[L, n_kv, page, hd]``) or ``(k, v, k_scale,
+    v_scale)`` for quantized pages — the stored bytes (no dequantize, no
+    cast), so a shipped page is byte-exact on the destination. The copies
+    are taken after the card finished writing and are not views: a later
+    step cannot change them."""
+    page = int(page)
+    out = [cache.k[:, page], cache.v[:, page]]
+    if cache.k_scale is not None:
+        out += [cache.k_scale[:, page], cache.v_scale[:, page]]
+    return tuple(host_array(t) for t in out)
+
+
+def scatter_page(cache: PagedKVCache, page: int, k, v, k_scale=None,
+                 v_scale=None) -> PagedKVCache:
+    """Write one shipped page's KV into a destination-owned physical page,
+    in place: the migration IMPORT and the host-tier promote path (the
+    inverse of :func:`gather_page`, byte-exact)."""
+    page = int(page)
+    dev = cache.k.device
+    cache.k[:, page] = device_tensor(k, dev)
+    cache.v[:, page] = device_tensor(v, dev)
+    if k_scale is not None:
+        cache.k_scale[:, page] = device_tensor(k_scale, dev)
+        cache.v_scale[:, page] = device_tensor(v_scale, dev)
+    return cache
+
+
 def pages_needed(total_len: int, page_size: int) -> int:
     """Pages a request of ``total_len`` positions (prompt + budget, capped
     at the engine's max_seq_len) occupies."""
@@ -880,13 +1205,20 @@ def pages_needed(total_len: int, page_size: int) -> int:
 __all__ = [
     "PageAllocator",
     "PagedKVCache",
+    "PoolTenant",
     "PrefixCache",
+    "SharedPagePool",
     "bind_slot",
     "chain_hash",
     "clear_slot",
     "copy_page",
+    "device_tensor",
+    "dtype_name",
+    "gather_page",
+    "host_array",
     "paged_decode_step",
     "paged_ragged_step",
     "pages_needed",
     "prompt_chain_hashes",
+    "scatter_page",
 ]

@@ -393,11 +393,13 @@ def test_port_quantized_solo_cobatched_prefix_and_cow_bitwise(models,
 
 def test_unported_variants_are_refused(models):
     _, tgen = models
-    for kw, what in ((dict(spec_decode=True), "speculative"),
-                     (dict(tensor_parallel=2), "tensor-parallel"),
-                     (dict(pool=object()), "co-hosting")):
-        with pytest.raises(NotImplementedError, match=what):
-            ContinuousEngine(tgen, **ENGINE_KW, **kw)
+    # speculative decoding and the shared pool are ported; tensor
+    # parallelism and the batcher's remote/pipelined modes are not
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        ContinuousEngine(tgen, **ENGINE_KW, tensor_parallel=2)
+    for mode in (dict(model=object()), dict(model=object(), engine=tgen)):
+        with pytest.raises(NotImplementedError, match="local mode"):
+            ContinuousBatcher(**mode)
     # int8/int4 pages are served now; an unknown mode is refused as JAX does
     with pytest.raises(ValueError, match="kv_quant"):
         ContinuousEngine(tgen, **ENGINE_KW, kv_quant="nf4")
@@ -508,3 +510,127 @@ def test_batcher_answers_threaded_generates(models, served):
     st = b.stats()
     assert st["requests"] == len(reqs) and st["engine"]["admitted"] >= 4
     b.close()
+
+
+# -- live weight publish ----------------------------------------------------
+def _publish_run(eng_cls, gen, sp_cls, new_params):
+    """A request decoding across a publish, a prefix cached before it, and
+    a request admitted after it."""
+    ce = eng_cls(gen, **ENGINE_KW)
+    warm = ce.submit([*SHARED, 1, 2], max_new_tokens=2, seed=3)
+    ce.run_until_idle()
+    assert warm.finished and ce.prefix.n_resident > 0
+    live = ce.submit([5, 6, 7, 200], max_new_tokens=20,
+                     sampling=sp_cls.make(temperature=0.9, top_k=5), seed=12)
+    while len(live.tokens) < 6:
+        ce.step_chunk()
+    v = ce.publish_weights(new_params)
+    assert v == 2 and ce.weights_version == 2
+    assert ce.prefix.n_resident == 0  # the fence freed the old chains
+    after = ce.submit([*SHARED, 1, 2], max_new_tokens=8, seed=3)
+    ce.run_until_idle()
+    assert live.finished and len(live.tokens) == 20
+    return ce, live.tokens, after.tokens
+
+
+def _fresh(models):
+    """Engines of their own over the fixture's weights: a publish replaces
+    the engine's tree, which the module's other tests must not see."""
+    jgen, tgen = models
+    return (JGen(JCFG, jgen.params, seq_buckets=(8, 32), batch_buckets=(1,),
+                 max_seq_len=64),
+            GenerationEngine(tgen.cfg, tgen.params, max_seq_len=64,
+                             device="cpu"))
+
+
+def test_publish_weights_mid_stream_equal_jax(models):
+    jgen, tgen = _fresh(models)
+    jnew = jax.tree.map(lambda x: x * 0.5, jgen.params)
+    tnew = params_from_jax(jax.device_get(jnew), device="cpu")
+    jce, jlive, jafter = _publish_run(JEngine, jgen, JSP, jnew)
+    shapes = {k: (tuple(v.shape), v.dtype, v.device)
+              for k, v in _leaves(tgen.params)}
+    tce, tlive, tafter = _publish_run(ContinuousEngine, tgen,
+                                      SamplingParams, tnew)
+    assert tlive == jlive and tafter == jafter
+    assert tce.stats == {k: jce.stats[k] for k in tce.stats}
+    # no tensor changed shape, dtype or device; the engine owns copies
+    assert {k: (tuple(v.shape), v.dtype, v.device)
+            for k, v in _leaves(tgen.params)} == shapes
+    assert all(a is not b for (_, a), (_, b) in zip(
+        _leaves(tgen.params), _leaves(tnew)))
+    assert tce.serving_snapshot()["weights_version"] == 2
+    # refusals: a version that does not grow, a mismatched leaf or tree
+    with pytest.raises(ValueError, match="grow"):
+        tce.publish_weights(tnew, version=2)
+    bad = dict(tnew, final_norm={"scale": tnew["final_norm"]["scale"][:1]})
+    with pytest.raises(ValueError, match="final_norm"):
+        tce.publish_weights(bad)
+    with pytest.raises(ValueError, match="keys"):
+        tce.publish_weights({"nope": torch.zeros(2)})
+    assert tce.weights_version == 2
+    tce.note_train_step(12.5, 0.25)
+    snap = tce.serving_snapshot()
+    assert snap["train_steps"] == 1 and snap["train_step_ms"] == 12.5
+    assert not tce.foreground_work()
+    tce.check_page_conservation()
+    tce.close()
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def test_engine_registers_the_jax_engines_counters_and_gauges(models):
+    jgen, tgen = models
+    jce, tce = JEngine(jgen, **ENGINE_KW), ContinuousEngine(tgen, **ENGINE_KW)
+    names = [sorted(m.name for m in ce.metrics.collect())
+             for ce in (jce, tce)]
+    assert names[1] == names[0]
+    assert set(tce.stats) == set(jce.stats)
+    tsnap, jsnap = tce.serving_snapshot(), jce.serving_snapshot()
+    assert set(tsnap) == set(jsnap)
+    assert tce.router_snapshot().keys() == jce.router_snapshot().keys()
+
+
+# -- the batcher's control surface --------------------------------------------
+def test_batcher_control_surface_keys_equal_jax(models):
+    from tensorlink_tpu.ml.batching import ContinuousBatcher as JBatcher
+
+    jgen, tgen = _fresh(models)
+    jb = JBatcher(engine=jgen, seed=0, spec_decode=True, host_tier_pages=8,
+                  **ENGINE_KW)
+    tb = ContinuousBatcher(engine=tgen, seed=0, spec_decode=True,
+                           host_tier_pages=8, **ENGINE_KW)
+    try:
+        for b in (jb, tb):
+            b.generate([*SHARED, 1, 2], max_new_tokens=4, speculative=True)
+        assert tb.serving_modes() == jb.serving_modes()
+        tsnap, jsnap = tb.router_snapshot(), jb.router_snapshot()
+        assert tsnap.keys() == jsnap.keys()
+        assert tsnap["prefix_digest"] == jsnap["prefix_digest"]
+        assert tb.headroom() == jb.headroom()
+        assert tb.metrics_registry() is tb.engine.metrics
+        # stepping-thread verbs
+        assert tb.run_on_driver(lambda e: e.live_slots) == 0
+        blob = tb.pull_prefix([*SHARED, 1, 2], 17)
+        assert blob is not None and blob["chain"].shape == (16,)
+        ticks = []
+        tb.set_background(lambda: ticks.append(1) and False)
+        toks = tb.generate([9, 9, 9, 9], max_new_tokens=6,
+                           speculative=True, handoff=False)
+        assert len(toks) == 6 and ticks
+        tb.set_background(None)
+        new = {k: v for k, v in tgen.params.items()}
+        assert tb.publish_weights(new) == 2
+        assert tb.serving_modes()["weights_version"] == 2
+        assert len(tb.generate([1, 2, 3], max_new_tokens=4)) == 4
+    finally:
+        jb.close()
+        tb.close()
+    with pytest.raises(RuntimeError):
+        tb.run_on_driver(lambda e: 0)

@@ -32,6 +32,7 @@ leaked = sorted(m for m in sys.modules
                 or m == "tensorlink_tpu" or m.startswith("tensorlink_tpu."))
 leaked = [m for m in leaked if sys.modules[m] is not None]
 print(len(names), leaked)
+print(" ".join(names))
 """
 
 
@@ -45,9 +46,13 @@ def test_port_imports_without_jax_or_the_jax_package():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n, leaked = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 23, out.stdout  # every module of the port was walked
+    first, walked = out.stdout.strip().splitlines()
+    n, leaked = first.split(" ", 1)
+    assert int(n) >= 28, out.stdout  # every module of the port was walked
     assert leaked == "[]", out.stdout
+    for name in ("core.serialization", "core.faults", "engine.kvtier",
+                 "fleet.prefixmap"):
+        assert f"tensorlink_tpu_torch.{name}" in walked.split(), name
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
