@@ -88,6 +88,30 @@ Phases (any failure raises and exits non-zero):
    pool, each equal to its solo runs within its quota; and a live weight
    publish mid-stream. gemm_rows reads whether a row's bits depend on the
    GEMM's height (also on the host: c.gemm_rows("cpu")).
+9. Checkpoints: qwen3-0p6b (phase 8's seeded bf16 tree) written by the
+   port's export_hf in 256 MiB shards with an index and an HF Qwen3
+   config under build/checkpoints/, read back by load_params with no
+   config given (the preset's config, every leaf bitwise; layers [10,
+   14) alone equal that slice), its load time and rate printed beside
+   the card's name and power limit, and 8 requests served through the
+   kernels from the loaded tree token-equal to an engine over the source
+   tree. Then mixtral-8x7b at full width and 2 of its 32 layers (seeded
+   bf16, default 4 GiB shards), loaded back bitwise and served through
+   the kernels over fp and int8 pages, a greedy request alone equal to
+   its co-batched stream. In each of those runs the first chunk's ragged
+   launches and the first live decode step's paged_attention launches
+   (Hq 32, Hkv 8, hd 128, pages of 16) are held per layer against their
+   plain versions on the same inputs, as bf16 parity (phase 6) holds
+   them, with a planted fault above the bound (the ragged launch's own
+   key masked; the decode launch's query heads over the next kv head).
+   Each layer's dense-dispatch MoE MLP of one ragged chunk is held per
+   row within 1.6e-2 x the row's max of a float32 reference that routes
+   apart from the program (the plain router product, numpy's stable
+   top-2 on the host, which ttr.top_k must match) and runs only each
+   token's top-2 experts; a third expert's gate switched on reads above
+   that bound, and the capacity dispatch at capacity factor E/K is
+   within it of the dense dispatch. The checkpoints are deleted at the
+   end of the phase.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -98,17 +122,20 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from tensorlink_tpu_torch.engine.generate import GenerationEngine
 from tensorlink_tpu_torch.engine import paged
+from tensorlink_tpu_torch.engine.loader import export_hf, load_params
 from tensorlink_tpu_torch.engine.paged import PagedKVCache, paged_ragged_step
 from tensorlink_tpu_torch.engine.sampling import SamplingParams
 from tensorlink_tpu_torch.ml.batching import ContinuousBatcher
@@ -122,6 +149,7 @@ from tensorlink_tpu_torch.models.quant import (
 )
 from tensorlink_tpu_torch.ops import _build
 from tensorlink_tpu_torch.ops import attention as att
+from tensorlink_tpu_torch.parallel.expert import sparse_moe_mlp
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
@@ -205,14 +233,19 @@ def _fmt(kv_quant: str) -> str:
 
 
 # -- phase 1 -----------------------------------------------------------
-def device_phase() -> str:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device is available")
-    smi = subprocess.run(
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def device_phase() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    smi = _smi()
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1536,9 +1569,8 @@ def dense_parity() -> dict:
 
 
 def _attn_ratio(got, want, tol) -> float:
-    """The worst attention-output row's max |got - want| over tol times
-    that row's max |want| (<= 1 passes; a row of plain zeros must be
-    zeros)."""
+    """The worst output row's max |got - want| over tol times that row's
+    max |want| (<= 1 passes; a row of plain zeros must be zeros)."""
     d = (got.float() - want.float()).abs().amax(-1)
     ref = want.float().abs().amax(-1)
     return float((d / (tol * ref.clamp_min(1e-30))).max())
@@ -1577,6 +1609,15 @@ def _decode_fault(q, kp, vp, bt, lengths, **kw):
     """The plain version with each row's own key masked: every slot one
     position shorter."""
     return att.paged_attention_ref(q, kp, vp, bt, lengths - 1, **kw)
+
+
+def _decode_head_fault(q, kp, vp, bt, lengths, **kw):
+    """The plain version with every query head group over the next kv
+    head (a wrong GQA mapping)."""
+    kw = {k: v.roll(-1, 1) for k, v in kw.items() if torch.is_tensor(v)} \
+        | {k: v for k, v in kw.items() if not torch.is_tensor(v)}
+    return att.paged_attention_ref(q, kp.roll(-1, 1), vp.roll(-1, 1), bt,
+                                   lengths, **kw)
 
 
 def _flash_plain(q, k, v, *, scale, window=None, **_blocks):
@@ -1948,7 +1989,10 @@ class _Launches:
         return ce
 
     def check(self) -> dict:
-        L = _MODEL["cfg"].n_layers
+        depths = {e.cfg.n_layers for e in self.engines}
+        if len(depths) != 1:
+            raise AssertionError(f"{self.label}: engines of depths {depths}")
+        L = depths.pop()
         chunks = sum(e.chunks - e._chunks0 for e in self.engines)
         steps = {e.chunk_steps for e in self.engines}
         if chunks == 0 or len(steps) != 1:
@@ -2467,6 +2511,323 @@ def publish_phase() -> dict:
     return res
 
 
+# -- phase 9 -----------------------------------------------------------
+# checkpoints written and read back by the port's loader, under the
+# git-ignored build/ directory, deleted at the end of the phase
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "checkpoints"
+MIXTRAL_LAYERS = 2  # of 32: full depth is about 93 GB in bf16
+# the bf16 MoE MLP against its f32 reference, per row: max |diff| within
+# MOE_TOL x the row's max |reference| (bf16_parity's bound)
+MOE_TOL = 1.6e-2
+CKPT_REQUESTS = (0, 1, 2, 3, 5, 6, 7, 9)  # 8 of _requests', 0 greedy
+CKPT_NEW = 32  # new tokens per request
+QWEN3_SHARD_BYTES = 256 * 2**20  # qwen3-0p6b's 1.19 GB in several shards
+
+
+def _hf_config(cfg) -> dict:
+    """A Hugging Face config dict (Qwen3 or Mixtral field names) that
+    config_from_hf parses back to ``cfg`` in bf16."""
+    hf = dict(model_type=cfg.family, vocab_size=cfg.vocab_size,
+              hidden_size=cfg.d_model, num_hidden_layers=cfg.n_layers,
+              num_attention_heads=cfg.n_heads,
+              num_key_value_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+              intermediate_size=cfg.d_ff,
+              max_position_embeddings=cfg.max_seq_len,
+              rms_norm_eps=cfg.norm_eps, rope_theta=cfg.rope_theta,
+              tie_word_embeddings=cfg.tie_embeddings)
+    if cfg.moe:
+        hf.update(num_local_experts=cfg.n_experts,
+                  num_experts_per_tok=cfg.n_experts_per_tok,
+                  sliding_window=cfg.sliding_window)
+    return hf
+
+
+def _same_tree(label, got: dict, want: dict) -> int:
+    """Every leaf of ``want`` bitwise in ``got`` (same dtype, shape and
+    device); returns the bytes compared."""
+    n = 0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            n += _same_tree(f"{label}/{k}", g, w)
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape \
+                or g.device != w.device or not torch.equal(g, w):
+            raise AssertionError(f"{label}/{k}: the loaded leaf differs")
+        n += w.numel() * w.element_size()
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: leaves {sorted(got)} vs "
+                             f"{sorted(want)}")
+    return n
+
+
+def _load(ckpt, **kw):
+    """``load_params`` onto the card, timed to the device's end."""
+    (cfg, params), secs = _sync_s(lambda: load_params(ckpt, device="cuda",
+                                                      **kw))
+    return cfg, params, secs
+
+
+def _ckpt_serve(cfg, params, kv_quant, lc, solo=False) -> list:
+    """8 of _requests' prompts through one ContinuousEngine on the
+    kernels (engines join ``lc``); with ``solo``, also the greedy request
+    alone on a fresh engine, which must equal its co-batched stream."""
+    _, all_reqs = _requests(cfg)
+    reqs = [all_reqs[i] for i in CKPT_REQUESTS]
+    gen = GenerationEngine(cfg, params, max_seq_len=4096, device="cuda")
+    ce = lc.add(_cont(gen, kv_quant=kv_quant))
+    out = [ce.submit(ids, max_new_tokens=CKPT_NEW,
+                     sampling=SamplingParams.make(**knobs), seed=i)
+           for i, (ids, knobs) in enumerate(reqs)]
+    ce.run_until_idle()
+    if not all(r.finished and r.error is None
+               and len(r.tokens) == CKPT_NEW for r in out):
+        raise AssertionError(f"{lc.label}: a request did not finish")
+    ce.close()  # checks page conservation
+    streams = [list(r.tokens) for r in out]
+    if solo:
+        alone = lc.add(_cont(gen, kv_quant=kv_quant))
+        r = alone.submit(reqs[0][0], max_new_tokens=CKPT_NEW, seed=0)
+        alone.run_until_idle()
+        alone.close()
+        _equal_stream(f"{lc.label}: greedy alone vs co-batched", r.tokens,
+                      streams[0])
+    return streams
+
+
+def _moe_reference(h, p, cfg):
+    """The MoE MLP in float32 over only each token's top-k experts,
+    gathered per expert. It routes apart from the program: the router
+    product is the plain ``h @ router`` in the model's dtype (the JAX
+    model's definition), and the top-k comes from numpy's stable argsort
+    on the host (ties to the lower index, as ``lax.top_k``), which
+    ``ttr.top_k`` on the card must match on the same logits."""
+    d, E, K = cfg.d_model, cfg.n_experts, cfg.n_experts_per_tok
+    x = h.reshape(-1, d).float()
+    logits = (h @ p["router"]).float().reshape(-1, E)
+    order = np.argsort(-logits.cpu().numpy(), axis=-1, kind="stable")
+    topi = torch.from_numpy(order[:, :K].copy()).to(h.device)
+    if not torch.equal(ttr.top_k(logits, K)[1], topi):
+        raise AssertionError("MoE check: ttr.top_k picks other experts "
+                             "than numpy's stable sort")
+    w = torch.softmax(logits.gather(-1, topi), dim=-1)
+    out = torch.zeros_like(x)
+    for e in range(E):
+        rows, rank = (topi == e).nonzero(as_tuple=True)
+        if rows.numel() == 0:
+            continue
+        xe = x[rows]
+        y = (ttr._act(xe @ p["w_gate"][e].float(), cfg.act)
+             * (xe @ p["w_up"][e].float())) @ p["w_down"][e].float()
+        out.index_add_(0, rows, y * w[rows, rank, None])
+    return out.reshape(h.shape)
+
+
+def _moe_check(cfg, chunk_calls) -> dict:
+    """Each layer's dense-dispatch _moe_mlp of one ragged chunk (inputs
+    and output recorded while the engine ran it) against
+    _moe_reference, per row within MOE_TOL x the row's max; a third
+    expert's gate switched on (top-3) must read above the bound; the
+    capacity dispatch at capacity factor E/K within the same bound of the
+    dense dispatch. Also reads how many tokens a float32 router product
+    would route to another top-k set (not a gate)."""
+    K = cfg.n_experts_per_tok
+    res = dict(dense=0.0, fault=float("inf"), sparse=0.0,
+               f32_router_rerouted=0, tokens=0)
+    for h, p, out in chunk_calls:
+        want = _moe_reference(h, p, cfg)
+        res["dense"] = max(res["dense"], _attn_ratio(out, want, MOE_TOL))
+        fault = ttr._moe_mlp(h, p, cfg.with_(n_experts_per_tok=K + 1))
+        res["fault"] = min(res["fault"], _attn_ratio(fault, want, MOE_TOL))
+        sparse = sparse_moe_mlp(h, p, cfg,
+                                capacity_factor=cfg.n_experts / K)
+        res["sparse"] = max(res["sparse"], _attn_ratio(sparse, out, MOE_TOL))
+        bf = ttr.top_k(ttr._mm(h, p["router"]).float(), K)[1]
+        f32 = ttr.top_k(h.float() @ p["router"].float(), K)[1]
+        res["f32_router_rerouted"] += int(
+            (bf.sort(-1).values != f32.sort(-1).values).any(-1).sum())
+        res["tokens"] += h.shape[0] * h.shape[1]
+    if res["dense"] > 1.0 or res["sparse"] > 1.0:
+        raise AssertionError(f"MoE check: beyond the bound: {res}")
+    if res["fault"] <= 1.0:
+        raise AssertionError(f"MoE check: the planted third expert passes "
+                             f"the check, which then proves nothing: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def _record_moe_chunk(calls: list, n_layers: int):
+    """Record (h, layer params, output) of the first ``n_layers`` calls
+    of the MoE MLP with more than one row per slot: one ragged chunk."""
+    real = ttr._moe_mlp
+
+    def rec(h, p, cfg):
+        out = real(h, p, cfg)
+        if h.shape[1] > 1 and len(calls) < n_layers:
+            calls.append((h.clone(), p, out.clone()))
+        return out
+
+    ttr._moe_mlp = rec
+    try:
+        yield
+    finally:
+        ttr._moe_mlp = real
+
+
+@contextlib.contextmanager
+def _hold_attention(readings: dict, n_layers: int):
+    """Hold the engine's first ``n_layers`` ragged launches with a valid
+    row (the first chunk's layers) and its first ``n_layers`` decode
+    launches with a slot of positive length (the first live decode
+    step's) as bf16_parity does: each against its plain version on the
+    same inputs and against a planted fault (the ragged launch's own key
+    masked; the decode launch's query heads over the next kv head, since
+    one key masked among a decode row's hundreds can read under the
+    bound), into ``readings["ragged"]`` and ``readings["decode"]``, with
+    the query and page shapes under ``readings["shapes"]``. The plain
+    calls stay out of the counts that _Launches.check reads."""
+    real = {"ragged": paged.ragged_paged_attention,
+            "decode": paged.paged_attention}
+    held = {"ragged": _held(real["ragged"], _ragged_plain, _ragged_fault,
+                            readings["ragged"]),
+            "decode": _held(real["decode"], _decode_plain,
+                            _decode_head_fault, readings["decode"])}
+    refs = (att.ragged_paged_attention_ref, att.paged_attention_ref)
+
+    def hold(key):
+        def call(q, kp, *a, **kw):
+            # a[-1]: the ragged launch's n_valid, the decode's lengths
+            if len(readings[key]) >= n_layers or not bool((a[-1] > 0).any()):
+                return real[key](q, kp, *a, **kw)
+            readings["shapes"].setdefault(
+                key, dict(q=list(q.shape), pages=list(kp.shape)))
+            calls = [r.calls for r in refs]
+            try:
+                return held[key](q, kp, *a, **kw)
+            finally:
+                for r, n in zip(refs, calls):
+                    r.calls = n
+
+        return call
+
+    paged.ragged_paged_attention = hold("ragged")
+    paged.paged_attention = hold("decode")
+    try:
+        yield
+    finally:
+        paged.ragged_paged_attention = real["ragged"]
+        paged.paged_attention = real["decode"]
+
+
+def _held_readings(label, readings: dict, n_layers: int) -> dict:
+    """The worst kernel reading and the least fault reading of each held
+    kernel; raises unless every layer was held, every kernel reading is
+    within the bound and every fault reading above it."""
+    res = {"shapes": readings["shapes"]}
+    for key in ("ragged", "decode"):
+        r = readings[key]
+        if len(r) != n_layers:
+            raise AssertionError(f"{label}: {len(r)} {key} launches held "
+                                 f"for {n_layers} layers")
+        res[key] = max(k for k, _ in r)
+        res[f"{key}_fault"] = min(f for _, f in r)
+    if max(res["ragged"], res["decode"]) > 1.0:
+        raise AssertionError(f"{label}: an attention output differs beyond "
+                             f"the bound: {res}")
+    if min(res["ragged_fault"], res["decode_fault"]) <= 1.0:
+        raise AssertionError(f"{label}: the planted fault passes the check, "
+                             f"which then proves nothing: {res}")
+    return res
+
+
+def checkpoint_phase() -> dict:
+    """qwen3-0p6b (phase 8's seeded tree) and a 2-layer full-width
+    Mixtral written by export_hf and read back by load_params, bitwise;
+    served through the kernels from the loaded trees."""
+    smi = _smi()
+    res: dict = {}
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    try:
+        # qwen3-0p6b: several 256 MiB shards and the index
+        cfg, params = _model()
+        d = CKPT_ROOT / "qwen3-0p6b"
+        _, export_s = _sync_s(lambda: export_hf(
+            cfg, params, d, hf_config=_hf_config(cfg),
+            max_shard_bytes=QWEN3_SHARD_BYTES))
+        shards = sorted(f.name for f in d.glob("*.safetensors"))
+        if len(shards) < 3 or not (d / "model.safetensors.index.json") \
+                .exists():
+            raise AssertionError(f"qwen3 export: {shards}")
+        lcfg, lparams, load_s = _load(d)
+        if lcfg != cfg:
+            raise AssertionError(f"qwen3: loaded config {lcfg} != {cfg}")
+        nbytes = _same_tree("qwen3", lparams, params)
+        _, part, _ = _load(d, layer_range=(10, 14))
+        want = {k: v for k, v in params.items() if k != "layers"}
+        want["layers"] = {
+            g: {k: v[10:14] for k, v in leaves.items()}
+            for g, leaves in params["layers"].items()}
+        _same_tree("qwen3 layers [10, 14)", part, want)
+        del part, want
+        res["qwen3"] = q = dict(shards=len(shards), bytes=nbytes,
+                                export_s=export_s, load_s=load_s,
+                                load_gb_per_s=nbytes / load_s / 1e9)
+        lc = _Launches("checkpoint qwen3")
+        got = _ckpt_serve(cfg, lparams, "none", lc)
+        q["launches"] = lc.check()
+        lc = _Launches("checkpoint qwen3 source")
+        want = _ckpt_serve(cfg, params, "none", lc)
+        q["launches_source"] = lc.check()
+        for i, (a, b) in enumerate(zip(got, want)):
+            _equal_stream(f"qwen3 loaded vs source, request {i}", a, b)
+        del lparams
+        shutil.rmtree(d)
+        log(f"checkpoint qwen3-0p6b bf16 ({smi}): {json.dumps(q)}")
+
+        # Mixtral at full width, 2 of its 32 layers, default 4 GiB shards
+        cfg = config_presets()["mixtral-8x7b"].with_(
+            n_layers=MIXTRAL_LAYERS)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1357)
+        params = init_params(cfg, g, device="cuda")
+        d = CKPT_ROOT / "mixtral-8x7b"
+        _, export_s = _sync_s(lambda: export_hf(
+            cfg, params, d, hf_config=_hf_config(cfg)))
+        shards = sorted(f.name for f in d.glob("*.safetensors"))
+        lcfg, lparams, load_s = _load(d)
+        if lcfg != cfg:
+            raise AssertionError(f"mixtral: loaded config {lcfg} != {cfg}")
+        nbytes = _same_tree("mixtral", lparams, params)
+        del params
+        torch.cuda.empty_cache()
+        res["mixtral"] = m = dict(layers=cfg.n_layers, shards=len(shards),
+                                  bytes=nbytes, export_s=export_s,
+                                  load_s=load_s,
+                                  load_gb_per_s=nbytes / load_s / 1e9)
+        calls: list = []
+        for kv_quant in ("none", "int8"):
+            fmt = _fmt(kv_quant)
+            lc = _Launches(f"checkpoint mixtral {fmt}")
+            readings: dict = dict(ragged=[], decode=[], shapes={})
+            with _record_moe_chunk(calls, cfg.n_layers), \
+                    _hold_attention(readings, cfg.n_layers):
+                _ckpt_serve(cfg, lparams, kv_quant, lc, solo=True)
+            m[f"launches_{fmt}"] = lc.check()
+            m[f"attention_{fmt}"] = _held_readings(
+                f"checkpoint mixtral {fmt} attention", readings,
+                cfg.n_layers)
+        m["moe"] = _moe_check(cfg, calls)
+        del calls, lparams
+        shutil.rmtree(d)
+        log(f"checkpoint mixtral-8x7b widths, {cfg.n_layers} layers, bf16 "
+            f"({smi}; MoE bound {MOE_TOL} and attention bound "
+            f"{BF16_ATTN_TOL} x the row's max): {json.dumps(m)}")
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -2505,6 +2866,12 @@ def main() -> None:
     new_paths["host tier"] = _phase("host tier", host_tier_phase)["launches"]
     new_paths["co-hosting"] = _phase("co-hosting", cohost_phase)["launches"]
     new_paths["publish"] = _phase("publish", publish_phase)["launches"]
+    ck = _phase("checkpoint", checkpoint_phase)
+    new_paths["checkpoint qwen3"] = ck["qwen3"]["launches"]
+    new_paths["checkpoint qwen3 source"] = ck["qwen3"]["launches_source"]
+    for fmt in ("fp", "int8"):
+        new_paths[f"checkpoint mixtral {fmt}"] = \
+            ck["mixtral"][f"launches_{fmt}"]
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]

@@ -27,20 +27,8 @@ import torch
 
 from .core.devices import resolve_device
 from .core.serialization import BFLOAT16
-from .models.base import KVCache, ModelConfig
+from .models.base import DTYPES, KVCache, ModelConfig
 from .models.quant import QTensor
-
-_TORCH_DTYPES = {
-    "float32": torch.float32,
-    "float16": torch.float16,
-    "bfloat16": torch.bfloat16,
-    "float64": torch.float64,
-    "int32": torch.int32,
-    "int64": torch.int64,
-    "int8": torch.int8,
-    "uint8": torch.uint8,
-    "bool": torch.bool,
-}
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -50,7 +38,7 @@ def torch_dtype(dtype) -> torch.dtype:
         return dtype
     name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
     try:
-        return _TORCH_DTYPES[name]
+        return DTYPES[name]
     except KeyError:
         raise TypeError(f"no torch dtype for {name!r}") from None
 

@@ -63,7 +63,7 @@ import numpy as np
 
 from ..core.devices import resolve_device
 from ..core.serialization import BFLOAT16
-from ..models.base import ModelConfig
+from ..models.base import ModelConfig, dtype_name
 from ..models.quant import quantize_kv as _quant_kv
 from ..models.quant import quantize_kv4 as _quant_kv4
 from ..models.transformer import (
@@ -1134,13 +1134,6 @@ def clear_slot(cache: PagedKVCache, slot: int) -> PagedKVCache:
     cache.block_tables[slot] = 0
     cache.lengths[slot] = 0
     return cache
-
-
-def dtype_name(dtype: torch.dtype) -> str:
-    """A torch dtype's numpy-style name (``"bfloat16"``, ``"float32"``,
-    ``"int8"``): the ``"dtype"`` field of a migration or prefix blob and
-    of the storage-mode triple, as the JAX package writes it."""
-    return str(dtype).removeprefix("torch.")
 
 
 def host_array(t: torch.Tensor) -> np.ndarray:

@@ -10,11 +10,36 @@ paged cache (``engine/paged.py``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import asdict, dataclass, replace
 
 import torch
 
 from ..core.devices import resolve_device
+
+# dtype names as the JAX package writes them in a config's JSON
+# (``jnp.dtype(...).name``), so one JSON config moves between packages
+# tlint: disable=TL006(read-only constant table)
+DTYPES = {
+    "float64": torch.float64,
+    "float32": torch.float32,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "int64": torch.int64,
+    "int32": torch.int32,
+    "int16": torch.int16,
+    "int8": torch.int8,
+    "uint8": torch.uint8,
+    "bool": torch.bool,
+}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The JAX package's name of a torch dtype (``torch.bfloat16`` →
+    ``"bfloat16"``); raises for a dtype outside :data:`DTYPES`."""
+    for name, dt in DTYPES.items():
+        if dt == dtype:
+            return name
+    raise TypeError(f"no dtype name for {dtype!r}")
 
 
 @dataclass(frozen=True)
@@ -27,8 +52,7 @@ class ModelConfig:
     - ``embed_scale`` + ``norm_plus_one`` → Gemma.
     - ``parallel_residual`` + ``rope_pct<1`` + layernorm → GPT-NeoX/Pythia.
     - ``norm_position="post"`` + ``qk_norm_full`` → OLMo-2.
-    - ``n_experts>0`` → Mixtral MoE (not ported yet: ``init_params`` and
-      the MLP raise).
+    - ``n_experts>0`` → Mixtral MoE (top-k expert MLP).
     """
 
     family: str = "llama"
@@ -83,6 +107,40 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+    def to_json(self) -> dict:
+        """JSON-safe dict (job specs carry the config over the wire);
+        ``dtype`` under the JAX package's name, so the dict equals the
+        JAX config's ``to_json`` field for field."""
+        d = asdict(self)
+        d["dtype"] = dtype_name(self.dtype)
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ModelConfig":
+        d = dict(d)
+        if isinstance(d.get("dtype"), str):
+            try:
+                d["dtype"] = DTYPES[d["dtype"]]
+            except KeyError:
+                raise TypeError(f"unknown dtype {d['dtype']!r}") from None
+        return cls(**d)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the sharding planner's memory
+        estimate; ``engine/loader.py::estimate_params_bytes``)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.moe:
+            mlp = self.n_experts * 3 * d * f + d * self.n_experts
+        elif self.mlp == "gated":
+            mlp = 3 * d * f
+        else:
+            mlp = 2 * d * f
+        norms = 2 * d * (2 if self.norm == "layernorm" else 1)
+        emb = v * d + (0 if self.tie_embeddings else v * d)
+        pos = self.max_seq_len * d if self.pos == "learned" else 0
+        return L * (attn + mlp + norms) + emb + pos + d
 
 
 @dataclass
@@ -167,4 +225,4 @@ class KVCache:
                        v_scale=rows(self.v_scale))
 
 
-__all__ = ["KVCache", "ModelConfig"]
+__all__ = ["DTYPES", "KVCache", "ModelConfig", "dtype_name"]

@@ -16,9 +16,14 @@ prefill may route attention through ``ops.attention.flash_attention``
 (the gate is :func:`flash_gate`), which on a CUDA tensor launches the
 flash kernel (``ops/csrc/flash_attention.cu``).
 
+MoE (``n_experts > 0``) runs the JAX package's dense dispatch
+(:func:`_moe_mlp`: every expert sees every token, combined with the
+softmax-normalised top-k gates), or the capacity-limited sparse dispatch
+of ``parallel/expert.py`` when ``cfg.moe_dispatch == "sparse"``.
+
 Not ported: pipelined stages (``stage_forward``), ``remat`` and ring
 attention (``seq_mesh``) wait for the node/pipeline and training slices;
-MoE for the MoE slice; the tensor-parallel gathers for the
+the tensor-parallel gathers and the ``expert`` mesh axis for the
 tensor-parallel slice. Each raises with the slice it waits for.
 """
 
@@ -44,12 +49,9 @@ def init_params(
     layers stacked ``[L, …]`` under ``params["layers"]``. Weights are
     drawn in float32 on ``device`` (so a full-width vocab matrix is never
     built on the host first) from ``generator`` — which must live on that
-    device — then cast to ``dtype``. ``device=None`` is the CUDA card."""
-    if cfg.moe:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet — it waits for the MoE "
-            "slice of the port"
-        )
+    device — then cast to ``dtype``. ``device=None`` is the CUDA card.
+    A MoE config draws ``router`` ``[L, d, E]``, ``w_gate``/``w_up``
+    ``[L, E, d, f]`` and ``w_down`` ``[L, E, f, d]``."""
     dev = resolve_device(device)
     dt = dtype or cfg.dtype
     if generator is None:
@@ -97,7 +99,15 @@ def init_params(
     if cfg.qk_norm_full:
         attn |= {"q_norm": ones(L, cfg.q_dim), "k_norm": ones(L, cfg.kv_dim)}
 
-    if cfg.mlp == "gated":
+    if cfg.moe:
+        E = cfg.n_experts
+        mlp = {
+            "router": dense(L, d, E),
+            "w_gate": dense(L, E, d, f),
+            "w_up": dense(L, E, d, f),
+            "w_down": dense(L, E, f, d, scale=f**-0.5),
+        }
+    elif cfg.mlp == "gated":
         mlp = {
             "w_gate": dense(L, d, f),
             "w_up": dense(L, d, f),
@@ -207,12 +217,9 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _mlp(h: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Dense MLP block (gated or fused)."""
+    """MLP block: MoE, gated or fused."""
     if cfg.moe:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet — it waits for the MoE "
-            "slice of the port"
-        )
+        return _moe_mlp(h, p, cfg)
     if cfg.mlp == "gated":
         g = _mm(h, p["w_gate"])
         u = _mm(h, p["w_up"])
@@ -225,6 +232,34 @@ def _mlp(h: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
         return out
     mid = _act(_mm(h, p["w_up"]) + p["b_up"], cfg.act)
     return _mm(mid, p["w_down"]) + p["b_down"]
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order and their indices, ties going to the lower index (a
+    stable descending sort; ``torch.topk`` promises no order on ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_mlp(h: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mixtral-style top-k MoE, dense dispatch: every expert sees every
+    token and the outputs combine with the top-k gates (the softmax over
+    the chosen experts' float32 router logits, zero elsewhere), as the
+    JAX ``_moe_mlp``. ``cfg.moe_dispatch == "sparse"`` routes to the
+    capacity-limited dispatch (``parallel/expert.py``)."""
+    if cfg.moe_dispatch == "sparse":
+        from ..parallel.expert import sparse_moe_mlp
+
+        return sparse_moe_mlp(h, p, cfg)
+    router_logits = _mm(h, p["router"]).float()  # [..., E]
+    topw, topi = top_k(router_logits, cfg.n_experts_per_tok)
+    gates = torch.zeros_like(router_logits).scatter(
+        -1, topi, torch.softmax(topw, dim=-1))
+    g = torch.einsum("btd,edf->btef", h, p["w_gate"])
+    u = torch.einsum("btd,edf->btef", h, p["w_up"])
+    y = torch.einsum("btef,efd->bted", _act(g, cfg.act) * u, p["w_down"])
+    return torch.einsum("bted,bte->btd", y, gates.to(h.dtype))
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -536,4 +571,5 @@ __all__ = [
     "init_params",
     "rope_tables",
     "stage_forward",
+    "top_k",
 ]

@@ -479,8 +479,12 @@ def test_unported_paths_are_refused(trees):
         ttr.forward(tp, toks, cfg, seq_mesh=object())
     with pytest.raises(NotImplementedError, match="node/pipeline"):
         ttr.stage_forward(tp, cfg, tokens=toks)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttr._mlp(torch.zeros((1, 1, 64)), {}, cfg.with_(n_experts=4))
+    # MoE is ported (tests/test_torch_moe.py); loading a checkpoint
+    # straight onto tensor-parallel shards is not
+    from tensorlink_tpu_torch.engine.loader import load_params
+
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        load_params("unused", cfg, tensor_parallel=2, device="cpu")
     with pytest.raises(ValueError, match="quant"):
         GenerationEngine(cfg, tp, device="cpu", quant="int4")
     if not torch.cuda.is_available():

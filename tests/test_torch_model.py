@@ -78,6 +78,8 @@ def test_params_from_jax_round_trips_names_and_shapes(trees):
     {"family": "llama", "qk_norm": False, "tie_embeddings": False},
     {"family": "gpt2", "pos": "learned", "mlp": "fused", "norm": "layernorm",
      "attn_bias": True, "qk_norm": False},
+    {"family": "mixtral", "qk_norm": False, "tie_embeddings": False,
+     "n_experts": 4, "n_experts_per_tok": 2},
 ])
 def test_init_params_has_the_jax_tree(overrides):
     jcfg = JCFG.with_(**overrides)
@@ -184,6 +186,17 @@ def test_params_from_jax_needs_a_device_or_cpu(trees):
 
 
 def test_moe_is_refused_until_its_slice():
+    """Named for what it held before MoE was ported (a MoE config
+    refused); MoE is ported now, so it holds that a MoE config
+    initialises and runs: ``init_params`` draws the JAX expert leaves and
+    ``_mlp`` routes to the top-k expert MLP (held against JAX in
+    tests/test_torch_moe.py)."""
     cfg = config_from_jax(dataclasses.asdict(JCFG.with_(n_experts=4)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_params(cfg, device="cpu")
+    tp = init_params(cfg, device="cpu")
+    mlp = tp["layers"]["mlp"]
+    assert tuple(mlp["router"].shape) == (2, 64, 4)
+    assert tuple(mlp["w_down"].shape) == (2, 4, 128, 64)
+    lp = ttr._layers(tp)[0]
+    x = torch.randn(2, 3, 64, generator=torch.Generator().manual_seed(0))
+    out = ttr._mlp(x, lp["mlp"], cfg)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
