@@ -112,6 +112,25 @@ Phases (any failure raises and exits non-zero):
    that bound, and the capacity dispatch at capacity factor E/K is
    within it of the dense dispatch. The checkpoints are deleted at the
    end of the phase.
+10. The node path: a port ValidatorNode (HTTP endpoint) and WorkerNode
+   on 127.0.0.1 (keys and logs under build/node/), the worker on the
+   card. POST /request-model hosts qwen3-0p6b at full width (seeded
+   bf16 weights, the default int8 KV pages) and 8 concurrent greedy
+   /v1/generate requests (prompts of 64 to 1536 bytes, 64 new tokens), a
+   streamed /v1/chat/completions and a sampled request flow through the
+   validator's remote ContinuousBatcher, GENERATE and TOKEN frames, and
+   the worker's ContinuousEngine. Held: every request finishes; the
+   worker engine made one ragged launch a layer per chunk and
+   chunk_steps - 1 decode launches, in int8, and no plain version ran;
+   each greedy request's tokens equal, and its HTTP text equals the text
+   of, an in-process ContinuousBatcher over the same seeded tree with the
+   worker's knobs; the streamed chat's deltas join to the plain run of
+   the same request; neither node's network process maps a torch or jax
+   library; /stats shows int8 pages of 59,136 bytes a position,
+   /metrics carries tlink_engine_* and /healthz lists the model. Prints
+   client tokens/s and request latency over HTTP, and the engine's
+   first-token times (from /trace) beside the in-process run's: readings
+   with the card's name and power limit, not claims.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -2828,6 +2847,341 @@ def checkpoint_phase() -> dict:
     return res
 
 
+# -- phase 10 ----------------------------------------------------------
+NODE_ROOT = Path(__file__).resolve().parent / "build" / "node"
+NODE_MODEL = "qwen3-0p6b"
+NODE_NEW = 64  # new tokens per request
+NODE_GREEDY = 8  # concurrent greedy /v1/generate requests
+
+
+@contextlib.contextmanager
+def _clean_spawn():
+    """Start node processes from the port's node modules alone: a spawned
+    child re-runs the parent's main script unless ``__main__`` has no file,
+    and this script imports torch and the whole port, which a node's
+    network process must not."""
+    main = sys.modules["__main__"]
+    path = main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        if path is not None:
+            main.__file__ = path
+
+
+def _http(port, method, path, body=None, rid="", timeout=900.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    payload = json.dumps(body).encode() if body is not None else None
+    headers = {"X-Request-Id": rid} if rid else {}
+    if payload is not None:
+        headers["Content-Type"] = "application/json"
+    conn.request(method, path, body=payload, headers=headers)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"node: {method} {path} answered {resp.status}: "
+                             f"{data[:300]!r}")
+    if resp.getheader("Content-Type", "").startswith("application/json"):
+        return json.loads(data)
+    return data.decode()
+
+
+def _sse(port, path, body, rid, timeout=900.0) -> list:
+    """POST and read the whole server-sent event stream's data payloads."""
+    import socket
+
+    s = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    payload = json.dumps(body).encode()
+    s.sendall(f"POST {path} HTTP/1.1\r\nHost: x\r\nX-Request-Id: {rid}\r\n"
+              f"Content-Type: application/json\r\nContent-Length: "
+              f"{len(payload)}\r\n\r\n".encode() + payload)
+    buf = b""
+    while chunk := s.recv(65536):
+        buf += chunk
+    s.close()
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    if b" 200 " not in head.split(b"\r\n")[0]:
+        raise AssertionError(f"node: SSE {path} answered {head[:200]!r}")
+    return [blk.strip()[len("data: "):] for blk in rest.decode().split("\n\n")
+            if blk.strip().startswith("data: ")]
+
+
+def _node_messages():
+    """8 greedy prompts of 64 to 1536 printable bytes, a chat turn and a
+    sampled prompt, from a seed."""
+    rng = np.random.default_rng(31)
+    chars = np.array(list("abcdefghijklmnopqrstuvwxyz ,.ABCDEFGH0123456789"))
+
+    def text(n):
+        return "".join(rng.choice(chars, n))
+
+    return ([text(int(rng.integers(64, 1537))) for _ in range(NODE_GREEDY)],
+            text(200), text(300))
+
+
+def _first_token_ms(rid: str) -> float:
+    from tensorlink_tpu_torch.core.trace import get_tracer
+
+    spans = [s for s in get_tracer().collect(rid) if s["name"] == "first_token"]
+    if len(spans) != 1:
+        raise AssertionError(f"node: trace {rid} has {len(spans)} first_token "
+                             "spans")
+    return float(spans[0]["dur_ms"])
+
+
+def _net_process_libraries(node) -> list:
+    """torch or jax libraries mapped into a node's network process (its
+    /proc maps): the network half must load neither."""
+    maps = Path(f"/proc/{node._proc.pid}/maps").read_text()
+    return sorted({line.split()[-1] for line in maps.splitlines()
+                   if re.search(r"libtorch|libc10|jaxlib|xla_extension",
+                                line)})
+
+
+def _quantiles(xs) -> tuple:
+    xs = sorted(xs)
+    return xs[len(xs) // 2], xs[int(0.95 * (len(xs) - 1))]
+
+
+def _wait_idle(cont, rt) -> None:
+    """Until the worker's slot engine has no work and its chunk count has
+    stopped moving (the serial run loop may still hold a queued marker)."""
+    deadline = time.monotonic() + 60
+    last = -1
+    while time.monotonic() < deadline:
+        if not cont.has_work() and not rt.cont_scheduled and \
+                cont.chunks == last:
+            return
+        last = cont.chunks
+        time.sleep(0.2)
+    raise AssertionError("node: the worker's engine never went idle")
+
+
+def node_phase() -> dict:
+    """The node path: a port validator (HTTP endpoint) and worker on
+    127.0.0.1 host qwen3-0p6b at full width (seeded bf16, int8 KV pages
+    by default) and serve 8 concurrent greedy /v1/generate requests, a
+    streamed /v1/chat/completions and a sampled request through the
+    worker's ContinuousEngine on the card. Holds every request finished,
+    the greedy streams token-equal (and their texts equal) to an
+    in-process ContinuousBatcher over the same seeded weights and knobs,
+    the streamed deltas equal to the plain chat text, the worker engine's
+    launch counts, /stats, /metrics and /healthz."""
+    from tensorlink_tpu_torch.api.formatter import extract_reasoning_and_answer
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.nodes.runners import ValidatorNode, WorkerNode
+
+    shutil.rmtree(NODE_ROOT, ignore_errors=True)
+    ml = MLConfig()  # device None: the card
+    common = dict(local_test=True, log_dir=str(NODE_ROOT / "logs"),
+                  env_file=str(NODE_ROOT / ".env"), ml=ml)
+    nodes = []
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=True, endpoint_port=0,
+                key_dir=str(NODE_ROOT / "vkeys"), **common)).start()
+            nodes.append(v)
+            w = WorkerNode(WorkerConfig(
+                seed_validators=[["127.0.0.1", v.port]],
+                key_dir=str(NODE_ROOT / "wkeys"), **common)).start()
+            nodes.append(w)
+        deadline = time.monotonic() + 60
+        while not v.status()["peers"]:
+            if time.monotonic() > deadline:
+                raise AssertionError("node: the worker never joined")
+            time.sleep(0.1)
+        for n in nodes:
+            libs = _net_process_libraries(n)
+            if libs:
+                raise AssertionError(f"node: the {n.role}'s network process "
+                                     f"mapped {libs}")
+        port = v.api.port
+        t0 = time.monotonic()
+        host = _http(port, "POST", "/request-model", {"hf_name": NODE_MODEL})
+        host_s = time.monotonic() - t0
+        if host.get("status") != "ready":
+            raise AssertionError(f"node: hosting answered {host}")
+        job = v.executor.hosted[NODE_MODEL]
+        if job.batcher.mode != "remote":
+            raise AssertionError(f"node: batcher mode {job.batcher.mode}")
+        rt = w.executor.jobs[job.replicas[0]["job_id"]]
+        # each request's prompt ids and tokens as the validator's batcher
+        # sees them, keyed by trace id (the X-Request-Id sent)
+        seen = {}
+        inner = job.batcher.generate
+
+        def recording(ids, **kw):
+            out = inner(ids, **kw)
+            seen[kw.get("trace_id", "")] = (list(ids), list(out))
+            return out
+
+        job.batcher.generate = recording
+        greedy, chat_msg, sampled_msg = _node_messages()
+        _http(port, "POST", "/v1/generate", {
+            "hf_name": NODE_MODEL, "message": "warm up the slot engine",
+            "max_new_tokens": 8, "do_sample": False})
+        cont = rt.cont
+        if cont is None or cont.kv_quant != "int8":
+            raise AssertionError("node: the worker serves no int8 slot engine")
+        _wait_idle(cont, rt)
+        lc = _Launches("node path")
+        lc.add(cont)
+        chat = {"model": NODE_MODEL, "max_tokens": NODE_NEW,
+                "temperature": 0.0,
+                "messages": [{"role": "user", "content": chat_msg}]}
+        calls = {
+            f"node-greedy-{i}": lambda m=m, i=i: _http(
+                port, "POST", "/v1/generate",
+                {"hf_name": NODE_MODEL, "message": m, "do_sample": False,
+                 "max_new_tokens": NODE_NEW}, rid=f"node-greedy-{i}")
+            for i, m in enumerate(greedy)
+        }
+        calls["node-chat"] = lambda: _sse(
+            port, "/v1/chat/completions", {**chat, "stream": True},
+            "node-chat")
+        calls["node-sampled"] = lambda: _http(
+            port, "POST", "/v1/generate",
+            {"hf_name": NODE_MODEL, "message": sampled_msg,
+             "max_new_tokens": NODE_NEW, "do_sample": True,
+             "temperature": 0.8, "top_k": 50, "top_p": 0.95},
+            rid="node-sampled")
+        results, latency, errors = {}, {}, []
+
+        def one(rid):
+            try:
+                t = time.monotonic()
+                results[rid] = calls[rid]()
+                latency[rid] = time.monotonic() - t
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=one, args=(r,)) for r in calls]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.monotonic() - t0
+        if errors:
+            raise errors[0]
+        if any(t.is_alive() for t in threads) or len(results) != len(calls):
+            raise AssertionError("node: not every request finished")
+        _wait_idle(cont, rt)
+        launches = lc.check()
+        # the streamed deltas join to the same chat request's plain text
+        events = results["node-chat"]
+        if events[-1] != "[DONE]":
+            raise AssertionError("node: the chat stream did not end in [DONE]")
+        streamed = "".join(
+            c["choices"][0]["delta"].get("content") or ""
+            for c in map(json.loads, events[:-1]) if c.get("choices"))
+        plain = _http(port, "POST", "/v1/chat/completions", chat,
+                      rid="node-chat-plain")
+        if streamed != plain["choices"][0]["message"]["content"] or \
+                seen["node-chat"] != seen["node-chat-plain"]:
+            raise AssertionError("node: the streamed chat differs from its "
+                                 "plain run")
+        stats = _http(port, "GET", "/stats")
+        snap = next(m for m in stats["models"]
+                    if m["name"] == NODE_MODEL)["serving"]["engine"]
+        # 59,136 bytes a position: 2 x 28 layers x 8 kv heads x (128 codes
+        # + a 4-byte scale), in pages of 16 positions
+        if snap["kv_quant"] != "int8" or snap["kv_page_bytes"] != \
+                KV_BYTES_PER_TOKEN["int8"] * ml.cont_page_size:
+            raise AssertionError(f"node: /stats engine {snap['kv_quant']} "
+                                 f"{snap['kv_page_bytes']}")
+        if "tlink_engine_" not in _http(port, "GET", "/metrics"):
+            raise AssertionError("node: /metrics carries no tlink_engine_*")
+        if NODE_MODEL not in _http(port, "GET", "/healthz")["hosted_models"]:
+            raise AssertionError("node: /healthz does not list the model")
+        http_ttft = [_first_token_ms(f"node-greedy-{i}")
+                     for i in range(NODE_GREEDY)]
+        tok = job.tokenizer
+        node = {f"node-greedy-{i}": seen[f"node-greedy-{i}"]
+                for i in range(NODE_GREEDY)}
+        node_tokens = sum(len(out) for _ids, out in node.values())
+        v.executor.unhost_model(NODE_MODEL)
+    finally:
+        for n in reversed(nodes):
+            n.stop()
+        # drop the worker's engine before the in-process one is built
+        nodes = v = w = job = rt = cont = lc = None
+        torch.cuda.empty_cache()
+
+    # the in-process reference: the same seeded tree, the worker's knobs
+    cfg = config_presets()[NODE_MODEL]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)  # the hosted spec's seed
+    eng = GenerationEngine(cfg, init_params(cfg, g, device="cuda"),
+                           max_seq_len=min(cfg.max_seq_len, ml.max_seq_len),
+                           seq_buckets=ml.seq_buckets,
+                           batch_buckets=ml.batch_buckets, device="cuda")
+    b = ContinuousBatcher(
+        engine=eng, max_slots=ml.cont_max_slots, page_size=ml.cont_page_size,
+        chunk_steps=ml.cont_chunk_steps, prefill_chunk=ml.prefill_chunk,
+        prefix_cache=ml.prefix_cache, kv_quant=ml.kv_quant,
+        spec_decode=ml.spec_decode, spec_draft=ml.spec_draft,
+        default_priority=ml.default_priority, eos_ids=tok.eos_ids)
+    ref, errors = {}, []
+
+    def local(rid):
+        try:
+            ref[rid] = b.generate(node[rid][0], max_new_tokens=NODE_NEW,
+                                  trace_id=f"inproc-{rid}")
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=local, args=(r,)) for r in node]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    local_wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    eos = set(tok.eos_ids)
+    for rid, (_ids, out) in node.items():
+        _equal_stream(f"node {rid}", out, ref[rid])
+        want = extract_reasoning_and_answer(
+            tok.decode([t for t in ref[rid] if t not in eos]))[1]
+        if results[rid]["response"] != want:
+            raise AssertionError(f"node {rid}: the HTTP text differs from the "
+                                 "in-process run's")
+    local_ttft = [_first_token_ms(f"inproc-{rid}") for rid in node]
+    b.close()
+    del eng, b
+    torch.cuda.empty_cache()
+    greedy_lat = [latency[r] for r in node]
+    p50, p95 = _quantiles(http_ttft)
+    l50, l95 = _quantiles(local_ttft)
+    q50, q95 = _quantiles(greedy_lat)
+    res = dict(
+        card=_smi(), host_s=host_s, requests=len(calls), wall_s=wall,
+        http_tokens_per_s=node_tokens / wall,
+        http_first_token_ms_p50=p50, http_first_token_ms_p95=p95,
+        http_latency_s_p50=q50, http_latency_s_p95=q95,
+        local_wall_s=local_wall,
+        local_tokens_per_s=sum(len(t) for t in ref.values()) / local_wall,
+        local_first_token_ms_p50=l50, local_first_token_ms_p95=l95,
+        host_gap_ms=snap["host_gap_ms"], kv_page_bytes=snap["kv_page_bytes"],
+        chunks=launches["chunks"], launches=launches["launches"],
+        by_format=launches["by_format"],
+    )
+    log(f"node path (qwen3-0p6b bf16, int8 pages, validator + worker on "
+        f"127.0.0.1, {len(calls)} concurrent requests x {NODE_NEW} "
+        f"tokens): {json.dumps(res)}")
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -2872,6 +3226,7 @@ def main() -> None:
     for fmt in ("fp", "int8"):
         new_paths[f"checkpoint mixtral {fmt}"] = \
             ck["mixtral"][f"launches_{fmt}"]
+    node = _phase("node", node_phase)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -2903,6 +3258,8 @@ def main() -> None:
                 for label, r in new_paths.items()
                 if r["by_format"][name].get(fmt, 0)
             }
+            # the validator + worker run of phase 10 (int8 pages)
+            entry["launches_node_path"] = node["by_format"][name].get(fmt, 0)
         if name != "paged_prefill_attention" and fmt == "fp":
             kernels.append(entry)  # PR 1's two entries, as they were
             continue

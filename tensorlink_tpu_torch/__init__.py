@@ -11,10 +11,14 @@ single-device serving paths in plain PyTorch:
   ``generate_chunked``, beam search, lookahead, the prompt-prefix LRU)
   over a dense fp or int8 KV cache;
 
-with bf16 or weight-only int8 weights. Every Pallas attention kernel of
-the JAX package is replaced by a CUDA C++ kernel written for Hopper
-(``ops/csrc/``): the two paged kernels, ``paged_prefill_attention`` and
-``flash_attention`` (the dense engine's fresh-cache prefill).
+with bf16 or weight-only int8 weights, and the single-worker node stack
+around them: a validator (``nodes/``, ``ml/validator.py``, the HTTP API in
+``api/``) plans a model onto a worker (``ml/worker.py``) over the P2P
+mesh (``p2p/``), and the worker's ``ContinuousEngine`` streams tokens
+back. Every Pallas attention kernel of the JAX package is replaced by a
+CUDA C++ kernel written for Hopper (``ops/csrc/``): the two paged
+kernels, ``paged_prefill_attention`` and ``flash_attention`` (the dense
+engine's fresh-cache prefill).
 
 Module and function names mirror the JAX package, so each piece has an
 obvious counterpart there. The port imports ``torch``, never ``jax``, and
@@ -22,3 +26,11 @@ nothing of ``tensorlink_tpu``. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``; on the CPU every kernel wrapper takes
 its plain PyTorch version.
 """
+
+
+def unported(what: str, item: int) -> NotImplementedError:
+    """The error a path of the JAX package that a later slice of the port
+    brings raises, naming its ROADMAP queue 1 item."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1 item {item})"
+    )

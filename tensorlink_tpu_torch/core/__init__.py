@@ -1,2 +1,3 @@
-"""Host-side support the serving engine needs: metrics, tracing, device
+"""Host-side support: node configuration, logging, the control journal,
+the IPC transports, metrics, tracing, faults, serialization and device
 resolution."""

@@ -159,4 +159,21 @@ def content_digest(obj: Any) -> str:
     return hashlib.sha256(bytes(encode(obj))).hexdigest()
 
 
-__all__ = ["BFLOAT16", "content_digest", "decode", "dtype_name", "encode"]
+def encode_to_file(obj: Any, path) -> int:
+    """Spill a large frame to disk (the p2p layer's bulk spill); returns
+    the bytes written."""
+    data = encode(obj)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def decode_from_file(path) -> Any:
+    with open(path, "rb") as f:
+        return decode(f.read(), copy=True)
+
+
+__all__ = [
+    "BFLOAT16", "content_digest", "decode", "decode_from_file", "dtype_name",
+    "encode", "encode_to_file",
+]

@@ -117,6 +117,16 @@ def pack_prefill_budgets(
     return grants
 
 
+def paged_unsupported(cfg) -> str | None:
+    """Why the paged engine can't serve a model config, None when it can:
+    the hosting-time routing predicate (ml/validator.py). Models it
+    rejects are served by the windowed static batcher. An int8 KV cache
+    is not a reason: the paged cache stores int8 pages natively."""
+    if getattr(cfg, "sliding_window", None) is not None:
+        return "sliding-window attention"
+    return None
+
+
 # the engine's counter families: (serving_snapshot key, metric name, help)
 # — the JAX engine's keys and names
 _ENGINE_COUNTERS = (
@@ -284,11 +294,9 @@ class ContinuousEngine:
         page_quota: int = 0,
         tensor_parallel: int = 1,
     ):
-        if engine.cfg.sliding_window is not None:
-            raise ValueError(
-                "continuous batching does not support sliding-window "
-                "attention"
-            )
+        why = paged_unsupported(engine.cfg)
+        if why is not None:
+            raise ValueError(f"continuous batching does not support {why}")
         if int(prefill_chunk) <= 0:
             raise ValueError("prefill_chunk must be >= 1")
         kv_quant = str(kv_quant or "none")
@@ -2243,4 +2251,5 @@ def _tree_mismatch(old, new, path: str = "") -> str | None:
 
 __all__ = [
     "ContinuousEngine", "ContinuousRequest", "pack_prefill_budgets",
+    "paged_unsupported",
 ]

@@ -23,6 +23,7 @@ own contracts.
 
 import dataclasses
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -393,13 +394,13 @@ def test_port_quantized_solo_cobatched_prefix_and_cow_bitwise(models,
 
 def test_unported_variants_are_refused(models):
     _, tgen = models
-    # speculative decoding and the shared pool are ported; tensor
-    # parallelism and the batcher's remote/pipelined modes are not
+    # speculative decoding, the shared pool and the batcher's remote mode
+    # are ported; tensor parallelism and the pipelined mode are not
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         ContinuousEngine(tgen, **ENGINE_KW, tensor_parallel=2)
-    for mode in (dict(model=object()), dict(model=object(), engine=tgen)):
-        with pytest.raises(NotImplementedError, match="local mode"):
-            ContinuousBatcher(**mode)
+    pipelined = types.SimpleNamespace(plan=types.SimpleNamespace(n_stages=2))
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ContinuousBatcher(model=pipelined)
     # int8/int4 pages are served now; an unknown mode is refused as JAX does
     with pytest.raises(ValueError, match="kv_quant"):
         ContinuousEngine(tgen, **ENGINE_KW, kv_quant="nf4")
