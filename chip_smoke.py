@@ -131,6 +131,30 @@ Phases (any failure raises and exits non-zero):
    client tokens/s and request latency over HTTP, and the engine's
    first-token times (from /trace) beside the in-process run's: readings
    with the card's name and power limit, not claims.
+11. Training, every step on the card in float32 with TF32 off unless
+   named: one make_train_step(adamw, grad clip 1.0, remat) step of a
+   seeded 2-layer tree at qwen3-0p6b's widths (B 2, T 128) on the card
+   and on the host — loss within 1e-5 relative, grad_norm within 1e-4,
+   each leaf's gradient within 1e-4 relative in its norm, and a
+   gradient with one layer's wq gradient zeroed reading far above that;
+   qwen3-0p6b at full depth: eight AdamW steps on one repeated batch (B
+   4, T 256) cut the loss by more than 10%, n_micro 2 against 1 on that
+   batch (loss 1e-5, grad_norm 1e-4), and bfloat16 steps at n_micro 2
+   whose accumulated gradients are float32 (step ms, tokens/s and MFU
+   against the datasheet peak as readings); a port validator, worker and
+   user on 127.0.0.1 train DistributedModels of qwen3-0p6b's widths at
+   4 layers three steps each (the downloaded tree bitwise the seeded one
+   before, losses within 1e-4 of make_train_step; after, under SGD with
+   momentum every param within rtol 2e-4, atol 2e-5, and under AdamW
+   each leaf within 2e-4 in its norm; the validator's proof verdict ok
+   over 3 steps, a checkpoint restored bitwise and its next step's loss
+   equal to the in-process loss of the snapshot, an HF export loaded
+   back bitwise); and serve-and-train — a ContinuousBatcher over qwen3-0p6b
+   in bf16 serves 8 interactive greedy requests in two waves while a
+   ServeTrainLoop takes 4 AdamW steps between chunks and publishes
+   twice: every stream full length, the kernels' launches per chunk,
+   and a greedy request after the last publish equal to a fresh engine
+   over the published tree.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -3182,6 +3206,575 @@ def node_phase() -> dict:
     return res
 
 
+# -- phase 11 ----------------------------------------------------------
+TRAIN_MODEL = "qwen3-0p6b"
+TRAIN_SEED = 777
+TRAIN_HOST_LAYERS = 2  # the card-against-host step, at full width
+# the node path at full width and 4 of 28 layers: each parameters()
+# download ships the whole float32 tree through the P2P frames
+TRAIN_NODE_LAYERS = 4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-4  # each leaf's gradient, relative in its norm
+TRAIN_NODE_LOSS_RTOL = 1e-4
+TRAIN_NODE_PARAMS = dict(rtol=2e-4, atol=2e-5)  # tests/test_training_e2e.py
+PEAK_SOURCE = ("NVIDIA H100 SXM datasheet, dense: FP32 67 TFLOPS (no "
+               "TF32), BF16 Tensor Core 989 TFLOPS")
+
+
+def _train_cfg(n_layers: int | None, dtype):
+    cfg = config_presets()[TRAIN_MODEL]
+    return cfg.with_(n_layers=n_layers or cfg.n_layers, dtype=dtype)
+
+
+def _seeded(cfg, device: str, seed: int = TRAIN_SEED) -> dict:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return init_params(cfg, g, device=device)
+
+
+def _named(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_named(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def _leaf_errs(got: dict, want: dict) -> dict:
+    """Each leaf's ``||got - want|| / ||want||`` in float64 on the host."""
+    g, w = _named(got), _named(want)
+    if set(g) != set(w):
+        raise AssertionError(f"training: leaves {sorted(g)} vs {sorted(w)}")
+    out = {}
+    for k in w:
+        a = g[k].detach().double().cpu()
+        b = w[k].detach().double().cpu()
+        out[k] = float(torch.linalg.vector_norm(a - b)
+                       / torch.linalg.vector_norm(b))
+    return out
+
+
+def _recording(opt, store: list):
+    """``opt`` whose update keeps the gradients the train step hands it."""
+
+    def update(grads, state, params=None):
+        store.append(grads)
+        return opt.update(grads, state, params)
+
+    return opt._replace(update=update)
+
+
+def _timed_step(ts, params, state, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = ts.step_fn(params, state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    return params, state, loss, float(m["grad_norm"]), \
+        time.perf_counter() - t0
+
+
+def train_card_vs_host() -> dict:
+    """One make_train_step(adamw, grad clip 1.0, remat) step of a seeded
+    2-layer tree at qwen3-0p6b's widths in float32, B 2, T 128, on the
+    card and on the host: loss, grad_norm and every leaf's gradient held,
+    and a gradient with one layer's wq gradient zeroed read against the
+    same bound."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = _train_cfg(TRAIN_HOST_LAYERS, torch.float32)
+    host = _seeded(cfg, "cpu")
+    toks = np.random.default_rng(TRAIN_SEED).integers(
+        0, cfg.vocab_size, (2, 128)).astype(np.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = host if dev == "cpu" else tree_map(lambda t: t.to(dev), host)
+        grads: list = []
+        ts = make_train_step(cfg, _recording(make_optimizer(
+            "adamw", lr=1e-3, grad_clip=1.0), grads), remat=True)
+        t0 = time.perf_counter()
+        _, _, m = ts.step_fn(params, ts.init_state(params),
+                             {"tokens": torch.as_tensor(toks, device=dev)})
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        runs[dev] = dict(loss=loss, grad_norm=gnorm, grads=grads[0],
+                         s=time.perf_counter() - t0)
+    card, cpu = runs["cuda"], runs["cpu"]
+    errs = _leaf_errs(card["grads"], cpu["grads"])
+    faulty = tree_map(lambda t: t, card["grads"])
+    wq = faulty["layers"]["attn"]["wq"].clone()
+    wq[0] = 0
+    faulty["layers"]["attn"]["wq"] = wq
+    fault = max(_leaf_errs(faulty, cpu["grads"]).values())
+    res = dict(
+        card=_smi(), loss_card=card["loss"], loss_host=cpu["loss"],
+        loss_rel=_rel(card["loss"], cpu["loss"]),
+        grad_norm_card=card["grad_norm"], grad_norm_host=cpu["grad_norm"],
+        grad_norm_rel=_rel(card["grad_norm"], cpu["grad_norm"]),
+        grad_leaf_rel_max=max(errs.values()),
+        grad_leaf_rel_worst=max(errs, key=errs.get),
+        fault_rel=fault, step_s_card=card["s"], step_s_host=cpu["s"],
+    )
+    log(f"training card vs host (qwen3-0p6b widths, {TRAIN_HOST_LAYERS} "
+        f"layers, f32, B 2, T 128): {json.dumps(res)}")
+    if res["loss_rel"] > TRAIN_LOSS_RTOL \
+            or res["grad_norm_rel"] > TRAIN_GNORM_RTOL \
+            or res["grad_leaf_rel_max"] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"training: card and host steps differ: {res}")
+    if fault <= 100 * TRAIN_GRAD_RTOL:
+        raise AssertionError(f"training: a zeroed wq gradient reads only "
+                             f"{fault}")
+    del runs, card, cpu, host
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_full_depth() -> dict:
+    """qwen3-0p6b at full width and depth in float32: eight AdamW steps on
+    one repeated batch (B 4, T 256) must cut the loss by more than 10%;
+    n_micro 2 against 1 on that batch; a bfloat16 n_micro=2 step whose
+    accumulated gradients are float32. Readings: step ms, tokens/s and
+    MFU against the datasheet peak of the dtype."""
+    from tensorlink_tpu_torch.engine import training as tt
+
+    cfg = _train_cfg(None, torch.float32)
+    n_params = cfg.param_count()
+    toks = torch.as_tensor(np.random.default_rng(TRAIN_SEED + 1).integers(
+        0, cfg.vocab_size, (4, 256)).astype(np.int32), device="cuda")
+    batch = {"tokens": toks}
+    res = {"card": _smi(), "params": n_params, "peak_source": PEAK_SOURCE}
+
+    ts = tt.make_train_step(cfg, tt.make_optimizer("adamw", lr=1e-3),
+                            remat=True)
+    params = _seeded(cfg, "cuda")
+    state = ts.init_state(params)
+    losses, secs = [], []
+    for _ in range(8):
+        params, state, loss, _, dt = _timed_step(ts, params, state, batch)
+        losses.append(loss)
+        secs.append(dt)
+    del params, state
+    torch.cuda.empty_cache()
+    if not losses[-1] < 0.9 * losses[0]:
+        raise AssertionError(f"training: 8 steps took the loss {losses}")
+    step = statistics.median(secs[-5:])
+    tps = toks.numel() / step
+    res["f32"] = dict(losses=losses, step_ms=step * 1e3, tokens_per_s=tps,
+                      mfu=6 * n_params * tps / PEAK_FLOPS[torch.float32])
+
+    micro = {}
+    for n_micro in (1, 2):
+        p0 = _seeded(cfg, "cuda")
+        tsm = tt.make_train_step(cfg, tt.make_optimizer("adamw", lr=1e-3),
+                                 n_micro=n_micro, remat=True)
+        _, _, loss, gnorm, _ = _timed_step(tsm, p0, tsm.init_state(p0), batch)
+        micro[n_micro] = (loss, gnorm)
+        del p0
+        torch.cuda.empty_cache()
+    res["n_micro"] = dict(
+        loss_1=micro[1][0], loss_2=micro[2][0],
+        loss_rel=_rel(micro[2][0], micro[1][0]),
+        grad_norm_1=micro[1][1], grad_norm_2=micro[2][1],
+        grad_norm_rel=_rel(micro[2][1], micro[1][1]))
+    if res["n_micro"]["loss_rel"] > TRAIN_LOSS_RTOL \
+            or res["n_micro"]["grad_norm_rel"] > TRAIN_GNORM_RTOL:
+        raise AssertionError(f"training: n_micro 2 against 1: "
+                             f"{res['n_micro']}")
+
+    bcfg = cfg.with_(dtype=torch.bfloat16)
+    carry = []
+    inner = tt._accum_micro_grads
+
+    def spy(*a):
+        out = inner(*a)
+        from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+
+        carry.append({t.dtype for t in tree_leaves(out[0])})
+        return out
+
+    tt._accum_micro_grads = spy
+    try:
+        tsb = tt.make_train_step(bcfg, tt.make_optimizer("adamw", lr=1e-3),
+                                 n_micro=2, remat=True)
+        params = _seeded(bcfg, "cuda")
+        state = tsb.init_state(params)
+        blosses, bsecs = [], []
+        for _ in range(6):
+            params, state, loss, _, dt = _timed_step(tsb, params, state,
+                                                     batch)
+            blosses.append(loss)
+            bsecs.append(dt)
+    finally:
+        tt._accum_micro_grads = inner
+    del params, state
+    torch.cuda.empty_cache()
+    if carry != [{torch.float32}] * 6 or not np.isfinite(blosses).all():
+        raise AssertionError(f"training: bf16 carry {carry}, losses "
+                             f"{blosses}")
+    step = statistics.median(bsecs[-5:])
+    tps = toks.numel() / step
+    res["bf16_n_micro_2"] = dict(
+        losses=blosses, carry="float32", step_ms=step * 1e3,
+        tokens_per_s=tps,
+        mfu=6 * n_params * tps / PEAK_FLOPS[torch.bfloat16])
+    log(f"training full depth (qwen3-0p6b, 28 layers, B 4, T 256, AdamW "
+        f"lr 1e-3, remat): {json.dumps(res)}")
+    return res
+
+
+def train_node_phase() -> dict:
+    """Training over the node stack: a port validator, worker (on the
+    card) and user on 127.0.0.1; a DistributedModel of qwen3-0p6b's widths
+    at 4 layers in float32 trains three steps, held against
+    make_train_step on the same seeded tree; proofs, checkpoint save and
+    restore, and HF export. A job under SGD with momentum holds its
+    params elementwise; one under AdamW holds each leaf in its norm."""
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        UserConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.engine.paged import device_tensor
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+    from tensorlink_tpu_torch.engine.training import (
+        causal_lm_loss,
+        make_optimizer,
+        make_train_step,
+    )
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+    from tensorlink_tpu_torch.nodes.runners import (
+        UserNode,
+        ValidatorNode,
+        WorkerNode,
+    )
+
+    root = NODE_ROOT / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = _train_cfg(TRAIN_NODE_LAYERS, torch.float32)
+    B, T = 2, 128
+    rng = np.random.default_rng(TRAIN_SEED + 2)
+    batches = [rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+               for _ in range(4)]
+    common = dict(local_test=True, log_dir=str(root / "logs"),
+                  env_file=str(root / ".env"), ml=MLConfig())
+    nodes = []
+    res = {"card": _smi(), "layers": TRAIN_NODE_LAYERS}
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=False, key_dir=str(root / "vkeys"), **common)).start()
+            nodes.append(v)
+            seeds = [["127.0.0.1", v.port]]
+            w = WorkerNode(WorkerConfig(
+                seed_validators=seeds, key_dir=str(root / "wkeys"),
+                **common)).start()
+            nodes.append(w)
+            u = UserNode(UserConfig(
+                seed_validators=seeds, key_dir=str(root / "ukeys"),
+                **common)).start()
+            nodes.append(u)
+        deadline = time.monotonic() + 60
+        while len(v.status()["peers"]) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("training node: the nodes never met")
+            time.sleep(0.1)
+
+        def job(opt: str, kw: dict, pull: bool):
+            """A training job of the seeded tree: three steps beside
+            make_train_step in process. The worker's tree is held bitwise
+            the seeded one first — through parameters() when ``pull``,
+            else in the worker's memory (each download moves the whole
+            float32 tree through the P2P frames). Returns the job and its
+            readings."""
+            t0 = time.monotonic()
+            model = DistributedModel(cfg, node=u, seed=TRAIN_SEED,
+                                     training=True, seq_len=T, batch=B)
+            attach = time.monotonic() - t0
+            rt = w.executor.jobs[model.job_id]
+            ref = _seeded(cfg, "cuda")
+            nbytes = _same_tree(f"training node {opt}: the worker's tree",
+                                download(model) if pull else rt.params, ref)
+            model.init_optimizer(opt, **kw)
+            ts = make_train_step(cfg, make_optimizer(opt, grad_clip=1.0,
+                                                     **kw), remat=True)
+            state = ts.init_state(ref)
+            out = dict(attach_s=attach, bytes_checked=nbytes, losses=[],
+                       node_s=[], local_s=[])
+            for toks in batches[:3]:
+                t0 = time.perf_counter()
+                r = model.train_step(toks)
+                out["node_s"].append(time.perf_counter() - t0)
+                ref, state, loss, _, dt = _timed_step(
+                    ts, ref, state,
+                    {"tokens": torch.as_tensor(toks, device="cuda")})
+                out["local_s"].append(dt)
+                out["losses"].append((r["loss"], loss))
+                if _rel(r["loss"], loss) > TRAIN_NODE_LOSS_RTOL:
+                    raise AssertionError(f"training node {opt}: losses "
+                                         f"{out['losses']}")
+            got = rt.params
+            out["param_leaf_rel_max"] = max(_leaf_errs(got, ref).values())
+            worst, bad = 0.0, 0
+            for k, want in _named(ref).items():
+                d = (_named(got)[k] - want).abs()
+                lim = TRAIN_NODE_PARAMS["atol"] \
+                    + TRAIN_NODE_PARAMS["rtol"] * want.abs()
+                bad += int((d > lim).sum())
+                worst = max(worst, float((d / lim).max()))
+            out.update(params_outside_bound=bad, params_worst_of_bound=worst)
+            return model, out
+
+        def download(model):
+            return tree_map(lambda a: device_tensor(a, "cuda"),
+                            model.parameters()[0])
+
+        # SGD with momentum: the params move linearly with the gradients,
+        # so the elementwise bound holds them
+        model, sgd = job("sgd", dict(lr=0.1, momentum=0.9), pull=False)
+        res["sgd_momentum"] = sgd
+        model.shutdown()
+        if sgd["params_outside_bound"]:
+            raise AssertionError(f"training node sgd: params outside "
+                                 f"{TRAIN_NODE_PARAMS}: {sgd}")
+        # AdamW divides each update by the gradient's own size: entries
+        # whose gradient cancels to about eps move by up to lr on rounding
+        # alone, so the elementwise count is a reading and each leaf is
+        # held in its norm
+        model, adamw = job("adamw", dict(lr=1e-3), pull=True)
+        res["adamw"] = adamw
+        if adamw["param_leaf_rel_max"] > TRAIN_NODE_PARAMS["rtol"]:
+            raise AssertionError(f"training node adamw: {adamw}")
+        rt = w.executor.jobs[model.job_id]
+        pol = v.send_request("job_proofs", {"job_id": model.job_id})
+        verdicts = pol.get("verdicts") or {}
+        if not verdicts or not all(
+                vd.get("ok") and vd.get("total_steps") == 3
+                for vd in verdicts.values()):
+            raise AssertionError(f"training node: proofs {pol}")
+        res["proofs"] = list(verdicts.values())
+
+        ckpt = root / "ckpt"
+        model.save_checkpoint(str(ckpt))
+        snap = tree_map(lambda t: t.clone(), rt.params)
+        after = model.train_step(batches[3])["loss"]
+        model.restore_checkpoint(str(ckpt))
+        res["bytes_restored"] = _same_tree("training node: the restored "
+                                           "tree", rt.params, snap)
+        again = model.train_step(batches[3])["loss"]
+        with torch.no_grad():
+            local = float(causal_lm_loss(
+                snap, cfg, torch.as_tensor(batches[3], device="cuda"))[0])
+        res["restore"] = dict(step_after_save=after, step_after_restore=again,
+                              in_process=local)
+        res["restore"]["bitwise"] = after == again
+        if _rel(again, after) > 1e-6 or _rel(again, local) > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"training node: restore {res['restore']}")
+
+        out = model.export_hf_checkpoint(str(root / "hf"))
+        _, loaded = load_params(out, cfg, device="cuda")
+        res["bytes_exported"] = _same_tree("training node: the exported "
+                                           "tree", loaded, rt.params)
+        model.shutdown()
+    finally:
+        for n in reversed(nodes):
+            n.stop()
+        nodes = v = w = u = rt = None
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res.update(
+        node_step_s=statistics.median(adamw["node_s"]),
+        local_step_s=statistics.median(adamw["local_s"]),
+        logits_bytes_per_step=2 * B * T * cfg.vocab_size * 4,
+    )
+    log(f"training node path (qwen3-0p6b widths, {TRAIN_NODE_LAYERS} "
+        f"layers, f32, B {B}, T {T}, validator + worker + user on "
+        f"127.0.0.1): {json.dumps(res)}")
+    return res
+
+
+def train_profile(steps: int = 3) -> dict:
+    """Where a full-depth qwen3-0p6b train step's time goes (a tool, not a
+    phase of main(); run device_phase() first): B 4, T 256, AdamW, remat,
+    float32 and bfloat16, ``steps`` steps after two warm-up steps under
+    torch.profiler. Prints per dtype the wall time per step, the device's
+    busy time per step (the sum of its kernels' device time: one stream,
+    so kernels do not overlap), the busy share of the wall, the launches
+    per step, and the five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    out = {"card": _smi()}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = _train_cfg(None, dtype)
+        toks = torch.as_tensor(np.random.default_rng(TRAIN_SEED + 1).integers(
+            0, cfg.vocab_size, (4, 256)).astype(np.int32), device="cuda")
+        ts = make_train_step(cfg, make_optimizer("adamw", lr=1e-3),
+                             remat=True)
+        params = _seeded(cfg, "cuda")
+        state = ts.init_state(params)
+        for _ in range(2):
+            params, state, *_ = _timed_step(ts, params, state,
+                                            {"tokens": toks})
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                params, state, *_ = _timed_step(ts, params, state,
+                                                {"tokens": toks})
+            wall = (time.perf_counter() - t0) / steps
+        kernels, launches = {}, 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            if t > 0:
+                kernels[e.key[:80]] = t / steps / 1e3
+                launches += e.count
+        busy = sum(kernels.values())
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])
+        out[str(dtype).split(".")[-1]] = dict(
+            wall_ms=wall * 1e3, device_busy_ms=busy,
+            busy_share=busy / (wall * 1e3),
+            launches_per_step=launches / steps, top_kernels_ms=top)
+        del params, state
+        torch.cuda.empty_cache()
+    log(f"training profile (qwen3-0p6b, 28 layers, B 4, T 256, AdamW, remat; "
+        f"per step): {json.dumps(out)}")
+    return out
+
+
+SERVE_TRAIN_REQUESTS = 8
+SERVE_TRAIN_NEW = 64
+
+
+def serve_train_phase() -> dict:
+    """Serve-and-train: a ContinuousBatcher over qwen3-0p6b in bf16 (fp
+    pages, 8 slots) serves 8 interactive greedy requests in two waves
+    while a ServeTrainLoop (yields above best_effort, publishes every 2
+    steps, 4 AdamW steps of B 2, T 128) trains between chunks. Every
+    stream finishes; 4 train steps and 2 publishes; the kernels' launch
+    counts per chunk; a greedy request after the last publish equals a
+    fresh engine over the published tree."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+    from tensorlink_tpu_torch.engine.serve_train import ServeTrainLoop
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg, params = _model()
+    knobs = dict(max_slots=8, page_size=16, chunk_steps=8,
+                 prefill_chunk=128, kv_quant="none", eos_ids=[])
+    b = ContinuousBatcher(engine=_gen(), **knobs)
+    lc = _Launches("serve-and-train")
+    lc.add(b._cont)
+    rng = np.random.default_rng(TRAIN_SEED + 3)
+    data = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 128)),
+                            dtype=torch.int32, device="cuda")
+            for _ in range(4)]
+    ts = make_train_step(cfg, make_optimizer("adamw", lr=1e-3), remat=True)
+    loop = ServeTrainLoop(
+        b, ts, tree_map(lambda t: t.clone(), params),
+        data_fn=lambda i: {"tokens": data[i]} if i < len(data) else None,
+        publish_every=2, max_steps=4, peak_flops=PEAK_FLOPS[torch.bfloat16],
+        cfg=cfg, yield_above="best_effort")
+    prompts = [ids for ids, _ in _requests(cfg)[1][:SERVE_TRAIN_REQUESTS + 1]]
+    outs, errors = {}, []
+
+    def one(i):
+        try:
+            outs[i] = b.generate(prompts[i], max_new_tokens=SERVE_TRAIN_NEW,
+                                 priority="interactive", timeout=600)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    def wave(ids):
+        threads = [threading.Thread(target=one, args=(i,)) for i in ids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+
+    def until(cond, what):
+        deadline = time.monotonic() + 300
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve-and-train: {what}")
+            time.sleep(0.05)
+
+    t0 = time.monotonic()
+    loop.attach()
+    half = SERVE_TRAIN_REQUESTS // 2
+    wave(range(half))
+    until(lambda: loop.publishes >= 1, "no publish after the first wave")
+    steps_between = loop.step
+    wave(range(half, SERVE_TRAIN_REQUESTS))
+    until(lambda: loop.done, "the loop did not finish")
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    if sorted(outs) != list(range(SERVE_TRAIN_REQUESTS)) or any(
+            len(o) != SERVE_TRAIN_NEW for o in outs.values()):
+        raise AssertionError("serve-and-train: a stream was dropped or cut")
+    last = b.generate(prompts[SERVE_TRAIN_REQUESTS],
+                      max_new_tokens=SERVE_TRAIN_NEW, priority="interactive")
+    snap = b._cont.serving_snapshot()
+    if snap["train_steps"] != 4 or snap["weights_published"] != 2 \
+            or loop.publishes != 2:
+        raise AssertionError(f"serve-and-train: train_steps "
+                             f"{snap['train_steps']}, published "
+                             f"{snap['weights_published']}")
+    launches = lc.check()
+    published = tree_map(lambda t: t.clone(), b._cont.engine.params)
+    b.close()
+    fresh = ContinuousBatcher(
+        engine=GenerationEngine(cfg, published, max_seq_len=4096,
+                                device="cuda"), **knobs)
+    want = fresh.generate(prompts[SERVE_TRAIN_REQUESTS],
+                          max_new_tokens=SERVE_TRAIN_NEW,
+                          priority="interactive")
+    fresh.close()
+    _equal_stream("serve-and-train: after the last publish", last, want)
+    res = dict(card=_smi(), requests=SERVE_TRAIN_REQUESTS + 1,
+               wall_s=wall, train_steps=snap["train_steps"],
+               weights_published=snap["weights_published"],
+               weights_version=snap["weights_version"],
+               steps_before_second_wave=steps_between,
+               train_step_ms=snap["train_step_ms"],
+               train_mfu=snap["train_mfu"], losses_last=loop.last_loss,
+               launches=launches)
+    log(f"serve-and-train (qwen3-0p6b bf16, fp pages, 8 slots): "
+        f"{json.dumps(res)}")
+    del b, fresh, published, loop
+    torch.cuda.empty_cache()
+    return res
+
+
+def training_phase() -> dict:
+    return dict(
+        card_vs_host=_phase("training: card vs host", train_card_vs_host),
+        full_depth=_phase("training: full depth", train_full_depth),
+        node=_phase("training: node path", train_node_phase),
+        serve_train=_phase("training: serve-and-train", serve_train_phase),
+    )
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -3227,6 +3820,8 @@ def main() -> None:
         new_paths[f"checkpoint mixtral {fmt}"] = \
             ck["mixtral"][f"launches_{fmt}"]
     node = _phase("node", node_phase)
+    training = _phase("training", training_phase)
+    new_paths["serve-and-train"] = training["serve_train"]["launches"]
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]

@@ -10,6 +10,10 @@ JAX ``KVCache`` (fp, or int8 with scales) arrives the same way, as an
 object with numpy ``.k``/``.v``/``.length`` (and ``.k_scale``/
 ``.v_scale``), and becomes the port's ``KVCache`` with the same layout.
 
+An optax optimizer state crosses as the port's plain tuples
+(:func:`opt_state_from_jax`, ``engine/optimizers.py``), and back into an
+optax state's structure (:func:`opt_state_to_jax`).
+
 Serving state crosses too: a JAX engine's migration or prefix blob
 (``export_slot``, ``export_prefix_pages``) becomes a blob the port's
 ``stage_migration``/``stage_prefix`` take (:func:`blob_from_jax`), and a
@@ -117,6 +121,54 @@ def host_pool_from_jax(jax_pool, pool) -> int:
     return len(entries)
 
 
+def opt_state_from_jax(state, device=None):
+    """An optax optimizer state given with numpy leaves
+    (``jax.device_get``) → the port's state on ``device`` (None = the CUDA
+    card): every NamedTuple a plain tuple (an ``EmptyState`` ``()``), dicts
+    kept, each leaf a tensor of its own dtype — the structure
+    ``engine/optimizers.py`` builds, leaf for leaf."""
+    dev = resolve_device(device)
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return tuple(walk(v) for v in x)
+        if x is None:
+            return None
+        return _tensor(x, dev, None)
+
+    return walk(state)
+
+
+def opt_state_to_jax(state, like):
+    """The port's optimizer state → numpy leaves in the structure of the
+    optax state ``like`` (its NamedTuple types and dict keys; e.g.
+    ``optimizer.init(params)`` of the JAX package), bfloat16 leaves as
+    their 16-bit payload under ``BFLOAT16`` (the TLTS host form)."""
+
+    def host(t):
+        t = t.detach().to("cpu")
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BFLOAT16)
+        return t.numpy().copy()
+
+    def walk(x, ref):
+        if isinstance(ref, dict):
+            return {k: walk(x[k], v) for k, v in ref.items()}
+        if isinstance(ref, tuple):
+            vals = [walk(a, b) for a, b in zip(x, ref)]
+            if len(x) != len(ref):
+                raise ValueError("state and template differ in structure")
+            return type(ref)(*vals) if hasattr(ref, "_fields") \
+                else tuple(vals)
+        if ref is None:
+            return None
+        return host(x)
+
+    return walk(state, like)
+
+
 def config_from_jax(fields: dict) -> ModelConfig:
     """A JAX ``ModelConfig`` given as a field dict
     (``dataclasses.asdict``) → the port's config; ``dtype`` may be a
@@ -128,4 +180,5 @@ def config_from_jax(fields: dict) -> ModelConfig:
 
 
 __all__ = ["blob_from_jax", "config_from_jax", "host_pool_from_jax",
-           "kv_cache_from_jax", "params_from_jax", "torch_dtype"]
+           "kv_cache_from_jax", "opt_state_from_jax", "opt_state_to_jax",
+           "params_from_jax", "torch_dtype"]

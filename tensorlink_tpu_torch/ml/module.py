@@ -1,20 +1,28 @@
 """DistributedModel — the caller's handle on a distributed job (port of
-the serving part of ``tensorlink_tpu/ml/module.py``).
+``tensorlink_tpu/ml/module.py`` for single-stage jobs).
 
-A validator-hosted model attaches to a job the validator planned and
-recruited (:meth:`DistributedModel.from_job`): it connects to the job's
-worker, ships the stage assignment (plan slice + model config +
-checkpoint reference or seed, never code) and then generates:
+A user's job (``DistributedModel(model, training=...)`` through a
+``UserNode``) or a validator-hosted model
+(:meth:`DistributedModel.from_job`) attaches to a job the validator
+planned and recruited: it connects to the job's worker, ships the stage
+assignment (plan slice + model config + checkpoint reference or seed,
+never code) and then generates, runs forwards, or trains:
 
 - ``generate(..., continuous=True)`` on a single-request call joins the
   worker's running slot batch (``_generate_continuous_remote``), streamed
   token by token over the TOKEN relay when a ``stream_cb`` is given;
 - every other call runs the worker's dense engine
-  (``_generate_remote``: batched, beam, lookahead).
+  (``_generate_remote``: batched, beam, lookahead);
+- ``forward`` returns the logits (or worker-sampled token ids);
+- ``train_step`` runs each micro-batch's forward on the worker, the
+  cross-entropy and its logits gradient here (on :attr:`device`), the
+  backward on the worker, then the optimizer step with the driver's
+  clip folded into the scale; ``save_checkpoint``/``restore_checkpoint``,
+  ``parameters`` and ``export_hf_checkpoint`` complete the surface.
 
-Pipelined (multi-stage) jobs, job repair and training wait for later
-slices of the port and raise ``NotImplementedError`` naming their ROADMAP
-item. All waits are bounded (MAX_WAIT_TIME).
+Pipelined (multi-stage) jobs, decode sessions and job repair wait for
+later slices of the port and raise ``NotImplementedError`` naming their
+ROADMAP item. All waits are bounded (MAX_WAIT_TIME).
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import secrets
 import threading
 import time
 from typing import Any, Callable, Sequence
+
+import numpy as np
 
 from tensorlink_tpu_torch import unported
 from tensorlink_tpu_torch.core.logging import get_logger
@@ -83,6 +93,9 @@ class DistributedModel:
         quant: str | None = None,  # "int8" | "int8+kv" quantized serving
         flash_attention: bool = False,  # flash prefill kernel on workers
         start_session: bool = True,
+        ckpt_every_steps: int = 0,  # auto-checkpoint cadence (0 = off)
+        ckpt_dir: str | None = None,  # auto-checkpoint target directory
+        device=None,  # user-side tensors: None = the card, or "cpu"
         request_timeout: float = MAX_WAIT_TIME,
         retry_attempts: int = RETRY_ATTEMPTS,
         **node_kw,
@@ -90,8 +103,10 @@ class DistributedModel:
         from tensorlink_tpu_torch.models.base import ModelConfig
 
         self.log = get_logger("ml.model")
+        self._device_arg = device
+        self._device = None
         if training:
-            raise unported("training", 9)
+            _ = self.device  # no card and no device="cpu": fail before the job
         self._owns_node = node is None
         if node is None:
             from tensorlink_tpu_torch.nodes.runners import UserNode
@@ -136,6 +151,8 @@ class DistributedModel:
         self._retry_attempts = max(int(retry_attempts), 1)
         # jitter source for retry backoff — seeded so chaos runs replay
         self._retry_rng = random.Random(seed)
+        self._ckpt_every_steps = int(ckpt_every_steps)
+        self._ckpt_dir = ckpt_dir
         if start_session:
             self._initialize_distribution()
 
@@ -305,35 +322,322 @@ class DistributedModel:
         """Apply validator-pushed worker replacements."""
         raise unported("job repair", 7)
 
-    def forward(self, tokens, attn_mask=None, **kw):
-        """Chain the pipeline stages (FORWARD requests)."""
-        raise unported("stage forwards", 8)
+    @property
+    def device(self):
+        """Where the user-side tensors live (the card unless the model was
+        made with ``device="cpu"``); resolved at first use."""
+        if self._device is None:
+            from tensorlink_tpu_torch.core.devices import resolve_device
+
+            self._device = resolve_device(self._device_arg)
+        return self._device
+
+    # ------------------------------------------------------------------
+    # forward (a single-stage job)
+    # ------------------------------------------------------------------
+    def forward(
+        self,
+        tokens,  # int [B, T]
+        attn_mask=None,
+        *,
+        session: str | None = None,
+        sample: dict | None = None,
+        last_idx=None,
+        **kw,
+    ):
+        """The job's forward: logits ``[B, T, V]`` as a tensor on
+        :attr:`device`, or with ``sample`` ({temperature, top_k, top_p,
+        seed, step}) one token id per row sampled on the worker (an int32
+        numpy array; ``last_idx`` names each row's final real position).
+        Decode sessions and pipelined jobs wait for ROADMAP queue 1 item
+        8."""
+        from tensorlink_tpu_torch.engine.paged import device_tensor
+
+        assert self.plan is not None
+        if session is not None or kw:
+            raise unported("decode sessions (pipelined decode)", 8)
+        body: dict[str, Any] = {
+            "job_id": self.job_id, "op": "stage",
+            "tokens": np.asarray(_host_ids(tokens), np.int32),
+        }
+        if attn_mask is not None:
+            body["attn_mask"] = np.asarray(_host_ids(attn_mask), bool)
+        if sample is not None:
+            body["sample"] = sample
+            if last_idx is not None:
+                body["last_idx"] = np.asarray(_host_ids(last_idx), np.int32)
+        [stage] = self.plan.stages
+        resp = self._request(stage.worker_id, proto.FORWARD, body)
+        if "token" in resp:
+            return np.asarray(resp["token"], np.int32)
+        return device_tensor(resp["out"], self.device)
 
     __call__ = forward
 
+    # ------------------------------------------------------------------
+    # training (reference module.py:414-524; one stage here)
+    # ------------------------------------------------------------------
+    def _train_forward(self, tokens, attn_mask, tag: str):
+        """Forward with ``train=True``: the worker keeps its inputs under
+        ``tag``. Returns the logits as a tensor on :attr:`device`."""
+        from tensorlink_tpu_torch.engine.paged import device_tensor
+
+        out = None
+        for stage in self.plan.stages:
+            body = {"job_id": self.job_id, "op": "stage", "train": True,
+                    "tag": tag, "tokens": np.asarray(tokens, np.int32)}
+            if attn_mask is not None:
+                body["attn_mask"] = np.asarray(attn_mask, bool)
+            out = self._request(stage.worker_id, proto.FORWARD, body)["out"]
+        return device_tensor(out, self.device)
+
+    def _train_backward(self, dlogits, tag: str) -> None:
+        """The cotangent of the logits back to the stage."""
+        for stage in reversed(self.plan.stages):
+            self._request(
+                stage.worker_id, proto.BACKWARD,
+                {"job_id": self.job_id, "op": "stage", "tag": tag,
+                 "grad": dlogits},
+            )
+
     def init_optimizer(self, name: str = "adamw", **spec) -> None:
-        raise unported("training", 9)
+        """Send the optimizer spec to every stage. The driver clips, not
+        the stages: they get ``grad_clip=None`` and :meth:`optimizer_step`
+        folds ``min(1, clip / global_norm)`` into the step's scale."""
+        self._grad_clip = spec.pop("grad_clip", 1.0)
+        self._opt_name, self._opt_spec = name, dict(spec)
+        for stage in self.plan.stages:
+            self._request(
+                stage.worker_id, proto.OPTIMIZER,
+                {"job_id": self.job_id, "op": "init",
+                 "spec": {"name": name, "grad_clip": None, **spec}},
+            )
+        self._opt_ready = True
+
+    def _global_grad_norm(self, scale: float = 1.0) -> float:
+        sq = 0.0
+        for stage in self.plan.stages:
+            resp = self._request(
+                stage.worker_id, proto.OPTIMIZER,
+                {"job_id": self.job_id, "op": "grad_norm"},
+            )
+            sq += float(resp.get("grad_norm", 0.0)) ** 2
+        return (sq**0.5) * scale
 
     def optimizer_step(self, scale: float = 1.0) -> dict:
-        raise unported("training", 9)
+        """Apply the accumulated gradients on every stage; returns the
+        global norm of the scaled, pre-clip gradients (the number the
+        compiled train step reports)."""
+        gnorm = self._global_grad_norm(scale)
+        final_scale = scale
+        clip = getattr(self, "_grad_clip", None)
+        if clip and gnorm > clip:
+            final_scale = scale * clip / gnorm
+        self._opt_step_partial = True
+        for stage in self.plan.stages:
+            self._request(
+                stage.worker_id, proto.OPTIMIZER,
+                {"job_id": self.job_id, "op": "step", "scale": final_scale},
+            )
+        self._opt_step_partial = False
+        return {"grad_norm": gnorm}
 
     def zero_grad(self) -> None:
-        raise unported("training", 9)
+        for stage in self.plan.stages:
+            self._request(stage.worker_id, proto.OPTIMIZER,
+                          {"job_id": self.job_id, "op": "zero"})
 
-    def train_step(self, tokens, attn_mask=None, **kw) -> dict:
-        raise unported("training", 9)
+    def train_step(
+        self,
+        tokens,  # int [B, T]
+        loss_mask=None,  # bool [B, T]
+        attn_mask=None,
+        *,
+        step_optimizer: bool = True,
+        overlap: bool = True,
+    ) -> dict:
+        """One training step (:meth:`_train_step_once`). A lost worker
+        goes to :meth:`_recover_training`, which waits for job repair
+        (ROADMAP queue 1 item 7). Every ``ckpt_every_steps`` optimizer
+        steps the job checkpoints itself."""
+        self._step_active = True
+        try:
+            for attempt in range(2):
+                try:
+                    out = self._train_step_once(
+                        tokens, loss_mask, attn_mask,
+                        step_optimizer=step_optimizer, overlap=overlap,
+                    )
+                    break
+                except Exception as e:
+                    if attempt or not (
+                        isinstance(e, WorkerLost) or _transportish(e)
+                    ):
+                        raise
+                    self.log.warning(
+                        "training step lost a worker (%s); repairing and "
+                        "re-driving the step from the last checkpoint", e,
+                    )
+                    self._recover_training()
+        finally:
+            self._step_active = False
+        if (
+            step_optimizer and self._ckpt_every_steps > 0
+            and self._step % self._ckpt_every_steps == 0
+        ):
+            self.save_checkpoint(self._auto_ckpt_dir())
+        return out
 
+    def _auto_ckpt_dir(self) -> str:
+        if self._ckpt_dir is None:
+            import tempfile
+            from pathlib import Path
+
+            d = Path(tempfile.gettempdir()) / f"tltpu_ckpt_{self.job_id[:12]}"
+            self._ckpt_dir = str(d)
+        return self._ckpt_dir
+
+    def _recover_training(self) -> None:
+        """Repair the dead stages and roll back to the last checkpoint."""
+        raise unported("job repair", 7)
+
+    def _train_step_once(
+        self,
+        tokens,  # int [B, T]
+        loss_mask=None,  # bool [B, T]
+        attn_mask=None,
+        *,
+        step_optimizer: bool = True,
+        overlap: bool = True,
+    ) -> dict:
+        """One token-weighted causal-LM step over the job: per micro-batch
+        a train forward, the cross-entropy's sum and its logits gradient
+        here (:func:`_ce_sum_and_grad`), and a backward; then the optimizer
+        with ``scale = 1 / total tokens`` — the compiled
+        ``engine.training.make_train_step`` within float rounding.
+        ``overlap`` matters only for more than one stage (item 8)."""
+        from tensorlink_tpu_torch.engine.paged import host_array
+
+        assert self.plan is not None
+        tokens = np.asarray(_host_ids(tokens), np.int32)
+        if loss_mask is not None:
+            loss_mask = np.asarray(_host_ids(loss_mask), bool)
+        if attn_mask is not None:
+            attn_mask = np.asarray(_host_ids(attn_mask), bool)
+        B = tokens.shape[0]
+        n_micro = self.plan.n_micro if B % max(self.plan.n_micro, 1) == 0 \
+            else 1
+        mb = B // n_micro
+        self._step = getattr(self, "_step", 0) + 1
+
+        def micro_mask(m: int):
+            sl = slice(m * mb, (m + 1) * mb)
+            am = attn_mask[sl] if attn_mask is not None else None
+            lm = loss_mask[sl] if loss_mask is not None else (
+                am if am is not None else np.ones_like(tokens[sl], bool)
+            )
+            return sl, am, np.asarray(lm, bool)
+
+        total_tok = max(
+            float(sum(micro_mask(m)[2][:, 1:].sum() for m in range(n_micro))),
+            1.0,
+        )
+        total_nll = 0.0
+        for m in range(n_micro):
+            sl, am, lm = micro_mask(m)
+            tag = f"s{self._step}m{m}"
+            logits = self._train_forward(tokens[sl], am, tag)
+            nll_sum, dlogits, _ = _ce_sum_and_grad(logits, tokens[sl], lm)
+            self._train_backward(host_array(dlogits), tag)
+            total_nll += float(nll_sum)
+
+        out = {"loss": total_nll / total_tok, "n_tokens": int(total_tok),
+               "n_micro": n_micro}
+        if step_optimizer:
+            if not getattr(self, "_opt_ready", False):
+                raise RuntimeError("call init_optimizer() before train_step()")
+            out.update(self.optimizer_step(scale=1.0 / total_tok))
+        return out
+
+    # ------------------------------------------------------------------
+    # checkpoints and parameters
+    # ------------------------------------------------------------------
     def save_checkpoint(self, ckpt_dir: str) -> dict:
-        raise unported("training checkpoints", 9)
+        """Each stage writes its params and optimizer state under
+        ``ckpt_dir``; a manifest records the model, the plan and the
+        step."""
+        import json
+        from pathlib import Path
+
+        paths = []
+        for stage in self.plan.stages:
+            resp = self._request(
+                stage.worker_id, proto.CHECKPOINT,
+                {"job_id": self.job_id, "op": "save", "dir": str(ckpt_dir)},
+            )
+            paths.append(resp["path"])
+        manifest = {
+            "model": {k: v for k, v in self.model_spec.items()},
+            "plan": self.plan.to_json(),
+            "step": getattr(self, "_step", 0),
+        }
+        Path(ckpt_dir).mkdir(parents=True, exist_ok=True)
+        (Path(ckpt_dir) / "manifest.json").write_text(
+            json.dumps(manifest, indent=2))
+        self._last_ckpt = str(ckpt_dir)
+        return {"paths": paths}
 
     def restore_checkpoint(self, ckpt_dir: str) -> None:
-        raise unported("training checkpoints", 9)
+        for stage in self.plan.stages:
+            self._request(
+                stage.worker_id, proto.CHECKPOINT,
+                {"job_id": self.job_id, "op": "restore", "dir": str(ckpt_dir)},
+            )
 
     def export_hf_checkpoint(self, out_dir: str):
-        raise unported("training checkpoints", 9)
+        """Download the stages' params, merge them, and write an HF-layout
+        safetensors checkpoint (``engine/loader.py::export_hf``)."""
+        from tensorlink_tpu_torch.engine.loader import export_hf
+        from tensorlink_tpu_torch.engine.optimizers import tree_map
+        from tensorlink_tpu_torch.engine.paged import device_tensor
+
+        merged = self._merge_stage_params(self.parameters())
+        tree = tree_map(lambda a: device_tensor(a, "cpu"), merged)
+        return export_hf(self.cfg, tree, out_dir)
+
+    def _merge_stage_params(self, trees: list[dict]) -> dict:
+        full: dict = {}
+        layer_trees = []
+        for stage, tree in zip(self.plan.stages, trees):
+            if stage.first and "embed" in tree:
+                full["embed"] = tree["embed"]
+            if stage.holds_head:
+                if "final_norm" in tree:
+                    full["final_norm"] = tree["final_norm"]
+                if "lm_head" in tree:
+                    full["lm_head"] = tree["lm_head"]
+                if "embed" in tree and "embed" not in full:
+                    full["embed"] = tree["embed"]
+            if "layers" in tree:
+                layer_trees.append(tree["layers"])
+
+        def cat(*xs):
+            if isinstance(xs[0], dict):
+                return {k: cat(*(x[k] for x in xs)) for k in xs[0]}
+            return np.concatenate(xs, axis=0)
+
+        full["layers"] = cat(*layer_trees)
+        return full
 
     def parameters(self) -> list[dict]:
-        raise unported("parameter download for training", 9)
+        """Each stage's parameter tree from its worker, as host numpy
+        arrays (bfloat16 as ``core/serialization.py::BFLOAT16``)."""
+        out = []
+        for stage in self.plan.stages:
+            resp = self._request(stage.worker_id, proto.PARAMS_REQ,
+                                 {"job_id": self.job_id})
+            out.append(resp["params"])
+        return out
 
     # ------------------------------------------------------------------
     # generate (reference module.py:763-769, OffloadedModule.generate:1496)
@@ -1022,3 +1326,30 @@ def _stage_dict(stage) -> dict:
 
     return asdict(stage)
 
+
+def _host_ids(x) -> np.ndarray:
+    """Host numpy view of ids or masks given as a tensor, array or list."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _ce_sum_and_grad(logits, tokens, loss_mask):
+    """Next-token cross-entropy SUM (not mean) and its gradient with
+    respect to the logits, in float32 on the logits' device. Sums add up
+    across micro-batches, so one division by the total token count at the
+    optimizer step gives ``engine/training.py::causal_lm_loss``'s
+    token-mean. Returns ``(nll_sum, dlogits, n_tokens)``, tensors."""
+    import torch
+
+    dev = logits.device
+    tg = torch.as_tensor(np.asarray(tokens, np.int64), device=dev)[:, 1:]
+    m = torch.as_tensor(np.asarray(loss_mask, bool), device=dev)[:, 1:]
+    lg = logits.detach().requires_grad_(True)
+    with torch.enable_grad():
+        lg32 = lg[:, :-1].float()
+        logz = torch.logsumexp(lg32, dim=-1)
+        gold = torch.gather(lg32, -1, tg[..., None])[..., 0]
+        nll_sum = ((logz - gold) * m).sum()
+        (dlogits,) = torch.autograd.grad(nll_sum, lg)
+    return nll_sum.detach(), dlogits, m.sum()

@@ -436,13 +436,40 @@ class DistributedValidator:
         return result
 
     def _plan_job(self, p: dict) -> None:
-        """A user's job request (UserNode / DistributedModel): declined
-        until user jobs are ported."""
-        self.bridge.request(
-            "decline_job",
-            {"req_id": p["req_id"],
-             "error": str(unported("user jobs", 7))},
-        )
+        """A user's job request (UserNode / DistributedModel), serving or
+        training: resolve the model's config, plan it and create the job,
+        or decline with the reason. A plan of more than one stage is
+        refused when the user attaches (ROADMAP queue 1 item 8)."""
+        from tensorlink_tpu_torch.parallel.planner import AssignmentError
+
+        spec = p["spec"]
+        model_spec = dict(spec.get("model", {}))
+        name = model_spec.get("name", "")
+        self._bump_demand(name)
+        try:
+            cfg = self._resolve_config(model_spec)
+        except Exception as e:
+            self.bridge.request(
+                "decline_job", {"req_id": p["req_id"], "error": str(e)}
+            )
+            return
+        model_spec["config"] = cfg.to_json()
+        try:
+            self._plan_and_create(
+                model_spec, cfg,
+                batch=int(spec.get("batch", 1)),
+                seq_len=int(spec.get("seq_len", 2048)),
+                training=bool(spec.get("training", False)),
+                n_micro=spec.get("n_micro"),
+                mesh_hints=spec.get("parallelism"),
+                req_id=p["req_id"],
+                user_id=p.get("user_id"),
+            )
+        except AssignmentError as e:
+            self.log.info("declining job %s: %s", name, e)
+            self.bridge.request(
+                "decline_job", {"req_id": p["req_id"], "error": str(e)}
+            )
 
     # ------------------------------------------------------------------
     # hosted models (reference _initialize_hosted_job → DistributedModel,

@@ -1,12 +1,13 @@
-"""DistributedWorker — the ML-side executor of a worker node (port of the
-serving part of ``tensorlink_tpu/ml/worker.py``).
+"""DistributedWorker — the ML-side executor of a worker node (port of
+``tensorlink_tpu/ml/worker.py`` for whole-model jobs on one device).
 
 The executor blocks on one event queue fed by the network process and
-serves whole-model jobs on one device:
+serves and trains whole-model jobs:
 
 - ``load_stage`` builds the job's :class:`GenerationEngine` from a
   checkpoint (``engine/loader.py::load_params``) or from seeded random
-  weights, optionally weight-only int8 (``quant`` "int8" / "int8+kv");
+  weights, optionally weight-only int8 (``quant`` "int8" / "int8+kv",
+  ignored for a training job);
 - GENERATE requests flagged ``continuous`` join the job's
   :class:`ContinuousEngine` slot batch and stream each token back over the
   TOKEN relay; a ``cont_continue`` marker on the work queue drives one
@@ -14,12 +15,21 @@ serves whole-model jobs on one device:
   next chunk boundary;
 - every other GENERATE takes the dense engine's static paths
   (``generate_compiled``, ``generate``/``generate_chunked`` when streamed,
-  ``generate_lookahead``, chunked beam search).
+  ``generate_lookahead``, chunked beam search);
+- the training verbs: FORWARD (``op`` "stage" or "head"; ``train=True``
+  keeps the inputs under the driver's ``tag``), BACKWARD (recomputes the
+  forward under autograd from those inputs and accumulates the parameter
+  gradients across micro-batches), OPTIMIZER (init, zero, grad_norm,
+  step — ``engine/optimizers.py``, optax's formulas — with a
+  proof-of-learning entry per step), PROOF_REQ, CHECKPOINT (one TLTS file
+  of params and optimizer state per stage, the JAX package's layout),
+  PARAMS_REQ and TRAIN_MODE.
 
-Pipelined stages, training, live migration and the disaggregated
-prefill→decode handoff wait for later slices of the port: their verbs
-raise ``NotImplementedError`` naming their ROADMAP item, and the run
-loop's error reply carries that message to the peer.
+Decode sessions and worker-to-worker chains, pipeline stages, live
+migration and the disaggregated prefill→decode handoff wait for later
+slices of the port: their verbs raise ``NotImplementedError`` naming
+their ROADMAP item, and the run loop's error reply carries that message
+to the peer.
 """
 
 from __future__ import annotations
@@ -27,7 +37,10 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any
+
+import numpy as np
 
 from tensorlink_tpu_torch import unported
 from tensorlink_tpu_torch.core.faults import FaultCrash, FaultPlan
@@ -37,13 +50,6 @@ from tensorlink_tpu_torch.p2p import protocol as proto
 # verbs of the JAX worker that later slices port, with their ROADMAP
 # queue 1 item
 _UNPORTED = {
-    proto.FORWARD: ("pipelined stage forwards", 8),
-    proto.BACKWARD: ("training", 9),
-    proto.OPTIMIZER: ("training", 9),
-    proto.PROOF_REQ: ("training proofs", 9),
-    proto.CHECKPOINT: ("training checkpoints", 9),
-    proto.PARAMS_REQ: ("parameter download for training", 9),
-    proto.TRAIN_MODE: ("training", 9),
     proto.DRAIN: ("worker drain and live migration", 7),
     proto.MIGRATE: ("live slot migration", 7),
     proto.HANDOFF: ("the prefill→decode handoff", 7),
@@ -53,7 +59,8 @@ _UNPORTED = {
 
 @dataclass
 class StageRuntime:
-    """One loaded whole-model job: config + serving engines."""
+    """One loaded whole-model job: config, params, serving engines and
+    training state."""
 
     job_id: str
     cfg: Any  # ModelConfig
@@ -61,8 +68,21 @@ class StageRuntime:
     # the model spec this stage was shipped with (name, config, ckpt/seed,
     # quant, flash, page_quota)
     model_spec: dict = field(default_factory=dict)
+    params: Any = None  # the engine's tree (QTensor leaves when quantized)
     engine: Any = None  # GenerationEngine
+    training: bool = False
     cache_quant: bool = False  # int8 dense KV caches ("int8+kv")
+    # training inputs kept for BACKWARD: tag -> (kind, x, attn_mask); the
+    # backward recomputes the forward from them under autograd
+    saved: dict[str, Any] = field(default_factory=dict)
+    grad_accum: Any = None  # summed parameter gradients across micros
+    n_accum: int = 0
+    opt: Any = None  # engine.training.ChainedOptimizer
+    opt_state: Any = None
+    # proof-of-learning log: one chained entry per optimizer step
+    # (platform/proofs.py; the validator pulls it with PROOF_REQ)
+    proof_log: list = field(default_factory=list)
+    opt_steps: int = 0
     # in-flight chunked beam-search sessions: rid -> (BeamState, payload,
     # effective K). A long beam decode advances _BEAM_CHUNK_STEPS at a
     # time and requeues itself, so queued generates interleave with it
@@ -193,6 +213,20 @@ class DistributedWorker:
             self._beam_step(p["job_id"], p["rid"])
         elif kind == "cont_continue":
             self._cont_step(p["job_id"])
+        elif kind == proto.FORWARD:
+            self._forward(p)
+        elif kind == proto.BACKWARD:
+            self._backward(p)
+        elif kind == proto.OPTIMIZER:
+            self._optimizer(p)
+        elif kind == proto.PROOF_REQ:
+            self._proof_req(p)
+        elif kind == proto.CHECKPOINT:
+            self._checkpoint(p)
+        elif kind == proto.PARAMS_REQ:
+            self._params_req(p)
+        elif kind == proto.TRAIN_MODE:
+            self._train_mode(p)
         elif kind in _UNPORTED:
             raise unported(*_UNPORTED[kind])
         elif kind == "shutdown_job":
@@ -261,8 +295,7 @@ class DistributedWorker:
             raise unported(
                 "a pipeline stage, a device mesh or tensor parallelism", 8
             )
-        if p.get("training", False):
-            raise unported("training", 9)
+        training = bool(p.get("training", False))
         if model.get("ckpt"):
             from tensorlink_tpu_torch.engine.loader import load_params
 
@@ -280,11 +313,16 @@ class DistributedWorker:
         if quant and quant not in ("int8", "int8+kv"):
             # fail the MODULE load rather than serve a mode nobody asked for
             raise ValueError(f"unknown quant mode {quant!r}")
+        if quant and training:
+            # the optimizer needs exact weights
+            self.log.warning("quant=%s ignored for a TRAINING job", quant)
+            quant = None
         rt = StageRuntime(
             job_id=job_id,
             cfg=cfg,
             stage=stage,
             model_spec=dict(model),
+            training=training,
             cache_quant=quant == "int8+kv",
         )
         rt.engine = GenerationEngine(
@@ -298,6 +336,7 @@ class DistributedWorker:
             quant=quant or None,
             device=self.device,
         )
+        rt.params = rt.engine.params
         with self._lock:
             old = self.jobs.get(job_id)
             self.jobs[job_id] = rt
@@ -316,7 +355,7 @@ class DistributedWorker:
             {"job_id": job_id, "ok": True, "n_layers": cfg.n_layers},
         )
         warm_toks = ml.warmup_tokens
-        if warm_toks:
+        if warm_toks and not training:
             # after the ack: warming must not time out the deploy, and a
             # warmup failure must not double-respond on this rid
             try:
@@ -823,6 +862,407 @@ class DistributedWorker:
             return
         if more or rt.cont.has_work():
             self._schedule_cont(rt)
+
+    # -- forward (single-stage FORWARD; training inputs for BACKWARD) ----
+    def _forward(self, p: dict) -> None:
+        """op="stage": the whole model over ``tokens`` (logits, or one
+        sampled token per row with ``sample``). op="head": final norm +
+        logits of ``hidden``. ``train=True`` keeps the inputs under the
+        driver's ``tag`` for BACKWARD."""
+        import torch
+
+        from tensorlink_tpu_torch.engine.paged import device_tensor
+        from tensorlink_tpu_torch.models.transformer import (
+            head_forward,
+            stage_forward,
+        )
+
+        op = p.get("op", "stage")
+        if (p.get("session") is not None or op in ("end_session", "chain")
+                or p.get("chain")):
+            raise unported(
+                "decode sessions and worker-to-worker chains (pipelined "
+                "decode)", 8)
+        rt = self._runtime(p["job_id"])
+        train = bool(p.get("train", False))
+        tag = p.get("tag", "")
+        if op == "head":
+            hidden = device_tensor(p["hidden"], self.device)
+            with torch.no_grad():
+                logits = head_forward(rt.params, hidden, rt.cfg)
+            if train:
+                rt.saved[tag + ".head"] = ("head", hidden, None)
+                self._respond(p["peer"], proto.FORWARD_RESP, p["rid"],
+                              {"out": _host(logits)})
+                return
+            self._finish_fwd(rt, p, logits, True)
+            return
+        if op != "stage":
+            raise ValueError(f"unknown forward op {op!r}")
+        tokens = torch.as_tensor(
+            np.asarray(p["tokens"], np.int32), device=self.device)
+        mask = None
+        if p.get("attn_mask") is not None:
+            mask = torch.as_tensor(np.asarray(p["attn_mask"], bool),
+                                   device=self.device)
+        with torch.no_grad():
+            out, _ = stage_forward(rt.params, rt.cfg, tokens=tokens,
+                                   attn_mask=mask, first=True, last=True)
+        if train:
+            # no KV cache in training: the backward recomputes the forward
+            # from these inputs when the cotangent arrives
+            rt.saved[tag] = ("stage", tokens, mask)
+            self._respond(p["peer"], proto.FORWARD_RESP, p["rid"],
+                          {"out": _host(out), "is_logits": True})
+            return
+        self._finish_fwd(rt, p, out, True)
+
+    def _finish_fwd(self, rt: StageRuntime, p: dict, out,
+                    is_logits: bool) -> None:
+        """Deliver an eval forward: one sampled token per row when the
+        request carries ``sample``, else the array itself."""
+        if p.get("sample") is not None and is_logits:
+            samp = p["sample"]
+            if samp.get("verify") or samp.get("beam_k"):
+                raise unported("pipelined speculative and beam decode", 8)
+            tok = self._sample_from_logits(rt, out, p)
+            body = {"token": tok}
+        else:
+            body = {"out": _host(out), "is_logits": is_logits}
+        self._respond(p.get("reply_to") or p["peer"], proto.FORWARD_RESP,
+                      p["rid"], body)
+
+    def _sample_from_logits(self, rt: StageRuntime, logits, p: dict):
+        """Sampling on the worker: each row's last real position (or the
+        one position ``last_idx`` names), then the sampler with the key
+        ``fold_in(PRNGKey(seed), step)`` — or, with ``seeds``, each row's
+        own key chain ``fold_in(PRNGKey(seed_r), step_r)``."""
+        import torch
+
+        from tensorlink_tpu_torch.engine import prng
+        from tensorlink_tpu_torch.engine.sampling import (
+            SamplingParams,
+            _row_keys,
+            _sample_rows,
+            sample,
+        )
+
+        samp: dict = p["sample"]
+        dev = logits.device
+        B = logits.shape[0]
+        if logits.dim() == 3:
+            last_idx = p.get("last_idx")
+            if last_idx is not None:
+                idx = torch.as_tensor(np.asarray(last_idx, np.int64),
+                                      device=dev)
+            else:
+                idx = torch.full((B,), logits.shape[1] - 1, device=dev,
+                                 dtype=torch.int64)
+            step_logits = logits[torch.arange(B, device=dev), idx]
+        else:
+            step_logits = logits
+        t = samp.get("temperature", 0.0)
+        pen_p = samp.get("presence_penalty", 0.0)
+        pen_f = samp.get("frequency_penalty", 0.0)
+
+        def is_rows(v):
+            return isinstance(v, (list, tuple, np.ndarray))
+
+        def row(v, dtype, fill):
+            vals = list(v) if is_rows(v) else \
+                [v if v is not None else fill] * B
+            return torch.as_tensor(np.asarray(vals, dtype), device=dev)
+
+        if samp.get("seeds") is not None:
+            keys = _row_keys(row(samp["seeds"], np.int64, 0),
+                             row(samp.get("steps", 0), np.int64, 0))
+            tok = _sample_rows(
+                step_logits, keys,
+                row(t, np.float32, 0.0),
+                row(samp.get("top_k", 0), np.int32, 0),
+                row(samp.get("top_p", 1.0), np.float32, 1.0),
+                row(pen_p, np.float32, 0.0),
+                row(pen_f, np.float32, 0.0),
+                torch.zeros((B, rt.cfg.vocab_size), dtype=torch.int32,
+                            device=dev),
+            )
+            return tok.cpu().numpy()
+        if is_rows(t):
+            n = len(list(t))
+
+            def col(v, dtype):
+                if not is_rows(v):
+                    v = [v] * n
+                return torch.as_tensor(np.asarray(v, dtype),
+                                       device=dev).reshape(-1, 1)
+
+            sp = SamplingParams(
+                temperature=col(t, np.float32),
+                top_k=col(samp.get("top_k", 0), np.int32),
+                top_p=col(samp.get("top_p", 1.0), np.float32),
+                presence_penalty=col(pen_p, np.float32),
+                frequency_penalty=col(pen_f, np.float32),
+            )
+        else:
+            sp = SamplingParams.make(
+                temperature=float(t), top_k=int(samp.get("top_k", 0)),
+                top_p=float(samp.get("top_p", 1.0)),
+                presence_penalty=float(pen_p or 0.0),
+                frequency_penalty=float(pen_f or 0.0),
+            )
+        key = prng.fold_in(
+            prng.PRNGKey(int(samp.get("seed", 0)), device=dev),
+            torch.tensor(int(samp.get("step", 0)), device=dev),
+        )
+        return sample(step_logits, key, sp, None).cpu().numpy()
+
+    # -- backward: the forward recomputed under autograd ------------------
+    def _backward(self, p: dict) -> None:
+        import torch
+
+        from tensorlink_tpu_torch.engine.paged import device_tensor
+        from tensorlink_tpu_torch.engine.training import _grads_like, \
+            _trainable
+        from tensorlink_tpu_torch.models.transformer import (
+            head_forward,
+            stage_forward,
+        )
+
+        rt = self._runtime(p["job_id"])
+        tag = p.get("tag", "")
+        op = p.get("op", "stage")
+        key = tag + ".head" if op == "head" else tag
+        entry = rt.saved.pop(key, None)
+        if entry is None:
+            raise KeyError(f"no saved activations for tag {key!r}")
+        kind, x_in, mask = entry
+        g = device_tensor(p["grad"], self.device).to(rt.cfg.dtype)
+        tree, leaves = _trainable(rt.params)
+        grad_input = None
+        with torch.enable_grad():
+            if kind == "head":
+                h = x_in.detach().requires_grad_(True)
+                out = head_forward(tree, h, rt.cfg)
+                grads = torch.autograd.grad(out, leaves + [h], g,
+                                            allow_unused=True)
+                grads, grad_input = grads[:-1], grads[-1]
+            else:
+                out, _ = stage_forward(tree, rt.cfg, tokens=x_in,
+                                       attn_mask=mask, first=True,
+                                       last=True, remat=True)
+                grads = torch.autograd.grad(out, leaves, g,
+                                            allow_unused=True)
+        self._accumulate(rt, _grads_like(rt.params, leaves, grads))
+        body: dict = {"ok": True}
+        if grad_input is not None:
+            body["grad"] = _host(grad_input)
+        self._respond(p["peer"], proto.BACKWARD_RESP, p["rid"], body)
+
+    def _accumulate(self, rt: StageRuntime, grads) -> None:
+        from tensorlink_tpu_torch.engine.optimizers import tree_map
+
+        if rt.grad_accum is None:
+            rt.grad_accum = grads
+        else:
+            rt.grad_accum = tree_map(lambda a, b: a + b, rt.grad_accum,
+                                     grads)
+        rt.n_accum += 1
+
+    # -- optimizer -------------------------------------------------------
+    def _optimizer(self, p: dict) -> None:
+        import torch
+
+        from tensorlink_tpu_torch.engine import optimizers as optim
+        from tensorlink_tpu_torch.engine.training import make_optimizer
+
+        rt = self._runtime(p["job_id"])
+        op = p.get("op")
+        if op == "init":
+            spec = dict(p.get("spec", {}))
+            name = spec.pop("name", "adamw")
+            rt.opt = make_optimizer(name, **spec)
+            rt.opt_state = rt.opt.init(rt.params)
+            body = {"ok": True, "op": op}
+        elif op == "zero":
+            rt.grad_accum = None
+            rt.n_accum = 0
+            body = {"ok": True, "op": op}
+        elif op == "grad_norm":
+            # this stage's raw accumulated-gradient norm; the driver
+            # combines stages into the global norm and folds the clip into
+            # the step's scale
+            gn = (float(optim.global_norm(rt.grad_accum))
+                  if rt.grad_accum is not None else 0.0)
+            body = {"ok": True, "op": op, "grad_norm": gn}
+        elif op == "step":
+            if self.faults is not None:
+                # fault site "worker.train_step": before the update applies
+                self.faults.inject("worker.train_step", op)
+            if rt.opt is None:
+                raise ValueError("optimizer not initialized")
+            if rt.grad_accum is None:
+                raise ValueError("no accumulated gradients")
+            scale = float(p.get("scale", 1.0))
+            with torch.no_grad():
+                if scale != 1.0:
+                    # the driver's 1/total_tokens: the accumulated sum-NLL
+                    # gradients become the token-mean gradient
+                    rt.grad_accum = optim.tree_map(lambda g: g * scale,
+                                                   rt.grad_accum)
+                updates, rt.opt_state = rt.opt.update(
+                    rt.grad_accum, rt.opt_state, rt.params)
+                rt.params = optim.apply_updates(rt.params, updates)
+                gnorm = float(optim.global_norm(rt.grad_accum))
+            if rt.engine is not None:
+                rt.engine.params = rt.params
+            self._record_proof(rt, gnorm)
+            rt.grad_accum = None
+            rt.n_accum = 0
+            body = {"ok": True, "op": op, "grad_norm": gnorm}
+        else:
+            raise ValueError(f"unknown optimizer op {op!r}")
+        self._respond(p["peer"], proto.OPTIMIZER_RESP, p["rid"], body)
+
+    # -- proof of learning (platform/proofs.py) ---------------------------
+    MAX_PROOF_LOG = 256
+    PROOF_WINDOW = 32  # entries shipped per PROOF_REQ
+
+    def _record_proof(self, rt: StageRuntime, grad_norm: float) -> None:
+        from tensorlink_tpu_torch.platform import proofs
+
+        rt.opt_steps += 1
+        try:
+            sketch = proofs.gradient_sketch(
+                rt.grad_accum, seed=int(rt.job_id[:8], 16))
+        except Exception:  # noqa: BLE001 — the sketch is telemetry; the
+            # proof chain (the hash over grad_norm) keeps growing regardless
+            self.log.debug("gradient sketch unavailable", exc_info=True)
+            sketch = np.zeros(0)
+        prev = rt.proof_log[-1]["hash"] if rt.proof_log else ""
+        rt.proof_log.append(
+            proofs.proof_entry(rt.opt_steps, grad_norm, sketch, prev))
+        if len(rt.proof_log) > self.MAX_PROOF_LOG:
+            del rt.proof_log[: -self.MAX_PROOF_LOG]
+
+    def _proof_req(self, p: dict) -> None:
+        rt = self._runtime(p["job_id"])
+        window = [dict(e) for e in rt.proof_log[-self.PROOF_WINDOW:]]
+        if window and len(rt.proof_log) > len(window):
+            # chain root for a truncated window = hash of the entry just
+            # before it, so the verifier can still check integrity
+            window[0]["_chain_root"] = rt.proof_log[-len(window) - 1]["hash"]
+        self._respond(
+            p["peer"], proto.PROOF_RESP, p["rid"],
+            {"ok": True, "log": window, "total_steps": rt.opt_steps},
+        )
+
+    # -- checkpoint ------------------------------------------------------
+    def _checkpoint(self, p: dict) -> None:
+        """Save or restore this stage's params and optimizer state as one
+        TLTS file, ``stage_{lo}_{hi}.tlts`` under ``dir`` — the JAX
+        worker's layout, so either package restores the other's file."""
+        from tensorlink_tpu_torch.core import serialization as ser
+        from tensorlink_tpu_torch.engine import optimizers as optim
+        from tensorlink_tpu_torch.engine.paged import device_tensor
+
+        rt = self._runtime(p["job_id"])
+        op = p.get("op", "save")
+        st = rt.stage
+        path = Path(p["dir"]) / f"stage_{st['layer_lo']}_{st['layer_hi']}.tlts"
+        if op == "save":
+            path.parent.mkdir(parents=True, exist_ok=True)
+            state = {"params": _host_tree(self._exact_params(rt)),
+                     "stage": rt.stage}
+            if rt.opt_state is not None:
+                state["opt_state"] = _host_tree(rt.opt_state)
+            ser.encode_to_file(state, path)
+            body = {"ok": True, "path": str(path)}
+        elif op == "restore":
+            state = ser.decode_from_file(path)
+            rt.params = optim.tree_map(
+                lambda a: device_tensor(a, self.device), state["params"])
+            restored_opt = False
+            if "opt_state" in state and rt.opt is not None:
+                # the saved leaves, laid into a fresh state of this
+                # optimizer (its structure and devices)
+                tmpl = rt.opt.init(rt.params)
+                rt.opt_state = optim.tree_unflatten(tmpl, [
+                    device_tensor(a, self.device)
+                    for a in optim.tree_leaves(state["opt_state"])
+                ])
+                restored_opt = True
+            if rt.engine is not None:
+                rt.engine.params = rt.params
+            body = {"ok": True, "restored_opt": restored_opt,
+                    "opt_in_checkpoint": "opt_state" in state}
+        else:
+            raise ValueError(f"unknown checkpoint op {op!r}")
+        self._respond(p["peer"], proto.CHECKPOINT_RESP, p["rid"], body)
+
+    # -- parameters ------------------------------------------------------
+    @staticmethod
+    def _exact_params(rt: StageRuntime):
+        """rt.params with int8-serving QTensor leaves dequantized — the
+        wire and disk formats carry plain arrays."""
+        from tensorlink_tpu_torch.models.quant import QTensor, dequantize
+
+        def fix(node):
+            if isinstance(node, dict):
+                return {k: fix(v) for k, v in node.items()}
+            if isinstance(node, QTensor):
+                return dequantize(node, rt.cfg.dtype)
+            return node
+
+        return fix(rt.params)
+
+    def _params_req(self, p: dict) -> None:
+        """Ship this stage's parameters back in one bulk frame."""
+        rt = self._runtime(p["job_id"])
+        self._respond(p["peer"], proto.PARAMETERS, p["rid"],
+                      {"params": _host_tree(self._exact_params(rt))})
+
+    def _train_mode(self, p: dict) -> None:
+        rt = self._runtime(p["job_id"])
+        if bool(p.get("training", True)) and _quantized(rt.params):
+            raise ValueError(
+                "int8-quantized serving job cannot switch to training — "
+                "request the job with quant=None for fine-tuning"
+            )
+        rt.training = bool(p.get("training", True))
+        self._respond(
+            p["peer"], proto.TRAIN_MODE_ACK, p["rid"],
+            {"job_id": rt.job_id, "training": rt.training},
+        )
+
+
+def _host(t):
+    """A tensor as a host numpy array (bfloat16 as its 16-bit payload
+    under ``core/serialization.py::BFLOAT16``)."""
+    from tensorlink_tpu_torch.engine.paged import host_array
+
+    return host_array(t)
+
+
+def _host_tree(tree):
+    """Every tensor of nested dicts, tuples and lists on the host."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_host_tree(v) for v in tree)
+    if isinstance(tree, list):
+        return [_host_tree(v) for v in tree]
+    if tree is None:
+        return None
+    return _host(tree)
+
+
+def _quantized(tree) -> bool:
+    """Whether a parameter tree holds weight-only int8 leaves."""
+    from tensorlink_tpu_torch.models.quant import QTensor
+
+    if isinstance(tree, dict):
+        return any(_quantized(v) for v in tree.values())
+    return isinstance(tree, QTensor)
 
 
 __all__ = ["DistributedWorker", "StageRuntime"]

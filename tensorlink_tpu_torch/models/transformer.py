@@ -21,17 +21,25 @@ MoE (``n_experts > 0``) runs the JAX package's dense dispatch
 softmax-normalised top-k gates), or the capacity-limited sparse dispatch
 of ``parallel/expert.py`` when ``cfg.moe_dispatch == "sparse"``.
 
-Not ported: pipelined stages (``stage_forward``), ``remat`` and ring
-attention (``seq_mesh``) wait for the node/pipeline and training slices;
-the tensor-parallel gathers and the ``expert`` mesh axis for the
-tensor-parallel slice. Each raises with the slice it waits for.
+With no cache the forward is differentiable: training runs autograd
+through it, nothing on that path writes in place, and ``remat=True``
+checkpoints each block (``torch.utils.checkpoint``, the counterpart of
+JAX's ``jax.checkpoint`` with ``nothing_saveable``). :func:`stage_forward`
+takes a whole-model stage only, and :func:`head_forward` is the final norm
+and LM head alone.
+
+Not ported: layer-slice stages, pipelines and ring attention
+(``seq_mesh``), the tensor-parallel gathers and the ``expert`` mesh axis
+(ROADMAP queue 1 item 8). Each raises naming that item.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from .. import unported
 from ..core.devices import resolve_device
 from .base import KVCache, ModelConfig
 from .quant import QTensor
@@ -464,13 +472,6 @@ def flash_gate(cfg: ModelConfig, T: int, has_cache: bool,
                 and T > 1 and T % min(128, T) == 0)
 
 
-def _refuse(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet — it waits for the {slice_name} slice of "
-        "the port"
-    )
-
-
 def forward(
     params: dict,
     tokens: torch.Tensor,  # int [B, T]
@@ -495,11 +496,12 @@ def forward(
     ``cfg.flash_attention`` set and :func:`flash_gate` passing, attention
     runs ``flash_attention`` over the cache's first ``T`` positions after
     this step's write (so an int8 cache feeds it dequantized keys, as in
-    JAX)."""
-    if remat:
-        _refuse("remat (activation checkpointing)", "training")
+    JAX).
+
+    ``remat`` recomputes each block in the backward pass instead of
+    keeping its activations (``torch.utils.checkpoint``, non-reentrant)."""
     if seq_mesh is not None:
-        _refuse("sequence-parallel ring attention (seq_mesh)", "training")
+        raise unported("sequence-parallel ring attention (seq_mesh)", 8)
     B, T = tokens.shape
     dev = tokens.device
     if attn_mask is None:
@@ -544,7 +546,12 @@ def forward(
 
     for i, lp in enumerate(_layers(params)):
         kv = cache.layer_kv(i) if cache is not None else None
-        x = _block(x, lp, cfg, cos, sin, bias, kv, offset, attn_fn, kv_upto)
+        if remat:
+            x = checkpoint(_block, x, lp, cfg, cos, sin, bias, kv, offset,
+                           attn_fn, kv_upto, use_reentrant=False)
+        else:
+            x = _block(x, lp, cfg, cos, sin, bias, kv, offset, attn_fn,
+                       kv_upto)
     new_cache = cache
     if cache is not None:
         new_cache = KVCache(
@@ -558,9 +565,42 @@ def forward(
     return _logits(params, x, cfg), new_cache
 
 
-def stage_forward(*_args, **_kwargs):
-    """Pipeline stages are not ported yet: raises."""
-    _refuse("stage_forward (pipelined stages)", "node/pipeline")
+def head_forward(params: dict, hidden: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Final norm + LM head only (the JAX ``head_forward``: the
+    tied-embedding hop of a pipeline)."""
+    x = _norm(hidden.to(cfg.dtype), params["final_norm"], cfg)
+    return _logits(params, x, cfg)
+
+
+def stage_forward(
+    params: dict,
+    cfg: ModelConfig,
+    *,
+    tokens: torch.Tensor | None = None,
+    hidden: torch.Tensor | None = None,
+    cache: KVCache | None = None,
+    attn_mask: torch.Tensor | None = None,
+    positions: torch.Tensor | None = None,
+    first: bool = False,
+    last: bool = False,
+    remat: bool = False,
+    seq_mesh=None,
+    seq_axis: str = "seq",
+):
+    """One stage of the JAX ``stage_forward`` — here a whole-model stage
+    only (``first`` and ``last``, every layer, the head): ``(logits,
+    new_cache)`` from :func:`forward`. A layer slice, a stage fed hidden
+    states, a stage without the head or ring attention raises (ROADMAP
+    queue 1 item 8)."""
+    n_layers = params["layers"]["attn"]["wq"].shape[0] \
+        if "layers" in params else 0
+    if (not (first and last) or tokens is None or hidden is not None
+            or n_layers != cfg.n_layers or seq_mesh is not None):
+        raise unported("pipeline stages (a layer slice, a stage without "
+                       "the embedding or the head, ring attention)", 8)
+    return forward(params, tokens, cfg, cache=cache, attn_mask=attn_mask,
+                   positions=positions, remat=remat)
 
 
 __all__ = [
@@ -568,6 +608,7 @@ __all__ = [
     "attention",
     "flash_gate",
     "forward",
+    "head_forward",
     "init_params",
     "rope_tables",
     "stage_forward",

@@ -47,12 +47,6 @@ JOB_REQ_TIMEOUT = 120.0  # reference user_thread.py:406
 MODULE_LOAD_TIMEOUT = 150.0  # reference MAX_WAIT_TIME ml/module.py:58
 
 
-def verify_proof_log(log: list) -> tuple[bool, dict]:
-    """Proof-of-learning check of a training job's log: training is not
-    ported yet, and a serving job's worker sends no log."""
-    raise unported("training proofs (platform/proofs.py)", 9)
-
-
 class RoleServer(TensorNode):
     """TensorNode + IPC command surface shared by all roles."""
 
@@ -617,6 +611,8 @@ class ValidatorServer(RoleServer):
     async def collect_job_proofs(self, job_id: str) -> dict:
         """Pull + verify each worker's PoL log for a job; failed
         verification flags the job record and dings worker reputation."""
+        from tensorlink_tpu_torch.platform.proofs import verify_proof_log
+
         job = self.jobs.get(job_id)
         if job is None:
             return {"error": "unknown job"}

@@ -473,12 +473,16 @@ def test_unported_paths_are_refused(trees):
         with pytest.raises(NotImplementedError, match="tensor-parallel"):
             GenerationEngine(cfg, tp, device="cpu", **kw)
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="training"):
-        ttr.forward(tp, toks, cfg, remat=True)
-    with pytest.raises(NotImplementedError, match="training"):
+    # remat and whole-model stages are ported (tests/test_torch_training.py);
+    # ring attention and layer-slice stages wait for item 8
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         ttr.forward(tp, toks, cfg, seq_mesh=object())
-    with pytest.raises(NotImplementedError, match="node/pipeline"):
-        ttr.stage_forward(tp, cfg, tokens=toks)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ttr.stage_forward(tp, cfg, tokens=toks)  # not first and last
+    half = {**tp, "layers": {k: {n: a[:1] for n, a in v.items()}
+                             for k, v in tp["layers"].items()}}
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ttr.stage_forward(half, cfg, tokens=toks, first=True, last=True)
     # MoE is ported (tests/test_torch_moe.py); loading a checkpoint
     # straight onto tensor-parallel shards is not
     from tensorlink_tpu_torch.engine.loader import load_params

@@ -1,5 +1,6 @@
 """The port stands alone: no module of tensorlink_tpu_torch (nor
-chip_smoke.py) imports ``jax`` or anything of ``tensorlink_tpu``, and none
+chip_smoke.py) imports ``jax``, ``optax`` or anything of
+``tensorlink_tpu``, and none
 needs ``safetensors``, ``transformers`` or ``huggingface_hub`` to import
 (the card's machine has none of them; the loader reads safetensors files
 itself and imports ``huggingface_hub`` only inside the hub download).
@@ -21,15 +22,15 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "tensorlink_tpu_torch"
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|tensorlink_tpu)(?:[.\s]|$)"
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|tensorlink_tpu)(?:[.\s]|$)"
     r"|^\s*from\s+\.\.\.",  # nothing reaches above the package either
     re.M,
 )
 
 _PROBE = """
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "tensorlink_tpu", "safetensors", "transformers",
-           "huggingface_hub")
+BLOCKED = ("jax", "jaxlib", "optax", "tensorlink_tpu", "safetensors",
+           "transformers", "huggingface_hub")
 for blocked in BLOCKED:
     sys.modules[blocked] = None  # any import of it now raises ImportError
 import tensorlink_tpu_torch as pkg
@@ -47,7 +48,7 @@ print(" ".join(names))
 # torch blocked too (the ML side, not the network process, owns the card)
 _NET_PROBE = """
 import importlib, sys
-BLOCKED = ("torch", "jax", "jaxlib", "tensorlink_tpu")
+BLOCKED = ("torch", "jax", "jaxlib", "optax", "tensorlink_tpu")
 for blocked in BLOCKED:
     sys.modules[blocked] = None
 for name in sys.argv[1:]:
@@ -71,7 +72,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     first, walked = out.stdout.strip().splitlines()
     n, leaked = first.split(" ", 1)
-    assert int(n) >= 66, out.stdout  # every module of the port was walked
+    assert int(n) >= 71, out.stdout  # every module of the port was walked
     assert leaked == "[]", out.stdout
     for name in ("core.serialization", "core.faults", "engine.kvtier",
                  "fleet.prefixmap", "engine.loader", "engine.safetensors_io",
@@ -79,7 +80,9 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "core.ring", "core.shm", "crypto.identity", "p2p.node",
                  "p2p.tensor_node", "platform.keeper", "nodes.roles",
                  "nodes.runners", "parallel.planner", "ml.worker",
-                 "ml.module", "ml.validator", "api.server", "native"):
+                 "ml.module", "ml.validator", "api.server", "native",
+                 "engine.optimizers", "engine.training", "engine.serve_train",
+                 "platform.proofs", "ml.optim"):
         assert f"tensorlink_tpu_torch.{name}" in walked.split(), name
 
 
@@ -113,6 +116,7 @@ def test_network_process_imports_neither_torch_nor_jax():
     mods = _imported_modules(PKG / "nodes" / "roles.py")
     assert "tensorlink_tpu_torch.platform.keeper" in mods  # lazy imports seen
     assert "tensorlink_tpu_torch.p2p.upnp" in mods
+    assert "tensorlink_tpu_torch.platform.proofs" in mods  # job_proofs
     out = subprocess.run(
         [sys.executable, "-c", _NET_PROBE, *sorted(mods)], cwd=REPO,
         capture_output=True, text=True, timeout=120,

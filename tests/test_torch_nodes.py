@@ -13,7 +13,10 @@ the same inputs, one parametrised test per layer:
 
 Then the port's own contracts: a worker with ``device=None`` refuses to
 start on a host with no card, naming the card, and every verb a later
-slice ports is answered with an error naming its ROADMAP item.
+slice ports is answered with an error naming its ROADMAP item. Each
+training verb (fwd, bwd, opt, proof.req, ckpt, params.req, train.mode)
+sent to a bare worker holding a tiny training job is answered as the JAX
+worker answers it.
 """
 
 import dataclasses
@@ -21,6 +24,7 @@ import json
 import queue
 import types
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -43,6 +47,7 @@ from tensorlink_tpu_torch.crypto import identity as tid
 from tensorlink_tpu_torch.models.registry import config_presets as tpresets
 from tensorlink_tpu_torch.p2p import protocol as tproto
 from tensorlink_tpu_torch.parallel import planner as tplanner
+from test_torch_train_nodes import checkpoint  # noqa: F401 — a fixture
 
 torch.set_num_threads(1)
 
@@ -417,18 +422,20 @@ class _Bridge:
 
 
 # tlint: disable=TL006(read-only test table — never mutated)
-_VERBS = {
-    "fwd": 8, "bwd": 9, "opt": 9, "proof.req": 9, "ckpt": 9,
-    "params.req": 9, "train.mode": 9, "drain": 7, "mig": 7, "handoff": 7,
-    "replica.set": 7,
-}
+_VERBS = {"drain": 7, "mig": 7, "handoff": 7, "replica.set": 7,
+          "fwd with a session": 8}
 
 
 @pytest.mark.parametrize("verb", list(_VERBS))
 def test_unported_worker_verb_answers_with_its_roadmap_item(verb):
     from tensorlink_tpu_torch.ml.worker import DistributedWorker
 
-    bridge = _Bridge([(verb, {"rid": "r1", "peer": "p1", "job_id": "j"})])
+    kind, extra = verb, {}
+    if verb == "fwd with a session":  # pipelined decode
+        kind, extra = "fwd", {"op": "stage", "session": "s1",
+                              "tokens": [[1, 2, 3]]}
+    bridge = _Bridge([(kind, {"rid": "r1", "peer": "p1", "job_id": "j",
+                              **extra})])
     node = types.SimpleNamespace(
         bridge=bridge, node_id="w0",
         config=tconfig.WorkerConfig(ml=tconfig.MLConfig(device="cpu")))
@@ -438,3 +445,132 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb):
     err = body["body"]["error"]
     assert err.startswith("NotImplementedError")
     assert f"ROADMAP queue 1 item {_VERBS[verb]}" in err
+
+
+def _verb_run(pkg: str, verb: str, ckpt: str, tmp) -> tuple:
+    """Load one tiny training job into a bare worker of ``pkg``, drive what
+    ``verb`` needs first, then the verb itself. Returns the verb's
+    (tag, reply) and the worker."""
+    from test_torch_train_nodes import (
+        bare_worker,
+        call,
+        load_training_job,
+        train_step,
+    )
+
+    w = bare_worker(pkg)
+    load_training_job(w, ckpt)
+    toks = np.random.default_rng(3).integers(0, 128, (2, 12)).astype(np.int32)
+    if verb == "fwd":
+        return call(w, "fwd", op="stage", tokens=toks), w
+    if verb == "bwd":
+        from tensorlink_tpu_torch.ml.module import _ce_sum_and_grad
+
+        _, out = call(w, "fwd", op="stage", train=True, tag="t0", tokens=toks)
+        _, dl, _ = _ce_sum_and_grad(torch.as_tensor(np.array(out["out"])),
+                                    toks, np.ones(toks.shape, bool))
+        return call(w, "bwd", op="stage", tag="t0", grad=dl.numpy()), w
+    if verb in ("opt", "proof.req", "ckpt"):
+        assert call(w, "opt", op="init",
+                    spec={"name": "adamw", "lr": 1e-3, "grad_clip": None}) \
+            == (tproto.OPTIMIZER_RESP, {"ok": True, "op": "init"})
+    if verb == "opt":
+        from tensorlink_tpu_torch.ml.module import _ce_sum_and_grad
+
+        _, out = call(w, "fwd", op="stage", train=True, tag="t0", tokens=toks)
+        _, dl, n = _ce_sum_and_grad(torch.as_tensor(np.array(out["out"])),
+                                    toks, np.ones(toks.shape, bool))
+        call(w, "bwd", op="stage", tag="t0", grad=dl.numpy())
+        return call(w, "opt", op="step", scale=1.0 / float(n)), w
+    if verb == "proof.req":
+        train_step(w, toks, "t0")
+        train_step(w, toks[::-1].copy(), "t1")
+        return call(w, "proof.req"), w
+    if verb == "ckpt":
+        train_step(w, toks, "t0")
+        return call(w, "ckpt", op="save", dir=str(tmp / pkg)), w
+    if verb == "params.req":
+        return call(w, "params.req"), w
+    if verb == "train.mode":
+        return call(w, "train.mode", training=True), w
+    raise AssertionError(verb)
+
+
+_TRAINING_VERBS = ("fwd", "bwd", "opt", "proof.req", "ckpt", "params.req",
+                   "train.mode")
+
+
+@pytest.mark.parametrize("verb", _TRAINING_VERBS)
+def test_training_worker_verb_answers_as_the_jax_worker(verb, checkpoint,
+                                                        tmp_path):
+    """A bare worker of each package loads the same tiny training job (the
+    JAX exporter's checkpoint); the port's reply to each training verb is
+    the JAX worker's: the same tag and keys, arrays within float32
+    rounding."""
+    ckpt, _ = checkpoint
+    (ttag, tbody), tw = _verb_run("port", verb, ckpt, tmp_path)
+    (jtag, jbody), jw = _verb_run("jax", verb, ckpt, tmp_path)
+    assert ttag == jtag and set(tbody) == set(jbody), (tbody, jbody)
+    if verb == "fwd":
+        assert tbody["is_logits"] is jbody["is_logits"] is True
+        np.testing.assert_allclose(tbody["out"], np.asarray(jbody["out"]),
+                                   rtol=2e-5, atol=2e-5)
+    elif verb in ("bwd", "train.mode"):
+        assert tbody == jbody
+        if verb == "bwd":  # and the accumulated gradients agree
+            from test_torch_train_nodes import call
+
+            (_, tn), (_, jn) = (call(w, "opt", op="grad_norm")
+                                for w in (tw, jw))
+            np.testing.assert_allclose(tn["grad_norm"], jn["grad_norm"],
+                                       rtol=1e-5)
+    elif verb == "opt":
+        assert tbody["ok"] and tbody["op"] == jbody["op"] == "step"
+        np.testing.assert_allclose(tbody["grad_norm"], jbody["grad_norm"],
+                                   rtol=1e-5)
+    elif verb == "proof.req":
+        from tensorlink_tpu.platform.proofs import verify_proof_log as jverify
+        from tensorlink_tpu_torch.platform.proofs import verify_proof_log
+
+        assert tbody["total_steps"] == jbody["total_steps"] == 2
+        for te, je in zip(tbody["log"], jbody["log"], strict=True):
+            assert te["step"] == je["step"]
+            np.testing.assert_allclose(te["grad_norm"], je["grad_norm"],
+                                       rtol=1e-5)
+            np.testing.assert_allclose(te["sketch"], je["sketch"],
+                                       rtol=1e-4, atol=1e-5)
+        for log in (tbody["log"], jbody["log"]):
+            assert verify_proof_log(log)[0] and jverify(log)[0]
+    elif verb == "ckpt":
+        assert tbody["ok"] and jbody["ok"]
+        assert tbody["path"].split("/")[-1] == jbody["path"].split("/")[-1]
+        # each restores what it wrote, optimizer state included
+        from test_torch_train_nodes import call
+
+        restored = [call(w, "ckpt", op="restore", dir=str(tmp_path / pkg))
+                    for w, pkg in ((tw, "port"), (jw, "jax"))]
+        assert restored[0] == restored[1]
+        assert restored[0][1] == {"ok": True, "restored_opt": True,
+                                  "opt_in_checkpoint": True}
+    elif verb == "params.req":
+        jflat = jax.tree_util.tree_leaves_with_path(jbody["params"])
+        for path, leaf in jflat:
+            node = tbody["params"]
+            for p in path:
+                node = node[p.key]
+            np.testing.assert_array_equal(node, np.asarray(leaf))
+    if verb == "train.mode":
+        # an int8-weight serving job refuses to train, in both packages
+        # (at widths whose matmul weights reach quantize_params' minimum)
+        from test_torch_train_nodes import JCFG, call
+
+        qcfg = JCFG.with_(d_model=128, d_ff=256, head_dim=32, n_layers=2)
+        stage = {"worker_id": "w0", "layer_lo": 0, "layer_hi": 2,
+                 "first": True, "last": True, "holds_head": True,
+                 "mesh_axes": {}, "coworkers": []}
+        for w in (tw, jw):
+            call(w, "load_stage", stage=stage, training=False,
+                 model={"name": "tiny-q", "config": qcfg.to_json(),
+                        "seed": 0, "quant": "int8"})
+            with pytest.raises(ValueError, match="int8-quantized"):
+                call(w, "train.mode", training=True)
