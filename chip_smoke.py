@@ -146,8 +146,10 @@ Phases (any failure raises and exits non-zero):
    4 layers three steps each (the downloaded tree bitwise the seeded one
    before, losses within 1e-4 of make_train_step; after, under SGD with
    momentum every param within rtol 2e-4, atol 2e-5, and under AdamW
-   each leaf within 2e-4 in its norm; the validator's proof verdict ok
-   over 3 steps, a checkpoint restored bitwise and its next step's loss
+   each leaf within 2e-4 in its norm; the validator's proof verdict over
+   3 steps equal to the one the same verification gives on sketches of
+   the in-process gradients at the job's coordinates, each logged sketch
+   within cosine 0.999 of its in-process one, a checkpoint restored bitwise and its next step's loss
    equal to the in-process loss of the snapshot, an HF export loaded
    back bitwise); and serve-and-train — a ContinuousBatcher over qwen3-0p6b
    in bf16 serves 8 interactive greedy requests in two waves while a
@@ -155,6 +157,29 @@ Phases (any failure raises and exits non-zero):
    twice: every stream full length, the kernels' launches per chunk,
    and a greedy request after the last publish equal to a fresh engine
    over the published tree.
+
+12. Fleet serving and control-plane recovery: qwen3-0p6b at full width
+   (seeded bf16, int8 pages, spec decoding off so a stream's bits do not
+   depend on its neighbours), port validators and workers on 127.0.0.1,
+   every worker's engine on the one card with a 16 GB share advertised
+   (build/fleet/). A validator with fleet_replicas 2 and three workers:
+   16 greedy /v1/generate requests route over both replicas (/fleet
+   counts each); a POST /fleet/deploy of r0 under 8 live streams drains
+   r0's worker onto r1's (at least one stream page-shipped) and rehosts
+   r0 on the third worker, no stream dropped; then the validator crashes
+   under 4 live streams, a new one restarts on its journal, re-attaches
+   both replicas and each stream by its jrid. A second cluster, a
+   prefill-role and a decode-role worker, hands every request over the
+   wire (handoff counters nonzero). In each step every worker that
+   served launched both paged kernels, in int8, one ragged launch a
+   layer per chunk and chunk_steps - 1 decode launches, and no plain
+   version ran. Every stream equals the same prompt alone on an
+   in-process engine over the same tree, token for token; a stream that
+   took the re-prefill rung may part only where the reference's top two
+   logits lie within 0.0625 (logged). Prints HTTP tokens/s with two
+   replicas beside phase 10's one, the drain's seconds, page bytes
+   shipped and their rate, and the restarted validator's time to
+   re-attach: readings with the card's name and power limit, not claims.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -3218,6 +3243,13 @@ TRAIN_GNORM_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-4  # each leaf's gradient, relative in its norm
 TRAIN_NODE_LOSS_RTOL = 1e-4
 TRAIN_NODE_PARAMS = dict(rtol=2e-4, atol=2e-5)  # tests/test_training_e2e.py
+# the proof of learning: each logged gradient sketch against the sketch of
+# the in-process gradients at the job's coordinates (the worker's are the
+# clipped sum-form gradients, rounded to 1e-6), and the verdict's median
+# cosine against the in-process log's
+TRAIN_PROOF_SKETCH_COS = 0.999
+TRAIN_PROOF_MEDIAN_ATOL = 0.02
+TRAIN_PROOF_DRAWS = 400  # coordinate draws for the verdict's spread
 PEAK_SOURCE = ("NVIDIA H100 SXM datasheet, dense: FP32 67 TFLOPS (no "
                "TF32), BF16 Tensor Core 989 TFLOPS")
 
@@ -3278,6 +3310,89 @@ def _timed_step(ts, params, state, batch):
     torch.cuda.synchronize()
     return params, state, loss, float(m["grad_norm"]), \
         time.perf_counter() - t0
+
+
+def _keeping_grads(opt):
+    """``opt`` with its update wrapped to keep a copy of each step's
+    gradients (the token-mean gradients, before the clip), and the list
+    they are kept in."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+
+    kept = []
+    update = opt.update
+
+    def keep(grads, state, params):
+        kept.append(tree_map(lambda t: t.detach().clone(), grads))
+        return update(grads, state, params)
+
+    return opt._replace(update=keep), kept
+
+
+def _proof_check(verdict: dict, log: list, kept: list, job_id: str) -> dict:
+    """The validator's proof-of-learning verdict for one worker, held to
+    what platform/proofs.py gives (a) on the log the worker recorded and
+    (b) on sketches of the in-process run's gradients ``kept`` at the
+    job's coordinates, each logged sketch within TRAIN_PROOF_SKETCH_COS of
+    its in-process one. The verdict's ``ok`` is a property of the data:
+    its continuity test asks consecutive gradients not to be
+    anti-correlated, and on uniform random tokens their true cosine is
+    about 0, so a 3-step log's median lands below the bar for some
+    coordinate draws. Readings: the full gradients' consecutive cosines
+    and the share of TRAIN_PROOF_DRAWS coordinate draws whose verdict on
+    ``kept`` fails."""
+    from tensorlink_tpu_torch.engine.optimizers import global_norm
+    from tensorlink_tpu_torch.platform import proofs
+
+    ok, detail = proofs.verify_proof_log(log)
+    want = {"ok": ok, **detail, "total_steps": len(kept)}
+    if len(log) != len(kept) or verdict != want:
+        raise AssertionError(f"training node: proof verdict {verdict}, "
+                             f"the worker's log gives {want}")
+
+    def local_log(seed):
+        out, prev = [], ""
+        for i, g in enumerate(kept):
+            e = proofs.proof_entry(i + 1, float(global_norm(g)),
+                                   proofs.gradient_sketch(g, seed=seed), prev)
+            out.append(e)
+            prev = e["hash"]
+        return out
+
+    def cos(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    mine = local_log(int(job_id[:8], 16))
+    sketch_cos = [cos(a["sketch"], b["sketch"]) for a, b in zip(log, mine)]
+    lok, ldetail = proofs.verify_proof_log(mine)
+    med, lmed = verdict.get("median_cosine"), ldetail.get("median_cosine")
+    near_bar = lmed is not None and abs(lmed + 0.2) <= TRAIN_PROOF_MEDIAN_ATOL
+    if (min(sketch_cos) < TRAIN_PROOF_SKETCH_COS
+            or med is None or lmed is None
+            or abs(med - lmed) > TRAIN_PROOF_MEDIAN_ATOL
+            or (not near_bar and (ok, detail.get("reason"))
+                != (lok, ldetail.get("reason")))):
+        raise AssertionError(
+            f"training node: proof verdict {verdict} against the in-process "
+            f"gradients' {lok} {ldetail}, sketch cosines {sketch_cos}")
+
+    def full_cos(g1, g2):
+        dot = n1 = n2 = 0.0
+        for a, b in zip(proofs._tree_leaves(g1), proofs._tree_leaves(g2)):
+            a, b = a.double().reshape(-1), b.double().reshape(-1)
+            dot, n1, n2 = dot + float(a @ b), n1 + float(a @ a), \
+                n2 + float(b @ b)
+        return dot / (n1 * n2) ** 0.5
+
+    draws = np.random.default_rng(TRAIN_SEED).integers(
+        0, 2**32, TRAIN_PROOF_DRAWS)
+    failing = sum(not proofs.verify_proof_log(local_log(int(d)))[0]
+                  for d in draws)
+    return dict(verdict=verdict, in_process_verdict={"ok": lok, **ldetail},
+                sketch_cos=sketch_cos,
+                full_grad_cos=[full_cos(a, b) for a, b in zip(kept, kept[1:])],
+                draws=int(TRAIN_PROOF_DRAWS),
+                draws_failing_share=failing / TRAIN_PROOF_DRAWS)
 
 
 def train_card_vs_host() -> dict:
@@ -3505,11 +3620,13 @@ def train_node_phase() -> dict:
             nbytes = _same_tree(f"training node {opt}: the worker's tree",
                                 download(model) if pull else rt.params, ref)
             model.init_optimizer(opt, **kw)
-            ts = make_train_step(cfg, make_optimizer(opt, grad_clip=1.0,
-                                                     **kw), remat=True)
+            local_opt, kept = _keeping_grads(
+                make_optimizer(opt, grad_clip=1.0, **kw))
+            ts = make_train_step(cfg, local_opt, remat=True)
             state = ts.init_state(ref)
             out = dict(attach_s=attach, bytes_checked=nbytes, losses=[],
                        node_s=[], local_s=[])
+            grads[model.job_id] = kept
             for toks in batches[:3]:
                 t0 = time.perf_counter()
                 r = model.train_step(toks)
@@ -3534,6 +3651,8 @@ def train_node_phase() -> dict:
             out.update(params_outside_bound=bad, params_worst_of_bound=worst)
             return model, out
 
+        grads = {}  # job id -> the in-process run's gradients per step
+
         def download(model):
             return tree_map(lambda a: device_tensor(a, "cuda"),
                             model.parameters()[0])
@@ -3543,6 +3662,7 @@ def train_node_phase() -> dict:
         model, sgd = job("sgd", dict(lr=0.1, momentum=0.9), pull=False)
         res["sgd_momentum"] = sgd
         model.shutdown()
+        grads.clear()
         if sgd["params_outside_bound"]:
             raise AssertionError(f"training node sgd: params outside "
                                  f"{TRAIN_NODE_PARAMS}: {sgd}")
@@ -3557,11 +3677,10 @@ def train_node_phase() -> dict:
         rt = w.executor.jobs[model.job_id]
         pol = v.send_request("job_proofs", {"job_id": model.job_id})
         verdicts = pol.get("verdicts") or {}
-        if not verdicts or not all(
-                vd.get("ok") and vd.get("total_steps") == 3
-                for vd in verdicts.values()):
+        if list(verdicts) != [w.node_id]:
             raise AssertionError(f"training node: proofs {pol}")
-        res["proofs"] = list(verdicts.values())
+        res["proofs"] = [_proof_check(verdicts[w.node_id], rt.proof_log,
+                                      grads.pop(model.job_id), model.job_id)]
 
         ckpt = root / "ckpt"
         model.save_checkpoint(str(ckpt))
@@ -3775,6 +3894,624 @@ def training_phase() -> dict:
     )
 
 
+# -- phase 12 ----------------------------------------------------------
+FLEET_ROOT = Path(__file__).resolve().parent / "build" / "fleet"
+FLEET_ROUTED = 16  # greedy requests routed over the two replicas
+FLEET_LIVE = 8  # streams live through the rolling deploy
+FLEET_HANDOFF = 8  # streams through the prefill → decode pools
+FLEET_RESTART = 4  # streams live when the validator crashes
+FLEET_NEW = 48  # new tokens per routed or handed-off request
+FLEET_LIVE_NEW = 160  # new tokens per stream live through an action
+FLEET_MEM_GB = 16.0  # each worker's advertised share of the one card
+
+
+class _WorkerLaunches:
+    """Kernel launches per worker engine while installed: every engine a
+    worker builds (``DistributedWorker._ensure_cont``) has its chunks run
+    under one lock, so the global counters' change across a chunk is that
+    engine's. Several workers' ML threads share the card and the counters
+    otherwise."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.recs: list = []  # [{"worker", "ce", "chunks", "by_format"}]
+        self._real = None
+
+    def __enter__(self):
+        from tensorlink_tpu_torch.ml.worker import DistributedWorker
+
+        real = self._real = DistributedWorker._ensure_cont
+
+        def ensure(worker, rt):
+            ce = real(worker, rt)
+            if ce is not None and not getattr(ce, "_fleet_counted", False):
+                self._wrap(str(worker.node.node_id), ce)
+            return ce
+
+        DistributedWorker._ensure_cont = ensure
+        att.reset_counts()
+        return self
+
+    def __exit__(self, *exc):
+        from tensorlink_tpu_torch.ml.worker import DistributedWorker
+
+        DistributedWorker._ensure_cont = self._real
+
+    def _wrap(self, wid: str, ce) -> None:
+        if not ce.use_kernel:
+            raise AssertionError(f"fleet: worker {wid[:8]}'s engine is off "
+                                 "the kernels")
+        rec = {"worker": wid, "ce": ce, "chunks": 0,
+               "by_format": {n: dict.fromkeys(FORMATS, 0) for n in NEW_PATHS}}
+        step = ce.step_chunk
+
+        def counted(*a, **kw):
+            with self.lock:
+                before = {n: dict(getattr(att, n).launches_by_format)
+                          for n in NEW_PATHS}
+                c0 = ce.chunks
+                try:
+                    return step(*a, **kw)
+                finally:
+                    for n in NEW_PATHS:
+                        for f, c in getattr(att, n).launches_by_format.items():
+                            rec["by_format"][n][f] += c - before[n][f]
+                    rec["chunks"] += ce.chunks - c0
+
+        ce.step_chunk = counted
+        ce._fleet_counted = True
+        with self.lock:
+            self.recs.append(rec)
+
+    def mark(self) -> dict:
+        """The counts so far, per engine (a step's baseline)."""
+        with self.lock:
+            return {id(r["ce"]): (r["chunks"], {n: dict(f) for n, f in
+                                                r["by_format"].items()})
+                    for r in self.recs}
+
+    def since(self, label: str, base: dict, min_workers: int) -> dict:
+        """Each worker's launches since ``base``: every worker whose
+        engines ran a chunk launched both paged kernels, in int8, one
+        ragged launch a layer per chunk and chunk_steps - 1 decode
+        launches; no plain version ran; at least ``min_workers``
+        served."""
+        per: dict = {}
+        with self.lock:
+            for r in self.recs:
+                c0, f0 = base.get(id(r["ce"]), (0, None))
+                chunks = r["chunks"] - c0
+                if not chunks:
+                    continue
+                ce = r["ce"]
+                L = ce.cfg.n_layers
+                got = {n: {f: c - (f0[n][f] if f0 else 0)
+                           for f, c in r["by_format"][n].items()}
+                       for n in NEW_PATHS}
+                want = {"ragged_paged_attention": L * chunks,
+                        "paged_attention": L * (ce.chunk_steps - 1) * chunks}
+                if {n: sum(got[n].values()) for n in NEW_PATHS} != want or \
+                        any(got[n]["int8"] != want[n] for n in NEW_PATHS):
+                    raise AssertionError(f"fleet {label}: worker "
+                                         f"{r['worker'][:8]} launches {got} "
+                                         f"for {chunks} chunks")
+                w = per.setdefault(r["worker"][:8], {
+                    "chunks": 0, **{n: 0 for n in NEW_PATHS}})
+                w["chunks"] += chunks
+                for n in NEW_PATHS:
+                    w[n] += got[n]["int8"]
+        plain = {f.__name__: f.calls for f in att._REFS if f.calls}
+        if plain:
+            raise AssertionError(f"fleet {label}: plain versions {plain}")
+        if len(per) < min_workers or not all(
+                w[n] > 0 for w in per.values() for n in NEW_PATHS):
+            raise AssertionError(f"fleet {label}: launches per worker {per}")
+        return per
+
+
+def _fleet_nodes(root: Path, n_workers: int, vml, roles=None):
+    """A port validator (HTTP endpoint) and ``n_workers`` workers on
+    127.0.0.1, each worker on the card with a FLEET_MEM_GB share."""
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.nodes.runners import ValidatorNode, WorkerNode
+
+    common = dict(local_test=True, log_dir=str(root / "logs"),
+                  env_file=str(root / ".env"))
+    nodes = []
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=True, endpoint_port=0, key_dir=str(root / "vkeys"),
+                ml=vml, **common)).start()
+            nodes.append(v)
+            for i in range(n_workers):
+                ml = MLConfig(spec_decode=False, max_memory_gb=FLEET_MEM_GB,
+                              worker_role=(roles or {}).get(i, "mixed"))
+                nodes.append(WorkerNode(WorkerConfig(
+                    seed_validators=[["127.0.0.1", v.port]],
+                    key_dir=str(root / f"w{i}keys"), ml=ml,
+                    **common)).start())
+        deadline = time.monotonic() + 60
+        while len(v.status()["peers"]) < n_workers:
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet: the workers never joined")
+            time.sleep(0.1)
+    except BaseException:
+        for n in reversed(nodes):
+            n.stop()
+        raise
+    return nodes
+
+
+def _fleet_messages(n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    chars = np.array(list("abcdefghijklmnopqrstuvwxyz ,.ABCDEFGH0123456789"))
+    return ["".join(rng.choice(chars, int(rng.integers(64, 257))))
+            for _ in range(n)]
+
+
+def _http_all(port, calls: dict) -> tuple:
+    """Run ``{rid: body}`` as concurrent /v1/generate requests; returns
+    (results, wall seconds)."""
+    results, errors = {}, []
+
+    def one(rid):
+        try:
+            results[rid] = _http(port, "POST", "/v1/generate", calls[rid],
+                                 rid=rid)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(r,)) for r in calls]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    if len(results) != len(calls):
+        raise AssertionError("fleet: a request never finished (dropped)")
+    return results, wall
+
+
+def _fleet_body(message: str, n: int) -> dict:
+    return {"hf_name": NODE_MODEL, "message": message, "do_sample": False,
+            "max_new_tokens": n}
+
+
+class _FleetRecorder:
+    """The streams of phase 12 as the validator's batchers return them
+    (trace id → prompt ids and tokens), the re-attached ones by jrid, the
+    redirects each request followed, the page bytes each migration put
+    shipped and the validator's drain summaries with their seconds."""
+
+    def __init__(self):
+        self.streams: dict = {}
+        self.progress: dict = {}
+        self.redirects: dict = {}
+        self.put_bytes: list = []
+        self.drains: list = []
+        self._undo: list = []
+
+    def _patch(self, owner, name, make):
+        real = getattr(owner, name)
+        setattr(owner, name, make(real))
+        self._undo.append((owner, name, real))
+
+    def __enter__(self):
+        from tensorlink_tpu_torch.ml.module import DistributedModel
+        from tensorlink_tpu_torch.ml.worker import DistributedWorker
+
+        def generate(real):
+            def wrapped(batcher, ids, **kw):
+                tid = kw.get("trace_id") or ""
+                cb = kw.get("stream_cb")
+                if cb is not None:
+                    # tokens streamed so far: progress that needs no text
+                    # (most of the vocabulary decodes to no byte)
+                    def counting(toks, cb=cb):
+                        self.progress[tid] = self.progress.get(tid, 0) + \
+                            sum(t is not None for t in toks)
+                        return cb(toks)
+
+                    kw["stream_cb"] = counting
+                out = real(batcher, ids, **kw)
+                self.streams[kw.get("trace_id") or ""] = (list(ids),
+                                                          list(out))
+                return out
+            return wrapped
+
+        def reattach(real):
+            def wrapped(model, jrid, **kw):
+                out = real(model, jrid, **kw)
+                self.streams[f"reattach-{jrid}"] = (list(kw["prompt"]),
+                                                    list(out))
+                return out
+            return wrapped
+
+        def follow(real):
+            def wrapped(model, wid, mig, **kw):
+                self.redirects.setdefault(str(mig.get("trace_id") or ""),
+                                          []).append(bool(mig.get("mig")))
+                return real(model, wid, mig, **kw)
+            return wrapped
+
+        def mig_request(real):
+            def wrapped(worker, peer, body, timeout=60.0):
+                if body.get("op") == "put":
+                    self.put_bytes.append(sum(
+                        int(getattr(a, "nbytes", 0))
+                        for a in body["blob"].values()))
+                return real(worker, peer, body, timeout)
+            return wrapped
+
+        self._patch(ContinuousBatcher, "generate", generate)
+        self._patch(DistributedModel, "reattach_continuous", reattach)
+        self._patch(DistributedModel, "_follow_redirect", follow)
+        self._patch(DistributedWorker, "_mig_request", mig_request)
+        return self
+
+    def watch_drains(self, validator) -> None:
+        """Time the validator's drain_worker verbs (the autopilot's)."""
+        bridge = validator.executor.bridge
+        real = bridge.request
+
+        def request(verb, payload=None, timeout=None):
+            t0 = time.monotonic()
+            out = real(verb, payload, timeout)
+            if verb == "drain_worker":
+                self.drains.append((dict(out or {}),
+                                    time.monotonic() - t0))
+            return out
+
+        bridge.request = request
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+
+def _fleet_job(v):
+    job = v.executor.hosted[NODE_MODEL]
+    if job.status != "ready":
+        raise AssertionError(f"fleet: hosting is {job.status}: {job.error}")
+    return job
+
+
+def _entry(rep) -> str:
+    return rep["model"].plan.stages[0].worker_id
+
+
+def _fleet_hosted(port):
+    host = _http(port, "POST", "/request-model", {"hf_name": NODE_MODEL})
+    if host.get("status") != "ready":
+        raise AssertionError(f"fleet: hosting answered {host}")
+
+
+def fleet_serving(rec, counts) -> dict:
+    """Steps 1, 2 and 4 of phase 12 on one fleet: a validator with
+    fleet_replicas 2 and three workers host qwen3-0p6b (two replicas on
+    two workers; the third is where a rolling deploy rehosts). Routing,
+    a rolling deploy of r0 under live streams, then a validator crash
+    mid-decode and a restart on its journal."""
+    from tensorlink_tpu_torch.api.schemas import GenerationRequest
+    from tensorlink_tpu_torch.core.config import MLConfig, ValidatorConfig
+    from tensorlink_tpu_torch.nodes.runners import ValidatorNode
+
+    root = FLEET_ROOT / "fleet"
+    vml = MLConfig(fleet_replicas=2, fleet_autopilot_interval_s=0.5,
+                   spec_decode=False)
+    nodes = _fleet_nodes(root, 3, vml)
+    v, workers = nodes[0], nodes[1:]
+    res: dict = {}
+    try:
+        port = v.api.port
+        t0 = time.monotonic()
+        _fleet_hosted(port)
+        res["host_s"] = time.monotonic() - t0
+        job = _fleet_job(v)
+        entries = [_entry(r) for r in job.replicas]
+        if len(set(entries)) != 2:
+            raise AssertionError(f"fleet: replicas on workers {entries}")
+        rec.watch_drains(v)
+        # step 1: routing
+        base = counts.mark()
+        msgs = _fleet_messages(FLEET_ROUTED, 41)
+        out, wall = _http_all(port, {
+            f"fleet-route-{i}": _fleet_body(m, FLEET_NEW)
+            for i, m in enumerate(msgs)})
+        fleet = _http(port, "GET", "/fleet")["fleet"][NODE_MODEL]
+        routed = {rid: r["routed"]
+                  for rid, r in fleet["router"]["replicas"].items()}
+        if fleet["replicas"] != 2 or min(routed.values()) < 1:
+            raise AssertionError(f"fleet: routed {routed}")
+        toks = sum(len(rec.streams[r][1]) for r in out)
+        res["routing"] = dict(
+            requests=len(out), wall_s=wall, http_tokens_per_s=toks / wall,
+            routed=routed, launches=counts.since("routing", base, 2))
+        # step 2: a rolling deploy of r0 under live streams
+        base = counts.mark()
+        src = next(w for w in workers if w.node_id == entries[0])
+        r0_job = job.replicas[0]["job_id"]
+        # the live streams enter through generate_api in process: eight
+        # HTTP generations would hold all eight of the API server's
+        # worker threads, and POST /fleet/deploy would wait behind them
+        live = {f"fleet-live-{i}": GenerationRequest.parse(
+                    _fleet_body(m, FLEET_LIVE_NEW))
+                for i, m in enumerate(_fleet_messages(FLEET_LIVE, 43))}
+        box: dict = {}
+        live_errs: list = []
+
+        def live_one(rid):
+            try:
+                box[rid] = v.executor.generate_api(live[rid], trace_id=rid)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                live_errs.append(e)
+
+        runners = [threading.Thread(target=live_one, args=(r,))
+                   for r in live]
+        for t in runners:
+            t.start()
+        deadline = time.monotonic() + 300
+        while True:
+            # r0's streams admitted and decoding: those page-ship
+            rt = src.executor.jobs.get(r0_job)
+            ce = rt.cont if rt is not None else None
+            try:
+                kinds = [k for k, _s, _r in ce.live_manifest()] if ce else []
+            except RuntimeError:  # the engine's thread changed it under us
+                kinds = []
+            if len(kinds) >= 2 and set(kinds) == {"decode"} and \
+                    ce.stats["decode_steps"] >= 32:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet: r0 never reached steady decode")
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        dep = _http(port, "POST", "/fleet/deploy",
+                    {"model": NODE_MODEL, "replicas": ["r0"]})
+        if not dep.get("ok"):
+            raise AssertionError(f"fleet: deploy answered {dep}")
+        while True:
+            hist = _http(port, "GET", "/fleet")["fleet"][NODE_MODEL][
+                "autopilot"]["history"]
+            if any(h["kind"] == "deploy_done" for h in hist):
+                break
+            failed = [h for h in hist if "error" in h]
+            if failed or time.monotonic() > deadline:
+                raise AssertionError(f"fleet: deploy history {hist}")
+            time.sleep(0.2)
+        deploy_s = time.monotonic() - t0
+        for t in runners:
+            t.join(timeout=900)
+        if live_errs:
+            raise live_errs[0]
+        if len(box) != FLEET_LIVE:
+            raise AssertionError("fleet: a live stream was dropped")
+        if not rec.drains:
+            raise AssertionError("fleet: the deploy sent no drain")
+        summary, drain_s = rec.drains[-1]
+        if not summary.get("ok") or summary["migrated"] < 1 or \
+                summary["migrated"] + summary["fell_back"] < 1:
+            raise AssertionError(f"fleet: drain summary {summary}")
+        new_entry = _entry(job.replicas[0])
+        if new_entry in entries:
+            raise AssertionError("fleet: r0 was not rehosted on the third "
+                                 "worker")
+        shipped = sum(rec.put_bytes)
+        res["deploy"] = dict(
+            streams=len(box), deploy_s=deploy_s, drain_s=drain_s,
+            migrated=summary["migrated"], fell_back=summary["fell_back"],
+            page_bytes_shipped=shipped,
+            page_gb_per_s=shipped / drain_s / 1e9,
+            launches=counts.since("rolling deploy", base, 2))
+        # step 4: the validator crashes mid-decode and restarts
+        base = counts.mark()
+        jrids, errs = {}, []
+        restart_msgs = _fleet_messages(FLEET_RESTART, 47)
+
+        def stream(i, m):
+            try:
+                v.executor.generate_api(
+                    GenerationRequest.parse(_fleet_body(m, FLEET_LIVE_NEW)),
+                    on_delta=lambda _s: None,  # a streamed request
+                    meta_cb=lambda meta: jrids.__setitem__(i, meta["jrid"]),
+                    trace_id=f"fleet-crash-{i}")
+            except Exception as e:  # noqa: BLE001 — the crash is the point
+                errs.append(e)
+
+        threads = [threading.Thread(target=stream, args=(i, m), daemon=True)
+                   for i, m in enumerate(restart_msgs)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 300
+        while len(jrids) < FLEET_RESTART or min(
+                rec.progress.get(f"fleet-crash-{i}", 0)
+                for i in range(FLEET_RESTART)) < 8:
+            if errs or time.monotonic() > deadline:
+                raise AssertionError(f"fleet: restart streams never decoded "
+                                     f"({rec.progress}, {errs})")
+            time.sleep(0.02)
+        v.crash()
+        t0 = time.monotonic()
+        with _clean_spawn():
+            v2 = ValidatorNode(ValidatorConfig(
+                endpoint=True, endpoint_port=0, local_test=True,
+                key_dir=str(root / "vkeys"), log_dir=str(root / "logs"),
+                env_file=str(root / ".env"), ml=vml)).start()
+        nodes.append(v2)
+        while True:
+            j2 = v2.executor.hosted.get(NODE_MODEL)
+            if j2 is not None and j2.status == "ready" and \
+                    not v2.executor.recovering:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet: the journal replay never "
+                                     "re-attached the model")
+            time.sleep(0.05)
+        reattach_s = time.monotonic() - t0
+        if len(j2.replicas) != 2:
+            raise AssertionError(f"fleet: {len(j2.replicas)} replicas "
+                                 "re-attached")
+        for i, m in enumerate(restart_msgs):
+            body = dict(_fleet_body(m, FLEET_LIVE_NEW), reattach=jrids[i])
+            got = v2.executor.generate_api(GenerationRequest.parse(body))
+            if got["jrid"] != jrids[i]:
+                raise AssertionError("fleet: re-attach answered another jrid")
+            rec.streams[f"fleet-crash-{i}"] = rec.streams.pop(
+                f"reattach-{jrids[i]}")
+        res["restart"] = dict(
+            streams=FLEET_RESTART, reattach_s=reattach_s,
+            launches=counts.since("validator restart", base, 1))
+        v2.executor.unhost_model(NODE_MODEL)
+    finally:
+        for n in reversed(nodes):
+            n.stop()
+    return res
+
+
+def fleet_handoff(rec, counts) -> dict:
+    """Step 3 of phase 12: a prefill-role and a decode-role worker; every
+    request prefills on the first and is handed to the second."""
+    from tensorlink_tpu_torch.core.config import MLConfig
+
+    nodes = _fleet_nodes(FLEET_ROOT / "handoff", 2,
+                         MLConfig(spec_decode=False),
+                         roles={0: "prefill", 1: "decode"})
+    v, pre, dec = nodes
+    try:
+        _fleet_hosted(v.api.port)
+        job = _fleet_job(v)
+        if _entry(job.replicas[0]) != pre.node_id:
+            raise AssertionError("fleet: the job was not placed on the "
+                                 "prefill worker")
+        base = counts.mark()
+        out, wall = _http_all(v.api.port, {
+            f"fleet-handoff-{i}": _fleet_body(m, FLEET_NEW)
+            for i, m in enumerate(_fleet_messages(FLEET_HANDOFF, 53))})
+        stats = {}
+        for name, w in (("prefill", pre), ("decode", dec)):
+            ces = [rt.cont for rt in w.executor.jobs.values() if rt.cont]
+            stats[name] = {k: sum(int(c.stats[k]) for c in ces) for k in (
+                "handoffs_started", "handoffs_completed",
+                "migrations_adopted")}
+        if stats["prefill"]["handoffs_completed"] < 1 or \
+                stats["decode"]["migrations_adopted"] < 1:
+            raise AssertionError(f"fleet: handoff counters {stats}")
+        res = dict(requests=len(out), wall_s=wall, counters=stats,
+                   launches=counts.since("handoff", base, 2))
+        v.executor.unhost_model(NODE_MODEL)
+    finally:
+        for n in reversed(nodes):
+            n.stop()
+    return res
+
+
+def _fleet_reference(streams: dict, shipped: dict) -> dict:
+    """Every recorded greedy stream against the same prompt alone on an
+    in-process ContinuousEngine over the same seeded tree with the
+    workers' knobs. Equal token for token, except a stream that took a
+    re-prefill rung (a redirect with no page ticket): its KV was rebuilt
+    at other GEMM heights, so it may part where the reference's top two
+    logits lie within SPEC_TIE (logged)."""
+    from tensorlink_tpu_torch.core.config import MLConfig
+    from tensorlink_tpu_torch.engine.continuous import ContinuousEngine
+
+    ml = MLConfig(spec_decode=False)
+    cfg = config_presets()[NODE_MODEL]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)  # the hosted spec's seed
+    eng = GenerationEngine(cfg, init_params(cfg, g, device="cuda"),
+                           max_seq_len=min(cfg.max_seq_len, ml.max_seq_len),
+                           seq_buckets=ml.seq_buckets,
+                           batch_buckets=ml.batch_buckets, device="cuda")
+    ce = ContinuousEngine(
+        eng, max_slots=ml.cont_max_slots, page_size=ml.cont_page_size,
+        chunk_steps=ml.cont_chunk_steps, prefill_chunk=ml.prefill_chunk,
+        prefix_cache=ml.prefix_cache, kv_quant=ml.kv_quant,
+        spec_decode=False)
+    from tensorlink_tpu_torch.api.tokenizer import load_tokenizer
+
+    eos = load_tokenizer({"name": NODE_MODEL}).eos_ids
+    labels = sorted(streams)
+    store: list = []
+    real_fns = paged._row_keys, paged._sample_rows
+    paged._row_keys, paged._sample_rows = _draw_recorder(store)
+    try:
+        reqs = {lab: ce.submit(streams[lab][0], seed=5000 + k, eos_ids=eos,
+                               max_new_tokens=(FLEET_LIVE_NEW
+                                               if "live" in lab or
+                                               "crash" in lab else FLEET_NEW))
+                for k, lab in enumerate(labels)}
+        ce.run_until_idle()
+    finally:
+        paged._row_keys, paged._sample_rows = real_fns
+    draws = _draws(store)
+    parted = []
+    for k, lab in enumerate(labels):
+        got, want = streams[lab][1], list(reqs[lab].tokens)
+        if lab in shipped and not all(shipped[lab]):
+            at = next((j for j, (x, y) in enumerate(zip(got, want))
+                       if x != y), None)
+            if at is None:
+                _equal_stream(f"fleet {lab}", got, want)
+                continue
+            v, _ids = draws[(5000 + k, at)]
+            gap = v[0] - v[1]
+            log(f"fleet {lab} (re-prefilled): parts at token {at} of "
+                f"{len(want)}, reference top-two gap {gap:.6g}")
+            if gap > SPEC_TIE:
+                raise AssertionError(f"fleet {lab}: a re-prefilled stream "
+                                     f"parts at a gap {gap} > {SPEC_TIE}")
+            parted.append(dict(stream=lab, at=at, gap=gap))
+            continue
+        _equal_stream(f"fleet {lab}", got, want)
+    ce.close()
+    del ce, eng
+    torch.cuda.empty_cache()
+    return dict(streams=len(labels), parted=parted)
+
+
+def fleet_phase(node: dict | None = None) -> dict:
+    """Phase 12, fleet serving and control-plane recovery on the card:
+    qwen3-0p6b at full width, seeded bf16 weights, int8 pages, every
+    worker an engine on the one card. Routing over two replicas, a
+    rolling deploy under live streams, a prefill → decode handoff over
+    the wire and a validator restart, each step's launches counted per
+    worker; then every stream against the in-process reference."""
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    with _FleetRecorder() as rec, _WorkerLaunches() as counts:
+        serving = fleet_serving(rec, counts)
+        handoff = fleet_handoff(rec, counts)
+        streams = dict(rec.streams)
+        shipped = dict(rec.redirects)
+        totals = {n: sum(r["by_format"][n]["int8"] for r in counts.recs)
+                  for n in NEW_PATHS}
+        counts.recs.clear()
+    torch.cuda.empty_cache()
+    moved = [lab for lab, hops in shipped.items() if lab.startswith(
+        "fleet-live") and all(hops)]
+    if not moved:
+        raise AssertionError("fleet: no live stream moved by page ship")
+    ref = _fleet_reference(streams, shipped)
+    res = dict(card=_smi(), **serving, handoff=handoff,
+               page_shipped_streams=len(moved), reference=ref,
+               by_format={n: {"int8": totals[n]} for n in NEW_PATHS})
+    if node:
+        res["routing"]["node_path_http_tokens_per_s"] = \
+            node["http_tokens_per_s"]
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    log(f"fleet (qwen3-0p6b bf16, int8 pages, workers sharing the card; "
+        f"readings, not claims): {json.dumps(res)}")
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -3822,6 +4559,7 @@ def main() -> None:
     node = _phase("node", node_phase)
     training = _phase("training", training_phase)
     new_paths["serve-and-train"] = training["serve_train"]["launches"]
+    new_paths["fleet"] = _phase("fleet", fleet_phase, node)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]

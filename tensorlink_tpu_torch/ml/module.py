@@ -1001,13 +1001,45 @@ class DistributedModel:
         follow = is_handoff or off_plan
         return adopt, (str(mig["worker"]) if follow else None), False
 
+    def reattach_continuous(
+        self, jrid: str, *, prompt, delivered=(), max_new_tokens: int,
+        temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+        eos_ids=(), seed: int = 0, stream_cb=None,
+        presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+        priority: str | None = None, trace_id: str = "",
+    ) -> list[int]:
+        """Client half of the re-attach ladder (validator loss mid-decode,
+        docs/FAILURE_MODEL.md "Control plane"). ``jrid`` is the journal
+        rid the original request carried; ``delivered`` is every token the
+        pre-crash client consumed (its high-water mark); the sampling
+        knobs and ``max_new_tokens`` must repeat the ORIGINAL request's
+        values. Rung 1 rebinds the worker's still-decoding slot (or
+        replays its finished-orphan ledger) and tops up past the
+        high-water mark exactly-once; a miss falls through on the worker
+        to rung 2, the re-prefill resume — both rungs bit-identical
+        to the uninterrupted stream by the fold_in sampling contract."""
+        out = self._generate_continuous_remote(
+            [int(t) for t in prompt],
+            max_new_tokens=int(max_new_tokens),
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p), eos_ids=eos_ids, seed=int(seed),
+            stream_cb=stream_cb,
+            presence_penalty=float(presence_penalty or 0.0),
+            frequency_penalty=float(frequency_penalty or 0.0),
+            priority=priority, trace_id=str(trace_id or ""),
+            jrid=str(jrid), reattach=str(jrid),
+            _delivered=[int(t) for t in delivered],
+        )
+        return out[0]
+
     def _generate_continuous_remote(
         self, prompt: list[int], *, max_new_tokens: int, temperature: float,
         top_k: int, top_p: float, eos_ids, seed: int, stream_cb,
         presence_penalty: float, frequency_penalty: float,
         priority: str | None = None, trace_id: str = "",
         speculative: bool = False, handoff: bool = True,
-        jrid: str = "",
+        jrid: str = "", reattach: str = "",
+        _delivered: list[int] | None = None,
     ) -> list[list[int]]:
         """One request through the worker's continuous slot engine
         (B=1 per RPC; the worker co-batches concurrent requests into its
@@ -1021,7 +1053,9 @@ class DistributedModel:
         stream continues bit-identically: no duplicated, no missing
         tokens, and the replacement worker's fresh page allocator can't
         hand this session another session's KV blocks."""
-        delivered: list[int] = []
+        # a re-attach (validator recovery) pre-seeds delivered with what
+        # the pre-crash client already consumed — its high-water mark
+        delivered: list[int] = [int(t) for t in (_delivered or [])]
         recoveries = 0
         MAX_RECOVERIES = 3
         adopt: str | None = None  # staged-migration ticket on the dest
@@ -1061,6 +1095,15 @@ class DistributedModel:
                 # the re-attach ladder (and validator-recovery
                 # reconciliation) possible at all
                 body["jrid"] = jrid
+            if reattach:
+                # re-attach ladder rung 1: ask the worker to rebind the
+                # still-decoding (or finished-orphaned) stream and top up
+                # past our high-water mark. A MISS falls through to plain
+                # admission of THIS body — which already carries
+                # prompt+delivered / start_step, i.e. rung 2 (re-prefill
+                # resume) — on the worker, with no extra round trip.
+                body["reattach"] = reattach
+                body["hwm"] = len(delivered)
             if priority:
                 # the worker's scheduler reads the class off the wire; an
                 # old worker simply ignores the extra key (FCFS for it)
@@ -1118,6 +1161,14 @@ class DistributedModel:
                             handoff = False
                         continue
                     seq = [int(t) for t in resp["sequences"][0]]
+                    if resp.get("reattached"):
+                        # a re-attach HIT: sequences is the ORIGINAL
+                        # submission's full token list (everything since
+                        # its start_step = resume_base) — merge it onto
+                        # the prefix delivered BEFORE that submission, or
+                        # the overlap would be double-counted
+                        base = int(resp.get("resume_base", 0))
+                        return [delivered[:base] + seq]
                     return [delivered + seq]
                 out, finished, mig = self._drain_continuous_stream(
                     wid, body, delivered, stream_cb
@@ -1275,6 +1326,12 @@ class DistributedModel:
                 return toks, False, mig
             resp = result["resp"]
             seq = [int(x) for x in resp["sequences"][0]]
+            if resp.get("reattached"):
+                # re-attach HIT: sequences spans the ORIGINAL submission
+                # (since resume_base) — merge onto the prefix delivered
+                # before it, not onto everything we've seen (overlap)
+                base = int(resp.get("resume_base", 0))
+                return delivered[:base] + seq, True, None
             return delivered + seq, True, None
         err = result.get("err")
         if err is not None and "no connection" not in str(err):

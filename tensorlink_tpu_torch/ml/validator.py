@@ -1,5 +1,5 @@
-"""DistributedValidator — the ML side of a validator node (port of the
-serving part of ``tensorlink_tpu/ml/validator.py``).
+"""DistributedValidator — the ML side of a validator node (port of
+``tensorlink_tpu/ml/validator.py`` for whole-model jobs on one device).
 
 The validator hosts models for its HTTP API: resolve the model config
 (an inline config, a preset, or a checkpoint's HF config.json),
@@ -8,9 +8,17 @@ network process (roles.py ``cmd_create_job``), attach a
 :class:`DistributedModel` and wrap it in a batcher; ``generate_api`` then
 serves each API request through it and writes the control journal.
 
-User jobs (``job_req``), fleet replicas with the router and autopilot,
-and crash recovery's re-attach wait for the rest of ROADMAP queue 1
-item 7.
+With ``MLConfig.fleet_replicas > 1`` a model is hosted as a fleet of
+replicas behind a :class:`~tensorlink_tpu_torch.fleet.router.FleetRouter`
+(``_grow_fleet``), with an optional
+:class:`~tensorlink_tpu_torch.fleet.autopilot.FleetAutopilot` whose
+actions ride the wire verbs (:class:`ValidatorFleetActions`: DRAIN, the
+rolling deploy's rehost, the decode-pool push). A restarted validator
+replays its control journal (``recover``): it re-attaches the journaled
+replicas without rebuilding them, expires migration tickets a crash left
+open at both endpoints, re-queues interrupted deploys, and serves
+``{"reattach": jrid}`` requests from the workers' live slots or orphan
+ledgers.
 """
 
 from __future__ import annotations
@@ -24,7 +32,6 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable
 
-from tensorlink_tpu_torch import unported
 from tensorlink_tpu_torch.core.logging import get_logger
 
 
@@ -45,9 +52,14 @@ class HostedJob:
     # dynamic request batching (ml/batching.py): concurrent API requests
     # coalesce into one batched decode instead of queueing on the lock
     batcher: Any = None
-    # the serving replica [{rid, model, batcher, job_id, spec, batch,
-    # seed, attach}] — one ("r0") until fleet serving is ported
+    # -- fleet serving (tensorlink_tpu_torch/fleet, docs/SERVING.md "Fleet
+    # serving"): N replicas of this model behind a cache-/SLO-aware
+    # router. ``replicas`` holds [{rid, model, batcher, job_id}];
+    # ``model``/``batcher`` above stay replica 0 (the single-replica
+    # path is byte-identical when the fleet knobs are off).
     replicas: list = field(default_factory=list)
+    router: Any = None  # FleetRouter when > 1 replica hosted
+    autopilot: Any = None  # FleetAutopilot when enabled
 
 
 class DistributedValidator:
@@ -89,7 +101,7 @@ class DistributedValidator:
                     flush_s=float(getattr(ml_cfg, "journal_flush_s", 0.05)),
                 )
             except OSError as e:
-                # no journal ≠ no serving: run exactly as before PR 16,
+                # no journal ≠ no serving: run as without one,
                 # just without crash recovery — and say so loudly
                 self.log.warning("control journal unavailable: %s", e)
         if node.config.ml.autoload_default_models:
@@ -620,8 +632,6 @@ class DistributedValidator:
         from tensorlink_tpu_torch.api.tokenizer import load_tokenizer
 
         name = job.name
-        if max(int(getattr(self.node.config.ml, "fleet_replicas", 1)), 1) > 1:
-            raise unported("fleet serving (fleet_replicas > 1)", 7)
         model_spec: dict = {"name": name, "seed": seed}
         if config:
             model_spec["config"] = config
@@ -656,6 +666,11 @@ class DistributedValidator:
                 "seed": seed, "attach": attach,
             }]
             self._journal_replica(job, job.replicas[0])
+            ml_cfg = self.node.config.ml
+            n_replicas = max(int(getattr(ml_cfg, "fleet_replicas", 1)), 1)
+            if n_replicas > 1:
+                self._grow_fleet(job, model_spec, cfg, n_replicas,
+                                 batch=batch, seed=seed)
         except Exception as e:
             self._jabort(iid, {"error": f"{type(e).__name__}: {e}"[:200]})
             raise
@@ -665,33 +680,420 @@ class DistributedValidator:
             "hosting %s ready (%d replica(s))", name, len(job.replicas)
         )
 
+    def _grow_fleet(
+        self, job: HostedJob, model_spec: dict, cfg, n_replicas: int,
+        *, batch, seed,
+    ) -> None:
+        """Host replicas 1..N-1 behind a FleetRouter (docs/SERVING.md
+        "Fleet serving"). A replica that fails to plan/recruit degrades
+        the fleet instead of failing the host — a model served by fewer
+        replicas beats a model not served at all."""
+        from tensorlink_tpu_torch.fleet.router import FleetRouter
+
+        ml_cfg = self.node.config.ml
+        router = FleetRouter(
+            refresh_s=float(getattr(ml_cfg, "fleet_refresh_s", 0.5)),
+        )
+        router.register("r0", job.batcher)
+        for i in range(1, n_replicas):
+            try:
+                model, batcher, jid, attach = self._build_replica(
+                    job, model_spec, cfg, batch=batch, seed=seed,
+                )
+            except Exception as e:
+                self.log.warning(
+                    "fleet replica %d of %s failed to host (%s: %s) — "
+                    "serving with %d replica(s)",
+                    i, job.name, type(e).__name__, e, len(job.replicas),
+                )
+                break
+            job.replicas.append({
+                "rid": f"r{i}", "model": model, "batcher": batcher,
+                "job_id": jid, "spec": dict(model_spec), "batch": batch,
+                "seed": seed, "attach": attach,
+            })
+            self._journal_replica(job, job.replicas[-1])
+            router.register(f"r{i}", batcher)
+        if len(job.replicas) < 2:
+            return  # no fleet materialized: the single-replica path stands
+        job.router = router
+        self._push_replica_sets(job)
+        if bool(getattr(ml_cfg, "fleet_autopilot", False)):
+            self._start_autopilot(job)
+
+    def _start_autopilot(self, job: HostedJob) -> None:
+        """ONE construction site for a fleet's control loop — host-time
+        (fleet_autopilot=True) and the on-demand /fleet/deploy path must
+        build it identically or silently drift."""
+        from tensorlink_tpu_torch.fleet.autopilot import FleetAutopilot
+
+        ml_cfg = self.node.config.ml
+        job.autopilot = FleetAutopilot(
+            job.router,
+            ValidatorFleetActions(self, job),
+            interval_s=float(
+                getattr(ml_cfg, "fleet_autopilot_interval_s", 2.0)
+            ),
+            on_action=self._journal_action(job.name),
+        ).start()
+
+    def _journal_action(self, name: str):
+        """The autopilot's on_action hook bound to one hosted model:
+        intent/commit/abort pairs land in the control journal so a crash
+        mid-deploy is resumed (open "action" intents at replay → re-queued
+        via request_deploy) or rolled back — never forgotten."""
+
+        def hook(phase: str, kind: str, rid: str, token=None):
+            if phase == "intent":
+                return self._jintent(
+                    "action", {"verb": kind, "rid": rid, "name": name},
+                )
+            if token is None:
+                return None
+            if phase == "commit":
+                self._jcommit(token)
+            else:
+                self._jabort(token)
+            return token
+
+        return hook
+
     # ------------------------------------------------------------------
-    # crash recovery: a restarted validator would replay its journal and
-    # re-attach the replicas its workers kept serving
+    # crash recovery (docs/FAILURE_MODEL.md "Control
+    # plane"): a restarted validator replays its journal, re-handshakes
+    # the workers that kept serving through the crash, and reconciles the
+    # journal's view of in-flight streams against theirs
     # ------------------------------------------------------------------
     def recover(self) -> dict:
-        """Replay the control journal. A fresh validator (nothing live or
-        open in the journal) returns at once; anything to re-attach is
-        logged as an error, since re-attach is not ported yet."""
+        """Replay the control journal and re-attach to whatever the fleet
+        kept alive across this validator's crash/restart.
+
+        - hosted jobs with journaled replicas re-attach WITHOUT rebuilding
+          (``DistributedModel.from_job(..., attach_only=True)`` — a
+          rebuild would kill the live slots the workers preserved);
+        - open migration tickets (drains the crash interrupted) are
+          expired deterministically at both endpoints — staged pages drop,
+          page conservation re-checked;
+        - open autopilot action intents resolve: deploys re-queue,
+          everything else aborts (the control loop re-decides from live
+          state);
+        - in-flight admissions reconcile against the worker-reported
+          live/orphan streams — journal wins for PLACEMENT, worker wins
+          for TOKENS.
+
+        ``self.recovering`` is True for the duration; /healthz surfaces it
+        and the API answers 503 + Retry-After meanwhile. Safe to call on a
+        fresh validator (empty journal → fast no-op)."""
         from tensorlink_tpu_torch.core.journal import ControlJournal
 
         if self.journal is None:
             return {"recovered": False, "reason": "journal disabled"}
         self.journal.flush()
         st = ControlJournal.replay(self.journal.path)
-        live = [n for n in st.live_jobs() if n not in self.hosted]
-        open_intents = st.open_intents("mig") + st.open_intents("action")
-        if not live and not open_intents:
+        live = {
+            name: jrec for name, jrec in st.live_jobs().items()
+            if name not in self.hosted
+        }
+        open_migs = st.open_intents("mig")
+        open_actions = st.open_intents("action")
+        if not live and not open_migs and not open_actions:
             return {
                 "recovered": False, "reason": "nothing to recover",
                 "torn": st.torn,
             }
-        reason = str(unported("control-plane recovery (re-attach)", 7))
-        self.log.error(
-            "journal holds %d hosted job(s) and %d open intent(s) to "
-            "recover: %s", len(live), len(open_intents), reason,
+        self.recovering = True
+        info: dict = {
+            "recovered": True, "torn": st.torn, "jobs": {},
+            "streams": [], "expired_migrations": 0, "requeued_deploys": 0,
+        }
+        t0 = time.monotonic()
+        try:
+            for name, jrec in live.items():
+                try:
+                    job = self._recover_job(name, jrec, st, info)
+                    info["jobs"][name] = {
+                        "status": job.status, "replicas": len(job.replicas),
+                    }
+                except Exception as e:
+                    self.log.exception("recovery of %s failed", name)
+                    info["jobs"][name] = {
+                        "status": "failed",
+                        "error": f"{type(e).__name__}: {e}"[:200],
+                    }
+            self._expire_open_migrations(open_migs, info)
+            self._resume_open_actions(open_actions, info)
+            self._journal_rec("recovered", {
+                "jobs": {
+                    n: str(j.get("status", "")) for n, j in info["jobs"].items()
+                },
+                "streams": len(info["streams"]),
+                "expired_migrations": info["expired_migrations"],
+                "t_s": round(time.monotonic() - t0, 3),
+            }, flush=True)
+        finally:
+            self.recovering = False
+        self.log.info(
+            "control-plane recovery: %d job(s), %d in-flight stream(s) "
+            "reconciled, %d staged ticket(s) expired, %d deploy(s) "
+            "re-queued, %d torn record(s) skipped (%.2fs)",
+            len(info["jobs"]), len(info["streams"]),
+            info["expired_migrations"], info["requeued_deploys"], st.torn,
+            time.monotonic() - t0,
         )
-        return {"recovered": False, "reason": reason, "torn": st.torn}
+        return info
+
+    def _recover_job(self, name: str, jrec: dict, st, info: dict) -> HostedJob:
+        """Rebuild one hosted job's shell from its journal record and
+        re-attach every journaled replica. A replica that fails to
+        re-attach (its worker died too) degrades the job instead of
+        failing the recovery — same posture as ``_grow_fleet``."""
+        from tensorlink_tpu_torch.api.tokenizer import load_tokenizer
+        from tensorlink_tpu_torch.fleet.router import FleetRouter
+
+        reps = jrec["replicas"]  # rid -> replica_up record
+        any_rep = next(iter(reps.values()))
+        spec = dict(
+            (jrec["data"] or {}).get("spec") or any_rep.get("spec") or {}
+        )
+        if not spec:
+            raise RuntimeError("journal carries no model spec to rebuild from")
+        cfg = self._resolve_config(spec)
+        seq_len = int(
+            (jrec["data"] or {}).get("seq_len")
+            or any_rep.get("seq_len") or cfg.max_seq_len
+        )
+        job = HostedJob(name=name)
+        job.cfg = cfg
+        job.seq_len = min(seq_len, cfg.max_seq_len)
+        job.tokenizer = load_tokenizer(spec)
+        with self._host_lock:
+            cur = self.hosted.get(name)
+            if cur is not None and cur.status in ("loading", "ready"):
+                return cur  # hosted since the replay snapshot — keep it
+            self.hosted[name] = job
+        recovered: list[dict] = []
+        for rid in sorted(reps, key=lambda r: (r != "r0", r)):
+            try:
+                recovered.append(
+                    self._reattach_replica(job, rid, reps[rid])
+                )
+            except Exception as e:
+                self.log.warning(
+                    "replica %s of %s did not re-attach (%s: %s) — "
+                    "recovering without it", rid, name, type(e).__name__, e,
+                )
+                self._journal_rec(
+                    "replica_down", {"name": name, "rid": rid}, flush=True,
+                )
+        if not recovered:
+            job.status = "failed"
+            job.error = "no replica re-attached"
+            raise RuntimeError(job.error)
+        job.replicas = recovered
+        job.model = recovered[0]["model"]
+        job.batcher = recovered[0]["batcher"]
+        self._reconcile_streams(job, recovered, st, info)
+        if len(recovered) > 1:
+            ml_cfg = self.node.config.ml
+            router = FleetRouter(
+                refresh_s=float(getattr(ml_cfg, "fleet_refresh_s", 0.5)),
+            )
+            for rep in recovered:
+                router.register(rep["rid"], rep["batcher"])
+            # journaled admission placements seed the routed counters so
+            # routing telemetry survives the restart (fleet/router.py)
+            router.seed_state({"routed": st.routed_counts()})
+            job.router = router
+            self._push_replica_sets(job)
+            if bool(getattr(ml_cfg, "fleet_autopilot", False)):
+                self._start_autopilot(job)
+        job.status = "ready"
+        return job
+
+    def _reattach_replica(self, job: HostedJob, rid: str, rdata: dict) -> dict:
+        """attach_only re-handshake of one journaled replica: the workers
+        ACK their already-live stage (no rebuild — a rebuild would kill
+        the slots that survived us) and re-announce live/orphan streams
+        into ``model.attach_report``."""
+        from tensorlink_tpu_torch.ml.module import DistributedModel
+
+        attach = dict(rdata.get("attach") or {})
+        if not attach.get("plan"):
+            raise RuntimeError("replica_up record carries no attach payload")
+        model = DistributedModel.from_job(
+            self.node, attach, seq_len=job.seq_len,
+            seed=int(rdata.get("seed", 0) or 0), attach_only=True,
+        )
+        batcher = self._make_batcher(
+            job, model, job.cfg, attach.get("serving_roles") or {},
+        )
+        return {
+            "rid": rid, "model": model, "batcher": batcher,
+            "job_id": attach.get("job_id") or rdata.get("job_id", ""),
+            "spec": dict(rdata.get("spec") or {}),
+            "batch": int(rdata.get("batch", 1) or 1),
+            "seed": int(rdata.get("seed", 0) or 0),
+            "attach": attach,
+        }
+
+    def _reconcile_streams(
+        self, job: HostedJob, recovered: list, st, info: dict,
+    ) -> None:
+        """Merge the journal's in-flight admissions with the
+        worker-reported live/orphaned streams from the attach_only acks.
+        Contract (core/journal.py): the journal is authoritative for
+        PLACEMENT, the worker for TOKENS — its count can only be >= the
+        journaled high-water mark, so the mark is raised, never cut."""
+        worker_view: dict[str, dict] = {}
+        for rep in recovered:
+            report = getattr(rep["model"], "attach_report", None) or {}
+            for wid, ack in report.items():
+                for o in ack.get("orphans", []) or []:
+                    jrid = str(o.get("jrid", ""))
+                    if jrid:
+                        worker_view[jrid] = {
+                            "rid": rep["rid"], "worker": wid,
+                            "n": int(o.get("n", 0) or 0),
+                            "finished": bool(o.get("finished")),
+                        }
+        for jrid, adm in st.orphan_admissions():
+            if str(adm["data"].get("model", "")) != job.name:
+                continue
+            wv = worker_view.get(jrid)
+            if wv is not None and wv["n"] > int(adm["hwm"]):
+                # worker wins for tokens: raise the journaled mark to what
+                # actually decoded while the control plane was down
+                self._journal_rec("hwm", {"jrid": jrid, "n": int(wv["n"])})
+            info["streams"].append({
+                "jrid": jrid,
+                "journal_hwm": int(adm["hwm"]),
+                "worker_n": int(wv["n"]) if wv else None,
+                "live": bool(wv and not wv["finished"]),
+                # a stream the worker no longer holds is NOT resumable
+                # from the buffer — the client's re-attach falls through
+                # to a plain re-prefill resume (exactly-once regardless)
+                "resumable": wv is not None,
+            })
+
+    def _expire_open_migrations(self, open_migs: list, info: dict) -> None:
+        """Satellite fix: a drain in flight when the validator died may
+        have left page-carrying migration tickets STAGED (exported, never
+        committed). Expire them deterministically at replay — both
+        endpoints drop staged pages and re-check page conservation — then
+        abort the journal intent so the next replay sees it closed."""
+        for iid, ent in open_migs:
+            data = ent.get("data") or {}
+            wids = {
+                str(data.get("src") or ""), str(data.get("dest") or ""),
+            } - {""}
+            # dial the ticket's journaled endpoint addresses first: the
+            # drain DESTINATION is usually outside the re-attached plan,
+            # so this restarted validator holds no connection to it and
+            # the per-wid expiry below would fail as "unknown worker"
+            for addr_key in ("src_addr", "dest_addr"):
+                addr = data.get(addr_key) or []
+                if len(addr) == 2:
+                    try:
+                        self.bridge.request(
+                            "connect",
+                            {"host": str(addr[0]), "port": int(addr[1])},
+                            timeout=10.0,
+                        )
+                    except Exception as e:
+                        self.log.debug(
+                            "dial of %s for ticket expiry failed: %s",
+                            addr, e,
+                        )
+            if not data.get("dest"):
+                # dest-less drain: the net layer chose the destination and
+                # the choice died with it — sweep every worker (expire is
+                # a no-op where nothing is staged)
+                try:
+                    stats = self.bridge.request("stats_workers", timeout=15.0)
+                    wids |= {
+                        str(s.get("id")) for s in stats if s.get("id")
+                    }
+                except Exception as e:
+                    self.log.warning("worker sweep for expiry failed: %s", e)
+            expired = 0
+            for wid in sorted(wids):
+                try:
+                    r = self.bridge.request(
+                        "expire_migrations",
+                        {"worker": wid, "job_id": data.get("job_id", "")},
+                        timeout=30.0,
+                    )
+                    if isinstance(r, dict):
+                        expired += int(r.get("expired", 0) or 0)
+                except Exception as e:
+                    self.log.warning(
+                        "migration-ticket expiry on %s failed: %s",
+                        wid[:8], e,
+                    )
+            info["expired_migrations"] += expired
+            self._jabort(iid, {"recovery": "expired", "expired": expired})
+
+    def _resume_open_actions(self, open_actions: list, info: dict) -> None:
+        """Open autopilot intents — the crash interrupted a control
+        action. Deploys re-queue (rehost converges; repeating one is
+        idempotent), everything else aborts and the control loop
+        re-decides from live state."""
+        for iid, ent in open_actions:
+            data = ent.get("data") or {}
+            verb = str(data.get("verb", ""))
+            job = self.hosted.get(str(data.get("name", "")))
+            requeued = False
+            if verb == "deploy" and job is not None and job.autopilot is not None:
+                rid = str(data.get("rid", ""))
+                try:
+                    job.autopilot.request_deploy([rid] if rid else None)
+                    info["requeued_deploys"] += 1
+                    requeued = True
+                except Exception:
+                    self.log.exception(
+                        "deploy re-queue for %s failed", data.get("name"),
+                    )
+            self._jabort(
+                iid, {"recovery": "requeued" if requeued else "dropped"},
+            )
+
+    def _replica_entry_worker(self, rep: dict) -> str:
+        model = rep.get("model")
+        plan = getattr(model, "plan", None)
+        if plan is None or not plan.stages:
+            return ""
+        return str(plan.stages[0].worker_id)
+
+    def _push_replica_sets(self, job: HostedJob) -> None:
+        """Mirror of the HANDOFF push at fleet granularity: tell
+        each replica's entry worker who its sibling replicas are
+        (REPLICA_SET frames), so a destination-less DRAIN — the
+        autopilot's rolling deploy — lands on a sibling that already
+        serves the same model. Best-effort: an unreached worker just
+        keeps the validator-chosen drain destination."""
+        entries = [
+            (rep, self._replica_entry_worker(rep)) for rep in job.replicas
+        ]
+        for rep, wid in entries:
+            if not wid:
+                continue
+            peers = [
+                {"id": w2, "job_id": r2["job_id"]}
+                for r2, w2 in entries
+                if r2 is not rep and w2
+            ]
+            if not peers:
+                continue
+            try:
+                self.bridge.request(
+                    "set_replica_set",
+                    {"worker": wid, "job_id": rep["job_id"], "peers": peers},
+                    timeout=10.0,
+                )
+            except Exception as e:
+                self.log.warning(
+                    "replica-set push to %s failed: %s", wid[:8], e
+                )
 
     def unhost_model(self, name: str) -> bool:
         """Drop a hosted model and release its workers (reference
@@ -701,6 +1103,27 @@ class DistributedValidator:
         if job is None:
             return False
         self._journal_rec("unhost", {"name": name}, flush=True)
+        if job.autopilot is not None:
+            job.autopilot.stop()  # no control actions during teardown
+        # fleet replicas beyond r0 (r0 IS job.model/job.batcher below)
+        for rep in job.replicas[1:]:
+            if job.router is not None:
+                job.router.deregister(rep["rid"])
+            try:
+                rep["batcher"].close()
+            except Exception:
+                self.log.exception(
+                    "replica %s of %s batcher close failed", rep["rid"],
+                    name,
+                )
+            try:
+                # shutdown ALWAYS runs — a wedged batcher close must not
+                # leave this replica's recruited workers reserved forever
+                rep["model"].shutdown()
+            except Exception:
+                self.log.exception(
+                    "replica %s of %s failed to unhost", rep["rid"], name
+                )
         if job.batcher is not None:
             job.batcher.close()  # drain the dispatcher first
         if job.model is not None:
@@ -788,11 +1211,18 @@ class DistributedValidator:
         with self._host_lock:
             jobs = list(self.hosted.values())
         for j in jobs:
+            # one label group per replica (single-replica models keep
+            # the unlabeled-model shape — byte-compatible with pre-fleet
+            # scrapes); the router/autopilot registries render under the
+            # model label alone
+            fleet = j.router is not None
             replicas = j.replicas or [
                 {"rid": "r0", "model": j.model, "batcher": j.batcher}
             ]
             for rep in replicas:
                 labels = {"model": j.name}
+                if fleet:
+                    labels["replica"] = rep["rid"]
                 batcher = rep.get("batcher")
                 reg = None
                 if batcher is not None:
@@ -809,6 +1239,10 @@ class DistributedValidator:
                     sreg = MetricsRegistry()
                     snapshot_gauges(sreg, snap, prefix="tlink_engine_")
                     groups.append((labels, sreg))
+            if fleet:
+                groups.append(({"model": j.name}, j.router.metrics))
+            if j.autopilot is not None:
+                groups.append(({"model": j.name}, j.autopilot.metrics))
         return groups
 
     def hosted_snapshot(self) -> list[dict]:
@@ -824,6 +1258,16 @@ class DistributedValidator:
                 model = j.model
                 if model is not None and getattr(model, "plan", None):
                     entry["stages"] = model.plan.n_stages
+                if j.router is not None:
+                    # fleet view: per-replica routed counts + health,
+                    # and each replica's own serving stats under its rid
+                    entry["replicas"] = len(j.replicas)
+                    entry["fleet"] = j.router.snapshot()
+                    entry["replica_serving"] = {
+                        rep["rid"]: rep["batcher"].stats()
+                        for rep in j.replicas[1:]
+                        if rep.get("batcher") is not None
+                    }
                 out.append(entry)
             return out
 
@@ -909,27 +1353,31 @@ class DistributedValidator:
 
         # control-plane journal: write-ahead admission record. jrid is the
         # durable re-attach handle — the worker keys its live-stream and
-        # orphan ledgers on it. The prompt travels as a digest only (the
-        # journal is an ops artifact, not a prompt store); the seed record
-        # pairs up via the batcher's on_admit hook.
-        if getattr(req, "reattach", ""):
-            raise unported("stream re-attach", 7)
-        jrid = uuid.uuid4().hex
-        self._journal_rec(
-            "admit",
-            {
-                "jrid": jrid,
-                "model": req.hf_name,
-                "prompt_sha": hashlib.sha256(
-                    ",".join(map(str, ids)).encode()
-                ).hexdigest()[:16],
-                "n_prompt": len(ids),
-                "priority": str(getattr(req, "priority", None) or ""),
-                "max_new_tokens": int(args["max_new_tokens"]),
-                "placement": "r0",
-            },
-            flush=True,
-        )
+        # orphan ledgers on it, so a restarted validator (or a client that
+        # outlived one) can resume this exact stream. The prompt travels
+        # as a digest only (the journal is an ops artifact, not a prompt
+        # store); the seed record pairs up via the batcher's on_admit hook.
+        # A re-attach request REUSES the pre-crash jrid: its admission is
+        # already journaled (and open — no finish record), so a second
+        # admit would reset the replayed high-water mark.
+        rjid = str(getattr(req, "reattach", "") or "")
+        jrid = rjid or uuid.uuid4().hex
+        if not rjid:
+            self._journal_rec(
+                "admit",
+                {
+                    "jrid": jrid,
+                    "model": req.hf_name,
+                    "prompt_sha": hashlib.sha256(
+                        ",".join(map(str, ids)).encode()
+                    ).hexdigest()[:16],
+                    "n_prompt": len(ids),
+                    "priority": str(getattr(req, "priority", None) or ""),
+                    "max_new_tokens": int(args["max_new_tokens"]),
+                    "placement": "router" if job.router is not None else "r0",
+                },
+                flush=True,
+            )
         if meta_cb is not None:
             meta_cb({"jrid": jrid})
 
@@ -1026,7 +1474,20 @@ class DistributedValidator:
         spec = bool(getattr(req, "lookahead", False)) and args["temperature"] == 0.0
         spec_cont = bool(getattr(req, "speculative", False))
         beams_used = None
-        if n_beams > 1:
+        if (
+            rjid
+            and n_beams == 1
+            and job.batcher is not None
+            and job.model is not None
+            and getattr(job.model, "plan", None) is not None
+            and job.model.plan.n_stages == 1
+        ):
+            out_ids = self._reattach_api(
+                job, rjid, ids, args, req,
+                stream_cb=stream_cb if use_cb else None,
+                trace_id=trace_id,
+            )
+        elif n_beams > 1:
             # deterministic beam decode: bypass the batcher (beams cannot
             # co-batch with other requests — they ARE the batch rows) and
             # serialize on the model lock like the non-batcher path; the
@@ -1048,8 +1509,25 @@ class DistributedValidator:
             out_ids = seqs[0]
         elif job.batcher is not None:
             # concurrent requests coalesce into one batched decode
-            # (ml/batching.py); the batcher demuxes this request's tokens
-            out_ids = job.batcher.generate(
+            # (ml/batching.py); the batcher demuxes this request's tokens.
+            # A fleet-hosted model routes through the FleetRouter first:
+            # same generate contract, placement scored per request
+            # (prefix-cache affinity + per-class load), replica failure
+            # failing over before the first token (docs/SERVING.md
+            # "Fleet serving")
+            gen = (
+                job.router.dispatch if job.router is not None
+                else job.batcher.generate
+            )
+            kw: dict = {}
+            if job.router is not None:
+                # journal the replica actually chosen (the admit record
+                # could only say "router") so replayed routed-counts seed
+                # the recovered router's real per-replica counters
+                kw["on_route"] = lambda rid: self._journal_rec(
+                    "place", {"jrid": jrid, "rid": rid}
+                )
+            out_ids = gen(
                 ids,
                 jrid=jrid,
                 max_new_tokens=args["max_new_tokens"],
@@ -1066,6 +1544,7 @@ class DistributedValidator:
                 # per-request opt-out of the disaggregated prefill→decode
                 # handoff ({"handoff": false}; default opted in)
                 handoff=bool(getattr(req, "handoff", True)),
+                **kw,
             )
         else:
             with job.lock:  # serialize per-model generation
@@ -1145,18 +1624,344 @@ class DistributedValidator:
             out["num_beams_used"] = int(beams_used)  # worker clamped
         return out
 
+    def _reattach_api(self, job, rjid: str, ids, args, req, *,
+                      stream_cb, trace_id: str):
+        """Serve a ``{"reattach": jrid}`` request: rung 1 of the client
+        re-attach ladder over REST. The journaled admission supplies the
+        decode seed and (fleet) the replica placement; the worker rebinds
+        its still-live slot or replays its finished-orphan buffer, and a
+        miss falls through to a plain re-prefill generate — every rung
+        returns the COMPLETE stream from token 0, so the client replaces
+        its partial pre-crash text (exactly-once by replacement)."""
+        from tensorlink_tpu_torch.core.journal import ControlJournal
+
+        seed = 0
+        placement = ""
+        if self.journal is not None:
+            try:
+                adm = ControlJournal.replay(
+                    self.journal.path
+                ).admissions.get(rjid)
+                if adm is not None:
+                    if adm.get("seed") is not None:
+                        seed = int(adm["seed"])
+                    placement = str(adm["data"].get("placement", "") or "")
+            except Exception as e:
+                self.log.debug("journal lookup for re-attach failed: %s", e)
+        model = job.model
+        for rep in job.replicas or []:
+            if placement and rep.get("rid") == placement:
+                model = rep["model"]
+                break
+        return model.reattach_continuous(
+            rjid,
+            prompt=ids,
+            delivered=[],
+            max_new_tokens=args["max_new_tokens"],
+            temperature=args["temperature"],
+            top_k=args["top_k"],
+            top_p=args["top_p"],
+            presence_penalty=args["presence_penalty"],
+            frequency_penalty=args["frequency_penalty"],
+            eos_ids=job.tokenizer.eos_ids,
+            seed=seed,
+            stream_cb=stream_cb,
+            priority=getattr(req, "priority", None) or None,
+            trace_id=trace_id,
+        )
+
     # ------------------------------------------------------------------
-    # fleet serving — the /fleet routes; fleets wait for ROADMAP queue 1
-    # item 7, so every hosted model is a single replica
+    # fleet serving (tensorlink_tpu_torch/fleet, docs/SERVING.md "Fleet
+    # serving") — the /fleet route's view + the rolling-deploy verb
     # ------------------------------------------------------------------
     def fleet_snapshot(self) -> dict:
-        """Per-model fleet state for ``GET /fleet``: empty, since no
-        model is hosted as a fleet."""
-        return {}
+        """Per-model fleet state for ``GET /fleet``: router telemetry
+        (per-replica routed counts, health, headroom) and the autopilot's
+        status/history when one runs."""
+        with self._host_lock:
+            jobs = list(self.hosted.values())
+        out = {}
+        for j in jobs:
+            if j.router is None:
+                continue
+            out[j.name] = {
+                "replicas": len(j.replicas),
+                "router": j.router.snapshot(),
+                "autopilot": (
+                    j.autopilot.status() if j.autopilot is not None else None
+                ),
+            }
+        return out
 
     def fleet_deploy(self, model: str, replicas: list | None = None) -> dict:
-        """``POST /fleet/deploy``: a rolling deploy needs a fleet."""
-        return {"ok": False, "error": f"no fleet hosted for {model!r}"}
+        """Operator trigger for a zero-dropped-token rolling deploy
+        (``POST /fleet/deploy``): each named replica (default all) in
+        turn drains onto a sibling, rebuilds, rejoins. Requires a fleet;
+        an autopilot is started on demand when none is running."""
+        # under the host lock: a deploy racing unhost_model must either
+        # see the job gone, or install the autopilot BEFORE unhost pops
+        # the job — so unhost's stop() always finds and kills it (no
+        # orphan control thread issuing verbs against released workers)
+        with self._host_lock:
+            job = self.hosted.get(model)
+            if job is None or job.router is None:
+                return {
+                    "ok": False, "error": f"no fleet hosted for {model!r}"
+                }
+            if job.autopilot is None:
+                self._start_autopilot(job)
+            autopilot = job.autopilot
+        queued = autopilot.request_deploy(replicas)
+        return {"ok": True, "queued": queued}
+
+
+def _attach_addr(rep: dict | None, wid: str) -> list:
+    """``[host, port]`` of ``wid`` from a replica's journaled attach
+    payload (the create_job worker map), ``[]`` when unknown — used to
+    make migration tickets self-contained for crash recovery."""
+    if not rep or not wid:
+        return []
+    addr = ((rep.get("attach") or {}).get("workers") or {}).get(wid)
+    return list(addr) if addr else []
+
+
+class ValidatorFleetActions:
+    """FleetAutopilot actions over REMOTE replicas — every verb rides
+    the existing wire machinery, so moved streams stay bit-identical by
+    the migration contract:
+
+    - ``drain``/``drain_step``: the validator's DRAIN verb sheds the
+      replica's entry worker (page-ship, re-prefill fallback, zero
+      dropped streams); in-flight client requests follow the migration
+      redirects transparently (ml/module.py).
+    - ``rehost``: the rolling deploy's upgrade — shut the replica's job
+      down, re-plan/recruit a fresh one (the drained worker sits fenced
+      until its operator restarts it, which IS the binary-upgrade
+      window), return the new batcher for the router to re-register.
+    - ``rebalance``: declined (returns 0). The wire moves streams at
+      WORKER granularity only — a per-stream rebalance would drain the
+      whole replica, which is the deploy verb's job, not a load tweak.
+      (The in-process :class:`~tensorlink_tpu_torch.fleet.autopilot.
+      EngineFleetActions` does per-stream moves.)
+    - ``scale_decode``: re-push the handoff pool to every
+      replica's entry worker with one more / one fewer decode-role
+      worker.
+    - ``publish_weights``: declined (returns False). A live weight
+      hot-swap needs the engine in-process (docs/TRAINING.md); a remote
+      replica picks a new model version up through the rolling-deploy
+      path (rehost reloads the checkpoint), which the autopilot records
+      per replica so the operator sees exactly who is on what.
+    """
+
+    def __init__(self, validator: DistributedValidator, job: HostedJob):
+        self.validator = validator
+        self.job = job
+        self.log = validator.log
+        self._decode_pool_n: int | None = None
+        # replicas whose wire DRAIN completed: the serving snapshot only
+        # refreshes on GENERATE_RESP traffic, and a drained (fenced)
+        # replica receives none — judging "drained" from the stale
+        # snapshot would loop the deploy forever
+        self._drained: set[str] = set()
+
+    def _job_live(self) -> bool:
+        """The job is still THE hosted job for its model. unhost_model's
+        autopilot.stop() only joins 10s while wire verbs run minutes —
+        an in-flight tick that outlives the unhost must not keep acting
+        (a post-unhost rehost would recruit workers nothing ever
+        releases)."""
+        return self.validator.hosted.get(self.job.name) is self.job
+
+    def _rep(self, rid: str) -> dict | None:
+        for rep in self.job.replicas:
+            if rep["rid"] == rid:
+                return rep
+        return None
+
+    def live_work(self, rid: str) -> int:
+        rep = self._rep(rid)
+        if rep is None:
+            return 0
+        snap = rep["batcher"].router_snapshot()
+        live = max(
+            int(snap.get("max_slots") or 0) - int(snap.get("slots_free") or 0),
+            0,
+        )
+        return live + sum(
+            int(v) for v in (snap.get("queue_depth") or {}).values()
+        )
+
+    def movable_streams(self, rid: str) -> int:
+        return self.live_work(rid)
+
+    def rebalance(self, src: str, dst: str, max_streams: int = 1) -> int:
+        self.log.debug(
+            "fleet rebalance %s→%s declined: remote replicas move at "
+            "worker granularity (use the deploy/drain verb)", src, dst,
+        )
+        return 0
+
+    def drain(self, rid: str) -> None:
+        rep = self._rep(rid)
+        if rep is None or not self._job_live():
+            return
+        wid = self.validator._replica_entry_worker(rep)
+        if not wid:
+            return
+        # primary path: drain onto a SIBLING replica's entry worker (it
+        # already hosts the model — no stage ship, prefix probes hit).
+        # When no sibling runs on a different worker the verb goes out
+        # dest-less: the net layer picks most-free, and the worker's own
+        # REPLICA_SET fallback backstops a validator with no candidates.
+        dest, dest_rep = next(
+            (
+                (w, r2) for r2 in self.job.replicas
+                if r2 is not rep
+                and (w := self.validator._replica_entry_worker(r2))
+                and w != wid
+            ),
+            (None, None),
+        )
+        req = {"worker": wid}
+        if dest:
+            req["dest"] = dest
+        # write-ahead migration ticket: a validator that dies while this
+        # drain is in flight leaves an OPEN "mig" intent in the journal;
+        # recovery expires the staged pages at both endpoints
+        # deterministically (no half-staged tickets leak), then aborts it.
+        # The endpoint ADDRESSES ride the ticket: the recovered validator
+        # re-dials only the plan workers, and the drain destination is
+        # outside the source plan by construction — without its address
+        # the expiry could never reach the staged pages.
+        iid = self.validator._jintent("mig", {
+            "name": self.job.name, "rid": rid, "src": wid,
+            "dest": dest or "", "job_id": rep["job_id"],
+            "src_addr": _attach_addr(rep, wid),
+            "dest_addr": _attach_addr(dest_rep, dest or ""),
+        })
+        try:
+            summary = self.validator.bridge.request(
+                "drain_worker", req, timeout=600.0,
+            )
+        except Exception as e:
+            self.validator._jabort(iid, {"error": str(e)[:200]})
+            raise
+        if isinstance(summary, dict) and summary.get("ok"):
+            self._drained.add(rid)
+            self.validator._jcommit(iid, {"ok": True})
+        else:
+            self.validator._jabort(iid, {"summary": str(summary)[:200]})
+        self.log.info(
+            "autopilot drain of replica %s (worker %s → %s): %s",
+            rid, wid[:8], (dest or "auto")[:8], summary,
+        )
+
+    def undrain(self, rid: str) -> None:
+        # the DRAIN verb is synchronous and terminal for the worker (it
+        # stays capacity-fenced for its upgrade); nothing to lower here
+        return
+
+    def drain_step(self, src: str, dst: str, max_streams: int = 4) -> int:
+        # a COMPLETED wire drain moved everything synchronously —
+        # in-flight client requests finish through their migration
+        # redirects regardless, and the stale snapshot must not gate the
+        # deploy (it stops refreshing the moment the replica is fenced)
+        if src in self._drained:
+            return 0
+        return self.live_work(src)
+
+    def rehost(self, rid: str):
+        """Rebuild the replica on current capacity; returns the new
+        batcher (the autopilot re-registers it under the same rid)."""
+        if not self._job_live():
+            raise RuntimeError(
+                f"{self.job.name} was unhosted mid-deploy — refusing to "
+                "recruit workers for a released job"
+            )
+        rep = self._rep(rid)
+        if rep is None:
+            return None
+        old_batcher, old_model = rep["batcher"], rep["model"]
+        model, batcher, jid, attach = self.validator._build_replica(
+            self.job, dict(rep["spec"]), self.job.cfg,
+            batch=rep.get("batch", 1), seed=rep.get("seed", 0),
+        )
+        self.validator._journal_rec(
+            "replica_down", {"name": self.job.name, "rid": rid}, flush=True,
+        )
+        rep.update({
+            "model": model, "batcher": batcher, "job_id": jid,
+            "attach": attach,
+        })
+        self.validator._journal_replica(self.job, rep)
+        self._drained.discard(rid)  # the rebuilt replica serves again
+        if rep is self.job.replicas[0]:
+            self.job.model, self.job.batcher = model, batcher
+        try:
+            old_batcher.close()
+        except Exception:
+            self.log.exception("old replica %s batcher close failed", rid)
+        try:
+            # shutdown ALWAYS runs — a wedged batcher close must not
+            # leave the old replica's recruited workers reserved forever
+            # (the same invariant unhost_model keeps)
+            old_model.shutdown()
+        except Exception:
+            self.log.exception("old replica %s teardown failed", rid)
+        self.validator._push_replica_sets(self.job)
+        return batcher
+
+    def publish_weights(self, rid: str, params, version: int) -> bool:
+        """Declined — see the class docstring: remote replicas take the
+        rolling-deploy path for model updates."""
+        self.log.info(
+            "fleet weight publish v%s declined for remote replica %s "
+            "(rolling-deploy path)", version, rid,
+        )
+        return False
+
+    def scale_decode(self, up: bool) -> bool:
+        if not self._job_live():
+            return False
+        stats = self.validator.bridge.request(
+            "stats_workers", timeout=15.0
+        )
+        decode = [
+            s for s in stats
+            if str(s.get("serving_role") or "mixed") == "decode"
+            and s.get("addr")
+        ]
+        if not decode:
+            return False
+        cur = (
+            self._decode_pool_n
+            if self._decode_pool_n is not None else len(decode)
+        )
+        target = max(1, min(len(decode), cur + (1 if up else -1)))
+        if target == cur and self._decode_pool_n is not None:
+            return False
+        pool = [
+            {"id": s["id"], "addr": list(s["addr"])}
+            for s in decode[:target]
+        ]
+        pushed = False
+        for rep in self.job.replicas:
+            wid = self.validator._replica_entry_worker(rep)
+            if not wid:
+                continue
+            try:
+                self.validator.bridge.request(
+                    "set_handoff_pool", {"worker": wid, "pool": pool},
+                    timeout=10.0,
+                )
+                pushed = True
+            except Exception as e:
+                self.log.warning(
+                    "handoff-pool push to %s failed: %s", wid[:8], e
+                )
+        if pushed:
+            self._decode_pool_n = target
+        return pushed
 
 
 class ModelNotReady(RuntimeError):

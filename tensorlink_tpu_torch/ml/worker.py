@@ -25,11 +25,20 @@ serves and trains whole-model jobs:
   of params and optimizer state per stage, the JAX package's layout),
   PARAMS_REQ and TRAIN_MODE.
 
-Decode sessions and worker-to-worker chains, pipeline stages, live
-migration and the disaggregated prefill→decode handoff wait for later
-slices of the port: their verbs raise ``NotImplementedError`` naming
-their ROADMAP item, and the run loop's error reply carries that message
-to the peer.
+- fleet serving and live migration: DRAIN (fence admissions, ship every
+  steady decode slot's KV pages to the destination worker and redirect
+  the rest for a re-prefill there), MIGRATE (the destination's probe,
+  put, prefix pull and ticket expiry), HANDOFF (the decode pool a
+  prefill-role worker ships each completed prefill to) and REPLICA_SET
+  (the sibling replicas a destination-less DRAIN falls back to);
+- stream re-attach: a GENERATE carrying ``reattach`` rebinds a live
+  stream to the new peer, or replays a finished one from the orphan
+  ledger.
+
+Decode sessions and worker-to-worker chains and pipeline stages wait for
+a later slice of the port: their verbs raise ``NotImplementedError``
+naming their ROADMAP item, and the run loop's error reply carries that
+message to the peer.
 """
 
 from __future__ import annotations
@@ -46,15 +55,6 @@ from tensorlink_tpu_torch import unported
 from tensorlink_tpu_torch.core.faults import FaultCrash, FaultPlan
 from tensorlink_tpu_torch.core.logging import get_logger
 from tensorlink_tpu_torch.p2p import protocol as proto
-
-# verbs of the JAX worker that later slices port, with their ROADMAP
-# queue 1 item
-_UNPORTED = {
-    proto.DRAIN: ("worker drain and live migration", 7),
-    proto.MIGRATE: ("live slot migration", 7),
-    proto.HANDOFF: ("the prefill→decode handoff", 7),
-    proto.REPLICA_SET: ("fleet replica sets", 7),
-}
 
 
 @dataclass
@@ -123,6 +123,39 @@ class DistributedWorker:
         self.device = resolve_device(node.config.ml.device)
         self.jobs: dict[str, StageRuntime] = {}
         self._lock = threading.Lock()
+        # drain state (live slot migration): set to the DRAIN verb's
+        # destination {"id", "addr"} — new continuous requests are
+        # redirected there instead of admitted, and the recruiting
+        # capacity is zeroed. None = serving normally.
+        self.draining: dict | None = None
+        # disaggregated prefill/decode (docs/SERVING.md): the decode-pool
+        # memberships a prefill-role worker hands completed prefills to —
+        # pushed by the validator (HANDOFF frames). Keyed PER JOB (the
+        # recruit-time push names the job it was planned for — a job
+        # recruited before any decode worker existed must NOT start
+        # shipping its streams to another job's pool), with "" as the
+        # worker-wide fallback an operator's set_handoff_pool installs.
+        # Empty = no handoffs (mixed-style serving even under
+        # worker_role="prefill").
+        self._handoff_pools: dict[str, list[dict]] = {}
+        self._handoff_rr = 0  # round-robin cursor over the pool
+        # fleet serving (docs/SERVING.md "Fleet serving"): the sibling-
+        # replica memberships pushed by the validator (REPLICA_SET
+        # frames, keyed by this worker's job id) — the destination a
+        # DRAIN with no explicit dest falls back to, so a rolling-deploy
+        # drain lands on a replica that already serves the same model
+        self._replica_sets: dict[str, list[dict]] = {}
+        # destinations already probed loaded/ready per job — skips the
+        # per-handoff MODULE-ship round trip on the steady-state path;
+        # invalidated on any ship failure so a restarted destination is
+        # re-prepared instead of redirected into blind
+        self._handoff_dest_ready: set[tuple[str, str]] = set()
+        # (job, dest) prepares currently in flight (the warm-up thread or
+        # the run loop): a second prepare for the same key must neither
+        # block nor double-ship — a duplicate MODULE load REPLACES the
+        # destination's runtime, killing any stream adopted in between
+        self._handoff_preparing: set[tuple[str, str]] = set()
+        self._handoff_prep_lock = threading.Lock()
         # shared multi-tenant KV page pools (engine/paged.py::
         # SharedPagePool), keyed by page geometry — created lazily at the
         # first continuous engine when MLConfig.cont_pool_pages > 0 and
@@ -227,8 +260,14 @@ class DistributedWorker:
             self._params_req(p)
         elif kind == proto.TRAIN_MODE:
             self._train_mode(p)
-        elif kind in _UNPORTED:
-            raise unported(*_UNPORTED[kind])
+        elif kind == proto.DRAIN:
+            self._drain(p)
+        elif kind == proto.MIGRATE:
+            self._migrate_in(p)
+        elif kind == proto.HANDOFF:
+            self._set_handoff_pool(p)
+        elif kind == proto.REPLICA_SET:
+            self._set_replica_set(p)
         elif kind == "shutdown_job":
             self.shutdown_job(p.get("job_id", ""))
         elif kind == "token":
@@ -241,6 +280,14 @@ class DistributedWorker:
         fast, and release a shared page pool it leaves empty."""
         with self._lock:
             rt = self.jobs.pop(job_id, None)
+        # the job's handoff state goes with it: its decode-pool list and
+        # per-destination readiness would otherwise pin the dead job id
+        self._handoff_pools.pop(job_id, None)
+        self._replica_sets.pop(job_id, None)
+        with self._handoff_prep_lock:  # vs the warm thread's add
+            self._handoff_dest_ready = {
+                k for k in self._handoff_dest_ready if k[0] != job_id
+            }
         if rt is not None and rt.cont is not None:
             rt.cont.close(RuntimeError("job shut down"))
             rt.cont = None
@@ -582,13 +629,30 @@ class DistributedWorker:
             or p.get("lookahead")
         ):
             return False
-        if p.get("reattach"):
-            raise unported("stream re-attach", 7)
+        if self.draining is not None:
+            # admission fence: this worker is shedding its slots — redirect
+            # the request to the drain destination (the client re-issues
+            # there; an empty tokens_so_far means a plain resubmission)
+            self._respond_migrated(
+                rt.cont,
+                {"peer": p["peer"], "rid": p["rid"],
+                 "stream": p.get("stream"),
+                 "trace": str(p.get("trace") or "")},
+                self.draining, None, [],
+            )
+            return True
         cont = self._ensure_cont(rt)
         if cont is None:
             return False
         tid = str(p.get("trace") or "")
         jrid = str(p.get("jrid") or "")
+        want = str(p.get("reattach") or "")
+        if want and self._reattach_continuous(rt, cont, p, want):
+            return True
+        # a re-attach MISS falls through here on purpose: the request body
+        # already carries prompt+delivered and start_step, so plain
+        # admission below IS the re-prefill resume rung (bit-identical by
+        # the fold_in sampling contract) — no extra round trip
         t, k, tp, pp, fp = knobs
         sampling = SamplingParams.make(
             temperature=float(t), top_k=int(k), top_p=float(tp),
@@ -611,11 +675,27 @@ class DistributedWorker:
             priority=p.get("priority"),
             stream_cb=stream_cb if stream_id else None,
             on_finish=on_finish,
+            # resume-after-migration: bind the staged KV pages instead of
+            # re-prefilling (engine falls back when the ticket is stale)
+            adopt=p.get("adopt") or None,
             trace_id=tid,
             # draft/verify opt-in (no-op unless this engine's spec_decode
             # is on; streams bit-identical either way)
             speculative=bool(p.get("speculative", False)),
+            # disaggregated prefill/decode: on a prefill-pool worker with
+            # a live decode pool, this admission freezes at its
+            # prefill→decode boundary and _run_handoffs ships it —
+            # unless the request opted out ({"handoff": false}) or is
+            # itself a migration resume (adopt) bouncing through
+            handoff=bool(
+                self._handoff_pool_for(rt.job_id)
+                and p.get("handoff", True) is not False
+                and not p.get("adopt")
+            ),
         )
+        # transport context for live migration: a drain must redirect this
+        # stream mid-flight, which needs the original peer/rid/stream —
+        # the on_finish/stream closures are opaque, this is not
         req.client_meta = {
             "peer": peer, "rid": p["rid"], "stream": stream_id,
             "trace": tid, "jrid": jrid,
@@ -625,15 +705,21 @@ class DistributedWorker:
         self._schedule_cont(rt)
         return True
 
-    def _cont_channels(self, rt: StageRuntime, cont, *, peer, rid,
-                       stream_id, tid, jrid=""):
-        """The (stream_cb, on_finish) transport closures of a continuous
-        stream: one TOKEN frame per token, cancel polls once per chunk, and
-        the final GENERATE_RESP carrying the engine's serving snapshot and
-        the request's spans."""
+    def _cont_channels(self, rt: "StageRuntime", cont, *, peer, rid,
+                       stream_id, tid, jrid="", resume_base=None):
+        """Build the (stream_cb, on_finish) transport-closure pair for a
+        continuous stream. Shared by first admission and by the re-attach
+        rebinding so both transports behave identically — the only
+        difference is ``resume_base``: set on a re-attach, the final
+        response carries {"reattached": True, "resume_base": base} so the
+        client merges sequences (this-submission tokens) onto its
+        delivered[:base] prefix exactly-once."""
         state = {"n": 0}
 
         def stream_cb(tok: int):
+            # fire-and-forget per token; cancel frames (confirmed stop
+            # matches) poll once per chunk — overrun bounded like the
+            # compiled chunked stream
             self.bridge.notify(
                 "send_token",
                 {"peer": peer, "stream": stream_id, "tokens": [[0, int(tok)]]},
@@ -666,6 +752,9 @@ class DistributedWorker:
             if jrid:
                 rt.jstreams.pop(jrid, None)
                 if req.error is None:
+                    # the GENERATE_RESP below may be going to a dead
+                    # validator — keep the result in the bounded orphan
+                    # ledger so a re-attach can still drain it
                     self._stash_orphan(rt, jrid, req)
             if req.error is not None:
                 try:
@@ -675,8 +764,10 @@ class DistributedWorker:
                          "worker": self.node.node_id},
                     )
                 except Exception as e:
-                    # the requester is gone: an undeliverable reply must
-                    # not reach step_chunk and close the ENGINE
+                    # the requester is gone — an undeliverable error reply
+                    # must not propagate into step_chunk and error the
+                    # ENGINE (closing it evicts every other live stream
+                    # that is decoding through the validator outage)
                     self.log.warning(
                         "error response for %s undeliverable: %s", rid, e)
                 return
@@ -684,17 +775,29 @@ class DistributedWorker:
                 "sequences": [list(map(int, req.tokens))],
                 "finished": [bool(req.finished)],
                 "continuous": True,
-                # engine occupancy + counters ride every response, so the
-                # validator's /stats needs no polling RPC
+                # engine occupancy + prefix-cache counters ride every
+                # response so the validator's /stats can surface them
+                # without a dedicated polling RPC
                 "serving": cont.serving_snapshot(),
             }
+            if resume_base is not None:
+                body["reattached"] = True
+                body["resume_base"] = int(resume_base)
             if tid:
+                # this worker's spans for the request ride home the same
+                # way — the validator ingests them so /trace stitches a
+                # request's hops without any polling RPC
                 body["trace"] = {
                     "id": tid, "spans": cont.tracer.collect(tid),
                 }
             try:
                 self._respond(peer, proto.GENERATE_RESP, rid, body)
             except Exception as e:
+                # dead validator (the crash-safety orphan path): the
+                # result is already stashed in the orphan ledger above —
+                # letting this propagate would error the ENGINE via
+                # step_chunk and evict every OTHER stream still decoding
+                # through the outage
                 self.log.warning(
                     "final response for %s undeliverable (orphan %s kept): %s",
                     rid, jrid or "-", e)
@@ -738,6 +841,82 @@ class DistributedWorker:
             })
         return out
 
+    def _reattach_continuous(self, rt: "StageRuntime", cont, p: dict,
+                             jrid: str) -> bool:
+        """Worker half of the re-attach ladder. Returns True when handled:
+        a LIVE orphaned stream is rebound to the new peer/rid/stream (its
+        backlog past the client's high-water mark topped up atomically —
+        this runs on the same serial ML thread as decode chunks), or a
+        FINISHED orphan is replayed from the ledger. False = miss; the
+        caller falls through to plain admission (re-prefill resume)."""
+        peer, rid = p["peer"], p["rid"]
+        stream_id = p.get("stream")
+        tid = str(p.get("trace") or "")
+        hwm = int(p.get("hwm", 0))
+        req = rt.jstreams.get(jrid)
+        if req is not None and not req.finished:
+            base = int(req.start_step)
+            stream_cb, on_finish = self._cont_channels(
+                rt, cont, peer=peer, rid=rid, stream_id=stream_id,
+                tid=tid, jrid=jrid, resume_base=base,
+            )
+            req.client_meta = {
+                "peer": peer, "rid": rid, "stream": stream_id,
+                "trace": tid, "jrid": jrid,
+            }
+            req.stream_cb = stream_cb if stream_id else None
+            req.on_finish = on_finish
+            if stream_id:
+                # top up the fresh relay with everything the slot emitted
+                # past the client's high-water mark while orphaned
+                backlog = req.tokens[max(hwm - base, 0):]
+                if backlog:
+                    self.bridge.notify(
+                        "send_token",
+                        {"peer": peer, "stream": stream_id,
+                         "tokens": [[0, int(t)] for t in backlog]},
+                    )
+            self.log.info(
+                "reattached live stream jrid=%s (slot tokens=%d, "
+                "client hwm=%d)", jrid, len(req.tokens), hwm,
+            )
+            self._schedule_cont(rt)
+            return True
+        orphan = rt.orphans.pop(jrid, None)
+        if orphan is not None:
+            toks = [int(t) for t in orphan["tokens"]]
+            base = int(orphan["base"])
+            if stream_id:
+                try:
+                    backlog = toks[max(hwm - base, 0):]
+                    if backlog:
+                        self.bridge.notify(
+                            "send_token",
+                            {"peer": peer, "stream": stream_id,
+                             "tokens": [[0, int(t)] for t in backlog]},
+                        )
+                    self.bridge.request(
+                        "send_token",
+                        {"peer": peer, "stream": stream_id, "tokens": [],
+                         "done": True},
+                    )
+                except Exception as e:
+                    self.log.debug(
+                        "orphan replay stream push failed: %s", e
+                    )
+            self._respond(
+                peer, proto.GENERATE_RESP, rid,
+                {"sequences": [toks], "finished": [True],
+                 "continuous": True, "reattached": True,
+                 "resume_base": base, "serving": cont.serving_snapshot()},
+            )
+            self.log.info(
+                "replayed finished orphan jrid=%s (%d tokens)",
+                jrid, len(toks),
+            )
+            return True
+        return False
+
     def _ensure_cont(self, rt: StageRuntime):
         """The job's slot engine, (re)built after load_stage swapped the
         generation engine. None when the model can't serve continuous —
@@ -756,10 +935,15 @@ class DistributedWorker:
                 (rt.model_spec or {}).get("page_quota")
                 or getattr(ml, "cont_pool_quota", 0)
             )
+        role = str(getattr(ml, "worker_role", "mixed") or "mixed")
         try:
             rt.cont = cont = ContinuousEngine(
                 rt.engine,
-                worker_role=str(getattr(ml, "worker_role", "mixed") or "mixed"),
+                # disaggregated prefill/decode: a prefill-role worker's
+                # engine freezes opted-in slots at the prefill→decode
+                # boundary for _run_handoffs to ship
+                handoff_after_prefill=(role == "prefill"),
+                worker_role=role,
                 # co-hosting: jobs whose page geometry matches share ONE
                 # pool under a per-model quota; job_id keys the tenant
                 pool=pool, model_id=rt.job_id, page_quota=quota,
@@ -860,8 +1044,755 @@ class DistributedWorker:
             rt.cont = None
             self._gc_kv_pools()  # release a now-tenantless shared pool
             return
-        if more or rt.cont.has_work():
+        # steady-state prefill→decode handoff: ship every slot the chunk
+        # froze at its prefill boundary BEFORE deciding whether to
+        # requeue — a frozen slot is invisible to step_chunk's has_work,
+        # so resolving the manifest here is what keeps the engine free of
+        # parked in-transit slots between work items. Re-check has_work
+        # after: an aborted handoff resumes the slot's prefill HERE, and
+        # that revived work must requeue even when the chunk saw none.
+        self._run_handoffs(rt)
+        if more or (rt.cont is not None and rt.cont.has_work()):
             self._schedule_cont(rt)
+
+    # -- live slot migration + drain (docs/FAILURE_MODEL.md) -------------
+    # DRAIN (validator → this worker): fence admissions, then move every
+    # live continuous stream to the destination worker — KV-page shipping
+    # for steady decode slots (bit-identical resume), the crash-recovery
+    # re-prefill rung for everything else (mid-prefill slots, queued
+    # requests, and any failed export/wire/import). The client learns via
+    # a {"migrated": ...} GENERATE_RESP and re-issues at the destination;
+    # a stream is never dropped, only redirected.
+
+    # -- disaggregated prefill/decode: steady-state handoff --------------
+    # (docs/SERVING.md "Disaggregated prefill/decode") A prefill-role
+    # worker is permanently "draining" its completed prefills: every
+    # opted-in admission freezes at the prefill→decode boundary and is
+    # shipped here to a decode-pool worker through the SAME
+    # export/stage/adopt path a drain uses — but with no admission
+    # fence, no capacity zeroing, and a per-slot fallback ladder
+    # (page-ship → re-prefill redirect at the destination → resume
+    # locally) instead of a worker-wide abort. The client follows the
+    # redirect exactly like a drain redirect, except the plan keeps
+    # pointing HERE — this worker stays the admission point.
+
+    def _set_replica_set(self, p: dict) -> None:
+        """A REPLICA_SET push from the validator (mirrors the HANDOFF
+        pool push): the other replicas of the fleet this worker's job
+        belongs to, as ``[{id, addr, job_id}, ...]``. Pure wire state —
+        consulted only when a DRAIN arrives with no destination."""
+        peers = [
+            dict(e) for e in (p.get("peers") or [])
+            if e.get("id") and e.get("id") != self.node.node_id
+            and e.get("addr")
+        ]
+        job_id = str(p.get("job_id") or "")
+        self._replica_sets[job_id] = peers
+        self.log.info(
+            "replica set (%s): %d sibling(s) %s",
+            job_id[:8] or "worker-wide", len(peers),
+            [str(e["id"])[:8] for e in peers],
+        )
+
+    def _set_handoff_pool(self, p: dict) -> None:
+        """A HANDOFF push from the validator: the decode-pool membership
+        this (prefill-role) worker ships completed prefills to — scoped
+        to the named job ("" = worker-wide operator push)."""
+        pool = [
+            dict(e) for e in (p.get("pool") or [])
+            if e.get("id") and e.get("id") != self.node.node_id
+            and e.get("addr")
+        ]
+        job_id = str(p.get("job_id") or "")
+        self._handoff_pools[job_id] = pool
+        # membership changed: stale readiness could point at a departed
+        # worker, and a fresh pool deserves fresh probes — but only for
+        # the job whose pool this push names (a new job's recruit must
+        # not cost every OTHER job an inline re-probe on the run loop);
+        # the worker-wide "" push refreshes everything
+        with self._handoff_prep_lock:
+            # the lock covers every mutation of _handoff_dest_ready: the
+            # warm thread adds concurrently, and an unguarded add during
+            # this comprehension's iteration would raise "set changed
+            # size during iteration" in the control-frame handler
+            if job_id:
+                self._handoff_dest_ready = {
+                    k for k in self._handoff_dest_ready if k[0] != job_id
+                }
+            else:
+                self._handoff_dest_ready.clear()
+        self.log.info(
+            "handoff pool set (%s): %d decode worker(s) %s",
+            job_id[:8] or "worker-wide", len(pool),
+            [str(e["id"])[:8] for e in pool],
+        )
+        if pool:
+            # pre-warm OFF the run loop: a cold destination's stage ship
+            # can take minutes (MODULE timeout 120s), and paying it
+            # inside _run_handoffs would stall every co-resident
+            # stream's decode between chunks. The push arrives at
+            # recruit time — usually before any traffic — so the warm
+            # thread normally has the readiness cache populated before
+            # the first prefill completes; a handoff that races it just
+            # pays the old synchronous prepare once.
+            threading.Thread(
+                target=self._warm_handoff_dests, args=(job_id,),
+                name="handoff-warm", daemon=True,
+            ).start()
+
+    def _warm_handoff_dests(self, job_id: str) -> None:
+        """Background half of the pool push: probe/ship the job's stage
+        to every decode-pool member so the run loop's _pick_handoff_dest
+        finds them ready instead of preparing them inline. Job-scoped
+        pushes wait briefly for the runtime (HANDOFF and MODULE race at
+        recruit time); failures are dropped — the synchronous path
+        re-probes on demand and the slot falls back locally at worst."""
+        deadline = time.monotonic() + 30.0
+        while True:
+            with self._lock:
+                if job_id:
+                    rts = [self.jobs[job_id]] if job_id in self.jobs else []
+                else:
+                    rts = list(self.jobs.values())
+            if rts or time.monotonic() >= deadline:
+                break
+            time.sleep(0.25)
+        for rt in rts:
+            pool = self._handoff_pool_for(rt.job_id)
+            for dest in pool:
+                key = (rt.job_id, str(dest.get("id", "")))
+                with self._handoff_prep_lock:
+                    if key in self._handoff_dest_ready \
+                            or key in self._handoff_preparing:
+                        continue
+                    self._handoff_preparing.add(key)
+                try:
+                    ok = self._prepare_dest(rt, dest)
+                    # the job may have been shut down during the ship
+                    # (MODULE can take minutes): marking it ready now
+                    # would re-pin the dead job id shutdown_job just
+                    # purged
+                    with self._lock:
+                        alive = rt.job_id in self.jobs
+                    if ok and alive:
+                        with self._handoff_prep_lock:
+                            self._handoff_dest_ready.add(key)
+                # tlint: disable=TL005(best-effort warm-up — the handoff path re-probes on demand)
+                except Exception:
+                    pass
+                finally:
+                    with self._handoff_prep_lock:
+                        self._handoff_preparing.discard(key)
+
+    def _handoff_pool_for(self, job_id: str) -> list[dict]:
+        """The decode pool a job's completed prefills ship to: the
+        job-scoped push wins; the worker-wide operator push stands in
+        for jobs recruited without one."""
+        return (
+            self._handoff_pools.get(job_id)
+            or self._handoff_pools.get("")
+            or []
+        )
+
+    def _pick_handoff_dest(self, rt: "StageRuntime") -> dict | None:
+        """Round-robin over the job's decode pool, skipping members that
+        can't host this job right now (unreachable / refusing /
+        stage-load failure). Readiness is cached per (job, dest) so the
+        steady-state path pays one probe per handoff, not a MODULE round
+        trip."""
+        pool = self._handoff_pool_for(rt.job_id)
+        n = len(pool)
+        for j in range(n):
+            dest = pool[(self._handoff_rr + j) % n]
+            key = (rt.job_id, str(dest["id"]))
+            if key in self._handoff_dest_ready:
+                self._handoff_rr = (self._handoff_rr + j + 1) % n
+                return dest
+            with self._handoff_prep_lock:
+                if key in self._handoff_preparing:
+                    # the warm-up thread is mid-ship to this member:
+                    # waiting would stall the run loop and a second
+                    # MODULE ship would replace the destination runtime
+                    # — try the next member (or resume locally)
+                    continue
+                self._handoff_preparing.add(key)
+            try:
+                ok = self._prepare_dest(rt, dest)
+            finally:
+                with self._handoff_prep_lock:
+                    self._handoff_preparing.discard(key)
+            if ok:
+                with self._handoff_prep_lock:
+                    self._handoff_dest_ready.add(key)
+                self._handoff_rr = (self._handoff_rr + j + 1) % n
+                return dest
+        return None
+
+    def _run_handoffs(self, rt: "StageRuntime") -> None:
+        """Ship every slot the last chunk froze at its prefill→decode
+        boundary. Runs on the worker's serial run loop right after the
+        chunk, so every freeze-to-ship window is one work item — no
+        frozen slot ever parks across items."""
+        cont = rt.cont
+        if cont is None:
+            return
+        manifest = cont.handoff_manifest()
+        if not manifest:
+            return
+        for slot, req in manifest:
+            meta = req.client_meta
+            if meta is None or self.draining is not None \
+                    or not self._handoff_pool_for(rt.job_id):
+                # no transport context to redirect (in-process driver),
+                # or this worker is itself mid-drain (the drain ladder
+                # owns its slots): finish the prefill locally
+                cont.abort_handoff(slot)
+                continue
+            dest = self._pick_handoff_dest(rt)
+            if dest is None:
+                # no decode worker usable: degrade to mixed serving for
+                # this slot — one grant finishes the prompt and the
+                # stream decodes here, never dropped, never slower
+                self.log.warning(
+                    "handoff: no usable decode-pool destination; "
+                    "slot %d resumes locally", slot,
+                )
+                cont.abort_handoff(slot)
+                continue
+            committed = False
+            try:
+                if self.faults is not None:
+                    # fault site "worker.handoff": error sends the slot
+                    # down the re-prefill redirect rung; crash is the
+                    # prefill-worker-dies-mid-handoff chaos case
+                    self.faults.inject(
+                        "worker.handoff", str(meta.get("rid", ""))
+                    )
+                mig_id = self._ship_migration(rt, cont, slot, dest)
+                moved = cont.commit_handoff(slot)
+                committed = True
+                self._respond_migrated(
+                    cont, meta, dest, mig_id, moved.tokens, handoff=True
+                )
+            except FaultCrash:
+                raise  # the run loop takes the node down
+            except Exception as e:
+                # per-slot containment: ONE failed handoff must neither
+                # re-commit a torn-down slot nor abandon the rest of the
+                # manifest (the popped entries would freeze forever)
+                if committed:
+                    # the slot already committed — its pages are staged
+                    # at the destination and the redirect send was
+                    # already retried (_respond_migrated); landing here
+                    # means the client's relay is genuinely gone (peer
+                    # hung up), so there is no one left to redirect. The
+                    # staged ticket expires via the migration TTL;
+                    # nothing to roll back, but say so loudly.
+                    self.log.warning(
+                        "handoff redirect for slot %d failed post-commit "
+                        "(%s); staged ticket left to TTL expiry", slot, e,
+                    )
+                    continue
+                # drop the readiness cache so the NEXT handoff re-probes
+                # this member, and kick the warm thread so that re-probe
+                # (and a possible stage re-ship to a restarted worker)
+                # happens OFF the run loop instead of inline between a
+                # future chunk and its handoffs
+                with self._handoff_prep_lock:
+                    self._handoff_dest_ready.discard(
+                        (rt.job_id, str(dest["id"]))
+                    )
+                threading.Thread(
+                    target=self._warm_handoff_dests, args=(rt.job_id,),
+                    name="handoff-rewarm", daemon=True,
+                ).start()
+                try:
+                    self._dial_dest(dest)
+                except Exception:
+                    # the destination is UNREACHABLE, not merely refusing
+                    # the transfer: redirecting the client at it would
+                    # just bounce off a dead worker — resume locally (the
+                    # slot's prefilled state is intact; one grant
+                    # finishes the prompt)
+                    self.log.warning(
+                        "handoff of slot %d failed and destination %s is "
+                        "unreachable (%s); resuming locally",
+                        slot, str(dest.get("id", ""))[:8], e,
+                    )
+                    cont.abort_handoff(slot)
+                    continue
+                self.log.warning(
+                    "handoff of slot %d to %s failed (%s); redirecting "
+                    "for re-prefill at the destination",
+                    slot, str(dest.get("id", ""))[:8], e,
+                )
+                # the destination hosts the job and is reachable — only
+                # the transfer failed. Send this stream down the
+                # re-prefill rung: redirect FIRST, commit after — if the
+                # redirect send itself fails, the slot is still frozen
+                # and the local-resume rung below stays reachable (a
+                # commit-first ordering would tear the slot down and
+                # strand the stream against its RPC timeout). Its
+                # prefill-region pages promote into the trie at commit,
+                # so even a bounce-back re-admission here walks them for
+                # free.
+                try:
+                    self._respond_migrated(
+                        cont, meta, dest, None, req.tokens, handoff=True,
+                    )
+                    cont.commit_handoff(slot, fell_back=True)
+                except Exception as e2:
+                    # even the fallback redirect failed: keep the stream
+                    # serving HERE rather than stranding it frozen
+                    self.log.warning(
+                        "handoff fallback redirect for slot %d failed "
+                        "(%s); resuming locally", slot, e2,
+                    )
+                    if slot in cont.frozen_slots():
+                        cont.abort_handoff(slot)
+
+    def _drain(self, p: dict) -> None:
+        dest = dict(p.get("dest") or {})
+        if self.faults is not None:
+            # fault site "worker.drain": a worker that dies the moment it
+            # is asked to shed its slots (crash) or refuses (error)
+            self.faults.inject("worker.drain", str(dest.get("id", "")))
+        if not dest.get("id") or not dest.get("addr"):
+            # fleet fallback (docs/SERVING.md "Fleet serving"): a DRAIN
+            # with no destination drains onto a sibling replica's entry
+            # worker from the REPLICA_SET push — but _drain ships EVERY
+            # job to the one destination, so the fallback applies only
+            # when the candidate is UNAMBIGUOUS: all pushed sets agree
+            # on one sibling (a worker co-hosting two fleets must not
+            # drain model A's streams onto model B's sibling)
+            candidates = {
+                e["id"]: dict(e)
+                for peers in self._replica_sets.values()
+                for e in peers
+                if e.get("id") and e.get("id") != self.node.node_id
+                and e.get("addr")
+            }
+            if len(candidates) == 1:
+                dest = next(iter(candidates.values()))
+        if not dest.get("id") or not dest.get("addr"):
+            self._respond(
+                p["peer"], proto.DRAIN_RESP, p["rid"],
+                {"ok": False, "error": "drain needs a destination {id, addr}"},
+            )
+            return
+        if dest["id"] == self.node.node_id:
+            # a self-targeted drain would make this worker permanently
+            # redirect every request back to itself
+            self._respond(
+                p["peer"], proto.DRAIN_RESP, p["rid"],
+                {"ok": False, "error": "refusing to drain a worker onto itself"},
+            )
+            return
+        self.draining = dest
+        try:
+            # recruiting fence: advertise zero capacity so planners stop
+            # placing new stages here while the worker sheds its slots
+            self.bridge.request(
+                "set_capacity", {"hbm_bytes": 0.0}, timeout=10.0
+            )
+        except Exception as e:
+            self.log.warning("drain: capacity fence failed: %s", e)
+        summary = {"ok": True, "jobs": 0, "migrated": 0, "fell_back": 0,
+                   "aborted": 0}
+        with self._lock:
+            jobs = list(self.jobs.items())
+        for _job_id, rt in jobs:
+            if rt.cont is None:
+                continue
+            summary["jobs"] += 1
+            self._drain_engine(rt, dest, summary)
+        if summary["aborted"]:
+            # a job the destination can't host keeps serving HERE:
+            # redirecting its streams into a jobless worker would drop
+            # them. Lower the worker fence and restore the recruiting
+            # capacity — the drain failed, loudly, with nothing lost.
+            self.draining = None
+            try:
+                self.bridge.request(
+                    "set_capacity", self.capacity(), timeout=30.0
+                )
+            except Exception as e:
+                self.log.warning("drain abort: capacity restore failed: %s", e)
+            summary["ok"] = False
+            summary["error"] = (
+                "destination could not host every job; drain aborted for "
+                f"{summary['aborted']} job(s), streams kept serving locally"
+            )
+        self.log.info(
+            "drained to %s: %d migrated, %d fell back, %d aborted",
+            str(dest.get("id", ""))[:8], summary["migrated"],
+            summary["fell_back"], summary["aborted"],
+        )
+        self._respond(p["peer"], proto.DRAIN_RESP, p["rid"], summary)
+
+    def _drain_engine(self, rt: "StageRuntime", dest: dict,
+                      summary: dict) -> None:
+        """Shed one job's slot engine. Runs on the worker's serial run
+        loop, so every freeze happens at a chunk boundary by
+        construction."""
+        cont = rt.cont
+        cont.begin_drain()
+        if not self._prepare_dest(rt, dest):
+            # the destination can't host this job (unreachable, refuses,
+            # stage load failed): redirecting streams there would strand
+            # them against a jobless worker. Abort THIS job's drain —
+            # nothing was shed yet, so lowering the fence resumes serving
+            # exactly where it stood.
+            cont.end_drain()
+            summary["aborted"] += 1
+            return
+        manifest = cont.live_manifest()
+        queued = cont.shed_queued()
+        for kind, slot, req in manifest:
+            meta = req.client_meta
+            if meta is None:
+                # no transport context (in-process driver): nothing to
+                # redirect — the slot finishes locally under the fence
+                continue
+            if kind == "decode":
+                try:
+                    if self.faults is not None:
+                        self.faults.inject(
+                            "migrate.export", str(meta.get("rid", ""))
+                        )
+                    cont.freeze_slot(slot)
+                    mig_id = self._ship_migration(rt, cont, slot, dest)
+                    moved = cont.commit_migration(slot)
+                    self._respond_migrated(
+                        cont, meta, dest, mig_id, moved.tokens
+                    )
+                    summary["migrated"] += 1
+                    continue
+                except FaultCrash:
+                    raise  # the run loop takes the node down
+                except Exception as e:
+                    self.log.warning(
+                        "migration of slot %d failed (%s); falling back "
+                        "to re-prefill on the destination", slot, e,
+                    )
+            # fallback ladder: mid-prefill slot, or a failed
+            # export/wire/import — redirect for re-prefill resume (the
+            # destination hosts the job; only the page transfer failed)
+            if slot in cont.frozen_slots():
+                moved = cont.commit_migration(slot, fell_back=True)
+            else:
+                moved = cont.shed_slot(slot)
+            self._respond_migrated(
+                cont, meta, dest, None, (moved or req).tokens
+            )
+            summary["fell_back"] += 1
+        for req in queued:
+            if req.client_meta is not None:
+                self._respond_migrated(
+                    cont, req.client_meta, dest, None, req.tokens
+                )
+            else:
+                # an in-process submitter can't be redirected: fail fast
+                # rather than strand it in a popped-from-queue limbo
+                cont.fail_queued(
+                    req, RuntimeError("worker draining; resubmit elsewhere")
+                )
+
+    def _dial_dest(self, dest: dict) -> str:
+        """Peer id of a live connection to the destination worker (the
+        network process dedupes dials by address)."""
+        return self.bridge.request(
+            "connect",
+            {"host": dest["addr"][0], "port": int(dest["addr"][1])},
+            timeout=15.0,
+        )
+
+    def _mig_request(self, peer: str, body: dict, timeout: float = 60.0):
+        return self.bridge.request(
+            "tensor_request",
+            {"peer": peer, "tag": proto.MIGRATE, "body": body,
+             "timeout": timeout},
+            timeout=timeout + 10.0,
+        )
+
+    def _prepare_dest(self, rt: "StageRuntime", dest: dict) -> bool:
+        """Make sure the destination can adopt this job's slots: probe it,
+        and ship the stage (same model spec → same seeded params → an
+        engine whose streams are bit-identical to ours) when it doesn't
+        host the job yet. False = page-shipping unavailable; every slot
+        takes the re-prefill rung instead."""
+        try:
+            peer = self._dial_dest(dest)
+            pr = self._mig_request(
+                peer,
+                {"op": "probe", "job_id": rt.job_id,
+                 "chain": np.zeros(0, np.int32), "limit": 0},
+            )
+            if not pr.get("ok"):
+                return False
+            if not pr.get("loaded"):
+                resp = self.bridge.request(
+                    "tensor_request",
+                    {"peer": peer, "tag": proto.MODULE,
+                     "body": {
+                         "job_id": rt.job_id,
+                         "model": rt.model_spec,
+                         "stage": dict(rt.stage, worker_id=dest["id"]),
+                         "training": False,
+                     },
+                     "timeout": 120.0},
+                    timeout=130.0,
+                )
+                if not resp.get("ok"):
+                    return False
+            return True
+        except Exception as e:
+            self.log.warning(
+                "drain destination %s unreachable/unready: %s",
+                str(dest.get("id", ""))[:8], e,
+            )
+            return False
+
+    def _ship_migration(self, rt: "StageRuntime", cont, slot: int,
+                        dest: dict) -> str:
+        """Probe + export + transfer one frozen slot's pages. Returns the
+        staged ticket id the client's resume request will adopt. Raises
+        on any failure — the caller falls back to re-prefill."""
+        import secrets
+
+        peer = self._dial_dest(dest)
+        chain, limit = cont.migration_chain(slot)
+        n_skip = 0
+        try:
+            pr = self._mig_request(
+                peer,
+                {"op": "probe", "job_id": rt.job_id,
+                 "chain": np.asarray(chain, np.int32), "limit": int(limit)},
+            )
+            n_skip = int(pr.get("resident_pages", 0) or 0)
+        except Exception as e:
+            self.log.debug("migration probe failed (%s); shipping all", e)
+        blob = cont.export_slot(slot, n_skip=n_skip)
+        mig_id = secrets.token_hex(8)
+        act = (
+            self.faults.inject("migrate.wire", mig_id)
+            if self.faults is not None else None
+        )
+        if act == "drop":
+            raise RuntimeError("migrate.wire: transfer dropped")
+        if isinstance(act, tuple):  # ("delay", seconds)
+            time.sleep(act[1])
+        reply = None
+        # dup really sends the staging frame twice — idempotency by
+        # mig_id is the destination's contract, chaos-tested
+        for _ in range(2 if act == "dup" else 1):
+            reply = self._mig_request(
+                peer,
+                {"op": "put", "job_id": rt.job_id, "mig": mig_id,
+                 "blob": blob},
+            )
+        if not (reply or {}).get("ok"):
+            raise RuntimeError(
+                f"destination refused migration: "
+                f"{(reply or {}).get('error', 'not ok')}"
+            )
+        return mig_id
+
+    def _respond_migrated(self, cont, meta: dict, dest: dict,
+                          mig_id: str | None, tokens, *,
+                          handoff: bool = False) -> None:
+        """Tell the waiting client its stream moved: where to re-issue,
+        which staged ticket to adopt (None = plain re-prefill resume), and
+        the authoritative emitted-so-far list (fire-and-forget stream
+        frames may have dropped — the client tops up exactly-once from
+        this). ``cont`` may be None (the admission-fence redirect fires
+        before any slot engine exists). ``handoff`` marks a steady-state
+        prefill→decode redirect: the client follows it for THIS request
+        only and keeps its plan pointed at this worker — the admission
+        point — instead of rewriting the plan like a drain redirect."""
+        tid = str(meta.get("trace") or "")
+        body = {
+            "migrated": {
+                "worker": dest["id"],
+                "addr": list(dest["addr"]),
+                "mig": mig_id,
+                "tokens_so_far": [int(t) for t in tokens],
+                "handoff": bool(handoff),
+                # the redirect carries the request's trace id (and, below,
+                # the source worker's spans): the client re-issues at the
+                # destination under the SAME id, so both halves stitch
+                "trace_id": tid or None,
+            },
+        }
+        if cont is not None:
+            body["serving"] = cont.serving_snapshot()
+            if tid:
+                body["trace"] = {"id": tid, "spans": cont.tracer.collect(tid)}
+        # the redirect IS the stream at this point — on the handoff path
+        # the slot is already torn down and its pages staged at the
+        # destination, so a transiently failed send here would strand the
+        # client against its RPC timeout (not the recovery ladder, which
+        # only catches lost-worker shapes). Absorb transient relay
+        # hiccups with short retries — handoffs only: a drain's manifest
+        # may hold many slots with hung-up clients, and serializing
+        # blocking backoffs across it would stall the run loop for the
+        # healthy streams (the drain path keeps its fail-fast shape).
+        # The client matches by rid, so a duplicate delivery is dropped
+        # as stale.
+        attempts = 3 if handoff else 1
+        for attempt in range(attempts):
+            try:
+                self._respond(
+                    meta["peer"], proto.GENERATE_RESP, meta["rid"], body
+                )
+                break
+            except Exception as e:
+                if attempt == attempts - 1:
+                    raise
+                self.log.warning(
+                    "handoff redirect send failed (attempt %d/%d): %s",
+                    attempt + 1, attempts, e,
+                )
+                time.sleep(0.25 * (attempt + 1))
+        if meta.get("stream"):
+            try:
+                # close the relay so a streaming client's drain loop
+                # unblocks immediately instead of riding out its timeout
+                self.bridge.request(
+                    "send_token",
+                    {"peer": meta["peer"], "stream": meta["stream"],
+                     "tokens": [], "done": True},
+                )
+            except Exception as e:
+                self.log.debug("migrate stream close failed: %s", e)
+
+    def _migrate_in(self, p: dict) -> None:
+        """Destination side of a migration: ``probe`` answers whether the
+        job is loaded and how many leading pages of the chain are
+        prefix-cache-resident (the exporter skips shipping those);
+        ``put`` stages the blob's pages into this engine (idempotent by
+        mig id). The staged ticket is adopted by the client's resume
+        request (``adopt`` on GENERATE)."""
+        op = p.get("op")
+        rt = self.jobs.get(p.get("job_id", ""))
+        if op in ("probe", "put") and self.draining is not None:
+            # worker-level fence: a draining worker must not adopt inbound
+            # streams — its engines are fenced, so a staged ticket here
+            # could never be adopted (the resume gets redirected away) and
+            # its pages would pin until process exit
+            self._respond(
+                p["peer"], proto.MIGRATE_RESP, p["rid"],
+                {"ok": False, "error": "destination is draining"},
+            )
+            return
+        if op == "probe":
+            loaded = rt is not None and rt.engine is not None
+            body: dict = {"ok": True, "loaded": loaded}
+            if loaded:
+                cont = self._ensure_cont(rt)
+                if cont is None or cont.drain_state != "serving":
+                    body = {"ok": False,
+                            "error": "destination cannot adopt (no slot "
+                                     "engine, or draining itself)"}
+                else:
+                    chain = [
+                        int(t)
+                        for t in np.asarray(p.get("chain", [])).reshape(-1)
+                    ]
+                    body["resident_pages"] = cont.resident_prefix_pages(
+                        chain, int(p.get("limit", 0))
+                    )
+            self._respond(p["peer"], proto.MIGRATE_RESP, p["rid"], body)
+            return
+        if op == "put":
+            if self.faults is not None:
+                # fault site "migrate.import": error refuses the staging
+                # (source falls back), crash kills the destination mid-
+                # migration — the chaos suite's kill-the-receiver case
+                self.faults.inject("migrate.import", str(p.get("mig", "")))
+            if rt is None or rt.engine is None:
+                self._respond(
+                    p["peer"], proto.MIGRATE_RESP, p["rid"],
+                    {"ok": False, "error": "job not loaded"},
+                )
+                return
+            cont = self._ensure_cont(rt)
+            if cont is None:
+                self._respond(
+                    p["peer"], proto.MIGRATE_RESP, p["rid"],
+                    {"ok": False, "error": "continuous unsupported"},
+                )
+                return
+            ok = cont.stage_migration(str(p.get("mig", "")), p["blob"])
+            self._respond(
+                p["peer"], proto.MIGRATE_RESP, p["rid"],
+                {"ok": bool(ok)} if ok else
+                {"ok": False,
+                 "error": "staging refused (mode mismatch, evicted "
+                          "prefix, bad digest, or allocator dry)"},
+            )
+            return
+        if op == "pull":
+            # fleet prefix pull (docs/SERVING.md "Tiered prefix cache"):
+            # a sibling replica on a local cache miss asks for our
+            # resident pages covering its prompt's leading chain. READ-
+            # ONLY on this side (gather, never alloc/scatter), so it is
+            # deliberately outside the draining fence above — a draining
+            # worker's cache is exactly the one worth raiding before its
+            # pages die with the drain.
+            if self.faults is not None:
+                # fault site "kvtier.fetch": error refuses the export
+                # (the puller degrades to re-prefill), crash kills this
+                # SOURCE mid-pull — the chaos suite's tiered-cache case
+                self.faults.inject(
+                    "kvtier.fetch", f"pull-src:{p.get('job_id', '')}"
+                )
+            cont = self._ensure_cont(rt) if (
+                rt is not None and rt.engine is not None
+            ) else None
+            if cont is None:
+                self._respond(
+                    p["peer"], proto.MIGRATE_RESP, p["rid"],
+                    {"ok": False, "error": "job not loaded"},
+                )
+                return
+            chain = [
+                int(t) for t in np.asarray(p.get("chain", [])).reshape(-1)
+            ]
+            blob = cont.export_prefix_pages(
+                chain, int(p.get("limit", 0)),
+                n_skip=int(p.get("n_skip", 0)),
+            )
+            # blob=None (chain fell out of both tiers since the digest
+            # was published) is ok:True with no blob — losing the race
+            # to eviction is a degrade rung, never an error
+            self._respond(
+                p["peer"], proto.MIGRATE_RESP, p["rid"],
+                {"ok": True, "blob": blob},
+            )
+            return
+        if op == "expire":
+            # a recovered source validator expiring stranded tickets
+            # deterministically at journal replay — without this, a
+            # validator restart mid-drain left staged pages pinned until
+            # the destination's TTL GC happened to fire
+            n = 0
+            if rt is not None and rt.cont is not None:
+                cont = rt.cont
+                want = str(p.get("mig", "") or "")
+                for mig_id in cont.staged_migrations():
+                    if want and mig_id != want:
+                        continue
+                    cont.drop_staged_migration(mig_id)
+                    n += 1
+                cont.check_page_conservation()
+            self._respond(
+                p["peer"], proto.MIGRATE_RESP, p["rid"],
+                {"ok": True, "expired": n},
+            )
+            return
+        raise ValueError(f"unknown migrate op {op!r}")
+
 
     # -- forward (single-stage FORWARD; training inputs for BACKWARD) ----
     def _forward(self, p: dict) -> None:

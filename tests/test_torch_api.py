@@ -9,9 +9,10 @@ vocab 258 for the byte tokenizer, 2 layers), written once by the port's
 exporter and hosted by path, plus an int8-weight copy. The same requests
 go to both: concurrent greedy ``/v1/generate``, streamed and plain
 ``/v1/chat/completions``, stop sequences, presence/frequency penalties,
-beam search, lookahead and the int8-weight host. Responses are equal in
-text, ``finish_reason`` and ``usage`` (the tiny greedy streams are
-token-equal across the packages, as in the engine tests); ``/healthz``,
+beam search, lookahead, the int8-weight host and ``{"reattach": jrid}``
+requests. Responses are equal in text, ``finish_reason`` and ``usage``
+(the tiny greedy streams are token-equal across the packages, as in the
+engine tests); ``/healthz``,
 ``/stats`` and ``/metrics`` expose the same serving modes, engine keys
 and metric families, and the port's worker engine ran its chunks.
 """
@@ -237,7 +238,10 @@ def test_int8_weight_host_equals_jax(clusters, checkpoint):
 
 def test_health_stats_and_metrics_match_jax(clusters, checkpoint):
     vs, port_worker = clusters
-    _both(clusters, _greedy(checkpoint["plain"], "fill the stats"))
+    # both hosts serve a request here, so the test needs no earlier one
+    # (under xdist an earlier test may run on another process)
+    for name in ("plain", "int8"):
+        _both(clusters, _greedy(checkpoint[name], "fill the stats"))
     health, stats, families = {}, {}, {}
     for pkg, v in vs.items():
         status, health[pkg] = _req(v.api.port, "GET", "/healthz")
@@ -269,11 +273,24 @@ def test_health_stats_and_metrics_match_jax(clusters, checkpoint):
     assert conts and all(c is not None and c.chunks > 0 for c in conts)
 
 
-def test_unported_request_answers_501_naming_its_item(clusters, checkpoint):
+def test_reattach_request_replays_or_regenerates_equal_jax(clusters,
+                                                         checkpoint):
+    """``{"reattach": jrid}`` on a live validator: the jrid of a finished
+    stream replays it from the worker's orphan ledger, and an unknown
+    jrid falls through to plain regeneration. Both answer the plain
+    greedy request's text, as the JAX cluster does."""
     vs, _ = clusters
-    status, body = _req(vs["port"].api.port, "POST", "/v1/generate",
-                        _greedy(checkpoint["plain"], "x", reattach="ab12"))
-    assert status == 501 and "ROADMAP queue 1 item 7" in body["error"], body
+    body = _greedy(checkpoint["plain"], "re-attach me")
+    plain = _both(clusters, body)
+    unknown = _both(clusters, dict(body, reattach="ab12" * 8))
+    for pkg, v in vs.items():
+        assert _answer(unknown[pkg]) == _answer(plain[pkg])
+        assert unknown[pkg]["jrid"] == "ab12" * 8
+        status, replay = _req(v.api.port, "POST", "/v1/generate",
+                              dict(body, reattach=plain[pkg]["jrid"]))
+        assert status == 200, (pkg, replay)
+        assert _answer(replay) == _answer(plain[pkg]), pkg
+        assert replay["jrid"] == plain[pkg]["jrid"]
 
 
 def test_port_network_processes_load_neither_torch_nor_jax(clusters):

@@ -12,16 +12,22 @@ the same inputs, one parametrised test per layer:
 - the API formatter and schemas give equal outputs.
 
 Then the port's own contracts: a worker with ``device=None`` refuses to
-start on a host with no card, naming the card, and every verb a later
-slice ports is answered with an error naming its ROADMAP item. Each
-training verb (fwd, bwd, opt, proof.req, ckpt, params.req, train.mode)
-sent to a bare worker holding a tiny training job is answered as the JAX
-worker answers it.
+start on a host with no card, naming the card, and a verb a later slice
+ports (a session FORWARD) is answered with an error naming its ROADMAP
+item. Each training verb (fwd, bwd, opt, proof.req, ckpt, params.req,
+train.mode) sent to a bare worker holding a tiny training job is answered
+as the JAX worker answers it. Each fleet verb (drain, mig, handoff,
+replica.set) between two bare workers wired together in process is
+answered as between two JAX workers, and the streams it moves resume at
+the destination equal to their unmoved run; a re-attach rebinds a live
+stream and replays a finished one as the JAX worker does.
 """
 
 import dataclasses
 import json
 import queue
+import threading
+import time
 import types
 
 import jax
@@ -422,8 +428,7 @@ class _Bridge:
 
 
 # tlint: disable=TL006(read-only test table — never mutated)
-_VERBS = {"drain": 7, "mig": 7, "handoff": 7, "replica.set": 7,
-          "fwd with a session": 8}
+_VERBS = {"fwd with a session": 8}
 
 
 @pytest.mark.parametrize("verb", list(_VERBS))
@@ -445,6 +450,304 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb):
     err = body["body"]["error"]
     assert err.startswith("NotImplementedError")
     assert f"ROADMAP queue 1 item {_VERBS[verb]}" in err
+
+
+# -- the fleet verbs (DRAIN, MIGRATE, HANDOFF, REPLICA_SET) ----------------
+# tlint: disable=TL006(read-only test data)
+_PROMPTS = [[7, 3, 100, 5], [9, 1, 2, 30, 7], [5, 5, 8]]
+_BUDGET = 40
+JOB_FLEET = "cd34ef56"
+
+
+class _NetBridge:
+    """One bare worker's bridge inside :class:`_Net`: replies recorded, a
+    ``tensor_request`` to a peer runs the peer's handler in process and
+    returns its reply, and ``connect`` resolves an address to a peer."""
+
+    def __init__(self, net, idx: int):
+        self.net, self.idx = net, idx
+        self.q = types.SimpleNamespace(work=queue.Queue())
+        self.sent: list = []
+
+    def request(self, verb, payload=None, timeout=None):
+        self.sent.append((verb, payload))
+        if verb == "connect":
+            return f"w{int(payload['port']) - 7000}"
+        if verb == "tensor_request":
+            return self.net.call(int(payload["peer"][1:]), payload["tag"],
+                                 payload["body"], peer=f"w{self.idx}")
+        return None
+
+    notify = request
+
+
+class _Net:
+    """Bare workers of one package wired together in process: ``wN``
+    listens on 127.0.0.1:700N, and a request to a peer runs its handler
+    synchronously, as the network process would relay it."""
+
+    def __init__(self, pkg: str, roles=("mixed", "mixed")):
+        if pkg == "port":
+            from tensorlink_tpu_torch.core import config as C
+            from tensorlink_tpu_torch.ml.worker import DistributedWorker
+
+            mls = [C.MLConfig(device="cpu", worker_role=r) for r in roles]
+        else:
+            from tensorlink_tpu.core import config as C
+            from tensorlink_tpu.ml.worker import DistributedWorker
+
+            mls = [C.MLConfig(worker_role=r) for r in roles]
+        self.workers = []
+        self._rid = 0
+        self._lock = threading.Lock()
+        for i, ml in enumerate(mls):
+            node = types.SimpleNamespace(
+                bridge=_NetBridge(self, i), node_id=f"w{i}",
+                config=C.WorkerConfig(ml=ml), crash=lambda: None)
+            self.workers.append(DistributedWorker(node))
+
+    @staticmethod
+    def dest(i: int) -> dict:
+        return {"id": f"w{i}", "addr": ["127.0.0.1", 7000 + i]}
+
+    def submit(self, i: int, tag: str, body: dict,
+               peer: str = "client") -> str:
+        """Run one work item on worker ``i``; returns its rid."""
+        with self._lock:
+            self._rid += 1
+            rid = f"rid{self._rid}"
+        kind = "load_stage" if tag == "module" else tag
+        self.workers[i]._handle(kind, {**body, "rid": rid, "peer": peer})
+        return rid
+
+    def reply(self, i: int, rid: str):
+        """The reply worker ``i`` sent for ``rid`` (None before it has)."""
+        for verb, p in list(self.workers[i].bridge.sent):
+            if verb == "respond" and p["rid"] == rid:
+                return p["body"]
+        return None
+
+    def call(self, i: int, tag: str, body: dict, peer: str = "client"):
+        """One work item and the reply it sent at once (None for a verb
+        that sends none)."""
+        return self.reply(i, self.submit(i, tag, body, peer))
+
+    def step(self, i: int, job: str, n: int = 1) -> None:
+        for _ in range(n):
+            self.workers[i]._handle("cont_continue", {"job_id": job})
+
+
+def _serving_job(net, i, ckpt, job=JOB_FLEET):
+    stage = {"worker_id": f"w{i}", "layer_lo": 0, "layer_hi": 4,
+             "first": True, "last": True, "holds_head": True,
+             "mesh_axes": {}, "coworkers": []}
+    return net.call(i, "module", {
+        "job_id": job, "stage": stage, "training": False,
+        "model": {"name": "tiny", "config": _tiny_config_json(),
+                  "ckpt": ckpt, "seed": 0}})
+
+
+def _tiny_config_json():
+    from test_torch_train_nodes import JCFG
+
+    return JCFG.to_json()
+
+
+def _gen(net, i, prompt, n, job=JOB_FLEET, **kw) -> str:
+    """Admit one continuous greedy request on worker ``i``; its rid."""
+    return net.submit(i, "gen", {"job_id": job, "prompts": [prompt],
+                                 "max_new_tokens": n, "continuous": True,
+                                 "seed": 0, **kw})
+
+
+def _wait_reply(net, i, rid, job=JOB_FLEET):
+    """Step worker ``i``'s slot engine until it has answered ``rid``."""
+    for _ in range(200):
+        r = net.reply(i, rid)
+        if r is not None:
+            return r
+        net.step(i, job)
+    raise AssertionError(f"no reply for {rid}")
+
+
+def _redirect(reply: dict) -> dict:
+    """A migration redirect without what differs run to run: the random
+    ticket id (only whether there is one) and the engine snapshot."""
+    mig = dict(reply["migrated"])
+    mig["mig"] = mig["mig"] is not None
+    return mig
+
+
+def _resume(net, prompt, n, mig: dict, job=JOB_FLEET):
+    """The client's resume at the redirect's destination: prompt +
+    emitted, the rest of the budget, the staged ticket when pages
+    shipped. Returns the whole stream."""
+    so_far = list(mig["tokens_so_far"])
+    dst = int(mig["worker"][1:])
+    body = {"start_step": len(so_far)}
+    if mig.get("mig"):
+        body["adopt"] = mig["mig"]
+    rid = _gen(net, dst, prompt + so_far, n - len(so_far), job=job, **body)
+    return so_far + list(_wait_reply(net, dst, rid, job)["sequences"][0])
+
+
+def _fleet_verb(pkg: str, verb: str, ckpt: str) -> dict:
+    """Drive one fleet verb between bare workers of ``pkg``; returns what
+    it answered and the streams it moved."""
+    if verb == "handoff":
+        net = _Net(pkg, roles=("prefill", "decode"))
+    else:
+        net = _Net(pkg)
+    assert _serving_job(net, 0, ckpt)["ok"]
+    out: dict = {}
+    if verb == "replica.set":
+        # no reply: the worker keeps the siblings a destination-less
+        # DRAIN falls back to (itself and address-less entries dropped)
+        out["push"] = net.call(0, "replica.set", {
+            "job_id": JOB_FLEET,
+            "peers": [net.dest(1), {"id": "w0", "addr": ["h", 1]},
+                      {"id": "w7"}]})
+        out["siblings"] = net.workers[0]._replica_sets
+    if verb == "handoff":
+        out["push"] = net.call(0, "handoff", {"job_id": JOB_FLEET,
+                                              "pool": [net.dest(1)]})
+        deadline = time.monotonic() + 60
+        while (JOB_FLEET, "w1") not in net.workers[0]._handoff_dest_ready:
+            assert time.monotonic() < deadline, "pool member never warmed"
+            time.sleep(0.05)
+        out["pool"] = net.workers[0]._handoff_pool_for(JOB_FLEET)
+    if verb == "mig":
+        # the destination side before it hosts the job, then after
+        out["probe_cold"] = net.call(1, "mig", {
+            "op": "probe", "job_id": JOB_FLEET,
+            "chain": np.zeros(0, np.int32), "limit": 0})
+        assert _serving_job(net, 1, ckpt)["ok"]
+    rids = [_gen(net, 0, p, _BUDGET) for p in _PROMPTS]
+    net.step(0, JOB_FLEET, 3)
+    if verb == "mig":
+        # one decoding slot shipped by hand over the MIGRATE ops
+        w0 = net.workers[0]
+        rt = w0.jobs[JOB_FLEET]
+        slot = next(s for k, s, _r in rt.cont.live_manifest() if k == "decode")
+        rt.cont.freeze_slot(slot)
+        chain, limit = rt.cont.migration_chain(slot)
+        out["probe"] = net.call(1, "mig", {
+            "op": "probe", "job_id": JOB_FLEET,
+            "chain": np.asarray(chain, np.int32), "limit": int(limit)})
+        blob = rt.cont.export_slot(slot, n_skip=0)
+        out["put"] = net.call(1, "mig", {"op": "put", "job_id": JOB_FLEET,
+                                         "mig": "t1", "blob": blob})
+        out["put_again"] = net.call(1, "mig", {
+            "op": "put", "job_id": JOB_FLEET, "mig": "t1", "blob": blob})
+        out["staged"] = list(net.workers[1].jobs[JOB_FLEET]
+                             .cont.staged_migrations())
+        out["pull"] = net.call(1, "mig", {
+            "op": "pull", "job_id": JOB_FLEET,
+            "chain": np.asarray(_PROMPTS[0], np.int32), "limit": 4})
+        out["expire"] = net.call(1, "mig", {"op": "expire",
+                                            "job_id": JOB_FLEET})
+        rt.cont.abort_migration(slot)
+        net.workers[1].draining = net.dest(0)
+        out["probe_fenced"] = net.call(1, "mig", {
+            "op": "probe", "job_id": JOB_FLEET,
+            "chain": np.zeros(0, np.int32), "limit": 0})
+        return out
+    if verb in ("drain", "replica.set"):
+        body = {} if verb == "replica.set" else {"dest": net.dest(1)}
+        out["refused_self"] = net.call(0, "drain", {"dest": net.dest(0)}) \
+            if verb == "drain" else None
+        out["summary"] = net.call(0, "drain", body)
+        out["capacity_fenced"] = [
+            p for v, p in net.workers[0].bridge.sent if v == "set_capacity"]
+        # an admission after the drain is redirected at once
+        out["fenced"] = _redirect(net.reply(0, _gen(net, 0, [1, 2, 3], 8)))
+    moved = [_wait_reply(net, 0, rid) for rid in rids]
+    out["redirects"] = [_redirect(r) for r in moved]
+    out["streams"] = [
+        _resume(net, p, _BUDGET, r["migrated"])
+        for p, r in zip(_PROMPTS, moved)
+    ]
+    for w in net.workers:
+        for rt in w.jobs.values():
+            if rt.cont is not None:
+                rt.cont.check_page_conservation()
+                out.setdefault("in_transit", []).append(
+                    rt.cont.serving_snapshot()["pages_in_transit"])
+    return out
+
+
+def _unmoved(ckpt) -> list:
+    """The streams of :data:`_PROMPTS` on one port worker, never moved."""
+    net = _Net("port")
+    assert _serving_job(net, 0, ckpt)["ok"]
+    rids = [_gen(net, 0, p, _BUDGET) for p in _PROMPTS]
+    return [list(_wait_reply(net, 0, rid)["sequences"][0]) for rid in rids]
+
+
+@pytest.mark.parametrize("verb", ["drain", "mig", "handoff", "replica.set"])
+def test_fleet_worker_verb_replies_equal_jax(verb, checkpoint):
+    """Each fleet verb between two bare workers answers as the JAX
+    worker's does, and every stream it moves resumes at the destination
+    equal to its unmoved run (and to the JAX worker's)."""
+    ckpt, _ = checkpoint
+    port = _fleet_verb("port", verb, ckpt)
+    jx = _fleet_verb("jax", verb, ckpt)
+    assert port == jx
+    if verb == "mig":
+        assert port["probe_cold"] == {"ok": True, "loaded": False}
+        assert port["put"] == port["put_again"] == {"ok": True}
+        assert port["staged"] == ["t1"] and port["expire"]["expired"] == 1
+        assert port["probe_fenced"]["ok"] is False
+        return
+    assert port["streams"] == _unmoved(ckpt)
+    assert set(port["in_transit"]) == {0}
+    if verb == "handoff":
+        assert all(r["handoff"] and r["mig"] for r in port["redirects"])
+    else:
+        s = port["summary"]
+        assert s["ok"] and s["migrated"] >= 1
+        assert s["migrated"] + s["fell_back"] == len(_PROMPTS)
+
+
+def _reattach_run(pkg: str, ckpt: str) -> dict:
+    """Two journaled streams on one bare worker lose their client: a
+    re-attach rebinds the live one (backlog past the new client's mark,
+    then the rest) and replays the finished one from the orphan ledger."""
+    net = _Net(pkg)
+    assert _serving_job(net, 0, ckpt)["ok"]
+    live = _gen(net, 0, _PROMPTS[0], _BUDGET, jrid="j-live", stream="s1")
+    done = _gen(net, 0, _PROMPTS[1], 8, jrid="j-done")
+    net.step(0, JOB_FLEET, 2)
+    out = {"done": net.reply(0, done)["sequences"]}
+    re_done = _gen(net, 0, _PROMPTS[1], 8, jrid="j-done", reattach="j-done")
+    re_live = _gen(net, 0, _PROMPTS[0], _BUDGET, jrid="j-live",
+                   reattach="j-live", hwm=5, stream="s2")
+    out["replayed"] = net.reply(0, re_done)
+    out["rebound"] = _wait_reply(net, 0, re_live)
+    out["old_client"] = net.reply(0, live)  # the dead client hears nothing
+    for k in ("replayed", "rebound"):
+        out[k] = {k2: v for k2, v in out[k].items()
+                  if k2 not in ("serving", "trace")}
+    out["s2"] = [t for v, p in net.workers[0].bridge.sent
+                 if v == "send_token" and p["stream"] == "s2"
+                 for _row, t in p["tokens"]]
+    # a miss (the ledger entry was drained) admits afresh
+    again = _gen(net, 0, _PROMPTS[1], 8, jrid="j-done", reattach="j-done")
+    out["again"] = _wait_reply(net, 0, again)["sequences"]
+    return out
+
+
+def test_reattach_rebinds_live_and_replays_finished_equal_jax(checkpoint):
+    ckpt, _ = checkpoint
+    port = _reattach_run("port", ckpt)
+    assert port == _reattach_run("jax", ckpt)
+    full = _unmoved(ckpt)[0]
+    assert port["rebound"]["reattached"] and port["rebound"]["resume_base"] == 0
+    assert port["rebound"]["sequences"] == [full]
+    assert port["s2"] == full[5:]
+    assert port["old_client"] is None
+    assert port["replayed"]["reattached"]
+    assert port["replayed"]["sequences"] == port["done"] == port["again"]
 
 
 def _verb_run(pkg: str, verb: str, ckpt: str, tmp) -> tuple:
