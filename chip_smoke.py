@@ -180,6 +180,44 @@ Phases (any failure raises and exits non-zero):
    replicas beside phase 10's one, the drain's seconds, page bytes
    shipped and their rate, and the restarted validator's time to
    re-attach: readings with the card's name and power limit, not claims.
+13. Pipeline stages and job repair (build/stages/): qwen3-0p6b at full
+   width and depth, seeded bf16, every worker on the one card. A port
+   validator (HTTP endpoint), three workers and a user; capacities
+   pinned (checked with the planner) so the planner splits the model
+   over workers 0 and 1, 14 layers each, with the tied head on stage 0
+   (the head hop); worker 2 starts too small to be planned. The
+   in-process reference is a worker's FORWARD handler holding the WHOLE
+   model (its GenerationEngine, flash off: the einsum path the stages
+   run) driven by DistributedModel's own pipelined loops — the stages'
+   ops at the stages' shapes without the wire. (1) A forward of 4 x 64
+   tokens through the worker-to-worker chain: logits per row within
+   1.6e-2 of the row's max of the in-process forward's. (2) 8 prompts,
+   32 new tokens, rows 0-3 greedy and 4-7 sampled, per-row budgets, in
+   one generate: sampled rows token-equal to the reference, greedy rows
+   to the reference and to generate_compiled, parting only where the
+   reference's top two logits lie within SPEC_TIE (logged); the hidden
+   bytes per decode step over the wire equal 2 hops x 8 rows x d_model x
+   2 bytes; num_beams 4 and lookahead token-equal to the reference
+   (lookahead also to vanilla greedy, up to a logged near-tie; beam
+   against generate_beam as a reading). (3) ContinuousBatcher(model) in
+   its pipelined mode, 2 slots, 4 requests admitted mid-flight: streams
+   equal to step 2's, up to a logged near-tie. (4) A worker.session_step
+   crash planted on worker 0 mid-stream: the slot set re-establishes on
+   worker 2 and both streams finish equal to step 2's. (6) The validator
+   hosts the model over workers 1 and 2 (two stages) and answers 2
+   greedy /v1/generate requests, each equal to the reference. (5) A
+   second cluster: a continuous stream's worker crashed at its second
+   chunk (worker.cont_step) with a spare — both greedy streams equal an
+   in-process ContinuousEngine's up to a logged near-tie, the kernels'
+   launches counted per worker (_WorkerLaunches) — and a training job
+   (2 layers at full width, f32, SGD with momentum, checkpoints every 2
+   steps) whose worker crashes at its 4th optimizer step: it rolls back
+   to the step-2 checkpoint on the spare, and every loss is within 1e-4
+   of make_train_step's over the batches it really trained. Prints
+   pipelined tokens/s beside single-stage in-process tokens/s, the
+   hidden bytes per decode step, seconds from each crash to the first
+   token after it and the training rollback's seconds: readings with
+   the card's name and power limit, not claims.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -4512,6 +4550,772 @@ def fleet_phase(node: dict | None = None) -> dict:
     return res
 
 
+STAGES_ROOT = Path(__file__).resolve().parent / "build" / "stages"
+STAGES_SEED = 0  # the pipelined and hosted models' weights
+STAGES_SEQ = 1024  # the jobs' seq_len: each session's cache room
+STAGES_FWD = (4, 64)  # rows x tokens of the forward step
+# step 2: 8 prompts, rows 0-3 greedy and 4-7 sampled, per-row budgets
+STAGES_BUDGETS = (32, 32, 24, 32, 32, 16, 32, 28)
+STAGES_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+STAGES_GEN_SEED = 7
+STAGES_BEAMS = 4
+STAGES_CONT = 4  # continuous requests, admitted mid-flight into 2 slots
+STAGES_HTTP = 2  # greedy /v1/generate requests to the hosted 2-stage model
+# the session op of stage 0's worker (stage op or head hop, counted from
+# when the plan is planted) that crashes it in step 4: mid-decode
+STAGES_CRASH_OP = 13
+STAGES_REPAIR_NEW = 64  # new tokens per continuous stream of step 5
+STAGES_TRAIN_LAYERS = 2
+STAGES_TRAIN_STEPS = 6  # the crash comes at the 4th; checkpoints every 2
+
+
+class _Reference:
+    """The stages' in-process reference: GenerationEngine holding the
+    whole model on the card over the same seeded tree, flash off (the
+    einsum attention every stage runs). Each call builds its engine over
+    those params at the pipelined ops' heights: one batch bucket of the
+    op's rows, one sequence bucket of its padded prompt length and a
+    cache of its session's length. Its decode steps are then the stages'
+    GEMMs at the stages' heights; only the prefill's head differs (the
+    engine applies it to each row's last token, the head's worker to
+    every position), so a stream may part at a near-tie."""
+
+    def __init__(self, cfg, seed: int, seq_len: int):
+        self.cfg = cfg.with_(flash_attention=False)
+        self.params = _seeded(cfg, "cuda", seed)
+        self.seq_len = seq_len
+
+    def engine(self, rows: int, T: int, new: int) -> GenerationEngine:
+        return GenerationEngine(
+            self.cfg, self.params, max_seq_len=min(self.seq_len, T + new),
+            seq_buckets=(T,), batch_buckets=(rows,), device="cuda")
+
+    def generate(self, prompts, budgets, knobs, seed: int = 0,
+                 eos=()) -> tuple:
+        """The split job's decode as ``DistributedModel.generate``
+        documents it, through the engine's prefill and decode step: each
+        draw with the key ``fold_in(PRNGKey(seed), step)`` over all rows,
+        per-row knobs, budgets capped by the cache's room, finished rows
+        re-fed their last token. Returns (streams, gaps): a greedy row's
+        gap at each draw is its top-two logit gap, a sampled row's the
+        top-two gap of its gumbel-perturbed scores times its temperature
+        (logit units)."""
+        from tensorlink_tpu_torch.engine import prng
+        from tensorlink_tpu_torch.engine.generate import _decode_step
+        from tensorlink_tpu_torch.engine.sampling import _filter, sample
+
+        n = len(prompts)
+        eng = self.engine(n, max(len(p) for p in prompts), max(budgets))
+        logits, cache, _lens, _B = eng.prefill(prompts)
+        eff = [max(min(b, eng.max_seq_len - len(p)), 0)
+               for p, b in zip(prompts, budgets)]
+        sp = SamplingParams.stack([SamplingParams.make(**k) for k in knobs],
+                                  pad_to=n).to("cuda")
+        cols = [c.reshape(-1) for c in (sp.temperature, sp.top_k, sp.top_p,
+                                        sp.presence_penalty,
+                                        sp.frequency_penalty)]
+        base = prng.PRNGKey(seed, device="cuda")
+        seqs, gaps = [[] for _ in range(n)], [[] for _ in range(n)]
+        done = np.asarray([e <= 0 for e in eff])
+        for step in range(max(eff)):
+            key = prng.fold_in(base, torch.tensor(step, device="cuda"))
+            lg = logits.float()
+            tok = sample(lg, key, sp)
+            _g, _i, masked = _filter(lg, *cols, None)
+            top = torch.topk(lg, 2, dim=-1).values
+            pert = torch.topk(prng.gumbel(key, lg.shape) + masked, 2,
+                              dim=-1).values
+            gap = torch.where(cols[0] > 0, (pert[:, 0] - pert[:, 1])
+                              * cols[0], top[:, 0] - top[:, 1])
+            tok_h, gap_h = tok.cpu().numpy(), gap.cpu().numpy()
+            for i in range(n):
+                if not done[i]:
+                    seqs[i].append(int(tok_h[i]))
+                    gaps[i].append(float(gap_h[i]))
+                done[i] |= int(tok_h[i]) in eos or len(seqs[i]) >= eff[i]
+            if done.all():
+                break
+            logits, cache = _decode_step(eng.params, tok, cache, eng.cfg)
+        return seqs, gaps
+
+
+class _BeamRecord:
+    """One beam search's frontiers, as ``engine/generate.py``'s
+    ``beam_frontier_step`` and ``_beam_topk`` see them (the engine's
+    loop and the split job's both call them): the frontier after the
+    prefill and after each step, each step's selection gap (the K-th
+    candidate's score over the next one's; for the prefill, the K-th
+    log-probability over the next) and the final pool."""
+
+    def __init__(self, K: int):
+        self.K = K
+        self.frontiers: list = []
+        self.gaps: list = []
+        self.pool: list = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        from tensorlink_tpu_torch.engine import generate as eg
+
+        real_step, real_topk = eg.beam_frontier_step, eg._beam_topk
+        K = self.K
+
+        def topk(logits, k):
+            vals, idx = real_topk(logits, k + 1)
+            if not self.gaps:
+                self.gaps.append(float(vals[0, K - 1] - vals[0, K]))
+            return vals[:, :k], idx[:, :k]
+
+        def step(beams, scores, alive, done_pool, vals, idx, *rest):
+            if not self.frontiers:
+                self.frontiers.append([list(b) for b in beams])
+            cand = sorted((scores[k] + float(vals[k, j])
+                           for k in range(K) if alive[k]
+                           for j in range(vals.shape[1])), reverse=True)
+            self.gaps.append(cand[K - 1] - cand[K] if len(cand) > K
+                             else float("inf"))
+            out = real_step(beams, scores, alive, done_pool, vals, idx, *rest)
+            if out is not None:
+                self.frontiers.append([list(b) for b in out[0]])
+            self.pool = done_pool  # the caller appends its survivors last
+            return out
+
+        eg.beam_frontier_step, eg._beam_topk = step, topk
+        try:
+            yield self
+        finally:
+            eg.beam_frontier_step, eg._beam_topk = real_step, real_topk
+
+
+def _held_beam(label, got, got_rec, want, want_rec, parted: list) -> None:
+    """Beam ``got`` equal to ``want``, or their frontiers first differ at
+    a step where the reference's selection gap is within SPEC_TIE, or
+    (equal frontiers throughout) the reference's best two finished
+    beams' normalized scores lie within it (logged)."""
+    if list(got) == list(want):
+        return
+    at = next((s for s, (f, g) in enumerate(zip(got_rec.frontiers,
+                                                want_rec.frontiers))
+               if sorted(map(tuple, f)) != sorted(map(tuple, g))), None)
+    if at is None:
+        best = sorted((s for s, _ in want_rec.pool), reverse=True)
+        at, gap = "the final pick", float(best[0] - best[1])
+    else:
+        gap = want_rec.gaps[at]
+    log(f"stages {label}: the frontiers part at step {at}, reference "
+        f"selection gap {gap:.6g}")
+    if not gap <= SPEC_TIE:
+        raise AssertionError(f"stages {label}: parts at a gap {gap} > "
+                             f"{SPEC_TIE}")
+    parted.append(dict(stream=label, at=at, gap=gap))
+
+
+def _held_stream(label, got, want, gaps, parted: list) -> None:
+    """``got`` equal to ``want``, or parted first at a token where the
+    reference's draw was a near-tie: its gap (``_Reference.generate``)
+    within SPEC_TIE (logged)."""
+    got, want = list(got), list(want)
+    if got == want:
+        return
+    at = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+              None)
+    if at is None or at >= len(gaps):
+        raise AssertionError(f"stages {label}: {len(got)} tokens against "
+                             f"{len(want)}")
+    log(f"stages {label}: parts at token {at} of {len(want)}, reference "
+        f"top-two gap {gaps[at]:.6g}")
+    if gaps[at] > SPEC_TIE:
+        raise AssertionError(f"stages {label}: parts at a gap {gaps[at]} > "
+                             f"{SPEC_TIE}")
+    parted.append(dict(stream=label, at=at, gap=gaps[at]))
+
+
+def _two_stage_caps(cfg, seq_len: int) -> tuple:
+    """Advertised bytes that make the planner split ``cfg`` (batch 1,
+    ``seq_len``) over the first two workers, half its layers each, and
+    plan nothing on a third: checked with the planner itself, and each
+    stage's recruit estimate (the job's total over its share of layers,
+    ``ml/validator.py``) within its worker's bytes."""
+    from tensorlink_tpu_torch.parallel.planner import (
+        MemoryEstimate,
+        WorkerCapacity,
+        plan_sharding,
+    )
+
+    est = MemoryEstimate.build(cfg, batch=1, seq_len=seq_len, training=False)
+    pb = 2 if cfg.dtype == torch.bfloat16 else 4
+    emb = cfg.vocab_size * cfg.d_model * pb
+    per_layer = (est.total - 2 * emb) / cfg.n_layers
+    half = cfg.n_layers / 2
+    caps = (emb + (half + 0.5) * per_layer, emb + (half + 0.25) * per_layer,
+            1e6)
+    plan = plan_sharding(cfg, [WorkerCapacity(str(i), c)
+                               for i, c in enumerate(caps)],
+                         batch=1, seq_len=seq_len)
+    got = [(s.worker_id, s.layer_lo, s.layer_hi) for s in plan.stages]
+    recruit = [est.total * (s.layer_hi - s.layer_lo) / cfg.n_layers
+               for s in plan.stages]
+    if got != [("0", 0, cfg.n_layers // 2),
+               ("1", cfg.n_layers // 2, cfg.n_layers)] or \
+            any(r > c for r, c in zip(recruit, caps)):
+        raise AssertionError(f"stages: capacities {caps} plan {got} "
+                             f"recruit {recruit}")
+    return caps
+
+
+def _stages_nodes(root: Path, n_workers: int, ml_fn, endpoint: bool):
+    """A port validator, ``n_workers`` workers on the card and a user on
+    127.0.0.1."""
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        UserConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.nodes.runners import (
+        UserNode,
+        ValidatorNode,
+        WorkerNode,
+    )
+
+    common = dict(local_test=True, log_dir=str(root / "logs"),
+                  env_file=str(root / ".env"))
+    nodes = []
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=endpoint, endpoint_port=0, monitor_interval=0.5,
+                keeper_interval=5.0, proposal_interval=0.0,
+                key_dir=str(root / "vkeys"), ml=MLConfig(),
+                **common)).start()
+            nodes.append(v)
+            seeds = [["127.0.0.1", v.port]]
+            for i in range(n_workers):
+                nodes.append(WorkerNode(WorkerConfig(
+                    seed_validators=seeds, key_dir=str(root / f"w{i}keys"),
+                    ml=ml_fn(), **common)).start())
+            nodes.append(UserNode(UserConfig(
+                seed_validators=seeds, key_dir=str(root / "ukeys"),
+                **common)).start())
+        deadline = time.monotonic() + 60
+        while len(v.status()["peers"]) < n_workers + 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("stages: the nodes never met")
+            time.sleep(0.1)
+    except BaseException:
+        _stop_nodes(nodes)
+        raise
+    return nodes[0], nodes[1:-1], nodes[-1]
+
+
+def _stop_nodes(nodes) -> None:
+    """Stop every node at once: a crashed worker's network process takes
+    its full join timeout."""
+    def one(n):
+        try:
+            n.stop()
+        except Exception as e:  # noqa: BLE001 — a crashed node's teardown
+            log(f"stages: stopping a node: {e}")
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in nodes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+
+
+def _pin(workers, caps) -> None:
+    for w, c in zip(workers, caps):
+        w.send_request("set_capacity", {"hbm_bytes": float(c),
+                                        "n_devices": 1})
+
+
+def _planted(worker, site: str, nth: int, fired: list) -> None:
+    """Install a crash at the nth call of ``site`` on a live worker (the
+    count starts now); the time it fires goes to ``fired``."""
+    from tensorlink_tpu_torch.core.faults import FaultCrash, FaultPlan
+
+    plan = FaultPlan.from_dict({"seed": 7, "rules": [
+        {"site": site, "op": "crash", "nth": nth}]})
+    real = plan.inject
+
+    def inject(s, key=""):
+        try:
+            return real(s, key)
+        except FaultCrash:
+            fired.append(time.monotonic())
+            raise
+
+    plan.inject = inject
+    worker.executor.faults = plan
+
+
+class _Hops:
+    """The hidden states the stage workers ship to each other (the
+    ``chain_send`` requests of their executors' bridges): bytes and
+    positions per hop."""
+
+    def __init__(self, workers):
+        self.hops: list = []
+        for w in workers:
+            bridge = w.executor.bridge
+            real = bridge.request
+
+            def request(verb, payload=None, timeout=None, real=real):
+                if verb == "chain_send":
+                    h = payload["body"].get("hidden")
+                    if h is not None:
+                        self.hops.append((int(h.shape[1]), int(h.nbytes)))
+                return real(verb, payload, timeout)
+
+            bridge.request = request
+
+    def per_decode_step(self, n_steps: int) -> float:
+        return sum(b for t, b in self.hops if t == 1) / max(n_steps, 1)
+
+
+def _stages_prompts(cfg) -> list:
+    rng = np.random.default_rng(71)
+    return [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 257)))
+            .tolist() for _ in STAGES_BUDGETS]
+
+
+def _knobs(rows):
+    greedy = dict(temperature=0.0, top_k=0, top_p=1.0)
+    return [STAGES_SAMPLED if r >= 4 else greedy for r in rows]
+
+
+def _stream_requests(fn, prompts, budgets, stagger=0.3) -> tuple:
+    """Each prompt through ``fn(i, prompt, budget, stream_cb)`` on its own
+    thread, started ``stagger`` seconds apart: (results, streams with each
+    token's arrival time)."""
+    results, errors = {}, []
+    streams = {i: [] for i in range(len(prompts))}
+
+    def one(i):
+        def cb(toks, i=i):
+            now = time.monotonic()
+            streams[i].extend((now, int(t)) for t in toks if t is not None)
+        try:
+            results[i] = fn(i, prompts[i], budgets[i], cb)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+        time.sleep(stagger)
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    if len(results) != len(prompts):
+        raise AssertionError("stages: a request never finished")
+    for i, r in results.items():
+        if [t for _, t in streams[i]] != list(r):
+            raise AssertionError(f"stages: stream {i} differs from its "
+                                 "result")
+    return results, streams
+
+
+def stages_serving() -> dict:
+    """Steps 1-4 and 6 of phase 13: qwen3-0p6b split over two workers."""
+    from tensorlink_tpu_torch.api.formatter import extract_reasoning_and_answer
+    from tensorlink_tpu_torch.api.tokenizer import load_tokenizer
+    from tensorlink_tpu_torch.core.config import MLConfig
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+
+    root = STAGES_ROOT / "serving"
+    cfg = config_presets()[NODE_MODEL]
+    caps = _two_stage_caps(cfg, STAGES_SEQ)
+    ref = _Reference(cfg, STAGES_SEED, STAGES_SEQ)
+    v, ws, user = _stages_nodes(root, 3, MLConfig, endpoint=True)
+    res: dict = {"card": _smi(), "capacities": list(caps)}
+    parted: list = []
+    nodes = [user, *ws, v]
+    try:
+        _pin(ws, caps)
+        model = DistributedModel(NODE_MODEL, node=user, seed=STAGES_SEED,
+                                 seq_len=STAGES_SEQ, batch=1)
+        plan = [(s.worker_id, s.layer_lo, s.layer_hi, s.holds_head)
+                for s in model.plan.stages]
+        if model.plan.n_stages != 2 or plan[0][0] != ws[0].node_id or \
+                model.plan.stages[1].holds_head or \
+                not model.plan.stages[0].holds_head:
+            raise AssertionError(f"stages: plan {plan}")
+        res["plan"] = [(lo, hi, head) for _w, lo, hi, head in plan]
+        hops = _Hops(ws[:2])
+
+        # step 1: a forward, held per row to the in-process forward's logits
+        rng = np.random.default_rng(72)
+        toks = rng.integers(0, cfg.vocab_size, STAGES_FWD).astype(np.int32)
+        got = model(toks).float()
+        with torch.no_grad():
+            want, _ = ttr.forward(ref.params, torch.as_tensor(
+                toks, device="cuda"), cfg)
+        want = want.float()
+        rel = ((got - want).abs().amax(dim=(1, 2))
+               / want.abs().amax(dim=(1, 2))).max().item()
+        res["forward"] = dict(shape=list(got.shape), row_rel_err=rel,
+                              bound=BF16_ATTN_TOL, chained=model.chain_forwards)
+        if not rel <= BF16_ATTN_TOL or not model.chain_forwards:
+            raise AssertionError(f"stages forward: {res['forward']}")
+
+        # step 2: one batched generate, per-row knobs and budgets, against
+        # the engine's decode with the same draws; greedy rows also
+        # against the engine's own compiled loop
+        prompts = _stages_prompts(cfg)
+        knobs = _knobs(range(len(prompts)))
+        kw = dict(max_new_tokens=max(STAGES_BUDGETS),
+                  budgets=list(STAGES_BUDGETS), seed=STAGES_GEN_SEED,
+                  **{k: [kn[k] for kn in knobs]
+                     for k in ("temperature", "top_k", "top_p")})
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        seqs = model.generate(prompts, **kw)
+        wall = time.monotonic() - t0
+        n_tok = sum(len(s) for s in seqs)
+        n_decode = max(STAGES_BUDGETS) - 1
+        t0 = time.monotonic()
+        want, gaps = ref.generate(prompts, STAGES_BUDGETS, knobs,
+                                  seed=STAGES_GEN_SEED)
+        torch.cuda.synchronize()
+        ref_wall = time.monotonic() - t0
+        for r in range(len(prompts)):
+            kind = "sampled" if r >= 4 else "greedy"
+            _held_stream(f"{kind} row {r}", seqs[r], want[r], gaps[r], parted)
+        greedy = list(range(4))
+        eng = ref.engine(len(prompts), max(map(len, prompts)),
+                         max(STAGES_BUDGETS))
+        t0 = time.monotonic()
+        comp = eng.generate_compiled(
+            [prompts[r] for r in greedy], max_new_tokens=max(STAGES_BUDGETS),
+            budgets=[STAGES_BUDGETS[r] for r in greedy])
+        torch.cuda.synchronize()
+        eng_wall = time.monotonic() - t0
+        for k, r in enumerate(greedy):
+            _held_stream(f"greedy row {r} vs generate_compiled", seqs[r],
+                         comp.sequences[k], gaps[r], parted)
+        res["generate"] = dict(
+            rows=len(prompts), tokens=n_tok, wall_s=wall,
+            pipelined_tokens_per_s=n_tok / wall,
+            in_process_tokens_per_s=n_tok / ref_wall,
+            generate_compiled_tokens_per_s=sum(
+                len(s) for s in comp.sequences) / eng_wall,
+            hidden_bytes_per_decode_step=hops.per_decode_step(n_decode),
+            hidden_bytes_per_decode_step_want=2 * len(prompts) * cfg.d_model
+            * 2)
+        if res["generate"]["hidden_bytes_per_decode_step"] != \
+                res["generate"]["hidden_bytes_per_decode_step_want"]:
+            raise AssertionError(f"stages: hops {res['generate']}")
+
+        # beam search against generate_beam twice: at the split job's
+        # prefill height (K rows of the prompt's length) and with the
+        # engine's default buckets (one row, a 256-token bucket, a
+        # 4096-token cache)
+        K, p0, n0 = STAGES_BEAMS, prompts[0], STAGES_BUDGETS[0]
+        beams = {}
+        for name, eng_ in (
+                ("split", None),
+                ("same heights", ref.engine(K, len(p0), n0)),
+                ("default buckets", GenerationEngine(
+                    ref.cfg, ref.params, device="cuda"))):
+            rec = _BeamRecord(K)
+            with rec.recording():
+                if eng_ is None:
+                    best = model.generate([p0], max_new_tokens=n0,
+                                          num_beams=K)[0]
+                else:
+                    best = eng_.generate_beam([p0], num_beams=K,
+                                              max_new_tokens=n0).sequences[0]
+            beams[name] = (best, rec)
+        n_parted = len(parted)
+        for name in ("same heights", "default buckets"):
+            _held_beam(f"beam vs generate_beam at {name}", *beams["split"],
+                       *beams[name], parted)
+        res["beam"] = dict(num_beams=K, tokens=len(beams["split"][0]),
+                           equals={n: beams[n][0] == beams["split"][0]
+                                   for n in beams if n != "split"},
+                           parted=parted[n_parted:])
+        # prompt-lookup speculation: vanilla greedy, held to the engine's
+        # greedy decode and to its own lookahead
+        rep = (rng.integers(0, cfg.vocab_size, 5).tolist() * 40)[:160]
+        look = model.generate([rep], max_new_tokens=32, lookahead=True)
+        greedy1 = [knobs[0]]
+        vanilla, vgaps = ref.generate([rep], [32], greedy1)
+        _held_stream("lookahead vs greedy", look[0], vanilla[0], vgaps[0],
+                     parted)
+        look_eng = ref.engine(1, len(rep), 32).generate_lookahead(
+            [rep], max_new_tokens=32)
+        _held_stream("lookahead vs generate_lookahead", look[0],
+                     look_eng.sequences[0], vgaps[0], parted)
+        res["lookahead"] = dict(tokens=len(look[0]))
+
+        # step 3: continuous batching, 2 slots, requests admitted mid-flight
+        b = ContinuousBatcher(model, eos_ids=[], max_slots=2)
+        if b.mode != "pipelined":
+            raise AssertionError(f"stages: batcher mode {b.mode}")
+        cont = list(range(STAGES_CONT))
+        out, _streams = _stream_requests(
+            lambda i, p, n, cb: b.generate(p, max_new_tokens=n, stream_cb=cb,
+                                           timeout=600),
+            [prompts[r] for r in cont], [STAGES_BUDGETS[r] for r in cont])
+        for i, r in enumerate(cont):
+            _held_stream(f"continuous request {i}", out[i], want[r],
+                         gaps[r], parted)
+        b.close()
+        res["continuous"] = dict(requests=len(out), slots=2)
+
+        # step 4: stage 0's worker dies mid-stream; the slot set
+        # re-establishes on the third worker
+        _pin(ws[2:], (8e9,))
+        fired: list = []
+        b = ContinuousBatcher(model, eos_ids=[], max_slots=2)
+        _planted(ws[0], "worker.session_step", STAGES_CRASH_OP, fired)
+        out, streams = _stream_requests(
+            lambda i, p, n, cb: b.generate(p, max_new_tokens=n, stream_cb=cb,
+                                           timeout=600),
+            prompts[:2], list(STAGES_BUDGETS[:2]), stagger=0.0)
+        b.close()
+        if not fired or model.plan.stages[0].worker_id != ws[2].node_id:
+            raise AssertionError(f"stages: crash {fired}, plan "
+                                 f"{model.plan.stages[0].worker_id[:8]}")
+        for i in range(2):
+            _held_stream(f"re-established stream {i}", out[i], want[i],
+                         gaps[i], parted)
+        after = [t for s in streams.values() for t, _ in s if t > fired[0]]
+        res["crash"] = dict(streams=2, crash_to_first_token_s=min(after)
+                            - fired[0], new_stage0=ws[2].node_id[:8])
+        model.shutdown()
+        time.sleep(1.0)  # the workers release the job's reservations
+
+        # step 6: a validator-hosted model planned over two workers, over
+        # HTTP
+        _pin(ws[1:], caps[:2])
+        job = v.executor.host_model(NODE_MODEL, seq_len=STAGES_SEQ,
+                                    seed=STAGES_SEED)
+        if job.status != "ready" or job.model.plan.n_stages != 2:
+            raise AssertionError(f"stages: hosting {job.status} {job.error}")
+        recorded: dict = {}
+        real_gen = ContinuousBatcher.generate
+
+        def recording(batcher, ids, **kw):
+            toks_ = real_gen(batcher, ids, **kw)
+            recorded[kw.get("trace_id") or ""] = (
+                list(ids), list(toks_), int(kw["max_new_tokens"]))
+            return toks_
+
+        ContinuousBatcher.generate = recording
+        try:
+            msgs = _fleet_messages(STAGES_HTTP, 73)
+            http, wall = _http_all(v.api.port, {
+                f"stages-http-{i}": {"hf_name": NODE_MODEL, "message": m,
+                                     "do_sample": False,
+                                     "max_new_tokens": 32}
+                for i, m in enumerate(msgs)})
+        finally:
+            ContinuousBatcher.generate = real_gen
+        tok = load_tokenizer({"name": NODE_MODEL})
+        eos = set(tok.eos_ids)
+        for rid in http:
+            ids, got_toks, n = recorded[rid]
+            ref_toks, ref_gaps = ref.generate([ids], [n], [knobs[0]],
+                                              eos=eos)
+            _held_stream(f"http {rid}", got_toks, ref_toks[0], ref_gaps[0],
+                         parted)
+            text = extract_reasoning_and_answer(
+                tok.decode([t for t in got_toks if t not in eos]))[1]
+            if http[rid]["response"] != text:
+                raise AssertionError(f"stages http {rid}: the response body "
+                                     "is not the served tokens' text")
+        res["http"] = dict(requests=len(http), wall_s=wall,
+                           stages=job.model.plan.n_stages)
+        v.executor.unhost_model(NODE_MODEL)
+    finally:
+        _stop_nodes(nodes)
+        nodes = v = ws = user = None
+    res["parted"] = parted
+    del ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def stages_repair() -> dict:
+    """Step 5 of phase 13, single-stage repair: a continuous stream whose
+    worker crashes mid-stream, and a training job whose worker crashes
+    at an optimizer step, each repaired onto a spare."""
+    from tensorlink_tpu_torch.core.config import MLConfig
+    from tensorlink_tpu_torch.engine.continuous import ContinuousEngine
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+
+    root = STAGES_ROOT / "repair"
+
+    def wml():
+        return MLConfig(spec_decode=False, max_memory_gb=FLEET_MEM_GB)
+
+    cfg = config_presets()[NODE_MODEL]
+    v, ws, user = _stages_nodes(root, 3, wml, endpoint=False)
+    res: dict = {"card": _smi()}
+    parted: list = []
+    nodes = [user, *ws, v]
+    try:
+        # 5a: a continuous stream, its worker crashed mid-stream
+        _pin(ws, (8e9, 4e9, 1e6))
+        with _WorkerLaunches() as counts:
+            model = DistributedModel(NODE_MODEL, node=user, seed=STAGES_SEED,
+                                     seq_len=STAGES_SEQ, batch=1)
+            if model.plan.n_stages != 1 or \
+                    model.plan.stages[0].worker_id != ws[0].node_id:
+                raise AssertionError("stages repair: plan")
+            prompts = _stages_prompts(cfg)[:2]
+            fired: list = []
+            _planted(ws[0], "worker.cont_step", 2, fired)
+            base = counts.mark()
+            out, streams = _stream_requests(
+                lambda i, p, n, cb: model.generate(
+                    [p], max_new_tokens=n, continuous=True,
+                    stream_cb=cb)[0],
+                prompts, [STAGES_REPAIR_NEW] * 2, stagger=0.05)
+            launches = counts.since("stages repair", base, 2)
+            by_format = {n: {"int8": sum(r["by_format"][n]["int8"]
+                                         for r in counts.recs)}
+                         for n in NEW_PATHS}
+            counts.recs.clear()
+        if not fired or model.plan.stages[0].worker_id != ws[1].node_id:
+            raise AssertionError("stages repair: the crash or the repair "
+                                 "did not happen")
+        after = [t for s in streams.values() for t, _ in s if t > fired[0]]
+        model.shutdown()
+        time.sleep(1.0)  # the workers release the job's reservations
+        ml = wml()
+        gen = GenerationEngine(
+            cfg, _seeded(cfg, "cuda", STAGES_SEED),
+            max_seq_len=min(cfg.max_seq_len, ml.max_seq_len),
+            seq_buckets=ml.seq_buckets, batch_buckets=ml.batch_buckets,
+            device="cuda")
+        ce = ContinuousEngine(
+            gen, max_slots=ml.cont_max_slots, page_size=ml.cont_page_size,
+            chunk_steps=ml.cont_chunk_steps, prefill_chunk=ml.prefill_chunk,
+            prefix_cache=ml.prefix_cache, kv_quant=ml.kv_quant,
+            spec_decode=False)
+        store: list = []
+        real_fns = paged._row_keys, paged._sample_rows
+        paged._row_keys, paged._sample_rows = _draw_recorder(store)
+        try:
+            reqs = [ce.submit(p, max_new_tokens=STAGES_REPAIR_NEW,
+                              seed=9000 + i) for i, p in enumerate(prompts)]
+            ce.run_until_idle()
+        finally:
+            paged._row_keys, paged._sample_rows = real_fns
+        draws = _draws(store)
+        for i, r in enumerate(reqs):
+            gaps = [draws[(9000 + i, j)][0][0] - draws[(9000 + i, j)][0][1]
+                    for j in range(len(r.tokens))]
+            _held_stream(f"repaired stream {i}", out[i], r.tokens, gaps, parted)
+        ce.close()
+        del ce, gen
+        res["continuous"] = dict(
+            streams=2, crash_to_first_token_s=min(after) - fired[0],
+            launches=launches, by_format=by_format)
+
+        # 5b: training, its worker crashed at the 4th optimizer step
+        tcfg = _train_cfg(STAGES_TRAIN_LAYERS, torch.float32)
+        _pin(ws[1:], (8e9, 1e6))
+        B, T = 2, 128
+        rng = np.random.default_rng(TRAIN_SEED + 5)
+        batches = [rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int32)
+                   for _ in range(STAGES_TRAIN_STEPS)]
+        model = DistributedModel(tcfg, node=user, seed=TRAIN_SEED,
+                                 training=True, seq_len=T, batch=B,
+                                 ckpt_every_steps=2,
+                                 ckpt_dir=str(root / "ckpt"))
+        if model.plan.stages[0].worker_id != ws[1].node_id:
+            raise AssertionError("stages repair: training plan")
+        _pin(ws[2:], (8e9,))
+        opt = dict(lr=0.1, momentum=0.9)
+        model.init_optimizer("sgd", **opt)
+        rollback: list = []
+        real_recover = model._recover_training
+
+        def timed_recover():
+            t0 = time.monotonic()
+            real_recover()
+            rollback.append(time.monotonic() - t0)
+
+        model._recover_training = timed_recover
+        fired = []
+        _planted(ws[1], "worker.train_step", 4, fired)
+        losses = [model.train_step(b)["loss"] for b in batches]
+        step, new_wid = model._step, model.plan.stages[0].worker_id
+        model.shutdown()
+        if not fired or new_wid != ws[2].node_id or step != 5:
+            raise AssertionError(f"stages repair: training crash {fired}, "
+                                 f"step {step}")
+
+        def chain(bs):
+            ts = make_train_step(tcfg, make_optimizer("sgd", grad_clip=1.0,
+                                                      **opt), remat=True)
+            p = _seeded(tcfg, "cuda")
+            s, out_ = ts.init_state(p), []
+            for toks in bs:
+                p, s, m = ts.step_fn(p, s, {"tokens": torch.as_tensor(
+                    toks, device="cuda")})
+                out_.append(float(m["loss"]))
+            return out_
+
+        want = chain(batches[:3])
+        want += chain(batches[:2] + batches[3:])[2:]
+        errs = [_rel(g, w) for g, w in zip(losses, want)]
+        res["training"] = dict(losses=losses, in_process=want,
+                               max_rel_err=max(errs), bound=TRAIN_NODE_LOSS_RTOL,
+                               rollback_s=rollback[0] if rollback else None,
+                               steps_kept=step)
+        if max(errs) > TRAIN_NODE_LOSS_RTOL or not rollback:
+            raise AssertionError(f"stages repair: training {res['training']}")
+    finally:
+        _stop_nodes(nodes)
+        nodes = v = ws = user = None
+        shutil.rmtree(root, ignore_errors=True)
+    res["parted"] = parted
+    torch.cuda.empty_cache()
+    return res
+
+
+def stages_phase() -> dict:
+    """Phase 13, pipeline stages and job repair on the card: qwen3-0p6b
+    at full width, seeded bf16, split over two workers sharing the card
+    (steps 1-4 and 6), then single-stage repair (step 5). Readings, with
+    the card's name and power limit, not claims."""
+    shutil.rmtree(STAGES_ROOT, ignore_errors=True)
+    serving = stages_serving()
+    log(f"stages readings ({serving['card']}): pipelined "
+        f"{serving['generate']['pipelined_tokens_per_s']:.2f} tokens/s "
+        f"against {serving['generate']['in_process_tokens_per_s']:.2f} "
+        "single-stage in process (the engine at the split ops' heights, "
+        "no wire) and "
+        f"{serving['generate']['generate_compiled_tokens_per_s']:.2f} "
+        "(generate_compiled); hidden-state bytes per decode step over the "
+        f"wire {serving['generate']['hidden_bytes_per_decode_step']:.0f}; "
+        "crash to the first token after it "
+        f"{serving['crash']['crash_to_first_token_s']:.3f} s")
+    repair = stages_repair()
+    log(f"stages repair readings ({repair['card']}): crash to the first "
+        "token after it "
+        f"{repair['continuous']['crash_to_first_token_s']:.3f} s; training "
+        f"rollback {repair['training']['rollback_s']:.3f} s")
+    res = dict(serving=serving, repair=repair,
+               by_format=repair["continuous"]["by_format"])
+    shutil.rmtree(STAGES_ROOT, ignore_errors=True)
+    log(f"stages (qwen3-0p6b bf16, workers sharing the card; readings, not "
+        f"claims): {json.dumps(res)}")
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -4560,6 +5364,7 @@ def main() -> None:
     training = _phase("training", training_phase)
     new_paths["serve-and-train"] = training["serve_train"]["launches"]
     new_paths["fleet"] = _phase("fleet", fleet_phase, node)
+    new_paths["stages repair"] = _phase("stages", stages_phase)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]

@@ -7,21 +7,32 @@ same seed and the same call sequence a plan makes identical decisions every
 run.
 
 The site registry (:data:`SITES`) is the JAX package's, name for name, so a
-plan written for one package loads in the other. The port wires the
-host-RAM prefix tier's sites (``engine/continuous.py``):
+plan written for one package loads in the other, and the port wires every
+site where the JAX package does:
 
-- ``kvtier.demote`` — a refcount-0 prefix page demoting to the host tier
-  (``_demote_page``); error: the page is destroyed instead; crash.
-- ``kvtier.fetch`` — a host-tier promote, a fleet prefix pull, or a prefix
-  export at admission (``_promote_chain``, ``_pull_chain``,
+- ``p2p.send`` (a frame out of a node's network process: drop, delay,
+  dup) and ``connection.frame`` (an inbound frame);
+- the worker's ``worker.session_step`` (each applied pipeline-session op,
+  ``ml/worker.py::_forward``), ``worker.train_step`` (an optimizer step,
+  before the update), ``worker.cont_step`` (a continuous chunk),
+  ``worker.drain`` and ``worker.handoff``;
+- live migration's ``migrate.export``, ``migrate.wire`` and
+  ``migrate.import``;
+- the control plane's ``control.frame`` and ``journal.write``
+  (``validator.crash`` is registered, and called nowhere, in both
+  packages);
+- the host-RAM prefix tier's (``engine/continuous.py``):
+  ``kvtier.demote`` — a refcount-0 prefix page demoting to the host tier
+  (``_demote_page``); error: the page is destroyed instead; crash — and
+  ``kvtier.fetch`` — a host-tier promote, a fleet prefix pull, or a
+  prefix export at admission (``_promote_chain``, ``_pull_chain``,
   ``export_prefix_pages``); error: the rung degrades to the next (fleet
   pull, then prefill); crash.
 
-The other sites belong to layers not yet ported (node transport, worker,
-validator, journal). A rule naming an unknown site fails loudly at plan
-construction. Zero overhead when disabled: every site is guarded by
-``if faults.ENABLED:``, a module bool that is False unless a plan was
-installed.
+A rule naming an unknown site fails loudly at plan construction. Zero
+overhead when disabled: the module-level sites are guarded by ``if
+faults.ENABLED:``, a bool that is False unless a plan was installed, and
+a worker holds ``self.faults = None`` unless its config carries a plan.
 """
 
 from __future__ import annotations

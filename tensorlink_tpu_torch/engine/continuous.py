@@ -43,6 +43,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import unported
 from ..core import faults
 from ..core.metrics import MetricsRegistry
 from ..core.serialization import content_digest, dtype_name as np_dtype_name
@@ -306,10 +307,8 @@ class ContinuousEngine:
         if kv_quant not in ("none", "int8", "int4"):
             raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
         if int(tensor_parallel or 1) > 1:
-            raise NotImplementedError(
-                "tensor_parallel > 1 is not ported yet — it arrives with "
-                "the tensor-parallel slice of the port"
-            )
+            raise unported("a tensor-parallel engine (tensor_parallel > 1)",
+                           3)
         self.kv_quant = kv_quant
         self.engine = engine
         self.cfg = engine.cfg

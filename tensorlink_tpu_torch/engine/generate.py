@@ -46,6 +46,7 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from .. import unported
 from ..core.devices import resolve_device
 from ..models.base import KVCache, ModelConfig
 from ..models.quant import quantize_params
@@ -278,11 +279,8 @@ class GenerationEngine:
         device=None,
     ):
         if mesh is not None or cache_specs is not None:
-            raise NotImplementedError(
-                "a sharded GenerationEngine (mesh=, cache_specs=) is not "
-                "ported yet — it waits for the tensor-parallel slice of the "
-                "port"
-            )
+            raise unported("a sharded tensor-parallel GenerationEngine "
+                           "(mesh=, cache_specs=)", 3)
         if quant and quant not in ("int8", "int8+kv"):
             raise ValueError(f"unknown quant mode {quant!r}")
         self.cfg = cfg

@@ -31,6 +31,7 @@ from typing import Any
 
 import torch
 
+from .. import unported
 from ..core.devices import resolve_device
 from ..models.base import ModelConfig
 from ..models.quant import QTensor
@@ -306,13 +307,10 @@ def load_params(
     ``layer_range=(lo, hi)`` loads only layers ``lo..hi-1`` (a pipeline
     stage's slice); reads, and for a hub repo id the download, are
     restricted to those tensors. ``tensor_parallel > 1`` is not ported
-    (it waits for the tensor-parallel slice)."""
+    (ROADMAP queue 1 item 3)."""
     if tensor_parallel and int(tensor_parallel) > 1:
-        raise NotImplementedError(
-            "load_params(tensor_parallel > 1) is not ported yet — it waits "
-            "for the tensor-parallel slice of the port (ROADMAP queue 1 "
-            "item 8)"
-        )
+        raise unported("loading onto tensor-parallel shards "
+                       "(load_params(tensor_parallel > 1))", 3)
     dev = resolve_device(device)
     reader = CheckpointReader(
         resolve_checkpoint(ckpt_dir, layer_range=layer_range)

@@ -13,7 +13,7 @@ carry, then divides once by the total token count: the n_micro = 1 step's
 token-mean gradient even when loss masks fill the micros unevenly.
 
 Not ported: the ZeRO-1 sharded step (``zero1``, ``tp_axis``) and
-``optimizer_state_specs`` (ROADMAP queue 1 item 8). ``donate`` is
+``optimizer_state_specs`` (ROADMAP queue 1 item 3). ``donate`` is
 accepted and ignored: the step returns new tensors either way.
 """
 
@@ -98,7 +98,7 @@ def make_optimizer(
 @dataclass
 class TrainStep:
     """A train step and its optimizer (the unsharded step; ZeRO-1 waits
-    for ROADMAP queue 1 item 8)."""
+    for ROADMAP queue 1 item 3)."""
 
     step_fn: Callable  # (params, opt_state, batch) -> (params, opt_state, metrics)
     optimizer: Any
@@ -164,9 +164,9 @@ def make_train_step(
     returning ``(params, opt_state, {"loss", "grad_norm"})`` — new
     tensors, the metrics as 0-d tensors on the params' device."""
     if zero1:
-        raise unported("the ZeRO-1 sharded train step (zero1)", 8)
+        raise unported("the ZeRO-1 sharded train step (zero1)", 3)
     if tp_axis is not None:
-        raise unported("the tensor-parallel train step (tp_axis)", 8)
+        raise unported("the tensor-parallel train step (tp_axis)", 3)
     loss_fn = loss_fn or causal_lm_loss
 
     def compute_grads(params, tokens, loss_mask):
@@ -220,7 +220,7 @@ def make_train_step(
 
 def optimizer_state_specs(*_args, **_kwargs):
     """Sharding specs of the optimizer state (ZeRO-1): not ported."""
-    raise unported("optimizer state sharding (optimizer_state_specs)", 8)
+    raise unported("optimizer state sharding (optimizer_state_specs)", 3)
 
 
 __all__ = [

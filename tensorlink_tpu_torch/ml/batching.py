@@ -14,13 +14,15 @@
 - ``model=`` a single-stage ``DistributedModel``: a pass-through. Each
   request RPCs the worker with ``continuous=True`` and the worker's slot
   engine co-batches concurrent requests (the validator's hosted models).
+- ``model=`` a pipelined ``DistributedModel``: a
+  :class:`PipelinedSlotSession` on the dispatcher thread admits requests
+  into the rows of one decode session that spans every stage worker,
+  and re-establishes it on repaired workers when a stage dies.
 
 :class:`GenBatcher` — the static batcher for models the paged engine
 refuses: requests coalesce over a short window into one batched
 ``model.generate`` that runs to completion.
 
-The pipelined mode (``PipelinedSlotSession``) waits for ROADMAP queue 1
-item 8.
 """
 
 from __future__ import annotations
@@ -28,13 +30,13 @@ from __future__ import annotations
 import itertools
 import logging
 import queue
+import secrets
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
-from .. import unported
 from ..core.metrics import MetricsRegistry
 from ..core.trace import get_tracer
 from ..engine.continuous import ContinuousEngine
@@ -69,6 +71,7 @@ class _Pending:
     priority: str | None = None
     trace_id: str = ""
     submit_t: float = 0.0
+    eos_ids: list[int] = field(default_factory=list)
 
 
 def _headroom_from(snap: dict) -> dict:
@@ -365,11 +368,312 @@ class GenBatcher:
             r.done.set()
 
 
+class PipelinedSlotSession:
+    """Slot admission for a pipelined (multi-stage) job through the
+    session path: one decode session of ``B = max_slots`` rows across
+    every stage worker. A queued request is admitted into a free row by a
+    masked prefill op (only its row's tokens carry the attention mask, so
+    the neighbours' caches don't move); a finished row is recycled by
+    zeroing its write offset on every stage (``reset_rows`` rides the next
+    op) — the dense session's counterpart of freeing KV pages.
+
+    Every op carries the session's increasing ``seq`` (the workers dedup
+    it, so retries and duplicated frames are idempotent), and a lost stage
+    worker triggers repair and a re-prefill of each live row's prompt +
+    emitted tokens under a fresh session. Sampling is per row and
+    stateless — ``fold_in(PRNGKey(seed_r), n)`` for row r's nth token —
+    so co-residency and recovery leave every stream unchanged.
+
+    One dispatcher thread calls ``pump``/``step``."""
+
+    MAX_RECOVERIES = 3
+
+    def __init__(self, model: Any, *, max_slots: int = 4):
+        self.model = model
+        self.B = int(max_slots)
+        self.cache_len = int(model.spec["seq_len"])
+        self.session = secrets.token_hex(8)
+        self.seq = 0
+        self.slots: list[dict | None] = [None] * self.B
+        self.queue: deque = deque()
+        self.reset_rows: set[int] = set()
+        self.recoveries = 0
+
+    # -- helpers ---------------------------------------------------------
+    def _live(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s is not None]
+
+    @property
+    def free_slots(self) -> list[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def _samp(self) -> dict:
+        def rows(key, fill):
+            return [(s[key] if s is not None else fill) for s in self.slots]
+
+        return {
+            "temperature": rows("temperature", 0.0),
+            "top_k": rows("top_k", 0),
+            "top_p": rows("top_p", 1.0),
+            "seeds": rows("seed", 0),
+            "steps": rows("step", 0),
+        }
+
+    def _emit(self, slot: dict, tok: int) -> bool:
+        """Deliver one token to a slot's request; True when it finished."""
+        req: _Pending = slot["req"]
+        slot["emitted"].append(tok)
+        slot["step"] += 1
+        cancel = False
+        if req.stream_cb is not None:
+            cancel = bool(req.stream_cb([tok]))
+        return (
+            cancel
+            or tok in slot["eos"]
+            or len(slot["emitted"]) >= slot["budget"]
+        )
+
+    def _finish_row(self, row: int) -> None:
+        slot = self.slots[row]
+        self.slots[row] = None
+        self.reset_rows.add(row)
+        req: _Pending = slot["req"]
+        req.result = [int(t) for t in slot["emitted"][: req.max_new_tokens]]
+        req.done.set()
+
+    def _apply_step_tokens(self, tok, rows: list[int]) -> None:
+        for r in rows:
+            slot = self.slots[r]
+            if slot is None:
+                continue
+            slot["last_tok"] = int(tok[r])
+            if self._emit(slot, int(tok[r])):
+                self._finish_row(r)
+
+    def _forward(self, **kw):
+        """One session op with in-flight recovery. When a stage worker
+        died (SessionLost), the whole slot set re-establishes — the rows
+        this op was admitting too, their slots being placed already — and
+        the re-prefill advances every live row one token, so the lost op
+        is subsumed: the caller gets ``None`` and must not re-apply."""
+        from .module import SessionLost, _transportish
+
+        try:
+            out = self.model.forward(
+                session=self.session, cache_len=self.cache_len,
+                seq=self.seq, **kw,
+            )
+            self.seq += 1
+            self.reset_rows.clear()  # applied by this op
+            # a clean op ends a recovery episode: the budget bounds
+            # CONSECUTIVE failures, not a long-lived session's lifetime
+            self.recoveries = 0
+            return out
+        except Exception as e:
+            recoverable = isinstance(e, SessionLost) or _transportish(e)
+            if not recoverable or self.recoveries >= self.MAX_RECOVERIES:
+                raise
+            # the re-establishment may itself hit a transient failure
+            # while the mesh churns: retry within the same budget
+            while True:
+                self.recoveries += 1
+                try:
+                    self._reestablish()
+                    return None
+                except Exception as e2:
+                    still = (isinstance(e2, SessionLost)
+                             or _transportish(e2)
+                             or "no connection" in str(e2))
+                    if not still or self.recoveries >= self.MAX_RECOVERIES:
+                        raise
+
+    def _reestablish(self) -> None:
+        """Repair the dead stages and re-prefill every live row's prompt +
+        emitted tokens under a FRESH session id. Each row's sampled token
+        at its last position is exactly its next pending draw (the keys
+        are stateless in the step), so streams resume with no duplicated
+        and no missing tokens."""
+        import numpy as np
+
+        self.model._repair_dead_stages()
+        self.model._end_decode_session(self.session)
+        self.session = secrets.token_hex(8)
+        self.seq = 0
+        self.reset_rows.clear()
+        rows = self._live()
+        if not rows:
+            return
+        seqs = {
+            r: self.slots[r]["prompt"] + self.slots[r]["emitted"]
+            for r in rows
+        }
+        T = max(len(v) for v in seqs.values())
+        toks = np.zeros((self.B, T), np.int32)
+        mask = np.zeros((self.B, T), bool)
+        last_idx = np.zeros((self.B,), np.int32)
+        for r, ids in seqs.items():
+            toks[r, : len(ids)] = ids
+            mask[r, : len(ids)] = True
+            last_idx[r] = len(ids) - 1
+        tok = self.model.forward(
+            toks, mask, session=self.session, cache_len=self.cache_len,
+            sample=self._samp(), last_idx=last_idx, seq=0,
+        )
+        self.seq = 1
+        self._apply_step_tokens(tok, rows)
+
+    # -- the dispatcher's API --------------------------------------------
+    def submit(self, req: _Pending) -> None:
+        self.queue.append(req)
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or bool(self._live())
+
+    def pump(self) -> None:
+        """Admit queued requests into free rows. The admission op's masked
+        ``[B, T]`` write lands at every LIVE row's offset too (invisible
+        past its length); a row within ``T`` of the cache end would see
+        that write clamp back over real KV, so admission waits until such
+        rows finish (bounded: their budgets are capped by their room)."""
+        while self.queue:
+            free = self.free_slots
+            if not free:
+                return
+            group: list[_Pending] = []
+            # class-ordered admission, FIFO within a class
+            ordered = sorted(
+                self.queue,
+                key=lambda r: PRIORITY_RANK.get(r.priority or "", 0),
+            )
+            for req in ordered[: len(free)]:
+                eff = min(req.max_new_tokens, self.cache_len - len(req.ids))
+                if eff <= 0:
+                    # no room: an empty completion, as the static paths
+                    self.queue.remove(req)
+                    req.result = []
+                    req.done.set()
+                    continue
+                group.append(req)
+            if not group:
+                continue
+            live_max = max(
+                (len(s["prompt"]) + len(s["emitted"])
+                 for s in self.slots if s is not None),
+                default=0,
+            )
+            # drop the LONGEST prompts until the op's write span is safe;
+            # the shorter ones admit now, the rest wait for evictions
+            while group:
+                longest = max(group, key=lambda r: len(r.ids))
+                if live_max + len(longest.ids) <= self.cache_len:
+                    break
+                group.remove(longest)
+            if not group:
+                return
+            for req in group:
+                self.queue.remove(req)
+            self._admit_group(group)
+
+    def _admit_group(self, group: list[_Pending]) -> None:
+        """One masked prefill op admits the whole group and emits each
+        member's first token."""
+        import numpy as np
+
+        placed: list[tuple[int, _Pending]] = []
+        for req in group:
+            row = self.free_slots[0]
+            self.slots[row] = {
+                "req": req,
+                "prompt": [int(t) for t in req.ids],
+                "emitted": [],
+                "budget": min(req.max_new_tokens,
+                              self.cache_len - len(req.ids)),
+                "eos": set(req.eos_ids),
+                "seed": req.seed,
+                "step": 0,
+                "last_tok": 0,
+                "temperature": req.temperature,
+                "top_k": req.top_k,
+                "top_p": req.top_p,
+            }
+            placed.append((row, req))
+        # a recycled row re-admitted now stays in the reset list: the op
+        # zeroes its stale offset BEFORE the prefill's writes land
+        recycled = sorted(self.reset_rows)
+        now = time.monotonic()
+        for row, req in placed:
+            if req.trace_id:
+                get_tracer().record(
+                    req.trace_id, "queue_wait", site="pipeline",
+                    dur_s=(now - req.submit_t) if req.submit_t else None,
+                    row=row,
+                )
+        traces = [req.trace_id for _, req in placed if req.trace_id]
+        T = max(len(req.ids) for _, req in placed)
+        toks = np.zeros((self.B, T), np.int32)
+        mask = np.zeros((self.B, T), bool)
+        last_idx = np.zeros((self.B,), np.int32)
+        for row, req in placed:
+            toks[row, : len(req.ids)] = req.ids
+            mask[row, : len(req.ids)] = True
+            last_idx[row] = len(req.ids) - 1
+        tok = self._forward(
+            tokens=toks, attn_mask=mask, sample=self._samp(),
+            last_idx=last_idx, reset_rows=recycled, trace=traces or None,
+        )
+        if tok is not None:
+            self._apply_step_tokens(tok, [r for r, _ in placed])
+
+    def step(self) -> None:
+        """One decode step over the active rows (idle rows ride the fixed
+        batch shape with a zero attention mask: their caches don't
+        move)."""
+        import numpy as np
+
+        rows = self._live()
+        if not rows:
+            return
+        toks = np.zeros((self.B, 1), np.int32)
+        mask = np.zeros((self.B, 1), bool)
+        for r in rows:
+            toks[r, 0] = self.slots[r]["last_tok"]
+            mask[r, 0] = True
+        tok = self._forward(
+            tokens=toks, attn_mask=mask, sample=self._samp(),
+            reset_rows=sorted(self.reset_rows),
+        )
+        if tok is not None:
+            self._apply_step_tokens(tok, rows)
+
+    def fail(self, err: BaseException) -> None:
+        """Fail every live and queued request with ``err``."""
+        for r in self._live():
+            slot = self.slots[r]
+            self.slots[r] = None
+            slot["req"].error = err
+            slot["req"].done.set()
+        while self.queue:
+            req = self.queue.popleft()
+            req.error = err
+            req.done.set()
+
+    def close(self) -> None:
+        try:
+            self.model._end_decode_session(self.session)
+        except Exception as e:  # noqa: BLE001 — best-effort teardown
+            logging.getLogger("tensorlink_tpu_torch.ml.batching").debug(
+                "end_decode_session at close failed: %s", e)
+        self.fail(RuntimeError("model is being unhosted"))
+
+
 class ContinuousBatcher:
     """Continuous serving scheduler: blocking ``generate`` with a
     per-token stream callback, ``stats`` and ``close``, over a local slot
-    engine (``engine=``) or a single-stage remote job (``model=``).
-    Request ``n`` (from 1) samples with seed ``seed + n``."""
+    engine (``engine=``), a single-stage remote job or a pipelined job's
+    slot session (``model=``). Request ``n`` (from 1) samples with seed
+    ``seed + n``. On a pipelined job, the requests the slot session does
+    not carry (presence/frequency penalties, lookahead) run as a direct
+    ``model.generate``."""
 
     def __init__(
         self,
@@ -400,11 +704,8 @@ class ContinuousBatcher:
         page_quota: int = 0,
         worker_role: str = "mixed",
     ):
-        if engine is None:
-            if model is None:
-                raise ValueError("pass engine= or model=")
-            if model.plan.n_stages != 1:
-                raise unported("continuous batching over a pipelined job", 8)
+        if engine is None and model is None:
+            raise ValueError("pass engine= or model=")
         self.model = model
         self.eos_ids = list(eos_ids or [])
         self.seed = int(seed)
@@ -447,9 +748,19 @@ class ContinuousBatcher:
             # the entry worker's advertised pool role (placement stats)
             "worker_role": str(worker_role or "mixed"),
         }
+        self._sess: PipelinedSlotSession | None = None
         if engine is None:
             self._cont = None
-            self.mode = "remote"
+            if model.plan.n_stages == 1:
+                self.mode = "remote"
+                return
+            self._sess = PipelinedSlotSession(model, max_slots=max_slots)
+            self.mode = "pipelined"
+            self._thread = threading.Thread(
+                target=self._drive_pipelined, name="cont-batcher",
+                daemon=True,
+            )
+            self._thread.start()
             return
         self._cont = (
             engine if isinstance(engine, ContinuousEngine)
@@ -479,8 +790,8 @@ class ContinuousBatcher:
 
     @property
     def engine(self) -> ContinuousEngine | None:
-        """The local slot engine (None in remote mode, and once the
-        dispatcher closed it on an error)."""
+        """The local slot engine (None in the remote and pipelined modes,
+        and once the dispatcher closed it on an error)."""
         return self._cont
 
     def metrics_registry(self):
@@ -501,7 +812,7 @@ class ContinuousBatcher:
         tenant's quota view on a shared pool. A remote engine reports the
         configured knobs (the worker builds its engine from the same
         MLConfig) and the weights version of its last snapshot."""
-        if self.mode == "remote":
+        if self.mode != "local":
             modes = dict(self._modes)
             modes["weights_version"] = int(
                 self._remote_snapshot().get("weights_version", 1)
@@ -557,6 +868,20 @@ class ContinuousBatcher:
                 ),
                 "queue_depth": depth,
                 "prefix_digest": snap.get("prefix_digest") or {},
+            }
+        if self.mode == "pipelined":
+            sess = self._sess
+            queued = len(sess.queue)
+            return {
+                "draining": False,
+                "worker_role": "mixed",
+                "max_slots": self.max_slots,
+                "slots_free": len(sess.free_slots),
+                "kv_pages_free": 0,
+                "kv_pages_total": 0,
+                "service_ewma_s": 0.0,
+                "queue_depth": {c: queued for c in PRIORITY_RANK},
+                "prefix_digest": {},
             }
         cont = self._cont
         if cont is None:
@@ -667,20 +992,21 @@ class ContinuousBatcher:
         handoff, and ``lookahead`` its prompt-lookup decode wish (greedy,
         unpenalized: the worker's solo engine path); a local engine serves
         the request where it is and ignores both, as the JAX batcher's
-        local mode does. ``jrid`` (remote mode) is the journal id the
-        ``on_admit`` hook sees with the request's seed before dispatch."""
+        local mode does. ``jrid`` (remote and pipelined modes) is the
+        journal id the ``on_admit`` hook sees with the request's seed
+        before dispatch."""
+        if self.mode == "pipelined":
+            return self._generate_pipelined(
+                ids, max_new_tokens=max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, stream_cb=stream_cb,
+                timeout=timeout, presence_penalty=presence_penalty,
+                frequency_penalty=frequency_penalty, priority=priority,
+                trace_id=str(trace_id or ""), lookahead=lookahead,
+                jrid=str(jrid or ""),
+            )
         if self.mode == "remote":
-            with self._submit_lock:
-                if self._closed:
-                    raise RuntimeError("model is being unhosted")
-                req_seed = self.seed + next(self._seq)
+            req_seed = self._admission_seed(jrid)
             priority = normalize_priority(priority or self.default_priority)
-            if jrid and self.on_admit is not None:
-                try:
-                    self.on_admit(str(jrid), int(req_seed))
-                # tlint: disable=TL005(journal telemetry must never fail an admission)
-                except Exception:
-                    pass
             # drain accounting for close(): unhost must not tear the job
             # down under requests the worker is still decoding
             with self._idle:
@@ -713,11 +1039,33 @@ class ContinuousBatcher:
             trace_id=str(trace_id or ""),
             speculative=bool(speculative),
         )
+        return self._submit_and_wait(req, timeout, seeded=False)
+
+    def _admission_seed(self, jrid: str) -> int:
+        """The next request's seed (``seed + n``), handed with ``jrid`` to
+        the ``on_admit`` journal hook before the request dispatches."""
+        with self._submit_lock:
+            if self._closed:
+                raise RuntimeError("model is being unhosted")
+            seed = self.seed + next(self._seq)
+        if jrid and self.on_admit is not None:
+            try:
+                self.on_admit(str(jrid), int(seed))
+            # tlint: disable=TL005(journal telemetry must never fail an admission)
+            except Exception:
+                pass
+        return seed
+
+    def _submit_and_wait(self, req: _Pending, timeout: float, *,
+                         seeded: bool) -> list[int]:
+        """Queue ``req`` for the dispatcher (its seed drawn now unless
+        ``seeded``) and block until it finishes."""
         req.submit_t = time.monotonic()
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError("model is being unhosted")
-            req.seed = self.seed + next(self._seq)
+            if not seeded:
+                req.seed = self.seed + next(self._seq)
             self._q.put(req)
             self._wake.set()
         if not req.done.wait(timeout):
@@ -726,6 +1074,59 @@ class ContinuousBatcher:
             raise req.error
         self._note_served()
         return req.result or []
+
+    def _generate_pipelined(
+        self, ids, *, max_new_tokens, temperature, top_k, top_p, stream_cb,
+        timeout, presence_penalty, frequency_penalty, priority, trace_id,
+        lookahead, jrid,
+    ) -> list[int]:
+        """A request on a pipelined job: into the slot session, or — with
+        penalties or lookahead, which the session does not carry — a
+        direct solo ``model.generate``."""
+        req_seed = self._admission_seed(jrid)
+        penalized = bool(presence_penalty or frequency_penalty)
+        if penalized or lookahead:
+            cb = None
+            if stream_cb is not None:
+                def cb(emitted):
+                    if emitted[0] is not None and stream_cb([int(emitted[0])]):
+                        return [0]
+                    return None
+            seqs = self.model.generate(
+                [list(ids)], max_new_tokens=int(max_new_tokens),
+                temperature=float(temperature), top_k=int(top_k),
+                top_p=float(top_p), eos_ids=self.eos_ids, seed=req_seed,
+                stream_cb=cb,
+                lookahead=lookahead and float(temperature) == 0.0
+                and not penalized,
+                presence_penalty=presence_penalty,
+                frequency_penalty=frequency_penalty,
+            )
+            self._note_served()
+            return [int(t) for t in seqs[0][: int(max_new_tokens)]]
+        if trace_id and stream_cb is not None:
+            # the slot session has no engine-side spans: the first
+            # delivered token gives the trace its TTFT
+            inner_cb, first_seen, t_sub = stream_cb, [False], time.monotonic()
+
+            def stream_cb(toks, _cb=inner_cb):
+                if not first_seen[0]:
+                    first_seen[0] = True
+                    get_tracer().record(
+                        trace_id, "first_token", site="batcher",
+                        dur_s=time.monotonic() - t_sub,
+                    )
+                return _cb(toks)
+
+        req = _Pending(
+            ids=[int(t) for t in ids],
+            max_new_tokens=int(max_new_tokens),
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p), stream_cb=stream_cb,
+            priority=normalize_priority(priority or self.default_priority),
+            trace_id=trace_id, seed=req_seed, eos_ids=list(self.eos_ids),
+        )
+        return self._submit_and_wait(req, timeout, seeded=True)
 
     def _generate_remote(
         self, ids, *, max_new_tokens, temperature, top_k, top_p, stream_cb,
@@ -775,11 +1176,14 @@ class ContinuousBatcher:
         turns into 429 + Retry-After. Local mode asks the engine
         scheduler; remote mode holds the validator-side per-class
         in-flight count against the same cap (the worker's scheduler
-        still backstops with SchedulerOverloaded)."""
+        still backstops with SchedulerOverloaded), and the pipelined mode
+        its session's queue."""
         cls = normalize_priority(priority or self.default_priority)
-        if self.mode == "remote":
+        if self.mode != "local":
             with self._idle:
                 depth = self._inflight_cls.get(cls, 0)
+            if self._sess is not None:
+                depth = max(depth, len(self._sess.queue))
             if depth + n > self.sched_queue_cap:
                 return {
                     "priority": cls,
@@ -853,6 +1257,33 @@ class ContinuousBatcher:
                 closed = self._closed
             if closed and not busy and self._q.empty():
                 self._run_ctl(None)
+                return
+            if not busy:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+
+    def _drive_pipelined(self) -> None:
+        """The pipelined mode's dispatcher: admit into free rows, decode
+        one step over the live rows, repeat. A failure the session could
+        not recover fails its live and queued requests; serving goes on."""
+        sess = self._sess
+        while True:
+            try:
+                for req in self._drain_queue():
+                    sess.submit(req)
+                sess.pump()
+                live = sess._live()
+                if live:
+                    with self._stats_lock:
+                        self.live_samples.append(len(live))
+                    sess.step()
+                busy = sess.has_work()
+            except Exception as e:  # noqa: BLE001 — fail them, keep serving
+                sess.fail(e)
+                busy = False
+            with self._submit_lock:
+                closed = self._closed
+            if closed and not busy and self._q.empty():
                 return
             if not busy:
                 self._wake.wait(timeout=0.05)
@@ -938,6 +1369,8 @@ class ContinuousBatcher:
         if self._cont is not None:
             self._cont.close()
             self._cont = None
+        if self._sess is not None:
+            self._sess.close()
         while True:
             try:
                 req = self._q.get_nowait()
@@ -949,4 +1382,4 @@ class ContinuousBatcher:
         self._run_ctl(None)  # control waiters must not hang on a close
 
 
-__all__ = ["ContinuousBatcher", "GenBatcher"]
+__all__ = ["ContinuousBatcher", "GenBatcher", "PipelinedSlotSession"]

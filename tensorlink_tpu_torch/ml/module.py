@@ -1,5 +1,5 @@
 """DistributedModel — the caller's handle on a distributed job (port of
-``tensorlink_tpu/ml/module.py`` for single-stage jobs).
+``tensorlink_tpu/ml/module.py``).
 
 A user's job (``DistributedModel(model, training=...)`` through a
 ``UserNode``) or a validator-hosted model
@@ -13,16 +13,30 @@ never code) and then generates, runs forwards, or trains:
   token by token over the TOKEN relay when a ``stream_cb`` is given;
 - every other call runs the worker's dense engine
   (``_generate_remote``: batched, beam, lookahead);
-- ``forward`` returns the logits (or worker-sampled token ids);
+- ``forward`` returns the logits (or worker-sampled token ids). On a
+  pipelined job (a model split by layers over several workers) one
+  request drives the chain: each stage's worker ships its hidden state
+  straight to the next (``_forward_chain``), looping back to stage 0 for
+  a tied head, and ``session`` keeps each stage's KV cache between calls;
+- ``generate`` on a pipelined job runs a host-driven decode over those
+  session caches (``_generate_pipelined``; beam search and prompt-lookup
+  speculation ride the same session), with each token sampled on the
+  worker that holds the head;
 - ``train_step`` runs each micro-batch's forward on the worker, the
   cross-entropy and its logits gradient here (on :attr:`device`), the
   backward on the worker, then the optimizer step with the driver's
   clip folded into the scale; ``save_checkpoint``/``restore_checkpoint``,
   ``parameters`` and ``export_hf_checkpoint`` complete the surface.
 
-Pipelined (multi-stage) jobs, decode sessions and job repair wait for
-later slices of the port and raise ``NotImplementedError`` naming their
-ROADMAP item. All waits are bounded (MAX_WAIT_TIME).
+Job repair: a dead worker is replaced through the validator
+(``JOB_REPAIR``, or a pushed ``JOB_UPDATE``), its stage re-shipped, and a
+training job rolled back to its last checkpoint. A lost decode session
+re-prefills prompt + emitted tokens on the repaired stages; the sampler's
+per-step keys make the resumed stream equal to the uninterrupted one.
+
+Training a job of more than one stage waits for ROADMAP queue 1 item 1,
+and co-slice (merged-mesh) plans for item 4: both raise at attach. All
+waits are bounded (MAX_WAIT_TIME).
 """
 
 from __future__ import annotations
@@ -65,12 +79,48 @@ def _transportish(e: BaseException) -> bool:
 class WorkerLost(RuntimeError):
     """A worker's connection died mid-request (or a migration redirect
     named an unreachable destination): the continuous path's recovery
-    ladder decides what to re-issue where."""
+    ladder decides what to re-issue where, and a training step re-drives
+    from the last checkpoint (a transparent retry would apply a partial
+    gradient)."""
 
     def __init__(self, worker_id: str | None, cause: BaseException):
         super().__init__(f"worker {str(worker_id)[:12]} lost: {cause}")
         self.worker_id = worker_id
         self.cause = cause
+
+
+class SessionLost(WorkerLost):
+    """A worker holding decode-session KV died mid-generate. A retry on a
+    replacement would decode against an empty cache: the session is
+    re-established by re-prefilling prompt + tokens emitted so far."""
+
+
+def _any_nonzero(v) -> bool:
+    """True when a scalar-or-per-row sampling knob has a nonzero entry
+    (None counts as 0)."""
+    vals = v if isinstance(v, (list, tuple, np.ndarray)) else [v]
+    return any(float(x or 0.0) != 0.0 for x in vals)
+
+
+def _head_result(resp: dict):
+    """The terminal result of a head worker's FORWARD reply: sampled token
+    ids, per-position argmax ids (speculative verify) or beam candidates
+    ``(vals, idx)`` — None when it carries an array (``resp["out"]``)."""
+    spans = resp.get("trace_spans")
+    if isinstance(spans, dict):
+        # session-op spans shipped home by the responding stage worker
+        from tensorlink_tpu_torch.core.trace import get_tracer
+
+        tracer = get_tracer()
+        for tid, ss in spans.items():
+            tracer.ingest(str(tid), ss or [])
+    if "token" in resp:
+        return np.asarray(resp["token"], np.int32)
+    if "verify_ids" in resp:
+        return np.asarray(resp["verify_ids"], np.int32)
+    if "beam_vals" in resp:
+        return np.asarray(resp["beam_vals"]), np.asarray(resp["beam_idx"])
+    return None
 
 
 class JobDeclinedError(RuntimeError):
@@ -145,6 +195,7 @@ class DistributedModel:
         self.cfg = None
         self.workers: dict[str, str] = {}  # worker plan id -> connected node id
         self.worker_addrs: dict[str, list] = {}  # worker id -> [host, port]
+        self.chain_forwards = 0  # completed worker-to-worker chained calls
         self._repair_lock = threading.Lock()
         self._repaired: dict[str, str] = {}  # dead worker id -> replacement
         self._request_timeout = float(request_timeout)
@@ -200,12 +251,12 @@ class DistributedModel:
         self.plan = ShardingPlan.from_json(reply["plan"])
         self.model_spec = reply.get("model", self.model_spec)
         self.cfg = ModelConfig.from_json(self.model_spec["config"])
-        if self.plan.n_stages > 1 or any(
-            s.coworkers for s in self.plan.stages
-        ):
-            raise unported("a pipelined or co-slice merged job", 8)
+        if any(s.coworkers for s in self.plan.stages):
+            raise unported("a co-slice merged job (coworkers)", 4)
+        if self.training and self.plan.n_stages > 1:
+            raise unported("training a pipelined (multi-stage) job", 1)
 
-        # connect to the assigned worker and ship its stage
+        # connect to each stage's worker and ship its stage
         for stage in self.plan.stages:
             wid = stage.worker_id
             if wid in self.workers:
@@ -260,12 +311,19 @@ class DistributedModel:
           which the worker dedups, ml/worker.py::_session_dup); anything
           else could double-apply.
         - A dead connection on a stateless op pulls a replacement from the
-          validator (the reference's "request another worker" TODO,
-          module.py:510-511, made real) and retries there.
+          validator (:meth:`_repair`) and retries there.
+        - A dead connection on a SESSION op raises :class:`SessionLost`:
+          the replacement has no KV, so the generate loop re-establishes
+          the session (re-prefill) instead of retrying the RPC.
+        - A dead connection mid-training-step (optimizer initialized)
+          raises :class:`WorkerLost`: the step's inputs and gradients died
+          with the worker, so ``train_step`` re-drives the whole step from
+          the last checkpoint instead of applying a partial gradient.
         - ``_repaired``: one attempt, no repair (the continuous path runs
-          its own recovery ladder).
+          its own recovery ladder; repair re-ships through it).
         """
         timeout = self._request_timeout if timeout is None else timeout
+        session_op = tag == proto.FORWARD and body.get("session") is not None
         idempotent = body.get("seq") is not None
         attempts = 1 if _repaired else self._retry_attempts
         worker = worker_plan_id
@@ -288,6 +346,11 @@ class DistributedModel:
                 if _repaired:
                     raise
                 conn_lost = "no connection" in str(e)
+                if conn_lost and session_op:
+                    raise SessionLost(worker, e) from e
+                if conn_lost and getattr(self, "_opt_ready", False) \
+                        and getattr(self, "_step_active", False):
+                    raise WorkerLost(worker, e) from e
                 if conn_lost:
                     if attempt == attempts - 1:
                         raise
@@ -312,15 +375,174 @@ class DistributedModel:
         return resp
 
     # ------------------------------------------------------------------
-    # paths later slices of the port bring
+    # worker replacement (pulled by the user through JOB_REPAIR; the
+    # validator's monitor may also push a JOB_UPDATE,
+    # platform/job_monitor.py)
     # ------------------------------------------------------------------
     def _repair(self, dead_plan_wid: str) -> str:
-        """Replace a dead worker (validator JOB_REPAIR pull)."""
-        raise unported("job repair", 7)
+        """Ask the validator for a replacement, connect, re-ship the stage.
+        Returns the new plan worker id; raises if none is available.
+
+        Concurrent requests can all hit the same dead worker: the repair
+        lock serializes them, and the repair map makes followers reuse the
+        first thread's replacement instead of recruiting again."""
+        with self._repair_lock:
+            fixed = self._chase_repaired(dead_plan_wid)
+            if fixed:
+                return fixed
+            return self._repair_locked(dead_plan_wid)
+
+    # tlint: holds-lock(self._repair_lock)
+    def _chase_repaired(self, dead_plan_wid: str) -> str | None:
+        """Resolve chained repairs (A→B then B→C): a straggler holding the
+        oldest id lands on the live replacement. None when this id was
+        never repaired. The caller holds ``_repair_lock``."""
+        fixed = self._repaired.get(dead_plan_wid)
+        if not fixed:
+            return None
+        seen = {dead_plan_wid}
+        while fixed in self._repaired and fixed not in seen:
+            seen.add(fixed)
+            fixed = self._repaired[fixed]
+        return fixed
+
+    # tlint: holds-lock(self._repair_lock)
+    def _repair_locked(self, dead_plan_wid: str) -> str:
+        validators = self.node.send_request("validators", timeout=10.0)
+        if not validators:
+            raise RuntimeError("no validator available for job repair")
+        update = self.node.send_request(
+            "control_request",
+            {"peer": validators[0], "tag": proto.JOB_REPAIR,
+             "body": {"job_id": self.job_id, "worker_id": dead_plan_wid},
+             "timeout": 15.0},
+            timeout=25.0,
+        )
+        if not isinstance(update, dict) or "worker" not in update:
+            # the validator's monitor may have beaten this pull to the
+            # same dead worker (its replacement already rewrote the plan,
+            # so the pull finds no stage to fix): apply the pushed
+            # JOB_UPDATEs waiting in our buffer and reuse that replacement
+            # (inline, not poll_job_updates(): we hold _repair_lock)
+            try:
+                for u in self.node.send_request("job_updates", timeout=10.0):
+                    if u.get("job_id") == self.job_id and "worker" in u:
+                        old = u.get("old_worker", "")
+                        if old in self.workers and old not in self._repaired:
+                            self._apply_update(u, old)
+            except Exception as e:
+                self.log.debug("job_updates scan during repair failed: %s", e)
+            fixed = self._chase_repaired(dead_plan_wid)
+            if fixed:
+                return fixed
+            err = update.get("error") if isinstance(update, dict) else update
+            raise RuntimeError(f"job repair failed: {err}")
+        return self._apply_update(update, dead_plan_wid)
+
+    def _apply_update(self, update: dict, dead_plan_wid: str) -> str:
+        """Point every stage of the dead worker at its replacement: connect,
+        re-ship the MODULE and, for a training job, re-init the optimizer
+        there and roll EVERY stage back to the last checkpoint (a fresh
+        replacement beside trained survivors would mix parameter
+        versions), with the model's step counter reset from the
+        checkpoint's manifest."""
+        new_id = update["worker"]["id"]
+        host, port = update["worker"]["addr"]
+        conn_id = self.node.connect_to(host, int(port))
+        self.worker_addrs[new_id] = [host, int(port)]
+        # order matters for concurrent readers: the new mapping exists
+        # before any stage names it; the old one stays (its connection is
+        # dead, so a straggler on it re-enters repair and finds the
+        # recorded replacement)
+        self.workers[new_id] = conn_id
+        affected = [
+            s for s in self.plan.stages if s.worker_id == dead_plan_wid
+        ]
+        for s in affected:
+            s.worker_id = new_id
+        self._repaired[dead_plan_wid] = new_id
+        for s in affected:
+            resp = self._request(
+                new_id, proto.MODULE,
+                {
+                    "job_id": self.job_id,
+                    "model": self.model_spec,
+                    "stage": _stage_dict(s),
+                    "training": self.training,
+                },
+                timeout=MAX_WAIT_TIME, _repaired=True,
+            )
+            if not resp.get("ok"):
+                raise RuntimeError(f"replacement stage load failed: {resp}")
+        if getattr(self, "_opt_ready", False):
+            self._request(
+                new_id, proto.OPTIMIZER,
+                {"job_id": self.job_id, "op": "init",
+                 "spec": {"name": getattr(self, "_opt_name", "adamw"),
+                          "grad_clip": None,
+                          **getattr(self, "_opt_spec", {})}},
+                _repaired=True,
+            )
+            if getattr(self, "_last_ckpt", None):
+                self._roll_back_to_checkpoint()
+            elif getattr(self, "_step", 0) > 0:
+                raise RuntimeError(
+                    "worker replaced mid-training with no checkpoint to roll "
+                    "back to: trained state on surviving stages is "
+                    "inconsistent with the fresh replacement stage — set "
+                    "ckpt_every_steps (auto-checkpoint) or call "
+                    "save_checkpoint() periodically to make repair lossless"
+                )
+        self.log.info(
+            "repaired job %s: %s -> %s", self.job_id[:8],
+            dead_plan_wid[:8], new_id[:8],
+        )
+        return new_id
+
+    def _roll_back_to_checkpoint(self) -> None:
+        """Restore every stage from ``_last_ckpt`` and set the model's
+        step counter to the checkpoint's, so a repaired job loses at most
+        ``ckpt_every_steps`` steps, in its accounting too."""
+        import json
+        from pathlib import Path
+
+        for s in self.plan.stages:
+            self._request(
+                s.worker_id, proto.CHECKPOINT,
+                {"job_id": self.job_id, "op": "restore",
+                 "dir": self._last_ckpt},
+                _repaired=True,
+            )
+        try:
+            manifest = json.loads(
+                (Path(self._last_ckpt) / "manifest.json").read_text()
+            )
+            self._step = int(manifest.get("step", getattr(self, "_step", 0)))
+        except Exception as e:
+            self.log.warning(
+                "checkpoint manifest %s unreadable: %s", self._last_ckpt, e,
+            )
 
     def poll_job_updates(self) -> int:
-        """Apply validator-pushed worker replacements."""
-        raise unported("job repair", 7)
+        """Apply validator-pushed replacements (the monitor path); returns
+        how many were applied."""
+        updates = self.node.send_request("job_updates", timeout=10.0)
+        n = 0
+        for u in updates:
+            if u.get("job_id") == self.job_id and "worker" in u:
+                old = u.get("old_worker", "")
+                with self._repair_lock:
+                    if old in self.workers and old not in self._repaired:
+                        self._apply_update(u, old)
+                        n += 1
+        return n
+
+    def _repair_dead_stages(self) -> None:
+        """Repair every stage whose worker connection is gone."""
+        live = set(self.node.send_request("peers", timeout=10.0))
+        for st in self.plan.stages:
+            if self.workers.get(st.worker_id) not in live:
+                self._repair(st.worker_id)
 
     @property
     def device(self):
@@ -333,7 +555,7 @@ class DistributedModel:
         return self._device
 
     # ------------------------------------------------------------------
-    # forward (a single-stage job)
+    # forward (reference module.py:348-411 + OffloadedModule.forward:1536)
     # ------------------------------------------------------------------
     def forward(
         self,
@@ -341,36 +563,139 @@ class DistributedModel:
         attn_mask=None,
         *,
         session: str | None = None,
+        cache_len: int | None = None,
         sample: dict | None = None,
         last_idx=None,
-        **kw,
+        reorder_idx=None,
+        reset_len: int | None = None,
+        reset_rows: Sequence[int] | None = None,
+        seq: int | None = None,
+        trace: Sequence[str] | None = None,
     ):
-        """The job's forward: logits ``[B, T, V]`` as a tensor on
+        """Chain the stages: the logits ``[B, T, V]`` as a tensor on
         :attr:`device`, or with ``sample`` ({temperature, top_k, top_p,
-        seed, step}) one token id per row sampled on the worker (an int32
-        numpy array; ``last_idx`` names each row's final real position).
-        Decode sessions and pipelined jobs wait for ROADMAP queue 1 item
-        8."""
+        seed, step}) one token id per row sampled on the head's worker (an
+        int32 numpy array; ``last_idx`` names each row's final real
+        position). ``sample`` may instead ask for per-position argmax ids
+        (``verify``) or beam candidates (``beam_k``).
+
+        ``session`` keeps each stage's KV cache alive on its worker
+        between calls (decode), ``seq`` numbers its ops so a duplicated
+        or retried frame never applies twice, and ``reorder_idx`` (beam
+        search), ``reset_len`` (speculative rollback) and ``reset_rows``
+        (slot recycling) edit the cached session before this op's
+        writes. ``trace`` names the requests this op admits."""
         from tensorlink_tpu_torch.engine.paged import device_tensor
 
         assert self.plan is not None
-        if session is not None or kw:
-            raise unported("decode sessions (pipelined decode)", 8)
-        body: dict[str, Any] = {
-            "job_id": self.job_id, "op": "stage",
-            "tokens": np.asarray(_host_ids(tokens), np.int32),
-        }
+        x = np.asarray(_host_ids(tokens), np.int32)
+        body_common: dict[str, Any] = {"job_id": self.job_id}
+        if session is not None:
+            body_common["session"] = session
+            body_common["cache_len"] = cache_len or self.spec["seq_len"]
+            if seq is not None:
+                body_common["seq"] = int(seq)
+        if reorder_idx is not None:
+            body_common["reorder_idx"] = np.asarray(reorder_idx, np.int32)
+        if reset_len is not None:
+            body_common["reset_len"] = int(reset_len)
+        if reset_rows:
+            body_common["reset_rows"] = [int(r) for r in reset_rows]
+        if trace:
+            body_common["trace"] = [str(t) for t in trace if t]
         if attn_mask is not None:
-            body["attn_mask"] = np.asarray(_host_ids(attn_mask), bool)
-        if sample is not None:
-            body["sample"] = sample
-            if last_idx is not None:
-                body["last_idx"] = np.asarray(_host_ids(last_idx), np.int32)
-        [stage] = self.plan.stages
-        resp = self._request(stage.worker_id, proto.FORWARD, body)
-        if "token" in resp:
-            return np.asarray(resp["token"], np.int32)
-        return device_tensor(resp["out"], self.device)
+            body_common["attn_mask"] = np.asarray(_host_ids(attn_mask), bool)
+
+        def samp_body(base: dict) -> dict:
+            if sample is not None:
+                base["sample"] = sample
+                if last_idx is not None:
+                    base["last_idx"] = np.asarray(_host_ids(last_idx),
+                                                  np.int32)
+            return base
+
+        def result(resp: dict):
+            res = _head_result(resp)
+            if res is not None:
+                return res
+            return device_tensor(resp["out"], self.device)
+
+        if len(self.plan.stages) > 1 and all(
+            s.worker_id in self.worker_addrs for s in self.plan.stages
+        ):
+            # worker-to-worker chain: ONE request; activations hop
+            # straight between the stage workers and only the final result
+            # returns here. A stateless call falls back to the per-hop path
+            # (which repairs workers) on a transport failure; a session
+            # call raises SessionLost — a mid-chain stage may already have
+            # absorbed this op's KV writes, so the generate loop
+            # re-establishes the session instead.
+            try:
+                return result(self._forward_chain(x, body_common, samp_body))
+            except SessionLost:
+                raise
+            except Exception as e:
+                if not _transportish(e):
+                    raise
+                if session is not None:
+                    raise SessionLost(None, e) from e
+                self.log.warning(
+                    "chained forward failed (%s); per-hop fallback", e
+                )
+
+        last = self.plan.stages[-1]
+        head_on_last = last.last and last.holds_head
+        out = None
+        for stage in self.plan.stages:
+            body = dict(body_common, op="stage")
+            if stage.first:
+                body["tokens"] = x
+            else:
+                body["hidden"] = out
+            if head_on_last and stage is last:
+                body = samp_body(body)
+            resp = self._request(stage.worker_id, proto.FORWARD, body)
+            if head_on_last and stage is last:
+                return result(resp)
+            out = resp["out"]
+        head_stage = next(s for s in self.plan.stages if s.holds_head)
+        resp = self._request(
+            head_stage.worker_id, proto.FORWARD,
+            samp_body({"job_id": self.job_id, "op": "head", "hidden": out}),
+        )
+        return result(resp)
+
+    def _forward_chain(self, x, body_common: dict, samp_body) -> dict:
+        """One request drives the whole pipeline: each stage's worker
+        computes its slice and ships the hidden state DIRECTLY to the next
+        stage's worker (nodes/roles.py::cmd_chain_send); the final hop
+        (the head holder — stage 0 again for a tied head) answers this
+        user. Per token that is stages + 1 one-way transfers instead of
+        2 x stages, and the activations never cross the user's link.
+        Returns the final hop's reply."""
+        stages = self.plan.stages
+        entries = [
+            {"addr": list(self.worker_addrs[s.worker_id]), "head": False}
+            for s in stages[1:]
+        ]
+        last = stages[-1]
+        if not (last.last and last.holds_head):
+            head_stage = next(s for s in stages if s.holds_head)
+            entries.append(
+                {"addr": list(self.worker_addrs[head_stage.worker_id]),
+                 "head": True}
+            )
+        body = samp_body(dict(
+            body_common, op="chain", chain=entries,
+            reply_to=self.node.node_id, tokens=x,
+        ))
+        # session chains retry safely through _request: every hop dedups
+        # on the op's seq and re-drives its cached output downstream, so a
+        # retry after a lost reply reaches the final hop without any stage
+        # re-absorbing KV writes; a dead worker raises SessionLost
+        resp = self._request(stages[0].worker_id, proto.FORWARD, body)
+        self.chain_forwards += 1
+        return resp
 
     __call__ = forward
 
@@ -456,10 +781,14 @@ class DistributedModel:
         step_optimizer: bool = True,
         overlap: bool = True,
     ) -> dict:
-        """One training step (:meth:`_train_step_once`). A lost worker
-        goes to :meth:`_recover_training`, which waits for job repair
-        (ROADMAP queue 1 item 7). Every ``ckpt_every_steps`` optimizer
-        steps the job checkpoints itself."""
+        """One durable training step (:meth:`_train_step_once`). When a
+        worker dies mid-step (:class:`WorkerLost`),
+        :meth:`_recover_training` repairs the dead stages — the
+        replacement and every survivor restore params and optimizer state
+        from ``_last_ckpt`` and the step counter rolls back to it — and the
+        step is re-driven from clean gradients, so a crash loses at most
+        ``ckpt_every_steps`` steps, never a partial gradient. Every
+        ``ckpt_every_steps`` optimizer steps the job checkpoints itself."""
         self._step_active = True
         try:
             for attempt in range(2):
@@ -498,8 +827,28 @@ class DistributedModel:
         return self._ckpt_dir
 
     def _recover_training(self) -> None:
-        """Repair the dead stages and roll back to the last checkpoint."""
-        raise unported("job repair", 7)
+        """Repair every stage whose worker connection died (each repair
+        re-ships the stage and restores the last checkpoint on ALL stages,
+        :meth:`_apply_update`), then clear half-accumulated gradients
+        everywhere so the re-driven step starts clean.
+
+        If the failed step had begun fanning out its OPTIMIZER "step" ops
+        (``_opt_step_partial``), some stages may hold the update and others
+        not — re-driving on that mixed state would apply a second update on
+        the fast stages. So every stage rolls back to the last checkpoint
+        first, and with no checkpoint the recovery refuses."""
+        self._repair_dead_stages()
+        if getattr(self, "_opt_step_partial", False):
+            if not getattr(self, "_last_ckpt", None):
+                raise RuntimeError(
+                    "optimizer step failed after possibly applying updates "
+                    "on some stages, and no checkpoint exists to roll back "
+                    "to — set ckpt_every_steps (auto-checkpoint) to make "
+                    "this recoverable"
+                )
+            self._roll_back_to_checkpoint()
+            self._opt_step_partial = False
+        self.zero_grad()
 
     def _train_step_once(
         self,
@@ -515,7 +864,8 @@ class DistributedModel:
         here (:func:`_ce_sum_and_grad`), and a backward; then the optimizer
         with ``scale = 1 / total tokens`` — the compiled
         ``engine.training.make_train_step`` within float rounding.
-        ``overlap`` matters only for more than one stage (item 8)."""
+        ``overlap`` matters only for more than one stage (ROADMAP queue 1
+        item 1)."""
         from tensorlink_tpu_torch.engine.paged import host_array
 
         assert self.plan is not None
@@ -675,11 +1025,21 @@ class DistributedModel:
         (None for rows already finished) — the engine's contract. Sampling
         knobs may be per-row sequences and ``budgets`` caps rows
         individually (both used by the serving batcher, ml/batching.py, to
-        mix concurrent requests in one decode) through the worker engine's
-        bucketed batch."""
+        mix concurrent requests in one decode) — on a single-stage job
+        through the worker engine's bucketed batch, on a pipelined job
+        through the head worker's per-row sampler."""
         if self.plan is None:
             raise RuntimeError("the model is not attached to a job")
         prompts = [list(p) for p in prompts]
+        if self.plan.n_stages > 1:
+            return self._generate_staged(
+                prompts, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                eos_ids=eos_ids, seed=seed, stream_cb=stream_cb,
+                budgets=budgets, lookahead=lookahead,
+                presence_penalty=presence_penalty,
+                frequency_penalty=frequency_penalty, num_beams=num_beams,
+            )
         if (
             continuous
             and len(prompts) == 1
@@ -1339,6 +1699,380 @@ class DistributedModel:
             # only a dead connection licenses the resume-on-replacement
             raise err
         return toks, False, None
+
+    # ------------------------------------------------------------------
+    # generate on a pipelined job: host-driven decode over per-stage
+    # session caches
+    # ------------------------------------------------------------------
+    def _generate_staged(
+        self, prompts, *, max_new_tokens, temperature, top_k, top_p,
+        eos_ids, seed, stream_cb, budgets, lookahead, presence_penalty,
+        frequency_penalty, num_beams,
+    ) -> list[list[int]]:
+        """The pipelined job's paths: beam search, prompt-lookup
+        speculation (greedy, unpenalized, B = 1) or the session decode."""
+        if int(num_beams) > 1:
+            return self._generate_beam_pipelined(
+                prompts, num_beams=int(num_beams),
+                max_new_tokens=max_new_tokens, eos_ids=eos_ids,
+            )
+        if (
+            lookahead and len(prompts) == 1
+            and not isinstance(temperature, (list, tuple))
+            and float(temperature) <= 0.0
+            and not _any_nonzero(presence_penalty)
+            and not _any_nonzero(frequency_penalty)
+        ):
+            # per-token cost here is the cross-stage hops, so accepted
+            # drafts divide the round trips; the tokens are vanilla greedy
+            return self._generate_lookahead_pipelined(
+                prompts, max_new_tokens=max_new_tokens, eos_ids=eos_ids,
+                stream_cb=stream_cb,
+            )
+        return self._generate_pipelined(
+            prompts, max_new_tokens=max_new_tokens, temperature=temperature,
+            top_k=top_k, top_p=top_p, eos_ids=eos_ids, seed=seed,
+            stream_cb=stream_cb, budgets=budgets,
+            presence_penalty=presence_penalty,
+            frequency_penalty=frequency_penalty,
+        )
+
+    def _generate_pipelined(
+        self, prompts, *, max_new_tokens, temperature, top_k=0, top_p=1.0,
+        eos_ids=(), seed=0, stream_cb=None, budgets=None,
+        presence_penalty=0.0, frequency_penalty=0.0,
+    ) -> list[list[int]]:
+        """Host-driven decode across the stages with per-stage session
+        caches. The head's worker samples each step with the key
+        ``fold_in(PRNGKey(seed), step)`` and ships one id per row; knobs
+        may be per-row and ``budgets`` caps rows individually.
+        Presence/frequency penalties ride the session: the head's worker
+        keeps the ``[B, V]`` context counts across steps.
+
+        A stage worker lost mid-decode: the dead stages are repaired and
+        prompt + emitted tokens re-prefill under a fresh session. The
+        re-prefilled row's last logits are the decode step's, and the key
+        depends only on (seed, step), so the resumed stream equals the
+        uninterrupted one — no duplicated, no missing tokens."""
+        prompts = [list(map(int, p)) for p in prompts]
+        B = len(prompts)
+        T = max(len(p) for p in prompts)
+        toks = np.zeros((B, T), np.int32)
+        mask = np.zeros((B, T), bool)
+        for i, p in enumerate(prompts):
+            toks[i, : len(p)] = p
+            mask[i, : len(p)] = True
+        cache_len = min(self.spec["seq_len"], T + max_new_tokens)
+        eos = set(int(e) for e in eos_ids)
+        per_row = any(
+            isinstance(v, (list, tuple))
+            for v in (temperature, top_k, top_p,
+                      presence_penalty, frequency_penalty)
+        )
+        for name, v in (("temperature", temperature), ("top_k", top_k),
+                        ("top_p", top_p), ("budgets", budgets),
+                        ("presence_penalty", presence_penalty),
+                        ("frequency_penalty", frequency_penalty)):
+            if isinstance(v, (list, tuple)) and len(v) != B:
+                raise ValueError(
+                    f"per-row {name} has {len(v)} entries for {B} prompts"
+                )
+        # per-row budgets, each capped by its OWN cache room
+        eff = []
+        for i, p in enumerate(prompts):
+            want = int(budgets[i]) if budgets else int(max_new_tokens)
+            eff.append(max(min(want, cache_len - len(p)), 0))
+        steps = max(eff) if eff else 0
+
+        def rows(v, cast):
+            # all or none: one per-row knob makes every knob a B-list
+            if not per_row:
+                return cast(v)
+            if isinstance(v, (list, tuple)):
+                return [cast(x) for x in v]
+            return [cast(v)] * B
+
+        samp = {
+            "temperature": rows(temperature, float),
+            "top_k": rows(top_k, int),
+            "top_p": rows(top_p, float),
+            "presence_penalty": rows(presence_penalty, float),
+            "frequency_penalty": rows(frequency_penalty, float),
+            "seed": int(seed),
+        }
+        penalized = (
+            _any_nonzero(presence_penalty) or _any_nonzero(frequency_penalty)
+        )
+
+        def with_prompt(d: dict, t, m) -> dict:
+            # the head's worker sees hidden states, not ids: the prompt
+            # seeds the session's context counts once
+            if penalized:
+                d["prompt_tokens"] = t
+                d["prompt_mask"] = m
+            return d
+
+        seqs: list[list[int]] = [[] for _ in range(B)]
+        state = {"session": secrets.token_hex(8), "seq": 0, "recoveries": 0}
+        MAX_RECOVERIES = 3
+
+        def prefill(t, m, step_idx: int):
+            lens = m.sum(-1)
+            out = self.forward(
+                t, m, session=state["session"], cache_len=cache_len,
+                sample=with_prompt(dict(samp, step=step_idx), t, m),
+                last_idx=(lens - 1).astype(np.int32), seq=0,
+            )
+            state["seq"] = 1
+            return out
+
+        def reestablish(step_idx: int):
+            self._repair_dead_stages()
+            self._end_decode_session(state["session"])
+            state["session"] = secrets.token_hex(8)
+            rows_ = [prompts[i] + seqs[i] for i in range(B)]
+            t2 = np.zeros((B, max(len(r) for r in rows_)), np.int32)
+            m2 = np.zeros_like(t2, bool)
+            for i, r in enumerate(rows_):
+                t2[i, : len(r)] = r
+                m2[i, : len(r)] = True
+            return prefill(t2, m2, step_idx)
+
+        def next_tok(step_idx: int, step_tok):
+            mode = "prefill" if step_tok is None else "decode"
+            while True:
+                try:
+                    if mode == "decode":
+                        out = self.forward(
+                            step_tok[:, None].astype(np.int32),
+                            session=state["session"], cache_len=cache_len,
+                            sample=dict(samp, step=step_idx),
+                            seq=state["seq"],
+                        )
+                        state["seq"] += 1
+                        return out
+                    if mode == "prefill":
+                        return prefill(toks, mask, 0)
+                    return reestablish(step_idx)
+                except Exception as e:
+                    recoverable = isinstance(e, SessionLost) \
+                        or _transportish(e)
+                    if not recoverable \
+                            or state["recoveries"] >= MAX_RECOVERIES:
+                        raise
+                    state["recoveries"] += 1
+                    self.log.warning(
+                        "decode session lost (%s); re-establishing on live "
+                        "workers (recovery %d/%d)",
+                        e, state["recoveries"], MAX_RECOVERIES,
+                    )
+                    mode = "reestablish"
+
+        try:
+            tok = next_tok(0, None)
+            done = np.asarray([e <= 0 for e in eff], bool)
+            for step in range(steps):
+                emitted: list[int | None] = []
+                for i in range(B):
+                    if not done[i]:
+                        seqs[i].append(int(tok[i]))
+                        emitted.append(int(tok[i]))
+                    else:
+                        emitted.append(None)
+                    done[i] |= int(tok[i]) in eos or len(seqs[i]) >= eff[i]
+                if stream_cb is not None and any(
+                    e is not None for e in emitted
+                ):
+                    # the callback may name rows to cancel (confirmed stop
+                    # matches): they stop now, saving their stage hops
+                    for i in stream_cb(emitted) or ():
+                        if 0 <= int(i) < B:
+                            done[int(i)] = True
+                if done.all() or step == steps - 1:
+                    break
+                tok = next_tok(step + 1, tok)
+            return seqs
+        finally:
+            # on failure paths too: survivors must not leak the session's
+            # KV and its dedup ledger
+            self._end_decode_session(state["session"])
+
+    def _end_decode_session(self, session: str) -> None:
+        """Drop a session's KV caches (and seq-dedup ledger) on every stage
+        worker; best-effort — a dead worker's cache died with it."""
+        for stage in self.plan.stages:
+            try:
+                self._request(
+                    stage.worker_id, proto.FORWARD,
+                    {"job_id": self.job_id, "op": "end_session",
+                     "session": session},
+                    timeout=10.0,
+                )
+            # tlint: disable=TL005(session teardown fanout — a dead stage has no session left to end)
+            except Exception:
+                pass
+
+    def _generate_beam_pipelined(
+        self, prompts, *, num_beams: int, max_new_tokens: int,
+        eos_ids=(), length_penalty: float = 1.0,
+    ) -> list[list[int]]:
+        """Beam search across the stages (B = 1): the K beams ride the
+        session's batch axis, the head's worker ships K x (K + n_eos)
+        candidate (score, id) pairs per step from its top-k (never [K, V]
+        logits), the frontier logic is the engine's
+        (``engine/generate.py::beam_frontier_step``), and each step
+        reorders every stage's cache rows to follow their source beam."""
+        from tensorlink_tpu_torch.engine.generate import beam_frontier_step
+
+        prompts = [list(map(int, p)) for p in prompts]
+        if len(prompts) != 1:
+            raise ValueError("beam search is B=1")
+        K = int(num_beams)
+        prompt = prompts[0]
+        eos_set = set(int(e) for e in eos_ids)
+        cache_len = min(self.spec["seq_len"], len(prompt) + max_new_tokens)
+        room = min(max_new_tokens, cache_len - len(prompt))
+        if room <= 0:
+            return [[]]
+        session = secrets.token_hex(8)
+        samp = {"beam_k": K, "beam_n_eos": len(eos_set)}
+        # K identical prompt rows prefill K identical session caches
+        toks = np.tile(np.asarray(prompt, np.int32), (K, 1))
+        mask = np.ones((K, len(prompt)), bool)
+        last_idx = np.full((K,), len(prompt) - 1, np.int32)
+        try:
+            vals, idx = self.forward(
+                toks, mask, session=session, cache_len=cache_len,
+                sample=samp, last_idx=last_idx,
+            )
+            row_v, row_i = np.asarray(vals)[0], np.asarray(idx)[0]
+            scores = row_v[:K].astype(np.float64)
+            beams = [[int(t)] for t in row_i[:K]]
+            alive = [int(t) not in eos_set for t in row_i[:K]]
+            done_pool: list[tuple[float, list[int]]] = []
+            for k, b in enumerate(beams):
+                if not alive[k]:
+                    done_pool.append((scores[k] / 1.0, b))
+            tok = np.asarray([b[-1] for b in beams], np.int32)
+            pending_src: list[int] | None = None
+            for _step in range(1, room):
+                if not any(alive):
+                    break
+                vals, idx = self.forward(
+                    tok[:, None], session=session, cache_len=cache_len,
+                    sample=samp,
+                    reorder_idx=(
+                        np.asarray(pending_src, np.int32)
+                        if pending_src is not None else None
+                    ),
+                )
+                nxt = beam_frontier_step(
+                    beams, scores, alive, done_pool,
+                    np.asarray(vals), np.asarray(idx), K,
+                    eos_set, room, length_penalty,
+                )
+                if nxt is None:
+                    break
+                beams, scores, alive, src = nxt
+                # a stable frontier skips the gather
+                pending_src = None if src == list(range(K)) else src
+                tok = np.asarray([b[-1] for b in beams], np.int32)
+            for k in range(K):
+                if alive[k]:
+                    done_pool.append(
+                        (scores[k] / (len(beams[k]) ** length_penalty),
+                         beams[k])
+                    )
+            _score, best = max(done_pool, key=lambda d: d[0])
+            return [best]
+        finally:
+            self._end_decode_session(session)
+
+    def _generate_lookahead_pipelined(
+        self, prompts, *, max_new_tokens: int, eos_ids=(),
+        n_draft: int = 8, stream_cb=None,
+    ) -> list[list[int]]:
+        """Greedy decode with prompt-lookup speculation across the stages
+        (B = 1): draft from the history's own n-grams, verify the whole
+        draft in ONE multi-token session forward (the head's worker ships
+        per-position argmax ids), keep the matched prefix + correction,
+        and roll back rejected cache positions with a length reset that
+        rides the next forward. Emits exactly the vanilla greedy
+        sequence."""
+        from tensorlink_tpu_torch.engine.generate import GenerationEngine
+
+        prompts = [list(map(int, p)) for p in prompts]
+        if len(prompts) != 1:
+            raise ValueError("lookahead decode is B=1")
+        prompt = prompts[0]
+        eos_set = set(int(e) for e in eos_ids)
+        cache_len = min(self.spec["seq_len"], len(prompt) + max_new_tokens)
+        limit = min(max_new_tokens, cache_len - len(prompt))
+        if limit <= 0:
+            return [[]]
+        session = secrets.token_hex(8)
+        lookup = GenerationEngine._lookup_draft
+        try:
+            tok = int(self.forward(
+                np.asarray([prompt], np.int32),
+                np.ones((1, len(prompt)), bool),
+                session=session, cache_len=cache_len,
+                sample={"temperature": 0.0, "seed": 0, "step": 0},
+                last_idx=np.asarray([len(prompt) - 1], np.int32),
+            )[0])
+            history = list(prompt) + [tok]
+            seq = [tok]
+            if stream_cb is not None:
+                stream_cb([tok])
+            cur_len = len(prompt)  # cache rows written past the prompt
+            # a rollback set after a verify pass rides the next forward
+            pending_reset: int | None = None
+            while len(seq) < limit and tok not in eos_set:
+                remaining = limit - len(seq)
+                k = min(n_draft, remaining - 1, cache_len - cur_len - 1 - 1)
+                draft = lookup(history, k) if k > 0 else []
+                pad_to = len(draft)
+                if cur_len + 1 + n_draft + 1 <= cache_len:
+                    # a fixed [1, 1 + n_draft] verify shape whenever the
+                    # cache has room
+                    pad_to = n_draft if draft else 0
+                step_toks = np.zeros((1, 1 + pad_to), np.int32)
+                step_toks[0, 0] = tok
+                step_toks[0, 1 : 1 + len(draft)] = draft
+                targets = self.forward(
+                    step_toks, session=session, cache_len=cache_len,
+                    sample={"verify": True}, reset_len=pending_reset,
+                )[0]
+                base = cur_len if pending_reset is None else pending_reset
+                cur_len = base + step_toks.shape[1]
+                accepted = 0
+                while (
+                    accepted < len(draft)
+                    and draft[accepted] == int(targets[accepted])
+                ):
+                    if draft[accepted] in eos_set:
+                        break
+                    accepted += 1
+                emitted = list(draft[:accepted]) + [int(targets[accepted])]
+                pending_reset = base + 1 + accepted
+                taken: list[int] = []
+                for t in emitted:
+                    seq.append(t)
+                    history.append(t)
+                    taken.append(t)
+                    tok = t
+                    if t in eos_set or len(seq) >= limit:
+                        break
+                cancelled = False
+                if stream_cb is not None:
+                    for t in taken:  # the per-token callback contract
+                        if stream_cb([t]):
+                            cancelled = True  # a confirmed stop (B = 1)
+                if cancelled or tok in eos_set:
+                    break
+            return [seq[:limit]]
+        finally:
+            self._end_decode_session(session)
 
     # ------------------------------------------------------------------
     def shutdown(self) -> None:

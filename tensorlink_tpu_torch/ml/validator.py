@@ -1,12 +1,15 @@
 """DistributedValidator — the ML side of a validator node (port of
-``tensorlink_tpu/ml/validator.py`` for whole-model jobs on one device).
+``tensorlink_tpu/ml/validator.py``).
 
 The validator hosts models for its HTTP API: resolve the model config
 (an inline config, a preset, or a checkpoint's HF config.json),
 ``plan_sharding`` over the live worker capacities, recruit through the
 network process (roles.py ``cmd_create_job``), attach a
 :class:`DistributedModel` and wrap it in a batcher; ``generate_api`` then
-serves each API request through it and writes the control journal.
+serves each API request through it and writes the control journal. A
+plan may split the model into pipeline stages over several workers; the
+batcher then runs its pipelined slot session, and beam search and stop
+detection ride the session-cached stage chain.
 
 With ``MLConfig.fleet_replicas > 1`` a model is hosted as a fleet of
 replicas behind a :class:`~tensorlink_tpu_torch.fleet.router.FleetRouter`
@@ -450,8 +453,10 @@ class DistributedValidator:
     def _plan_job(self, p: dict) -> None:
         """A user's job request (UserNode / DistributedModel), serving or
         training: resolve the model's config, plan it and create the job,
-        or decline with the reason. A plan of more than one stage is
-        refused when the user attaches (ROADMAP queue 1 item 8)."""
+        or decline with the reason. A serving plan may split the model
+        into pipeline stages over several workers; training a plan of more
+        than one stage is refused when the user attaches (ROADMAP queue 1
+        item 1)."""
         from tensorlink_tpu_torch.parallel.planner import AssignmentError
 
         spec = p["spec"]
@@ -1258,6 +1263,9 @@ class DistributedValidator:
                 model = j.model
                 if model is not None and getattr(model, "plan", None):
                     entry["stages"] = model.plan.n_stages
+                    cf = getattr(model, "chain_forwards", 0)
+                    if cf:  # worker-to-worker chained calls completed
+                        entry["chain_forwards"] = cf
                 if j.router is not None:
                     # fleet view: per-replica routed counts + health,
                     # and each replica's own serving stats under its rid

@@ -1,13 +1,15 @@
 """DistributedWorker — the ML-side executor of a worker node (port of
-``tensorlink_tpu/ml/worker.py`` for whole-model jobs on one device).
+``tensorlink_tpu/ml/worker.py``; one device per worker).
 
 The executor blocks on one event queue fed by the network process and
-serves and trains whole-model jobs:
+serves and trains whole-model jobs, and serves pipeline stages:
 
-- ``load_stage`` builds the job's :class:`GenerationEngine` from a
-  checkpoint (``engine/loader.py::load_params``) or from seeded random
+- ``load_stage`` loads the stage's layer slice (plus the embedding on the
+  first stage and the final norm and head on the head's stage) from a
+  checkpoint (``engine/loader.py::load_params``) or cut from seeded random
   weights, optionally weight-only int8 (``quant`` "int8" / "int8+kv",
-  ignored for a training job);
+  ignored for a training job); a whole-model stage also gets its
+  :class:`GenerationEngine`;
 - GENERATE requests flagged ``continuous`` join the job's
   :class:`ContinuousEngine` slot batch and stream each token back over the
   TOKEN relay; a ``cont_continue`` marker on the work queue drives one
@@ -35,10 +37,22 @@ serves and trains whole-model jobs:
   stream to the new peer, or replays a finished one from the orphan
   ledger.
 
-Decode sessions and worker-to-worker chains and pipeline stages wait for
-a later slice of the port: their verbs raise ``NotImplementedError``
-naming their ROADMAP item, and the run loop's error reply carries that
-message to the peer.
+- pipeline stages: a FORWARD with a ``session`` runs the stage's slice
+  over a dense ``KVCache`` sized to the slice, kept per session in
+  ``StageRuntime.sessions``; its ops are sequence-numbered (``seq``) and a
+  duplicate never applies twice (``_session_dup``). ``op="chain"`` ships
+  the hidden state straight to the next stage's worker, looping back to
+  stage 0 for a tied head (``head_hop``); the head's worker samples,
+  ships per-position argmax ids (speculative verify) or beam candidates.
+  ``reset_rows``, ``reset_len`` and ``reorder_idx`` edit the cached
+  session before the op's writes, and ``end_session`` drops it. A stage
+  runs the einsum attention, as the JAX worker's: the flash prefill is a
+  whole-model engine's.
+
+Training a stage that is not the whole model waits for ROADMAP queue 1
+item 1, and a device mesh or tensor parallelism for item 3, co-slice
+coworkers for item 4: each raises, and the run loop's error reply carries
+the message to the peer.
 """
 
 from __future__ import annotations
@@ -59,8 +73,8 @@ from tensorlink_tpu_torch.p2p import protocol as proto
 
 @dataclass
 class StageRuntime:
-    """One loaded whole-model job: config, params, serving engines and
-    training state."""
+    """One loaded job stage: config, params, serving engines, decode
+    sessions and training state."""
 
     job_id: str
     cfg: Any  # ModelConfig
@@ -68,8 +82,18 @@ class StageRuntime:
     # the model spec this stage was shipped with (name, config, ckpt/seed,
     # quant, flash, page_quota)
     model_spec: dict = field(default_factory=dict)
-    params: Any = None  # the engine's tree (QTensor leaves when quantized)
-    engine: Any = None  # GenerationEngine
+    params: Any = None  # the stage's tree (QTensor leaves when quantized)
+    engine: Any = None  # GenerationEngine (whole-model stages only)
+    # decode sessions: session id -> this stage's KVCache (its layers)
+    sessions: dict[str, Any] = field(default_factory=dict)
+    # per-session [B, V] context counts for presence/frequency penalties
+    # on pipelined decode (the head's worker samples with them)
+    penalty_counts: dict[str, Any] = field(default_factory=dict)
+    # idempotency ledger of sequence-numbered session ops: dedup key
+    # ("{session}:{phase}") -> the last applied seq, and -> that op's
+    # outcome, re-sent to a duplicate instead of re-applying its writes
+    session_seq: dict[str, int] = field(default_factory=dict)
+    session_resp: dict[str, tuple] = field(default_factory=dict)
     training: bool = False
     cache_quant: bool = False  # int8 dense KV caches ("int8+kv")
     # training inputs kept for BACKWARD: tag -> (kind, x, attn_mask); the
@@ -103,6 +127,11 @@ class StageRuntime:
     @property
     def n_layers(self) -> int:
         return self.stage["layer_hi"] - self.stage["layer_lo"]
+
+    @property
+    def whole_model(self) -> bool:
+        return bool(self.stage["first"] and self.stage["last"]
+                    and self.stage["holds_head"])
 
 
 # beam-search chunk size: steps a beam session may run per trip through the
@@ -303,8 +332,13 @@ class DistributedWorker:
         import torch
 
         from tensorlink_tpu_torch.engine.generate import GenerationEngine
+        from tensorlink_tpu_torch.engine.optimizers import tree_map
         from tensorlink_tpu_torch.models.base import ModelConfig
-        from tensorlink_tpu_torch.models.transformer import init_params
+        from tensorlink_tpu_torch.models.quant import quantize_params
+        from tensorlink_tpu_torch.models.transformer import (
+            init_params,
+            slice_stage_params,
+        )
 
         t0 = time.monotonic()
         job_id = p["job_id"]
@@ -329,34 +363,53 @@ class DistributedWorker:
         stage = p["stage"]
         ml = self.node.config.ml
         cfg = ModelConfig.from_json(model["config"])
+        lo, hi = int(stage["layer_lo"]), int(stage["layer_hi"])
+        first, holds_head = bool(stage["first"]), bool(stage["holds_head"])
         n_mesh = 1
         for v in (stage.get("mesh_axes") or {}).values():
             n_mesh *= int(v)
-        if (
-            not (stage["first"] and stage["last"] and stage["holds_head"])
-            or stage["layer_lo"] != 0 or stage["layer_hi"] != cfg.n_layers
-            or n_mesh > 1 or stage.get("coworkers")
-            or int(getattr(ml, "tensor_parallel", 1) or 1) > 1
-            or ml.collective_quant
-        ):
-            raise unported(
-                "a pipeline stage, a device mesh or tensor parallelism", 8
-            )
+        if (n_mesh > 1 or int(getattr(ml, "tensor_parallel", 1) or 1) > 1
+                or ml.collective_quant):
+            raise unported("a device mesh or tensor parallelism", 3)
+        if stage.get("coworkers"):
+            raise unported("a co-slice merged stage (coworkers)", 4)
         training = bool(p.get("training", False))
+        whole = bool(first and stage["last"] and holds_head)
+        if training and not whole:
+            raise unported("training a pipeline stage", 1)
         if model.get("ckpt"):
             from tensorlink_tpu_torch.engine.loader import load_params
 
-            _, params = load_params(
-                model["ckpt"], cfg, layer_range=(0, cfg.n_layers),
-                device=self.device,
-            )
+            _, full = load_params(model["ckpt"], cfg, layer_range=(lo, hi),
+                                  device=self.device)
+            # the loader reads the embedding, norm and head too; keep what
+            # the stage owns
+            params = slice_stage_params(full, 0, hi - lo, first=first,
+                                        holds_head=holds_head)
         else:
+            # the whole model from the seed, then the stage's cut: a split
+            # model's weights equal the unsplit model's
             gen = torch.Generator(self.device)
             gen.manual_seed(int(model.get("seed", 0)))
-            params = init_params(cfg, gen, self.device)
-        if model.get("flash"):
-            cfg = cfg.with_(flash_attention=True)
+            full = init_params(cfg, gen, self.device)
+            params = slice_stage_params(full, lo, hi, first=first,
+                                        holds_head=holds_head)
+            if not whole:
+                # the slice's layers are views of the whole stack: copy
+                # them so the rest of the model is freed
+                params["layers"] = tree_map(lambda t: t.clone(),
+                                            params["layers"])
+        del full
         quant = model.get("quant")
+        if model.get("flash"):
+            if whole:
+                cfg = cfg.with_(flash_attention=True)
+            else:
+                self.log.warning(
+                    "flash_attention ignored on a pipelined (multi-stage) "
+                    "job — only whole-model serving engines take the "
+                    "flash prefill path"
+                )
         if quant and quant not in ("int8", "int8+kv"):
             # fail the MODULE load rather than serve a mode nobody asked for
             raise ValueError(f"unknown quant mode {quant!r}")
@@ -372,18 +425,24 @@ class DistributedWorker:
             training=training,
             cache_quant=quant == "int8+kv",
         )
-        rt.engine = GenerationEngine(
-            cfg,
-            params,
-            max_seq_len=min(cfg.max_seq_len, ml.max_seq_len),
-            seq_buckets=ml.seq_buckets,
-            batch_buckets=ml.batch_buckets,
-            # the engine quantizes the weights itself; "+kv" also sets
-            # its dense cache mode, and the mode rides serving snapshots
-            quant=quant or None,
-            device=self.device,
-        )
-        rt.params = rt.engine.params
+        if whole:
+            rt.engine = GenerationEngine(
+                cfg,
+                params,
+                max_seq_len=min(cfg.max_seq_len, ml.max_seq_len),
+                seq_buckets=ml.seq_buckets,
+                batch_buckets=ml.batch_buckets,
+                # the engine quantizes the weights itself; "+kv" also sets
+                # its dense cache mode, and the mode rides serving
+                # snapshots
+                quant=quant or None,
+                device=self.device,
+            )
+            rt.params = rt.engine.params
+        else:
+            # a stage quantizes its slice (per-layer scales: slicing then
+            # quantizing equals quantizing then slicing)
+            rt.params = quantize_params(params) if quant else params
         with self._lock:
             old = self.jobs.get(job_id)
             self.jobs[job_id] = rt
@@ -393,16 +452,16 @@ class DistributedWorker:
             old.cont.close(RuntimeError("stage reloaded"))
             old.cont = None
         self.log.info(
-            "loaded %s layers [0,%d) on %s in %.1fs",
-            model.get("name", "?"), cfg.n_layers, self.device,
+            "loaded %s layers [%d,%d) first=%s head=%s on %s in %.1fs",
+            model.get("name", "?"), lo, hi, first, holds_head, self.device,
             time.monotonic() - t0,
         )
         self._respond(
             p["peer"], proto.MODULE_LOADED, p["rid"],
-            {"job_id": job_id, "ok": True, "n_layers": cfg.n_layers},
+            {"job_id": job_id, "ok": True, "n_layers": hi - lo},
         )
         warm_toks = ml.warmup_tokens
-        if warm_toks and not training:
+        if rt.engine is not None and warm_toks and not training:
             # after the ack: warming must not time out the deploy, and a
             # warmup failure must not double-respond on this rid
             try:
@@ -1796,10 +1855,13 @@ class DistributedWorker:
 
     # -- forward (single-stage FORWARD; training inputs for BACKWARD) ----
     def _forward(self, p: dict) -> None:
-        """op="stage": the whole model over ``tokens`` (logits, or one
-        sampled token per row with ``sample``). op="head": final norm +
-        logits of ``hidden``. ``train=True`` keeps the inputs under the
-        driver's ``tag`` for BACKWARD."""
+        """op="stage": run this stage's layer slice over ``tokens`` (first
+        stage) or ``hidden``, with a decode-session KV cache when the op
+        carries ``session``. op="head": final norm + logits of ``hidden``
+        (the tied head's hop). op="chain": the same stage op, forwarded
+        worker to worker (``head_hop`` marks the tied head's final hop).
+        op="end_session" drops a session. ``train=True`` keeps the inputs
+        under the caller's ``tag`` for BACKWARD (whole-model stages)."""
         import torch
 
         from tensorlink_tpu_torch.engine.paged import device_tensor
@@ -1808,16 +1870,42 @@ class DistributedWorker:
             stage_forward,
         )
 
-        op = p.get("op", "stage")
-        if (p.get("session") is not None or op in ("end_session", "chain")
-                or p.get("chain")):
-            raise unported(
-                "decode sessions and worker-to-worker chains (pipelined "
-                "decode)", 8)
         rt = self._runtime(p["job_id"])
+        op = p.get("op", "stage")
+        if op == "end_session":
+            sid = p.get("session")
+            rt.sessions.pop(sid, None)
+            rt.penalty_counts.pop(sid, None)
+            for phase in ("s", "h"):
+                rt.session_seq.pop(f"{sid}:{phase}", None)
+                rt.session_resp.pop(f"{sid}:{phase}", None)
+            self._respond(p["peer"], proto.FORWARD_RESP, p["rid"],
+                          {"ok": True})
+            return
+        if p.get("session") is not None and p.get("seq") is not None:
+            # a duplicate delivery (a frame dup on the wire, an RPC retry
+            # after a lost reply) must never re-apply the KV writes:
+            # re-send the cached outcome instead
+            if self._session_dup(rt, p):
+                return
+        if self.faults is not None and p.get("session") is not None:
+            # fault site "worker.session_step": counted per APPLIED op, so
+            # transport dups never perturb the plan's decisions
+            self.faults.inject("worker.session_step", op)
+        if p.get("trace"):
+            # the admission op carries the admitted requests' trace ids:
+            # record this stage's hop under each
+            from tensorlink_tpu_torch.core.trace import get_tracer
+
+            tracer = get_tracer()
+            for tid in p["trace"]:
+                tracer.record(
+                    str(tid), "session_prefill", site=self.node.node_id,
+                    layers=f"{rt.stage['layer_lo']}-{rt.stage['layer_hi']}",
+                )
         train = bool(p.get("train", False))
         tag = p.get("tag", "")
-        if op == "head":
+        if op == "head" or (op == "chain" and p.get("head_hop")):
             hidden = device_tensor(p["hidden"], self.device)
             with torch.no_grad():
                 logits = head_forward(rt.params, hidden, rt.cfg)
@@ -1828,46 +1916,237 @@ class DistributedWorker:
                 return
             self._finish_fwd(rt, p, logits, True)
             return
-        if op != "stage":
+        if op not in ("stage", "chain"):
             raise ValueError(f"unknown forward op {op!r}")
-        tokens = torch.as_tensor(
-            np.asarray(p["tokens"], np.int32), device=self.device)
+        stage = rt.stage
+        first = bool(stage["first"])
+        apply_head = bool(stage["last"] and stage["holds_head"])
+        if first:
+            x_in = torch.as_tensor(np.asarray(p["tokens"], np.int32),
+                                   device=self.device)
+        else:
+            x_in = device_tensor(p["hidden"], self.device)
         mask = None
         if p.get("attn_mask") is not None:
             mask = torch.as_tensor(np.asarray(p["attn_mask"], bool),
                                    device=self.device)
-        with torch.no_grad():
-            out, _ = stage_forward(rt.params, rt.cfg, tokens=tokens,
-                                   attn_mask=mask, first=True, last=True)
         if train:
+            if not rt.whole_model:
+                raise unported("training a pipeline stage", 1)
+            with torch.no_grad():
+                out, _ = stage_forward(rt.params, rt.cfg, tokens=x_in,
+                                       attn_mask=mask, first=True,
+                                       last=True)
             # no KV cache in training: the backward recomputes the forward
             # from these inputs when the cotangent arrives
-            rt.saved[tag] = ("stage", tokens, mask)
+            rt.saved[tag] = ("stage", x_in, mask)
             self._respond(p["peer"], proto.FORWARD_RESP, p["rid"],
                           {"out": _host(out), "is_logits": True})
             return
-        self._finish_fwd(rt, p, out, True)
+        session = p.get("session")
+        cache = None
+        if session is not None:
+            cache = self._session_cache(rt, p, x_in.shape[0])
+        with torch.no_grad():
+            kw = {"tokens": x_in} if first else {"hidden": x_in}
+            out, new_cache = stage_forward(
+                rt.params, rt.cfg, cache=cache, attn_mask=mask,
+                first=first, last=apply_head, **kw)
+            if session is not None and mask is not None:
+                _clear_empty_rows(cache, new_cache, mask)
+        if session is not None:
+            rt.sessions[session] = new_cache
+        self._finish_fwd(rt, p, out, apply_head)
+
+    def _session_cache(self, rt: StageRuntime, p: dict, batch: int):
+        """The session's cache with this op's edits applied, or a fresh
+        one sized to the stage's layers: ``reset_rows`` zeroes recycled
+        rows' write offsets (slot admission), ``reset_len`` rolls back the
+        previous verify pass's rejected positions (speculative decode),
+        ``reorder_idx`` makes each row follow its source beam. Stale KV
+        past a row's length is invisible (attention masks by length)."""
+        import torch
+
+        from tensorlink_tpu_torch.models.base import KVCache
+
+        cache = rt.sessions.get(p["session"])
+        if cache is None:
+            scfg = rt.cfg.with_(n_layers=rt.n_layers)
+            return KVCache.init(
+                scfg, batch,
+                max_len=int(p.get("cache_len", rt.cfg.max_seq_len)),
+                quantized=rt.cache_quant, device=self.device,
+            )
+        if p.get("reset_rows"):
+            rows = torch.as_tensor(np.asarray(p["reset_rows"], np.int64),
+                                   device=cache.length.device)
+            length = cache.length.clone()
+            length[rows] = 0
+            cache = KVCache(k=cache.k, v=cache.v, length=length,
+                            k_scale=cache.k_scale, v_scale=cache.v_scale)
+        if p.get("reset_len") is not None:
+            cache = KVCache(
+                k=cache.k, v=cache.v,
+                length=torch.full_like(cache.length, int(p["reset_len"])),
+                k_scale=cache.k_scale, v_scale=cache.v_scale)
+        if p.get("reorder_idx") is not None:
+            cache = cache.take(torch.as_tensor(
+                np.asarray(p["reorder_idx"], np.int64)))
+        return cache
+
+    # chain fields every forwarded hop carries onward
+    _CHAIN_KEYS = (
+        "job_id", "session", "cache_len", "attn_mask", "sample",
+        "last_idx", "reply_to", "reorder_idx", "reset_len", "reset_rows",
+        "seq", "trace",
+    )
+
+    # -- session-op idempotency (seq dedup) ------------------------------
+    @staticmethod
+    def _session_dedup_key(p: dict) -> str:
+        # a first stage that holds a tied head sees TWO ops per decode
+        # step (its slice, then the head hop) under the same seq: separate
+        # phases, so the head hop is not taken for a duplicate
+        return f"{p['session']}:{'h' if p.get('head_hop') else 's'}"
+
+    def _session_dup(self, rt: StageRuntime, p: dict) -> bool:
+        """True when this seq was already applied for its session and
+        phase. For the latest applied seq the cached outcome is
+        re-delivered: a direct response is re-sent under the retry's rid,
+        and a mid-chain hop re-drives the chain from its cached output (so
+        a retry whose original died downstream still reaches the final
+        hop without any stage recomputing or re-absorbing KV)."""
+        key = self._session_dedup_key(p)
+        seq = int(p["seq"])
+        if seq > rt.session_seq.get(key, -1):
+            return False
+        cached = rt.session_resp.get(key)
+        if cached is not None and cached[0] == seq:
+            _, kind, payload = cached
+            if kind == "resp" and p.get("rid"):
+                self._respond(
+                    p.get("reply_to") or p["peer"], proto.FORWARD_RESP,
+                    p["rid"], payload,
+                )
+            elif kind == "chain":
+                body = dict(payload["body"], _rid=p.get("rid"))
+                self.bridge.request(
+                    "chain_send", {**payload, "body": body}, timeout=150.0
+                )
+        return True
+
+    def _session_applied(self, rt: StageRuntime, p: dict, kind: str,
+                         payload) -> None:
+        """Record a completed session op (seq watermark + its outcome) —
+        at completion, not at entry, so a failed op stays retryable."""
+        if p.get("session") is None or p.get("seq") is None:
+            return
+        key = self._session_dedup_key(p)
+        rt.session_seq[key] = int(p["seq"])
+        rt.session_resp[key] = (int(p["seq"]), kind, payload)
 
     def _finish_fwd(self, rt: StageRuntime, p: dict, out,
                     is_logits: bool) -> None:
-        """Deliver an eval forward: one sampled token per row when the
-        request carries ``sample``, else the array itself."""
+        """Deliver an eval forward: hand the hidden state to the next
+        chain hop's worker (``op="chain"``), or — on the final logits —
+        sample one token per row, ship per-position argmax ids
+        (``verify``) or beam candidates (``beam_k``), or respond with the
+        array. ``reply_to`` names a chain's originator; a direct request
+        answers its peer."""
+        import torch
+
+        chain = p.get("chain") or []
+        if p.get("op") == "chain" and chain:
+            nxt = chain[0]
+            body = {k: p[k] for k in self._CHAIN_KEYS if p.get(k) is not None}
+            body.update(
+                op="chain",
+                chain=chain[1:],
+                head_hop=bool(nxt.get("head")),
+                hidden=_host(out),
+                _rid=p["rid"],  # the originator's future resolves on this
+            )
+            req = {"addr": list(nxt["addr"]), "tag": proto.FORWARD,
+                   "body": body}
+            self._session_applied(rt, p, "chain", req)
+            # generous: a large activation can outlive the 30 s IPC
+            # default, and a spurious timeout would race an error reply
+            # against the still-progressing chain
+            self.bridge.request("chain_send", req, timeout=150.0)
+            return
+        reply_peer = p.get("reply_to") or p["peer"]
+
+        def respond_final(body: dict) -> None:
+            if p.get("trace"):
+                # ship this process's spans of the op's trace ids home
+                from tensorlink_tpu_torch.core.trace import get_tracer
+
+                tracer = get_tracer()
+                body["trace_spans"] = {
+                    str(t): tracer.collect(str(t)) for t in p["trace"]
+                }
+            self._session_applied(rt, p, "resp", body)
+            self._respond(reply_peer, proto.FORWARD_RESP, p["rid"], body)
+
         if p.get("sample") is not None and is_logits:
             samp = p["sample"]
-            if samp.get("verify") or samp.get("beam_k"):
-                raise unported("pipelined speculative and beam decode", 8)
-            tok = self._sample_from_logits(rt, out, p)
-            body = {"token": tok}
+            if samp.get("verify"):
+                # pipelined speculative decode: the argmax id at EVERY
+                # position of this step
+                ids = out.argmax(dim=-1).to(torch.int32)
+                respond_final({"verify_ids": ids.cpu().numpy()})
+                return
+            if samp.get("beam_k"):
+                vals, idx = self._beam_topk_from_logits(out, p)
+                respond_final({"beam_vals": vals, "beam_idx": idx})
+                return
+            respond_final({"token": self._sample_from_logits(rt, out, p)})
+            return
+        respond_final({"out": _host(out), "is_logits": is_logits})
+
+    @staticmethod
+    def _step_logits(logits, p: dict):
+        """Each row's logits at its last real position (``last_idx``), or
+        at the step's one position."""
+        import torch
+
+        if logits.dim() != 3:
+            return logits
+        B = logits.shape[0]
+        dev = logits.device
+        last_idx = p.get("last_idx")
+        if last_idx is not None:
+            idx = torch.as_tensor(np.asarray(last_idx, np.int64), device=dev)
         else:
-            body = {"out": _host(out), "is_logits": is_logits}
-        self._respond(p.get("reply_to") or p["peer"], proto.FORWARD_RESP,
-                      p["rid"], body)
+            idx = torch.full((B,), logits.shape[1] - 1, device=dev,
+                             dtype=torch.int64)
+        return logits[torch.arange(B, device=dev), idx]
+
+    def _beam_topk_from_logits(self, logits, p: dict):
+        """The head's half of pipelined beam search: the top-(K + n_eos)
+        of each row's step log-softmax (``engine/generate.py::_beam_topk``,
+        ties to the lower index), as host arrays."""
+        import torch
+
+        from tensorlink_tpu_torch.engine.generate import _beam_topk
+
+        samp = p["sample"]
+        step_logits = self._step_logits(logits, p)
+        K = int(samp["beam_k"])
+        kk = K + int(samp.get("beam_n_eos", 0))
+        vals, idx = _beam_topk(step_logits[:K], max(kk, 1))
+        return vals.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
 
     def _sample_from_logits(self, rt: StageRuntime, logits, p: dict):
         """Sampling on the worker: each row's last real position (or the
         one position ``last_idx`` names), then the sampler with the key
         ``fold_in(PRNGKey(seed), step)`` — or, with ``seeds``, each row's
-        own key chain ``fold_in(PRNGKey(seed_r), step_r)``."""
+        own key chain ``fold_in(PRNGKey(seed_r), step_r)`` (pipelined slot
+        admission: a row's stream never depends on its neighbours).
+
+        Presence/frequency penalties keep ``[B, V]`` context counts across
+        a session's steps (``rt.penalty_counts``): the first op counts the
+        prompt ids it ships, and each sampled token folds back in."""
         import torch
 
         from tensorlink_tpu_torch.engine import prng
@@ -1881,17 +2160,7 @@ class DistributedWorker:
         samp: dict = p["sample"]
         dev = logits.device
         B = logits.shape[0]
-        if logits.dim() == 3:
-            last_idx = p.get("last_idx")
-            if last_idx is not None:
-                idx = torch.as_tensor(np.asarray(last_idx, np.int64),
-                                      device=dev)
-            else:
-                idx = torch.full((B,), logits.shape[1] - 1, device=dev,
-                                 dtype=torch.int64)
-            step_logits = logits[torch.arange(B, device=dev), idx]
-        else:
-            step_logits = logits
+        step_logits = self._step_logits(logits, p)
         t = samp.get("temperature", 0.0)
         pen_p = samp.get("presence_penalty", 0.0)
         pen_f = samp.get("frequency_penalty", 0.0)
@@ -1941,11 +2210,33 @@ class DistributedWorker:
                 presence_penalty=float(pen_p or 0.0),
                 frequency_penalty=float(pen_f or 0.0),
             )
+        penalized = any(
+            float(x or 0.0) != 0.0
+            for v in (pen_p, pen_f) for x in (v if is_rows(v) else [v])
+        )
+        counts = None
+        session = p.get("session")
+        if penalized and session is not None:
+            counts = rt.penalty_counts.get(session)
+            if counts is None:
+                # session start: the prompt's token histogram
+                pt = np.asarray(samp["prompt_tokens"], np.int64)
+                pm = np.asarray(samp["prompt_mask"], bool)
+                c = np.zeros((pt.shape[0], rt.cfg.vocab_size), np.int32)
+                for i in range(pt.shape[0]):
+                    np.add.at(c[i], pt[i][pm[i]], 1)
+                counts = torch.as_tensor(c, device=dev)
         key = prng.fold_in(
             prng.PRNGKey(int(samp.get("seed", 0)), device=dev),
             torch.tensor(int(samp.get("step", 0)), device=dev),
         )
-        return sample(step_logits, key, sp, None).cpu().numpy()
+        tok = sample(step_logits, key, sp, counts)
+        if counts is not None:
+            # fold the sampled token into the next step's context
+            counts = counts.clone()
+            counts[torch.arange(B, device=dev), tok.long()] += 1
+            rt.penalty_counts[session] = counts
+        return tok.cpu().numpy()
 
     # -- backward: the forward recomputed under autograd ------------------
     def _backward(self, p: dict) -> None:
@@ -2164,6 +2455,23 @@ class DistributedWorker:
             p["peer"], proto.TRAIN_MODE_ACK, p["rid"],
             {"job_id": rt.job_id, "training": rt.training},
         )
+
+
+def _clear_empty_rows(cache, new_cache, mask) -> None:
+    """Zero what an op wrote for the session rows that hold nothing: a row
+    of length 0 whose tokens are all masked (an idle slot of the
+    pipelined slot session) attends to no key, so its softmax, and the
+    keys and values it writes at positions ``[0, T)``, are NaN. Past a
+    row's length a position is masked out, but a NaN value there still
+    poisons the row once a request is admitted into it (0 x NaN in the
+    attention's value product). Live rows are untouched. A masked fill
+    over every row, so the host never waits on the device here."""
+    empty = (cache.length == 0) & ~mask.any(-1)
+    T = mask.shape[1]
+    for t in (new_cache.k, new_cache.v, new_cache.k_scale, new_cache.v_scale):
+        if t is not None:
+            head = t[:, :, :T]
+            head.masked_fill_(empty.view(1, -1, *[1] * (head.dim() - 2)), 0)
 
 
 def _host(t):

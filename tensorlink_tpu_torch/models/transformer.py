@@ -25,12 +25,13 @@ With no cache the forward is differentiable: training runs autograd
 through it, nothing on that path writes in place, and ``remat=True``
 checkpoints each block (``torch.utils.checkpoint``, the counterpart of
 JAX's ``jax.checkpoint`` with ``nothing_saveable``). :func:`stage_forward`
-takes a whole-model stage only, and :func:`head_forward` is the final norm
-and LM head alone.
+runs one pipeline stage — a layer slice fed tokens or hidden states, with
+or without the head, over a session cache sized to the slice — and
+:func:`head_forward` is the final norm and LM head alone (the tied head's
+hop back to stage 0).
 
-Not ported: layer-slice stages, pipelines and ring attention
-(``seq_mesh``), the tensor-parallel gathers and the ``expert`` mesh axis
-(ROADMAP queue 1 item 8). Each raises naming that item.
+Not ported: ring attention (``seq_mesh``, ROADMAP queue 1 item 5) and the
+tensor-parallel gathers (item 3). Each raises naming its item.
 """
 
 from __future__ import annotations
@@ -499,11 +500,51 @@ def forward(
     JAX).
 
     ``remat`` recomputes each block in the backward pass instead of
-    keeping its activations (``torch.utils.checkpoint``, non-reentrant)."""
+    keeping its activations (``torch.utils.checkpoint``, non-reentrant).
+
+    The single-stage case of :func:`_stage_impl`, as in JAX."""
     if seq_mesh is not None:
-        raise unported("sequence-parallel ring attention (seq_mesh)", 8)
-    B, T = tokens.shape
-    dev = tokens.device
+        raise unported("sequence-parallel ring attention (seq_mesh)", 5)
+    if return_hidden:
+        x, new_cache = _stage_impl(
+            params, cfg, tokens=tokens, cache=cache, attn_mask=attn_mask,
+            positions=positions, first=True, last=False, remat=remat,
+            flash_prefill=flash_prefill)
+        return _norm(x, params["final_norm"], cfg), new_cache
+    return _stage_impl(
+        params, cfg, tokens=tokens, cache=cache, attn_mask=attn_mask,
+        positions=positions, first=True, last=True, remat=remat,
+        flash_prefill=flash_prefill)
+
+
+def _stage_impl(
+    params: dict,
+    cfg: ModelConfig,
+    *,
+    tokens: torch.Tensor | None = None,
+    hidden: torch.Tensor | None = None,
+    cache: KVCache | None = None,
+    attn_mask: torch.Tensor | None = None,
+    positions: torch.Tensor | None = None,
+    first: bool,
+    last: bool,
+    remat: bool = False,
+    flash_prefill: bool = False,
+):
+    """One stage: embed ``tokens`` (``first``) or take ``hidden``, run the
+    stage's layers (``params["layers"]``, however many it holds, each
+    writing its own layer of ``cache``) and, when ``last``, the final
+    norm and LM head. Returns ``(out, new_cache)``."""
+    if first:
+        if tokens is None:
+            raise ValueError("first stage requires tokens")
+        B, T = tokens.shape
+        dev = tokens.device
+    else:
+        if hidden is None:
+            raise ValueError("non-first stage requires hidden")
+        B, T = hidden.shape[:2]
+        dev = hidden.device
     if attn_mask is None:
         attn_mask = torch.ones((B, T), dtype=torch.bool, device=dev)
     if cache is not None:
@@ -513,12 +554,15 @@ def forward(
     if positions is None:
         positions = offset.long()[:, None] + torch.arange(T, device=dev)[None]
 
-    x = _embed_tokens(params, tokens.long(), cfg)
-    if cfg.pos == "learned":
-        # clamped like JAX's out-of-bounds gather (a finished row of the
-        # host-driven loop keeps stepping past the table)
-        pos_idx = torch.clamp(positions.long(), 0, cfg.max_seq_len - 1)
-        x = x + params["embed"]["pos"][pos_idx].to(cfg.dtype)
+    if first:
+        x = _embed_tokens(params, tokens.long(), cfg)
+        if cfg.pos == "learned":
+            # clamped like JAX's out-of-bounds gather (a finished row of
+            # the host-driven loop keeps stepping past the table)
+            pos_idx = torch.clamp(positions.long(), 0, cfg.max_seq_len - 1)
+            x = x + params["embed"]["pos"][pos_idx].to(cfg.dtype)
+    else:
+        x = hidden.to(cfg.dtype)
     cos = sin = None
     if cfg.pos == "rope":
         cos, sin = rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
@@ -544,7 +588,8 @@ def forward(
         bias = _mask_bias(positions, valid_kv.shape[-1], valid_kv,
                           cfg.sliding_window)
 
-    for i, lp in enumerate(_layers(params)):
+    layers = _layers(params) if "layers" in params else []
+    for i, lp in enumerate(layers):
         kv = cache.layer_kv(i) if cache is not None else None
         if remat:
             x = checkpoint(_block, x, lp, cfg, cos, sin, bias, kv, offset,
@@ -553,33 +598,34 @@ def forward(
             x = _block(x, lp, cfg, cos, sin, bias, kv, offset, attn_fn,
                        kv_upto)
     new_cache = cache
-    if cache is not None:
+    if cache is not None and layers:
         new_cache = KVCache(
             k=cache.k, v=cache.v,
             length=offset + attn_mask.sum(-1).to(torch.int32),
             k_scale=cache.k_scale, v_scale=cache.v_scale,
         )
-    x = _norm(x, params["final_norm"], cfg)
-    if return_hidden:
-        return x, new_cache
-    return _logits(params, x, cfg), new_cache
+    if last:
+        x = _norm(x, params["final_norm"], cfg)
+        return _logits(params, x, cfg), new_cache
+    return x, new_cache
 
 
 def head_forward(params: dict, hidden: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """Final norm + LM head only (the JAX ``head_forward``: the
-    tied-embedding hop of a pipeline)."""
+    """Final norm + LM head only (the JAX ``head_forward``): the
+    tied-embedding hop, where the last stage ships its hidden states back
+    to stage 0 for the logits."""
     x = _norm(hidden.to(cfg.dtype), params["final_norm"], cfg)
     return _logits(params, x, cfg)
 
 
 def stage_forward(
     params: dict,
-    cfg: ModelConfig,
+    cfg: ModelConfig,  # the FULL model's config (layers come from params)
     *,
-    tokens: torch.Tensor | None = None,
-    hidden: torch.Tensor | None = None,
-    cache: KVCache | None = None,
+    tokens: torch.Tensor | None = None,  # int [B, T] (first stage)
+    hidden: torch.Tensor | None = None,  # [B, T, D] (later stages)
+    cache: KVCache | None = None,  # this stage's cache (its layers only)
     attn_mask: torch.Tensor | None = None,
     positions: torch.Tensor | None = None,
     first: bool = False,
@@ -588,19 +634,50 @@ def stage_forward(
     seq_mesh=None,
     seq_axis: str = "seq",
 ):
-    """One stage of the JAX ``stage_forward`` — here a whole-model stage
-    only (``first`` and ``last``, every layer, the head): ``(logits,
-    new_cache)`` from :func:`forward`. A layer slice, a stage fed hidden
-    states, a stage without the head or ring attention raises (ROADMAP
-    queue 1 item 8)."""
-    n_layers = params["layers"]["attn"]["wq"].shape[0] \
-        if "layers" in params else 0
-    if (not (first and last) or tokens is None or hidden is not None
-            or n_layers != cfg.n_layers or seq_mesh is not None):
-        raise unported("pipeline stages (a layer slice, a stage without "
-                       "the embedding or the head, ring attention)", 8)
-    return forward(params, tokens, cfg, cache=cache, attn_mask=attn_mask,
-                   positions=positions, remat=remat)
+    """Run one pipeline stage: ``(out, new_cache)``, where ``out`` is the
+    logits when ``last`` and else the hidden state for the next stage.
+
+    A stage holds a contiguous layer slice (``params["layers"]`` stacked
+    over just those layers) plus, per the plan's flags, the embedding
+    (``first``) and the final norm and head (``last``). Chaining stages
+    reproduces :func:`forward`. A tied-embedding plan keeps the head on
+    stage 0: the final stage returns hidden states and the caller
+    finishes with :func:`head_forward` there. A session cache is sized to
+    the slice (``KVCache.init(cfg.with_(n_layers=hi - lo), ...)``).
+    Ring attention (``seq_mesh``) raises (ROADMAP queue 1 item 5)."""
+    if seq_mesh is not None:
+        raise unported("sequence-parallel ring attention (seq_mesh)", 5)
+    return _stage_impl(
+        params, cfg, tokens=tokens, hidden=hidden, cache=cache,
+        attn_mask=attn_mask, positions=positions, first=first, last=last,
+        remat=remat,
+    )
+
+
+def slice_stage_params(params: dict, lo: int, hi: int, *, first: bool,
+                       holds_head: bool) -> dict:
+    """One stage's tree cut from a full tree: layers ``lo..hi-1`` (views)
+    and, per the flags, the embedding and the final norm and head (a tied
+    head keeps the embedding) — the JAX ``slice_stage_params``."""
+    out: dict = {}
+    if first:
+        out["embed"] = params["embed"]
+    if holds_head:
+        out["final_norm"] = params["final_norm"]
+        if "lm_head" in params:
+            out["lm_head"] = params["lm_head"]
+        if "embed" not in out and "lm_head" not in params:
+            out["embed"] = params["embed"]  # the tied head needs it
+    if hi > lo:
+        def cut(t):
+            if isinstance(t, dict):
+                return {k: cut(v) for k, v in t.items()}
+            if isinstance(t, QTensor):
+                return QTensor(q=t.q[lo:hi], scale=t.scale[lo:hi])
+            return t[lo:hi]
+
+        out["layers"] = cut(params["layers"])
+    return out
 
 
 __all__ = [
@@ -611,6 +688,7 @@ __all__ = [
     "head_forward",
     "init_params",
     "rope_tables",
+    "slice_stage_params",
     "stage_forward",
     "top_k",
 ]

@@ -378,7 +378,7 @@ class ValidatorServer(RoleServer):
         self.monitor = JobMonitor(self)
         chain = None
         if not cfg.off_chain:
-            raise unported("on-chain mode (platform/chain.py)", 7)
+            raise unported("on-chain mode (platform/chain.py)", 2)
         self.contract = ContractManager(self.node_id, chain=chain)
         self.worker_capacity_total = 0.0
         # workers seen disconnecting since the last proposal round —

@@ -8,9 +8,10 @@ pipeline stages, tied embeddings pinned to stage 0. The emitted
 so either package's worker reads it.
 
 The PartitionSpec builders (``stage_param_specs``/``stage_cache_specs``)
-wait for the tensor-parallel slice (ROADMAP queue 1 item 8); a port
-worker refuses a plan of more than one stage, or with a device axis above
-1, at hosting.
+wait for the tensor-parallel slice (ROADMAP queue 1 item 3). A port
+worker hosts a plan of layer-slice stages, one device each; it refuses a
+stage with a device axis above 1 (item 3) or co-slice coworkers (item 4)
+at load.
 """
 
 from __future__ import annotations

@@ -18,7 +18,9 @@ own contracts.
 - ``chain_hash``/``prompt_chain_hashes`` digests, a scripted
   allocator/trie sequence and ``pack_prefill_budgets`` equal the JAX
   package's.
-- ``ContinuousBatcher(engine=…)`` answers 4 threaded ``generate`` calls.
+- ``ContinuousBatcher(engine=…)`` answers 4 threaded ``generate`` calls,
+  and over a fake two-stage model its pipelined mode makes the JAX
+  batcher's session ops.
 """
 
 import dataclasses
@@ -392,15 +394,59 @@ def test_port_quantized_solo_cobatched_prefix_and_cow_bitwise(models,
         ce.close()
 
 
+class _FakeStages:
+    """A two-stage DistributedModel stand-in for the pipelined batcher: it
+    records each session op (the session id aside, which is random) and
+    answers each row's token from the row's inputs, seed and step."""
+
+    def __init__(self):
+        self.plan = types.SimpleNamespace(n_stages=2)
+        self.spec = {"seq_len": 64}
+        self.model_spec = {}
+        self.ops = []
+
+    def forward(self, tokens, attn_mask=None, **kw):
+        kw.pop("session")
+        samp = kw["sample"]
+        self.ops.append((np.asarray(tokens).tolist(),
+                         np.asarray(attn_mask).tolist(),
+                         {k: (np.asarray(v).tolist()
+                              if isinstance(v, np.ndarray) else v)
+                          for k, v in kw.items()}))
+        t = np.asarray(tokens) * np.asarray(attn_mask)
+        return np.asarray([(int(t[r].sum()) + 7 * samp["steps"][r]
+                            + samp["seeds"][r]) % 251
+                           for r in range(t.shape[0])], np.int32)
+
+    def _end_decode_session(self, session):
+        pass
+
+
+def _pipelined_run(batcher_cls):
+    model = _FakeStages()
+    b = batcher_cls(model, [250], max_slots=2, seed=5)
+    streamed = []
+    outs = [b.generate(p, max_new_tokens=n, stream_cb=streamed.extend)
+            for p, n in (([3, 4, 5], 6), ([9, 1], 4), ([2] * 60, 8))]
+    snap = (b.mode, b.router_snapshot(), b.admission_check("batch"))
+    b.close(timeout=10)
+    return outs, streamed, model.ops, snap
+
+
 def test_unported_variants_are_refused(models):
+    """Tensor parallelism is refused; the batcher's pipelined mode is
+    ported and makes the JAX batcher's session ops over a fake two-stage
+    model (admission, recycled rows, the cache-room cap)."""
+    from tensorlink_tpu.ml.batching import ContinuousBatcher as JBatcher
+
     _, tgen = models
-    # speculative decoding, the shared pool and the batcher's remote mode
-    # are ported; tensor parallelism and the pipelined mode are not
+    # speculative decoding, the shared pool and the batcher's remote and
+    # pipelined modes are ported; tensor parallelism is not
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         ContinuousEngine(tgen, **ENGINE_KW, tensor_parallel=2)
-    pipelined = types.SimpleNamespace(plan=types.SimpleNamespace(n_stages=2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ContinuousBatcher(model=pipelined)
+    got = _pipelined_run(ContinuousBatcher)
+    assert got == _pipelined_run(JBatcher)
+    assert got[3][0] == "pipelined" and got[0][2] == got[1][-4:]
     # int8/int4 pages are served now; an unknown mode is refused as JAX does
     with pytest.raises(ValueError, match="kv_quant"):
         ContinuousEngine(tgen, **ENGINE_KW, kv_quant="nf4")

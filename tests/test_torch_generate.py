@@ -15,7 +15,8 @@ weights and inputs, small float32 configs.
 - Floats within rtol = atol = 2e-5: ``forward`` logits and fp cache rows
   with and without a cache, and the prefill logits of a flash engine
   (the plain version on the CPU) against the JAX engine's.
-- The port's own contracts: what is not ported raises, naming its slice;
+- The port's own contracts: what is not ported raises, naming its slice
+  (and two chained layer-slice stages give ``forward``'s logits);
   a flash engine counts one flash prefill per flash-routed forward and
   runs the plain version exactly ``n_layers`` times for each.
 """
@@ -473,16 +474,21 @@ def test_unported_paths_are_refused(trees):
         with pytest.raises(NotImplementedError, match="tensor-parallel"):
             GenerationEngine(cfg, tp, device="cpu", **kw)
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    # remat and whole-model stages are ported (tests/test_torch_training.py);
-    # ring attention and layer-slice stages wait for item 8
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # remat and pipeline stages are ported (tests/test_torch_training.py,
+    # tests/test_torch_stages.py); ring attention waits for item 5
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         ttr.forward(tp, toks, cfg, seq_mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ttr.stage_forward(tp, cfg, tokens=toks)  # not first and last
-    half = {**tp, "layers": {k: {n: a[:1] for n, a in v.items()}
-                             for k, v in tp["layers"].items()}}
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ttr.stage_forward(half, cfg, tokens=toks, first=True, last=True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        ttr.stage_forward(tp, cfg, tokens=toks, first=True, last=True,
+                          seq_mesh=object())
+    # a layer slice is a stage: the two one-layer halves, chained, give
+    # the whole forward's logits
+    want, _ = ttr.forward(tp, toks, cfg)
+    s0 = ttr.slice_stage_params(tp, 0, 1, first=True, holds_head=False)
+    s1 = ttr.slice_stage_params(tp, 1, 2, first=False, holds_head=True)
+    h, _ = ttr.stage_forward(s0, cfg, tokens=toks, first=True)
+    got, _ = ttr.stage_forward(s1, cfg, hidden=h, last=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     # MoE is ported (tests/test_torch_moe.py); loading a checkpoint
     # straight onto tensor-parallel shards is not
     from tensorlink_tpu_torch.engine.loader import load_params

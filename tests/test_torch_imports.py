@@ -124,3 +124,22 @@ def test_network_process_imports_neither_torch_nor_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_unported_paths_name_a_queue_1_item():
+    """Every ``unported(what, n)`` and every "ROADMAP queue 1 item n" in
+    the port names an item that ROADMAP.md's queue 1 lists, so a refusal
+    always points at the work that lifts it."""
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    queue = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
+    items = {int(n) for n in re.findall(r"^(\d+)\. \*\*", queue, re.M)}
+    assert items == set(range(1, len(items) + 1)), items
+    cited = []
+    for p in _sources():
+        text = p.read_text()
+        for m in re.finditer(r"unported\(\s*(?:\"[^\"]*\"\s*)+,\s*(\d+)\)"
+                             r"|queue 1\s+item\s+(\d+)", text):
+            cited.append((p.relative_to(REPO), int(m.group(1) or m.group(2))))
+    assert cited
+    stale = [c for c in cited if c[1] not in items]
+    assert not stale, stale

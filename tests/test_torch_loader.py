@@ -209,7 +209,7 @@ def test_load_options_and_errors(checkpoint, tmp_path):
     want = _leaves(full["layers"])
     for name, leaf in _leaves(part["layers"]).items():
         assert torch.equal(leaf, want[name][1:2]), name
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         tloader.load_params(ckpt, tensor_parallel=2, device="cpu")
     with pytest.raises(KeyError, match="not in checkpoint"):
         tloader.load_params(ckpt, cfg.with_(n_layers=3), device="cpu")

@@ -12,9 +12,10 @@ the same inputs, one parametrised test per layer:
 - the API formatter and schemas give equal outputs.
 
 Then the port's own contracts: a worker with ``device=None`` refuses to
-start on a host with no card, naming the card, and a verb a later slice
-ports (a session FORWARD) is answered with an error naming its ROADMAP
-item. Each training verb (fwd, bwd, opt, proof.req, ckpt, params.req,
+start on a host with no card, naming the card; a session FORWARD on a
+layer-slice stage is answered as the JAX worker answers it (a duplicated
+seq from the ledger), and a stage a later slice ports (a device mesh,
+co-slice coworkers) with an error naming its ROADMAP item. Each training verb (fwd, bwd, opt, proof.req, ckpt, params.req,
 train.mode) sent to a bare worker holding a tiny training job is answered
 as the JAX worker answers it. Each fleet verb (drain, mig, handoff,
 replica.set) between two bare workers wired together in process is
@@ -428,19 +429,70 @@ class _Bridge:
 
 
 # tlint: disable=TL006(read-only test table — never mutated)
-_VERBS = {"fwd with a session": 8}
+_VERBS = {"fwd with a session": None, "load_stage with a mesh": 3,
+          "load_stage with coworkers": 4, "load_stage training a slice": 1}
+
+
+def _slice_stage(**kw):
+    from test_torch_train_nodes import JCFG
+
+    return {"worker_id": "w0", "layer_lo": 0, "layer_hi": JCFG.n_layers // 2,
+            "first": True, "last": False, "holds_head": False,
+            "mesh_axes": {}, "coworkers": [], **kw}
+
+
+def _session_ops(pkg, ckpt):
+    """A bare worker of ``pkg`` holding the first half of a tiny model:
+    a session prefill, one decode op, and the decode op's duplicate."""
+    from test_torch_train_nodes import JCFG, bare_worker, call
+
+    w = bare_worker(pkg)
+    call(w, "load_stage", stage=_slice_stage(), training=False,
+         model={"name": "tiny", "config": JCFG.to_json(), "ckpt": ckpt,
+                "seed": 0})
+    toks = np.array([[5, 9, 2, 77, 31], [1, 2, 3, 4, 0]], np.int32)
+    mask = np.ones(toks.shape, bool)
+    mask[1, 4] = False
+    sess = dict(session="s1", cache_len=16)
+    _, pre = call(w, "fwd", op="stage", tokens=toks, attn_mask=mask, seq=0,
+                  **sess)
+    _, dec = call(w, "fwd", op="stage", tokens=toks[:, :1], seq=1, **sess)
+    _, dup = call(w, "fwd", op="stage", tokens=toks[:, 1:2], seq=1, **sess)
+    length = w.jobs["ab12cd34"].sessions["s1"].length
+    return pre, dec, dup, np.asarray(length).tolist()
 
 
 @pytest.mark.parametrize("verb", list(_VERBS))
-def test_unported_worker_verb_answers_with_its_roadmap_item(verb):
+def test_unported_worker_verb_answers_with_its_roadmap_item(verb, checkpoint):
+    """A session FORWARD on a layer-slice stage is ported: the port worker
+    answers it as the JAX worker does (hidden states at 2e-5, cache
+    lengths equal), and a duplicated seq is answered from the ledger
+    without applying again. A stage the port still refuses (a device
+    mesh, co-slice coworkers, training a layer slice) answers with an
+    error naming its ROADMAP item."""
+    if _VERBS[verb] is None:
+        ckpt, _ = checkpoint
+        got = _session_ops("port", ckpt)
+        want = _session_ops("jax", ckpt)
+        for a, b in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(np.asarray(a["out"]),
+                                       np.asarray(b["out"]), rtol=2e-5,
+                                       atol=2e-5)
+        assert np.array_equal(np.asarray(got[2]["out"]),
+                              np.asarray(got[1]["out"]))
+        assert got[3] == want[3] == [6, 5]
+        return
+    from test_torch_train_nodes import JCFG
+
     from tensorlink_tpu_torch.ml.worker import DistributedWorker
 
-    kind, extra = verb, {}
-    if verb == "fwd with a session":  # pipelined decode
-        kind, extra = "fwd", {"op": "stage", "session": "s1",
-                              "tokens": [[1, 2, 3]]}
-    bridge = _Bridge([(kind, {"rid": "r1", "peer": "p1", "job_id": "j",
-                              **extra})])
+    stage = {"load_stage with a mesh": _slice_stage(mesh_axes={"tensor": 2}),
+             "load_stage with coworkers": _slice_stage(coworkers=["w1"]),
+             "load_stage training a slice": _slice_stage()}[verb]
+    bridge = _Bridge([("load_stage", {
+        "rid": "r1", "peer": "p1", "job_id": "j", "stage": stage,
+        "training": verb == "load_stage training a slice",
+        "model": {"name": "tiny", "config": JCFG.to_json(), "seed": 0}})])
     node = types.SimpleNamespace(
         bridge=bridge, node_id="w0",
         config=tconfig.WorkerConfig(ml=tconfig.MLConfig(device="cpu")))
@@ -450,6 +502,34 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb):
     err = body["body"]["error"]
     assert err.startswith("NotImplementedError")
     assert f"ROADMAP queue 1 item {_VERBS[verb]}" in err
+
+
+def test_idle_session_row_leaves_no_nan_behind(checkpoint):
+    """A session row that holds nothing attends to no key (NaN in both
+    packages); the port worker zeroes what such a row wrote, so a request
+    admitted into the row later — shorter than the op that left the NaN —
+    gets the logits of a session that only ever held it."""
+    from test_torch_train_nodes import JCFG, bare_worker, call
+
+    ckpt, _ = checkpoint
+    w = bare_worker("port")
+    call(w, "load_stage", stage=_slice_stage(
+        layer_hi=JCFG.n_layers, last=True, holds_head=True), training=False,
+        model={"name": "tiny", "config": JCFG.to_json(), "ckpt": ckpt,
+               "seed": 0})
+    toks = np.array([[5, 9, 2, 77, 31], [0, 0, 0, 0, 0]], np.int32)
+    mask = np.array([[True] * 5, [False] * 5])
+    sess = dict(session="s1", cache_len=16)
+    call(w, "fwd", op="stage", tokens=toks, attn_mask=mask, seq=0, **sess)
+    late = np.array([[0, 0, 0], [9, 1, 2]], np.int32)
+    _, got = call(w, "fwd", op="stage", tokens=late, seq=1, attn_mask=np.array(
+        [[False] * 3, [True] * 3]), **sess)
+    _, want = call(w, "fwd", op="stage", tokens=late[1:], session="s2",
+                   cache_len=16, seq=0)
+    got = np.asarray(got["out"])[1]
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want["out"])[0], rtol=2e-5,
+                               atol=2e-5)
 
 
 # -- the fleet verbs (DRAIN, MIGRATE, HANDOFF, REPLICA_SET) ----------------
