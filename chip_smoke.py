@@ -218,6 +218,35 @@ Phases (any failure raises and exits non-zero):
    hidden bytes per decode step, seconds from each crash to the first
    token after it and the training rollback's seconds: readings with
    the card's name and power limit, not claims.
+14. Pipelined training and its repair (build/stages_train/): qwen3-0p6b
+   at full width and depth, seeded f32, every worker on the one card. A
+   port validator, four workers and a user; capacities pinned (checked
+   with the training planner, which counts gradients and optimizer
+   state) so the job splits 14/14 over two workers with the tied head on
+   stage 0, n_micro 2, B 4, T 128. (1) Three AdamW steps with the
+   micro-batches overlapped: each loss within 1e-4 (relative) of
+   make_train_step's in process on the same tree, each leaf of the
+   merged tree (the tied embedding, which both of stage 0's gradients
+   reach, included) within 2e-4 in its norm, two micro-batches seen in
+   flight. (2) From a checkpoint saved before step 1, the first two
+   steps again with overlap off: losses within 1e-5 of the overlapped
+   ones. (3) SGD with momentum, checkpoints every 2 steps, a
+   worker.train_step crash planted on the stage-1 worker at its 4th
+   optimizer step, after stage 0 applied it: the job repairs onto a
+   spare, rolls both stages back and re-drives that step, each loss within
+   1e-4 of the in-process chain over the batches it really trained, the
+   params elementwise within rtol 2e-4, atol 2e-5. (4) The stage-0
+   worker stopped between a micro-batch's FORWARD and its BACKWARD in
+   step 3: stage 0 is re-shipped to a spare, both stages restore the
+   step-2 checkpoint and the step is re-driven; every loss within 1e-4
+   of the in-process chain. No kernel launches on the training path
+   (asserted; the kernels line says 0). (5) A reading: phase 5's fp
+   configuration, 4 chunks inside the port's profiling.trace, the card's
+   busy share of the window and its ten longest kernels. Prints the
+   split step's seconds beside the in-process step's, the bytes of
+   logits, hidden state and gradient shipped per step, the rollbacks'
+   seconds, and the whole script's seconds, with the card's name and
+   power limit: readings, not claims.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -4730,34 +4759,39 @@ def _held_stream(label, got, want, gaps, parted: list) -> None:
     parted.append(dict(stream=label, at=at, gap=gaps[at]))
 
 
-def _two_stage_caps(cfg, seq_len: int) -> tuple:
-    """Advertised bytes that make the planner split ``cfg`` (batch 1,
-    ``seq_len``) over the first two workers, half its layers each, and
-    plan nothing on a third: checked with the planner itself, and each
-    stage's recruit estimate (the job's total over its share of layers,
-    ``ml/validator.py``) within its worker's bytes."""
+def _two_stage_caps(cfg, seq_len: int, *, batch: int = 1,
+                    training: bool = False, n_workers: int = 3) -> tuple:
+    """Advertised bytes that make the planner split ``cfg`` (``batch``,
+    ``seq_len``; a training plan counts gradients and optimizer state)
+    over the first two of ``n_workers`` workers, half its layers each
+    (a tied head on stage 0), and plan nothing on the others: checked
+    with the planner itself, and each stage's recruit estimate (the
+    job's total over its share of layers, ``ml/validator.py``) within its
+    worker's bytes. The embedding counts against stage 0 alone."""
     from tensorlink_tpu_torch.parallel.planner import (
         MemoryEstimate,
         WorkerCapacity,
         plan_sharding,
     )
 
-    est = MemoryEstimate.build(cfg, batch=1, seq_len=seq_len, training=False)
+    est = MemoryEstimate.build(cfg, batch=batch, seq_len=seq_len,
+                               training=training)
     pb = 2 if cfg.dtype == torch.bfloat16 else 4
     emb = cfg.vocab_size * cfg.d_model * pb
     per_layer = (est.total - 2 * emb) / cfg.n_layers
-    half = cfg.n_layers / 2
-    caps = (emb + (half + 0.5) * per_layer, emb + (half + 0.25) * per_layer,
-            1e6)
+    half = cfg.n_layers // 2
+    caps = (emb + (half + 0.5) * per_layer,
+            emb + (half + 0.25) * per_layer) + (1e6,) * (n_workers - 2)
     plan = plan_sharding(cfg, [WorkerCapacity(str(i), c)
                                for i, c in enumerate(caps)],
-                         batch=1, seq_len=seq_len)
-    got = [(s.worker_id, s.layer_lo, s.layer_hi) for s in plan.stages]
+                         batch=batch, seq_len=seq_len, training=training)
+    got = [(s.worker_id, s.layer_lo, s.layer_hi, s.holds_head)
+           for s in plan.stages]
+    tied = bool(cfg.tie_embeddings)
     recruit = [est.total * (s.layer_hi - s.layer_lo) / cfg.n_layers
                for s in plan.stages]
-    if got != [("0", 0, cfg.n_layers // 2),
-               ("1", cfg.n_layers // 2, cfg.n_layers)] or \
-            any(r > c for r, c in zip(recruit, caps)):
+    if got != [("0", 0, half, tied), ("1", half, cfg.n_layers, not tied)] \
+            or any(r > c for r, c in zip(recruit, caps)):
         raise AssertionError(f"stages: capacities {caps} plan {got} "
                              f"recruit {recruit}")
     return caps
@@ -5316,6 +5350,423 @@ def stages_phase() -> dict:
     return res
 
 
+# -- phase 14 ----------------------------------------------------------
+STAGES_TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "stages_train"
+STAGES_TRAIN_BT = (4, 128)  # batch rows x tokens of every split step
+STAGES_TRAIN_MICRO = 2
+STAGES_TRAIN_PARITY = 3  # AdamW steps held against the in-process step
+STAGES_TRAIN_SERIAL = 2  # of those, repeated serially from the checkpoint
+STAGES_TRAIN_OVERLAP_RTOL = 1e-5  # overlap against serial, relative
+STAGES_TRAIN_SGD = dict(lr=0.1, momentum=0.9)
+STAGES_TRAIN_CRASH_STEPS = 4  # step 3: the crash comes at the 4th
+STAGES_TRAIN_STOP_STEPS = 3  # step 4: the stop comes in the 3rd
+PROFILE_CHUNKS = 4  # step 5: traced chunks of phase 5's fp configuration
+
+
+class _Wire:
+    """The arrays a DistributedModel's train ops ship each way through
+    the user node, by kind: logits (the head's output and its cotangent,
+    vocab-wide), hidden states between the stages, and the gradients of
+    the stages' inputs; and the most train requests open at once (two
+    means two micro-batches in flight)."""
+
+    def __init__(self, model):
+        self.bytes = dict(logits=0, hidden=0, grad=0)
+        self.now = self.most = 0
+        self._lock = threading.Lock()
+        vocab = model.cfg.vocab_size
+        real = model._request
+
+        def request(wid, tag, body, *a, **kw):
+            if "tag" not in body:
+                return real(wid, tag, body, *a, **kw)
+            with self._lock:
+                self.now += 1
+                self.most = max(self.most, self.now)
+            try:
+                resp = real(wid, tag, body, *a, **kw)
+            finally:
+                with self._lock:
+                    self.now -= 1
+            fwd = tag == "fwd"
+            for arr in (body.get("hidden" if fwd else "grad"),
+                        resp.get("out" if fwd else "grad")):
+                if arr is None:
+                    continue
+                arr = np.asarray(arr)
+                kind = "logits" if arr.shape[-1] == vocab else \
+                    "hidden" if fwd else "grad"
+                with self._lock:
+                    self.bytes[kind] += int(arr.nbytes)
+            return resp
+
+        model._request = request
+
+
+def _stage_trees(ws, model) -> list:
+    """Each stage's tree in its worker's memory (the executors run in
+    this process), in plan order."""
+    by_id = {w.node_id: w for w in ws}
+    return [by_id[s.worker_id].executor.jobs[model.job_id].params
+            for s in model.plan.stages]
+
+
+def _merged_tree(trees: list) -> dict:
+    """The stages' trees as one model tree: the embedding and final norm
+    from stage 0 (the tied head's holder), the layers concatenated."""
+    full = {k: v for k, v in trees[0].items() if k != "layers"}
+
+    def cat(*xs):
+        if isinstance(xs[0], dict):
+            return {k: cat(*(x[k] for x in xs)) for k in xs[0]}
+        return torch.cat(xs, dim=0)
+
+    full["layers"] = cat(*(t["layers"] for t in trees))
+    return full
+
+
+def _elementwise(got: dict, want: dict) -> tuple:
+    """(entries outside TRAIN_NODE_PARAMS, the worst entry's share of its
+    bound), over every leaf."""
+    worst, bad = 0.0, 0
+    g = _named(got)
+    for k, w in _named(want).items():
+        d = (g[k] - w).abs()
+        lim = TRAIN_NODE_PARAMS["atol"] + TRAIN_NODE_PARAMS["rtol"] * w.abs()
+        bad += int((d > lim).sum())
+        worst = max(worst, float((d / lim).max()))
+    return bad, worst
+
+
+def _chain(cfg, opt_name: str, opt_kw: dict, batches) -> tuple:
+    """make_train_step over the seeded tree, ``batches`` in order, with
+    the split job's micro count: (losses, final params, step seconds)."""
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    ts = make_train_step(cfg, make_optimizer(opt_name, grad_clip=1.0,
+                                             **opt_kw),
+                         n_micro=STAGES_TRAIN_MICRO, remat=True)
+    p = _seeded(cfg, "cuda")
+    s, losses, secs = ts.init_state(p), [], []
+    for toks in batches:
+        p, s, loss, _, dt = _timed_step(ts, p, s, {
+            "tokens": torch.as_tensor(toks, device="cuda")})
+        losses.append(loss)
+        secs.append(dt)
+    return losses, p, secs
+
+
+def _held_losses(label: str, got, want, rtol: float) -> float:
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    if len(got) != len(want) or max(errs) > rtol:
+        raise AssertionError(f"stages training {label}: losses {got} "
+                             f"against {want} (rtol {rtol})")
+    return max(errs)
+
+
+def _train_job(user, ws, cfg, planned, **kw):
+    """A two-stage training job of the seeded tree on ``planned`` (the
+    first two workers the capacities name): checks the plan."""
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+
+    B, T = STAGES_TRAIN_BT
+    model = DistributedModel(cfg, node=user, seed=TRAIN_SEED, training=True,
+                             seq_len=T, batch=B, n_micro=STAGES_TRAIN_MICRO,
+                             **kw)
+    stages = model.plan.stages
+    if model.plan.n_stages != 2 or stages[1].holds_head or \
+            not stages[0].holds_head or model.plan.n_micro != 2 or \
+            [s.worker_id for s in stages] != [w.node_id for w in planned] or \
+            [(s.layer_lo, s.layer_hi) for s in stages] != \
+            [(0, cfg.n_layers // 2), (cfg.n_layers // 2, cfg.n_layers)]:
+        raise AssertionError(f"stages training: plan {model.plan.to_json()}")
+    return model
+
+
+def _timed_recover(model) -> list:
+    """Wrap the job's recovery to keep its seconds."""
+    took, real = [], model._recover_training
+
+    def recover():
+        t0 = time.monotonic()
+        real()
+        took.append(time.monotonic() - t0)
+
+    model._recover_training = recover
+    return took
+
+
+def stages_training() -> dict:
+    """Steps 1-4 of phase 14: qwen3-0p6b at full width and depth, seeded
+    f32, trained split 14/14 over two workers on the card, against
+    make_train_step in process; then the two crashes of a split step."""
+    from tensorlink_tpu_torch.core.config import MLConfig
+
+    cfg = _train_cfg(None, torch.float32)
+    B, T = STAGES_TRAIN_BT
+    caps = _two_stage_caps(cfg, T, batch=B, training=True, n_workers=4)
+    rng = np.random.default_rng(TRAIN_SEED + 7)
+    batches = [rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+               for _ in range(max(STAGES_TRAIN_PARITY,
+                                  STAGES_TRAIN_CRASH_STEPS))]
+    root = STAGES_TRAIN_ROOT
+    t_sec = time.monotonic()
+    v, ws, user = _stages_nodes(root, 4, MLConfig, endpoint=False)
+    res: dict = {"card": _smi(), "layers": cfg.n_layers, "batch": B,
+                 "tokens": T, "n_micro": STAGES_TRAIN_MICRO}
+    secs = res["seconds"] = {"nodes": time.monotonic() - t_sec}
+    nodes = [user, *ws, v]
+    att.reset_counts()
+    try:
+        # 1: parity, AdamW, micro-batches overlapped
+        t_sec = time.monotonic()
+        _pin(ws, caps)
+        model = _train_job(user, ws, cfg, ws[:2])
+        model.init_optimizer("adamw", lr=1e-3)
+        model.save_checkpoint(str(root / "start"))
+        wire = _Wire(model)
+        over, over_s = [], []
+        for toks in batches[:STAGES_TRAIN_PARITY]:
+            t0 = time.perf_counter()
+            over.append(model.train_step(toks)["loss"])
+            over_s.append(time.perf_counter() - t0)
+        ref_losses, ref, local_s = _chain(cfg, "adamw", dict(lr=1e-3),
+                                          batches[:STAGES_TRAIN_PARITY])
+        flight = wire.most
+        shipped = {k: b / STAGES_TRAIN_PARITY for k, b in wire.bytes.items()}
+        errs = _leaf_errs(_merged_tree(_stage_trees(ws, model)), ref)
+        res["parity"] = dict(
+            optimizer="adamw", losses=over, in_process=ref_losses,
+            max_rel_err=_held_losses("parity", over, ref_losses,
+                                     TRAIN_NODE_LOSS_RTOL),
+            param_leaf_rel_max=max(errs.values()),
+            embed_tok_rel=errs["embed/tok"], in_flight_most=flight,
+            split_step_s=over_s, in_process_step_s=local_s,
+            bytes_per_step=shipped)
+        del ref
+        if max(errs.values()) > TRAIN_NODE_PARAMS["rtol"] or flight < 2:
+            raise AssertionError(f"stages training parity: {res['parity']}")
+
+        # 2: the same steps serially from the checkpoint
+        secs["parity"] = time.monotonic() - t_sec
+        t_sec = time.monotonic()
+        model.restore_checkpoint(str(root / "start"))
+        wire.most = 0
+        serial, serial_s = [], []
+        for toks in batches[:STAGES_TRAIN_SERIAL]:
+            t0 = time.perf_counter()
+            serial.append(model.train_step(toks, overlap=False)["loss"])
+            serial_s.append(time.perf_counter() - t0)
+        res["serial"] = dict(
+            losses=serial, overlapped=over[:STAGES_TRAIN_SERIAL],
+            max_rel_err=_held_losses("overlap against serial", serial,
+                                     over[:STAGES_TRAIN_SERIAL],
+                                     STAGES_TRAIN_OVERLAP_RTOL),
+            in_flight_most=wire.most, serial_step_s=serial_s,
+            overlapped_step_s=over_s[:STAGES_TRAIN_SERIAL])
+        if wire.most != 1:
+            raise AssertionError(f"stages training serial: {res['serial']}")
+        model.shutdown()
+        time.sleep(1.0)  # the workers release the job's reservations
+        torch.cuda.empty_cache()
+
+        # 3: the stage-1 worker crashes inside the optimizer, after stage
+        # 0 applied the update (SGD with momentum: params elementwise)
+        secs["serial"] = time.monotonic() - t_sec
+        t_sec = time.monotonic()
+        _pin(ws, caps)
+        model = _train_job(user, ws, cfg, ws[:2], ckpt_every_steps=2,
+                           ckpt_dir=str(root / "ckpt3"))
+        _pin(ws[2:3], (8e10,))
+        model.init_optimizer("sgd", **STAGES_TRAIN_SGD)
+        took = _timed_recover(model)
+        fired: list = []
+        _planted(ws[1], "worker.train_step", 4, fired)
+        crash_s, losses = [], []
+        for toks in batches[:STAGES_TRAIN_CRASH_STEPS]:
+            t0 = time.perf_counter()
+            losses.append(model.train_step(toks)["loss"])
+            crash_s.append(time.perf_counter() - t0)
+        applied0 = ws[0].executor.jobs[model.job_id].opt_steps
+        step = model._step
+        if not fired or model.plan.stages[1].worker_id != ws[2].node_id or \
+                step != STAGES_TRAIN_CRASH_STEPS - 1 or \
+                applied0 != STAGES_TRAIN_CRASH_STEPS + 1 or not took:
+            raise AssertionError(f"stages training crash: fired {fired}, "
+                                 f"step {step}, stage 0 applied {applied0}")
+        trees = _stage_trees(ws, model)
+        want = _chain(cfg, "sgd", STAGES_TRAIN_SGD, batches[:3])[0]
+        after, p, _ = _chain(cfg, "sgd", STAGES_TRAIN_SGD,
+                             batches[:2] + batches[3:STAGES_TRAIN_CRASH_STEPS])
+        want += after[2:]
+        bad, worst = _elementwise(_merged_tree(trees), p)
+        res["crash_in_optimizer"] = dict(
+            optimizer="sgd momentum", losses=losses, in_process=want,
+            max_rel_err=_held_losses("crash in the optimizer", losses, want,
+                                     TRAIN_NODE_LOSS_RTOL),
+            stage0_updates_applied=applied0, steps_kept=step,
+            rollback_s=took[0], step_s=crash_s,
+            params_outside_bound=bad, params_worst_of_bound=worst)
+        del trees, p
+        if bad:
+            raise AssertionError(f"stages training crash: params outside "
+                                 f"{TRAIN_NODE_PARAMS}: "
+                                 f"{res['crash_in_optimizer']}")
+        model.shutdown()
+        time.sleep(1.0)
+        torch.cuda.empty_cache()
+
+        # 4: the stage-0 worker stops between a micro-batch's FORWARD and
+        # its BACKWARD (workers 0 and 2 planned, worker 3 the spare)
+        secs["crash_in_optimizer"] = time.monotonic() - t_sec
+        t_sec = time.monotonic()
+        live = [ws[0], ws[2]]
+        _pin(live + [ws[3]], caps[:2] + (1e6,))
+        model = _train_job(user, ws, cfg, live, ckpt_every_steps=2,
+                           ckpt_dir=str(root / "ckpt4"))
+        _pin(ws[3:], (8e10,))
+        model.init_optimizer("sgd", **STAGES_TRAIN_SGD)
+        took = _timed_recover(model)
+        real_bwd, stopped = model._train_backward, []
+
+        def backward(dlogits, tag):
+            if tag == "s3m0" and not stopped:
+                ws[0].stop()
+                stopped.append(time.monotonic())
+            return real_bwd(dlogits, tag)
+
+        model._train_backward = backward
+        losses = [model.train_step(toks)["loss"]
+                  for toks in batches[:STAGES_TRAIN_STOP_STEPS]]
+        step = model._step
+        if not stopped or model.plan.stages[0].worker_id != ws[3].node_id \
+                or step != STAGES_TRAIN_STOP_STEPS or not took:
+            raise AssertionError(f"stages training stop: step {step}, "
+                                 f"plan {model.plan.to_json()}")
+        want = _chain(cfg, "sgd", STAGES_TRAIN_SGD,
+                      batches[:STAGES_TRAIN_STOP_STEPS])[0]
+        res["stop_before_backward"] = dict(
+            losses=losses, in_process=want,
+            max_rel_err=_held_losses("stop before the backward", losses,
+                                     want, TRAIN_NODE_LOSS_RTOL),
+            rollback_s=took[0], steps_kept=step)
+        model.shutdown()
+        secs["stop_before_backward"] = time.monotonic() - t_sec
+        launches = {n: getattr(att, n).launches for n in REPLACES}
+        launches["flash_attention"] = att.flash_attention.launches
+        res["launches"] = launches
+        if any(launches.values()):
+            raise AssertionError(f"stages training: kernels launched "
+                                 f"{launches}; the training path has none")
+    finally:
+        t_sec = time.monotonic()
+        _stop_nodes(nodes)
+        nodes = v = ws = user = model = None
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+        res.setdefault("seconds", {})["stop_nodes"] = time.monotonic() - t_sec
+    return res
+
+
+def profile_serving() -> dict:
+    """Step 5 of phase 14, a reading: phase 5's fp configuration
+    (qwen3-0p6b bf16, fp pages, 8 slots, 8 of its requests) warmed up for
+    two chunks, then PROFILE_CHUNKS chunks inside the port's
+    ``profiling.trace``: the card's busy share of the traced window (the
+    sum of its kernels' device time over the window's wall time; one
+    stream, so kernels do not overlap) and the ten kernels with the most
+    device time."""
+    from tensorlink_tpu_torch.engine.continuous import ContinuousEngine
+    from tensorlink_tpu_torch.utils import profiling
+
+    cfg = config_presets()["qwen3-0p6b"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5678)
+    eng = GenerationEngine(cfg, init_params(cfg, g, device="cuda"),
+                           max_seq_len=4096, device="cuda")
+    ce = ContinuousEngine(eng, max_slots=8, page_size=16, chunk_steps=8,
+                          prefill_chunk=128, prefix_cache=True,
+                          kv_quant="none")
+    _, reqs = _requests(cfg)
+    for i, (ids, _) in enumerate(reqs[:8]):
+        ce.submit(ids, max_new_tokens=64, seed=i)
+    for _ in range(2):
+        ce.step_chunk()
+    root = STAGES_TRAIN_ROOT / "trace"
+    torch.cuda.synchronize()
+    with profiling.trace(root) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_CHUNKS):
+            ce.step_chunk()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace_bytes = (root / "trace.json").stat().st_size
+    kernels, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            kernels[e.key[:80]] = kernels.get(e.key[:80], 0.0) + t / 1e3
+            launches += e.count
+    busy = sum(kernels.values())
+    ce.close()
+    del ce, eng
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not kernels:
+        raise AssertionError("stages training: the trace holds no device "
+                             "kernel")
+    return dict(card=_smi(), chunks=PROFILE_CHUNKS, wall_ms=wall * 1e3,
+                device_busy_ms=busy, busy_share=busy / (wall * 1e3),
+                device_launches=launches, trace_bytes=trace_bytes,
+                top_kernels_ms=dict(sorted(kernels.items(),
+                                           key=lambda kv: -kv[1])[:10]))
+
+
+def stages_training_phase() -> dict:
+    """Phase 14, pipelined training and its repair on the card, then a
+    profile of the serving loop. Readings, with the card's name and power
+    limit, not claims."""
+    t0 = time.monotonic()
+    shutil.rmtree(STAGES_TRAIN_ROOT, ignore_errors=True)
+    tr = stages_training()
+    p = tr["parity"]
+    log(f"stages training readings ({tr['card']}): split step "
+        f"{statistics.median(p['split_step_s']):.3f} s (overlapped) and "
+        f"{statistics.median(tr['serial']['serial_step_s']):.3f} s (serial) "
+        f"against {statistics.median(p['in_process_step_s']):.3f} s in "
+        "process; bytes shipped through the user per step: logits "
+        f"{p['bytes_per_step']['logits']:.0f}, hidden "
+        f"{p['bytes_per_step']['hidden']:.0f}, gradient "
+        f"{p['bytes_per_step']['grad']:.0f}; rollback "
+        f"{tr['crash_in_optimizer']['rollback_s']:.3f} s (crash in the "
+        f"optimizer), {tr['stop_before_backward']['rollback_s']:.3f} s "
+        "(stop before the backward)")
+    t1 = time.monotonic()
+    prof = profile_serving()
+    prof["seconds"] = time.monotonic() - t1
+    log(f"serving profile ({prof['card']}; qwen3-0p6b bf16, fp pages, 8 "
+        f"slots, {PROFILE_CHUNKS} chunks): device busy "
+        f"{prof['device_busy_ms']:.3f} of {prof['wall_ms']:.3f} ms "
+        f"({prof['busy_share']:.4f}); ten longest kernels (ms): "
+        f"{json.dumps(prof['top_kernels_ms'])}")
+    res = dict(training=tr, profile=prof,
+               seconds=time.monotonic() - t0)
+    shutil.rmtree(STAGES_TRAIN_ROOT, ignore_errors=True)
+    half = tr["layers"] // 2
+    log(f"stages training (qwen3-0p6b f32, {tr['layers']} layers split "
+        f"{half}/{half}, workers sharing the card; readings, not claims; "
+        f"{tr['card']}): {json.dumps(res)}")
+    log(f"phase 14 took {res['seconds']:.1f} s ({tr['card']})")
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -5324,6 +5775,7 @@ def _phase(name, fn, *args):
 
 
 def main() -> None:
+    t_start = time.monotonic()
     _phase("device", device_phase)
     _phase("build", build_phase)
     errs = _phase("kernels", kernel_checks)
@@ -5365,6 +5817,9 @@ def main() -> None:
     new_paths["serve-and-train"] = training["serve_train"]["launches"]
     new_paths["fleet"] = _phase("fleet", fleet_phase, node)
     new_paths["stages repair"] = _phase("stages", stages_phase)
+    # the training path runs the einsum attention: 0 launches, asserted
+    train_launches = _phase("stages training",
+                            stages_training_phase)["training"]["launches"]
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -5381,6 +5836,7 @@ def main() -> None:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"],
+            "launches_stages_training": train_launches[name],
             "design": DESIGN[name],
         }
         if fmt == "fp":
@@ -5418,8 +5874,11 @@ def main() -> None:
         "bound_by": ftime["bound_by"], "library_ms": ftime["library_ms"],
         "library_device_ms": ftime["library_device_ms"],
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
+        "launches_stages_training": train_launches["flash_attention"],
         "design": DESIGN["flash_attention"],
     })
+    log(f"chip_smoke: all 14 phases in {time.monotonic() - t_start:.1f} s "
+        f"({_smi()})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

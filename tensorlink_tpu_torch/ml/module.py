@@ -22,11 +22,15 @@ never code) and then generates, runs forwards, or trains:
   session caches (``_generate_pipelined``; beam search and prompt-lookup
   speculation ride the same session), with each token sampled on the
   worker that holds the head;
-- ``train_step`` runs each micro-batch's forward on the worker, the
-  cross-entropy and its logits gradient here (on :attr:`device`), the
-  backward on the worker, then the optimizer step with the driver's
-  clip folded into the scale; ``save_checkpoint``/``restore_checkpoint``,
-  ``parameters`` and ``export_hf_checkpoint`` complete the surface.
+- ``train_step`` runs each micro-batch's forward down the stages (the
+  hidden state hops through this node, and a tied head's logits come
+  from stage 0's head hop), the cross-entropy and its logits gradient
+  here (on :attr:`device`), the backward up the stages, each passing the
+  gradient of its input one stage back, then the optimizer step with the
+  driver's clip folded into the scale. On a pipelined job the
+  micro-batches overlap across the stages in driver threads;
+  ``save_checkpoint``/``restore_checkpoint``, ``parameters`` and
+  ``export_hf_checkpoint`` complete the surface.
 
 Job repair: a dead worker is replaced through the validator
 (``JOB_REPAIR``, or a pushed ``JOB_UPDATE``), its stage re-shipped, and a
@@ -34,9 +38,8 @@ training job rolled back to its last checkpoint. A lost decode session
 re-prefills prompt + emitted tokens on the repaired stages; the sampler's
 per-step keys make the resumed stream equal to the uninterrupted one.
 
-Training a job of more than one stage waits for ROADMAP queue 1 item 1,
-and co-slice (merged-mesh) plans for item 4: both raise at attach. All
-waits are bounded (MAX_WAIT_TIME).
+Co-slice (merged-mesh) plans wait for ROADMAP queue 1 item 4 and raise
+at attach. All waits are bounded (MAX_WAIT_TIME).
 """
 
 from __future__ import annotations
@@ -253,8 +256,6 @@ class DistributedModel:
         self.cfg = ModelConfig.from_json(self.model_spec["config"])
         if any(s.coworkers for s in self.plan.stages):
             raise unported("a co-slice merged job (coworkers)", 4)
-        if self.training and self.plan.n_stages > 1:
-            raise unported("training a pipelined (multi-stage) job", 1)
 
         # connect to each stage's worker and ship its stage
         for stage in self.plan.stages:
@@ -700,30 +701,63 @@ class DistributedModel:
     __call__ = forward
 
     # ------------------------------------------------------------------
-    # training (reference module.py:414-524; one stage here)
+    # training (reference module.py:414-524; explicit tags and
+    # token-weighted accumulation, engine/training.py::make_train_step)
     # ------------------------------------------------------------------
     def _train_forward(self, tokens, attn_mask, tag: str):
-        """Forward with ``train=True``: the worker keeps its inputs under
-        ``tag``. Returns the logits as a tensor on :attr:`device`."""
+        """The forward down the stages with ``train=True``: each worker
+        keeps its inputs under ``tag``, and a tied head's logits come from
+        stage 0's head hop. Returns the logits as a tensor on
+        :attr:`device`."""
         from tensorlink_tpu_torch.engine.paged import device_tensor
 
         out = None
         for stage in self.plan.stages:
             body = {"job_id": self.job_id, "op": "stage", "train": True,
-                    "tag": tag, "tokens": np.asarray(tokens, np.int32)}
+                    "tag": tag}
             if attn_mask is not None:
                 body["attn_mask"] = np.asarray(attn_mask, bool)
+            if stage.first:
+                body["tokens"] = np.asarray(tokens, np.int32)
+            else:
+                body["hidden"] = out
             out = self._request(stage.worker_id, proto.FORWARD, body)["out"]
+        head_stage = self._head_hop_stage()
+        if head_stage is not None:
+            out = self._request(
+                head_stage.worker_id, proto.FORWARD,
+                {"job_id": self.job_id, "op": "head", "hidden": out,
+                 "train": True, "tag": tag},
+            )["out"]
         return device_tensor(out, self.device)
 
+    def _head_hop_stage(self):
+        """The stage that holds a tied head away from the last stage
+        (stage 0), or None when the last stage applies the head itself."""
+        last = self.plan.stages[-1]
+        if last.last and last.holds_head:
+            return None
+        return next(s for s in self.plan.stages if s.holds_head)
+
     def _train_backward(self, dlogits, tag: str) -> None:
-        """The cotangent of the logits back to the stage."""
+        """The cotangents up the stages, last to first (the head hop first
+        when the head lives on stage 0), each stage passing on the
+        gradient of its input."""
+        g = dlogits
+        head_stage = self._head_hop_stage()
+        if head_stage is not None:
+            g = self._request(
+                head_stage.worker_id, proto.BACKWARD,
+                {"job_id": self.job_id, "op": "head", "tag": tag, "grad": g},
+            )["grad"]
         for stage in reversed(self.plan.stages):
-            self._request(
+            resp = self._request(
                 stage.worker_id, proto.BACKWARD,
                 {"job_id": self.job_id, "op": "stage", "tag": tag,
-                 "grad": dlogits},
+                 "grad": g},
             )
+            if "grad" in resp:
+                g = resp["grad"]
 
     def init_optimizer(self, name: str = "adamw", **spec) -> None:
         """Send the optimizer spec to every stage. The driver clips, not
@@ -864,8 +898,14 @@ class DistributedModel:
         here (:func:`_ce_sum_and_grad`), and a backward; then the optimizer
         with ``scale = 1 / total tokens`` — the compiled
         ``engine.training.make_train_step`` within float rounding.
-        ``overlap`` matters only for more than one stage (ROADMAP queue 1
-        item 1)."""
+
+        ``overlap`` runs the micro-batches of a pipelined job in driver
+        threads, at most ``n_stages + 1`` in flight: each worker takes its
+        queue in order, so micro ``m + 1`` occupies stage 0 while micro
+        ``m`` is on stage 1, and each worker keeps the inputs of a bounded
+        number of micro-batches. The gradients accumulate as sums, so the
+        order in which the BACKWARDs arrive changes the result only in
+        float summation order."""
         from tensorlink_tpu_torch.engine.paged import host_array
 
         assert self.plan is not None
@@ -892,14 +932,22 @@ class DistributedModel:
             float(sum(micro_mask(m)[2][:, 1:].sum() for m in range(n_micro))),
             1.0,
         )
-        total_nll = 0.0
-        for m in range(n_micro):
+        def run_micro(m: int) -> float:
             sl, am, lm = micro_mask(m)
             tag = f"s{self._step}m{m}"
             logits = self._train_forward(tokens[sl], am, tag)
             nll_sum, dlogits, _ = _ce_sum_and_grad(logits, tokens[sl], lm)
             self._train_backward(host_array(dlogits), tag)
-            total_nll += float(nll_sum)
+            return float(nll_sum)
+
+        if overlap and n_micro > 1 and self.plan.n_stages > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            in_flight = min(n_micro, self.plan.n_stages + 1)
+            with ThreadPoolExecutor(max_workers=in_flight) as pool:
+                total_nll = sum(pool.map(run_micro, range(n_micro)))
+        else:
+            total_nll = sum(run_micro(m) for m in range(n_micro))
 
         out = {"loss": total_nll / total_tok, "n_tokens": int(total_tok),
                "n_micro": n_micro}

@@ -453,10 +453,8 @@ class DistributedValidator:
     def _plan_job(self, p: dict) -> None:
         """A user's job request (UserNode / DistributedModel), serving or
         training: resolve the model's config, plan it and create the job,
-        or decline with the reason. A serving plan may split the model
-        into pipeline stages over several workers; training a plan of more
-        than one stage is refused when the user attaches (ROADMAP queue 1
-        item 1)."""
+        or decline with the reason. A plan, serving or training, may split
+        the model into pipeline stages over several workers."""
         from tensorlink_tpu_torch.parallel.planner import AssignmentError
 
         spec = p["spec"]

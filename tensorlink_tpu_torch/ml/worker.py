@@ -49,10 +49,15 @@ serves and trains whole-model jobs, and serves pipeline stages:
   runs the einsum attention, as the JAX worker's: the flash prefill is a
   whole-model engine's.
 
-Training a stage that is not the whole model waits for ROADMAP queue 1
-item 1, and a device mesh or tensor parallelism for item 3, co-slice
-coworkers for item 4: each raises, and the run loop's error reply carries
-the message to the peer.
+- pipelined training: a layer slice trains like a whole model, with the
+  stage's own ``first``/``last`` flags; its BACKWARD also answers the
+  gradient of its input (the hidden state) when the stage is not first,
+  and so does the tied head's hop, so the driver passes each cotangent
+  one stage back.
+
+A device mesh or tensor parallelism waits for ROADMAP queue 1 item 3 and
+co-slice coworkers for item 4: each raises, and the run loop's error
+reply carries the message to the peer.
 """
 
 from __future__ import annotations
@@ -96,8 +101,9 @@ class StageRuntime:
     session_resp: dict[str, tuple] = field(default_factory=dict)
     training: bool = False
     cache_quant: bool = False  # int8 dense KV caches ("int8+kv")
-    # training inputs kept for BACKWARD: tag -> (kind, x, attn_mask); the
-    # backward recomputes the forward from them under autograd
+    # training inputs kept for BACKWARD: tag -> (kind, x, attn_mask,
+    # first, apply_head); the backward recomputes the forward from them
+    # under autograd with the stage's flags
     saved: dict[str, Any] = field(default_factory=dict)
     grad_accum: Any = None  # summed parameter gradients across micros
     n_accum: int = 0
@@ -127,11 +133,6 @@ class StageRuntime:
     @property
     def n_layers(self) -> int:
         return self.stage["layer_hi"] - self.stage["layer_lo"]
-
-    @property
-    def whole_model(self) -> bool:
-        return bool(self.stage["first"] and self.stage["last"]
-                    and self.stage["holds_head"])
 
 
 # beam-search chunk size: steps a beam session may run per trip through the
@@ -375,8 +376,6 @@ class DistributedWorker:
             raise unported("a co-slice merged stage (coworkers)", 4)
         training = bool(p.get("training", False))
         whole = bool(first and stage["last"] and holds_head)
-        if training and not whole:
-            raise unported("training a pipeline stage", 1)
         if model.get("ckpt"):
             from tensorlink_tpu_torch.engine.loader import load_params
 
@@ -1861,7 +1860,7 @@ class DistributedWorker:
         (the tied head's hop). op="chain": the same stage op, forwarded
         worker to worker (``head_hop`` marks the tied head's final hop).
         op="end_session" drops a session. ``train=True`` keeps the inputs
-        under the caller's ``tag`` for BACKWARD (whole-model stages)."""
+        under the caller's ``tag`` for BACKWARD."""
         import torch
 
         from tensorlink_tpu_torch.engine.paged import device_tensor
@@ -1910,7 +1909,7 @@ class DistributedWorker:
             with torch.no_grad():
                 logits = head_forward(rt.params, hidden, rt.cfg)
             if train:
-                rt.saved[tag + ".head"] = ("head", hidden, None)
+                rt.saved[tag + ".head"] = ("head", hidden, None, False, True)
                 self._respond(p["peer"], proto.FORWARD_RESP, p["rid"],
                               {"out": _host(logits)})
                 return
@@ -1930,25 +1929,22 @@ class DistributedWorker:
         if p.get("attn_mask") is not None:
             mask = torch.as_tensor(np.asarray(p["attn_mask"], bool),
                                    device=self.device)
+        kw = {"tokens": x_in} if first else {"hidden": x_in}
         if train:
-            if not rt.whole_model:
-                raise unported("training a pipeline stage", 1)
             with torch.no_grad():
-                out, _ = stage_forward(rt.params, rt.cfg, tokens=x_in,
-                                       attn_mask=mask, first=True,
-                                       last=True)
+                out, _ = stage_forward(rt.params, rt.cfg, attn_mask=mask,
+                                       first=first, last=apply_head, **kw)
             # no KV cache in training: the backward recomputes the forward
             # from these inputs when the cotangent arrives
-            rt.saved[tag] = ("stage", x_in, mask)
+            rt.saved[tag] = ("stage", x_in, mask, first, apply_head)
             self._respond(p["peer"], proto.FORWARD_RESP, p["rid"],
-                          {"out": _host(out), "is_logits": True})
+                          {"out": _host(out), "is_logits": apply_head})
             return
         session = p.get("session")
         cache = None
         if session is not None:
             cache = self._session_cache(rt, p, x_in.shape[0])
         with torch.no_grad():
-            kw = {"tokens": x_in} if first else {"hidden": x_in}
             out, new_cache = stage_forward(
                 rt.params, rt.cfg, cache=cache, attn_mask=mask,
                 first=first, last=apply_head, **kw)
@@ -2257,23 +2253,31 @@ class DistributedWorker:
         entry = rt.saved.pop(key, None)
         if entry is None:
             raise KeyError(f"no saved activations for tag {key!r}")
-        kind, x_in, mask = entry
+        kind, x_in, mask, first, apply_head = entry
+        # the cotangent in the stage's dtype, as the JAX worker casts it
         g = device_tensor(p["grad"], self.device).to(rt.cfg.dtype)
         tree, leaves = _trainable(rt.params)
-        grad_input = None
+        # a stage that is not first (and the head hop) also answers the
+        # gradient of its input, which the driver passes one stage back
+        wrt_input = kind == "head" or not first
+        h = x_in.detach().requires_grad_(True) if wrt_input else x_in
         with torch.enable_grad():
             if kind == "head":
-                h = x_in.detach().requires_grad_(True)
                 out = head_forward(tree, h, rt.cfg)
-                grads = torch.autograd.grad(out, leaves + [h], g,
-                                            allow_unused=True)
-                grads, grad_input = grads[:-1], grads[-1]
             else:
-                out, _ = stage_forward(tree, rt.cfg, tokens=x_in,
-                                       attn_mask=mask, first=True,
-                                       last=True, remat=True)
-                grads = torch.autograd.grad(out, leaves, g,
-                                            allow_unused=True)
+                kw = {"hidden": h} if wrt_input else {"tokens": h}
+                out, _ = stage_forward(tree, rt.cfg, attn_mask=mask,
+                                       first=first, last=apply_head,
+                                       remat=True, **kw)
+            grads = torch.autograd.grad(
+                out, leaves + ([h] if wrt_input else []), g,
+                allow_unused=True)
+        grad_input = None
+        if wrt_input:
+            *grads, grad_input = grads
+        # a tied head's stage 0 sums two gradients of the embedding per
+        # micro-batch (the head hop's, then the token lookup's) in the
+        # order their BACKWARDs arrive
         self._accumulate(rt, _grads_like(rt.params, leaves, grads))
         body: dict = {"ok": True}
         if grad_input is not None:

@@ -34,7 +34,6 @@ import uuid
 from pathlib import Path
 from typing import Any
 
-from tensorlink_tpu_torch import unported
 from tensorlink_tpu_torch.core.config import NodeConfig
 from tensorlink_tpu_torch.nodes.ipc import BridgeQueues, NetBridge
 from tensorlink_tpu_torch.p2p import protocol as proto
@@ -378,7 +377,22 @@ class ValidatorServer(RoleServer):
         self.monitor = JobMonitor(self)
         chain = None
         if not cfg.off_chain:
-            raise unported("on-chain mode (platform/chain.py)", 2)
+            # on-chain mode: EVM submission via the stdlib chain client
+            # (reference builds web3 contracts at startup,
+            # smart_node.py:292-315; missing credentials degrade off-chain)
+            from tensorlink_tpu_torch.core.config import EnvFile
+            from tensorlink_tpu_torch.platform.chain import (
+                from_env,
+                make_credential_check,
+            )
+
+            chain = from_env(EnvFile(cfg.env_file))
+            if chain is not None:
+                # Sybil gate: a fresh key starts clean with LOCAL
+                # reputation, so on-chain mode also requires peers claiming
+                # validator/worker roles to be chain-registered before the
+                # handshake completes (reference smart_node.py:708-739)
+                self.credential_check = make_credential_check(chain.client)
         self.contract = ContractManager(self.node_id, chain=chain)
         self.worker_capacity_total = 0.0
         # workers seen disconnecting since the last proposal round —

@@ -430,7 +430,7 @@ class _Bridge:
 
 # tlint: disable=TL006(read-only test table — never mutated)
 _VERBS = {"fwd with a session": None, "load_stage with a mesh": 3,
-          "load_stage with coworkers": 4, "load_stage training a slice": 1}
+          "load_stage with coworkers": 4, "load_stage training a slice": None}
 
 
 def _slice_stage(**kw):
@@ -462,14 +462,71 @@ def _session_ops(pkg, ckpt):
     return pre, dec, dup, np.asarray(length).tolist()
 
 
+def _slice_train_ops(pkg, ckpt):
+    """Bare workers of ``pkg`` training each half of a tiny model: the
+    first half's train FORWARD over tokens and its BACKWARD, the second
+    half's (with the head) over a hidden state and its BACKWARD, which
+    also answers the gradient of that input. Returns each half's
+    (forward out, backward reply, accumulated gradient leaves)."""
+    from test_torch_train_nodes import JCFG, JOB, bare_worker, call
+
+    from tensorlink_tpu_torch.engine import optimizers as topt
+
+    rng = np.random.default_rng(17)
+    toks = rng.integers(0, JCFG.vocab_size, (2, 6)).astype(np.int32)
+    hidden = rng.standard_normal((2, 6, JCFG.d_model)).astype(np.float32)
+    half = JCFG.n_layers // 2
+    out = []
+    for stage, x in (
+        (_slice_stage(), {"tokens": toks}),
+        (_slice_stage(layer_lo=half, layer_hi=JCFG.n_layers, first=False,
+                      last=True, holds_head=True), {"hidden": hidden}),
+    ):
+        w = bare_worker(pkg)
+        call(w, "load_stage", stage=stage, training=True,
+             model={"name": "tiny", "config": JCFG.to_json(), "ckpt": ckpt,
+                    "seed": 0})
+        _, fwd = call(w, "fwd", op="stage", train=True, tag="t0", **x)
+        g = rng.standard_normal(np.asarray(fwd["out"]).shape)
+        _, bwd = call(w, "bwd", op="stage", tag="t0",
+                      grad=g.astype(np.float32))
+        acc = w.jobs[JOB].grad_accum
+        leaves = ([t.numpy() for t in topt.tree_leaves(acc)]
+                  if pkg == "port" else
+                  [np.asarray(a) for a in jax.tree.leaves(acc)])
+        out.append((fwd, bwd, leaves))
+    return out
+
+
 @pytest.mark.parametrize("verb", list(_VERBS))
 def test_unported_worker_verb_answers_with_its_roadmap_item(verb, checkpoint):
     """A session FORWARD on a layer-slice stage is ported: the port worker
     answers it as the JAX worker does (hidden states at 2e-5, cache
     lengths equal), and a duplicated seq is answered from the ledger
-    without applying again. A stage the port still refuses (a device
-    mesh, co-slice coworkers, training a layer slice) answers with an
-    error naming its ROADMAP item."""
+    without applying again. So is training a layer slice: each half's
+    train FORWARD, its BACKWARD's gradient of the input (answered by the
+    later half only) equal the JAX worker's at 2e-5, and each leaf of its
+    accumulated parameter gradients within 2e-5 in its norm. A stage the port still refuses (a device mesh,
+    co-slice coworkers) answers with an error naming its ROADMAP item."""
+    if verb == "load_stage training a slice":
+        ckpt, _ = checkpoint
+        got = _slice_train_ops("port", ckpt)
+        want = _slice_train_ops("jax", ckpt)
+        for (gf, gb, gl), (wf, wb, wl) in zip(got, want):
+            np.testing.assert_allclose(np.asarray(gf["out"]),
+                                       np.asarray(wf["out"]), rtol=2e-5,
+                                       atol=2e-5)
+            assert ("grad" in gb) == ("grad" in wb)
+            if "grad" in wb:
+                np.testing.assert_allclose(np.asarray(gb["grad"]),
+                                           np.asarray(wb["grad"]),
+                                           rtol=2e-5, atol=2e-5)
+            assert len(gl) == len(wl)
+            for a, b in zip(gl, wl):  # each leaf in its norm
+                assert a.shape == b.shape
+                assert np.linalg.norm(a - b) <= 2e-5 * np.linalg.norm(b)
+        assert "grad" not in got[0][1] and "grad" in got[1][1]
+        return
     if _VERBS[verb] is None:
         ckpt, _ = checkpoint
         got = _session_ops("port", ckpt)
@@ -487,11 +544,10 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb, checkpoint):
     from tensorlink_tpu_torch.ml.worker import DistributedWorker
 
     stage = {"load_stage with a mesh": _slice_stage(mesh_axes={"tensor": 2}),
-             "load_stage with coworkers": _slice_stage(coworkers=["w1"]),
-             "load_stage training a slice": _slice_stage()}[verb]
+             "load_stage with coworkers": _slice_stage(coworkers=["w1"])}[verb]
     bridge = _Bridge([("load_stage", {
         "rid": "r1", "peer": "p1", "job_id": "j", "stage": stage,
-        "training": verb == "load_stage training a slice",
+        "training": False,
         "model": {"name": "tiny", "config": JCFG.to_json(), "seed": 0}})])
     node = types.SimpleNamespace(
         bridge=bridge, node_id="w0",

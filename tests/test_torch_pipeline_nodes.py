@@ -272,11 +272,11 @@ def test_pipelined_slot_admission_with_crash_recovery(tmp_path, checkpoint):
         _stop([user, *ws, v])
 
 
-@pytest.mark.parametrize("case,item", [("training", 1), ("coworkers", 4)])
+@pytest.mark.parametrize("case,item", [("coworkers", 4)])
 def test_split_plans_the_port_refuses_at_attach(case, item):
-    """Attach takes a serving plan of several stages; a training one
-    (pipelined training, ROADMAP queue 1 item 1) and a co-slice one
-    (item 4) still raise before any worker is dialed."""
+    """Attach takes a plan of several stages, for serving or training
+    (tests/test_torch_pipeline_train_nodes.py); a co-slice one (ROADMAP
+    queue 1 item 4) still raises before any worker is dialed."""
     import types
 
     from tensorlink_tpu_torch.ml.module import DistributedModel
@@ -289,12 +289,11 @@ def test_split_plans_the_port_refuses_at_attach(case, item):
                                for i, c in enumerate(CAPS)],
                          batch=1, seq_len=64, training=False)
     assert plan.n_stages == 2
-    if case == "coworkers":
-        plan.stages[1].coworkers = ["2"]
+    plan.stages[1].coworkers = ["2"]
     node = types.SimpleNamespace(
         connect_to=lambda *a: pytest.fail("a worker was dialed"))
     model = DistributedModel(CFG, node=node, start_session=False,
-                             training=case == "training", device="cpu")
+                             device="cpu")
     reply = {"job_id": "j", "plan": plan.to_json(), "workers": {},
              "model": {"name": "custom", "config": CFG.to_json()}}
     with pytest.raises(NotImplementedError,
