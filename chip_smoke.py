@@ -240,13 +240,34 @@ Phases (any failure raises and exits non-zero):
    step 3: stage 0 is re-shipped to a spare, both stages restore the
    step-2 checkpoint and the step is re-driven; every loss within 1e-4
    of the in-process chain. No kernel launches on the training path
-   (asserted; the kernels line says 0). (5) A reading: phase 5's fp
-   configuration, 4 chunks inside the port's profiling.trace, the card's
-   busy share of the window and its ten longest kernels. Prints the
-   split step's seconds beside the in-process step's, the bytes of
-   logits, hidden state and gradient shipped per step, the rollbacks'
-   seconds, and the whole script's seconds, with the card's name and
-   power limit: readings, not claims.
+   (asserted; the kernels line says 0). Prints the split step's seconds
+   beside the in-process step's, the bytes of logits, hidden state and
+   gradient shipped per step, the rollbacks' seconds, and the whole
+   script's seconds, with the card's name and power limit: readings, not
+   claims.
+15. Tensor-parallel serving: qwen3-0p6b bf16 at full width and depth
+   (phase 8's seeded tree) served at tensor_parallel=2 with both shards
+   named on the one card (tp_devices=["cuda:0", "cuda:0"]; 8 query and 4
+   kv heads a shard). (1) For fp, int8 and int4 pages, one ragged chunk
+   over MAIN's block and one decode step after it through the tp step's
+   forward: every shard's launch of each kernel bitwise equal to the
+   same heads of one launch over both shards' heads joined, on the same
+   inputs, and within the bf16 bound (1.6e-2 of each row's max) of its
+   plain version; over fp pages each layer's output at tp=2 against the
+   tp=1 forward's, a reading. (2) fp and then int8 pages: 8 requests of
+   64 to 1024 tokens, 32 new tokens each (2 speculating, 3 greedy, 3
+   sampled), on a tp=1 and a tp=2 engine of 8 slots: greedy streams
+   equal or parted only where the tp=1 top-two gap is within SPEC_TIE
+   (logged); per chunk exactly twice tp=1's launches of each kernel
+   (launches_tp on the kernels line); every trie page both engines hold
+   for the same tokens within 1.6e-2 of each layer's max (dequantized
+   for int8); page conservation; tensor_parallel 2 in the snapshot; each
+   shard's pages contiguous with n_kv / 2 heads and 57,344 (fp) or
+   29,568 (int8) KV bytes per token; a tp=2 migration export with a
+   tp=1 export's shapes and dtypes. (3) Readings, not claims (both
+   shards share one card, so tp=2 doubles the launches for no gain):
+   tokens/s and ms per chunk at tp=2 and tp=1, and the card's busy share
+   over 2 chunks inside profiling.trace for each engine.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -284,6 +305,7 @@ from tensorlink_tpu_torch.models.quant import (
 )
 from tensorlink_tpu_torch.ops import _build
 from tensorlink_tpu_torch.ops import attention as att
+from tensorlink_tpu_torch.parallel import mesh as tmesh
 from tensorlink_tpu_torch.parallel.expert import sparse_moe_mlp
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -2108,8 +2130,9 @@ def _cont(gen, **kw):
 class _Launches:
     """The kernel counts of one phase: reset on entry; on :meth:`check`,
     every engine of the phase took the CUDA kernels (one ragged launch a
-    layer per chunk, chunk_steps - 1 decode launches a layer per chunk),
-    in the expected page formats, and no plain version ran."""
+    layer per chunk, chunk_steps - 1 decode launches a layer per chunk,
+    each once a shard for a tensor-parallel engine), in the expected page
+    formats, and no plain version ran."""
 
     def __init__(self, label: str):
         self.label = label
@@ -2129,11 +2152,14 @@ class _Launches:
             raise AssertionError(f"{self.label}: engines of depths {depths}")
         L = depths.pop()
         chunks = sum(e.chunks - e._chunks0 for e in self.engines)
+        # a tensor-parallel engine launches each kernel once a shard
+        launched = sum(e.tensor_parallel * (e.chunks - e._chunks0)
+                       for e in self.engines)
         steps = {e.chunk_steps for e in self.engines}
         if chunks == 0 or len(steps) != 1:
             raise AssertionError(f"{self.label}: {chunks} chunks")
-        want = {"ragged_paged_attention": L * chunks,
-                "paged_attention": L * (steps.pop() - 1) * chunks}
+        want = {"ragged_paged_attention": L * launched,
+                "paged_attention": L * (steps.pop() - 1) * launched}
         got = {n: getattr(att, n).launches for n in NEW_PATHS}
         plain = {f.__name__: f.calls for f in att._REFS if f.calls}
         if got != want or plain:
@@ -5360,7 +5386,6 @@ STAGES_TRAIN_OVERLAP_RTOL = 1e-5  # overlap against serial, relative
 STAGES_TRAIN_SGD = dict(lr=0.1, momentum=0.9)
 STAGES_TRAIN_CRASH_STEPS = 4  # step 3: the crash comes at the 4th
 STAGES_TRAIN_STOP_STEPS = 3  # step 4: the stop comes in the 3rd
-PROFILE_CHUNKS = 4  # step 5: traced chunks of phase 5's fp configuration
 
 
 class _Wire:
@@ -5671,68 +5696,10 @@ def stages_training() -> dict:
     return res
 
 
-def profile_serving() -> dict:
-    """Step 5 of phase 14, a reading: phase 5's fp configuration
-    (qwen3-0p6b bf16, fp pages, 8 slots, 8 of its requests) warmed up for
-    two chunks, then PROFILE_CHUNKS chunks inside the port's
-    ``profiling.trace``: the card's busy share of the traced window (the
-    sum of its kernels' device time over the window's wall time; one
-    stream, so kernels do not overlap) and the ten kernels with the most
-    device time."""
-    from tensorlink_tpu_torch.engine.continuous import ContinuousEngine
-    from tensorlink_tpu_torch.utils import profiling
-
-    cfg = config_presets()["qwen3-0p6b"]
-    g = torch.Generator(device="cuda")
-    g.manual_seed(5678)
-    eng = GenerationEngine(cfg, init_params(cfg, g, device="cuda"),
-                           max_seq_len=4096, device="cuda")
-    ce = ContinuousEngine(eng, max_slots=8, page_size=16, chunk_steps=8,
-                          prefill_chunk=128, prefix_cache=True,
-                          kv_quant="none")
-    _, reqs = _requests(cfg)
-    for i, (ids, _) in enumerate(reqs[:8]):
-        ce.submit(ids, max_new_tokens=64, seed=i)
-    for _ in range(2):
-        ce.step_chunk()
-    root = STAGES_TRAIN_ROOT / "trace"
-    torch.cuda.synchronize()
-    with profiling.trace(root) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_CHUNKS):
-            ce.step_chunk()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    trace_bytes = (root / "trace.json").stat().st_size
-    kernels, launches = {}, 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            kernels[e.key[:80]] = kernels.get(e.key[:80], 0.0) + t / 1e3
-            launches += e.count
-    busy = sum(kernels.values())
-    ce.close()
-    del ce, eng
-    shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
-    if not kernels:
-        raise AssertionError("stages training: the trace holds no device "
-                             "kernel")
-    return dict(card=_smi(), chunks=PROFILE_CHUNKS, wall_ms=wall * 1e3,
-                device_busy_ms=busy, busy_share=busy / (wall * 1e3),
-                device_launches=launches, trace_bytes=trace_bytes,
-                top_kernels_ms=dict(sorted(kernels.items(),
-                                           key=lambda kv: -kv[1])[:10]))
-
-
 def stages_training_phase() -> dict:
-    """Phase 14, pipelined training and its repair on the card, then a
-    profile of the serving loop. Readings, with the card's name and power
-    limit, not claims."""
+    """Phase 14, pipelined training and its repair on the card. Readings,
+    with the card's name and power limit, not claims (the serving loop's
+    busy share is read in phase 15)."""
     t0 = time.monotonic()
     shutil.rmtree(STAGES_TRAIN_ROOT, ignore_errors=True)
     tr = stages_training()
@@ -5748,22 +5715,530 @@ def stages_training_phase() -> dict:
         f"{tr['crash_in_optimizer']['rollback_s']:.3f} s (crash in the "
         f"optimizer), {tr['stop_before_backward']['rollback_s']:.3f} s "
         "(stop before the backward)")
-    t1 = time.monotonic()
-    prof = profile_serving()
-    prof["seconds"] = time.monotonic() - t1
-    log(f"serving profile ({prof['card']}; qwen3-0p6b bf16, fp pages, 8 "
-        f"slots, {PROFILE_CHUNKS} chunks): device busy "
-        f"{prof['device_busy_ms']:.3f} of {prof['wall_ms']:.3f} ms "
-        f"({prof['busy_share']:.4f}); ten longest kernels (ms): "
-        f"{json.dumps(prof['top_kernels_ms'])}")
-    res = dict(training=tr, profile=prof,
-               seconds=time.monotonic() - t0)
+    res = dict(training=tr, seconds=time.monotonic() - t0)
     shutil.rmtree(STAGES_TRAIN_ROOT, ignore_errors=True)
     half = tr["layers"] // 2
     log(f"stages training (qwen3-0p6b f32, {tr['layers']} layers split "
         f"{half}/{half}, workers sharing the card; readings, not claims; "
         f"{tr['card']}): {json.dumps(res)}")
     log(f"phase 14 took {res['seconds']:.1f} s ({tr['card']})")
+    return res
+
+
+# -- phase 15 ----------------------------------------------------------
+TP_DEGREE = 2
+TP_DEVICES = ("cuda:0", "cuda:0")  # both shards on the one card
+TP_NEW = 32  # new tokens per request
+TP_PROFILE_CHUNKS = 2  # traced chunks per engine for the busy share
+TP_ROOT = Path(__file__).resolve().parent / "build" / "tp"
+# one shard's KV bytes per token: half of KV_BYTES_PER_TOKEN's
+KV_BYTES_PER_TOKEN_SHARD = {"fp": 57_344, "int8": 29_568}
+
+
+def _tp_prompts(cfg) -> list:
+    """8 requests of 64 to 1024 tokens: 2 repetitive ones that speculate,
+    3 greedy and 3 sampled."""
+    rng = np.random.default_rng(1515)
+    V = cfg.vocab_size
+    out = []
+    for i in range(8):
+        n = int(rng.integers(64, 1025))
+        if i < 2:
+            unit = rng.integers(0, V, (5, 3)[i]).tolist()
+            out.append(((unit * (n // len(unit) + 1))[:n], {}, True))
+            continue
+        knobs = {} if i % 2 == 0 else dict(temperature=0.8, top_k=50,
+                                           top_p=0.95)
+        out.append((rng.integers(0, V, n).tolist(), knobs, False))
+    return out
+
+
+def _tp_engine(tp: int, devices=TP_DEVICES, **kw):
+    """A phase-15 engine; ``devices=None`` lays the shards on the distinct
+    local cards."""
+    kw = dict(spec_decode=True, spec_draft=8) | kw
+    if tp > 1:
+        kw.update(tensor_parallel=tp,
+                  tp_devices=None if devices is None else list(devices))
+    return _cont(_gen(), **kw)
+
+
+def _tp_serve(tp: int, kv_quant: str, prompts, devices=TP_DEVICES) -> tuple:
+    """The 8 requests on one engine, every draw's top two recorded; the
+    kernels' launches checked per chunk (``_Launches``: tp launches of
+    each a layer)."""
+    ce = _tp_engine(tp, devices, kv_quant=kv_quant)
+    lc = _Launches(f"tp serving {kv_quant} tp={tp}")
+    lc.add(ce)
+    store: list = []
+    real_fns = paged._row_keys, paged._sample_rows
+    paged._row_keys, paged._sample_rows = _draw_recorder(store)
+    try:
+        reqs = [ce.submit(ids, max_new_tokens=TP_NEW, seed=300 + i,
+                          sampling=SamplingParams.make(**knobs),
+                          speculative=spec)
+                for i, (ids, knobs, spec) in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ce.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        paged._row_keys, paged._sample_rows = real_fns
+    if not all(r.finished and len(r.tokens) == TP_NEW for r in reqs):
+        raise AssertionError(f"tp serving {kv_quant} tp={tp}: a request "
+                             "did not finish")
+    launches = lc.check()
+    ce.check_page_conservation()
+    chunks = launches["chunks"]
+    return ce, dict(
+        streams=[list(r.tokens) for r in reqs], draws=_draws(store),
+        wall_s=wall, tokens_per_s=TP_NEW * len(reqs) / wall, chunks=chunks,
+        ms_per_chunk=wall * 1e3 / chunks, launches=launches,
+        per_chunk={n: c / chunks for n, c in launches["launches"].items()},
+        snap=ce.serving_snapshot(),
+    )
+
+
+def _held_greedy(label, prompts, got, want) -> list:
+    """Greedy streams of ``got`` equal ``want``'s, or parted only where
+    ``want``'s top-two gap at the parting draw is within SPEC_TIE
+    (logged). Returns the partings."""
+    parted = []
+    for i, ((_ids, knobs, _s), a, b) in enumerate(zip(
+            prompts, got["streams"], want["streams"])):
+        if knobs:
+            continue
+        at = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                  len(b))
+        if at == len(b):
+            continue
+        (vg, ig), (vw, iw) = (got["draws"][(300 + i, at)],
+                              want["draws"][(300 + i, at)])
+        if not (_top_is(vw, iw, b[at]) and _top_is(vg, ig, a[at])):
+            raise AssertionError(f"{label}: draw {at} of request {i} not "
+                                 "recorded")
+        gap = vw[0] - vw[1]
+        log(f"{label} request {i}: parts at token {at} of {TP_NEW}, tp=1 "
+            f"top-two gap {gap:.6g}")
+        if gap > SPEC_TIE:
+            raise AssertionError(f"{label}: request {i} parts at token {at} "
+                                 f"at a top-two gap {gap} > {SPEC_TIE}")
+        parted.append(dict(request=i, at=at, gap=gap))
+    return parted
+
+
+def _dequantized(fields, page: int, head_dim: int) -> list:
+    """One page's K and V over every layer as float32 ``[L, n_kv, page,
+    hd]`` (quantized codes times their scales), for a whole cache's
+    fields or a tp cache's (shards joined by kv head)."""
+    def rows(t):
+        if isinstance(t, tmesh.Sharded):
+            return torch.cat([x[:, page] for x in t.shards], dim=1)
+        return t[:, page]
+
+    k, v = rows(fields[0]), rows(fields[1])
+    if len(fields) == 2:
+        return [k.float(), v.float()]
+    return [_codes(c, c.shape[-1] != head_dim).float() * rows(s)[..., None]
+            for c, s in ((k, fields[2]), (v, fields[3]))]
+
+
+def _tp_trie_pages(one, tp) -> dict:
+    """Every trie page both engines hold for the same token chain (the
+    same tokens at the same positions): the tp engine's shards joined by
+    kv head against the tp=1 engine's page, per layer, as the worst max
+    |diff| over BF16_ATTN_TOL times the layer's max |tp=1| (<= 1 passes),
+    dequantized for int8 pages."""
+    by_hash = {n.key_hash: n for n in tp.prefix._by_page.values()}
+    worst, n_pages, n_equal, max_abs = 0.0, 0, 0, 0.0
+    for node in one.prefix._by_page.values():
+        other = by_hash.get(node.key_hash)
+        if other is None or other.depth != node.depth:
+            continue
+        hd = one.cfg.head_dim
+        a = _dequantized(one.cache.fields(), node.page, hd)
+        b = _dequantized(tp.cache.fields(), other.page, hd)
+        same = True
+        for x, y in zip(b, a):
+            d = (x - y).abs().flatten(1).amax(1)  # per layer
+            ref = y.abs().flatten(1).amax(1).clamp_min(1e-30)
+            worst = max(worst, float((d / (BF16_ATTN_TOL * ref)).max()))
+            max_abs = max(max_abs, float(d.max()))
+            same = same and bool((d == 0).all())
+        n_pages += 1
+        n_equal += same
+    if n_pages == 0:
+        raise AssertionError("tp: the two engines share no trie chain")
+    return dict(pages=n_pages, pages_bitwise=n_equal, max_abs_diff=max_abs,
+                of_bound=worst)
+
+
+def _tp_layout(ce, fmt) -> dict:
+    """The tp engine's cache: every page field split in two contiguous
+    shards of n_kv / 2 kv heads on the card, the control tensors whole,
+    and one shard's KV bytes per token half the whole's."""
+    c = ce.cache
+    cfg = ce.cfg
+    per_token = 0
+    for f in c.fields():
+        if not isinstance(f, tmesh.Sharded) or len(f.shards) != TP_DEGREE:
+            raise AssertionError(f"tp: a page field is not split in "
+                                 f"{TP_DEGREE}: {f!r}")
+        for s in f.shards:
+            if s.shape[2] != cfg.n_kv_heads // TP_DEGREE \
+                    or not s.is_contiguous() or s.device.type != "cuda":
+                raise AssertionError(f"tp: shard {tuple(s.shape)} on "
+                                     f"{s.device}")
+        per_token += f.shards[0].numel() * f.shards[0].element_size()
+    per_token //= c.n_pages * c.page_size
+    if per_token != KV_BYTES_PER_TOKEN_SHARD[fmt]:
+        raise AssertionError(f"tp: {per_token} KV bytes per token a shard, "
+                             f"not {KV_BYTES_PER_TOKEN_SHARD[fmt]}")
+    if isinstance(c.block_tables, tmesh.Sharded) \
+            or isinstance(c.lengths, tmesh.Sharded):
+        raise AssertionError("tp: control state was sharded")
+    snap = ce.serving_snapshot()
+    if snap["tensor_parallel"] != TP_DEGREE:
+        raise AssertionError(f"tp: snapshot says tensor_parallel "
+                             f"{snap['tensor_parallel']}")
+    whole = snap["kv_page_bytes"] // c.page_size
+    if whole != KV_BYTES_PER_TOKEN[fmt]:
+        raise AssertionError(f"tp: {whole} KV bytes per token, not "
+                             f"{KV_BYTES_PER_TOKEN[fmt]}")
+    return dict(kv_bytes_per_token_shard=per_token,
+                kv_bytes_per_token=whole)
+
+
+def _tp_export_layout(one, tp, prompt) -> dict:
+    """One request frozen once it decodes on each engine and exported:
+    the tp export's arrays have the tp=1 export's shapes and dtypes; then
+    both thaw and finish."""
+    blobs = []
+    for ce in (one, tp):
+        r = ce.submit(prompt, max_new_tokens=TP_NEW, seed=7)
+        for _ in range(8):
+            ce.step_chunk()
+            if r.slot >= 0 and r.slot not in ce._prefilling \
+                    and ce._active[r.slot]:
+                break
+        ce.freeze_slot(r.slot)
+        blobs.append(ce.export_slot(r.slot))
+        ce.abort_migration(r.slot)
+        ce.run_until_idle()
+        if not r.finished:
+            raise AssertionError("tp: a thawed request did not finish")
+    a, b = blobs
+    keys = [k for k in ("k", "v", "k_scale", "v_scale") if k in a]
+    layout = {k: (tuple(np.asarray(a[k]).shape), str(np.asarray(a[k]).dtype))
+              for k in keys}
+    got = {k: (tuple(np.asarray(b[k]).shape), str(np.asarray(b[k]).dtype))
+           for k in keys if k in b}
+    if got != layout or a["dtype"] != b["dtype"]:
+        raise AssertionError(f"tp: export layout {got} vs tp=1 {layout}")
+    return {k: list(v) for k, v in layout.items()}
+
+
+def _traced_busy(ce, prompts, root: Path) -> dict:
+    """Two chunks warm, then TP_PROFILE_CHUNKS chunks inside the port's
+    ``profiling.trace``: the card's busy share of the window (its kernels'
+    device time over the window's wall time; one stream)."""
+    from tensorlink_tpu_torch.utils import profiling
+
+    for i, (ids, _knobs, _spec) in enumerate(prompts):
+        ce.submit(ids, max_new_tokens=TP_NEW, seed=i)
+    for _ in range(2):
+        ce.step_chunk()
+    torch.cuda.synchronize()
+    with profiling.trace(root) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TP_PROFILE_CHUNKS):
+            ce.step_chunk()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            busy += t / 1e3
+            launches += e.count
+    ce.run_until_idle()
+    shutil.rmtree(root, ignore_errors=True)
+    if busy <= 0:
+        raise AssertionError("tp: the trace holds no device kernel")
+    return dict(chunks=TP_PROFILE_CHUNKS, wall_ms=wall * 1e3,
+                device_busy_ms=busy, busy_share=busy / (wall * 1e3),
+                device_launches=launches)
+
+
+def _shard_checker(real, plain, whole_call, n_shards, readings: dict):
+    """``real`` (a kernel wrapper launched per shard) wrapped so that each
+    shard's output is held against ``plain`` on its own inputs (the
+    bf16 bound) and, once every shard of a layer has launched, each
+    shard's output is compared bitwise with the same heads of one launch
+    over all the shards' heads joined (``whole_call``)."""
+    pending: list = []
+
+    def held(q, kp, vp, *rest, **kw):
+        out = real(q, kp, vp, *rest, **kw)
+        readings["plain"] = max(readings.get("plain", 0.0), _attn_ratio(
+            out, plain(q, kp, vp, *rest, **kw), BF16_ATTN_TOL))
+        pending.append((q, kp, vp, rest, kw, out))
+        if len(pending) == n_shards:
+            qs, kps, vps = zip(*[(p[0], p[1], p[2]) for p in pending])
+            kw0 = dict(pending[0][4])
+            for name in ("k_scale", "v_scale"):
+                if kw0.get(name) is not None:
+                    kw0[name] = torch.cat([p[4][name] for p in pending], 1)
+            whole = whole_call(torch.cat(qs, -2).contiguous(),
+                               torch.cat(kps, 1).contiguous(),
+                               torch.cat(vps, 1).contiguous(),
+                               *pending[0][3], **kw0)
+            got = torch.cat([p[5] for p in pending], -2)
+            readings["layers"] = readings.get("layers", 0) + 1
+            if not torch.equal(got, whole):
+                readings["unequal"] = readings.get("unequal", 0) + 1
+                readings["max_diff"] = max(
+                    readings.get("max_diff", 0.0),
+                    float((got.float() - whole.float()).abs().max()))
+            pending.clear()
+        return out
+
+    return held
+
+
+def tp_kernel_check(fmt: str) -> dict:
+    """One ragged chunk over MAIN's block (2 prefills, 5 decodes, an idle
+    slot) and one decode step of its slots after it, through the tp=2
+    step's forward on qwen3-0p6b bf16 at full width and depth, pages of
+    seeded random context in ``fmt``: every shard's launch of each kernel
+    (n_kv / 2 = 4 kv heads, 8 query heads) bitwise equal to the same
+    heads of one launch over both shards' heads joined on the same
+    inputs, and within the bf16 bound of its plain version. Over fp
+    pages also the tp=1 forward on the same pages: each layer's output,
+    tp=2 against tp=1, as the largest max |diff| over the layers (a
+    reading: a GEMM's bits may depend on its width)."""
+    cfg, params = _model()
+    dev = torch.device("cuda")
+    S, C, page = MAIN["S"], MAIN["C"], MAIN["page"]
+    kvq = {"fp": "none"}.get(fmt, fmt)
+    whole = PagedKVCache.init(cfg, S, page_size=page,
+                              max_len=MAIN["n_pp"] * page, kv_quant=kvq,
+                              device=dev)
+    n_pp = whole.pages_per_slot
+    rng = np.random.default_rng(15)
+    perm = rng.permutation(np.arange(1, whole.n_pages))[: S * n_pp]
+    whole.block_tables.copy_(torch.from_numpy(
+        perm.reshape(S, n_pp).astype(np.int32)))
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(151)
+    if fmt == "fp":
+        whole.k.normal_(generator=gk)
+        whole.v.normal_(generator=gk)
+    else:
+        _fill_quantized(whole, fmt == "int4", gk)
+    mesh = tmesh.serving_mesh(TP_DEGREE, devices=list(TP_DEVICES))
+    split = tmesh.Split(2)
+    tpc = PagedKVCache(
+        k=tmesh.put(mesh, whole.k, split), v=tmesh.put(mesh, whole.v, split),
+        block_tables=whole.block_tables.clone(),
+        lengths=whole.lengths.clone(),
+        k_scale=None if kvq == "none" else tmesh.put(mesh, whole.k_scale,
+                                                     split),
+        v_scale=None if kvq == "none" else tmesh.put(mesh, whole.v_scale,
+                                                     split),
+    )
+    placed = tmesh.put(mesh, params, ttr.tp_partition_specs(cfg))
+    fwd = paged._TP(placed, cfg, ttr.TPLayout(mesh.flat()), True)
+    blk = torch.tensor(rng.integers(0, cfg.vocab_size, size=(S, C)),
+                       dtype=torch.int32, device=dev)
+    starts, nv = (torch.tensor(a, dtype=torch.int32, device=dev)
+                  for a in (MAIN_STARTS, MAIN_NVALID))
+    wp, wo, pos, _ = paged._ragged_write_indices(tpc.block_tables, starts,
+                                                 nv, page, n_pp, C)
+    ragged_r, decode_r = {}, {}
+    hidden: dict = {"tp1": [], "tp2": []}
+    real_r, real_d = paged.ragged_paged_attention, paged.paged_attention
+    real_res, real_tpres = paged._residual, paged._tp_residual
+
+    def rec_res(x, *a):
+        out = real_res(x, *a)
+        hidden["tp1"].append(out)
+        return out
+
+    def rec_tpres(x, *a):
+        out = real_tpres(x, *a)
+        hidden["tp2"].append(out[mesh.flat()[0]])
+        return out
+
+    paged.ragged_paged_attention = _shard_checker(
+        real_r, att.ragged_paged_attention_ref, att.ragged_paged_attention,
+        TP_DEGREE, ragged_r)
+    paged.paged_attention = _shard_checker(
+        real_d, att.paged_attention_ref, att.paged_attention, TP_DEGREE,
+        decode_r)
+    paged._tp_residual = rec_tpres
+    try:
+        x_tp = fwd.ragged(blk, tpc, starts, nv, wp, wo, pos)
+        lens = [st + n for st, n in zip(MAIN_STARTS, MAIN_NVALID)]
+        tpc.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=S),
+                           dtype=torch.int32, device=dev)
+        logits, _ = fwd.decode(tok, tpc, tpc.lengths > 0)
+    finally:
+        paged.ragged_paged_attention = real_r
+        paged.paged_attention = real_d
+        paged._tp_residual = real_tpres
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    for name, r in (("ragged", ragged_r), ("decode", decode_r)):
+        if r.get("layers") != L:
+            raise AssertionError(f"tp kernels {fmt}: {r.get('layers')} "
+                                 f"{name} layers held, not {L}")
+        if r.get("unequal"):
+            raise AssertionError(f"tp kernels {fmt}: {r['unequal']} {name} "
+                                 f"layers' shard outputs differ from the "
+                                 f"joined launch's heads by up to "
+                                 f"{r['max_diff']}")
+        if r["plain"] > 1.0:
+            raise AssertionError(f"tp kernels {fmt}: a shard's {name} "
+                                 f"output is {r['plain']}x the bf16 bound "
+                                 "off its plain version")
+    if not torch.isfinite(logits).all() or not torch.isfinite(x_tp[
+            mesh.flat()[0]]).all():
+        raise AssertionError(f"tp kernels {fmt}: not finite")
+    res = dict(ragged_of_bound=ragged_r["plain"],
+               decode_of_bound=decode_r["plain"], layers=L,
+               ragged_shard_bitwise=True, decode_shard_bitwise=True)
+    if fmt == "fp":
+        paged._residual = rec_res
+        try:
+            paged._Whole(params, cfg, True).ragged(blk, whole, starts, nv,
+                                                   wp, wo, pos)
+        finally:
+            paged._residual = real_res
+        per_layer = [float((a.float() - b.float()).abs().max())
+                     for a, b in zip(hidden["tp1"], hidden["tp2"])]
+        if len(per_layer) != L:
+            raise AssertionError(f"tp kernels: {len(per_layer)} layers "
+                                 "compared")
+        res["hidden_max_abs_diff_by_layer"] = per_layer
+        res["hidden_layers_bitwise"] = sum(d == 0.0 for d in per_layer)
+    del whole, tpc, placed, fwd
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_cards() -> dict:
+    """Not a phase of ``main()``: it needs four cards on one host.
+    Phase 15's fp serving at tensor_parallel 2 and 4 with the
+    devices left out — the shards on distinct cards, so every gather
+    copies between cards (``parallel/mesh.py::to_device``) — against the
+    tp=1 engine on card 0: greedy streams equal up to a logged near-tie,
+    per chunk tp times tp=1's launches of each kernel, each shard's pages
+    on its own card, page conservation. Tokens/s and ms per chunk are
+    readings."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"tp_cards: needs 4 cards, have {n}")
+    cfg, _ = _model()
+    prompts = _tp_prompts(cfg)
+    one, r1 = _tp_serve(1, "none", prompts)
+    one.close()
+    res = dict(card=_smi(), cards=n, tp1=dict(
+        tokens_per_s=r1["tokens_per_s"], ms_per_chunk=r1["ms_per_chunk"]))
+    for tp in (2, 4):
+        ce, r = _tp_serve(tp, "none", prompts, devices=None)
+        want = [torch.device("cuda", i) for i in range(tp)]
+        for f in ce.cache.fields():
+            if [s.device for s in f.shards] != want:
+                raise AssertionError(f"tp_cards: pages on "
+                                     f"{[str(s.device) for s in f.shards]}")
+        parted = _held_greedy(f"tp_cards tp={tp}", prompts, r, r1)
+        for name in NEW_PATHS:
+            if r["per_chunk"][name] != tp * r1["per_chunk"][name]:
+                raise AssertionError(f"tp_cards tp={tp}: {name} launches "
+                                     f"per chunk {r['per_chunk'][name]}")
+        ce.check_page_conservation()
+        ce.close()
+        sampled = [a == b for (_i, k, _s), a, b in zip(
+            prompts, r["streams"], r1["streams"]) if k]
+        res[f"tp{tp}"] = dict(
+            tokens_per_s=r["tokens_per_s"], ms_per_chunk=r["ms_per_chunk"],
+            chunks=r["chunks"], greedy_parted=parted,
+            sampled_equal=f"{sum(sampled)} of {len(sampled)}")
+        del ce
+        torch.cuda.empty_cache()
+    log(f"tp_cards (qwen3-0p6b bf16, fp pages, shards on distinct cards; "
+        f"readings, not claims; {res['card']} x {n}): {json.dumps(res)}")
+    return res
+
+
+def tp_phase() -> dict:
+    """Phase 15: tensor-parallel serving of qwen3-0p6b bf16 at full width
+    and depth, both shards on the one card. Serving, the per-shard kernel
+    checks, the pages and layout, the launches, and readings."""
+    t0 = time.monotonic()
+    cfg, _ = _model()
+    prompts = _tp_prompts(cfg)
+    kernels = {}
+    for fmt in FORMATS:
+        kernels[fmt] = tp_kernel_check(fmt)
+    serving, layout, launches_tp = {}, {}, {}
+    for kv_quant in ("none", "int8"):
+        fmt = _fmt(kv_quant)
+        one, r1 = _tp_serve(1, kv_quant, prompts)
+        tp, r2 = _tp_serve(TP_DEGREE, kv_quant, prompts)
+        label = f"tp serving {fmt}"
+        parted = _held_greedy(label, prompts, r2, r1)
+        for name in NEW_PATHS:
+            if r2["per_chunk"][name] != TP_DEGREE * r1["per_chunk"][name]:
+                raise AssertionError(f"{label}: {name} launches per chunk "
+                                     f"{r2['per_chunk'][name]} vs tp=1's "
+                                     f"{r1['per_chunk'][name]}")
+        pages = _tp_trie_pages(one, tp)
+        if pages["of_bound"] > 1.0:
+            raise AssertionError(f"{label}: trie pages {pages}")
+        layout[fmt] = _tp_layout(tp, fmt)
+        if fmt == "fp":
+            fresh = np.random.default_rng(16).integers(
+                0, cfg.vocab_size, 100).tolist()
+            layout["export"] = _tp_export_layout(one, tp, fresh)
+            serving["busy"] = {
+                "tp1": _traced_busy(one, prompts, TP_ROOT / "tp1"),
+                "tp2": _traced_busy(tp, prompts, TP_ROOT / "tp2"),
+            }
+        tp.check_page_conservation()
+        one.close()
+        tp.close()
+        launches_tp[fmt] = r2["launches"]
+        sampled = [a == b for (_i, k, _s), a, b in zip(
+            prompts, r2["streams"], r1["streams"]) if k]
+        serving[fmt] = dict(
+            tokens_per_s_tp2=r2["tokens_per_s"],
+            tokens_per_s_tp1=r1["tokens_per_s"],
+            ms_per_chunk_tp2=r2["ms_per_chunk"],
+            ms_per_chunk_tp1=r1["ms_per_chunk"],
+            chunks_tp2=r2["chunks"], chunks_tp1=r1["chunks"],
+            launches_per_chunk_tp2=r2["per_chunk"],
+            launches_per_chunk_tp1=r1["per_chunk"],
+            greedy_parted=parted,
+            sampled_equal=f"{sum(sampled)} of {len(sampled)}",
+            spec_tokens_per_pass=r2["snap"]["spec_tokens_per_pass"],
+            trie_pages=pages,
+        )
+        del one, tp
+        torch.cuda.empty_cache()
+    res = dict(card=_smi(), kernels=kernels, serving=serving, layout=layout,
+               launches_tp=launches_tp, seconds=time.monotonic() - t0)
+    log(f"tp (qwen3-0p6b bf16, tensor_parallel={TP_DEGREE}, both shards on "
+        f"cuda:0; one card: a correctness run, the speeds are readings, "
+        f"not claims; {res['card']}): {json.dumps(res)}")
+    log(f"phase 15 took {res['seconds']:.1f} s ({res['card']})")
     return res
 
 
@@ -5820,6 +6295,7 @@ def main() -> None:
     # the training path runs the einsum attention: 0 launches, asserted
     train_launches = _phase("stages training",
                             stages_training_phase)["training"]["launches"]
+    tp = _phase("tensor parallel", tp_phase)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -5854,6 +6330,15 @@ def main() -> None:
             }
             # the validator + worker run of phase 10 (int8 pages)
             entry["launches_node_path"] = node["by_format"][name].get(fmt, 0)
+            # phase 15's tp=2 serving (fp and int8 pages), each shard's
+            # launch counted
+            served = tp["launches_tp"].get(fmt)
+            entry["launches_tp"] = (served["by_format"][name].get(fmt, 0)
+                                    if served else 0)
+            held = tp["kernels"][fmt]
+            entry["tp_shard_of_bound"] = held[
+                "ragged_of_bound" if name == "ragged_paged_attention"
+                else "decode_of_bound"]
         if name != "paged_prefill_attention" and fmt == "fp":
             kernels.append(entry)  # PR 1's two entries, as they were
             continue
@@ -5877,7 +6362,7 @@ def main() -> None:
         "launches_stages_training": train_launches["flash_attention"],
         "design": DESIGN["flash_attention"],
     })
-    log(f"chip_smoke: all 14 phases in {time.monotonic() - t_start:.1f} s "
+    log(f"chip_smoke: all 15 phases in {time.monotonic() - t_start:.1f} s "
         f"({_smi()})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

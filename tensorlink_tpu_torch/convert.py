@@ -10,6 +10,10 @@ JAX ``KVCache`` (fp, or int8 with scales) arrives the same way, as an
 object with numpy ``.k``/``.v``/``.length`` (and ``.k_scale``/
 ``.v_scale``), and becomes the port's ``KVCache`` with the same layout.
 
+:func:`tp_shards` splits a tree into the shards of the explicit
+tensor-parallel serving path, so both packages can be handed the same
+per-shard weights.
+
 An optax optimizer state crosses as the port's plain tuples
 (:func:`opt_state_from_jax`, ``engine/optimizers.py``), and back into an
 optax state's structure (:func:`opt_state_to_jax`).
@@ -179,6 +183,32 @@ def config_from_jax(fields: dict) -> ModelConfig:
     return ModelConfig(**kw)
 
 
+def tp_shards(tree, cfg: ModelConfig, tp: int) -> list[dict]:
+    """Split a parameter tree — the port's tensors, or a JAX tree as
+    numpy arrays — into the ``tp`` per-shard trees that
+    ``tp_partition_specs`` names: shard ``i`` holds piece ``i`` of every
+    split leaf along its split dimension, and every replicated leaf
+    whole. Leaves stay what they were (views of the given arrays)."""
+    from .models.transformer import tp_partition_specs
+
+    def split(x, spec):
+        if isinstance(x, dict):
+            return {k: split(v, spec[k]) for k, v in x.items()}
+        if spec is None or spec.dim is None:
+            return [x] * tp
+        if isinstance(x, torch.Tensor):
+            return list(torch.chunk(x, tp, dim=spec.dim))
+        return np.split(np.asarray(x), tp, axis=spec.dim)
+
+    def pick(x, i):
+        if isinstance(x, dict):
+            return {k: pick(v, i) for k, v in x.items()}
+        return x[i]
+
+    parts = split(tree, tp_partition_specs(cfg))
+    return [pick(parts, i) for i in range(int(tp))]
+
+
 __all__ = ["blob_from_jax", "config_from_jax", "host_pool_from_jax",
            "kv_cache_from_jax", "opt_state_from_jax", "opt_state_to_jax",
-           "params_from_jax", "torch_dtype"]
+           "params_from_jax", "torch_dtype", "tp_shards"]

@@ -28,11 +28,24 @@ preemption, migrated, or speculating, with the prefix cache on or off.
 On a CUDA device the step's attention runs the CUDA kernels
 (``use_kernel``); on the CPU it runs their plain versions. KV pages are
 full precision, int8 or packed int4 (``kv_quant``; a ``quant="int8+kv"``
-engine forces int8). Tensor parallelism is not in this slice and raises.
+engine forces int8).
+
+``tensor_parallel=N`` serves the model sharded by head over an N-device
+mesh (``parallel/mesh.py::serving_mesh``): the weights split by output
+column (``tp_partition_specs``, replacing ``engine.params`` as the JAX
+engine does), the KV pages by kv head, and the chunk runs
+``engine/paged.py::make_tp_ragged_step``. Control state — block tables,
+lengths, histograms, allocator, trie, scheduler — stays whole, so
+streams equal the ``tensor_parallel=1`` engine's. The mesh's devices are
+the distinct local cards; ``tp_devices`` (an argument of the port alone:
+the JAX package gets its device list from ``XLA_FLAGS``) names them
+instead, and only there may a device repeat (the CPU, or both shards on
+one card).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 import threading
@@ -49,6 +62,14 @@ from ..core.metrics import MetricsRegistry
 from ..core.serialization import content_digest, dtype_name as np_dtype_name
 from ..core.trace import FlightRecorder, get_tracer
 from ..models.quant import QTensor
+from ..models.transformer import tp_partition_specs, tp_shardable
+from ..parallel.mesh import (
+    Sharded,
+    is_sharded,
+    local_devices,
+    put,
+    serving_mesh,
+)
 from .generate import GenerationEngine
 from .kvtier import HostPagePool
 from .paged import (
@@ -61,6 +82,7 @@ from .paged import (
     copy_page,
     dtype_name,
     gather_page,
+    make_tp_ragged_step,
     paged_ragged_step,
     pages_needed,
     scatter_page,
@@ -294,6 +316,7 @@ class ContinuousEngine:
         model_id: str = "",
         page_quota: int = 0,
         tensor_parallel: int = 1,
+        tp_devices: list | None = None,
     ):
         why = paged_unsupported(engine.cfg)
         if why is not None:
@@ -306,20 +329,25 @@ class ContinuousEngine:
             kv_quant = "int8"
         if kv_quant not in ("none", "int8", "int4"):
             raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
-        if int(tensor_parallel or 1) > 1:
-            raise unported("a tensor-parallel engine (tensor_parallel > 1)",
-                           3)
+        # tp > 1 serves the model sharded over a tp mesh axis; a
+        # ValueError here routes the worker's hosting seam to its static
+        # fallback, as any other refusal does
+        self.tensor_parallel = max(int(tensor_parallel or 1), 1)
+        self._tp_mesh = None
+        if self.tensor_parallel > 1:
+            self._tp_mesh = _tp_mesh(engine, self.tensor_parallel, pool,
+                                     tp_devices)
         self.kv_quant = kv_quant
         self.engine = engine
         self.cfg = engine.cfg
-        self.device = engine.device
+        self.device = (engine.device if self._tp_mesh is None
+                       else self._tp_mesh.flat()[0])
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
         self.chunk_steps = max(int(chunk_steps), 1)
         self.max_seq_len = engine.max_seq_len
         # the CUDA kernels on the card; their plain versions on the CPU
         self.use_kernel = self.device.type == "cuda"
-        self.tensor_parallel = 1
         # -- co-hosting: with a shared pool the page tensors live in the
         # pool and this engine keeps only its own block tables + lengths;
         # `self.cache` is a view stitching the two
@@ -335,10 +363,15 @@ class ContinuousEngine:
             # after it would wedge the tenant id on the pool
             self.alloc = None
         else:
+            if self._tp_mesh is not None:
+                # the weights onto their shards (a tree loaded onto this
+                # mesh stays as it is); pages are made split by kv head
+                engine.params = _placed(engine.params, self.cfg,
+                                        self._tp_mesh)
             self.cache = PagedKVCache.init(
                 self.cfg, self.max_slots, page_size=self.page_size,
                 max_len=self.max_seq_len, dtype=engine.cache_dtype,
-                kv_quant=kv_quant, device=self.device,
+                kv_quant=kv_quant, device=self.device, mesh=self._tp_mesh,
             )
             self.alloc = PageAllocator(self.cache.n_pages)
         self.prefill_chunk = min(int(prefill_chunk), self.max_seq_len)
@@ -370,6 +403,18 @@ class ContinuousEngine:
         self.spec_decode = bool(spec_decode)
         self.spec_draft = max(0, min(int(spec_draft), self.prefill_chunk - 1))
         self.spec_width = 1 + (self.spec_draft if self.spec_decode else 0)
+        # the chunk's step: the sharded one over per-shard weights and
+        # pages with whole control state, or the whole-tree one
+        if self._tp_mesh is not None:
+            self._step = make_tp_ragged_step(
+                self._tp_mesh, self.cfg, n_steps=self.chunk_steps,
+                spec_width=self.spec_width, kernel=self.use_kernel,
+            )
+        else:
+            self._step = functools.partial(
+                paged_ragged_step, cfg=self.cfg, n_steps=self.chunk_steps,
+                spec_width=self.spec_width, kernel=self.use_kernel,
+            )
         # optional TOTAL draft tokens per step across speculating slots
         self.spec_budget = int(spec_budget)
         self._spec_phase = 0  # round-robin origin for a draft budget
@@ -1457,6 +1502,8 @@ class ContinuousEngine:
             )
         eng = self.engine
         staged = _staged(params, self.device)
+        if self._tp_mesh is not None:
+            staged = put(self._tp_mesh, staged, tp_partition_specs(self.cfg))
         if getattr(eng, "quant", None):
             from ..models.quant import quantize_params
 
@@ -2049,14 +2096,12 @@ class ContinuousEngine:
         self._host_gap_ms = round((t_chunk - t_host) * 1e3, 3)
         self.chunks += 1
         tokens, n_tok, spec_m, n_exec, self.cache, _done, _steps, \
-            self._counts, _rem = paged_ragged_step(
+            self._counts, _rem = self._step(
                 self.engine.params, up(blk), self.cache, up(starts),
                 up(n_valid), up(n_spec), up(emit),
                 up(self._seeds), up(self._steps), up(self._temp),
                 up(self._topk), up(self._topp), up(self._pres),
                 up(self._freq), self._counts, up(remaining), up(eos_arr),
-                self.cfg, self.chunk_steps, self.spec_width,
-                kernel=self.use_kernel,
             )
         # the chunk's host sync: the results the delivery loop reads
         toks_host = tokens.cpu().numpy()
@@ -2206,6 +2251,63 @@ class ContinuousEngine:
             self._cache = frozen
 
 
+def _tp_mesh(engine: GenerationEngine, tp: int, pool, devices):
+    """The serving mesh of a ``tensor_parallel=tp`` engine, after the JAX
+    engine's refusals (each a ValueError with its words). ``devices``
+    defaults to the distinct local cards; fewer than ``tp`` raise — the
+    engine never runs on fewer shards or on another kind of device."""
+    devs = local_devices() if devices is None else list(devices)
+    if len(devs) < tp:
+        raise ValueError(
+            f"tensor_parallel={tp} needs as many devices, have {len(devs)}"
+        )
+    reason = tp_shardable(engine.cfg, tp)
+    if reason is not None:
+        raise ValueError(f"tensor_parallel={tp}: {reason}")
+    if pool is not None:
+        raise ValueError(
+            "tensor parallelism does not compose with a shared "
+            "page pool yet — the pool's page arrays are unsharded"
+        )
+    if getattr(engine, "quant", None):
+        raise ValueError(
+            "weight-quantized engines cannot shard over a tp axis "
+            "— QTensor scale layouts have no partition specs yet"
+        )
+    if engine.cfg.collective_quant:
+        raise unported("the quantized tp gather (collective_quant)", 5)
+    mesh = serving_mesh(tp, devices=devs)
+    kinds = {d.type for d in mesh.flat()}
+    if kinds != {engine.device.type}:
+        raise ValueError(
+            f"tensor_parallel={tp}: the mesh's devices "
+            f"{[str(d) for d in mesh.flat()]} are not the engine's "
+            f"{engine.device.type} — name them with tp_devices"
+        )
+    return mesh
+
+
+def _placed(params, cfg, mesh):
+    """``params`` placed on ``mesh`` by ``tp_partition_specs``; a tree
+    already placed there (``load_params(tensor_parallel=)``) as it is."""
+    if not is_sharded(params):
+        return put(mesh, params, tp_partition_specs(cfg))
+    want = mesh.flat()
+
+    def check(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                check(v, f"{path}/{k}")
+        elif t.devices != want:
+            raise ValueError(
+                f"{path}: placed on {[str(d) for d in t.devices]}, the "
+                f"engine's mesh is {[str(d) for d in want]}"
+            )
+
+    check(params, "")
+    return params
+
+
 def _staged(tree, device):
     """A published tree copied onto ``device`` (the engine never shares a
     tensor with the publisher)."""
@@ -2225,6 +2327,14 @@ def _tree_mismatch(old, new, path: str = "") -> str | None:
     """Where the published tree ``new`` departs from the serving tree
     ``old`` (structure, leaf shape, dtype, device), or None."""
     where = path or "<root>"
+    if isinstance(old, Sharded):
+        if not isinstance(new, Sharded) or len(new.shards) != len(old.shards):
+            return f"{where}: not placed on the serving mesh"
+        for j, (a, b) in enumerate(zip(old.shards, new.shards)):
+            why = _tree_mismatch(a, b, f"{path}[shard {j}]")
+            if why is not None:
+                return why
+        return None
     if isinstance(old, dict):
         if not isinstance(new, dict) or set(old) != set(new):
             return f"{where}: keys differ"

@@ -51,6 +51,7 @@ from ..core.devices import resolve_device
 from ..models.base import KVCache, ModelConfig
 from ..models.quant import quantize_params
 from ..models.transformer import _logits, flash_gate, forward
+from ..parallel.mesh import Sharded, is_sharded
 from . import prng
 from .sampling import SamplingParams, sample
 
@@ -72,6 +73,8 @@ def _bucket(value: int, buckets: Sequence[int]) -> int:
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree  # placed on a mesh: a tensor-parallel engine's tree
     return tree.to(device)  # a tensor or a QTensor
 
 
@@ -286,6 +289,9 @@ class GenerationEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
+        if quant and is_sharded(self.params):
+            raise ValueError("a tree placed on a tensor-parallel mesh "
+                             "cannot be weight-quantized")
         if quant:
             # on the device: the codes and scales are the same bits there
             self.params = quantize_params(self.params)

@@ -31,11 +31,12 @@ from typing import Any
 
 import torch
 
-from .. import unported
 from ..core.devices import resolve_device
 from ..models.base import ModelConfig
 from ..models.quant import QTensor
 from ..models.registry import config_from_hf, hf_name_map, hf_prefix
+from ..parallel.mesh import REPLICATED, Sharded
+from ..parallel.mesh import zeros as mesh_zeros
 from .safetensors_io import SafetensorsFile, save_file
 
 # ---------------------------------------------------------------------------
@@ -296,7 +297,10 @@ def load_params(
     layer_range: tuple[int, int] | None = None,
     device=None,
     dtype: torch.dtype | None = None,
+    mesh=None,
+    specs: dict | None = None,
     tensor_parallel: int = 0,
+    tp_devices: list | None = None,
 ) -> tuple[ModelConfig, dict]:
     """Load a checkpoint into the stacked parameter tree on ``device``
     (None = the CUDA card). Returns ``(cfg, params)``: ``cfg`` from the
@@ -306,12 +310,17 @@ def load_params(
 
     ``layer_range=(lo, hi)`` loads only layers ``lo..hi-1`` (a pipeline
     stage's slice); reads, and for a hub repo id the download, are
-    restricted to those tensors. ``tensor_parallel > 1`` is not ported
-    (ROADMAP queue 1 item 3)."""
-    if tensor_parallel and int(tensor_parallel) > 1:
-        raise unported("loading onto tensor-parallel shards "
-                       "(load_params(tensor_parallel > 1))", 3)
-    dev = resolve_device(device)
+    restricted to those tensors.
+
+    ``mesh`` with a ``specs`` tree (``parallel/mesh.py::Split`` leaves)
+    places every tensor straight onto its shards as it leaves the
+    checkpoint (through host memory, one tensor at a time), so the whole
+    tree never sits on one device; every leaf is then a ``Sharded``.
+    ``tensor_parallel=N`` (N > 1) is the serving-path form: the mesh is
+    ``serving_mesh(N, devices=tp_devices)`` (the local cards unless
+    named) and the specs ``tp_partition_specs``, and the result is what
+    ``ContinuousEngine(tensor_parallel=N)`` takes without another copy.
+    It excludes an explicit ``mesh``/``specs`` pair."""
     reader = CheckpointReader(
         resolve_checkpoint(ckpt_dir, layer_range=layer_range)
     )
@@ -319,6 +328,25 @@ def load_params(
         cfg = config_from_hf(reader.config())
     dt = dtype or cfg.dtype
     cfg = cfg.with_(dtype=dt)  # activations follow the loaded param dtype
+    if tensor_parallel and int(tensor_parallel) > 1:
+        if mesh is not None or specs is not None:
+            raise ValueError(
+                "tensor_parallel composes its own mesh/specs — pass one "
+                "or the other, not both"
+            )
+        from ..models.transformer import tp_partition_specs, tp_shardable
+        from ..parallel.mesh import serving_mesh
+
+        tp = int(tensor_parallel)
+        reason = tp_shardable(cfg, tp)
+        if reason is not None:
+            raise ValueError(f"tensor_parallel={tp}: {reason}")
+        mesh = serving_mesh(tp, devices=tp_devices)
+        specs = tp_partition_specs(cfg)
+    if (mesh is None) != (specs is None):
+        raise ValueError("mesh and specs go together")
+    # placed leaves pass through the host one tensor at a time
+    dev = torch.device("cpu") if mesh is not None else resolve_device(device)
     prefix = hf_prefix(cfg)
     lo, hi = layer_range or (0, cfg.n_layers)
     if hi <= lo:
@@ -326,6 +354,12 @@ def load_params(
 
     def fetch(template, **fmt):
         return _fetch(reader, template, prefix, cfg, dev, **fmt)
+
+    def spec_of(path):
+        node = specs
+        for p in path.split("."):
+            node = node[p]
+        return node or REPLICATED
 
     params: dict[str, Any] = {"embed": {}, "layers": {}, "final_norm": {}}
     for path, template in hf_name_map(cfg).items():
@@ -335,13 +369,16 @@ def load_params(
             for j, i in enumerate(range(lo, hi)):
                 t = fetch(template, i=i)
                 if leaf is None:
-                    leaf = torch.empty((hi - lo, *t.shape), dtype=dt,
-                                       device=dev)
+                    shape = (hi - lo, *t.shape)
+                    leaf = (torch.empty(shape, dtype=dt, device=dev)
+                            if mesh is None
+                            else mesh_zeros(mesh, shape, dt,
+                                             spec_of(path)))
                 elif t.shape != leaf.shape[1:]:
                     raise ValueError(f"{path}: layer {i} has shape "
                                      f"{tuple(t.shape)}, layer {lo} "
                                      f"{tuple(leaf.shape[1:])}")
-                leaf[j].copy_(t)
+                _fill(leaf, j, t)
             node = params["layers"].setdefault(parts[1], {})
             if len(parts) != 3:  # layers.<p> (no leaf name) does not occur
                 raise AssertionError(path)
@@ -351,9 +388,31 @@ def load_params(
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             t = fetch(template)
-            node[parts[-1]] = torch.empty(t.shape, dtype=dt,
-                                          device=dev).copy_(t)
+            if mesh is None:
+                node[parts[-1]] = torch.empty(t.shape, dtype=dt,
+                                              device=dev).copy_(t)
+            else:
+                leaf = mesh_zeros(mesh, tuple(t.shape), dt, spec_of(path))
+                _fill(leaf, None, t)
+                node[parts[-1]] = leaf
     return cfg, params
+
+
+def _fill(leaf, j: int | None, t: torch.Tensor) -> None:
+    """Copy host tensor ``t`` into layer ``j`` of ``leaf`` (the whole
+    leaf when ``j`` is None), cast to its dtype; a ``Sharded`` leaf takes
+    each shard's piece (``t`` has no layer axis, so the split dimension
+    is one less)."""
+    if not isinstance(leaf, Sharded):
+        (leaf if j is None else leaf[j]).copy_(t)
+        return
+    dim = leaf.spec.dim
+    if dim is not None and j is not None:
+        dim -= 1
+    n = len(leaf.shards)
+    pieces = [t] * n if dim is None else torch.chunk(t, n, dim=dim)
+    for x, piece in zip(leaf.shards, pieces):
+        (x if j is None else x[j]).copy_(piece)
 
 
 def export_hf(

@@ -48,7 +48,18 @@ payload) and :func:`scatter_page` (the inverse, in place), byte-exactly.
 :class:`SharedPagePool` holds one set of page tensors for several
 co-hosted tenant engines under per-tenant quotas (:class:`PoolTenant`).
 
-Not in this slice: the tensor-parallel step.
+Tensor parallelism (:func:`make_tp_ragged_step`): a cache made with a
+``mesh`` holds its pages split by kv head — per shard ``[L, P, n_kv/tp,
+page, hd]`` (and scale planes ``[L, P, n_kv/tp, page]``), each contiguous
+on its shard's device (``parallel/mesh.py::Sharded``) — while the block
+tables and lengths stay whole on the mesh's first device. The step runs
+each shard's column slice of the projections, its own page writes and
+its own launches of the attention kernels, and reassembles activations in
+mesh order (``models/transformer.py::_tp_residual``); sampling and every
+control update run once. The page operations work on such a cache too:
+``gather_page`` joins a page's shards by kv head, so an exported page has
+the unsharded layout ``[L, n_kv, page, hd]``, and ``scatter_page`` splits
+it back.
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ from ..models.base import ModelConfig, dtype_name
 from ..models.quant import quantize_kv as _quant_kv
 from ..models.quant import quantize_kv4 as _quant_kv4
 from ..models.transformer import (
+    TPLayout,
     _attn_scale,
     _embed_tokens,
     _layers,
@@ -75,8 +87,12 @@ from ..models.transformer import (
     _qkv,
     _residual,
     _rope_dim,
+    _tp_logits,
+    _tp_residual,
     rope_tables,
 )
+from ..parallel.mesh import Mesh, Sharded, Split, shard_tree, to_device
+from ..parallel.mesh import zeros as mesh_zeros
 from ..ops.attention import (
     paged_attention,
     paged_attention_ref,
@@ -95,14 +111,18 @@ class PagedKVCache:
 
     int8/int4 mode (``quantized``): ``k``/``v`` hold int8 codes (int4:
     packed, last dim ``hd / 2``) and ``k_scale``/``v_scale``
-    ``[L, P, n_kv, page]`` the f32 per-(page, position, head) scales."""
+    ``[L, P, n_kv, page]`` the f32 per-(page, position, head) scales.
 
-    k: torch.Tensor
-    v: torch.Tensor
+    A tensor-parallel cache (``init(..., mesh=)``) holds its page fields
+    as ``Sharded`` split by kv head (:func:`tp_cache_specs`); its block
+    tables and lengths are whole tensors on the mesh's first device."""
+
+    k: torch.Tensor | Sharded
+    v: torch.Tensor | Sharded
     block_tables: torch.Tensor
     lengths: torch.Tensor
-    k_scale: torch.Tensor | None = None  # f32 [L, P, n_kv, page]
-    v_scale: torch.Tensor | None = None
+    k_scale: torch.Tensor | Sharded | None = None  # f32 [L, P, n_kv, page]
+    v_scale: torch.Tensor | Sharded | None = None
 
     @classmethod
     def init(
@@ -116,12 +136,16 @@ class PagedKVCache:
         kv_quant: str | None = None,
         n_pages: int | None = None,
         device=None,
+        mesh: Mesh | None = None,
     ) -> "PagedKVCache":
         """Zeroed pages for ``max_slots`` slots of ``max_len`` positions
         (plus scratch page 0), or ``n_pages`` pages when given, on
         ``device`` (None = the CUDA card). ``kv_quant`` is ``"none"``
         (pages in ``dtype``), ``"int8"`` or ``"int4"`` (int8 pages, packed
-        to ``hd / 2`` for int4, with zeroed f32 scales)."""
+        to ``hd / 2`` for int4, with zeroed f32 scales). With ``mesh``,
+        the pages are made split by kv head over its ``tp`` axis, piece
+        by piece on the shards' devices, and the control tensors on its
+        first device (``device`` is not read)."""
         mode = kv_quant or "none"
         if mode not in ("none", "int8", "int4"):
             raise ValueError(f"unknown kv_quant mode {mode!r}")
@@ -133,22 +157,27 @@ class PagedKVCache:
                     f"head_dim {hd} must be even"
                 )
             hd //= 2
-        device = resolve_device(device)
+        device = mesh.flat()[0] if mesh is not None else resolve_device(device)
         S_max = max_len or cfg.max_seq_len
         n_pp = -(-S_max // page_size)
         P = n_pages if n_pages is not None else 1 + max_slots * n_pp
         shape = (cfg.n_layers, P, cfg.n_kv_heads, page_size, hd)
         dt = torch.int8 if mode != "none" else (dtype or cfg.dtype)
+        specs = tp_cache_specs(mode != "none")
+
+        def pages(shape, dt, spec):
+            if mesh is None:
+                return torch.zeros(shape, dtype=dt, device=device)
+            return mesh_zeros(mesh, shape, dt, spec)
 
         def scales():
             if mode == "none":
                 return None
-            return torch.zeros(shape[:-1], dtype=torch.float32,
-                               device=device)
+            return pages(shape[:-1], torch.float32, specs.k_scale)
 
         return cls(
-            k=torch.zeros(shape, dtype=dt, device=device),
-            v=torch.zeros(shape, dtype=dt, device=device),
+            k=pages(shape, dt, specs.k),
+            v=pages(shape, dt, specs.v),
             block_tables=torch.zeros(
                 (max_slots, n_pp), dtype=torch.int32, device=device
             ),
@@ -161,6 +190,16 @@ class PagedKVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def tp(self) -> int:
+        """Shards the pages split over (1: a whole cache)."""
+        return len(self.k.shards) if isinstance(self.k, Sharded) else 1
+
+    def fields(self) -> list:
+        """The page fields: ``[k, v]``, plus the scales when quantized."""
+        return [self.k, self.v] + (
+            [self.k_scale, self.v_scale] if self.quantized else [])
 
     @property
     def page_size(self) -> int:
@@ -180,21 +219,46 @@ class PagedKVCache:
 
     def clone(self) -> "PagedKVCache":
         """An independent copy (the step updates pages in place)."""
+        def cp(t):
+            if t is None:
+                return None
+            if isinstance(t, Sharded):
+                return Sharded([x.clone() for x in t.shards], t.spec,
+                               t.shape)
+            return t.clone()
+
         return PagedKVCache(
-            k=self.k.clone(), v=self.v.clone(),
+            k=cp(self.k), v=cp(self.v),
             block_tables=self.block_tables.clone(),
             lengths=self.lengths.clone(),
-            k_scale=None if self.k_scale is None else self.k_scale.clone(),
-            v_scale=None if self.v_scale is None else self.v_scale.clone(),
+            k_scale=cp(self.k_scale), v_scale=cp(self.v_scale),
         )
 
     def layer_kv(self, i: int) -> tuple:
         """Layer ``i``'s page views: ``(k, v)`` for fp pages, ``(k, v,
         k_scale, v_scale)`` for quantized ones — the blocks branch on the
         arity, as the JAX package's ``_cache_kv`` tuples do."""
-        if self.k_scale is None:
-            return (self.k[i], self.v[i])
-        return (self.k[i], self.v[i], self.k_scale[i], self.v_scale[i])
+        return tuple(t[i] for t in self.fields())
+
+    def shard_kv(self, s: int, i: int) -> tuple:
+        """Layer ``i``'s page views of shard ``s`` of a tensor-parallel
+        cache (the :meth:`layer_kv` tuple over ``n_kv / tp`` heads)."""
+        return tuple(t.shards[s][i] for t in self.fields())
+
+
+def tp_cache_specs(quantized: bool, axis: str = "tp") -> PagedKVCache:
+    """The spec of a tensor-parallel :class:`PagedKVCache`: pages split by
+    kv head (dim 2 of ``[L, P, n_kv, page, hd]``; the scales ``[L, P,
+    n_kv, page]`` with them), block tables and lengths whole (None). That
+    is the control-state invariant: the host-side scheduler, allocator,
+    spec decode and the export/stage/migrate path read and write page ids
+    and lengths exactly as on one device."""
+    kv = Split(2, axis)
+    return PagedKVCache(
+        k=kv, v=kv, block_tables=None, lengths=None,
+        k_scale=kv if quantized else None,
+        v_scale=kv if quantized else None,
+    )
 
 
 class PageAllocator:
@@ -858,12 +922,12 @@ def _attn_pages(kv: tuple, dtype) -> tuple:
     return kv[0].to(dtype), kv[1].to(dtype), {}
 
 
-def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
-                 write_off, att_len, block_tables, kernel: bool):
-    """One transformer block over a slot batch of single tokens (T=1),
-    reading and writing KV through pages; attention is
-    :func:`paged_attention` (``kernel``) or its plain version."""
-    h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
+def _paged_attend(h, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
+                  write_off, att_len, block_tables, kernel: bool):
+    """A decode block's attention over one set of pages: project ``h``
+    (whole heads, or one shard's column slice), write the new token's KV
+    through the one write path, then :func:`paged_attention` (``kernel``)
+    or its plain version. Returns ``(attn_raw [S, 1, H, hd], kv)``."""
     q, k, v = _qkv(h, lp, cfg, cos, sin)  # [S, 1, H, hd]
     kv = _scatter_kv(cache_kv, write_pg, write_off, k[:, 0], v[:, 0])
     attn = paged_attention if kernel else paged_attention_ref
@@ -871,8 +935,42 @@ def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
     attn_raw = attn(
         q[:, 0].contiguous(), kp, vp, block_tables, att_len,
         scale=_attn_scale(cfg), **sc,
-    )[:, None]  # [S, 1, Hq, hd]
+    )[:, None]
+    return attn_raw, kv
+
+
+def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
+                 write_off, att_len, block_tables, kernel: bool):
+    """One transformer block over a slot batch of single tokens (T=1),
+    reading and writing KV through pages; attention is
+    :func:`paged_attention` (``kernel``) or its plain version."""
+    h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
+    attn_raw, kv = _paged_attend(h, lp, cfg, cos, sin, cache_kv, write_pg,
+                                 write_off, att_len, block_tables, kernel)
     return _residual(x, attn_raw, lp, cfg), kv
+
+
+def _decode_inputs(cache: PagedKVCache, active):
+    """A decode step's write targets, attended lengths and positions."""
+    lengths = cache.lengths
+    write_pg, write_off, _, _ = _ragged_write_indices(
+        cache.block_tables, lengths, active.to(torch.int32),
+        cache.page_size, cache.pages_per_slot, 1,
+    )
+    att_len = torch.where(active, lengths + 1, torch.zeros_like(lengths))
+    return write_pg[:, 0], write_off[:, 0], att_len, lengths.long()[:, None]
+
+
+def _embed(params, tokens, pos, cfg: ModelConfig):
+    """Token (and learned position) embedding plus the rope tables of
+    ``pos``: ``(x, cos, sin)``."""
+    x = _embed_tokens(params, tokens, cfg)
+    if cfg.pos == "learned":
+        x = x + params["embed"]["pos"][pos].to(cfg.dtype)
+    cos = sin = None
+    if cfg.pos == "rope":
+        cos, sin = rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
+    return x, cos, sin
 
 
 def paged_decode_step(params, tok, cache: PagedKVCache, active,
@@ -885,21 +983,8 @@ def paged_decode_step(params, tok, cache: PagedKVCache, active,
     ``kernel`` (required) selects :func:`paged_attention` or its plain
     version."""
     layers = layers if layers is not None else _layers(params)
-    lengths = cache.lengths
-    page, n_pp = cache.page_size, cache.pages_per_slot
-    write_pg, write_off, _, _ = _ragged_write_indices(
-        cache.block_tables, lengths, active.to(torch.int32), page, n_pp, 1
-    )
-    write_pg, write_off = write_pg[:, 0], write_off[:, 0]
-    att_len = torch.where(active, lengths + 1, torch.zeros_like(lengths))
-
-    x = _embed_tokens(params, tok.long()[:, None], cfg)  # [S, 1, d]
-    positions = lengths.long()[:, None]
-    if cfg.pos == "learned":
-        x = x + params["embed"]["pos"][positions].to(cfg.dtype)
-    cos = sin = None
-    if cfg.pos == "rope":
-        cos, sin = rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
+    write_pg, write_off, att_len, positions = _decode_inputs(cache, active)
+    x, cos, sin = _embed(params, tok.long()[:, None], positions, cfg)
     for i, lp in enumerate(layers):
         x, _ = _paged_block(
             x, lp, cfg, cos, sin, cache.layer_kv(i), write_pg,
@@ -907,14 +992,15 @@ def paged_decode_step(params, tok, cache: PagedKVCache, active,
         )
     x = _norm(x, params["final_norm"], cfg)
     logits = _logits(params, x, cfg)[:, 0]
+    lengths = cache.lengths
     new_len = torch.where(active, lengths + 1, lengths)
     return logits, replace(cache, lengths=new_len)
 
 
-def _decode_loop_body(params, layers, seeds, temp, top_k, top_p, pres, freq,
-                      eos, cfg: ModelConfig, kernel: bool):
-    """The decode continuation's loop body (one slot-batched decode step
-    plus in-step sampling). A slot that finishes (EOS / budget) freezes:
+def _decode_loop_body(decode, seeds, temp, top_k, top_p, pres, freq, eos):
+    """The decode continuation's loop body (one slot-batched decode step,
+    ``decode(tok, cache, active) -> (logits, cache)``, plus in-step
+    sampling). A slot that finishes (EOS / budget) freezes:
     its length stops, it re-feeds its own token and its key index stops,
     so its stream is bit-identical to stepping one token at a time.
     Tokens land at each slot's own column cursor ``col``. ``run`` is the
@@ -926,9 +1012,7 @@ def _decode_loop_body(params, layers, seeds, temp, top_k, top_p, pres, freq,
     def body(st):
         tok, cache, done, steps, counts, remaining, col, tokens, n_exec = st
         run = ~done.all()
-        logits, cache = paged_decode_step(
-            params, tok, cache, ~done, cfg, kernel=kernel, layers=layers
-        )
+        logits, cache = decode(tok, cache, ~done)
         keys = _row_keys(seeds, steps)
         nxt = _sample_rows(
             logits, keys, temp, top_k, top_p, pres, freq, counts
@@ -989,13 +1073,14 @@ def _verify_emit(blk, logits_v, base, n_spec, emit, seeds, steps, temp,
     return torch.stack(toks, 1), last, m, ended, counts, steps, remaining
 
 
-def _ragged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
-                  write_off, block_tables, starts, n_valid, kernel: bool):
-    """One transformer block over the ragged ``[S, C]`` token block:
-    project, scatter the block's KV through the one write path, then
-    :func:`ragged_paged_attention` (``kernel``) or its plain version over
-    every slot's pages at once."""
-    h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
+
+def _ragged_attend(h, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
+                   write_off, block_tables, starts, n_valid, kernel: bool):
+    """A ragged block's attention over one set of pages: project ``h``
+    (whole heads, or one shard's column slice), scatter the block's KV
+    through the one write path, then :func:`ragged_paged_attention`
+    (``kernel``) or its plain version over every slot's pages at once.
+    Returns ``(attn_raw [S, C, H, hd], kv)``."""
     q, k, v = _qkv(h, lp, cfg, cos, sin)  # [S, C, H, hd]
     kv = _scatter_kv(cache_kv, write_pg, write_off, k, v)
     attn = ragged_paged_attention if kernel else ragged_paged_attention_ref
@@ -1003,8 +1088,165 @@ def _ragged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
     attn_raw = attn(
         q.contiguous(), kp, vp, block_tables, starts, n_valid,
         scale=_attn_scale(cfg), **sc,
-    )  # [S, C, Hq, hd]
+    )
+    return attn_raw, kv
+
+
+def _ragged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
+                  write_off, block_tables, starts, n_valid, kernel: bool):
+    """One transformer block over the ragged ``[S, C]`` token block:
+    project, scatter the block's KV through the one write path, then
+    :func:`ragged_paged_attention` (``kernel``) or its plain version over
+    every slot's pages at once."""
+    h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
+    attn_raw, kv = _ragged_attend(h, lp, cfg, cos, sin, cache_kv, write_pg,
+                                  write_off, block_tables, starts, n_valid,
+                                  kernel)
     return _residual(x, attn_raw, lp, cfg), kv
+
+
+class _Whole:
+    """The serving step's forward over a whole parameter tree and cache:
+    the ragged pass, the head over the verify rows and one decode step."""
+
+    def __init__(self, params, cfg: ModelConfig, kernel: bool):
+        self.params, self.cfg, self.kernel = params, cfg, kernel
+        self.layers = _layers(params)
+
+    def ragged(self, blk, cache, starts, n_valid, write_pg, write_off, pos):
+        cfg = self.cfg
+        x, cos, sin = _embed(self.params, blk.long(), pos, cfg)
+        for i, lp in enumerate(self.layers):
+            x, _ = _ragged_block(
+                x, lp, cfg, cos, sin, cache.layer_kv(i), write_pg,
+                write_off, cache.block_tables, starts, n_valid, self.kernel,
+            )
+        return _norm(x, self.params["final_norm"], cfg)
+
+    def head(self, x, rows, gather):
+        return _logits(self.params, x[rows, gather], self.cfg)
+
+    def decode(self, tok, cache, active):
+        return paged_decode_step(self.params, tok, cache, active, self.cfg,
+                                 kernel=self.kernel, layers=self.layers)
+
+
+class _TP:
+    """The serving step's forward over a tree and a cache placed on a
+    tensor-parallel mesh (:func:`make_tp_ragged_step`). Per layer: the
+    input norm once per distinct device; per shard, its column slice of
+    q/k/v, its page writes and its own attention launch over its
+    ``n_kv / tp`` kv heads; then :func:`_tp_residual` gathers the heads,
+    the output columns and the MLP in mesh order. Index tensors, the
+    embedding and the rope tables are made once per distinct device;
+    the logits come out on the mesh's first device, where sampling and
+    every control update run once."""
+
+    def __init__(self, params, cfg: ModelConfig, lay: TPLayout,
+                 kernel: bool):
+        self.params, self.cfg, self.lay, self.kernel = (params, cfg, lay,
+                                                        kernel)
+        self.shards = [shard_tree(params, j) for j in range(lay.tp)]
+        self.layers = [_layers(p) for p in self.shards]
+        self.rep = lay.rep(self.shards)
+
+    def _copies(self, *ts) -> dict:
+        """``{device: (t, ...)}``: the control tensors on every device."""
+        return {d: tuple(to_device(t, d) for t in ts)
+                for d in self.lay.distinct}
+
+    def _layers_pass(self, x, cos, sin, ctl, cache, attend):
+        cfg, lay = self.cfg, self.lay
+        for i in range(len(self.layers[0])):
+            lps = [layers[i] for layers in self.layers]
+            rep = lay.rep(lps)
+            h = x if cfg.norm_position == "post" else {
+                d: _norm(x[d], rep[d]["ln1"], cfg) for d in x}
+            parts = []
+            for s, d in enumerate(lay.devices):
+                attn_raw, _ = attend(h[d], lps[s], cfg, cos[d], sin[d],
+                                     cache.shard_kv(s, i), *ctl[d],
+                                     self.kernel)
+                parts.append(attn_raw)
+            x = _tp_residual(x, parts, lps, cfg, lay)
+        return {d: _norm(x[d], self.rep[d]["final_norm"], cfg) for d in x}
+
+    def _embed(self, tokens, pos):
+        out = {d: _embed(self.rep[d], t, p, self.cfg)
+               for d, (t, p) in self._copies(tokens, pos).items()}
+        return ({d: e[0] for d, e in out.items()},
+                {d: e[1] for d, e in out.items()},
+                {d: e[2] for d, e in out.items()})
+
+    def ragged(self, blk, cache, starts, n_valid, write_pg, write_off, pos):
+        x, cos, sin = self._embed(blk.long(), pos)
+        ctl = self._copies(write_pg, write_off, cache.block_tables, starts,
+                           n_valid)
+        return self._layers_pass(x, cos, sin, ctl, cache, _ragged_attend)
+
+    def head(self, x, rows, gather):
+        return _tp_logits(self.shards, {d: t[rows.to(d), gather.to(d)]
+                                        for d, t in x.items()},
+                          self.cfg, self.lay)
+
+    def decode(self, tok, cache, active):
+        write_pg, write_off, att_len, positions = _decode_inputs(cache,
+                                                                 active)
+        x, cos, sin = self._embed(tok.long()[:, None], positions)
+        ctl = self._copies(write_pg, write_off, att_len, cache.block_tables)
+        x = self._layers_pass(x, cos, sin, ctl, cache, _paged_attend)
+        logits = _tp_logits(self.shards, x, self.cfg, self.lay)[:, 0]
+        lengths = cache.lengths
+        return logits, replace(
+            cache, lengths=torch.where(active, lengths + 1, lengths))
+
+
+def _ragged_step_impl(fwd, blk, cache, starts, n_valid, n_spec, emit, seeds,
+                      steps, temp, top_k, top_p, pres, freq, counts,
+                      remaining, eos, n_steps: int, spec_width: int):
+    """The body of :func:`paged_ragged_step` and of the tensor-parallel
+    step, over a forward ``fwd`` (:class:`_Whole` or :class:`_TP`)."""
+    S, C = blk.shape
+    page, n_pp = cache.page_size, cache.pages_per_slot
+    write_pg, write_off, pos, _valid = _ragged_write_indices(
+        cache.block_tables, starts, n_valid, page, n_pp, C
+    )
+    x = fwd.ragged(blk, cache, starts, n_valid, write_pg, write_off, pos)
+    # verification rows: the last spec_width rows of each slot's valid
+    # span; a non-speculating slot gathers exactly its last valid row
+    W = int(spec_width)
+    dev = blk.device
+    base = torch.clamp(n_valid - 1 - n_spec, min=0)
+    gather = torch.minimum(
+        base.long()[:, None] + torch.arange(W, device=dev)[None, :],
+        torch.clamp(n_valid.long() - 1, min=0)[:, None],
+    )  # [S, W]
+    logits_v = fwd.head(x, torch.arange(S, device=dev)[:, None],
+                        gather)  # [S, W, V]
+
+    toks0, nxt, spec_m, ended, counts, steps, remaining = _verify_emit(
+        blk, logits_v, base, n_spec, emit, seeds, steps, temp, top_k,
+        top_p, pres, freq, counts, remaining, eos,
+    )
+    done = ~emit | ended
+    # a speculating slot's length advances only past its accepted tokens
+    adv = torch.where((n_spec > 0) & emit, spec_m, n_valid)
+    cache = replace(
+        cache, lengths=torch.where(n_valid > 0, starts + adv, cache.lengths)
+    )
+    tokens = torch.zeros((S, n_steps + W - 1), dtype=torch.int32, device=dev)
+    tokens[:, :W] = toks0
+    body = _decode_loop_body(fwd.decode, seeds, temp, top_k, top_p, pres,
+                             freq, eos)
+    st = (nxt, cache, done, steps, counts, remaining, spec_m, tokens,
+          torch.ones((), dtype=torch.int32, device=dev))
+    for _ in range(n_steps - 1):
+        st = body(st)
+    _tok, cache, done, steps, counts, remaining, n_tok, tokens, n_exec = st
+    return (
+        tokens, n_tok, spec_m, n_exec, cache, done, steps, counts,
+        remaining,
+    )
 
 
 def paged_ragged_step(
@@ -1046,74 +1288,59 @@ def paged_ragged_step(
     is the ragged pass's emitted count, ``n_exec`` the number of
     slot-batched steps in which some slot was live (a 0-d int32 tensor).
     Pages are written in place; no host sync happens inside."""
-    S, C = blk.shape
-    page, n_pp = cache.page_size, cache.pages_per_slot
-    bt = cache.block_tables
-    write_pg, write_off, pos, _valid = _ragged_write_indices(
-        bt, starts, n_valid, page, n_pp, C
+    return _ragged_step_impl(
+        _Whole(params, cfg, kernel), blk, cache, starts, n_valid, n_spec,
+        emit, seeds, steps, temp, top_k, top_p, pres, freq, counts,
+        remaining, eos, n_steps, spec_width,
     )
-    layers = _layers(params)
-    x = _embed_tokens(params, blk.long(), cfg)  # [S, C, d]
-    if cfg.pos == "learned":
-        x = x + params["embed"]["pos"][pos].to(cfg.dtype)
-    cos = sin = None
-    if cfg.pos == "rope":
-        cos, sin = rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
-    for i, lp in enumerate(layers):
-        x, _ = _ragged_block(
-            x, lp, cfg, cos, sin, cache.layer_kv(i), write_pg,
-            write_off, bt, starts, n_valid, kernel,
-        )
-    x = _norm(x, params["final_norm"], cfg)
-    # verification rows: the last spec_width rows of each slot's valid
-    # span; a non-speculating slot gathers exactly its last valid row
-    W = int(spec_width)
-    dev = blk.device
-    base = torch.clamp(n_valid - 1 - n_spec, min=0)
-    gather = torch.minimum(
-        base.long()[:, None] + torch.arange(W, device=dev)[None, :],
-        torch.clamp(n_valid.long() - 1, min=0)[:, None],
-    )  # [S, W]
-    h_v = x[torch.arange(S, device=dev)[:, None], gather]  # [S, W, d]
-    logits_v = _logits(params, h_v, cfg)  # [S, W, V]
 
-    toks0, nxt, spec_m, ended, counts, steps, remaining = _verify_emit(
-        blk, logits_v, base, n_spec, emit, seeds, steps, temp, top_k,
-        top_p, pres, freq, counts, remaining, eos,
-    )
-    done = ~emit | ended
-    # a speculating slot's length advances only past its accepted tokens
-    adv = torch.where((n_spec > 0) & emit, spec_m, n_valid)
-    cache = replace(
-        cache, lengths=torch.where(n_valid > 0, starts + adv, cache.lengths)
-    )
-    tokens = torch.zeros((S, n_steps + W - 1), dtype=torch.int32, device=dev)
-    tokens[:, :W] = toks0
-    body = _decode_loop_body(
-        params, layers, seeds, temp, top_k, top_p, pres, freq, eos, cfg,
-        kernel,
-    )
-    st = (nxt, cache, done, steps, counts, remaining, spec_m, tokens,
-          torch.ones((), dtype=torch.int32, device=dev))
-    for _ in range(n_steps - 1):
-        st = body(st)
-    _tok, cache, done, steps, counts, remaining, n_tok, tokens, n_exec = st
-    return (
-        tokens, n_tok, spec_m, n_exec, cache, done, steps, counts,
-        remaining,
-    )
+
+def make_tp_ragged_step(mesh: Mesh, cfg: ModelConfig, *, n_steps: int,
+                        spec_width: int = 1, kernel: bool):
+    """The tensor-parallel serving step over ``mesh``'s ``tp`` axis: a
+    callable with :func:`paged_ragged_step`'s positional arguments (the
+    statics fixed here) and return tuple. ``params`` is a tree placed by
+    ``tp_partition_specs`` and ``cache`` one made with ``mesh``; every
+    other argument is whole, on the mesh's first device, as the returned
+    control tensors are. Each shard launches the attention kernels over
+    its own contiguous pages. The per-shard views of ``params`` are built
+    once and rebuilt only when another tree is passed (a publish)."""
+    if mesh.shape.get("data", 1) != 1:
+        raise ValueError("the tensor-parallel serving step runs on a "
+                         "(data=1, tp) mesh")
+    lay = TPLayout(mesh.flat())
+    fwd = None
+
+    def step(params, blk, cache, starts, n_valid, n_spec, emit, seeds,
+             steps, temp, top_k, top_p, pres, freq, counts, remaining, eos):
+        nonlocal fwd
+        if fwd is None or fwd.params is not params:
+            fwd = _TP(params, cfg, lay, kernel)
+        return _ragged_step_impl(
+            fwd, blk, cache, starts, n_valid, n_spec, emit, seeds, steps,
+            temp, top_k, top_p, pres, freq, counts, remaining, eos, n_steps,
+            spec_width,
+        )
+
+    return step
+
+
+def _page_tensors(cache: PagedKVCache) -> list:
+    """Every page tensor of the cache: its fields, each shard's own for a
+    tensor-parallel cache."""
+    out = []
+    for t in cache.fields():
+        out += t.shards if isinstance(t, Sharded) else [t]
+    return out
 
 
 def copy_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
     """Copy-on-write: duplicate a cached page's KV (every layer) into a
     page the admitting slot owns, in place. Quantized pages move their
     scale rows with the payload, so the copy dequantizes exactly as the
-    original does."""
-    cache.k[:, dst] = cache.k[:, src]
-    cache.v[:, dst] = cache.v[:, src]
-    if cache.k_scale is not None:
-        cache.k_scale[:, dst] = cache.k_scale[:, src]
-        cache.v_scale[:, dst] = cache.v_scale[:, src]
+    original does; a tensor-parallel cache copies every shard's page."""
+    for t in _page_tensors(cache):
+        t[:, dst] = t[:, src]
     return cache
 
 
@@ -1166,26 +1393,36 @@ def gather_page(cache: PagedKVCache, page: int) -> tuple:
     v_scale)`` for quantized pages — the stored bytes (no dequantize, no
     cast), so a shipped page is byte-exact on the destination. The copies
     are taken after the card finished writing and are not views: a later
-    step cannot change them."""
+    step cannot change them. A tensor-parallel cache's shards join by kv
+    head, so the page has the unsharded layout."""
     page = int(page)
-    out = [cache.k[:, page], cache.v[:, page]]
-    if cache.k_scale is not None:
-        out += [cache.k_scale[:, page], cache.v_scale[:, page]]
-    return tuple(host_array(t) for t in out)
+    out = []
+    for t in cache.fields():
+        if isinstance(t, Sharded):
+            out.append(np.concatenate(
+                [host_array(x[:, page]) for x in t.shards], axis=1))
+        else:
+            out.append(host_array(t[:, page]))
+    return tuple(out)
 
 
 def scatter_page(cache: PagedKVCache, page: int, k, v, k_scale=None,
                  v_scale=None) -> PagedKVCache:
     """Write one shipped page's KV into a destination-owned physical page,
     in place: the migration IMPORT and the host-tier promote path (the
-    inverse of :func:`gather_page`, byte-exact)."""
+    inverse of :func:`gather_page`, byte-exact; a tensor-parallel cache
+    takes each shard's kv heads)."""
     page = int(page)
-    dev = cache.k.device
-    cache.k[:, page] = device_tensor(k, dev)
-    cache.v[:, page] = device_tensor(v, dev)
-    if k_scale is not None:
-        cache.k_scale[:, page] = device_tensor(k_scale, dev)
-        cache.v_scale[:, page] = device_tensor(v_scale, dev)
+    given = (k, v) + ((k_scale, v_scale) if k_scale is not None else ())
+    for t, a in zip(cache.fields(), given):
+        if not isinstance(t, Sharded):
+            t[:, page] = device_tensor(a, t.device)
+            continue
+        n = len(t.shards)
+        parts = np.split(np.asarray(a), n, axis=1) \
+            if not isinstance(a, torch.Tensor) else torch.chunk(a, n, dim=1)
+        for x, part in zip(t.shards, parts):
+            x[:, page] = device_tensor(part, x.device)
     return cache
 
 
@@ -1209,9 +1446,11 @@ __all__ = [
     "dtype_name",
     "gather_page",
     "host_array",
+    "make_tp_ragged_step",
     "paged_decode_step",
     "paged_ragged_step",
     "pages_needed",
     "prompt_chain_hashes",
     "scatter_page",
+    "tp_cache_specs",
 ]

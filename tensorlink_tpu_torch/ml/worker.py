@@ -122,6 +122,9 @@ class StageRuntime:
     # drives chunked decode through the work queue
     cont: Any = None
     cont_scheduled: bool = False
+    # a tensor_parallel > 1 whole-model job: the devices of its serving
+    # mesh (its slot engine's shards), else None
+    tp_devices: Any = None
     # journal rid -> live ContinuousRequest for every continuous stream
     # admitted with a jrid (what an attach_only re-handshake reports)...
     jstreams: dict[str, Any] = field(default_factory=dict)
@@ -369,13 +372,22 @@ class DistributedWorker:
         n_mesh = 1
         for v in (stage.get("mesh_axes") or {}).values():
             n_mesh *= int(v)
-        if (n_mesh > 1 or int(getattr(ml, "tensor_parallel", 1) or 1) > 1
-                or ml.collective_quant):
-            raise unported("a device mesh or tensor parallelism", 3)
+        if n_mesh > 1:
+            raise unported("a planned device mesh (mesh_axes: the GSPMD "
+                           "sharded GenerationEngine)", 3)
+        if ml.collective_quant:
+            raise unported("the quantized tp gather (collective_quant)", 5)
         if stage.get("coworkers"):
             raise unported("a co-slice merged stage (coworkers)", 4)
         training = bool(p.get("training", False))
         whole = bool(first and stage["last"] and holds_head)
+        tp = int(getattr(ml, "tensor_parallel", 1) or 1)
+        if tp > 1 and training:
+            raise unported("tensor-parallel training (ZeRO-1 with zero1 "
+                           "x tp)", 3)
+        # a tp job's mesh from this worker's card on: too few cards fail
+        # the load (it never serves on fewer shards)
+        tp_devices = self._tp_devices(tp) if whole and tp > 1 else None
         if model.get("ckpt"):
             from tensorlink_tpu_torch.engine.loader import load_params
 
@@ -423,6 +435,7 @@ class DistributedWorker:
             model_spec=dict(model),
             training=training,
             cache_quant=quant == "int8+kv",
+            tp_devices=tp_devices,
         )
         if whole:
             rt.engine = GenerationEngine(
@@ -450,6 +463,10 @@ class DistributedWorker:
             # engine's in-flight requests fast
             old.cont.close(RuntimeError("stage reloaded"))
             old.cont = None
+        if tp_devices is not None:
+            # a tp job serves through its sharded slot engine: build it
+            # now, so no request runs on the whole tree before it
+            self._ensure_cont(rt)
         self.log.info(
             "loaded %s layers [%d,%d) first=%s head=%s on %s in %.1fs",
             model.get("name", "?"), lo, hi, first, holds_head, self.device,
@@ -460,7 +477,8 @@ class DistributedWorker:
             {"job_id": job_id, "ok": True, "n_layers": hi - lo},
         )
         warm_toks = ml.warmup_tokens
-        if rt.engine is not None and warm_toks and not training:
+        if (rt.engine is not None and warm_toks and not training
+                and not _tp_hosted(rt)):
             # after the ack: warming must not time out the deploy, and a
             # warmup failure must not double-respond on this rid
             try:
@@ -471,6 +489,24 @@ class DistributedWorker:
                 )
             except Exception:
                 self.log.exception("serving warmup failed (serving anyway)")
+
+    def _tp_devices(self, tp: int) -> list:
+        """The devices of a ``tensor_parallel=tp`` job's serving mesh:
+        ``tp`` shards on a CPU worker's host, else ``tp`` distinct cards
+        from this worker's card on (ValueError when there are fewer)."""
+        from tensorlink_tpu_torch.parallel.mesh import (
+            local_devices,
+            serving_mesh,
+        )
+
+        if self.device.type == "cpu":
+            return [self.device] * tp
+        first = self.device.index
+        if first is None:
+            import torch
+
+            first = torch.cuda.current_device()
+        return serving_mesh(tp, devices=local_devices()[first:]).flat()
 
     def _runtime(self, job_id: str) -> StageRuntime:
         rt = self.jobs.get(job_id)
@@ -489,6 +525,12 @@ class DistributedWorker:
         prompts = [list(map(int, row)) for row in p["prompts"]]
         if p.get("continuous") and self._generate_continuous(rt, p, prompts):
             return  # admitted into the slot batch; responds via on_finish
+        if _tp_hosted(rt):
+            # the static paths run the dense forward, which takes whole
+            # trees; a tp job's tree lies on its mesh
+            raise unported(
+                "a non-continuous request (static batch, beam, lookahead) "
+                "on a tensor-parallel job (the GSPMD GenerationEngine)", 3)
         knobs = (
             p.get("temperature", 0.0), p.get("top_k", 0), p.get("top_p", 1.0),
             p.get("presence_penalty", 0.0), p.get("frequency_penalty", 0.0),
@@ -1024,11 +1066,21 @@ class DistributedWorker:
                 sched_preemption=bool(ml.sched_preemption),
                 sched_policy=str(ml.sched_policy),
                 sched_max_wait_s=float(ml.sched_max_wait_s),
+                # explicit TP: shard the hot path over the job's mesh
+                # (load_stage found its devices); engines that cannot
+                # (MoE, indivisible heads, a pool, quantized weights)
+                # refuse with ValueError into the fallback below
+                tensor_parallel=len(rt.tp_devices) if rt.tp_devices else 1,
+                tp_devices=rt.tp_devices,
             )
         except ValueError as e:
             # sliding window (or a bad knob): static batcher territory
             self.log.info("continuous batching unavailable: %s", e)
             return None
+        if cont.tensor_parallel > 1:
+            # the engine placed the weights on its mesh: the job's tree
+            # is that one, so the whole tree is freed
+            rt.params = rt.engine.params
         return cont
 
     def _shared_kv_pool(self, rt: StageRuntime, ml):
@@ -2337,10 +2389,9 @@ class DistributedWorker:
                                                    rt.grad_accum)
                 updates, rt.opt_state = rt.opt.update(
                     rt.grad_accum, rt.opt_state, rt.params)
-                rt.params = optim.apply_updates(rt.params, updates)
+                params = optim.apply_updates(rt.params, updates)
                 gnorm = float(optim.global_norm(rt.grad_accum))
-            if rt.engine is not None:
-                rt.engine.params = rt.params
+            _set_params(rt, params)
             self._record_proof(rt, gnorm)
             rt.grad_accum = None
             rt.n_accum = 0
@@ -2405,20 +2456,19 @@ class DistributedWorker:
             body = {"ok": True, "path": str(path)}
         elif op == "restore":
             state = ser.decode_from_file(path)
-            rt.params = optim.tree_map(
+            params = optim.tree_map(
                 lambda a: device_tensor(a, self.device), state["params"])
             restored_opt = False
             if "opt_state" in state and rt.opt is not None:
                 # the saved leaves, laid into a fresh state of this
                 # optimizer (its structure and devices)
-                tmpl = rt.opt.init(rt.params)
+                tmpl = rt.opt.init(params)
                 rt.opt_state = optim.tree_unflatten(tmpl, [
                     device_tensor(a, self.device)
                     for a in optim.tree_leaves(state["opt_state"])
                 ])
                 restored_opt = True
-            if rt.engine is not None:
-                rt.engine.params = rt.params
+            _set_params(rt, params)
             body = {"ok": True, "restored_opt": restored_opt,
                     "opt_in_checkpoint": "opt_state" in state}
         else:
@@ -2431,12 +2481,16 @@ class DistributedWorker:
         """rt.params with int8-serving QTensor leaves dequantized — the
         wire and disk formats carry plain arrays."""
         from tensorlink_tpu_torch.models.quant import QTensor, dequantize
+        from tensorlink_tpu_torch.parallel.mesh import Sharded
 
         def fix(node):
             if isinstance(node, dict):
                 return {k: fix(v) for k, v in node.items()}
             if isinstance(node, QTensor):
                 return dequantize(node, rt.cfg.dtype)
+            if isinstance(node, Sharded):
+                # a tp job's leaf joined on the host
+                return node.full("cpu")
             return node
 
         return fix(rt.params)
@@ -2449,6 +2503,9 @@ class DistributedWorker:
 
     def _train_mode(self, p: dict) -> None:
         rt = self._runtime(p["job_id"])
+        if bool(p.get("training", True)) and rt.tp_devices is not None:
+            raise unported("tensor-parallel training (ZeRO-1 with zero1 "
+                           "x tp)", 3)
         if bool(p.get("training", True)) and _quantized(rt.params):
             raise ValueError(
                 "int8-quantized serving job cannot switch to training — "
@@ -2459,6 +2516,23 @@ class DistributedWorker:
             p["peer"], proto.TRAIN_MODE_ACK, p["rid"],
             {"job_id": rt.job_id, "training": rt.training},
         )
+
+
+def _tp_hosted(rt: StageRuntime) -> bool:
+    """Whether the job serves through a tensor-parallel slot engine."""
+    return rt.cont is not None and rt.cont.tensor_parallel > 1
+
+
+def _set_params(rt: StageRuntime, params) -> None:
+    """Make ``params`` (a whole tree) the job's weights. A tensor-parallel
+    slot engine publishes them, which re-places them on its mesh."""
+    if _tp_hosted(rt):
+        rt.cont.publish_weights(params)
+        rt.params = rt.engine.params
+        return
+    rt.params = params
+    if rt.engine is not None:
+        rt.engine.params = params
 
 
 def _clear_empty_rows(cache, new_cache, mask) -> None:

@@ -30,8 +30,16 @@ or without the head, over a session cache sized to the slice — and
 :func:`head_forward` is the final norm and LM head alone (the tied head's
 hop back to stage 0).
 
-Not ported: ring attention (``seq_mesh``, ROADMAP queue 1 item 5) and the
-tensor-parallel gathers (item 3). Each raises naming its item.
+Explicit tensor parallelism for the paged serving path:
+:func:`tp_shardable`, :func:`tp_partition_specs` (the spec tree
+``parallel/mesh.py::put`` places a tree by) and the sharded block
+epilogue (:func:`_tp_residual`, :func:`_tp_mlp`, :func:`_tp_logits`) that
+``engine/paged.py::make_tp_ragged_step`` runs over per-shard parameter
+trees, reassembling split activations with :func:`_tp_gather`.
+
+Not ported: ring attention (``seq_mesh``, ROADMAP queue 1 item 5). The
+dense forward over a tree placed on a mesh (JAX's GSPMD path) raises
+naming item 3.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import unported
 from ..core.devices import resolve_device
+from ..parallel.mesh import REPLICATED, Split, is_sharded, to_device
 from .base import KVCache, ModelConfig
 from .quant import QTensor
 from .quant import matmul as _mm
@@ -381,6 +390,187 @@ def _residual(x, attn_raw, lp, cfg: ModelConfig):
     return x
 
 
+# ---------------------------------------------------------------------------
+# Explicit tensor parallelism (the paged serving path)
+# ---------------------------------------------------------------------------
+
+
+def tp_shardable(cfg: ModelConfig, tp: int) -> str | None:
+    """Why ``cfg`` can NOT shard ``tp`` ways on the explicit serving TP
+    path, or ``None`` when it can (the JAX function's reasons, word for
+    word): MoE (routing is global), ``qk_norm_full`` (its RMSNorm spans
+    the whole projection dim), and divisibility of the heads, ``d_ff``,
+    ``d_model`` and an untied vocabulary."""
+    tp = int(tp)
+    if tp <= 1:
+        return None
+    if cfg.moe:
+        return "MoE routing is not tensor-shardable on the serving path"
+    if cfg.qk_norm_full:
+        return "qk_norm_full normalizes over the full projection dim"
+    for name in ("n_heads", "n_kv_heads", "d_ff", "d_model"):
+        val = int(getattr(cfg, name))
+        if val % tp:
+            return f"{name}={val} is not divisible by tp={tp}"
+    if not cfg.tie_embeddings and cfg.vocab_size % tp:
+        return f"untied vocab_size={cfg.vocab_size} is not divisible by tp={tp}"
+    return None
+
+
+def tp_partition_specs(cfg: ModelConfig, axis: str = "tp") -> dict:
+    """The spec tree of the explicit serving TP path: the parameter
+    tree's exact structure with a :class:`~..parallel.mesh.Split` leaf
+    each (walkable by dot-path, as the loader does). Every matmul weight
+    splits its OUTPUT dim (``wo`` and ``w_down`` too: their output
+    columns, the input whole) and biases split with the outputs they add
+    onto; embeddings, norms and the per-head qk-norm scales replicate.
+    Column slices of a product are the product's columns, and the
+    activations reassemble by a fixed-order concatenation, which is what
+    keeps tp=N streams equal to tp=1. Gate with :func:`tp_shardable`."""
+    if cfg.moe:
+        raise ValueError("MoE params have no explicit-TP partition specs")
+    rep = REPLICATED
+    out2, out1 = Split(2, axis), Split(1, axis)  # [L, in, out] / [L, out]
+
+    ln = {"scale": rep}
+    if cfg.norm == "layernorm":
+        ln["bias"] = rep
+    attn = {"wq": out2, "wk": out2, "wv": out2, "wo": out2}
+    if cfg.attn_bias:
+        attn |= {"bq": out1, "bk": out1, "bv": out1}
+    if cfg.attn_out_bias or cfg.family == "gpt2":  # must match init_params
+        attn["bo"] = out1
+    if cfg.qk_norm or cfg.qk_norm_full:
+        attn |= {"q_norm": rep, "k_norm": rep}
+    if cfg.mlp == "gated":
+        mlp = {"w_gate": out2, "w_up": out2, "w_down": out2}
+        if cfg.mlp_bias:
+            mlp |= {"b_gate": out1, "b_up": out1, "b_down": out1}
+    else:
+        mlp = {"w_up": out2, "b_up": out1, "w_down": out2, "b_down": out1}
+    specs = {
+        "embed": {"tok": rep},
+        "layers": {"ln1": ln, "attn": attn, "ln2": dict(ln), "mlp": mlp},
+        "final_norm": {"scale": rep}
+        | ({"bias": rep} if cfg.norm == "layernorm" else {}),
+    }
+    if cfg.pos == "learned":
+        specs["embed"]["pos"] = rep
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = Split(1, axis)
+    return specs
+
+
+def _tp_gather(parts: list, device) -> torch.Tensor:
+    """Reassemble an activation whose LAST axis is split over the shards:
+    the pieces concatenated in mesh order on ``device`` — JAX's tiled
+    ``all_gather``, so the whole activation is the same bits on every
+    device and equal to the unsharded compute's."""
+    if len(parts) == 1:
+        return to_device(parts[0], device)
+    return torch.cat([to_device(p, device) for p in parts], dim=-1)
+
+
+class TPLayout:
+    """Where a tensor-parallel forward runs: shard ``i`` on
+    ``devices[i]`` (mesh order), and the replicated work — embedding,
+    norms, residual adds, the tied head — once on each distinct device,
+    with the parameters of the first shard there. A replicated activation
+    is a dict ``{device: tensor}``."""
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        self.first: dict[torch.device, int] = {}
+        for i, d in enumerate(self.devices):
+            self.first.setdefault(d, i)
+        self.distinct = list(self.first)
+        self.primary = self.devices[0]
+
+    @property
+    def tp(self) -> int:
+        return len(self.devices)
+
+    def gather(self, parts: list) -> dict:
+        """Each distinct device's copy of the reassembled activation."""
+        return {d: _tp_gather(parts, d) for d in self.distinct}
+
+    def rep(self, per_shard: list) -> dict:
+        """``{device: the first shard's value there}``."""
+        return {d: per_shard[i] for d, i in self.first.items()}
+
+
+def _tp_mlp(h: dict, mlps: list, cfg: ModelConfig, lay: TPLayout) -> dict:
+    """The dense MLP over shards: each shard's gate/up columns, the
+    hidden gathered whole, each shard's ``w_down`` output columns, the
+    output gathered — JAX's ``_mlp`` with ``tp_axis``."""
+    mids = []
+    for p, d in zip(mlps, lay.devices):
+        if cfg.mlp == "gated":
+            g = _mm(h[d], p["w_gate"])
+            u = _mm(h[d], p["w_up"])
+            if "b_gate" in p:
+                g = g + p["b_gate"]
+                u = u + p["b_up"]
+            mids.append(_act(g, cfg.act) * u)
+        else:
+            mids.append(_act(_mm(h[d], p["w_up"]) + p["b_up"], cfg.act))
+    mid = lay.gather(mids)
+    outs = []
+    for p, d in zip(mlps, lay.devices):
+        out = _mm(mid[d], p["w_down"])
+        if "b_down" in p:
+            out = out + p["b_down"]
+        outs.append(out)
+    return lay.gather(outs)
+
+
+def _tp_residual(x: dict, attn_parts: list, lps: list, cfg: ModelConfig,
+                 lay: TPLayout) -> dict:
+    """:func:`_residual` over shards: ``attn_parts[i]`` is shard ``i``'s
+    attention output over its local heads ``[B, T, Hq/tp, hd]``. The
+    flattened heads gather whole, each shard's ``wo`` makes its output
+    columns (plus its bias slice), and those gather too; the residual
+    stream ``x`` is whole on every device, so the norms and adds are the
+    unsharded ones."""
+    B, T = attn_parts[0].shape[:2]
+    flat = lay.gather([a.reshape(B, T, -1) for a in attn_parts])
+    outs = []
+    for lp, d in zip(lps, lay.devices):
+        o = _mm(flat[d], lp["attn"]["wo"])
+        if "bo" in lp["attn"]:
+            o = o + lp["attn"]["bo"]
+        outs.append(o)
+    attn_out = lay.gather(outs)
+    rep = lay.rep(lps)
+    mlps = [lp["mlp"] for lp in lps]
+    if cfg.norm_position == "post":
+        x = {d: x[d] + _norm(attn_out[d], rep[d]["ln1"], cfg) for d in x}
+        m = _tp_mlp(x, mlps, cfg, lay)
+        return {d: x[d] + _norm(m[d], rep[d]["ln2"], cfg) for d in x}
+    if cfg.parallel_residual:
+        m = _tp_mlp({d: _norm(x[d], rep[d]["ln2"], cfg) for d in x}, mlps,
+                    cfg, lay)
+        return {d: x[d] + attn_out[d] + m[d] for d in x}
+    x = {d: x[d] + attn_out[d] for d in x}
+    m = _tp_mlp({d: _norm(x[d], rep[d]["ln2"], cfg) for d in x}, mlps, cfg,
+                lay)
+    return {d: x[d] + m[d] for d in x}
+
+
+def _tp_logits(shards: list, x: dict, cfg: ModelConfig,
+               lay: TPLayout) -> torch.Tensor:
+    """The LM head over shards, on the primary device: a tied head runs
+    whole there (its embedding is replicated); an untied ``lm_head``
+    makes each shard's vocab columns and they gather."""
+    if cfg.tie_embeddings:
+        return _logits(shards[0], x[lay.primary], cfg)
+    parts = [_mm(x[d], p["lm_head"]) for p, d in zip(shards, lay.devices)]
+    logits = _tp_gather(parts, lay.primary)
+    if cfg.logit_cap is not None:
+        logits = cfg.logit_cap * torch.tanh(logits / cfg.logit_cap)
+    return logits
+
+
 def _attn_scale(cfg: ModelConfig) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim**-0.5
 
@@ -473,6 +663,14 @@ def flash_gate(cfg: ModelConfig, T: int, has_cache: bool,
                 and T > 1 and T % min(128, T) == 0)
 
 
+def _refuse_sharded(params: dict) -> None:
+    """The dense forward takes whole tensors; a tree placed on a mesh
+    (a tensor-parallel engine's) runs only the paged serving step."""
+    if is_sharded(params):
+        raise unported("the dense forward over a tensor-parallel tree "
+                       "(the GSPMD GenerationEngine)", 3)
+
+
 def forward(
     params: dict,
     tokens: torch.Tensor,  # int [B, T]
@@ -505,6 +703,7 @@ def forward(
     The single-stage case of :func:`_stage_impl`, as in JAX."""
     if seq_mesh is not None:
         raise unported("sequence-parallel ring attention (seq_mesh)", 5)
+    _refuse_sharded(params)
     if return_hidden:
         x, new_cache = _stage_impl(
             params, cfg, tokens=tokens, cache=cache, attn_mask=attn_mask,
@@ -647,6 +846,7 @@ def stage_forward(
     Ring attention (``seq_mesh``) raises (ROADMAP queue 1 item 5)."""
     if seq_mesh is not None:
         raise unported("sequence-parallel ring attention (seq_mesh)", 5)
+    _refuse_sharded(params)
     return _stage_impl(
         params, cfg, tokens=tokens, hidden=hidden, cache=cache,
         attn_mask=attn_mask, positions=positions, first=first, last=last,
@@ -691,4 +891,6 @@ __all__ = [
     "slice_stage_params",
     "stage_forward",
     "top_k",
+    "tp_partition_specs",
+    "tp_shardable",
 ]

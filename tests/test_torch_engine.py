@@ -434,16 +434,20 @@ def _pipelined_run(batcher_cls):
 
 
 def test_unported_variants_are_refused(models):
-    """Tensor parallelism is refused; the batcher's pipelined mode is
-    ported and makes the JAX batcher's session ops over a fake two-stage
-    model (admission, recycled rows, the cache-room cap)."""
+    """A tensor-parallel engine with no devices named takes the local
+    cards and refuses fewer than it needs (never the CPU); the batcher's
+    pipelined mode is ported and makes the JAX batcher's session ops over
+    a fake two-stage model (admission, recycled rows, the cache-room
+    cap)."""
     from tensorlink_tpu.ml.batching import ContinuousBatcher as JBatcher
 
     _, tgen = models
-    # speculative decoding, the shared pool and the batcher's remote and
-    # pipelined modes are ported; tensor parallelism is not
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        ContinuousEngine(tgen, **ENGINE_KW, tensor_parallel=2)
+    # speculative decoding, the shared pool, the batcher's remote and
+    # pipelined modes and tensor parallelism are ported
+    # (tests/test_torch_tp.py); too few cards is a ValueError
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="needs as many devices"):
+            ContinuousEngine(tgen, **ENGINE_KW, tensor_parallel=2)
     got = _pipelined_run(ContinuousBatcher)
     assert got == _pipelined_run(JBatcher)
     assert got[3][0] == "pipelined" and got[0][2] == got[1][-4:]

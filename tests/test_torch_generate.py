@@ -489,12 +489,19 @@ def test_unported_paths_are_refused(trees):
     h, _ = ttr.stage_forward(s0, cfg, tokens=toks, first=True)
     got, _ = ttr.stage_forward(s1, cfg, hidden=h, last=True)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
-    # MoE is ported (tests/test_torch_moe.py); loading a checkpoint
-    # straight onto tensor-parallel shards is not
-    from tensorlink_tpu_torch.engine.loader import load_params
+    # MoE is ported (tests/test_torch_moe.py), and so are loading onto
+    # tensor-parallel shards and serving them (tests/test_torch_tp.py);
+    # the dense forward over a tree placed on a mesh (JAX's GSPMD
+    # GenerationEngine) is not
+    from tensorlink_tpu_torch.models.transformer import tp_partition_specs
+    from tensorlink_tpu_torch.parallel.mesh import put, serving_mesh
 
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        load_params("unused", cfg, tensor_parallel=2, device="cpu")
+    placed = put(serving_mesh(2, devices=["cpu", "cpu"]), tp,
+                 tp_partition_specs(cfg))
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        ttr.forward(placed, toks, cfg)
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        ttr.stage_forward(placed, cfg, tokens=toks, first=True, last=True)
     with pytest.raises(ValueError, match="quant"):
         GenerationEngine(cfg, tp, device="cpu", quant="int4")
     if not torch.cuda.is_available():

@@ -84,7 +84,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                  "engine.optimizers", "engine.training", "engine.serve_train",
                  "platform.proofs", "ml.optim", "fleet.router",
                  "fleet.autopilot", "cli", "utils.profiling",
-                 "platform.chain"):
+                 "platform.chain", "parallel.mesh", "parallel.planner"):
         assert f"tensorlink_tpu_torch.{name}" in walked.split(), name
 
 
@@ -158,6 +158,42 @@ def test_queue_1_items_1_and_2_left_no_refusal():
                              r"|queue 1\s+item\s+[12]\b", p.read_text())
     ]
     assert not left, left
+
+
+def test_queue_1_item_3_refuses_only_gspmd_and_zero1():
+    """Tensor-parallel serving is ported (tests/test_torch_tp.py): what
+    still refuses with item 3 is the GSPMD half — the sharded
+    ``GenerationEngine``, the dense forward over a placed tree, the
+    worker's planned ``mesh_axes`` and the static (non-continuous)
+    requests on a tp job — and ZeRO-1 with its ``tp_axis`` train step,
+    optimizer-state sharding and a tp job switched to training."""
+    msgs = set()
+    for p in _sources():
+        for m in re.finditer(r"unported\(\s*((?:\"[^\"]*\"\s*)+),\s*3\)",
+                             p.read_text()):
+            text = "".join(re.findall(r'"([^"]*)"', m.group(1)))
+            msgs.add((p.relative_to(REPO).as_posix(), text))
+    assert msgs == {
+        ("tensorlink_tpu_torch/engine/generate.py",
+         "a sharded tensor-parallel GenerationEngine (mesh=, cache_specs=)"),
+        ("tensorlink_tpu_torch/models/transformer.py",
+         "the dense forward over a tensor-parallel tree (the GSPMD "
+         "GenerationEngine)"),
+        ("tensorlink_tpu_torch/ml/worker.py",
+         "a planned device mesh (mesh_axes: the GSPMD sharded "
+         "GenerationEngine)"),
+        ("tensorlink_tpu_torch/ml/worker.py",
+         "a non-continuous request (static batch, beam, lookahead) on a "
+         "tensor-parallel job (the GSPMD GenerationEngine)"),
+        ("tensorlink_tpu_torch/ml/worker.py",
+         "tensor-parallel training (ZeRO-1 with zero1 x tp)"),
+        ("tensorlink_tpu_torch/engine/training.py",
+         "the ZeRO-1 sharded train step (zero1)"),
+        ("tensorlink_tpu_torch/engine/training.py",
+         "the tensor-parallel train step (tp_axis)"),
+        ("tensorlink_tpu_torch/engine/training.py",
+         "optimizer state sharding (optimizer_state_specs)"),
+    }, msgs
 
 
 def test_profiling_imports_torch_only():

@@ -209,8 +209,17 @@ def test_load_options_and_errors(checkpoint, tmp_path):
     want = _leaves(full["layers"])
     for name, leaf in _leaves(part["layers"]).items():
         assert torch.equal(leaf, want[name][1:2]), name
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tloader.load_params(ckpt, tensor_parallel=2, device="cpu")
+    # onto tensor-parallel shards (tests/test_torch_tp.py): the local
+    # cards unless the devices are named, never fewer
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="mesh needs 2 devices"):
+            tloader.load_params(ckpt, tensor_parallel=2, device="cpu")
+    _, placed = tloader.load_params(ckpt, cfg, tensor_parallel=2,
+                                    tp_devices=["cpu", "cpu"])
+    wq = placed["layers"]["attn"]["wq"]
+    assert torch.equal(wq.full(), full["layers"]["attn"]["wq"])
+    assert [t.shape[-1] for t in wq.shards] == \
+        [full["layers"]["attn"]["wq"].shape[-1] // 2] * 2
     with pytest.raises(KeyError, match="not in checkpoint"):
         tloader.load_params(ckpt, cfg.with_(n_layers=3), device="cpu")
     with pytest.raises(FileNotFoundError):
