@@ -219,10 +219,11 @@ Phases (any failure raises and exits non-zero):
    token after it and the training rollback's seconds: readings with
    the card's name and power limit, not claims.
 14. Pipelined training and its repair (build/stages_train/): qwen3-0p6b
-   at full width and depth, seeded f32, every worker on the one card. A
+   at full width and STAGES_TRAIN_DEPTH (14) of its 28 layers, seeded
+   f32, every worker on the one card. A
    port validator, four workers and a user; capacities pinned (checked
    with the training planner, which counts gradients and optimizer
-   state) so the job splits 14/14 over two workers with the tied head on
+   state) so the job splits 7/7 over two workers with the tied head on
    stage 0, n_micro 2, B 4, T 128. (1) Three AdamW steps with the
    micro-batches overlapped: each loss within 1e-4 (relative) of
    make_train_step's in process on the same tree, each leaf of the
@@ -268,6 +269,33 @@ Phases (any failure raises and exits non-zero):
    shards share one card, so tp=2 doubles the launches for no gain):
    tokens/s and ms per chunk at tp=2 and tp=1, and the card's busy share
    over 2 chunks inside profiling.trace for each engine.
+16. The dense engine on a {data: 2, tensor: 2} mesh whose four devices
+   are cuda:0, and ZeRO-1 (mesh_phase). (1) At phase 3's flash shape
+   each (data, tensor) shard's flash_attention launch (B 2, Hq 8, Hkv
+   4, contiguous pieces as the placed cache holds them) bitwise the same
+   block of one launch over the whole, and within the bf16 bound of the
+   plain version. (2) qwen3-0p6b bf16 at full width and depth, flash
+   on, placed by the Megatron partition_specs: 8 prompts of 256–2000
+   tokens x 32 greedy tokens through generate_compiled, a beam of 4 over
+   2 of them and lookahead over 2 repetitive prompts, then both engines
+   at quant="int8+kv", against the unsharded GenerationEngine on the
+   same tree: prefill logits within MESH_LOGITS_OF_ONE of the unsharded
+   engine's and within 2x its distance from a float32 engine (per row,
+   of the row's max); greedy streams and
+   beams equal or parted only where the unsharded run's top-two (beam:
+   selection) gap is within MESH_TIE (logged); with the counts zeroed
+   before the sharded engines, exactly 28 x 4 flash launches a B=8
+   prefill and 28 x 2 a B=1 one (rows replicated over data run once on
+   the one card), no plain attention (launches_mesh on the kernels
+   line). (3) qwen3-0p6b f32 at full width and depth, B 4, T 128, AdamW,
+   two steps each of the unsharded n_micro=2 step, zero1 on {data: 2}
+   and zero1 x tp on {data: 2, tp: 2}: loss, grad norm and every param
+   bitwise equal, and each replica's optimizer bytes exactly what the
+   specs give (about 1/2 and 1/4). (4) Readings, not claims: tokens/s
+   sharded and unsharded, the steps' ms, optimizer bytes. mesh_cards()
+   runs (2) over four distinct cards and a worker planned {data: 2,
+   tensor: 2} over them (serving and 2 ZeRO-1 training steps through a
+   DistributedModel).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -4742,9 +4770,10 @@ class _BeamRecord:
             eg.beam_frontier_step, eg._beam_topk = real_step, real_topk
 
 
-def _held_beam(label, got, got_rec, want, want_rec, parted: list) -> None:
+def _held_beam(label, got, got_rec, want, want_rec, parted: list,
+               tie: float = SPEC_TIE, phase: str = "stages") -> None:
     """Beam ``got`` equal to ``want``, or their frontiers first differ at
-    a step where the reference's selection gap is within SPEC_TIE, or
+    a step where the reference's selection gap is within ``tie``, or
     (equal frontiers throughout) the reference's best two finished
     beams' normalized scores lie within it (logged)."""
     if list(got) == list(want):
@@ -4757,11 +4786,11 @@ def _held_beam(label, got, got_rec, want, want_rec, parted: list) -> None:
         at, gap = "the final pick", float(best[0] - best[1])
     else:
         gap = want_rec.gaps[at]
-    log(f"stages {label}: the frontiers part at step {at}, reference "
+    log(f"{phase} {label}: the frontiers part at step {at}, reference "
         f"selection gap {gap:.6g}")
-    if not gap <= SPEC_TIE:
-        raise AssertionError(f"stages {label}: parts at a gap {gap} > "
-                             f"{SPEC_TIE}")
+    if not gap <= tie:
+        raise AssertionError(f"{phase} {label}: parts at a gap {gap} > "
+                             f"{tie}")
     parted.append(dict(stream=label, at=at, gap=gap))
 
 
@@ -5379,6 +5408,9 @@ def stages_phase() -> dict:
 # -- phase 14 ----------------------------------------------------------
 STAGES_TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "stages_train"
 STAGES_TRAIN_BT = (4, 128)  # batch rows x tokens of every split step
+# of qwen3-0p6b's 28 layers: cut from full depth (163.1 s for the phase
+# on the H100) so the whole script stays well inside its time limit
+STAGES_TRAIN_DEPTH = 14
 STAGES_TRAIN_MICRO = 2
 STAGES_TRAIN_PARITY = 3  # AdamW steps held against the in-process step
 STAGES_TRAIN_SERIAL = 2  # of those, repeated serially from the checkpoint
@@ -5525,12 +5557,13 @@ def _timed_recover(model) -> list:
 
 
 def stages_training() -> dict:
-    """Steps 1-4 of phase 14: qwen3-0p6b at full width and depth, seeded
-    f32, trained split 14/14 over two workers on the card, against
-    make_train_step in process; then the two crashes of a split step."""
+    """Steps 1-4 of phase 14: qwen3-0p6b at full width and
+    STAGES_TRAIN_DEPTH layers, seeded f32, trained split in two halves
+    over two workers on the card, against make_train_step in process;
+    then the two crashes of a split step."""
     from tensorlink_tpu_torch.core.config import MLConfig
 
-    cfg = _train_cfg(None, torch.float32)
+    cfg = _train_cfg(STAGES_TRAIN_DEPTH, torch.float32)
     B, T = STAGES_TRAIN_BT
     caps = _two_stage_caps(cfg, T, batch=B, training=True, n_workers=4)
     rng = np.random.default_rng(TRAIN_SEED + 7)
@@ -6242,6 +6275,514 @@ def tp_phase() -> dict:
     return res
 
 
+# -- phase 16: the dense engine on a {data, tensor} mesh, and ZeRO-1 ------
+# tlint: disable=TL006(read-only constant table — never mutated)
+MESH_AXES = {"data": 2, "tensor": 2}
+MESH_DEVICES = ("cuda:0",) * 4  # every shard on the one card
+MESH_NEW = 32  # new tokens per request
+MESH_SEQ_BUCKETS = (256, 512, 1024, 2048)
+MESH_PROMPT_LENS = (256, 400, 700, 1000, 1300, 1600, 1850, 2000)
+# a sharded greedy stream may part from the unsharded one only where the
+# unsharded model's top-two logit gap at the parting token is within this.
+# The Megatron specs' row-split products sum two partial products, which
+# rounds differently from one whole product, at every layer: on the H100
+# the two engines' prefill logits differed by at most 0.0625 (bf16) and
+# 0.0703 (int8+kv), and a gap closes when the two logits move apart, so
+# the hold is twice the larger (the gaps seen at partings: 0 to 0.047)
+MESH_TIE = 0.140625
+# the prefill logits, per row relative to the row's largest |logit|: the
+# sharded engine's distance from the unsharded engine's, in each quant
+# mode (read on the H100: 0.0223 bf16, 0.0247 int8+kv; twice the larger
+# of those), and from a float32 engine on the same tree at most this
+# multiple of the unsharded engine's, the error bf16 itself brings
+MESH_LOGITS_OF_ONE = 0.05
+MESH_LOGITS_OF_BF16 = 2.0
+MESH_TRAIN_LAYERS = 28  # full depth
+MESH_TRAIN_BT = (4, 128)
+MESH_TRAIN_SEED = 1414
+
+
+def _mesh_prompts(cfg) -> list:
+    rng = np.random.default_rng(1616)
+    return [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in MESH_PROMPT_LENS]
+
+
+def _top_two_gap(eng, ids) -> float:
+    """The engine's top-two logit gap for the next token after ``ids``."""
+    logits = eng.prefill([ids])[0][0].float()
+    v = torch.topk(logits, 2).values
+    return float(v[0] - v[1])
+
+
+def _mesh_held(label, ref, prompts, got, want, parted: list) -> None:
+    """Greedy streams equal, or parted only where the unsharded engine
+    ``ref``'s top-two gap at the parting token is within MESH_TIE
+    (logged in ``parted``)."""
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        at = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                  None)
+        if at is None:
+            if len(a) != len(b):
+                raise AssertionError(f"{label} {i}: {len(a)} vs {len(b)} "
+                                     "tokens")
+            continue
+        gap = _top_two_gap(ref, p + b[:at])
+        log(f"{label} request {i}: parts at token {at}, unsharded top-two "
+            f"gap {gap:.6g}")
+        if gap > MESH_TIE:
+            raise AssertionError(f"{label} {i}: parts at token {at} at a "
+                                 f"top-two gap {gap} > {MESH_TIE}")
+        parted.append(dict(label=label, request=i, at=at, gap=gap))
+
+
+def mesh_flash_check() -> dict:
+    """Each (data, tensor) shard's flash_attention launch at phase 3's
+    flash shape (B 4, T 2048, Hq 16, Hkv 8, hd 128, bf16), fed
+    contiguous pieces of its own as the placed cache holds them (B 2,
+    Hq 8, Hkv 4): bitwise the same rows and heads of one launch over the
+    whole, and within the bf16 bound of the plain version."""
+    B, T, Hq, Hkv, hd, _ = FLASH_MAIN
+    dp, tp = MESH_AXES["data"], MESH_AXES["tensor"]
+    c = _flash_case(np.random.default_rng(1617), *FLASH_MAIN,
+                    dtype=torch.bfloat16)
+    whole = _flash(c, True)
+    b, hq, hk = B // dp, Hq // tp, Hkv // tp
+    err = 0.0
+    for d in range(dp):
+        for t in range(tp):
+            rows = slice(d * b, (d + 1) * b)
+
+            def kv(x):
+                # the engine's layout: a contiguous piece of the padded
+                # cache, read through its first T positions
+                base = x._base if x._base is not None else x
+                return base[rows, :, t * hk:(t + 1) * hk].contiguous()[:, :T]
+
+            s = dict(c, q=c["q"][rows, :, t * hq:(t + 1) * hq].contiguous(),
+                     k=kv(c["k"]), v=kv(c["v"]))
+            got = _flash(s, True)
+            if not torch.equal(got, whole[rows, :, t * hq:(t + 1) * hq]):
+                raise AssertionError(f"mesh flash shard ({d}, {t}) is not "
+                                     "the whole launch's block")
+            err = max(err, _err(got, _flash(s, False), BF16_TOL))
+    log(f"mesh flash: {dp * tp} shards bitwise the whole launch's blocks, "
+        f"max abs err vs plain {err}")
+    return {"shards": dp * tp, "max_abs_err": err}
+
+
+def _cast_tree(tree, dtype=torch.float32):
+    """A copy of a parameter tree in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def _mesh_engines(cfg, params, mesh, quant=None):
+    from tensorlink_tpu_torch.models.transformer import (
+        cache_specs,
+        partition_specs,
+    )
+
+    kw = dict(max_seq_len=MESH_SEQ_BUCKETS[-1] + 2 * MESH_NEW,
+              seq_buckets=MESH_SEQ_BUCKETS, batch_buckets=(1, 2, 4, 8))
+    one = GenerationEngine(cfg, params, quant=quant, device="cuda", **kw)
+    placed = tmesh.put(mesh, params, partition_specs(cfg))
+    sharded = GenerationEngine(cfg, placed, mesh=mesh, quant=quant,
+                               cache_specs=cache_specs(cfg), **kw)
+    return one, sharded
+
+
+def mesh_serving(devices=MESH_DEVICES) -> dict:
+    """Phase 16 step 1: qwen3-0p6b bf16 at full width and depth, flash on,
+    served by the unsharded GenerationEngine and by one on a {data: 2,
+    tensor: 2} mesh over ``devices``: 8 prompts of 256–2000 tokens (one
+    B=8 prefill at T 2048) x MESH_NEW greedy tokens through
+    generate_compiled, a beam of 4 over 2 of them, lookahead over 2, then
+    both engines at quant="int8+kv". The counts are zeroed before the
+    sharded engines run and read after: 28 x 4 flash launches for a B=8
+    prefill (rows split over data, heads over tensor), 28 x 2 for a B=1
+    one on the one card (its rows replicated over data: one data group
+    runs per distinct device set; 28 x 4 on four cards), no plain
+    attention."""
+    cfg = config_presets()["qwen3-0p6b"].with_(flash_attention=True)
+    mesh = tmesh.build_mesh(MESH_AXES, list(devices) if devices else None)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1618)
+    params = init_params(cfg, g, device="cuda")
+    prompts = _mesh_prompts(cfg)
+    L, V = cfg.n_layers, cfg.vocab_size
+    res = {"mesh": {k: str(v) for k, v in mesh.shape.items()}}
+    parted, seen, b8, lg32 = [], {}, {}, None
+    for quant in (None, "int8+kv"):
+        label = f"mesh {quant or 'bf16'}"
+        one, sharded = _mesh_engines(cfg, params, mesh, quant)
+        if sharded._fmesh is not mesh:
+            raise AssertionError(f"{label}: the flash prefill is not per "
+                                 "shard")
+        for leaf in (sharded.params["layers"]["attn"]["wq"],):
+            leaf = getattr(leaf, "q", leaf)
+            if leaf.devices != mesh.flat():
+                raise AssertionError(f"{label}: wq on {leaf.devices}")
+        one.generate_compiled([prompts[0][:256]], max_new_tokens=2)
+        want, t_one = _sync_s(lambda: one.generate_compiled(
+            prompts, max_new_tokens=MESH_NEW))
+        lg_one = one.prefill(prompts)[0].float()
+        if lg32 is None:
+            f32 = GenerationEngine(
+                cfg.with_(dtype=torch.float32),
+                _cast_tree(params),
+                max_seq_len=one.max_seq_len, seq_buckets=MESH_SEQ_BUCKETS,
+                batch_buckets=(8,), device="cuda")
+            lg32 = f32.prefill(prompts)[0].float()
+            del f32
+        want_beams = want_look = None
+        if quant is None:
+            want_beams = []
+            for p in prompts[:2]:
+                with _BeamRecord(4).recording() as rec:
+                    want_beams.append((one.generate_beam(
+                        [p], num_beams=4, max_new_tokens=16).sequences[0],
+                        rec))
+            # repetitive prompts of 384 tokens: lookahead's drafts hit
+            rep = [(p[:48] * 8)[:MESH_SEQ_BUCKETS[1] * 3 // 4]
+                   for p in prompts[2:4]]
+            want_look = [one.generate_lookahead([r], max_new_tokens=MESH_NEW)
+                         .sequences[0] for r in rep]
+        sharded.generate_compiled([prompts[0][:256]], max_new_tokens=2)
+        torch.cuda.synchronize()
+        att.reset_counts()
+        sharded.flash_prefills = 0
+        got, t_mesh = _sync_s(lambda: sharded.generate_compiled(
+            prompts, max_new_tokens=MESH_NEW))
+        n8 = att.flash_attention.launches
+        lg = sharded.prefill(prompts)[0].float()
+        n_prefill = att.flash_attention.launches - n8
+        beams = look = None
+        if quant is None:
+            beams = []
+            for p in prompts[:2]:
+                with _BeamRecord(4).recording() as rec:
+                    beams.append((sharded.generate_beam(
+                        [p], num_beams=4, max_new_tokens=16).sequences[0],
+                        rec))
+            look = [sharded.generate_lookahead([r], max_new_tokens=MESH_NEW)
+                    .sequences[0] for r in rep]
+        launches = att.flash_attention.launches
+        plain = {f.__name__: f.calls for f in att._REFS if f.calls}
+        if plain:
+            raise AssertionError(f"{label}: plain attention ran {plain}")
+        if n8 != L * 4 or n_prefill != L * 4:
+            raise AssertionError(f"{label}: {n8} and {n_prefill} flash "
+                                 f"launches for a B=8 prefill, not {L} x 4")
+        b8[quant or "bf16"] = n_prefill
+        # a B=1 prefill (beam, lookahead) keeps its rows whole over data:
+        # one data group runs per distinct set of devices (on one card,
+        # one group; on four cards, both, each filling its own replica)
+        tp, flat = MESH_AXES["tensor"], mesh.flat()
+        sets = len({tuple(flat[d * tp:(d + 1) * tp])
+                    for d in range(MESH_AXES["data"])})
+        one_row = 2 + 2 if quant is None else 0  # beam and lookahead prefills
+        if launches != 2 * L * 4 + one_row * L * tp * sets:
+            raise AssertionError(f"{label}: {launches} flash launches")
+        def rel(a, b):
+            return float(((a - b).abs() / b.abs().amax(-1, keepdim=True))
+                         .max())
+
+        err_one, err_mesh = rel(lg_one, lg32), rel(lg, lg32)
+        of_one = rel(lg, lg_one)
+        log(f"{label}: prefill logits from the float32 engine's: unsharded "
+            f"{err_one:.6g}, sharded {err_mesh:.6g} of the row's max; "
+            f"sharded from unsharded {of_one:.6g} (bound "
+            f"{MESH_LOGITS_OF_ONE}), {float((lg - lg_one).abs().max()):.6g}"
+            f" at most")
+        if not torch.isfinite(lg).all() or of_one > MESH_LOGITS_OF_ONE \
+                or err_mesh > MESH_LOGITS_OF_BF16 * err_one:
+            raise AssertionError(f"{label}: prefill logits {of_one} of the "
+                                 f"row's max from the unsharded engine's "
+                                 f"(bound {MESH_LOGITS_OF_ONE}); {err_mesh} "
+                                 f"from float32's, the unsharded engine's "
+                                 f"{err_one}")
+        for s in got.sequences:
+            if len(s) != MESH_NEW or not all(0 <= t < V for t in s):
+                raise AssertionError(f"{label}: bad output {len(s)} tokens")
+        _mesh_held(f"{label} compiled", one, prompts, got.sequences,
+                   want.sequences, parted)
+        if quant is None:
+            _mesh_held(f"{label} lookahead", one, rep, look, want_look,
+                       parted)
+            for i, ((a, ra), (b, rb)) in enumerate(zip(beams, want_beams)):
+                _held_beam(f"beam {i}", a, ra, b, rb, parted, tie=MESH_TIE,
+                           phase=label)
+        gen = sum(len(s) for s in got.sequences)
+        seen[quant or "bf16"] = launches
+        res[quant or "bf16"] = dict(
+            tokens_per_s_mesh=gen / t_mesh, tokens_per_s_one=gen / t_one,
+            compiled_s_mesh=t_mesh, compiled_s_one=t_one,
+            flash_launches=launches, logits_of_f32_mesh=err_mesh,
+            logits_of_f32_one=err_one, logits_mesh_of_one=of_one,
+            logits_abs_max=float((lg - lg_one).abs().max()))
+        del one, sharded
+        torch.cuda.empty_cache()
+    res["parted"] = parted
+    res["largest_gap"] = max((p["gap"] for p in parted), default=0.0)
+    res["launches"] = sum(seen.values())
+    res["launches_per_b8_prefill"] = b8
+    return res
+
+
+def mesh_zero1(n_layers: int = MESH_TRAIN_LAYERS) -> dict:
+    """Phase 16 step 3: qwen3-0p6b f32 at full width and ``n_layers``,
+    B 4, T 128, AdamW, two steps each of the unsharded n_micro=2 step,
+    zero1 on {data: 2} and zero1 x tp on {data: 2, tp: 2} (every replica
+    on the one card): loss, grad norm and every param bitwise equal
+    across the three; each replica's optimizer bytes exactly what the
+    specs give (each leaf whose leading dim divides the grid split over
+    it). Two unsharded steps from the same start run first: whether the
+    default kernels are bitwise repeatable (a reading); where not, the
+    three run under torch.use_deterministic_algorithms(True,
+    warn_only=True)."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+    from tensorlink_tpu_torch.engine.training import (
+        _dp_shardable,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = _train_cfg(n_layers, torch.float32)
+    B, T = MESH_TRAIN_BT
+    rng = np.random.default_rng(MESH_TRAIN_SEED)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32), device="cuda")}
+        for _ in range(2)]
+    opt = make_optimizer("adamw", lr=1e-3, grad_clip=1.0)
+    dev = list(MESH_DEVICES)
+
+    def run(ts, params, state):
+        out, ms = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, m = ts.step_fn(params, state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        return params, state, out, ms
+
+    base = make_train_step(cfg, opt, n_micro=2)
+    p0 = _seeded(cfg, "cuda", MESH_TRAIN_SEED)
+    pa, _, ma, _ = run(base, p0, base.init_state(p0))
+    pb, _, mb, _ = run(base, p0, base.init_state(p0))
+    repeatable = ma == mb and all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(pa), tree_leaves(pb)))
+    del pa, pb
+    ctx = contextlib.nullcontext() if repeatable else _deterministic()
+    res = dict(card=_smi(), layers=n_layers, default_repeatable=repeatable)
+    with ctx:
+        ref, rstate, mref, ms_ref = run(base, p0, base.init_state(p0))
+        full_bytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(rstate))
+        del rstate
+        z1 = make_train_step(cfg, opt, n_micro=2, zero1=True,
+                             mesh=tmesh.build_mesh({"data": 2}, dev[:2]))
+        mesh = tmesh.serving_mesh(2, dp=2, devices=dev)
+        zt = make_train_step(cfg, opt, n_micro=2, zero1=True, mesh=mesh,
+                             dp_axis="data", tp_axis="tp")
+        for name, ts, params in (
+                ("zero1", z1, p0),
+                ("zero1 x tp", zt, tmesh.put(
+                    mesh, p0, ttr.tp_partition_specs(cfg, axis="tp")))):
+            state = ts.init_state(params)
+            world = 2 if ts.tp_axis is None else 4
+            want = sum((t.numel() // world if _dp_shardable(
+                tuple(t.shape), world) else t.numel()) * t.element_size()
+                for t in tree_leaves(tmesh.full_tree(state)))
+            per = tmesh.shard_bytes(state, 0)
+            if per != want:
+                raise AssertionError(f"mesh {name}: {per} optimizer bytes "
+                                     f"a replica, the specs give {want}")
+            got, _, m, ms = run(ts, params, state)
+            if m != mref:
+                raise AssertionError(f"mesh {name}: (loss, grad_norm) {m} "
+                                     f"vs the unsharded step's {mref}")
+            for a, b in zip(tree_leaves(tmesh.full_tree(got)),
+                            tree_leaves(ref), strict=True):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"mesh {name}: params differ from "
+                                         "the unsharded step's")
+            res[name] = dict(step_ms=ms, opt_bytes_per_replica=per,
+                             opt_bytes_of_unsharded=per / full_bytes)
+            del got, state
+            torch.cuda.empty_cache()
+    res.update(unsharded_step_ms=ms_ref, losses=mref,
+               opt_bytes_unsharded=full_bytes)
+    return res
+
+
+@contextlib.contextmanager
+def _deterministic():
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def mesh_phase() -> dict:
+    """Phase 16: the dense engine on a {data: 2, tensor: 2} mesh whose four
+    devices are all cuda:0, and ZeRO-1 (see mesh_serving,
+    mesh_flash_check and mesh_zero1). The speeds are readings, not
+    claims: four shards on one card quadruple the dense path's
+    launches."""
+    t0 = time.monotonic()
+    res = dict(card=_smi(), flash=mesh_flash_check())
+    res["serving"] = mesh_serving()
+    res["zero1"] = mesh_zero1()
+    res["seconds"] = time.monotonic() - t0
+    log(f"mesh (qwen3-0p6b: {MESH_AXES} on one card; a correctness run, "
+        f"the speeds are readings, not claims; {res['card']}): "
+        f"{json.dumps(res)}")
+    log(f"phase 16 took {res['seconds']:.1f} s ({res['card']})")
+    return res
+
+
+def mesh_cards() -> dict:
+    """Not a phase of ``main()``: it needs four cards on one host. Phase
+    16's serving with the mesh's four devices on four distinct cards, then
+    a port validator, a worker advertising the four cards
+    (MLConfig(mesh_devices=4)) and a user on 127.0.0.1: a job planned
+    with parallelism {data: 2, tensor: 2} through a user's
+    DistributedModel (the validator's HTTP hosting takes no parallelism
+    in either package) answers a static, a beam and a streamed request
+    over the port's P2P frames, each equal to the in-process unsharded
+    engine up to a logged near-tie; then a training job on the same plan
+    takes 2 ZeRO-1 AdamW steps, each loss within 1e-4 of make_train_step
+    in process, its optimizer state split over the data replicas' cards."""
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        UserConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+    from tensorlink_tpu_torch.nodes.runners import (
+        UserNode,
+        ValidatorNode,
+        WorkerNode,
+    )
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"mesh_cards: needs 4 cards, have {n}")
+    res = dict(card=_smi(), cards=n, serving=mesh_serving(devices=None))
+    root = Path(__file__).resolve().parent / "build" / "mesh_cards"
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(local_test=True, log_dir=str(root / "logs"),
+                  env_file=str(root / ".env"))
+    plan = dict(MESH_AXES)
+    cfg = config_presets()["qwen3-0p6b"]
+    nodes = []
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=False, key_dir=str(root / "vkeys"), ml=MLConfig(),
+                **common)).start()
+            nodes.append(v)
+            seeds = [["127.0.0.1", v.port]]
+            w = WorkerNode(WorkerConfig(
+                seed_validators=seeds, key_dir=str(root / "wkeys"),
+                ml=MLConfig(mesh_devices=4), **common)).start()
+            nodes.append(w)
+            u = UserNode(UserConfig(
+                seed_validators=seeds, key_dir=str(root / "ukeys"),
+                ml=MLConfig(), **common)).start()
+            nodes.append(u)
+        deadline = time.monotonic() + 60
+        while len(v.status()["peers"]) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("mesh_cards: the nodes never met")
+            time.sleep(0.1)
+        model = DistributedModel(cfg, node=u, seed=1619, parallelism=plan,
+                                 seq_len=2048)
+        rt = w.executor.jobs[model.job_id]
+        cards = [torch.device("cuda", i) for i in range(4)]
+        if rt.mesh is None or rt.mesh.flat() != cards:
+            raise AssertionError(f"mesh_cards: the worker's mesh {rt.mesh}")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1619)
+        ref = GenerationEngine(cfg, init_params(cfg, g, device="cuda"),
+                               max_seq_len=2048, device="cuda")
+        prompts = [p[:300] for p in _mesh_prompts(cfg)[:2]]
+        parted: list = []
+        got = model.generate(prompts, max_new_tokens=MESH_NEW)
+        want = ref.generate_compiled(prompts, max_new_tokens=MESH_NEW)
+        _mesh_held("mesh_cards static", ref, prompts,
+                   [list(s) for s in got], want.sequences, parted)
+        streamed = []
+        got = model.generate(prompts[:1], max_new_tokens=MESH_NEW,
+                             stream_cb=lambda t: streamed.append(t))
+        if len(streamed) < 2:
+            raise AssertionError(f"mesh_cards: {len(streamed)} steps "
+                                 "streamed")
+        _mesh_held("mesh_cards streamed", ref, prompts[:1],
+                   [list(s) for s in got], want.sequences[:1], parted)
+        # the worker's engine runs the same beam loop: record it there
+        with _BeamRecord(4).recording() as got_rec:
+            beam = model.generate(prompts[:1], max_new_tokens=16,
+                                  num_beams=4)
+        with _BeamRecord(4).recording() as want_rec:
+            want_b = ref.generate_beam(prompts[:1], num_beams=4,
+                                       max_new_tokens=16)
+        res["beam_equal"] = list(beam[0]) == want_b.sequences[0]
+        _held_beam("beam", list(beam[0]), got_rec, want_b.sequences[0],
+                   want_rec, parted, tie=MESH_TIE, phase="mesh_cards")
+        res["parted"] = parted
+        del ref
+        torch.cuda.empty_cache()
+        tcfg = _train_cfg(4, torch.float32)
+        B, T = MESH_TRAIN_BT
+        tm = DistributedModel(tcfg, node=u, seed=1620, training=True,
+                              parallelism=plan, batch=B, seq_len=T,
+                              n_micro=2)
+        trt = w.executor.jobs[tm.job_id]
+        if w.executor._zero1_dp(trt) != 2:
+            raise AssertionError("mesh_cards: the training job is not zero1")
+        tm.init_optimizer("adamw", lr=1e-3)
+        split = [t for t in tree_leaves(trt.opt_state) if t.grid[1] > 1]
+        if not split or any(t.devices != cards for t in split):
+            raise AssertionError("mesh_cards: no optimizer state split over "
+                                 "the data replicas' cards")
+        full = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(tmesh.full_tree(trt.opt_state)))
+        res["opt_bytes_card0_of_whole"] = tmesh.shard_bytes(
+            trt.opt_state, 0) / full
+        ts = make_train_step(tcfg, make_optimizer("adamw", lr=1e-3,
+                                                  grad_clip=1.0), n_micro=2)
+        local = _seeded(tcfg, "cuda", 1620)
+        state = ts.init_state(local)
+        rng = np.random.default_rng(1621)
+        losses = []
+        for _ in range(2):
+            toks = rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int32)
+            r = tm.train_step(toks)
+            local, state, m = ts.step_fn(local, state, {
+                "tokens": torch.as_tensor(toks, device="cuda")})
+            losses.append((r["loss"], float(m["loss"])))
+            if _rel(r["loss"], float(m["loss"])) > TRAIN_NODE_LOSS_RTOL:
+                raise AssertionError(f"mesh_cards: losses {losses}")
+        res["train_losses"] = losses
+    finally:
+        for nd in reversed(nodes):
+            nd.stop()
+    log(f"mesh_cards (qwen3-0p6b, {MESH_AXES} on four cards; readings, not "
+        f"claims; {res['card']} x {n}): {json.dumps(res)}")
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -6296,6 +6837,7 @@ def main() -> None:
     train_launches = _phase("stages training",
                             stages_training_phase)["training"]["launches"]
     tp = _phase("tensor parallel", tp_phase)
+    mesh = _phase("mesh", mesh_phase)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -6360,9 +6902,15 @@ def main() -> None:
         "library_device_ms": ftime["library_device_ms"],
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
         "launches_stages_training": train_launches["flash_attention"],
+        # phase 16: the sharded engines' prefills, each (data, tensor)
+        # shard's launch counted (28 x 4 a B=8 prefill)
+        "launches_mesh": mesh["serving"]["launches"],
+        "launches_mesh_per_b8_prefill": mesh["serving"][
+            "launches_per_b8_prefill"]["bf16"],
+        "mesh_shard_max_abs_err": mesh["flash"]["max_abs_err"],
         "design": DESIGN["flash_attention"],
     })
-    log(f"chip_smoke: all 15 phases in {time.monotonic() - t_start:.1f} s "
+    log(f"chip_smoke: all 16 phases in {time.monotonic() - t_start:.1f} s "
         f"({_smi()})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -209,6 +209,23 @@ def tp_shards(tree, cfg: ModelConfig, tp: int) -> list[dict]:
     return [pick(parts, i) for i in range(int(tp))]
 
 
+def mesh_shards(tree, specs, mesh) -> list[dict]:
+    """Split a parameter (or cache) tree — the port's tensors, or a JAX
+    tree as numpy arrays — by a spec tree of ``parallel/mesh.py::Split``
+    leaves into the per-device trees of ``mesh``, in flattened device
+    order: device ``j``'s piece of every leaf, what JAX's
+    ``addressable_shards`` hold on its ``j``-th device for the same specs
+    (views of the given arrays)."""
+    from .parallel.mesh import REPLICATED, piece
+
+    def one(x, sp, j):
+        if isinstance(x, dict):
+            return {k: one(v, sp[k], j) for k, v in x.items()}
+        return piece(x, sp or REPLICATED, mesh, j)
+
+    return [one(tree, specs, j) for j in range(mesh.size)]
+
+
 __all__ = ["blob_from_jax", "config_from_jax", "host_pool_from_jax",
-           "kv_cache_from_jax", "opt_state_from_jax", "opt_state_to_jax",
-           "params_from_jax", "torch_dtype", "tp_shards"]
+           "kv_cache_from_jax", "mesh_shards", "opt_state_from_jax",
+           "opt_state_to_jax", "params_from_jax", "torch_dtype", "tp_shards"]

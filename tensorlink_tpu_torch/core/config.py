@@ -272,6 +272,12 @@ class MLConfig:
     # JAX_PLATFORMS): None is the CUDA card, and a worker with no card
     # refuses to start; "cpu" runs the kernels' plain versions on the host
     device: str | None = None
+    # the devices a worker advertises for a planned {data, tensor} mesh
+    # (port-only; the JAX worker advertises every local device): N
+    # distinct cards from the worker's own on (a card worker with fewer
+    # fails to start), or the host N times; 1 keeps every job on the
+    # worker's one device and its continuous slot engine
+    mesh_devices: int = 1
 
 
 @dataclass

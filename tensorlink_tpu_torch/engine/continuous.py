@@ -337,6 +337,12 @@ class ContinuousEngine:
         if self.tensor_parallel > 1:
             self._tp_mesh = _tp_mesh(engine, self.tensor_parallel, pool,
                                      tp_devices)
+        elif is_sharded(engine.params):
+            # a tree on a planned {data, tensor} mesh serves through the
+            # dense engine's placed forward; the slot engine shards only
+            # by tensor_parallel
+            raise ValueError("the slot engine runs a tree placed on a "
+                             "planned mesh only through tensor_parallel")
         self.kv_quant = kv_quant
         self.engine = engine
         self.cfg = engine.cfg

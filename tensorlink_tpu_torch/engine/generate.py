@@ -31,13 +31,21 @@ whether every row is done only every few steps. ``ContinuousEngine``
 reads ``cfg``, ``device``, ``params``, ``max_seq_len``, ``cache_dtype``,
 ``quant`` and ``cache_quant``.
 
-Not ported: ``mesh``/``cache_specs`` (the sharded engine) wait for the
-tensor-parallel slice and raise.
+On a mesh (``mesh=`` with a tree placed by ``models/transformer.py::
+partition_specs`` or ``tp_partition_specs``, ``cache_specs=``) the engine
+runs the same loops over the placed tree: the forward runs per shard
+(``models/sharded.py``, flash per (data, tensor) shard), the cache's
+payload is placed by the specs — its batch on ``data`` only when
+``data`` divides it, else replicated over ``data`` — and its ``length``
+stays whole on the engine's device for the host loops. The beam reorder
+is the cross-shard row gather ``parallel/mesh.py::take_rows``. A tree
+placed on a mesh quantizes as the whole tree does (``quant=``).
 """
 
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -46,12 +54,13 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
-from .. import unported
 from ..core.devices import resolve_device
 from ..models.base import KVCache, ModelConfig
 from ..models.quant import quantize_params
-from ..models.transformer import _logits, flash_gate, forward
-from ..parallel.mesh import Sharded, is_sharded
+from ..models.transformer import _logits, cache_specs as _cache_specs
+from ..models.transformer import flash_gate, forward
+from ..parallel import mesh as _mesh
+from ..parallel.mesh import Sharded
 from . import prng
 from .sampling import SamplingParams, sample
 
@@ -281,22 +290,28 @@ class GenerationEngine:
         quant: str | None = None,
         device=None,
     ):
-        if mesh is not None or cache_specs is not None:
-            raise unported("a sharded tensor-parallel GenerationEngine "
-                           "(mesh=, cache_specs=)", 3)
         if quant and quant not in ("int8", "int8+kv"):
             raise ValueError(f"unknown quant mode {quant!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # a placed engine's device is its mesh's first: the host loops'
+        # tensors and the joined logits live there
+        self.device = (mesh.flat()[0] if mesh is not None
+                       else resolve_device(device))
         self.params = _to_device(params, self.device)
-        if quant and is_sharded(self.params):
-            raise ValueError("a tree placed on a tensor-parallel mesh "
-                             "cannot be weight-quantized")
         if quant:
             # on the device: the codes and scales are the same bits there
+            # (a placed tree quantizes each weight whole, then places it)
             self.params = quantize_params(self.params)
         self.quant = quant
         self.cache_quant = quant == "int8+kv"
+        if self.cache_quant and cache_specs is not None \
+                and cache_specs.k_scale is None:
+            # the int8 cache's scales split like their payload
+            cache_specs = KVCache(
+                k=cache_specs.k, v=cache_specs.v, length=cache_specs.length,
+                k_scale=cache_specs.k, v_scale=cache_specs.v)
+        self.mesh = mesh
+        self.cache_specs = cache_specs
         self.max_seq_len = int(
             max_seq_len or min(cfg.max_seq_len, seq_buckets[-1])
         )
@@ -320,12 +335,82 @@ class GenerationEngine:
         """The smallest batch bucket that holds ``n_live`` rows."""
         return _bucket(max(int(n_live), 1), self.batch_buckets)
 
+    # -- mesh -------------------------------------------------------------
+    def _placed_mesh(self):
+        """The mesh the tree lies on: the one given, or the one a
+        tensor-parallel slot engine placed the tree on."""
+        return self.mesh if self.mesh is not None \
+            else _mesh.tree_mesh(self.params)
+
+    @property
+    def _fmesh(self):
+        """The mesh the flash prefill runs per shard over (JAX's
+        ``_fmesh``): the engine's mesh when ``cfg.flash_attention``."""
+        return self._placed_mesh() if self.cfg.flash_attention else None
+
+    def _cache_specs_for(self, batch: int) -> KVCache:
+        """The cache spec for ``batch`` rows: the engine's (by default the
+        kv heads on the axis the forward splits its heads over), its
+        batch kept whole when ``data`` does not divide it."""
+        mesh = self._placed_mesh()
+        specs = self.cache_specs
+        if specs is None:
+            from ..models.sharded import head_axis
+
+            specs = _cache_specs(
+                self.cfg, data_axis=None,
+                tensor_axis=head_axis(self.params, self.cfg),
+                quantized=self.cache_quant)
+        dp = mesh.shape.get("data", 1)
+        if specs.k.data_dim is not None and batch % dp:
+            def whole(sp):
+                return None if sp is None else dataclasses.replace(
+                    sp, data_dim=None)
+
+            specs = KVCache(k=whole(specs.k), v=whole(specs.v),
+                            length=_mesh.REPLICATED,
+                            k_scale=whole(specs.k_scale),
+                            v_scale=whole(specs.v_scale))
+        return specs
+
+    def _take(self, cache: KVCache, idx: torch.Tensor) -> KVCache:
+        """The rows ``idx`` of a cache (the beam tile and reorder, the
+        chunked decode's shrink); on a mesh laid out for ``len(idx)``
+        rows, each row copied from the shard that holds it."""
+        if not isinstance(cache.k, Sharded):
+            return cache.take(idx)
+        return cache.take(idx, specs=self._cache_specs_for(len(idx)))
+
     # -- cache ------------------------------------------------------------
     def new_cache(self, batch: int) -> KVCache:
-        return KVCache.init(
-            self.cfg, batch, max_len=self.max_seq_len, dtype=self.cache_dtype,
-            quantized=self.cache_quant, device=self.device,
-        )
+        """A zeroed cache of ``batch`` rows; on a mesh each shard's piece
+        is made on its device (``parallel/mesh.py::zeros``)."""
+        if self._placed_mesh() is None:
+            return KVCache.init(
+                self.cfg, batch, max_len=self.max_seq_len,
+                dtype=self.cache_dtype, quantized=self.cache_quant,
+                device=self.device,
+            )
+        specs = self._cache_specs_for(batch)
+        mesh = self._placed_mesh()
+        c = self.cfg
+        shape = (c.n_layers, batch, self.max_seq_len, c.n_kv_heads,
+                 c.head_dim)
+        dt = torch.int8 if self.cache_quant else self.cache_dtype
+
+        def z(shp, dtype, sp):
+            return _mesh.zeros(mesh, shp, dtype, sp)
+
+        scales = {}
+        if self.cache_quant:
+            sshape = shape[:-1] + (1,)
+            scales = dict(k_scale=z(sshape, torch.float32, specs.k_scale),
+                          v_scale=z(sshape, torch.float32, specs.v_scale))
+        return KVCache(
+            k=z(shape, dt, specs.k), v=z(shape, dt, specs.v),
+            length=torch.zeros((batch,), dtype=torch.int32,
+                               device=self.device),
+            **scales)
 
     def _chunk_shape(self, span: int, room: int) -> int:
         """Padded shape for a prefill piece of ``span`` tokens with ``room``
@@ -369,6 +454,8 @@ class GenerationEngine:
             return  # larger than the whole budget: skip the copy
 
         def rows(arr, base):
+            if isinstance(arr, Sharded):
+                arr = arr.full()  # a prefix entry is one row
             if base is None:
                 return arr[:, 0, :L].to("cpu", copy=True)
             new = arr[:, 0, base_len:L].to("cpu", copy=True)
@@ -429,13 +516,18 @@ class GenerationEngine:
         """Seed a fresh B=1-bucket cache with the stored prefix rows, then
         prefill only the suffix in chunks (never flash: offset > 0)."""
         B = _bucket(1, self.batch_buckets)
-        cache = self.new_cache(B)
+        cache = KVCache.init(
+            self.cfg, B, max_len=self.max_seq_len, dtype=self.cache_dtype,
+            quantized=self.cache_quant, device=self.device)
         names = ("k", "v") + (("k_scale", "v_scale") if cache.quantized
                               else ())
         for name in names:
             getattr(cache, name)[:, 0, :L] = entry[name][:, :L].to(
                 self.device)
         cache.length[0] = L
+        if self._placed_mesh() is not None:
+            cache = cache.place(self._placed_mesh(),
+                                self._cache_specs_for(B))
         rest = prompt[L:]
         off = 0
         hidden_last = None
@@ -722,7 +814,7 @@ class GenerationEngine:
                     keep = [rowmap.index(i) for i in live]
                     gidx = self._tensor(keep + [keep[0]] * (newB - len(keep)),
                                         torch.int64)
-                    cache = cache.take(gidx)
+                    cache = self._take(cache, gidx)
                     tok = tok[gidx]
                     sampling = sampling.take(gidx)
                     rowmap = list(live) + [None] * (newB - len(live))
@@ -789,7 +881,7 @@ class GenerationEngine:
         # prefill once at B=1 and tile the cache rows to K
         logits1, cache1, _lens, _ = self.prefill([prompt])
         B = _bucket(K, self.batch_buckets)
-        cache = cache1.take(torch.zeros((B,), dtype=torch.int64))
+        cache = self._take(cache1, torch.zeros((B,), dtype=torch.int64))
         del cache1
         st = BeamState(
             engine=self, K=K, B=B, room=room, prompt_len=len(prompt),
@@ -834,7 +926,7 @@ class GenerationEngine:
                 break
             st.beams, st.scores, st.alive, src = nxt
             # reorder every beam's cache row to follow its source beam
-            st.cache = st.cache.take(torch.as_tensor(
+            st.cache = self._take(st.cache, torch.as_tensor(
                 np.resize(np.asarray(src, np.int64), (st.B,))))
             st.tok = self._tensor(np.resize(
                 np.asarray([b[-1] for b in st.beams], np.int32), (st.B,)))

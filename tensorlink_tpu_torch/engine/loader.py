@@ -401,18 +401,11 @@ def load_params(
 def _fill(leaf, j: int | None, t: torch.Tensor) -> None:
     """Copy host tensor ``t`` into layer ``j`` of ``leaf`` (the whole
     leaf when ``j`` is None), cast to its dtype; a ``Sharded`` leaf takes
-    each shard's piece (``t`` has no layer axis, so the split dimension
-    is one less)."""
-    if not isinstance(leaf, Sharded):
+    each shard's piece."""
+    if isinstance(leaf, Sharded):
+        leaf.copy_(t, j)
+    else:
         (leaf if j is None else leaf[j]).copy_(t)
-        return
-    dim = leaf.spec.dim
-    if dim is not None and j is not None:
-        dim -= 1
-    n = len(leaf.shards)
-    pieces = [t] * n if dim is None else torch.chunk(t, n, dim=dim)
-    for x, piece in zip(leaf.shards, pieces):
-        (x if j is None else x[j]).copy_(piece)
 
 
 def export_hf(

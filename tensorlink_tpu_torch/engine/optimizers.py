@@ -393,6 +393,32 @@ def scale_by_factored_rms(factored: bool = True, decay_rate: float = 0.8,
     return GradientTransformation(init, update)
 
 
+def masked(inner: GradientTransformation, mask) -> GradientTransformation:
+    """``optax.masked``: ``inner`` runs on the leaves ``mask`` marks True
+    (a tree of bools, or a function of the params giving one); the others
+    pass through unchanged. State ``(inner_state,)``, the inner state over
+    the masked tree, where None stands for optax's ``MaskedNode``."""
+
+    def mask_of(tree):
+        return mask(tree) if callable(mask) else mask
+
+    def keep(tree, m):
+        return tree_map(lambda x, on: x if on else None, tree, m)
+
+    def init(params):
+        return (inner.init(keep(params, mask_of(params))),)
+
+    def update(updates, state, params=None):
+        m = mask_of(updates)
+        new, inner_state = inner.update(
+            keep(updates, m), state[0],
+            None if params is None else keep(params, m))
+        out = tree_map(lambda u, n, on: n if on else u, updates, new, m)
+        return out, (inner_state,)
+
+    return GradientTransformation(init, update)
+
+
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
     """``optax.chain``: the state is the tuple of the stages' states."""
 
@@ -423,6 +449,18 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
         scale_by_adam(b1=b1, b2=b2, eps=eps, eps_root=eps_root,
                       mu_dtype=mu_dtype, nesterov=nesterov),
         add_decayed_weights(weight_decay, mask),
+        scale_by_learning_rate(learning_rate),
+    )
+
+
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, eps_root: float = 0.0,
+         mu_dtype: torch.dtype | None = None, *, nesterov: bool = False
+         ) -> GradientTransformation:
+    """``optax.adam``: Adam, then ``-learning_rate``."""
+    return chain(
+        scale_by_adam(b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+                      mu_dtype=mu_dtype, nesterov=nesterov),
         scale_by_learning_rate(learning_rate),
     )
 
@@ -466,9 +504,9 @@ def adafactor(learning_rate=None, min_dim_size_to_factor: int = 128,
 
 
 __all__ = [
-    "GradientTransformation", "adafactor", "add_decayed_weights", "adamw",
-    "apply_updates", "chain", "clip_by_block_rms", "clip_by_global_norm",
-    "ema", "global_norm", "identity", "scale", "scale_by_adam",
+    "GradientTransformation", "adafactor", "adam", "add_decayed_weights",
+    "adamw", "apply_updates", "chain", "clip_by_block_rms", "clip_by_global_norm",
+    "ema", "global_norm", "identity", "masked", "scale", "scale_by_adam",
     "scale_by_factored_rms", "scale_by_learning_rate",
     "scale_by_param_block_rms", "scale_by_schedule", "sgd", "trace",
     "tree_leaves", "tree_map", "tree_unflatten",

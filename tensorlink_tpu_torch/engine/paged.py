@@ -224,7 +224,7 @@ class PagedKVCache:
                 return None
             if isinstance(t, Sharded):
                 return Sharded([x.clone() for x in t.shards], t.spec,
-                               t.shape)
+                               t.shape, t.mesh)
             return t.clone()
 
         return PagedKVCache(

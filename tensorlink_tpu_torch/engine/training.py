@@ -12,9 +12,19 @@ give the same loss, gradients and parameters within float rounding.
 carry, then divides once by the total token count: the n_micro = 1 step's
 token-mean gradient even when loss masks fill the micros unevenly.
 
-Not ported: the ZeRO-1 sharded step (``zero1``, ``tp_axis``) and
-``optimizer_state_specs`` (ROADMAP queue 1 item 3). ``donate`` is
-accepted and ignored: the step returns new tensors either way.
+``make_train_step(zero1=True, mesh=, dp_axis=)`` is the ZeRO-1 step:
+each replica of the ``dp_axis`` accumulates its contiguous block of the
+micro-batches with the same helper, the partial sums reduce in a fixed
+order (replica 0 first), the global-norm clip runs on the whole
+gradient, and the inner elementwise update runs on each replica's 1/dp
+slice against optimizer state placed 1/dp per replica
+(:func:`optimizer_state_specs`, ``parallel/mesh.py::Sharded``). With
+``n_micro == dp`` it is bitwise the unsharded ``n_micro`` step.
+``tp_axis`` composes it with the serving tensor parallelism: params
+enter and leave as their ``tp_partition_specs`` shards, are joined whole
+for the forward and backward, and the update slices over the flattened
+``dp·tp`` grid (1/(dp·tp) state per device). ``donate`` is accepted and
+ignored: the step returns new tensors either way.
 """
 
 from __future__ import annotations
@@ -24,9 +34,10 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from .. import unported
 from ..models.base import ModelConfig
 from ..models.transformer import forward
+from ..parallel import mesh as _mesh
+from ..parallel.mesh import REPLICATED, Split
 from . import optimizers as optim
 
 
@@ -97,14 +108,29 @@ def make_optimizer(
 
 @dataclass
 class TrainStep:
-    """A train step and its optimizer (the unsharded step; ZeRO-1 waits
-    for ROADMAP queue 1 item 3)."""
+    """A train step and its optimizer; ``mode="zero1"`` carries the mesh
+    its optimizer state is placed on."""
 
     step_fn: Callable  # (params, opt_state, batch) -> (params, opt_state, metrics)
     optimizer: Any
+    mode: str = "unsharded"  # "unsharded" | "zero1"
+    mesh: Any = None  # zero1 only: the mesh carrying the dp axis
+    dp_axis: str = "data"
+    tp_axis: str | None = None  # zero1 x tp: the mesh's tensor axis
 
     def init_state(self, params):
-        return self.optimizer.init(params)
+        """The optimizer's state; for ZeRO-1 placed 1/dp per replica (over
+        the flattened ``dp·tp`` grid with ``tp_axis``): each leaf whose
+        leading dimension divides the grid is split along it."""
+        if self.mode != "zero1":
+            return self.optimizer.init(params)
+        whole = _mesh.full_tree(params)
+        axes, size = _zero1_grid(self.mesh, self.dp_axis, self.tp_axis)
+        sspecs = optimizer_state_specs(
+            self.optimizer, whole, optim.tree_map(lambda _: REPLICATED,
+                                                  whole),
+            dp_axis=axes, dp_size=size)
+        return _mesh.put(self.mesh, self.optimizer.init(whole), sspecs)
 
     def n_programs(self) -> int:
         """The JAX step's compiled-program count; eager PyTorch compiles
@@ -163,10 +189,6 @@ def make_train_step(
     a dict of ``"tokens"`` ``[B, T]`` and an optional ``"loss_mask"``,
     returning ``(params, opt_state, {"loss", "grad_norm"})`` — new
     tensors, the metrics as 0-d tensors on the params' device."""
-    if zero1:
-        raise unported("the ZeRO-1 sharded train step (zero1)", 3)
-    if tp_axis is not None:
-        raise unported("the tensor-parallel train step (tp_axis)", 3)
     loss_fn = loss_fn or causal_lm_loss
 
     def compute_grads(params, tokens, loss_mask):
@@ -187,6 +209,26 @@ def make_train_step(
             grads = torch.autograd.grad(objective, leaves, allow_unused=True)
         return (objective.detach(), n_tok.detach(),
                 _grads_like(params, leaves, grads))
+
+    if zero1:
+        tp_pspecs = None
+        if tp_axis is not None:
+            from ..models.transformer import tp_partition_specs, tp_shardable
+
+            if mesh is None:
+                raise ValueError("tp_axis requires a mesh")
+            if tp_axis not in dict(mesh.shape):
+                raise ValueError(
+                    f"mesh has no {tp_axis!r} axis: {dict(mesh.shape)}")
+            reason = tp_shardable(cfg, int(mesh.shape[tp_axis]))
+            if reason is not None:
+                raise ValueError(f"tp_axis={tp_axis!r}: {reason}")
+            tp_pspecs = tp_partition_specs(cfg, axis=tp_axis)
+        return _make_zero1_step(
+            optimizer, sum_grads, mesh=mesh, dp_axis=dp_axis,
+            n_micro=n_micro, tp_axis=tp_axis, tp_pspecs=tp_pspecs)
+    if tp_axis is not None:
+        raise ValueError("tp_axis requires zero1=True (the sharded step)")
 
     def step(params, opt_state, batch):
         tokens = batch["tokens"]
@@ -218,9 +260,253 @@ def make_train_step(
     return TrainStep(step_fn=step, optimizer=optimizer)
 
 
-def optimizer_state_specs(*_args, **_kwargs):
-    """Sharding specs of the optimizer state (ZeRO-1): not ported."""
-    raise unported("optimizer state sharding (optimizer_state_specs)", 3)
+def _dp_shardable(shape, dp: int) -> bool:
+    """THE zero1 sharding predicate: a leaf whose leading dimension the
+    grid divides is split along it; any other stays whole per replica."""
+    return bool(shape) and shape[0] >= dp and shape[0] % dp == 0
+
+
+def _zero1_grid(mesh, dp_axis: str, tp_axis: str | None):
+    """The axes the update slices over and their size: ``dp_axis``, or
+    the flattened ``(dp_axis, tp_axis)`` grid."""
+    dp = int(mesh.shape[dp_axis])
+    if tp_axis:
+        return (dp_axis, tp_axis), dp * int(mesh.shape[tp_axis])
+    return dp_axis, dp
+
+
+def _tmap(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and tuples (an optimizer
+    state); None stays None."""
+    if isinstance(tree, dict):
+        return {k: _tmap(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tmap(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def sharded_update(optimizer, grads: dict, state, params: dict,
+                   slice_specs: dict, mesh):
+    """The optimizer step over a state placed on ``mesh``: the chain's
+    global-norm clip on the whole gradient (a shard's norm is not the
+    global norm), then its inner stages on each device's piece of the
+    gradient and params — its piece by ``slice_specs``, the spec its
+    state twins are placed by — against that device's state. Elementwise
+    stages give each piece the whole update's bits, so the joined params
+    are the whole update's. ``grads``/``params`` are whole trees; returns
+    ``(new_params_whole, new_state)``, the params on the params'
+    device."""
+    grad_clip = getattr(optimizer, "grad_clip", None)
+    inner = getattr(optimizer, "inner", optimizer)
+    if grad_clip is not None:
+        clip = optim.clip_by_global_norm(grad_clip)
+        grads, _ = clip.update(grads, (), params)
+        clip_state, inner_state = state[0], state[1]
+    else:
+        clip_state, inner_state = None, state
+    flat = mesh.flat()
+    new_p, new_s = [], []
+    for j, dev in enumerate(flat):
+        def cut(x, sp, dev=dev, j=j):
+            return _mesh.to_device(_mesh.piece(x, sp, mesh, j), dev)
+
+        g_j = optim.tree_map(cut, grads, slice_specs)
+        p_j = optim.tree_map(cut, params, slice_specs)
+        s_j = _tmap(lambda t, j=j: t.shards[j], inner_state)
+        u_j, ns_j = inner.update(g_j, s_j, p_j)
+        new_p.append(optim.apply_updates(p_j, u_j))
+        new_s.append(ns_j)
+
+    def join_param(p, sp, *pieces):
+        return _mesh.from_pieces(list(pieces), sp, p.shape, mesh).full(
+            p.device)
+
+    def join_state(old, *pieces):
+        return _mesh.from_pieces(list(pieces), old.spec, old.shape, mesh)
+
+    params = optim.tree_map(join_param, params, slice_specs, *new_p)
+    inner_state = _tmap(join_state, inner_state, *new_s)
+    state = (clip_state, inner_state) if grad_clip is not None \
+        else inner_state
+    return params, state
+
+
+def _make_zero1_step(optimizer, sum_grads, *, mesh, dp_axis, n_micro,
+                     tp_axis=None, tp_pspecs=None) -> TrainStep:
+    """The ZeRO-1 step (JAX ``_make_zero1_step``), its five stages
+    written out over the mesh's replicas:
+
+    0.5 with ``tp_axis``: each leaf joined whole from its serving shards
+        (an exact concatenation);
+    1. each replica's local micro accumulation, on its first device, over
+       its contiguous block of the micro-batches (the shared
+       :func:`_accum_micro_grads`);
+    2. the fixed-order cross-replica sum, replica 0 first — with one
+       micro per replica the unsharded carry's own additions;
+    3. the global-norm clip on the whole gradient;
+    4. the elementwise inner update on each device's 1/dp (1/(dp·tp))
+       slice against its resident state piece;
+    5. the re-join (and, with ``tp_axis``, the re-slice into serving
+       shards)."""
+    if mesh is None:
+        raise ValueError("zero1=True requires a mesh with a dp axis")
+    if dp_axis not in dict(mesh.shape):
+        raise ValueError(f"mesh has no {dp_axis!r} axis: {dict(mesh.shape)}")
+    dp = int(mesh.shape[dp_axis])
+    if dp < 2:
+        raise ValueError(
+            f"zero1 needs {dp_axis} > 1 (got {dp}) — the planner picks the "
+            "unsharded step for single-replica meshes"
+        )
+    if n_micro % dp != 0:
+        raise ValueError(
+            f"zero1 needs n_micro ({n_micro}) divisible by {dp_axis}={dp} "
+            "so each replica scans whole micro-batches"
+        )
+    if getattr(optimizer, "name", "") == "adafactor":
+        raise ValueError(
+            "zero1 requires a shard-local (elementwise) optimizer update; "
+            "adafactor's factored second moments are not — use adamw/sgd"
+        )
+    axes, world = _zero1_grid(mesh, dp_axis, tp_axis)
+    local_micro = n_micro // dp
+    flat = mesh.flat()
+    # replica d's first device (its tp peers see the same batch block)
+    replica_dev = [flat[mesh.axis_index(dp_axis).index(d)]
+                   for d in range(dp)]
+
+    def step(params, opt_state, batch):
+        tokens = batch["tokens"]
+        loss_mask = batch.get("loss_mask")
+        B = tokens.shape[0]
+        if B % n_micro != 0:
+            raise ValueError(f"batch {B} not divisible by n_micro={n_micro}")
+        mb = B // n_micro
+        whole = _mesh.full_tree(params)
+        dev0 = optim.tree_leaves(whole)[0].device
+        blk = local_micro * mb
+        partial = []
+        for d in range(dp):
+            dev = replica_dev[d]
+            p_d = optim.tree_map(lambda p: _mesh.to_device(p, dev), whole)
+            toks = tokens[d * blk:(d + 1) * blk].to(dev).reshape(
+                local_micro, mb, -1)
+            lm = (loss_mask[d * blk:(d + 1) * blk].to(dev).reshape(
+                local_micro, mb, -1) if loss_mask is not None else None)
+            partial.append(_accum_micro_grads(sum_grads, p_d, toks, lm))
+
+        def ordered(*xs):
+            acc = _mesh.to_device(xs[0], dev0)
+            for x in xs[1:]:
+                acc = acc + _mesh.to_device(x, dev0)
+            return acc
+
+        with torch.no_grad():
+            grads = optim.tree_map(ordered, *[g for g, _, _ in partial])
+            nll_sum = ordered(*[n for _, n, _ in partial])
+            tok_sum = torch.clamp(ordered(*[t for _, _, t in partial]),
+                                  min=1.0)
+            grads = optim.tree_map(lambda g, p: (g / tok_sum).to(p.dtype),
+                                   grads, whole)
+            loss = nll_sum / tok_sum
+            gnorm = optim.global_norm(grads)
+            slice_specs = optim.tree_map(lambda p: dp_extended(
+                REPLICATED, tuple(p.shape), axes, world), whole)
+            new_params, new_state = sharded_update(
+                optimizer, grads, opt_state, whole, slice_specs, mesh)
+            if tp_axis is not None:
+                new_params = _mesh.put(mesh, new_params, tp_pspecs)
+        return new_params, new_state, {"loss": loss, "grad_norm": gnorm}
+
+    return TrainStep(step_fn=step, optimizer=optimizer, mode="zero1",
+                     mesh=mesh, dp_axis=dp_axis, tp_axis=tp_axis)
+
+
+def dp_extended(spec: Split, shape: tuple, dp_axis, dp_size: int) -> Split:
+    """``spec`` with its leading dimension also split over ``dp_axis``
+    (a tuple: their flattened grid) when ``dp_size`` divides it and the
+    spec leaves it whole; anything else as it is."""
+    if not dp_axis or dp_size <= 1 or not _dp_shardable(shape, dp_size):
+        return spec
+    if spec.dim == 0 or spec.data_dim == 0:
+        return spec  # dim 0 already split — never compose
+    if spec.dim is None:
+        return Split(0, dp_axis)
+    if dp_axis != "data" or spec.data_dim is not None:
+        return spec
+    return Split(spec.dim, spec.axis, 0)
+
+
+def optimizer_state_specs(optimizer, params: dict, param_specs: dict, *,
+                          dp_axis: "str | tuple | None" = None,
+                          dp_size: int = 0):
+    """The spec tree of an optimizer state (JAX ``optimizer_state_specs``):
+    a sub-tree that mirrors the param tree (Adam's moments, a momentum
+    trace) takes the params' specs; scalars (step counts) replicate.
+
+    ``dp_axis``/``dp_size`` is the ZeRO-1 extension: a state leaf whose
+    leading dimension divides ``dp_size`` is also split along it over
+    ``dp_axis`` (a tuple: their flattened grid) — unless its spec already
+    splits that dimension, which is left as it is. A state leaf outside a
+    mirroring sub-tree (a masked moment tree, whose masked-out leaves are
+    None; a factored second moment) takes the spec of the one param of its
+    shape when there is exactly one, else the dp split when its leading
+    dimension divides, else replicates with a warning."""
+    from ..core.logging import get_logger
+
+    meta = optim.tree_map(
+        lambda p: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta"),
+        params)
+    state = optimizer.init(meta)
+
+    def structure(t):
+        if isinstance(t, dict):
+            return {k: structure(v) for k, v in t.items()}
+        return None if t is None else "leaf"
+
+    pdef = structure(params)
+
+    def with_dp(spec: Split, shape: tuple) -> Split:
+        return dp_extended(spec, shape, dp_axis, dp_size)
+
+    shape_specs: dict[tuple, list] = {}
+    for pl, sp in zip(optim.tree_leaves(params),
+                      optim.tree_leaves(param_specs)):
+        cands = shape_specs.setdefault(tuple(pl.shape), [])
+        if sp not in cands:
+            cands.append(sp)
+    log = get_logger("engine.training")
+
+    def stray(leaf) -> Split:
+        shape = tuple(leaf.shape)
+        cands = shape_specs.get(shape, [])
+        if len(cands) == 1:
+            return with_dp(cands[0], shape)
+        if dp_axis and dp_size > 1 and _dp_shardable(shape, dp_size):
+            return with_dp(REPLICATED, shape)
+        if shape and any(d > 1 for d in shape):
+            log.warning(
+                "optimizer state leaf of shape %s matches no unique param "
+                "layout — replicating it (candidates: %s)", shape, cands)
+        return REPLICATED
+
+    def walk(node):
+        if isinstance(node, dict) and structure(node) == pdef:
+            return optim.tree_map(lambda sp, leaf: with_dp(
+                sp, tuple(leaf.shape)), param_specs, node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(walk(v) for v in node)
+        if node is None:
+            return None
+        return stray(node)
+
+    return walk(state)
 
 
 __all__ = [
@@ -229,5 +515,7 @@ __all__ = [
     "causal_lm_loss",
     "make_optimizer",
     "make_train_step",
+    "dp_extended",
     "optimizer_state_specs",
+    "sharded_update",
 ]

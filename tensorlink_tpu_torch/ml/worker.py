@@ -89,6 +89,12 @@ class StageRuntime:
     model_spec: dict = field(default_factory=dict)
     params: Any = None  # the stage's tree (QTensor leaves when quantized)
     engine: Any = None  # GenerationEngine (whole-model stages only)
+    # the stage's planned {data, tensor} mesh (params placed on it by
+    # stage_param_specs), else None
+    mesh: Any = None
+    # a placed job's tree joined whole for training (None until a
+    # training op needs it; dropped when the params change)
+    whole: Any = None
     # decode sessions: session id -> this stage's KVCache (its layers)
     sessions: dict[str, Any] = field(default_factory=dict)
     # per-session [B, V] context counts for presence/frequency penalties
@@ -203,15 +209,20 @@ class DistributedWorker:
 
     # -- capacity -------------------------------------------------------
     def capacity(self) -> dict:
-        """What this worker advertises: the device's free memory, one
-        device, its platform, and its serving role."""
+        """What this worker advertises: its devices for a planned mesh
+        (:meth:`_advertised_devices`) and the free memory of the distinct
+        ones (a CPU worker's host counts once, however many times a mesh
+        repeats it), its platform, and its serving role."""
         from tensorlink_tpu_torch.core.devices import probe_device
 
         ml = self.node.config.ml
         probe = probe_device(self.device, ml.max_memory_gb)
+        devs = self._advertised_devices()
+        hbm = sum(probe_device(d, ml.max_memory_gb).hbm_bytes
+                  for d in dict.fromkeys(devs))
         out = {
-            "hbm_bytes": probe.hbm_bytes,
-            "n_devices": probe.n_devices,
+            "hbm_bytes": hbm,
+            "n_devices": len(devs),
             "platform": probe.platform,
             "training": True,
             "serving_role": str(getattr(ml, "worker_role", "mixed") or "mixed"),
@@ -369,12 +380,9 @@ class DistributedWorker:
         cfg = ModelConfig.from_json(model["config"])
         lo, hi = int(stage["layer_lo"]), int(stage["layer_hi"])
         first, holds_head = bool(stage["first"]), bool(stage["holds_head"])
-        n_mesh = 1
-        for v in (stage.get("mesh_axes") or {}).values():
-            n_mesh *= int(v)
-        if n_mesh > 1:
-            raise unported("a planned device mesh (mesh_axes: the GSPMD "
-                           "sharded GenerationEngine)", 3)
+        # the planned mesh first: too few devices fail the load before any
+        # weight is made
+        mesh = self._build_stage_mesh(stage)
         if ml.collective_quant:
             raise unported("the quantized tp gather (collective_quant)", 5)
         if stage.get("coworkers"):
@@ -382,12 +390,11 @@ class DistributedWorker:
         training = bool(p.get("training", False))
         whole = bool(first and stage["last"] and holds_head)
         tp = int(getattr(ml, "tensor_parallel", 1) or 1)
-        if tp > 1 and training:
-            raise unported("tensor-parallel training (ZeRO-1 with zero1 "
-                           "x tp)", 3)
         # a tp job's mesh from this worker's card on: too few cards fail
-        # the load (it never serves on fewer shards)
-        tp_devices = self._tp_devices(tp) if whole and tp > 1 else None
+        # the load (it never serves on fewer shards); a planned mesh
+        # takes its place
+        tp_devices = (self._mesh_devices(tp)
+                      if whole and tp > 1 and mesh is None else None)
         if model.get("ckpt"):
             from tensorlink_tpu_torch.engine.loader import load_params
 
@@ -411,6 +418,8 @@ class DistributedWorker:
                 params["layers"] = tree_map(lambda t: t.clone(),
                                             params["layers"])
         del full
+        if mesh is not None:
+            params = self._shard_params(params, cfg, stage, mesh)
         quant = model.get("quant")
         if model.get("flash"):
             if whole:
@@ -436,11 +445,17 @@ class DistributedWorker:
             training=training,
             cache_quant=quant == "int8+kv",
             tp_devices=tp_devices,
+            mesh=mesh,
         )
         if whole:
             rt.engine = GenerationEngine(
                 cfg,
                 params,
+                mesh=mesh,
+                # batch buckets include 1: the engine's cache keeps its
+                # batch whole; kv heads ride the tensor axis
+                cache_specs=(self._cache_specs_for(rt, batch=1)
+                             if mesh is not None else None),
                 max_seq_len=min(cfg.max_seq_len, ml.max_seq_len),
                 seq_buckets=ml.seq_buckets,
                 batch_buckets=ml.batch_buckets,
@@ -490,23 +505,72 @@ class DistributedWorker:
             except Exception:
                 self.log.exception("serving warmup failed (serving anyway)")
 
-    def _tp_devices(self, tp: int) -> list:
-        """The devices of a ``tensor_parallel=tp`` job's serving mesh:
-        ``tp`` shards on a CPU worker's host, else ``tp`` distinct cards
-        from this worker's card on (ValueError when there are fewer)."""
-        from tensorlink_tpu_torch.parallel.mesh import (
-            local_devices,
-            serving_mesh,
-        )
+    def _advertised_devices(self) -> list:
+        """The devices a plan may mesh over: ``MLConfig.mesh_devices`` of
+        them from this worker's own (:meth:`_mesh_devices`)."""
+        n = int(getattr(self.node.config.ml, "mesh_devices", 1) or 1)
+        return self._mesh_devices(n)
+
+    def _mesh_devices(self, n: int) -> list:
+        """``n`` devices from this worker's on: ``n`` times a CPU worker's
+        host, else ``n`` distinct cards from this worker's card on
+        (ValueError when there are fewer)."""
+        from tensorlink_tpu_torch.parallel.mesh import local_devices
 
         if self.device.type == "cpu":
-            return [self.device] * tp
+            return [self.device] * n
         first = self.device.index
         if first is None:
             import torch
 
             first = torch.cuda.current_device()
-        return serving_mesh(tp, devices=local_devices()[first:]).flat()
+        devs = local_devices()[first:]
+        if n > len(devs):
+            raise ValueError(f"mesh needs {n} devices, have {len(devs)}")
+        return devs[:n]
+
+    def _build_stage_mesh(self, stage: dict):
+        """This stage's device mesh from the plan's ``mesh_axes`` (None
+        for a one-device stage), over :meth:`_mesh_devices`. Too few
+        devices fail the load: the JAX worker runs unsharded then, the
+        port never serves on fewer shards than planned."""
+        from tensorlink_tpu_torch.parallel.mesh import build_mesh
+
+        axes = {k: int(v) for k, v in (stage.get("mesh_axes") or {}).items()}
+        n = 1
+        for v in axes.values():
+            n *= v
+        if n <= 1:
+            return None
+        return build_mesh(axes, self._mesh_devices(n))
+
+    def _shard_params(self, params, cfg, stage: dict, mesh):
+        """A stage's tree placed on its mesh by ``stage_param_specs``."""
+        from tensorlink_tpu_torch.parallel.mesh import put
+        from tensorlink_tpu_torch.parallel.planner import (
+            StagePlan,
+            stage_param_specs,
+        )
+
+        return put(mesh, params, stage_param_specs(cfg, StagePlan(**stage)))
+
+    def _cache_specs_for(self, rt: StageRuntime, batch: int):
+        """The dense cache's spec on this stage's mesh: kv heads on
+        ``tensor`` when they divide it, the batch on ``data`` only when
+        the batch divides it (serving batches of 1 never fail against a
+        data axis)."""
+        from tensorlink_tpu_torch.models.transformer import cache_specs
+
+        axes = rt.stage.get("mesh_axes") or {}
+        tp = int(axes.get("tensor", 1))
+        dp = int(axes.get("data", 1))
+        return cache_specs(
+            rt.cfg,
+            data_axis="data" if dp > 1 and batch % dp == 0 else None,
+            tensor_axis=("tensor" if tp > 1 and rt.cfg.n_kv_heads % tp == 0
+                         else None),
+            quantized=rt.cache_quant,
+        )
 
     def _runtime(self, job_id: str) -> StageRuntime:
         rt = self.jobs.get(job_id)
@@ -525,12 +589,8 @@ class DistributedWorker:
         prompts = [list(map(int, row)) for row in p["prompts"]]
         if p.get("continuous") and self._generate_continuous(rt, p, prompts):
             return  # admitted into the slot batch; responds via on_finish
-        if _tp_hosted(rt):
-            # the static paths run the dense forward, which takes whole
-            # trees; a tp job's tree lies on its mesh
-            raise unported(
-                "a non-continuous request (static batch, beam, lookahead) "
-                "on a tensor-parallel job (the GSPMD GenerationEngine)", 3)
+        # the static paths run the dense engine; a placed tree (a planned
+        # mesh's, a tp job's) runs its placed forward
         knobs = (
             p.get("temperature", 0.0), p.get("top_k", 0), p.get("top_p", 1.0),
             p.get("presence_penalty", 0.0), p.get("frequency_penalty", 0.0),
@@ -1959,7 +2019,9 @@ class DistributedWorker:
         if op == "head" or (op == "chain" and p.get("head_hop")):
             hidden = device_tensor(p["hidden"], self.device)
             with torch.no_grad():
-                logits = head_forward(rt.params, hidden, rt.cfg)
+                logits = head_forward(
+                    self._train_params(rt) if train else rt.params, hidden,
+                    rt.cfg)
             if train:
                 rt.saved[tag + ".head"] = ("head", hidden, None, False, True)
                 self._respond(p["peer"], proto.FORWARD_RESP, p["rid"],
@@ -1984,8 +2046,9 @@ class DistributedWorker:
         kw = {"tokens": x_in} if first else {"hidden": x_in}
         if train:
             with torch.no_grad():
-                out, _ = stage_forward(rt.params, rt.cfg, attn_mask=mask,
-                                       first=first, last=apply_head, **kw)
+                out, _ = stage_forward(self._train_params(rt), rt.cfg,
+                                       attn_mask=mask, first=first,
+                                       last=apply_head, **kw)
             # no KV cache in training: the backward recomputes the forward
             # from these inputs when the cotangent arrives
             rt.saved[tag] = ("stage", x_in, mask, first, apply_head)
@@ -2020,11 +2083,14 @@ class DistributedWorker:
         cache = rt.sessions.get(p["session"])
         if cache is None:
             scfg = rt.cfg.with_(n_layers=rt.n_layers)
-            return KVCache.init(
+            cache = KVCache.init(
                 scfg, batch,
                 max_len=int(p.get("cache_len", rt.cfg.max_seq_len)),
                 quantized=rt.cache_quant, device=self.device,
             )
+            if rt.mesh is not None:
+                cache = cache.place(rt.mesh, self._cache_specs_for(rt, batch))
+            return cache
         if p.get("reset_rows"):
             rows = torch.as_tensor(np.asarray(p["reset_rows"], np.int64),
                                    device=cache.length.device)
@@ -2308,7 +2374,8 @@ class DistributedWorker:
         kind, x_in, mask, first, apply_head = entry
         # the cotangent in the stage's dtype, as the JAX worker casts it
         g = device_tensor(p["grad"], self.device).to(rt.cfg.dtype)
-        tree, leaves = _trainable(rt.params)
+        whole = self._train_params(rt)
+        tree, leaves = _trainable(whole)
         # a stage that is not first (and the head hop) also answers the
         # gradient of its input, which the driver passes one stage back
         wrt_input = kind == "head" or not first
@@ -2330,7 +2397,7 @@ class DistributedWorker:
         # a tied head's stage 0 sums two gradients of the embedding per
         # micro-batch (the head hop's, then the token lookup's) in the
         # order their BACKWARDs arrive
-        self._accumulate(rt, _grads_like(rt.params, leaves, grads))
+        self._accumulate(rt, _grads_like(whole, leaves, grads))
         body: dict = {"ok": True}
         if grad_input is not None:
             body["grad"] = _host(grad_input)
@@ -2351,7 +2418,10 @@ class DistributedWorker:
         import torch
 
         from tensorlink_tpu_torch.engine import optimizers as optim
-        from tensorlink_tpu_torch.engine.training import make_optimizer
+        from tensorlink_tpu_torch.engine.training import (
+            make_optimizer,
+            sharded_update,
+        )
 
         rt = self._runtime(p["job_id"])
         op = p.get("op")
@@ -2359,7 +2429,8 @@ class DistributedWorker:
             spec = dict(p.get("spec", {}))
             name = spec.pop("name", "adamw")
             rt.opt = make_optimizer(name, **spec)
-            rt.opt_state = rt.opt.init(rt.params)
+            rt.opt_state = rt.opt.init(self._train_params(rt))
+            self._maybe_shard_opt_state(rt)
             body = {"ok": True, "op": op}
         elif op == "zero":
             rt.grad_accum = None
@@ -2387,11 +2458,19 @@ class DistributedWorker:
                     # gradients become the token-mean gradient
                     rt.grad_accum = optim.tree_map(lambda g: g * scale,
                                                    rt.grad_accum)
-                updates, rt.opt_state = rt.opt.update(
-                    rt.grad_accum, rt.opt_state, rt.params)
-                params = optim.apply_updates(rt.params, updates)
+                whole = self._train_params(rt)
+                if self._zero1_dp(rt) > 1:
+                    # ZeRO-1: the inner update on each replica's slice of
+                    # the gradient against its resident state piece
+                    params, rt.opt_state = sharded_update(
+                        rt.opt, rt.grad_accum, rt.opt_state, whole,
+                        self._zero1_slices(rt, whole), rt.mesh)
+                else:
+                    updates, rt.opt_state = rt.opt.update(
+                        rt.grad_accum, rt.opt_state, whole)
+                    params = optim.apply_updates(whole, updates)
                 gnorm = float(optim.global_norm(rt.grad_accum))
-            _set_params(rt, params)
+            self._set_params(rt, params)
             self._record_proof(rt, gnorm)
             rt.grad_accum = None
             rt.n_accum = 0
@@ -2399,6 +2478,82 @@ class DistributedWorker:
         else:
             raise ValueError(f"unknown optimizer op {op!r}")
         self._respond(p["peer"], proto.OPTIMIZER_RESP, p["rid"], body)
+
+    def _train_params(self, rt: StageRuntime):
+        """The tree a training op runs: a placed job's joined whole on this
+        worker's device (kept until the params change), so its step is
+        the whole tree's, as GSPMD trains the placed tree in JAX."""
+        from tensorlink_tpu_torch.models.sharded import whole
+        from tensorlink_tpu_torch.parallel.mesh import is_sharded
+
+        if not is_sharded(rt.params):
+            return rt.params
+        if rt.whole is None:
+            rt.whole = whole(rt.params, self.device)
+        return rt.whole
+
+    def _set_params(self, rt: StageRuntime, params) -> None:
+        """Make the whole tree ``params`` the job's weights: placed again
+        on a planned mesh, published through a tp job's slot engine."""
+        rt.whole = None
+        if rt.mesh is not None:
+            params = self._shard_params(params, rt.cfg, rt.stage, rt.mesh)
+        _set_params(rt, params)
+
+    def _zero1_dp(self, rt: StageRuntime) -> int:
+        """The stage's ZeRO-1 data-parallel degree: above 1 only when the
+        plan gave this training stage a data axis (``planner.
+        training_update_mode``, the one predicate) on a real mesh."""
+        from tensorlink_tpu_torch.parallel.planner import (
+            training_update_mode,
+        )
+
+        if rt.mesh is None or not rt.training:
+            return 0
+        axes = rt.stage.get("mesh_axes") or {}
+        if training_update_mode(axes, rt.training) != "zero1":
+            return 0
+        return int(axes.get("data", 1))
+
+    def _zero1_slices(self, rt: StageRuntime, whole: dict) -> dict:
+        """Each param's update slice: its stage spec, its leading dim also
+        over ``data`` where the dp degree divides it — the spec its
+        optimizer-state twins are placed by."""
+        from tensorlink_tpu_torch.engine.optimizers import tree_map
+        from tensorlink_tpu_torch.engine.training import dp_extended
+        from tensorlink_tpu_torch.parallel.planner import (
+            StagePlan,
+            stage_param_specs,
+        )
+
+        dp = self._zero1_dp(rt)
+        pspecs = stage_param_specs(rt.cfg, StagePlan(**rt.stage))
+        return tree_map(lambda sp, p: dp_extended(sp, tuple(p.shape),
+                                                  "data", dp), pspecs, whole)
+
+    def _maybe_shard_opt_state(self, rt: StageRuntime) -> None:
+        """ZeRO-1 on the RPC training path: on a stage mesh with a data
+        axis the optimizer state is placed 1/dp per replica
+        (``optimizer_state_specs`` over the stage specs); the params stay
+        in their stage specs."""
+        dp = self._zero1_dp(rt)
+        if dp <= 1 or rt.opt_state is None:
+            return
+        from tensorlink_tpu_torch.engine.training import (
+            optimizer_state_specs,
+        )
+        from tensorlink_tpu_torch.parallel.mesh import put
+        from tensorlink_tpu_torch.parallel.planner import (
+            StagePlan,
+            stage_param_specs,
+        )
+
+        sspecs = optimizer_state_specs(
+            rt.opt, self._train_params(rt),
+            stage_param_specs(rt.cfg, StagePlan(**rt.stage)),
+            dp_axis="data", dp_size=dp)
+        # a placed leaf (a state already split, restored) is joined first
+        rt.opt_state = put(rt.mesh, rt.opt_state, sspecs)
 
     # -- proof of learning (platform/proofs.py) ---------------------------
     MAX_PROOF_LOG = 256
@@ -2451,7 +2606,9 @@ class DistributedWorker:
             state = {"params": _host_tree(self._exact_params(rt)),
                      "stage": rt.stage}
             if rt.opt_state is not None:
-                state["opt_state"] = _host_tree(rt.opt_state)
+                from tensorlink_tpu_torch.parallel.mesh import full_tree
+
+                state["opt_state"] = _host_tree(full_tree(rt.opt_state))
             ser.encode_to_file(state, path)
             body = {"ok": True, "path": str(path)}
         elif op == "restore":
@@ -2468,7 +2625,11 @@ class DistributedWorker:
                     for a in optim.tree_leaves(state["opt_state"])
                 ])
                 restored_opt = True
-            _set_params(rt, params)
+            # a planned mesh's stage re-places the restored tree (and its
+            # optimizer state) there
+            self._set_params(rt, params)
+            if restored_opt:
+                self._maybe_shard_opt_state(rt)
             body = {"ok": True, "restored_opt": restored_opt,
                     "opt_in_checkpoint": "opt_state" in state}
         else:
@@ -2481,19 +2642,19 @@ class DistributedWorker:
         """rt.params with int8-serving QTensor leaves dequantized — the
         wire and disk formats carry plain arrays."""
         from tensorlink_tpu_torch.models.quant import QTensor, dequantize
-        from tensorlink_tpu_torch.parallel.mesh import Sharded
+        from tensorlink_tpu_torch.models.sharded import whole
+        from tensorlink_tpu_torch.parallel.mesh import is_sharded
 
         def fix(node):
             if isinstance(node, dict):
                 return {k: fix(v) for k, v in node.items()}
             if isinstance(node, QTensor):
                 return dequantize(node, rt.cfg.dtype)
-            if isinstance(node, Sharded):
-                # a tp job's leaf joined on the host
-                return node.full("cpu")
             return node
 
-        return fix(rt.params)
+        # a placed job's leaves joined on the host
+        return fix(whole(rt.params, "cpu") if is_sharded(rt.params)
+                   else rt.params)
 
     def _params_req(self, p: dict) -> None:
         """Ship this stage's parameters back in one bulk frame."""
@@ -2503,15 +2664,14 @@ class DistributedWorker:
 
     def _train_mode(self, p: dict) -> None:
         rt = self._runtime(p["job_id"])
-        if bool(p.get("training", True)) and rt.tp_devices is not None:
-            raise unported("tensor-parallel training (ZeRO-1 with zero1 "
-                           "x tp)", 3)
         if bool(p.get("training", True)) and _quantized(rt.params):
             raise ValueError(
                 "int8-quantized serving job cannot switch to training — "
                 "request the job with quant=None for fine-tuning"
             )
         rt.training = bool(p.get("training", True))
+        if rt.training and rt.opt_state is not None:
+            self._maybe_shard_opt_state(rt)
         self._respond(
             p["peer"], proto.TRAIN_MODE_ACK, p["rid"],
             {"job_id": rt.job_id, "training": rt.training},
@@ -2524,8 +2684,9 @@ def _tp_hosted(rt: StageRuntime) -> bool:
 
 
 def _set_params(rt: StageRuntime, params) -> None:
-    """Make ``params`` (a whole tree) the job's weights. A tensor-parallel
-    slot engine publishes them, which re-places them on its mesh."""
+    """Make ``params`` the job's weights (a whole tree, or one placed on
+    the job's planned mesh). A tensor-parallel slot engine publishes
+    them, which re-places them on its mesh."""
     if _tp_hosted(rt):
         rt.cont.publish_weights(params)
         rt.params = rt.engine.params
@@ -2544,12 +2705,28 @@ def _clear_empty_rows(cache, new_cache, mask) -> None:
     poisons the row once a request is admitted into it (0 x NaN in the
     attention's value product). Live rows are untouched. A masked fill
     over every row, so the host never waits on the device here."""
+    from tensorlink_tpu_torch.parallel.mesh import Sharded
+
     empty = (cache.length == 0) & ~mask.any(-1)
     T = mask.shape[1]
+
+    def clear(x, rows):
+        head = x[:, :, :T]
+        head.masked_fill_(rows.view(1, -1, *[1] * (head.dim() - 2)), 0)
+
     for t in (new_cache.k, new_cache.v, new_cache.k_scale, new_cache.v_scale):
-        if t is not None:
-            head = t[:, :, :T]
-            head.masked_fill_(empty.view(1, -1, *[1] * (head.dim() - 2)), 0)
+        if t is None:
+            continue
+        if not isinstance(t, Sharded):
+            clear(t, empty)
+            continue
+        # a placed field: each piece's rows (its data block, or all)
+        n_d, keys = t.grid[1], t.keys()
+        b = t.shape[1] // n_d
+        for j in t.distinct():
+            d = keys[j][1]
+            clear(t.shards[j], empty[d * b:(d + 1) * b].to(
+                t.shards[j].device))
 
 
 def _host(t):

@@ -199,7 +199,7 @@ class KVCache:
 
     @property
     def max_len(self) -> int:
-        return self.k.shape[2]
+        return self.k.shape[2]  # a placed field's shape is the whole's
 
     @property
     def quantized(self) -> bool:
@@ -212,9 +212,47 @@ class KVCache:
             return (self.k[i], self.v[i])
         return (self.k[i], self.v[i], self.k_scale[i], self.v_scale[i])
 
-    def take(self, idx: torch.Tensor) -> "KVCache":
+    def place(self, mesh, specs: "KVCache") -> "KVCache":
+        """This cache's payload placed on ``mesh`` by ``specs``
+        (``parallel/mesh.py::put``); its length stays whole, for the host
+        loops that read and rewrite it."""
+        from ..parallel.mesh import put
+
+        return KVCache(
+            k=put(mesh, self.k, specs.k), v=put(mesh, self.v, specs.v),
+            length=self.length,
+            k_scale=put(mesh, self.k_scale, specs.k_scale),
+            v_scale=put(mesh, self.v_scale, specs.v_scale))
+
+    def take(self, idx: torch.Tensor, specs: "KVCache | None" = None
+             ) -> "KVCache":
         """A new cache of the batch rows ``idx`` (copies): the beam
-        search's tile and reorder, and the chunked decode's shrink."""
+        search's tile and reorder, and the chunked decode's shrink. A
+        cache placed on a mesh gathers across its shards
+        (``parallel/mesh.py::take_rows``) into ``specs`` (default its own
+        layout, its batch kept whole when ``data`` does not divide
+        ``len(idx)``); its length comes back whole."""
+        from ..parallel.mesh import Sharded, take_rows
+
+        if isinstance(self.k, Sharded):
+            n = len(idx)
+
+            def rows_of(t, sp):
+                if t is None:
+                    return None
+                sp = sp if sp is not None else t.spec
+                if sp.data_dim is not None and n % t.mesh.shape.get(
+                        "data", 1):
+                    sp = replace(sp, data_dim=None)
+                return take_rows(t, idx, 1, sp)
+
+            sp = specs or KVCache(k=None, v=None, length=None)
+            length = (self.length.full() if isinstance(self.length, Sharded)
+                      else self.length)
+            return KVCache(k=rows_of(self.k, sp.k), v=rows_of(self.v, sp.v),
+                           length=length[idx.to(length.device)],
+                           k_scale=rows_of(self.k_scale, sp.k_scale),
+                           v_scale=rows_of(self.v_scale, sp.v_scale))
         idx = idx.to(self.k.device)
 
         def rows(t):

@@ -20,6 +20,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel.mesh import REPLICATED, Sharded, put
+
 
 @dataclass
 class QTensor:
@@ -124,10 +126,29 @@ _QUANT_LEAF_NAMES = frozenset(
 )
 
 
+def _quantize_placed(w: Sharded) -> QTensor:
+    """A weight placed on a mesh quantized as the whole weight (its
+    scale's maximum runs over the whole contraction axis): the codes
+    placed like the weight, the scales split with the output columns or,
+    for a weight split along its input rows, whole."""
+    qt = quantize_tensor(w.full())
+    out_split = w.grid[0] > 1 and w.spec.dim == len(w.shape) - 1
+    return QTensor(q=put(w.mesh, qt.q, w.spec),
+                   scale=put(w.mesh, qt.scale,
+                             w.spec if out_split else REPLICATED))
+
+
 def quantize_params(params: dict, *, min_size: int = 1 << 16) -> dict:
     """Quantize the matmul weights of a parameter tree for serving.
     Embeddings and leaves under ``min_size`` elements stay full
-    precision; an untied ``lm_head`` is quantized too."""
+    precision; an untied ``lm_head`` is quantized too. A tree placed on
+    a mesh quantizes each weight as the whole, so its codes and scales
+    are the unplaced tree's, placed (``_quantize_placed``)."""
+
+    def quantize(node):
+        if isinstance(node, Sharded):
+            return _quantize_placed(node)
+        return quantize_tensor(node)
 
     def walk(node, name=""):
         if isinstance(node, dict):
@@ -136,10 +157,10 @@ def quantize_params(params: dict, *, min_size: int = 1 << 16) -> dict:
             return node
         if (
             name in _QUANT_LEAF_NAMES
-            and getattr(node, "ndim", 0) in (2, 3)
+            and len(getattr(node, "shape", ())) in (2, 3)
             and node.numel() >= min_size
         ):
-            return quantize_tensor(node)
+            return quantize(node)
         return node
 
     out = dict(walk(params))
@@ -147,10 +168,10 @@ def quantize_params(params: dict, *, min_size: int = 1 << 16) -> dict:
     if (
         head is not None
         and not isinstance(head, QTensor)
-        and getattr(head, "ndim", 0) == 2
+        and len(getattr(head, "shape", ())) == 2
         and head.numel() >= min_size
     ):
-        out["lm_head"] = quantize_tensor(head)
+        out["lm_head"] = quantize(head)
     return out
 
 
@@ -160,7 +181,7 @@ def quantized_bytes(params) -> int:
         return sum(quantized_bytes(v) for v in params.values())
     if isinstance(params, QTensor):
         return quantized_bytes(params.q) + quantized_bytes(params.scale)
-    if isinstance(params, torch.Tensor):
+    if isinstance(params, (torch.Tensor, Sharded)):
         return params.numel() * params.element_size()
     return 0
 

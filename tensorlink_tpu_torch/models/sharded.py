@@ -1,0 +1,453 @@
+"""The dense forward over a tree placed on a ``{data, tensor}`` mesh —
+the port's counterpart of the JAX package's GSPMD path (``forward`` /
+``stage_forward`` over a ``put`` tree, with the flash prefill run per
+shard inside ``shard_map``).
+
+One controller process runs every shard, as in ``engine/paged.py``'s
+tensor-parallel step. The mesh's data groups each take their rows of
+the batch — a contiguous block when the cache (or, without one, the
+batch) splits over ``data``, else every row, once per distinct device
+set — and within a group shard ``t`` runs its heads: its q/k/v columns,
+its kv heads of the cache, its attention (``flash_attention`` over its
+``B/dp`` rows and ``Hq/tp`` query heads when the flash gate passes; no
+collective: attention is independent per row and head). Where the
+tensor axis cannot split the heads (a head count it does not divide, or
+qk_norm_full's norm over the whole projection), each device joins the
+shards' q/k/v columns and attends over every head with the cache whole
+over tensor, as GSPMD reshards. Every other product follows its
+weight's placement:
+
+- a weight split along its output columns (the serving specs'
+  ``wo``/``w_down``, any ``wq``/``w_gate``, an ``lm_head``) makes each
+  shard's columns, reassembled by a fixed-order concatenation;
+- a weight split along its input rows (the Megatron specs' ``wo``/
+  ``w_down``) makes each shard's partial product, reduced by a
+  fixed-order sum, shard 0 first; its whole bias is added once after;
+- a tied embedding split along the vocabulary looks each token up in the
+  shard that holds its row and makes each shard's logit columns;
+- a MoE layer's experts split their hidden dim: each shard's gated
+  partial outputs, summed in shard order;
+- a replicated leaf runs once per distinct device.
+
+The products after attention are the tensor-parallel epilogue the paged
+serving step runs too (``models/transformer.py::_tp_residual`` and
+``_tp_logits`` over one :class:`~.transformer.TPLayout` per data group);
+this module adds the per-shard attention over the dense cache and the
+vocabulary-split embedding lookup. Norms, residual adds, rope and the
+masks run once per distinct device of a group, on the whole ``d_model``.
+The logits or hidden states come back whole on the mesh's first device;
+the cache is written in place, piece by piece, and its ``length`` (a
+``[B]`` tensor the host loops read and rewrite) comes back in the form
+it came in.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..parallel.mesh import (
+    Sharded,
+    full_tree,
+    shard_tree,
+    to_device,
+    tree_mesh,
+)
+from .base import KVCache, ModelConfig
+from .quant import QTensor
+from .transformer import (
+    TPLayout,
+    _attend,
+    _embed_tokens,
+    _layers,
+    _mask_bias,
+    _norm,
+    _qkv,
+    _rope_dim,
+    _tp_gather,
+    _tp_logits,
+    _tp_residual,
+    flash_gate,
+    rope_tables,
+)
+
+
+def _leaf(x):
+    return x.q if isinstance(x, QTensor) else x
+
+
+def _kind(leaf, ndim_stacked: int, tensor_axis: str | None) -> str:
+    """How a (stacked) leaf lies over the tensor axis: ``"rep"``,
+    ``"col"`` (its last dimension split) or ``"row"`` (its second to last:
+    the contraction rows of a ``[.., in, out]`` weight, or the vocabulary
+    rows of the embedding)."""
+    leaf = _leaf(leaf)
+    if not isinstance(leaf, Sharded) or leaf.grid[0] == 1:
+        return "rep"
+    if tensor_axis is None or tensor_axis not in (
+            (leaf.spec.axis,) if isinstance(leaf.spec.axis, str)
+            else leaf.spec.axis):
+        raise ValueError(f"a leaf split over {leaf.spec.axis!r}: the dense "
+                         f"forward splits leaves over the tensor axis only")
+    if leaf.spec.dim == ndim_stacked - 1:
+        return "col"
+    if leaf.spec.dim == ndim_stacked - 2:
+        return "row"
+    raise ValueError(f"a leaf split along dim {leaf.spec.dim} of "
+                     f"{tuple(leaf.shape)}")
+
+
+class _Placed:
+    """A placed tree read for one forward: the mesh's data groups, each a
+    :class:`~.transformer.TPLayout` over its tensor shards (with how every
+    weight lies) and its shards' trees."""
+
+    def __init__(self, params: dict, cfg: ModelConfig):
+        mesh = tree_mesh(params)
+        self.mesh = mesh
+        sizes = mesh.shape
+        self.tensor_axis = next(
+            (a for a in ("tensor", "tp") if sizes.get(a, 1) > 1), None)
+        self.tp = sizes.get(self.tensor_axis, 1) if self.tensor_axis else 1
+        self.dp = sizes.get("data", 1)
+        flat = mesh.flat()
+        d_idx = mesh.axis_index("data")
+        t_idx = (mesh.axis_index(self.tensor_axis) if self.tensor_axis
+                 else [0] * mesh.size)
+        # group g's shard t is flattened device groups[g][t]
+        self.groups = [[0] * self.tp for _ in range(self.dp)]
+        for j in range(mesh.size):
+            self.groups[d_idx[j]][t_idx[j]] = j
+        self.primary = flat[0]
+        shards = [shard_tree(params, j) for j in range(mesh.size)]
+        layers = ([_layers(t) for t in shards] if "layers" in params
+                  else None)
+        ax = self.tensor_axis
+        lay = params.get("layers", {})
+        attn, mlp = lay.get("attn", {}), lay.get("mlp", {})
+        self.qkv = _kind(attn["wq"], 3, ax) if "wq" in attn else "rep"
+        up = mlp.get("w_up", mlp.get("w_gate"))
+        nd = 4 if cfg.moe else 3
+        kinds = dict(
+            wo=_kind(attn["wo"], 3, ax) if "wo" in attn else "rep",
+            up=_kind(up, nd, ax) if up is not None else "rep",
+            down=_kind(mlp["w_down"], nd, ax) if "w_down" in mlp else "rep",
+            tok=_kind(params["embed"]["tok"], 2, ax)
+            if "tok" in params.get("embed", {}) else "rep",
+            head=_kind(params["lm_head"], 2, ax) if "lm_head" in params
+            else "rep")
+        # the attention leaves split by output column (q/k/v, their
+        # biases, qk_norm_full's scales)
+        self.attn_cols = {n for n, leaf in attn.items() if _kind(
+            leaf, len(_leaf(leaf).shape), ax) == "col"}
+        self.split_heads = _splits_heads(self.qkv, cfg, self.tp)
+        if (kinds["up"] == "rep") != (kinds["down"] == "rep"):
+            raise ValueError("the MLP's projections are not split together "
+                             "over the tensor axis")
+        if cfg.moe and kinds["up"] != "rep" and kinds["down"] != "row":
+            raise ValueError("a MoE layer splits its experts' hidden dim "
+                             "(w_down along its rows)")
+        if kinds["tok"] == "col" or kinds["head"] == "row":
+            raise ValueError("the embedding splits its vocabulary rows and "
+                             "the head its vocabulary columns only")
+        self.lays = [TPLayout([flat[j] for j in grp], **kinds)
+                     for grp in self.groups]
+        self.shards = [[shards[j] for j in grp] for grp in self.groups]
+        self.layers = (None if layers is None else
+                       [[layers[j] for j in grp] for grp in self.groups])
+
+
+def _splits_heads(qkv: str, cfg: ModelConfig, tp: int) -> bool:
+    """Whether each tensor shard attends over its own heads: q/k/v split by
+    column, both head counts divided by the axis, and no norm over the
+    whole projection (qk_norm_full). Else every device joins the shards'
+    projection columns and attends over all heads, as GSPMD reshards."""
+    return (qkv == "col" and not cfg.n_heads % tp
+            and not cfg.n_kv_heads % tp and not cfg.qk_norm_full)
+
+
+def head_axis(params: dict, cfg: ModelConfig) -> str | None:
+    """The axis a placed tree's forward splits the heads (and so the
+    cache's kv heads) over, or None."""
+    pl = _Placed(params, cfg)
+    return pl.tensor_axis if pl.split_heads else None
+
+
+def _joined_attn(pl: _Placed, lps: list, lay: TPLayout, device) -> dict:
+    """A group's layer attention leaves whole on ``device`` (``lps[t]``
+    shard ``t``'s): the column-split ones joined from the shards (codes
+    and scales of a quantized one alike)."""
+    out = dict(lps[lay.first[device]]["attn"])
+    for n in pl.attn_cols:
+        pieces = [lp["attn"][n] for lp in lps]
+        if isinstance(pieces[0], QTensor):
+            out[n] = QTensor(q=_tp_gather([p.q for p in pieces], device),
+                             scale=_tp_gather([p.scale for p in pieces],
+                                              device))
+        else:
+            out[n] = _tp_gather(pieces, device)
+    return out
+
+
+def _rows_split(cache: KVCache | None, B: int, dp: int) -> bool:
+    """Whether the data groups take a block of rows each: when the cache
+    splits its batch over ``data``, or, without a cache, when ``data``
+    divides the batch (JAX's rule: a batch it does not divide replicates
+    over ``data``, and nothing raises)."""
+    if dp <= 1:
+        return False
+    if cache is not None:
+        k = cache.k
+        return isinstance(k, Sharded) and k.grid[1] > 1
+    return B % dp == 0
+
+
+def _cache_piece(cache: KVCache, j: int, i: int) -> tuple:
+    """Shard ``j``'s layer-``i`` views of the cache's fields."""
+    out = []
+    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if t is None:
+            continue
+        out.append((t.shards[j] if isinstance(t, Sharded) else t)[i])
+    return tuple(out)
+
+
+def _check_cache(cache: KVCache, pl: _Placed, rows_split: bool) -> None:
+    k = cache.k
+    if not isinstance(k, Sharded):
+        raise ValueError("a placed tree runs over a placed cache "
+                         "(models/transformer.py::cache_specs)")
+    heads = k.grid[0] > 1
+    if heads != pl.split_heads:
+        raise ValueError(f"the cache splits its kv heads {heads}, the "
+                         f"forward its heads {pl.split_heads}")
+    if heads and (k.spec.dim != 3 or k.grid[0] != pl.tp):
+        raise ValueError(f"the cache splits dim {k.spec.dim} "
+                         f"{k.grid[0]} ways")
+    if rows_split and k.spec.data_dim != 1:
+        raise ValueError(f"the cache splits dim {k.spec.data_dim} over data")
+
+
+def _embed(pl: _Placed, tokens: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor, g: int) -> dict:
+    """Each distinct device's embedding of ``tokens``: a vocabulary-split
+    table looks each token up in the shard holding its row."""
+    lay, shards = pl.lays[g], pl.shards[g]
+    looked = []
+    if lay.tok != "rep":
+        # each shard looks up the tokens its vocabulary rows hold, on its
+        # own device (a token outside them reads a clamped row, unused)
+        for t, sh in enumerate(shards):
+            tab = sh["embed"]["tok"]
+            n = tab.shape[0]
+            local = to_device(tokens, tab.device).long() - t * n
+            looked.append((local, tab[torch.clamp(local, 0, n - 1)], n))
+    out = {}
+    for d, i in lay.first.items():
+        if lay.tok == "rep":
+            x = _embed_tokens(shards[i], to_device(tokens, d).long(), cfg)
+        else:
+            x = None
+            for local, rows, n in looked:
+                local, rows = to_device(local, d), to_device(rows, d)
+                hit = (local >= 0) & (local < n)
+                x = rows if x is None else torch.where(hit[..., None], rows,
+                                                       x)
+            x = x.to(cfg.dtype)
+            if cfg.embed_scale:
+                x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype,
+                                     device=d)
+        if cfg.pos == "learned":
+            pos_idx = torch.clamp(to_device(positions, d).long(), 0,
+                                  cfg.max_seq_len - 1)
+            x = x + shards[i]["embed"]["pos"][pos_idx].to(cfg.dtype)
+        out[d] = x
+    return out
+
+
+def _block(pl: _Placed, x: dict, lps: list, cfg: ModelConfig, g: int,
+           rope: dict, bias: dict, cache: KVCache | None, write_at: dict,
+           attn_fn, kv_upto, i: int) -> dict:
+    """One decoder block over group ``g`` (``lps[t]``: shard ``t``'s
+    layer ``i``): each shard's heads — or, where the heads do not split,
+    all of them once per distinct device from the joined q/k/v columns,
+    each device writing its own copy of the cache — then the shared
+    tensor-parallel epilogue (:func:`~.transformer._tp_residual`)."""
+    lay, group = pl.lays[g], pl.groups[g]
+    h = x if cfg.norm_position == "post" else {
+        d: _norm(x[d], lps[t]["ln1"], cfg) for d, t in lay.first.items()}
+    split = pl.split_heads
+    outs = {}
+    for t in (range(lay.tp) if split else lay.first.values()):
+        d = lay.devices[t]
+        lp = lps[t] if split or pl.qkv == "rep" else {
+            "attn": _joined_attn(pl, lps, lay, d)}
+        q, k, v = _qkv(h[d], lp, cfg, *rope[d])
+        kv = _cache_piece(cache, group[t], i) if cache is not None else None
+        outs[t] = _attend(q, k, v, cfg, bias[d], kv, write_at[d], attn_fn,
+                          kv_upto)
+    attn = ([outs[t] for t in range(lay.tp)] if split
+            else {lay.devices[t]: a for t, a in outs.items()})
+    return _tp_residual(x, attn, lps, cfg, lay)
+
+
+def _groups_to_run(pl: _Placed, rows_split: bool) -> list[int]:
+    """Every group when the rows split; else one per distinct device set
+    (a group on the same devices would repeat the same work into the
+    same cache pieces)."""
+    if rows_split:
+        return list(range(pl.dp))
+    seen, out = set(), []
+    for g, lay in enumerate(pl.lays):
+        key = tuple(lay.devices)
+        if key not in seen:
+            seen.add(key)
+            out.append(g)
+    return out
+
+
+def stage(
+    params: dict,
+    cfg: ModelConfig,
+    *,
+    tokens: torch.Tensor | None = None,
+    hidden: torch.Tensor | None = None,
+    cache: KVCache | None = None,
+    attn_mask: torch.Tensor | None = None,
+    positions: torch.Tensor | None = None,
+    first: bool,
+    last: bool,
+    flash_prefill: bool = False,
+    final_norm: bool = False,
+):
+    """``models/transformer.py::_stage_impl`` over a placed tree (see the
+    module docstring): ``(out, new_cache)``, ``out`` the logits when
+    ``last``, else the hidden states (final-normed when ``final_norm``),
+    whole on the mesh's first device."""
+    pl = _Placed(params, cfg)
+    x_in = tokens if first else hidden
+    if x_in is None:
+        raise ValueError("first stage requires tokens" if first
+                         else "non-first stage requires hidden")
+    B, T = x_in.shape[:2]
+    dev0 = pl.primary
+    if attn_mask is None:
+        attn_mask = torch.ones((B, T), dtype=torch.bool, device=dev0)
+    length_in = None
+    if cache is not None:
+        length_in = cache.length
+        offset = (length_in.full(dev0) if isinstance(length_in, Sharded)
+                  else to_device(length_in, dev0))
+    else:
+        offset = torch.zeros((B,), dtype=torch.int32, device=dev0)
+    attn_mask = to_device(attn_mask, dev0)
+    if positions is None:
+        positions = offset.long()[:, None] + torch.arange(
+            T, device=dev0)[None]
+    rows_split = _rows_split(cache, B, pl.dp)
+    if cache is not None:
+        _check_cache(cache, pl, rows_split)
+    b = B // pl.dp if rows_split else B
+
+    attn_fn, kv_upto = None, None
+    use_flash = flash_gate(cfg, T, cache is not None, flash_prefill)
+    if use_flash:
+        from ..ops.attention import flash_attention
+
+        win = cfg.sliding_window
+
+        def attn_fn(q, k_all, v_all, _bias, scale):
+            return flash_attention(q.contiguous(), k_all, v_all,
+                                   scale=scale, window=win)
+
+        kv_upto = T
+    new_len = offset + attn_mask.sum(-1).to(torch.int32)
+
+    outs = []
+    for g in _groups_to_run(pl, rows_split):
+        rows = slice(g * b, (g + 1) * b) if rows_split else slice(0, B)
+        lay = pl.lays[g]
+        rope, bias, write_at = {}, {}, {}
+        for d in lay.distinct:
+            pos = to_device(positions[rows], d)
+            rope[d] = (rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
+                       if cfg.pos == "rope" else (None, None))
+            write_at[d] = to_device(offset[rows], d)
+            if use_flash:
+                bias[d] = None
+                continue
+            if cache is not None:
+                S = cache.max_len
+                kv_idx = torch.arange(S, device=d)[None, :]
+                valid_kv = kv_idx < to_device(new_len[rows], d)[:, None]
+            else:
+                valid_kv = to_device(attn_mask[rows], d)
+            bias[d] = _mask_bias(pos, valid_kv.shape[-1], valid_kv,
+                                 cfg.sliding_window)
+        if first:
+            x = _embed(pl, x_in[rows], cfg, positions[rows], g)
+        else:
+            x = {d: to_device(x_in[rows], d).to(cfg.dtype)
+                 for d in lay.distinct}
+        if pl.layers is not None:
+            for i in range(len(pl.layers[g][0])):
+                lps = [layers[i] for layers in pl.layers[g]]
+                x = _block(pl, x, lps, cfg, g, rope, bias, cache, write_at,
+                           attn_fn, kv_upto, i)
+        shards = pl.shards[g]
+        if last:
+            xn = {d: _norm(x[d], shards[t]["final_norm"], cfg)
+                  for d, t in lay.first.items()}
+            outs.append(_tp_logits(shards, xn, cfg, lay))
+        elif final_norm:
+            outs.append(_norm(x[lay.primary], shards[0]["final_norm"], cfg))
+        else:
+            outs.append(x[lay.primary])
+    out = (torch.cat([to_device(o, dev0) for o in outs], dim=0)
+           if rows_split else to_device(outs[0], dev0))
+    new_cache = cache
+    if cache is not None and pl.layers is not None:
+        if isinstance(length_in, Sharded):
+            from ..parallel.mesh import put
+
+            length = put(length_in.mesh, new_len, length_in.spec)
+        else:
+            length = to_device(new_len, length_in.device)
+        new_cache = KVCache(k=cache.k, v=cache.v, length=length,
+                            k_scale=cache.k_scale, v_scale=cache.v_scale)
+    return out, new_cache
+
+
+def logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The LM head of a placed tree over already final-normed ``x``
+    (whole), on the mesh's first device."""
+    pl = _Placed(params, cfg)
+    lay = pl.lays[0]
+    return _tp_logits(pl.shards[0], {d: to_device(x, d) for d in lay.distinct},
+                      cfg, lay)
+
+
+def head(params: dict, hidden: torch.Tensor,
+         cfg: ModelConfig) -> torch.Tensor:
+    """``head_forward`` over a placed tree: final norm and LM head."""
+    pl = _Placed(params, cfg)
+    lay, shards = pl.lays[0], pl.shards[0]
+    x = {d: _norm(to_device(hidden, d).to(cfg.dtype),
+                  shards[t]["final_norm"], cfg) for d, t in lay.first.items()}
+    return _tp_logits(shards, x, cfg, lay)
+
+
+def whole(params: dict, device=None) -> dict:
+    """A placed tree joined whole (quantized leaves too) on ``device``:
+    what training takes, so a placed job's step is the whole tree's."""
+    def join(node):
+        if isinstance(node, dict):
+            return {k: join(v) for k, v in node.items()}
+        if isinstance(node, QTensor) and isinstance(node.q, Sharded):
+            return QTensor(q=node.q.full(device), scale=node.scale.full(
+                device))
+        return full_tree(node, device)
+
+    return join(params)
+
+
+__all__ = ["head", "head_axis", "logits", "stage", "whole"]

@@ -30,16 +30,20 @@ or without the head, over a session cache sized to the slice — and
 :func:`head_forward` is the final norm and LM head alone (the tied head's
 hop back to stage 0).
 
-Explicit tensor parallelism for the paged serving path:
-:func:`tp_shardable`, :func:`tp_partition_specs` (the spec tree
-``parallel/mesh.py::put`` places a tree by) and the sharded block
-epilogue (:func:`_tp_residual`, :func:`_tp_mlp`, :func:`_tp_logits`) that
-``engine/paged.py::make_tp_ragged_step`` runs over per-shard parameter
-trees, reassembling split activations with :func:`_tp_gather`.
+Explicit tensor parallelism: :func:`tp_shardable`,
+:func:`tp_partition_specs` (the serving spec tree ``parallel/mesh.py::put``
+places a tree by), :func:`partition_specs` (the Megatron one) and the one
+sharded block epilogue (:func:`_tp_residual`, :func:`_tp_mlp`,
+:func:`_tp_logits` over a :class:`TPLayout`: split activations rejoin by
+:func:`_tp_gather`, row-split partial products by the fixed-order
+:func:`_tp_sum`). ``engine/paged.py::make_tp_ragged_step`` runs it over
+per-shard trees, and ``models/sharded.py`` runs the dense forward over a
+tree placed on a ``{data, tensor}`` mesh (JAX's GSPMD path; its cache by
+:func:`cache_specs`) with it, each shard's attention through
+:func:`_attend`.
 
-Not ported: ring attention (``seq_mesh``, ROADMAP queue 1 item 5). The
-dense forward over a tree placed on a mesh (JAX's GSPMD path) raises
-naming item 3.
+Not ported: ring attention (``seq_mesh``, ROADMAP queue 1 item 5) and
+the fsdp axis of :func:`partition_specs` (item 3).
 """
 
 from __future__ import annotations
@@ -282,7 +286,12 @@ def _moe_mlp(h: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """LM head: the tied embedding's transpose, or ``lm_head``, plus the
-    optional Gemma-style soft cap."""
+    optional Gemma-style soft cap (over a placed tree: each shard's
+    vocabulary columns, ``models/sharded.py``)."""
+    if is_sharded(params):
+        from . import sharded
+
+        return sharded.logits(params, x, cfg)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["tok"].T.to(cfg.dtype)
     else:
@@ -461,6 +470,86 @@ def tp_partition_specs(cfg: ModelConfig, axis: str = "tp") -> dict:
     return specs
 
 
+def partition_specs(
+    cfg: ModelConfig,
+    *,
+    tensor_axis: str | None = "tensor",
+    expert_axis: str | None = None,
+    fsdp_axis: str | None = None,
+) -> dict:
+    """The Megatron-style spec tree of the JAX ``partition_specs`` (the
+    GSPMD dense path): q/k/v, gate and up split their output columns over
+    ``tensor_axis``, ``wo``/``w_down`` their input rows, the embedding
+    its vocabulary rows and ``lm_head`` its vocabulary columns; norms,
+    the output biases and the router replicate. ``models/sharded.py`` runs
+    the forward over a tree placed by it. The fsdp and expert axes are
+    not ported."""
+    if fsdp_axis is not None:
+        raise unported("the fsdp axis (ZeRO-3 parameter sharding, "
+                       "partition_specs(fsdp_axis=))", 3)
+    if expert_axis is not None:
+        raise unported("the expert axis (partition_specs(expert_axis=))", 4)
+    t = tensor_axis
+
+    def sp(dim: int) -> Split:
+        return REPLICATED if t is None else Split(dim, t)
+
+    rep = REPLICATED
+    ln = {"scale": rep}
+    if cfg.norm == "layernorm":
+        ln["bias"] = rep
+    attn = {"wq": sp(2), "wk": sp(2), "wv": sp(2), "wo": sp(1)}
+    if cfg.attn_bias:
+        attn |= {"bq": sp(1), "bk": sp(1), "bv": sp(1)}
+    if cfg.attn_out_bias or cfg.family == "gpt2":  # must match init_params
+        attn["bo"] = rep
+    if cfg.qk_norm:
+        attn |= {"q_norm": rep, "k_norm": rep}
+    if cfg.qk_norm_full:  # the scales align with the split projections
+        attn |= {"q_norm": sp(1), "k_norm": sp(1)}
+    if cfg.moe:
+        mlp = {"router": rep, "w_gate": sp(3), "w_up": sp(3),
+               "w_down": sp(2)}
+    elif cfg.mlp == "gated":
+        mlp = {"w_gate": sp(2), "w_up": sp(2), "w_down": sp(1)}
+        if cfg.mlp_bias:
+            mlp |= {"b_gate": sp(1), "b_up": sp(1), "b_down": rep}
+    else:
+        mlp = {"w_up": sp(2), "b_up": sp(1), "w_down": sp(1),
+               "b_down": rep}
+    specs = {
+        "embed": {"tok": sp(0)},
+        "layers": {"ln1": ln, "attn": attn, "ln2": dict(ln), "mlp": mlp},
+        "final_norm": {"scale": rep}
+        | ({"bias": rep} if cfg.norm == "layernorm" else {}),
+    }
+    if cfg.pos == "learned":
+        specs["embed"]["pos"] = rep
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = sp(1)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, *, data_axis: str | None = "data",
+                tensor_axis: str | None = "tensor",
+                quantized: bool = False) -> KVCache:
+    """The dense cache's spec (JAX ``cache_specs``): the batch on
+    ``data``, the kv heads on ``tensor_axis`` (each None to keep it
+    whole), the int8 scales split like their payload and ``length`` with
+    the batch."""
+    if data_axis not in (None, "data"):
+        raise ValueError(f"the cache's batch splits over 'data', not "
+                         f"{data_axis!r}")
+    kv = Split(3 if tensor_axis else None, tensor_axis or "tp",
+               1 if data_axis else None)
+    return KVCache(
+        k=kv, v=kv,
+        length=Split(0, "data") if data_axis else REPLICATED,
+        k_scale=kv if quantized else None,
+        v_scale=kv if quantized else None,
+    )
+
+
 def _tp_gather(parts: list, device) -> torch.Tensor:
     """Reassemble an activation whose LAST axis is split over the shards:
     the pieces concatenated in mesh order on ``device`` — JAX's tiled
@@ -471,20 +560,44 @@ def _tp_gather(parts: list, device) -> torch.Tensor:
     return torch.cat([to_device(p, device) for p in parts], dim=-1)
 
 
-class TPLayout:
-    """Where a tensor-parallel forward runs: shard ``i`` on
-    ``devices[i]`` (mesh order), and the replicated work — embedding,
-    norms, residual adds, the tied head — once on each distinct device,
-    with the parameters of the first shard there. A replicated activation
-    is a dict ``{device: tensor}``."""
+def _tp_sum(parts: list, device) -> torch.Tensor:
+    """Reduce the shards' partial products in a fixed order on ``device``:
+    ``((p0 + p1) + p2) + …``, shard 0 first, whatever the shard count."""
+    acc = to_device(parts[0], device)
+    for p in parts[1:]:
+        acc = acc + to_device(p, device)
+    return acc
 
-    def __init__(self, devices):
+
+def _plus(y: torch.Tensor, b) -> torch.Tensor:
+    return y if b is None else y + b
+
+
+class TPLayout:
+    """Where a tensor-parallel forward runs and how its weights lie.
+    Shard ``i`` runs on ``devices[i]`` (mesh order); the replicated work
+    — embedding, norms, residual adds — runs once on each distinct
+    device, with the parameters of the first shard there. A replicated
+    activation is a dict ``{device: tensor}``.
+
+    ``wo``, ``up``/``down`` (the MLP's input and output projections),
+    ``tok`` (the embedding table) and ``head`` (an untied ``lm_head``)
+    each name how that weight lies over the shards: ``"rep"`` whole on
+    every shard, ``"col"`` split along its output columns, ``"row"``
+    along its input rows (the embedding: its vocabulary rows). The
+    defaults are :func:`tp_partition_specs`' (every product by column);
+    ``models/sharded.py`` reads them off a placed tree."""
+
+    def __init__(self, devices, *, wo: str = "col", up: str = "col",
+                 down: str = "col", tok: str = "rep", head: str = "col"):
         self.devices = [torch.device(d) for d in devices]
         self.first: dict[torch.device, int] = {}
         for i, d in enumerate(self.devices):
             self.first.setdefault(d, i)
         self.distinct = list(self.first)
         self.primary = self.devices[0]
+        self.wo, self.up, self.down = wo, up, down
+        self.tok, self.head = tok, head
 
     @property
     def tp(self) -> int:
@@ -499,10 +612,42 @@ class TPLayout:
         return {d: per_shard[i] for d, i in self.first.items()}
 
 
+def _tp_project(lay: TPLayout, kind: str, x, weight, bias) -> dict:
+    """``X @ W (+ b)`` over the shards, whole on every distinct device.
+    ``x`` is the input split along its last axis (a list, shard ``i``'s
+    piece) or whole (a dict ``{device: tensor}``); ``weight(i)`` and
+    ``bias(i)`` read shard ``i``'s leaves. By ``kind``: ``"col"`` each
+    shard makes its output columns from the whole input, gathered;
+    ``"row"`` each shard its partial product over its input rows, summed
+    shard 0 first (:func:`_tp_sum`), the whole bias added once after;
+    ``"rep"`` the whole product once per distinct device."""
+    if kind == "row":
+        if isinstance(x, dict):  # each shard's slice of its device's whole
+            w = next(iter(x.values())).shape[-1] // lay.tp
+            x = [x[d][..., i * w:(i + 1) * w]
+                 for i, d in enumerate(lay.devices)]
+        partial = [_mm(p, weight(i)) for i, p in enumerate(x)]
+        return {d: _plus(_tp_sum(partial, d), bias(i))
+                for d, i in lay.first.items()}
+    whole = x if isinstance(x, dict) else lay.gather(x)
+    if kind == "col":
+        return lay.gather([_plus(_mm(whole[d], weight(i)), bias(i))
+                           for i, d in enumerate(lay.devices)])
+    return {d: _plus(_mm(whole[d], weight(i)), bias(i))
+            for d, i in lay.first.items()}
+
+
 def _tp_mlp(h: dict, mlps: list, cfg: ModelConfig, lay: TPLayout) -> dict:
-    """The dense MLP over shards: each shard's gate/up columns, the
-    hidden gathered whole, each shard's ``w_down`` output columns, the
-    output gathered — JAX's ``_mlp`` with ``tp_axis``."""
+    """The MLP over shards — JAX's ``_mlp`` with ``tp_axis``: each
+    shard's gate/up columns, then ``w_down`` by :func:`_tp_project`. A
+    replicated MLP runs whole once per distinct device; a MoE layer whose
+    experts split their hidden dim sums each shard's gated partial
+    output, shard 0 first."""
+    if lay.up == "rep":
+        return {d: _mlp(x, mlps[lay.first[d]], cfg) for d, x in h.items()}
+    if cfg.moe:
+        parts = [_mlp(h[d], p, cfg) for p, d in zip(mlps, lay.devices)]
+        return {d: _tp_sum(parts, d) for d in lay.distinct}
     mids = []
     for p, d in zip(mlps, lay.devices):
         if cfg.mlp == "gated":
@@ -514,33 +659,26 @@ def _tp_mlp(h: dict, mlps: list, cfg: ModelConfig, lay: TPLayout) -> dict:
             mids.append(_act(g, cfg.act) * u)
         else:
             mids.append(_act(_mm(h[d], p["w_up"]) + p["b_up"], cfg.act))
-    mid = lay.gather(mids)
-    outs = []
-    for p, d in zip(mlps, lay.devices):
-        out = _mm(mid[d], p["w_down"])
-        if "b_down" in p:
-            out = out + p["b_down"]
-        outs.append(out)
-    return lay.gather(outs)
+    return _tp_project(lay, lay.down, mids, lambda i: mlps[i]["w_down"],
+                       lambda i: mlps[i].get("b_down"))
 
 
-def _tp_residual(x: dict, attn_parts: list, lps: list, cfg: ModelConfig,
+def _tp_residual(x: dict, attn, lps: list, cfg: ModelConfig,
                  lay: TPLayout) -> dict:
-    """:func:`_residual` over shards: ``attn_parts[i]`` is shard ``i``'s
-    attention output over its local heads ``[B, T, Hq/tp, hd]``. The
-    flattened heads gather whole, each shard's ``wo`` makes its output
-    columns (plus its bias slice), and those gather too; the residual
-    stream ``x`` is whole on every device, so the norms and adds are the
-    unsharded ones."""
-    B, T = attn_parts[0].shape[:2]
-    flat = lay.gather([a.reshape(B, T, -1) for a in attn_parts])
-    outs = []
-    for lp, d in zip(lps, lay.devices):
-        o = _mm(flat[d], lp["attn"]["wo"])
-        if "bo" in lp["attn"]:
-            o = o + lp["attn"]["bo"]
-        outs.append(o)
-    attn_out = lay.gather(outs)
+    """:func:`_residual` over shards. ``attn`` is each shard's attention
+    output over its own heads (a list of ``[B, T, Hq/tp, hd]``) or the
+    whole output on each distinct device (a dict of ``[B, T, Hq, hd]``);
+    ``wo`` projects it by :func:`_tp_project`. The residual stream ``x``
+    is whole on every device, so the norms and adds are the unsharded
+    ones."""
+    def flat(a):
+        return a.reshape(a.shape[0], a.shape[1], -1)
+
+    attn = ({d: flat(a) for d, a in attn.items()} if isinstance(attn, dict)
+            else [flat(a) for a in attn])
+    attn_out = _tp_project(lay, lay.wo, attn,
+                           lambda i: lps[i]["attn"]["wo"],
+                           lambda i: lps[i]["attn"].get("bo"))
     rep = lay.rep(lps)
     mlps = [lp["mlp"] for lp in lps]
     if cfg.norm_position == "post":
@@ -559,12 +697,17 @@ def _tp_residual(x: dict, attn_parts: list, lps: list, cfg: ModelConfig,
 
 def _tp_logits(shards: list, x: dict, cfg: ModelConfig,
                lay: TPLayout) -> torch.Tensor:
-    """The LM head over shards, on the primary device: a tied head runs
-    whole there (its embedding is replicated); an untied ``lm_head``
-    makes each shard's vocab columns and they gather."""
-    if cfg.tie_embeddings:
+    """The LM head over shards, on the primary device: a replicated head
+    (or tied table) runs whole there; a split one makes each shard's
+    vocabulary columns — ``lm_head``'s columns, or the tied table's rows
+    transposed — and they gather."""
+    if (lay.tok if cfg.tie_embeddings else lay.head) == "rep":
         return _logits(shards[0], x[lay.primary], cfg)
-    parts = [_mm(x[d], p["lm_head"]) for p, d in zip(shards, lay.devices)]
+    if cfg.tie_embeddings:
+        parts = [x[d] @ p["embed"]["tok"].T.to(cfg.dtype)
+                 for p, d in zip(shards, lay.devices)]
+    else:
+        parts = [_mm(x[d], p["lm_head"]) for p, d in zip(shards, lay.devices)]
     logits = _tp_gather(parts, lay.primary)
     if cfg.logit_cap is not None:
         logits = cfg.logit_cap * torch.tanh(logits / cfg.logit_cap)
@@ -588,6 +731,36 @@ def _write_rows(c: torch.Tensor, u: torch.Tensor,
     c[rows, pos] = u
 
 
+def _attend(q, k, v, cfg: ModelConfig, mask_bias, cache_kv, write_at,
+            attn_fn=None, kv_upto: int | None = None) -> torch.Tensor:
+    """A block's attention after its projections: with a cache
+    (``cache_kv``: ``(k, v)`` or ``(k, v, k_scale, v_scale)``), this
+    step's k/v land at each row's ``write_at`` (in place; int8 mode
+    quantizes them there) and attention reads the whole cache — or its
+    first ``kv_upto`` positions, which is all a fresh-cache flash prefill
+    reads — dequantized to the activation dtype."""
+    if cache_kv is not None:
+        if len(cache_kv) == 4:  # int8 cache: quantize writes, dequant reads
+            ck, cv, cks, cvs = cache_kv
+            k8, ks = _quant_kv(k)
+            v8, vs = _quant_kv(v)
+            for c, u in ((ck, k8), (cv, v8), (cks, ks), (cvs, vs)):
+                _write_rows(c, u, write_at)
+            ck, cv, cks, cvs = (t[:, :kv_upto] for t in cache_kv)
+            k_all = (ck.float() * cks).to(q.dtype)
+            v_all = (cv.float() * cvs).to(q.dtype)
+        else:
+            ck, cv = cache_kv
+            _write_rows(ck, k.to(ck.dtype), write_at)
+            _write_rows(cv, v.to(cv.dtype), write_at)
+            k_all, v_all = ck[:, :kv_upto], cv[:, :kv_upto]
+    else:
+        k_all, v_all = k, v
+    impl = attn_fn or attention
+    return impl(q, k_all.to(q.dtype), v_all.to(q.dtype), mask_bias,
+                _attn_scale(cfg))
+
+
 def _block(
     x: torch.Tensor,
     lp: dict,
@@ -601,33 +774,12 @@ def _block(
     attn_fn=None,  # override: (q, k, v, mask_bias, scale) -> out
     kv_upto: int | None = None,  # attend cache positions [0, kv_upto) only
 ):
-    """One decoder block. With a cache, this step's k/v land at each
-    row's ``write_at`` (in place; int8 mode quantizes them there) and
-    attention reads the whole cache — or its first ``kv_upto`` positions,
-    which is all a fresh-cache flash prefill reads — dequantized to the
-    activation dtype."""
+    """One decoder block: the input norm, :func:`_qkv`, :func:`_attend`
+    (over the cache, when there is one) and :func:`_residual`."""
     h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
     q, k, v = _qkv(h, lp, cfg, cos, sin)
-    if cache_kv is not None:
-        if len(cache_kv) == 4:  # int8 cache: quantize writes, dequant reads
-            ck, cv, cks, cvs = cache_kv
-            k8, ks = _quant_kv(k)
-            v8, vs = _quant_kv(v)
-            for c, u in ((ck, k8), (cv, v8), (cks, ks), (cvs, vs)):
-                _write_rows(c, u, write_at)
-            ck, cv, cks, cvs = (t[:, :kv_upto] for t in cache_kv)
-            k_all = (ck.float() * cks).to(x.dtype)
-            v_all = (cv.float() * cvs).to(x.dtype)
-        else:
-            ck, cv = cache_kv
-            _write_rows(ck, k.to(ck.dtype), write_at)
-            _write_rows(cv, v.to(cv.dtype), write_at)
-            k_all, v_all = ck[:, :kv_upto], cv[:, :kv_upto]
-    else:
-        k_all, v_all = k, v
-    impl = attn_fn or attention
-    attn_raw = impl(q, k_all.to(q.dtype), v_all.to(q.dtype), mask_bias,
-                    _attn_scale(cfg))
+    attn_raw = _attend(q, k, v, cfg, mask_bias, cache_kv, write_at, attn_fn,
+                       kv_upto)
     return _residual(x, attn_raw, lp, cfg)
 
 
@@ -663,14 +815,6 @@ def flash_gate(cfg: ModelConfig, T: int, has_cache: bool,
                 and T > 1 and T % min(128, T) == 0)
 
 
-def _refuse_sharded(params: dict) -> None:
-    """The dense forward takes whole tensors; a tree placed on a mesh
-    (a tensor-parallel engine's) runs only the paged serving step."""
-    if is_sharded(params):
-        raise unported("the dense forward over a tensor-parallel tree "
-                       "(the GSPMD GenerationEngine)", 3)
-
-
 def forward(
     params: dict,
     tokens: torch.Tensor,  # int [B, T]
@@ -703,7 +847,13 @@ def forward(
     The single-stage case of :func:`_stage_impl`, as in JAX."""
     if seq_mesh is not None:
         raise unported("sequence-parallel ring attention (seq_mesh)", 5)
-    _refuse_sharded(params)
+    if is_sharded(params):
+        from . import sharded
+
+        return sharded.stage(
+            params, cfg, tokens=tokens, cache=cache, attn_mask=attn_mask,
+            positions=positions, first=True, last=not return_hidden,
+            flash_prefill=flash_prefill, final_norm=return_hidden)
     if return_hidden:
         x, new_cache = _stage_impl(
             params, cfg, tokens=tokens, cache=cache, attn_mask=attn_mask,
@@ -814,6 +964,10 @@ def head_forward(params: dict, hidden: torch.Tensor,
     """Final norm + LM head only (the JAX ``head_forward``): the
     tied-embedding hop, where the last stage ships its hidden states back
     to stage 0 for the logits."""
+    if is_sharded(params):
+        from . import sharded
+
+        return sharded.head(params, hidden, cfg)
     x = _norm(hidden.to(cfg.dtype), params["final_norm"], cfg)
     return _logits(params, x, cfg)
 
@@ -846,7 +1000,13 @@ def stage_forward(
     Ring attention (``seq_mesh``) raises (ROADMAP queue 1 item 5)."""
     if seq_mesh is not None:
         raise unported("sequence-parallel ring attention (seq_mesh)", 5)
-    _refuse_sharded(params)
+    if is_sharded(params):
+        from . import sharded
+
+        return sharded.stage(
+            params, cfg, tokens=tokens, hidden=hidden, cache=cache,
+            attn_mask=attn_mask, positions=positions, first=first,
+            last=last)
     return _stage_impl(
         params, cfg, tokens=tokens, hidden=hidden, cache=cache,
         attn_mask=attn_mask, positions=positions, first=first, last=last,
@@ -883,10 +1043,12 @@ def slice_stage_params(params: dict, lo: int, hi: int, *, first: bool,
 __all__ = [
     "apply_rope",
     "attention",
+    "cache_specs",
     "flash_gate",
     "forward",
     "head_forward",
     "init_params",
+    "partition_specs",
     "rope_tables",
     "slice_stage_params",
     "stage_forward",

@@ -21,13 +21,15 @@ shards itself and reassembles each split activation with a fixed-order
 concatenation (``models/transformer.py::_tp_gather``), which is what
 JAX's tiled ``all_gather`` computes.
 
-A tensor placed on a mesh is a :class:`Sharded`: one tensor per device of
-a ``(1, tp)`` mesh, in mesh order, shard ``j`` the ``j``-th piece along
-the split dimension (a :class:`Split` spec), or the whole tensor for a
-replicated leaf, shared by every shard on the same device. :func:`put`
-places a tree by a spec tree, as JAX's ``put`` does with
-``NamedSharding``. ``serving_mesh`` lays out a data axis as JAX's does,
-but placement on it (data-parallel serving) is not ported and raises.
+A tensor placed on a mesh is a :class:`Sharded`: one tensor per device
+of the mesh, in mesh order — its piece of the whole by a :class:`Split`
+spec (one dimension over ``tensor``/``tp``, the batch dimension over
+``data``, or both), one tensor shared by every shard on the same device
+that holds the same piece. :func:`put` places a tree by a spec tree, as
+JAX's ``put`` does with ``NamedSharding``; :meth:`Sharded.full` joins a
+leaf exactly and :func:`take_rows` is the cross-shard row gather (the
+beam reorder over a ``data``-split cache). Axes other than ``data``,
+``tensor`` and ``tp`` above 1 raise, naming their ROADMAP queue 1 item.
 
 The default devices are the distinct local CUDA cards. A device repeats
 in a mesh only when the caller names the devices: the tests lay N shards
@@ -164,14 +166,44 @@ def serving_mesh(
     return build_mesh({"data": int(dp), "tp": int(tp)}, devices)
 
 
+# axes a tree may be placed over, and the ROADMAP queue 1 item that
+# brings each of the others
+_PLACED_AXES = ("data", "tensor", "tp")
+# tlint: disable=TL006(read-only constant table — never mutated)
+_UNPORTED_AXES = {
+    "fsdp": ("the fsdp axis (ZeRO-3 parameter sharding)", 3),
+    "expert": ("the expert axis (expert parallelism on a mesh)", 4),
+    "stage": ("the stage axis (in-mesh pipeline stages)", 4),
+    "seq": ("the seq axis (sequence-parallel ring attention)", 5),
+}
+
+
+def _axes(axis) -> tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 @dataclass(frozen=True)
 class Split:
-    """A spec leaf: split dimension ``dim`` over mesh axis ``axis``, or
-    replicate (``dim=None``) — JAX's ``PartitionSpec`` with at most one
-    named dimension."""
+    """A spec leaf — JAX's ``PartitionSpec`` for the layouts the port
+    places: dimension ``dim`` split over mesh axis ``axis`` (a tuple of
+    axes splits it over their flattened grid, ``data_idx * tp +
+    tp_idx``), and/or dimension ``data_dim`` split over ``data``. A spec
+    naming an axis the mesh lacks (or has at size 1) leaves that
+    dimension whole. ``Split()`` replicates."""
 
     dim: int | None = None
-    axis: str = "tp"
+    axis: str | tuple = "tp"
+    data_dim: int | None = None
+
+    def parts(self, ndim: int) -> tuple:
+        """The spec as JAX writes it: one entry per dimension — an axis
+        name, a tuple of names, or None."""
+        out: list = [None] * ndim
+        if self.data_dim is not None:
+            out[self.data_dim] = "data"
+        if self.dim is not None:
+            out[self.dim] = self.axis
+        return tuple(out)
 
 
 REPLICATED = Split()
@@ -187,17 +219,76 @@ def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=t.device.type == device.type == "cuda")
 
 
-class Sharded:
-    """One leaf placed on a ``(1, tp)`` mesh: ``shards[j]`` is shard
-    ``j``'s tensor on flattened device ``j`` — its piece ``j`` along
-    ``spec.dim``, or the whole tensor when ``spec.dim`` is None, one
-    tensor shared by every shard on the same device. ``shape`` and
-    ``dtype`` are the whole tensor's."""
+def _check_axes(mesh: Mesh) -> None:
+    for a, n in mesh.shape.items():
+        if n > 1 and a not in _PLACED_AXES:
+            if a in _UNPORTED_AXES:
+                from .. import unported
 
-    def __init__(self, shards: list, spec: Split, shape: tuple):
+                raise unported(*_UNPORTED_AXES[a])
+            raise ValueError(f"unknown mesh axis {a!r}")
+
+
+def _grid(mesh: Mesh, spec: Split) -> tuple[int, int]:
+    """How many pieces ``spec`` cuts along ``dim`` and along
+    ``data_dim`` on ``mesh``."""
+    sizes = mesh.shape
+    n_a = 1
+    if spec.dim is not None:
+        for a in _axes(spec.axis):
+            n_a *= sizes.get(a, 1)
+    n_d = sizes.get("data", 1) if spec.data_dim is not None else 1
+    return n_a, n_d
+
+
+def _keys(mesh: Mesh, spec: Split) -> list[tuple[int, int]]:
+    """Each flattened device's piece: its index along ``dim`` (over the
+    flattened grid of the spec's axes) and along ``data_dim``."""
+    n_a, n_d = _grid(mesh, spec)
+    shape = mesh.devices.shape
+    out = []
+    for j in range(mesh.size):
+        c = dict(zip(mesh.axis_names, np.unravel_index(j, shape)))
+        a = 0
+        for ax in _axes(spec.axis):
+            a = a * mesh.shape.get(ax, 1) + int(c.get(ax, 0))
+        out.append((a if n_a > 1 else 0,
+                    int(c.get("data", 0)) if n_d > 1 else 0))
+    return out
+
+
+def _cut(x, spec: Split, grid: tuple, key: tuple, lead: int = 0):
+    """Piece ``key`` of the whole array ``x`` (a view of a tensor or a
+    numpy array); ``lead`` shifts the spec's dimensions (``-1``: ``x``
+    lacks the leading layer axis)."""
+    (n_a, n_d), (a, d) = grid, key
+    idx = [slice(None)] * len(x.shape)
+    for dim, n, i in ((spec.data_dim, n_d, d), (spec.dim, n_a, a)):
+        if n > 1:
+            size = x.shape[dim + lead] // n
+            idx[dim + lead] = slice(i * size, (i + 1) * size)
+    return x[tuple(idx)]
+
+
+def _check_split(shape, spec: Split, grid: tuple) -> None:
+    for dim, n in ((spec.dim, grid[0]), (spec.data_dim, grid[1])):
+        if n > 1 and shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"{n} ways")
+
+
+class Sharded:
+    """One leaf placed on a mesh: ``shards[j]`` is flattened device
+    ``j``'s tensor — its piece of the whole along ``spec.dim`` and
+    ``spec.data_dim`` (:func:`_keys`), one tensor shared by every shard
+    on the same device that holds the same piece (a replicated leaf is
+    the whole tensor). ``shape`` and ``dtype`` are the whole tensor's."""
+
+    def __init__(self, shards: list, spec: Split, shape: tuple, mesh: Mesh):
         self.shards = list(shards)
         self.spec = spec
         self.shape = torch.Size(shape)
+        self.mesh = mesh
 
     @property
     def dtype(self) -> torch.dtype:
@@ -207,61 +298,86 @@ class Sharded:
     def devices(self) -> list[torch.device]:
         return [t.device for t in self.shards]
 
+    @property
+    def grid(self) -> tuple[int, int]:
+        return _grid(self.mesh, self.spec)
+
+    def keys(self) -> list[tuple[int, int]]:
+        return _keys(self.mesh, self.spec)
+
     def numel(self) -> int:
         return self.shape.numel()
 
     def element_size(self) -> int:
         return self.shards[0].element_size()
 
+    def distinct(self) -> list[int]:
+        """The shards holding a tensor no earlier shard holds."""
+        seen: set = set()
+        out = []
+        for j, t in enumerate(self.shards):
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append(j)
+        return out
+
+    def copy_(self, t: torch.Tensor, layer: int | None = None) -> None:
+        """Copy the whole tensor ``t`` into this leaf's pieces, in place —
+        into layer ``layer`` of each piece when ``t`` lacks the leading
+        layer axis (the loader fills a stacked leaf layer by layer)."""
+        grid, keys = self.grid, self.keys()
+        lead = 0 if layer is None else -1
+        for j in self.distinct():
+            x = self.shards[j] if layer is None else self.shards[j][layer]
+            x.copy_(_cut(t, self.spec, grid, keys[j], lead))
+
     def full(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (default the first shard's):
-        the pieces concatenated in mesh order."""
+        the pieces concatenated in mesh order — exactly the tensor that
+        was placed."""
         device = torch.device(device) if device is not None \
             else self.shards[0].device
-        if self.spec.dim is None:
+        n_a, n_d = self.grid
+        if n_a == n_d == 1:
             return to_device(self.shards[0], device)
-        return torch.cat([to_device(p, device) for p in self.shards],
-                         dim=self.spec.dim)
+        first: dict = {}
+        for j, key in enumerate(self.keys()):
+            first.setdefault(key, j)
+        rows = []
+        for d in range(n_d):
+            parts = [to_device(self.shards[first[(a, d)]], device)
+                     for a in range(n_a)]
+            rows.append(torch.cat(parts, dim=self.spec.dim)
+                        if n_a > 1 else parts[0])
+        return (torch.cat(rows, dim=self.spec.data_dim) if n_d > 1
+                else rows[0])
 
     def __repr__(self) -> str:
-        return (f"Sharded({tuple(self.shape)}, {self.dtype}, dim="
-                f"{self.spec.dim}, {[str(d) for d in self.devices]})")
+        return (f"Sharded({tuple(self.shape)}, {self.dtype}, {self.spec}, "
+                f"{[str(d) for d in self.devices]})")
 
 
-def _per_device(devs: list, make) -> list:
-    """``make(d)`` once per distinct device, listed in mesh order (the
-    shards on one device share it)."""
+def _placed(mesh: Mesh, spec: Split, shape, make) -> Sharded:
+    """A leaf of the whole ``shape`` laid out by ``spec``: ``make(key,
+    device)`` builds piece ``key`` on ``device`` once per (device, key)."""
+    _check_axes(mesh)
+    _check_split(shape, spec, _grid(mesh, spec))
     made: dict = {}
-    for d in devs:
-        if d not in made:
-            made[d] = make(d)
-    return [made[d] for d in devs]
-
-
-def _tp_devices(mesh: Mesh) -> list[torch.device]:
-    """The devices of a ``(1, tp)`` mesh in shard order; data-parallel
-    placement is not ported, so any other axis above 1 raises."""
-    wide = {a: n for a, n in mesh.shape.items() if a != "tp" and n > 1}
-    if wide:
-        raise ValueError(
-            f"a tree is placed on a (1, tp) mesh only; this mesh has {wide}"
-        )
-    return mesh.flat()
+    shards = []
+    for dev, key in zip(mesh.flat(), _keys(mesh, spec)):
+        if (dev, key) not in made:
+            made[(dev, key)] = make(key, dev)
+        shards.append(made[(dev, key)])
+    return Sharded(shards, spec, shape, mesh)
 
 
 def _place(mesh: Mesh, x: torch.Tensor, spec: Split | None) -> Sharded:
     spec = spec or REPLICATED
-    devs = _tp_devices(mesh)
-    if spec.dim is None:
-        shards = _per_device(devs, lambda d: to_device(x, d))
-    else:
-        if x.shape[spec.dim] % len(devs):
-            raise ValueError(f"dim {spec.dim} of {tuple(x.shape)} does not "
-                             f"split {len(devs)} ways")
-        pieces = torch.chunk(x, len(devs), dim=spec.dim)
-        shards = [p.to(d, copy=True).contiguous()
-                  for p, d in zip(pieces, devs)]
-    return Sharded(shards, spec, x.shape)
+    grid = _grid(mesh, spec)
+    if grid == (1, 1):
+        return _placed(mesh, spec, x.shape, lambda _k, d: to_device(x, d))
+    return _placed(mesh, spec, x.shape, lambda k, d: _cut(
+        x, spec, grid, k).to(d, copy=True).contiguous())
 
 
 def put(mesh: Mesh, tree, specs):
@@ -269,7 +385,9 @@ def put(mesh: Mesh, tree, specs):
     structure (:class:`Split` leaves; None replicates): every leaf becomes
     a :class:`Sharded` whose pieces are contiguous copies on their devices
     (a replicated leaf already on a device is shared there, not copied).
-    ``mesh`` has no axis but ``tp`` above 1."""
+    A tuple node (a ``KVCache`` field list, an optimizer state) places
+    element by element. Axes other than ``data``, ``tensor`` and ``tp``
+    above 1 raise, naming their ROADMAP queue 1 item."""
     if isinstance(tree, dict):
         if not isinstance(specs, dict) or set(tree) != set(specs):
             raise ValueError(
@@ -277,6 +395,12 @@ def put(mesh: Mesh, tree, specs):
                 f"do not match {sorted(tree)}"
             )
         return {k: put(mesh, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(put(mesh, v, s) for v, s in zip(tree, specs))
+    if tree is None:
+        return None
+    if isinstance(tree, Sharded):
+        tree = tree.full()
     return _place(mesh, tree, specs)
 
 
@@ -284,26 +408,98 @@ def zeros(mesh: Mesh, shape, dtype, spec: Split) -> Sharded:
     """A zeroed tensor of the whole ``shape`` laid out by ``spec``, made
     piece by piece on each device (the whole is never built)."""
     shape = tuple(shape)
-    devs = _tp_devices(mesh)
-    if spec.dim is None:
-        shards = _per_device(
-            devs, lambda d: torch.zeros(shape, dtype=dtype, device=d))
-    else:
-        if shape[spec.dim] % len(devs):
-            raise ValueError(f"dim {spec.dim} of {shape} does not split "
-                             f"{len(devs)} ways")
-        piece = list(shape)
-        piece[spec.dim] //= len(devs)
-        shards = [torch.zeros(piece, dtype=dtype, device=d) for d in devs]
-    return Sharded(shards, spec, shape)
+    grid = _grid(mesh, spec)
+    _check_split(shape, spec, grid)
+    piece = list(shape)
+    if grid[0] > 1:
+        piece[spec.dim] //= grid[0]
+    if grid[1] > 1:
+        piece[spec.data_dim] //= grid[1]
+    return _placed(mesh, spec, shape, lambda _k, d: torch.zeros(
+        piece, dtype=dtype, device=d))
+
+
+def piece(x, spec: Split, mesh: Mesh, j: int):
+    """Flattened device ``j``'s piece of the whole array ``x`` (a tensor,
+    or a numpy array) under ``spec`` on ``mesh`` (a view)."""
+    return _cut(x, spec, _grid(mesh, spec), _keys(mesh, spec)[j])
+
+
+def from_pieces(pieces: list, spec: Split, shape, mesh: Mesh) -> Sharded:
+    """The leaf whose flattened device ``j`` holds ``pieces[j]`` (each
+    ``piece(whole, spec, mesh, j)``), one tensor kept per (device,
+    piece)."""
+    made: dict = {}
+    shards = [made.setdefault((dev, key), t) for dev, key, t in zip(
+        mesh.flat(), _keys(mesh, spec), pieces)]
+    return Sharded(shards, spec, shape, mesh)
+
+
+def take_rows(x: Sharded, idx, dim: int, spec: Split) -> Sharded:
+    """THE cross-shard row gather: a leaf whose global row ``i`` along
+    ``dim`` is ``x``'s global row ``idx[i]``, laid out by ``spec`` on
+    ``x``'s mesh. A row of a ``data``-split source is read from the data
+    shard that holds it (on another device it is copied from there), so
+    a beam that follows a parent in another data shard reads the
+    parent's row, bit for bit."""
+    idx = [int(i) for i in (idx.tolist() if torch.is_tensor(idx) else idx)]
+    mesh = x.mesh
+    src_grid, src_keys = x.grid, x.keys()
+    src_b = x.shape[dim] // src_grid[1]
+    shape = list(x.shape)
+    shape[dim] = len(idx)
+    dst_grid = _grid(mesh, spec)
+    if dst_grid[0] != src_grid[0] or (
+            spec.dim if dst_grid[0] > 1 else None) != (
+            x.spec.dim if src_grid[0] > 1 else None):
+        raise ValueError(f"take_rows keeps the split along dim "
+                         f"{x.spec.dim}: {spec} vs {x.spec}")
+    dst_b = len(idx) // dst_grid[1]
+    flat = mesh.flat()
+
+    def source(a: int, d_src: int, dev) -> torch.Tensor:
+        """The source piece (a, d_src), preferably one on ``dev``."""
+        cands = [j for j, k in enumerate(src_keys) if k == (a, d_src)]
+        on = [j for j in cands if flat[j] == dev]
+        return x.shards[(on or cands)[0]]
+
+    def make(key, dev):
+        a, d = key
+        rows = idx[d * dst_b:(d + 1) * dst_b] if dst_grid[1] > 1 else idx
+        out = None
+        for d_src in range(src_grid[1]):
+            pos = [i for i, r in enumerate(rows)
+                   if (r // src_b if src_grid[1] > 1 else 0) == d_src]
+            if not pos:
+                continue
+            src = source(a, d_src, dev)
+            local = torch.tensor([rows[i] - d_src * src_b
+                                  if src_grid[1] > 1 else rows[i]
+                                  for i in pos], device=src.device)
+            got = to_device(src.index_select(dim, local), dev)
+            if out is None:
+                oshape = list(got.shape)
+                oshape[dim] = len(rows)
+                out = torch.empty(oshape, dtype=got.dtype, device=dev)
+            out.index_copy_(dim, torch.tensor(pos, device=dev), got)
+        return out
+
+    return _placed(mesh, spec, tuple(shape), make)
 
 
 def shard_tree(tree, j: int):
-    """Shard ``j``'s view of a placed tree: the same structure
-    with each :class:`Sharded` leaf replaced by its tensor there."""
+    """Shard ``j``'s view of a placed tree: the same structure with each
+    :class:`Sharded` leaf replaced by its tensor there (a quantized leaf
+    by its shard's codes and scales)."""
     if isinstance(tree, dict):
         return {k: shard_tree(v, j) for k, v in tree.items()}
-    return tree.shards[j]
+    if isinstance(tree, Sharded):
+        return tree.shards[j]
+    from ..models.quant import QTensor
+
+    if isinstance(tree, QTensor) and isinstance(tree.q, Sharded):
+        return QTensor(q=tree.q.shards[j], scale=tree.scale.shards[j])
+    return tree
 
 
 def is_sharded(tree) -> bool:
@@ -312,7 +508,46 @@ def is_sharded(tree) -> bool:
         if not tree:
             return False
         tree = next(iter(tree.values()))
-    return isinstance(tree, Sharded)
+    if isinstance(tree, Sharded):
+        return True
+    return isinstance(getattr(tree, "q", None), Sharded)
+
+
+def full_tree(tree, device=None):
+    """A placed tree joined whole on ``device`` (each leaf's
+    :meth:`Sharded.full`); plain leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: full_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(full_tree(v, device) for v in tree)
+    if isinstance(tree, Sharded):
+        return tree.full(device)
+    return tree
+
+
+def tree_mesh(tree) -> Mesh | None:
+    """The mesh a placed tree lies on (its first leaf's)."""
+    while isinstance(tree, dict):
+        if not tree:
+            return None
+        tree = next(iter(tree.values()))
+    if isinstance(tree, Sharded):
+        return tree.mesh
+    q = getattr(tree, "q", None)
+    return q.mesh if isinstance(q, Sharded) else None
+
+
+def shard_bytes(tree, j: int) -> int:
+    """Bytes of the tensors flattened device ``j`` holds of the placed
+    leaves of ``tree`` (dicts, tuples): one replica's share, which on
+    distinct devices is that device's."""
+    if isinstance(tree, dict):
+        return sum(shard_bytes(v, j) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(shard_bytes(v, j) for v in tree)
+    if isinstance(tree, Sharded):
+        return tree.shards[j].numel() * tree.element_size()
+    return 0
 
 
 __all__ = [
@@ -323,12 +558,18 @@ __all__ = [
     "Sharded",
     "Split",
     "build_mesh",
+    "from_pieces",
+    "full_tree",
     "is_sharded",
     "local_devices",
     "local_mesh",
+    "piece",
     "put",
     "serving_mesh",
+    "shard_bytes",
     "shard_tree",
+    "take_rows",
     "to_device",
+    "tree_mesh",
     "zeros",
 ]

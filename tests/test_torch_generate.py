@@ -470,9 +470,6 @@ def test_warmup_runs_every_batch_bucket(engines):
 def test_unported_paths_are_refused(trees):
     jcfg, _, tp = trees["qwen3"]
     cfg = config_from_jax(dataclasses.asdict(jcfg))
-    for kw in (dict(mesh=object()), dict(cache_specs=object())):
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            GenerationEngine(cfg, tp, device="cpu", **kw)
     toks = torch.zeros((1, 4), dtype=torch.int32)
     # remat and pipeline stages are ported (tests/test_torch_training.py,
     # tests/test_torch_stages.py); ring attention waits for item 5
@@ -489,19 +486,18 @@ def test_unported_paths_are_refused(trees):
     h, _ = ttr.stage_forward(s0, cfg, tokens=toks, first=True)
     got, _ = ttr.stage_forward(s1, cfg, hidden=h, last=True)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
-    # MoE is ported (tests/test_torch_moe.py), and so are loading onto
-    # tensor-parallel shards and serving them (tests/test_torch_tp.py);
-    # the dense forward over a tree placed on a mesh (JAX's GSPMD
-    # GenerationEngine) is not
+    # MoE is ported (tests/test_torch_moe.py), and so are serving over
+    # tensor-parallel shards (tests/test_torch_tp.py) and the dense
+    # forward over a tree placed on a mesh (tests/test_torch_mesh.py):
+    # under the serving specs it is the whole tree's, bitwise
     from tensorlink_tpu_torch.models.transformer import tp_partition_specs
     from tensorlink_tpu_torch.parallel.mesh import put, serving_mesh
 
     placed = put(serving_mesh(2, devices=["cpu", "cpu"]), tp,
                  tp_partition_specs(cfg))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ttr.forward(placed, toks, cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ttr.stage_forward(placed, cfg, tokens=toks, first=True, last=True)
+    assert torch.equal(ttr.forward(placed, toks, cfg)[0], want)
+    assert torch.equal(ttr.stage_forward(placed, cfg, tokens=toks,
+                                         first=True, last=True)[0], want)
     with pytest.raises(ValueError, match="quant"):
         GenerationEngine(cfg, tp, device="cpu", quant="int4")
     if not torch.cuda.is_available():

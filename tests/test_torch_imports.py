@@ -161,12 +161,17 @@ def test_queue_1_items_1_and_2_left_no_refusal():
 
 
 def test_queue_1_item_3_refuses_only_gspmd_and_zero1():
-    """Tensor-parallel serving is ported (tests/test_torch_tp.py): what
-    still refuses with item 3 is the GSPMD half — the sharded
+    """Tensor-parallel serving, the GSPMD half (the sharded
     ``GenerationEngine``, the dense forward over a placed tree, the
-    worker's planned ``mesh_axes`` and the static (non-continuous)
-    requests on a tp job — and ZeRO-1 with its ``tp_axis`` train step,
-    optimizer-state sharding and a tp job switched to training."""
+    worker's planned ``{data, tensor}`` mesh, a tp job's static requests
+    and training) and ZeRO-1 (with its ``tp_axis`` step and
+    optimizer-state sharding) are ported (tests/test_torch_tp.py,
+    tests/test_torch_mesh.py, tests/test_torch_zero1.py): the one refusal
+    left with item 3 is the fsdp axis — ``partition_specs(fsdp_axis=)``
+    and a mesh with an fsdp axis, whose table names the other unplaced
+    axes' items."""
+    from tensorlink_tpu_torch.parallel.mesh import _UNPORTED_AXES
+
     msgs = set()
     for p in _sources():
         for m in re.finditer(r"unported\(\s*((?:\"[^\"]*\"\s*)+),\s*3\)",
@@ -174,26 +179,15 @@ def test_queue_1_item_3_refuses_only_gspmd_and_zero1():
             text = "".join(re.findall(r'"([^"]*)"', m.group(1)))
             msgs.add((p.relative_to(REPO).as_posix(), text))
     assert msgs == {
-        ("tensorlink_tpu_torch/engine/generate.py",
-         "a sharded tensor-parallel GenerationEngine (mesh=, cache_specs=)"),
         ("tensorlink_tpu_torch/models/transformer.py",
-         "the dense forward over a tensor-parallel tree (the GSPMD "
-         "GenerationEngine)"),
-        ("tensorlink_tpu_torch/ml/worker.py",
-         "a planned device mesh (mesh_axes: the GSPMD sharded "
-         "GenerationEngine)"),
-        ("tensorlink_tpu_torch/ml/worker.py",
-         "a non-continuous request (static batch, beam, lookahead) on a "
-         "tensor-parallel job (the GSPMD GenerationEngine)"),
-        ("tensorlink_tpu_torch/ml/worker.py",
-         "tensor-parallel training (ZeRO-1 with zero1 x tp)"),
-        ("tensorlink_tpu_torch/engine/training.py",
-         "the ZeRO-1 sharded train step (zero1)"),
-        ("tensorlink_tpu_torch/engine/training.py",
-         "the tensor-parallel train step (tp_axis)"),
-        ("tensorlink_tpu_torch/engine/training.py",
-         "optimizer state sharding (optimizer_state_specs)"),
+         "the fsdp axis (ZeRO-3 parameter sharding, "
+         "partition_specs(fsdp_axis=))"),
     }, msgs
+    assert {a: item for a, (_, item) in _UNPORTED_AXES.items()} == {
+        "fsdp": 3, "expert": 4, "stage": 4, "seq": 5}
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    queue = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
+    assert "fsdp" in queue
 
 
 def test_profiling_imports_torch_only():

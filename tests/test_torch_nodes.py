@@ -151,8 +151,12 @@ ROLES = ["NodeConfig", "WorkerConfig", "ValidatorConfig", "UserConfig"]
 
 
 def _without_device(d: dict) -> dict:
+    """The config without the port-only ``MLConfig`` fields (the worker's
+    torch device and the devices it advertises for a planned mesh), each
+    at its default."""
     d = dict(d, ml=dict(d["ml"]))
     assert d["ml"].pop("device", "absent") is None
+    assert d["ml"].pop("mesh_devices", "absent") == 1
     return d
 
 
@@ -506,8 +510,9 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb, checkpoint):
     without applying again. So is training a layer slice: each half's
     train FORWARD, its BACKWARD's gradient of the input (answered by the
     later half only) equal the JAX worker's at 2e-5, and each leaf of its
-    accumulated parameter gradients within 2e-5 in its norm. A stage the port still refuses (a device mesh,
-    co-slice coworkers) answers with an error naming its ROADMAP item."""
+    accumulated parameter gradients within 2e-5 in its norm. A stage the port still refuses (an fsdp mesh
+    axis, co-slice coworkers) answers with an error naming its ROADMAP
+    item."""
     if verb == "load_stage training a slice":
         ckpt, _ = checkpoint
         got = _slice_train_ops("port", ckpt)
@@ -543,7 +548,9 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb, checkpoint):
 
     from tensorlink_tpu_torch.ml.worker import DistributedWorker
 
-    stage = {"load_stage with a mesh": _slice_stage(mesh_axes={"tensor": 2}),
+    # a {data, tensor} mesh is ported (tests/test_torch_mesh.py); its
+    # fsdp axis is what still refuses with item 3
+    stage = {"load_stage with a mesh": _slice_stage(mesh_axes={"fsdp": 2}),
              "load_stage with coworkers": _slice_stage(coworkers=["w1"])}[verb]
     bridge = _Bridge([("load_stage", {
         "rid": "r1", "peer": "p1", "job_id": "j", "stage": stage,

@@ -27,10 +27,11 @@ here:
 - ``load_params(tensor_parallel=2)`` shards equal to JAX's
   ``addressable_shards`` of the same checkpoint.
 - A bare port worker with ``MLConfig(device="cpu", tensor_parallel=2)``
-  serving continuous requests equal to the in-process tp=1 engine; its
-  refusals of training and of static requests on a tp job in either
-  order, a checkpoint restore republished onto the mesh, and its mesh
-  taken from its own card on.
+  serving continuous requests equal to the in-process tp=1 engine; a tp
+  job's training (loaded for it or switched to it) bitwise the tp=1
+  worker's, and its static, beam and lookahead answers in either order
+  equal the tp=1 worker's; a checkpoint restore republished onto the
+  mesh, and its mesh taken from its own card on.
 
 On this host a column slice of a float32 product is bitwise the
 product's columns at every height the tests run, and the streams of the
@@ -573,10 +574,14 @@ def test_tp_refusals_of_the_port(models):
     with pytest.raises(NotImplementedError, match="collective_quant.*item 5"):
         make(cfg.with_(collective_quant=True), tensor_parallel=2,
              tp_devices=[CPU, CPU])
-    # the dense forward over a placed tree is the GSPMD path (item 3)
+    # the dense forward over the placed tree is ported (the GSPMD path,
+    # tests/test_torch_mesh.py): the tp engine's own generation engine
+    # runs it, with the whole tree's tokens
     ce = make(tensor_parallel=2, tp_devices=[CPU, CPU])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ce.engine.generate([[1, 2, 3]], max_new_tokens=2)
+    whole = GenerationEngine(cfg, params_from_jax(host, device="cpu"),
+                             max_seq_len=64, device="cpu")
+    assert ce.engine.generate([[1, 2, 3]], max_new_tokens=4).sequences == \
+        whole.generate([[1, 2, 3]], max_new_tokens=4).sequences
 
 
 # -- loading onto shards ---------------------------------------------------
@@ -726,45 +731,116 @@ def test_worker_hosts_tp2_continuous_serving(models):
         assert list(got[i]["sequences"][0]) == r, i
 
 
+def _reply(w, kind, rid, **body):
+    """One work item on a bare worker; its reply body."""
+    w._handle(kind, {"rid": rid, "peer": "p", **body})
+    [got] = [p["body"] for v, p in w.bridge.sent
+             if v == "respond" and p["rid"] == rid]
+    return got
+
+
+def _train_steps(w, job, n=2):
+    """``n`` driver steps on a bare worker (train forward, the
+    cross-entropy gradient, backward, AdamW step): the losses, grad norms
+    and the params after."""
+    from tensorlink_tpu_torch.ml.module import _ce_sum_and_grad
+
+    _reply(w, "opt", "i", job_id=job, op="init",
+           spec={"name": "adamw", "lr": 1e-3})
+    out = []
+    rng = np.random.default_rng(11)
+    for i in range(n):
+        toks = rng.integers(0, 128, (2, 8)).astype(np.int32)
+        fwd = _reply(w, "fwd", f"f{i}", job_id=job, op="stage", train=True,
+                     tag=f"s{i}", tokens=toks)
+        nll, dlog, cnt = _ce_sum_and_grad(
+            torch.as_tensor(np.array(fwd["out"])), toks,
+            np.ones(toks.shape, bool))
+        _reply(w, "bwd", f"b{i}", job_id=job, op="stage", tag=f"s{i}",
+               grad=dlog.numpy())
+        step = _reply(w, "opt", f"o{i}", job_id=job, op="step",
+                      scale=1.0 / float(cnt))
+        out.append((float(nll) / float(cnt), step["grad_norm"]))
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+
+    params = _reply(w, "params.req", "q", job_id=job)["params"]
+    return out, [np.asarray(a) for a in tree_leaves(params)]
+
+
 @pytest.mark.parametrize("when", ["load", "train_mode"])
-def test_worker_refuses_tp_training(models, when):
-    """A tensor_parallel > 1 job does not train (ZeRO-1 with ``zero1 x
-    tp`` is queue 1 item 3): a training load and a serving job switched
-    to training both refuse with item 3."""
+def test_worker_tp_job_trains_like_tp1(models, when):
+    """A tensor_parallel=2 job trains — loaded for training, or a serving
+    job switched to it: each step joins the placed tree whole, so two
+    AdamW steps are bitwise the tp=1 worker's (losses, grad norms,
+    params); the update is published onto the tp engine's mesh (the job
+    serves the trained weights, equal to the tp=1 engine on them)."""
+    from tensorlink_tpu_torch.parallel.mesh import is_sharded
+
     _, _, cfg, _ = models[2]
-    w = _tp_worker(tensor_parallel=2)
-    job = "ab12cd35"
-    with pytest.raises(NotImplementedError,
-                       match="tensor-parallel training.*queue 1 item 3"):
-        if when == "load":
-            _load(w, cfg, job, training=True)
-        else:
-            _load(w, cfg, job)
-            w._handle("train.mode", {"rid": "t", "peer": "p",
-                                     "job_id": job, "training": True})
-    if when == "train_mode":
-        assert not w.jobs[job].training
+    got = {}
+    for tp in (2, 1):
+        w = _tp_worker(tensor_parallel=tp)
+        job = "ab12cd35"
+        _load(w, cfg, job, training=when == "load")
+        if when == "train_mode":
+            _reply(w, "train.mode", "t", job_id=job, training=True)
+        rt = w.jobs[job]
+        assert rt.training
+        version = rt.cont.weights_version if tp == 2 else None
+        got[tp] = _train_steps(w, job)
+        if tp == 2:
+            assert is_sharded(rt.params) and rt.params is rt.engine.params
+            assert rt.cont.weights_version == version + 2
+            served = _worker_streams(w, job, WORKER_PROMPTS[:2], "c")
+    (l2, p2), (l1, p1) = got[2], got[1]
+    assert l2 == l1
+    for a, b in zip(p2, p1, strict=True):
+        assert np.array_equal(a, b)
+    from tensorlink_tpu_torch.engine.optimizers import tree_unflatten
+
+    tree = tree_unflatten(init_params(cfg, device=CPU),
+                          [torch.as_tensor(a) for a in p1])
+    gen = GenerationEngine(cfg, tree, max_seq_len=64, device="cpu")
+    ml = _tp_worker().node.config.ml
+    ref = ContinuousEngine(
+        gen, max_slots=ml.cont_max_slots, page_size=ml.cont_page_size,
+        chunk_steps=ml.cont_chunk_steps, prefill_chunk=ml.prefill_chunk,
+        prefix_cache=ml.prefix_cache, kv_quant=ml.kv_quant)
+    reqs = [ref.submit(p, max_new_tokens=12, seed=0)
+            for p in WORKER_PROMPTS[:2]]
+    ref.run_until_idle()
+    assert [b["sequences"][0] for b in served] == [list(r.tokens)
+                                                   for r in reqs]
+
+
+# tlint: disable=TL006(read-only test data)
+STATIC_REQUESTS = ({}, {"num_beams": 2}, {"lookahead": True},
+                   {"continuous": True, "num_beams": 2})
 
 
 @pytest.mark.parametrize("order", ["before", "after"])
-def test_worker_tp_job_refuses_static_requests(models, order):
-    """A non-continuous request on a tp job refuses with item 3 (the
-    GSPMD engine) whether or not a continuous request came first: the
-    sharded engine is built at load, so no request runs on a whole
-    tree."""
+def test_worker_tp_job_answers_static_requests(models, order):
+    """A tp job's static batch, beam and lookahead requests (and a beam
+    flagged continuous) run the dense engine over its placed tree, before
+    or after a continuous request: each answer equals the tp=1 worker's
+    (the serving specs split every product by column, so the placed
+    forward is bitwise the whole tree's)."""
     _, _, cfg, _ = models[2]
-    w = _tp_worker(tensor_parallel=2)
-    job = "ab12cd36"
-    _load(w, cfg, job)
-    if order == "after":
-        _worker_streams(w, job, WORKER_PROMPTS[:1], "c")
-    for extra in ({}, {"num_beams": 2}, {"lookahead": True},
-                  {"continuous": True, "num_beams": 2}):
-        with pytest.raises(NotImplementedError,
-                           match="non-continuous.*queue 1 item 3"):
-            w._handle("gen", {"rid": "s", "peer": "p", "job_id": job,
-                              "prompts": [[1, 2, 3]],
-                              "max_new_tokens": 4, **extra})
+    answers = {}
+    for tp in (2, 1):
+        w = _tp_worker(tensor_parallel=tp)
+        job = "ab12cd36"
+        _load(w, cfg, job)
+        if order == "after":
+            _worker_streams(w, job, WORKER_PROMPTS[:1], "c")
+        answers[tp] = [
+            _reply(w, "gen", f"s{i}", job_id=job,
+                   prompts=[[1, 2, 3], [5, 9, 5, 9]][:1 if extra else 2],
+                   max_new_tokens=6, seed=0, **extra)["sequences"]
+            for i, extra in enumerate(STATIC_REQUESTS)]
+        if tp == 2:
+            assert w.jobs[job].cont.tensor_parallel == 2
+    assert answers[2] == answers[1]
 
 
 def test_worker_tp_checkpoint_restore_republishes(models, tmp_path):
@@ -808,8 +884,8 @@ def test_worker_tp_mesh_starts_at_its_card(models, monkeypatch):
     _, _, cfg, _ = models[2]
     w = _tp_worker(tensor_parallel=4)
     w.device = torch.device("cuda", 1)
-    assert w._tp_devices(2) == cards[1:3]
-    assert w._tp_devices(3) == cards[1:]
+    assert w._mesh_devices(2) == cards[1:3]
+    assert w._mesh_devices(3) == cards[1:]
     with pytest.raises(ValueError, match="mesh needs 4 devices, have 3"):
         _load(w, cfg, "ab12cd37")
     assert "ab12cd37" not in w.jobs

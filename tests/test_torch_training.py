@@ -21,8 +21,8 @@ weights and inputs:
   whose gradient cancels to about eps moves by a few percent of lr on
   float32 summation order alone (2.3e-5 of lr 1e-3 here, in one
   embedding entry);
-- a bfloat16 micro carry stays float32, and the ZeRO-1 paths raise
-  naming ROADMAP queue 1 item 3.
+- a bfloat16 micro carry stays float32, and the ZeRO-1 paths without a
+  mesh refuse with JAX's words (ZeRO-1 itself: tests/test_torch_zero1.py).
 """
 
 import dataclasses
@@ -309,11 +309,21 @@ def test_bf16_micro_carry_stays_f32(trees, monkeypatch):
 
 
 def test_zero1_and_tp_axis_raise_naming_item_8(trees):
+    """ZeRO-1 is ported (tests/test_torch_zero1.py): without a mesh the
+    zero1 and tp_axis paths refuse with JAX's ValueErrors, as a step on a
+    one-replica mesh does, and ``optimizer_state_specs`` answers a spec
+    tree of the state's structure."""
     _, cfg, _, _ = trees["llama"]
     opt = ttrain.make_optimizer("adamw")
-    for kw in (dict(zero1=True), dict(tp_axis="tp"),
-               dict(zero1=True, tp_axis="tp")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    for kw, words in ((dict(zero1=True), "requires a mesh"),
+                      (dict(tp_axis="tp"), "requires zero1"),
+                      (dict(zero1=True, tp_axis="tp"), "requires a mesh")):
+        with pytest.raises(ValueError, match=words):
             ttrain.make_train_step(cfg, opt, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ttrain.optimizer_state_specs(opt, {}, {})
+    params = {"w": torch.zeros((4, 2))}
+    from tensorlink_tpu_torch.parallel.mesh import REPLICATED
+
+    specs = ttrain.optimizer_state_specs(opt, params, {"w": REPLICATED},
+                                         dp_axis="data", dp_size=2)
+    assert len(topt.tree_leaves(specs)) == len(
+        topt.tree_leaves(opt.init(params)))
