@@ -296,6 +296,27 @@ Phases (any failure raises and exits non-zero):
    runs (2) over four distinct cards and a worker planned {data: 2,
    tensor: 2} over them (serving and 2 ZeRO-1 training steps through a
    DistributedModel).
+17. ZeRO-3 training of a placed tree on an {fsdp, tensor} mesh whose
+   four devices are cuda:0 (fsdp_phase). (1) Phase 16's qwen3-0p6b f32
+   tree (full width and depth, B 4, T 128, n_micro 2, AdamW) placed by
+   partition_specs(fsdp_axis="fsdp") on {fsdp: 2, tensor: 2} and on
+   {fsdp: 4}: two make_train_step(mesh=) steps each, the losses within
+   FSDP_LOSS_RTOL, each leaf's gradient within FSDP_GRAD_RTOL and its
+   params within FSDP_PARAM_RTOL of phase 16's unsharded step (in its
+   norm); each device's params, gradients and optimizer state exactly a
+   quarter of the split leaves plus the replicated ones; the first
+   layout's two steps run twice, bitwise equal. (2) A validator, a worker
+   with MLConfig(mesh_devices=["cuda:0"] * 4) and a user: a
+   DistributedModel at 4 layers (B 2) asking parallelism {tensor: 2} is
+   planned {tensor: 2, fsdp: 2}, trains two steps within
+   TRAIN_NODE_LOSS_RTOL of the same placed step in process, and its
+   checkpoint holds the job's trees joined on the host, bitwise, and its
+   HF export loads back bitwise. No attention kernel runs (0 launches,
+   asserted; launches_fsdp_training on the kernels line). (3) Readings,
+   not claims: step ms per layout, and one step of each layout and of
+   the unsharded step traced by torch.profiler (device launches, the
+   card's busy share). fsdp_cards() runs (1) over four distinct cards
+   and reads each card's peak memory against the unsharded step's.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -6531,7 +6552,8 @@ def mesh_serving(devices=MESH_DEVICES) -> dict:
     return res
 
 
-def mesh_zero1(n_layers: int = MESH_TRAIN_LAYERS) -> dict:
+def mesh_zero1(n_layers: int = MESH_TRAIN_LAYERS,
+               keep: dict | None = None) -> dict:
     """Phase 16 step 3: qwen3-0p6b f32 at full width and ``n_layers``,
     B 4, T 128, AdamW, two steps each of the unsharded n_micro=2 step,
     zero1 on {data: 2} and zero1 x tp on {data: 2, tp: 2} (every replica
@@ -6541,7 +6563,9 @@ def mesh_zero1(n_layers: int = MESH_TRAIN_LAYERS) -> dict:
     it). Two unsharded steps from the same start run first: whether the
     default kernels are bitwise repeatable (a reading); where not, the
     three run under torch.use_deterministic_algorithms(True,
-    warn_only=True)."""
+    warn_only=True). ``keep`` (a dict) receives the unsharded run's
+    tree, batches, gradients per step, params and readings, which phase
+    17 holds its placed steps against."""
     from tensorlink_tpu_torch.engine.optimizers import tree_leaves
     from tensorlink_tpu_torch.engine.training import (
         _dp_shardable,
@@ -6578,7 +6602,15 @@ def mesh_zero1(n_layers: int = MESH_TRAIN_LAYERS) -> dict:
     ctx = contextlib.nullcontext() if repeatable else _deterministic()
     res = dict(card=_smi(), layers=n_layers, default_repeatable=repeatable)
     with ctx:
-        ref, rstate, mref, ms_ref = run(base, p0, base.init_state(p0))
+        kopt, kept = _keeping_grads(opt)
+        keeping = make_train_step(cfg, kopt, n_micro=2)
+        ref, rstate, mref, ms_ref = run(keeping, p0, keeping.init_state(p0))
+        if keep is not None:
+            keep.update(cfg=cfg, p0=p0, batches=batches, opt=opt,
+                        grads=kept, params=ref, losses=mref, step_ms=ms_ref,
+                        deterministic=not repeatable)
+        else:
+            kept.clear()
         full_bytes = sum(t.numel() * t.element_size()
                          for t in tree_leaves(rstate))
         del rstate
@@ -6627,16 +6659,16 @@ def _deterministic():
         torch.use_deterministic_algorithms(False)
 
 
-def mesh_phase() -> dict:
+def mesh_phase(keep: dict | None = None) -> dict:
     """Phase 16: the dense engine on a {data: 2, tensor: 2} mesh whose four
     devices are all cuda:0, and ZeRO-1 (see mesh_serving,
-    mesh_flash_check and mesh_zero1). The speeds are readings, not
-    claims: four shards on one card quadruple the dense path's
-    launches."""
+    mesh_flash_check and mesh_zero1; ``keep`` receives the unsharded
+    training run for phase 17). The speeds are readings, not claims: four
+    shards on one card quadruple the dense path's launches."""
     t0 = time.monotonic()
     res = dict(card=_smi(), flash=mesh_flash_check())
     res["serving"] = mesh_serving()
-    res["zero1"] = mesh_zero1()
+    res["zero1"] = mesh_zero1(keep=keep)
     res["seconds"] = time.monotonic() - t0
     log(f"mesh (qwen3-0p6b: {MESH_AXES} on one card; a correctness run, "
         f"the speeds are readings, not claims; {res['card']}): "
@@ -6783,6 +6815,454 @@ def mesh_cards() -> dict:
     return res
 
 
+# -- phase 17 ----------------------------------------------------------
+FSDP_LAYOUTS = {"fsdp2-tensor2": {"fsdp": 2, "tensor": 2},
+                "fsdp4": {"fsdp": 4}}
+FSDP_DEVICES = ("cuda:0",) * 4  # every shard on the one card
+FSDP_REPEAT = "fsdp2-tensor2"  # the layout whose two runs must be bitwise
+FSDP_NODE_LAYERS = 4  # the node path's depth: its logits cross the user
+FSDP_NODE_BT = (2, 128)  # batch rows x tokens of the node path's steps
+FSDP_NODE_HINT = {"tensor": 2}  # the planner fills the rest with fsdp
+FSDP_NODE_SEED = 1717
+FSDP_ROOT = Path(__file__).resolve().parent / "build" / "fsdp"
+# the placed steps against the unsharded n_micro=2 step, relative, read
+# from the card (H100 readings, PR 15: losses 0-1.6e-7; each leaf's
+# gradient in its norm, ||d|| / ||ref||, 3.7e-6 at step 1 and 6.9e-5 at
+# step 2, after AdamW's first update moved the params apart; the params
+# after both steps 6.3e-6)
+FSDP_LOSS_RTOL = 1e-6
+FSDP_GRAD_RTOL = (2e-5, 2.5e-4)  # step 1, step 2
+FSDP_PARAM_RTOL = 2.5e-5
+
+
+def _leaf_rel(got, want: torch.Tensor) -> float:
+    """``||got - want|| / ||want||`` in float64, ``want`` whole (on the
+    host or a card) and ``got`` whole or placed: a placed leaf piece by
+    piece on its devices, each against its cut of ``want``, so no card
+    joins it."""
+    if not isinstance(got, tmesh.Sharded):
+        d = (got.double() - want.to(got.device).double())
+        return float(torch.linalg.vector_norm(d)
+                     / torch.linalg.vector_norm(want.double()))
+    sq = 0.0
+    for j in got.first_of_keys().values():
+        piece = got.shards[j]
+        cut = tmesh.piece(want, got.spec, got.mesh, j).to(piece.device)
+        sq += float(torch.sum((piece.double() - cut.double()) ** 2))
+    return (sq ** 0.5) / float(torch.linalg.vector_norm(want.double()))
+
+
+def _placed_share(label: str, tree, n: int) -> dict:
+    """Each device's bytes of a placed tree: exactly a quarter (1/n) of
+    the leaves split over every device plus the leaves it replicates
+    (asserted)."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+
+    split = rep = 0
+    for t in tree_leaves(tree):
+        b = t.numel() * t.element_size()
+        pieces = t.grid[0] * t.grid[1] * t.n_fsdp
+        if pieces == n:
+            split += b
+        elif pieces == 1:
+            rep += b
+        else:
+            raise AssertionError(f"fsdp {label}: a leaf in {pieces} "
+                                 f"pieces of {n}: {t}")
+    want = split // n + rep
+    got = [tmesh.shard_bytes(tree, j) for j in range(n)]
+    if any(g != want for g in got):
+        raise AssertionError(f"fsdp {label}: {got} bytes a device, the "
+                             f"specs give {want}")
+    return dict(bytes_per_device=want, whole=split + rep,
+                of_whole=want / (split + rep))
+
+
+def _traced_step(ts, params, state, batch) -> dict:
+    """One train step traced by ``torch.profiler`` (the device's activity
+    alone, no trace file: the host's ops would cost seconds to record and
+    export): its wall time, the card's busy share (its kernels' device
+    time over the wall time; one stream) and the device launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts.step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            busy += t / 1e3
+            launches += e.count
+    if busy <= 0:
+        raise AssertionError("fsdp: the trace holds no device kernel")
+    return dict(wall_ms=wall, device_busy_ms=busy, busy_share=busy / wall,
+                device_launches=launches)
+
+
+def _fsdp_reference(n_layers: int = MESH_TRAIN_LAYERS) -> dict:
+    """Phase 16's unsharded run on its own (mesh_zero1's tree, batches,
+    AdamW and steps, its gradients kept), for fsdp_phase or fsdp_cards
+    without phase 16. The peak bytes on the card are read over a run
+    that keeps nothing."""
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = _train_cfg(n_layers, torch.float32)
+    B, T = MESH_TRAIN_BT
+    rng = np.random.default_rng(MESH_TRAIN_SEED)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32), device="cuda")}
+        for _ in range(2)]
+    opt = make_optimizer("adamw", lr=1e-3, grad_clip=1.0)
+    p0 = _seeded(cfg, "cuda", MESH_TRAIN_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = make_train_step(cfg, opt, n_micro=2)
+    p, st = p0, base.init_state(p0)
+    for b in batches:
+        p, st, _ = base.step_fn(p, st, b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del p, st
+    kopt, kept = _keeping_grads(opt)
+    keeping = make_train_step(cfg, kopt, n_micro=2)
+    p, st, losses, ms = p0, keeping.init_state(p0), [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        p, st, m = keeping.step_fn(p, st, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+    return dict(cfg=cfg, p0=p0, batches=batches, opt=opt, grads=kept,
+                params=p, losses=losses, step_ms=ms, deterministic=False,
+                peak_bytes=peak)
+
+
+def fsdp_layouts(ref: dict, devices=FSDP_DEVICES, names=None,
+                 trace: bool = True) -> dict:
+    """Phase 17 steps 1–2: the reference's tree placed by
+    ``partition_specs(tensor_axis=, fsdp_axis=)`` on each layout of
+    FSDP_LAYOUTS (or ``names``) over ``devices``, two
+    ``make_train_step(mesh=)`` AdamW steps over the reference's batches:
+    each step's loss within FSDP_LOSS_RTOL and each leaf's gradient (read
+    as the step hands it to ``sharded_update``) within FSDP_GRAD_RTOL of
+    the unsharded step's, the params after both steps within
+    FSDP_PARAM_RTOL; the params,
+    gradients and optimizer state split a quarter to each device beside
+    their replicated leaves; FSDP_REPEAT's two steps run twice bitwise
+    equal. Readings: step ms, and (``trace``) one traced step of each
+    layout and of the unsharded step (busy share, launches)."""
+    from tensorlink_tpu_torch.engine import training as tt
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+
+    cfg, p0, batches, opt = (ref["cfg"], ref["p0"], ref["batches"],
+                             ref["opt"])
+    res: dict = dict(card=_smi(), layers=cfg.n_layers,
+                     unsharded=dict(step_ms=ref["step_ms"],
+                                    losses=ref["losses"]))
+    ctx = _deterministic() if ref["deterministic"] else \
+        contextlib.nullcontext()
+    inner = tt.sharded_update
+    with ctx:
+        if trace:
+            base = tt.make_train_step(cfg, opt, n_micro=2)
+            res["unsharded"]["traced"] = _traced_step(
+                base, p0, base.init_state(p0), batches[0])
+            del base
+        for name in names or FSDP_LAYOUTS:
+            torch.cuda.empty_cache()  # the earlier phases' cached blocks
+            axes = FSDP_LAYOUTS[name]
+            mesh = tmesh.build_mesh(axes, list(devices))
+            kw = dict(tensor_axis="tensor" if "tensor" in axes else None,
+                      fsdp_axis="fsdp")
+            placed = tmesh.put(mesh, p0, ttr.partition_specs(cfg, **kw))
+            ts = tt.make_train_step(cfg, opt, n_micro=2, mesh=mesh)
+            out: dict = dict(axes=axes, params=_placed_share(
+                "params", placed, mesh.size))
+            grads_err, shares = [], []
+
+            def spy(optimizer, grads, state, params, specs, m):
+                want = _named(ref["grads"][len(grads_err)])
+                grads_err.append(max(_leaf_rel(g, want[k]) for k, g in
+                                     _named(grads).items()))
+                shares.append(_placed_share("gradients", grads, m.size))
+                return inner(optimizer, grads, state, params, specs, m)
+
+            def run(step_ms: list, first: bool):
+                p, st = placed, ts.init_state(placed)
+                if first:
+                    out["optimizer_state"] = _placed_share(
+                        "optimizer state", st, mesh.size)
+                losses = []
+                for b in batches:
+                    t0 = time.perf_counter()
+                    p, st, m = ts.step_fn(p, st, b)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append((float(m["loss"]), float(m["grad_norm"])))
+                return p, st, losses
+
+            ms: list = []
+            tt.sharded_update = spy
+            try:
+                p, st, losses = run(ms, True)
+            finally:
+                tt.sharded_update = inner
+            for (lg, _), (lw, _) in zip(losses, ref["losses"]):
+                if _rel(lg, lw) > FSDP_LOSS_RTOL:
+                    raise AssertionError(f"fsdp {name}: losses {losses} vs "
+                                         f"{ref['losses']}")
+            if any(e > b for e, b in zip(grads_err, FSDP_GRAD_RTOL)):
+                raise AssertionError(f"fsdp {name}: a gradient leaf "
+                                     f"{grads_err} from the unsharded one")
+            want = _named(ref["params"])
+            perr = max(_leaf_rel(g, want[k]) for k, g in _named(p).items())
+            if perr > FSDP_PARAM_RTOL:
+                raise AssertionError(f"fsdp {name}: a param leaf {perr} "
+                                     "from the unsharded one")
+            out.update(step_ms=ms, losses=losses, grads=shares[0],
+                       grad_leaf_rel_max=grads_err,
+                       param_leaf_rel_max=perr,
+                       loss_rel=[_rel(a[0], b[0]) for a, b in
+                                 zip(losses, ref["losses"])])
+            if name == FSDP_REPEAT:
+                ms2: list = []
+                p2, st2, losses2 = run(ms2, False)
+                same = losses2 == losses and all(
+                    torch.equal(x, y)
+                    for a, b in zip(tree_leaves((p, st)),
+                                    tree_leaves((p2, st2)), strict=True)
+                    for x, y in zip(a.shards, b.shards))
+                if not same:
+                    raise AssertionError(f"fsdp {name}: two runs differ "
+                                         f"({losses} vs {losses2})")
+                out.update(repeat_bitwise=True, repeat_step_ms=ms2)
+                del p2, st2
+            if trace:
+                out["traced"] = _traced_step(
+                    ts, placed, ts.init_state(placed), batches[0])
+            res[name] = out
+            del p, st, placed
+            torch.cuda.empty_cache()
+    return res
+
+
+def fsdp_node(devices=FSDP_DEVICES) -> dict:
+    """Phase 17 step 3: a port validator, a worker advertising
+    ``devices`` (``MLConfig(mesh_devices=[...])``: the four shards on the
+    card) and a user on 127.0.0.1. A DistributedModel of qwen3-0p6b's
+    widths at FSDP_NODE_LAYERS layers, f32, asking parallelism
+    FSDP_NODE_HINT, is planned {tensor: 2, fsdp: 2}, as the JAX planner
+    plans it; the worker trains its placed tree: two AdamW steps within
+    TRAIN_NODE_LOSS_RTOL of the same placed step in process; the
+    checkpoint file's params and optimizer state are the job's trees
+    joined on the host, bitwise, and the HF export loads back bitwise."""
+    from tensorlink_tpu_torch.core import serialization as ser
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        UserConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.engine import training as tt
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+    from tensorlink_tpu_torch.models.sharded import whole
+    from tensorlink_tpu_torch.nodes.runners import (
+        UserNode,
+        ValidatorNode,
+        WorkerNode,
+    )
+
+    root = FSDP_ROOT / "node"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = _train_cfg(FSDP_NODE_LAYERS, torch.float32)
+    B, T = FSDP_NODE_BT
+    rng = np.random.default_rng(FSDP_NODE_SEED)
+    batches = [rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+               for _ in range(2)]
+    common = dict(local_test=True, log_dir=str(root / "logs"),
+                  env_file=str(root / ".env"))
+    nodes = []
+    res: dict = dict(card=_smi(), layers=FSDP_NODE_LAYERS,
+                     hint=FSDP_NODE_HINT)
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=False, key_dir=str(root / "vkeys"), ml=MLConfig(),
+                **common)).start()
+            nodes.append(v)
+            seeds = [["127.0.0.1", v.port]]
+            w = WorkerNode(WorkerConfig(
+                seed_validators=seeds, key_dir=str(root / "wkeys"),
+                ml=MLConfig(mesh_devices=list(devices)), **common)).start()
+            nodes.append(w)
+            u = UserNode(UserConfig(
+                seed_validators=seeds, key_dir=str(root / "ukeys"),
+                ml=MLConfig(), **common)).start()
+            nodes.append(u)
+        deadline = time.monotonic() + 60
+        while len(v.status()["peers"]) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("fsdp node: the nodes never met")
+            time.sleep(0.1)
+        model = DistributedModel(cfg, node=u, seed=FSDP_NODE_SEED,
+                                 training=True, parallelism=FSDP_NODE_HINT,
+                                 batch=B, seq_len=T, n_micro=2)
+        axes = model.plan.stages[0].mesh_axes
+        if axes != {"tensor": 2, "fsdp": 2}:
+            raise AssertionError(f"fsdp node: planned {axes}")
+        rt = w.executor.jobs[model.job_id]
+        if rt.mesh is None or not tmesh.is_sharded(rt.params):
+            raise AssertionError(f"fsdp node: the job's mesh {rt.mesh}")
+        model.init_optimizer("adamw", lr=1e-3)
+        mesh = tmesh.build_mesh(axes, list(devices))
+        local = tmesh.put(mesh, _seeded(cfg, "cuda", FSDP_NODE_SEED),
+                          ttr.partition_specs(cfg, tensor_axis="tensor",
+                                              fsdp_axis="fsdp"))
+        ts = tt.make_train_step(cfg, tt.make_optimizer(
+            "adamw", lr=1e-3, grad_clip=1.0), n_micro=2, mesh=mesh)
+        state = ts.init_state(local)
+        losses, node_s = [], []
+        for toks in batches:
+            t0 = time.perf_counter()
+            r = model.train_step(toks)
+            node_s.append(time.perf_counter() - t0)
+            local, state, m = ts.step_fn(local, state, {
+                "tokens": torch.as_tensor(toks, device="cuda")})
+            losses.append((r["loss"], float(m["loss"])))
+            if _rel(r["loss"], float(m["loss"])) > TRAIN_NODE_LOSS_RTOL:
+                raise AssertionError(f"fsdp node: losses {losses}")
+        job = whole(rt.params, "cpu")
+        res.update(losses=losses, node_step_s=node_s,
+                   param_leaf_rel_max=max(
+                       _leaf_rel(g, _named(job)[k])
+                       for k, g in _named(local).items()))
+        ckpt = root / "ckpt"
+        model.save_checkpoint(str(ckpt))
+        saved = ser.decode_from_file(
+            ckpt / f"stage_0_{FSDP_NODE_LAYERS}.tlts")
+        state_leaves = tree_leaves(tmesh.full_tree(rt.opt_state, "cpu"))
+        nbytes = 0
+        for label, got, want in (
+                ("params", tree_leaves(saved["params"]), tree_leaves(job)),
+                ("optimizer state", tree_leaves(saved["opt_state"]),
+                 state_leaves)):
+            for a, b in zip(got, want, strict=True):
+                a = torch.as_tensor(np.asarray(a))
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"fsdp node: the checkpoint's "
+                                         f"{label} are not the job's")
+                nbytes += b.numel() * b.element_size()
+        res["checkpoint_bytes"] = nbytes
+        out = model.export_hf_checkpoint(str(root / "hf"))
+        _, loaded = load_params(out, cfg, device="cpu")
+        res["export_bytes"] = _same_tree("fsdp node: the exported tree",
+                                         loaded, job)
+        res["opt_bytes_device0_of_whole"] = tmesh.shard_bytes(
+            rt.opt_state, 0) / sum(t.numel() * t.element_size()
+                                   for t in state_leaves)
+        model.shutdown()
+    finally:
+        for nd in reversed(nodes):
+            nd.stop()
+        nodes = v = w = u = rt = None
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def fsdp_phase(ref: dict | None = None) -> dict:
+    """Phase 17: ZeRO-3 training of a placed tree on an {fsdp, tensor}
+    mesh whose four devices are cuda:0 (fsdp_layouts against phase 16's
+    unsharded step, ``ref``, or its own run of it), then the node path
+    (fsdp_node). No attention kernel runs (the training forward keeps the
+    einsum attention): 0 launches, asserted. The speeds are readings,
+    not claims: four shards on one card multiply the step's launches."""
+    t0 = time.monotonic()
+    if not ref:
+        ref = _fsdp_reference()
+    att.reset_counts()
+    res = dict(card=_smi(), layouts=fsdp_layouts(ref))
+    ref.clear()
+    torch.cuda.empty_cache()
+    res["seconds_layouts"] = time.monotonic() - t0
+    res["node"] = fsdp_node()
+    launches = {n: getattr(att, n).launches for n in REPLACES}
+    launches["flash_attention"] = att.flash_attention.launches
+    if any(launches.values()):
+        raise AssertionError(f"fsdp: kernels launched {launches}; the "
+                             "training path has none")
+    res["launches"] = launches
+    res["seconds"] = time.monotonic() - t0
+    lay = res["layouts"]
+    names = ["unsharded", *FSDP_LAYOUTS]
+    log(f"fsdp readings ({res['card']}): step ms "
+        + ", ".join(f"{n} {lay[n]['step_ms']}" for n in names)
+        + "; device launches of one traced step "
+        + ", ".join(f"{n} {lay[n]['traced']['device_launches']}"
+                    for n in names)
+        + "; the card's busy share of it "
+        + ", ".join(f"{n} {lay[n]['traced']['busy_share']:.4f}"
+                    for n in names))
+    log(f"fsdp (qwen3-0p6b f32, {lay['layers']} layers, B 4, T 128, "
+        f"n_micro 2, AdamW; shards on one card; readings, not claims; "
+        f"{res['card']}): {json.dumps(res)}")
+    log(f"phase 17 took {res['seconds']:.1f} s ({res['card']})")
+    return res
+
+
+def fsdp_cards() -> dict:
+    """Not a phase of ``main()``: it needs four cards on one host. Phase
+    17's layouts with their four devices on four distinct cards: each
+    card's ``torch.cuda.max_memory_allocated`` through the placed tree's
+    placement, state and two steps beside the unsharded step's on card 0
+    (the reference waits on the host meanwhile, so no card holds a whole
+    tree); the losses, gradients and params held as in phase 17."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"fsdp_cards: needs 4 cards, have {n}")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    ref = _fsdp_reference()
+    res: dict = dict(card=_smi(), cards=n,
+                     unsharded_peak_bytes_card0=ref["peak_bytes"],
+                     unsharded=dict(step_ms=ref["step_ms"],
+                                    losses=ref["losses"]))
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+
+    def host(tree):
+        return tree_map(lambda t: t.cpu(), tree)
+
+    for key in ("p0", "params"):
+        ref[key] = host(ref[key])
+    ref["grads"] = [host(g) for g in ref["grads"]]
+    for name in FSDP_LAYOUTS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        lay = fsdp_layouts(ref, cards, names=[name], trace=False)[name]
+        torch.cuda.synchronize()
+        lay["peak_bytes"] = [torch.cuda.max_memory_allocated(c)
+                             for c in cards]
+        lay["peak_of_unsharded_card0"] = [
+            b / ref["peak_bytes"] for b in lay["peak_bytes"]]
+        res[name] = lay
+    log(f"fsdp_cards (qwen3-0p6b f32, {FSDP_LAYOUTS} on four cards; "
+        f"readings, not claims; {res['card']} x {n}): {json.dumps(res)}")
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -6837,7 +7317,10 @@ def main() -> None:
     train_launches = _phase("stages training",
                             stages_training_phase)["training"]["launches"]
     tp = _phase("tensor parallel", tp_phase)
-    mesh = _phase("mesh", mesh_phase)
+    # phase 16's unsharded training run, which phase 17 holds against
+    reference: dict = {}
+    mesh = _phase("mesh", mesh_phase, reference)
+    fsdp = _phase("fsdp", fsdp_phase, reference)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -6855,6 +7338,7 @@ def main() -> None:
             "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"],
             "launches_stages_training": train_launches[name],
+            "launches_fsdp_training": fsdp["launches"][name],
             "design": DESIGN[name],
         }
         if fmt == "fp":
@@ -6902,6 +7386,7 @@ def main() -> None:
         "library_device_ms": ftime["library_device_ms"],
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
         "launches_stages_training": train_launches["flash_attention"],
+        "launches_fsdp_training": fsdp["launches"]["flash_attention"],
         # phase 16: the sharded engines' prefills, each (data, tensor)
         # shard's launch counted (28 x 4 a B=8 prefill)
         "launches_mesh": mesh["serving"]["launches"],
@@ -6910,7 +7395,7 @@ def main() -> None:
         "mesh_shard_max_abs_err": mesh["flash"]["max_abs_err"],
         "design": DESIGN["flash_attention"],
     })
-    log(f"chip_smoke: all 16 phases in {time.monotonic() - t_start:.1f} s "
+    log(f"chip_smoke: all 17 phases in {time.monotonic() - t_start:.1f} s "
         f"({_smi()})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

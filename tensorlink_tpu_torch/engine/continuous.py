@@ -67,6 +67,7 @@ from ..parallel.mesh import (
     Sharded,
     is_sharded,
     local_devices,
+    map_pieces,
     put,
     serving_mesh,
 )
@@ -2316,9 +2317,12 @@ def _placed(params, cfg, mesh):
 
 def _staged(tree, device):
     """A published tree copied onto ``device`` (the engine never shares a
-    tensor with the publisher)."""
+    tensor with the publisher); a placed leaf is copied piece by piece on
+    its devices."""
     if isinstance(tree, dict):
         return {k: _staged(v, device) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return map_pieces(lambda t: t.detach().clone(), tree)
     if isinstance(tree, QTensor):
         return QTensor(q=_staged(tree.q, device),
                        scale=_staged(tree.scale, device))

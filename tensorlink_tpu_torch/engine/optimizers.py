@@ -27,6 +27,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import Sharded, map_pieces, to_device
+
 _INT32_MAX = 2**31 - 1
 
 
@@ -89,13 +91,29 @@ def tree_unflatten(like, leaves: list):
     return out
 
 
+def _sum_sq(x) -> torch.Tensor:
+    """A leaf's sum of squares; a placed leaf's is the sum of its pieces'
+    (each piece once, in mesh order) on its first device, with no piece
+    joined to another."""
+    if not isinstance(x, Sharded):
+        return torch.sum(x * x)
+    dev = x.shards[0].device
+    total = None
+    for j in x.first_of_keys().values():
+        t = x.shards[j]
+        s = to_device(torch.sum(t * t), dev)
+        total = s if total is None else total + s
+    return total
+
+
 def global_norm(tree) -> torch.Tensor:
     """``optax.global_norm``: the square root of the sum, over the leaves
-    in order, of each leaf's sum of squares."""
+    in order, of each leaf's sum of squares (over a placed tree, each
+    piece's, :func:`_sum_sq`)."""
     total = None
     for x in tree_leaves(tree):
-        s = torch.sum(x * x)
-        total = s if total is None else total + s
+        s = _sum_sq(x)
+        total = s if total is None else total + to_device(s, total.device)
     if total is None:
         return torch.zeros(())
     return torch.sqrt(total)
@@ -276,14 +294,18 @@ def ema(decay: float, debias: bool = True,
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """``optax.clip_by_global_norm``: leaves kept where the global norm is
-    below ``max_norm``, else ``(t / norm) * max_norm``."""
+    below ``max_norm``, else ``(t / norm) * max_norm`` (a placed leaf
+    piece by piece)."""
+
+    def clip(t, trigger, g_norm):
+        return torch.where(trigger, t, (t / g_norm.to(t.dtype)) * max_norm)
 
     def update(updates, state, params=None):
         g_norm = global_norm(updates)
         trigger = g_norm < max_norm
         out = tree_map(
-            lambda t: torch.where(trigger, t,
-                                  (t / g_norm.to(t.dtype)) * max_norm),
+            lambda t: map_pieces(clip, t, trigger, g_norm)
+            if isinstance(t, Sharded) else clip(t, trigger, g_norm),
             updates)
         return out, state
 

@@ -25,11 +25,27 @@ enter and leave as their ``tp_partition_specs`` shards, are joined whole
 for the forward and backward, and the update slices over the flattened
 ``dp·tp`` grid (1/(dp·tp) state per device). ``donate`` is accepted and
 ignored: the step returns new tensors either way.
+
+``make_train_step(mesh=)`` without ``zero1`` is the step over a placed
+tree, the GSPMD step of JAX written out: params placed by
+``partition_specs(tensor_axis=, fsdp_axis=)`` stay placed. Each (data ×
+fsdp) group runs its block of every micro-batch's rows through
+``models/sharded.py`` (each layer's weights gathered from their fsdp
+pieces inside the checkpointed block) and differentiates its own
+token-sum objective against leaves of its own (:class:`_Pieces`); the
+gradients then reduce explicitly, never through autograd's accumulation
+into a shared leaf: each piece's gradient is the float32 sum of every
+(micro, group) run's gradient of that slice, micro 0 and group 0 first
+(:class:`GradFold`, a reduce-scatter in fixed order). The global-norm
+clip sums each piece's squares in mesh order and the elementwise update
+runs on each device's piece against optimizer state placed by the same
+specs (:func:`sharded_update`), so no device ever holds the whole
+params, gradients or optimizer state.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -50,6 +66,14 @@ def causal_lm_loss(
 ):
     """Next-token cross-entropy in float32. Returns ``(loss, aux)``."""
     logits, _ = forward(params, tokens, cfg, remat=remat)
+    nll_sum, n = _nll_sum(logits, tokens, loss_mask)
+    loss = nll_sum / n
+    return loss, {"loss": loss, "n_tokens": n}
+
+
+def _nll_sum(logits, tokens, loss_mask):
+    """The next-token cross-entropy's float32 sum and its token count
+    (at least 1)."""
     logits = logits[:, :-1].float()
     targets = tokens[:, 1:].long()
     if loss_mask is not None:
@@ -59,9 +83,7 @@ def causal_lm_loss(
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     nll = (logz - gold) * mask
-    n = torch.clamp(mask.sum(), min=1)
-    loss = nll.sum() / n
-    return loss, {"loss": loss, "n_tokens": n}
+    return nll.sum(), torch.clamp(mask.sum(), min=1)
 
 
 class ChainedOptimizer(NamedTuple):
@@ -108,20 +130,23 @@ def make_optimizer(
 
 @dataclass
 class TrainStep:
-    """A train step and its optimizer; ``mode="zero1"`` carries the mesh
-    its optimizer state is placed on."""
+    """A train step and its optimizer; ``mode="zero1"`` and
+    ``mode="placed"`` carry the mesh its optimizer state is placed on."""
 
     step_fn: Callable  # (params, opt_state, batch) -> (params, opt_state, metrics)
     optimizer: Any
-    mode: str = "unsharded"  # "unsharded" | "zero1"
-    mesh: Any = None  # zero1 only: the mesh carrying the dp axis
+    mode: str = "unsharded"  # "unsharded" | "zero1" | "placed"
+    mesh: Any = None  # the mesh the optimizer state is placed on
     dp_axis: str = "data"
     tp_axis: str | None = None  # zero1 x tp: the mesh's tensor axis
 
     def init_state(self, params):
         """The optimizer's state; for ZeRO-1 placed 1/dp per replica (over
         the flattened ``dp·tp`` grid with ``tp_axis``): each leaf whose
-        leading dimension divides the grid is split along it."""
+        leading dimension divides the grid is split along it; for a placed
+        tree placed by its params' specs, made piece by piece."""
+        if self.mode == "placed":
+            return placed_state(self.optimizer, params, _specs_of(params))
         if self.mode != "zero1":
             return self.optimizer.init(params)
         whole = _mesh.full_tree(params)
@@ -188,7 +213,17 @@ def make_train_step(
     """The train step: ``step_fn(params, opt_state, batch)`` with ``batch``
     a dict of ``"tokens"`` ``[B, T]`` and an optional ``"loss_mask"``,
     returning ``(params, opt_state, {"loss", "grad_norm"})`` — new
-    tensors, the metrics as 0-d tensors on the params' device."""
+    tensors, the metrics as 0-d tensors on the params' device. With
+    ``mesh`` and no ``zero1`` the params are a tree placed on ``mesh``
+    and stay placed (the module docstring)."""
+    if mesh is not None and not zero1:
+        if tp_axis is not None:
+            raise ValueError("tp_axis requires zero1=True (the sharded step)")
+        if loss_fn is not None:
+            raise ValueError("the step over a placed tree takes the "
+                             "causal-LM loss")
+        return _make_placed_step(cfg, optimizer, mesh=mesh,
+                                 n_micro=n_micro, remat=remat)
     loss_fn = loss_fn or causal_lm_loss
 
     def compute_grads(params, tokens, loss_mask):
@@ -289,17 +324,42 @@ def _tmap(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _fold(acc, x: torch.Tensor, device) -> torch.Tensor:
+    """THE fixed-order gradient sum: ``x`` added onto the running sum
+    ``acc`` (None before the first) on ``device`` — one step of
+    ``((x0 + x1) + x2) + …``, the first term first, whatever the count
+    (ZeRO-1's cross-replica sum, and each piece's reduce-scatter over the
+    groups of a placed step)."""
+    x = _mesh.to_device(x, device)
+    return x if acc is None else acc + x
+
+
+def _specs_of(params: dict) -> dict:
+    return optim.tree_map(lambda p: p.spec, params)
+
+
+def _piece_of(x, sp: Split, mesh, j: int):
+    """Device ``j``'s piece under ``sp`` of ``x``: a placed leaf's own
+    piece (cut finer where ``sp`` refines its layout), or a cut of a whole
+    tensor moved there."""
+    if isinstance(x, _mesh.Sharded):
+        return _mesh.reslice(x, sp, j)
+    return _mesh.to_device(_mesh.piece(x, sp, mesh, j), mesh.flat()[j])
+
+
 def sharded_update(optimizer, grads: dict, state, params: dict,
                    slice_specs: dict, mesh):
     """The optimizer step over a state placed on ``mesh``: the chain's
     global-norm clip on the whole gradient (a shard's norm is not the
-    global norm), then its inner stages on each device's piece of the
+    global norm: a placed gradient's norm sums each piece's squares in
+    mesh order), then its inner stages on each device's piece of the
     gradient and params — its piece by ``slice_specs``, the spec its
     state twins are placed by — against that device's state. Elementwise
-    stages give each piece the whole update's bits, so the joined params
-    are the whole update's. ``grads``/``params`` are whole trees; returns
-    ``(new_params_whole, new_state)``, the params on the params'
-    device."""
+    stages give each piece the whole update's bits. ``grads``/``params``
+    are whole trees, or trees placed on ``mesh`` (``slice_specs`` their
+    specs, or finer ones: ZeRO-1 over ``data``); returns ``(new_params,
+    new_state)``, the params whole on the params' device or placed as
+    they came."""
     grad_clip = getattr(optimizer, "grad_clip", None)
     inner = getattr(optimizer, "inner", optimizer)
     if grad_clip is not None:
@@ -308,11 +368,10 @@ def sharded_update(optimizer, grads: dict, state, params: dict,
         clip_state, inner_state = state[0], state[1]
     else:
         clip_state, inner_state = None, state
-    flat = mesh.flat()
     new_p, new_s = [], []
-    for j, dev in enumerate(flat):
-        def cut(x, sp, dev=dev, j=j):
-            return _mesh.to_device(_mesh.piece(x, sp, mesh, j), dev)
+    for j in range(mesh.size):
+        def cut(x, sp, j=j):
+            return _piece_of(x, sp, mesh, j)
 
         g_j = optim.tree_map(cut, grads, slice_specs)
         p_j = optim.tree_map(cut, params, slice_specs)
@@ -322,8 +381,10 @@ def sharded_update(optimizer, grads: dict, state, params: dict,
         new_s.append(ns_j)
 
     def join_param(p, sp, *pieces):
-        return _mesh.from_pieces(list(pieces), sp, p.shape, mesh).full(
-            p.device)
+        x = _mesh.from_pieces(list(pieces), sp, p.shape, mesh)
+        if isinstance(p, _mesh.Sharded):
+            return _mesh.respec(x, p.spec)
+        return x.full(p.device)
 
     def join_state(old, *pieces):
         return _mesh.from_pieces(list(pieces), old.spec, old.shape, mesh)
@@ -333,6 +394,196 @@ def sharded_update(optimizer, grads: dict, state, params: dict,
     state = (clip_state, inner_state) if grad_clip is not None \
         else inner_state
     return params, state
+
+
+def placed_state(optimizer, params: dict, slice_specs: dict, *,
+                 dp_axis: str | None = None, dp_size: int = 0):
+    """The optimizer state of a placed tree, made piece by piece (the
+    whole is never built): each device's ``optimizer.init`` over its
+    pieces of the params by ``slice_specs``, placed by
+    :func:`optimizer_state_specs` over the params' own specs
+    (``dp_axis``/``dp_size``: its ZeRO-1 extension, which
+    ``slice_specs`` must give too). An update that is not elementwise
+    (adafactor's factored moments) refuses a tree split over any axis."""
+    mesh = _mesh.tree_mesh(params)
+    if getattr(optimizer, "name", "") == "adafactor" and any(
+            p.spec != REPLICATED for p in optim.tree_leaves(params)):
+        raise ValueError("a placed tree needs an elementwise optimizer "
+                         "update; adafactor's factored second moments are "
+                         "not — use adamw/sgd")
+    sspecs = optimizer_state_specs(optimizer, params, _specs_of(params),
+                                   dp_axis=dp_axis, dp_size=dp_size)
+    meta = optimizer.init(optim.tree_map(
+        lambda p: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta"),
+        params))
+    per = [optimizer.init(optim.tree_map(
+        lambda p, sp, j=j: _piece_of(p, sp, mesh, j), params, slice_specs))
+        for j in range(mesh.size)]
+    return _tmap(lambda m, sp, *pieces: _mesh.from_pieces(
+        list(pieces), sp, m.shape, mesh), meta, sspecs, *per)
+
+
+class _Pieces:
+    """A ``take`` for ``models/sharded.py``: each piece a group's forward
+    reads (layer ``layer`` of a stacked one) becomes a leaf of its own,
+    so the group's backward gives that slice's gradient and nothing
+    accumulates across groups inside autograd."""
+
+    def __init__(self):
+        self.made: dict = {}
+
+    def __call__(self, leaf, j, layer):
+        t = leaf.shards[j] if isinstance(leaf, _mesh.Sharded) else leaf
+        key = (id(t), layer)
+        if key not in self.made:
+            v = t if layer is None else t[layer]
+            self.made[key] = (leaf, j, layer,
+                              v.detach().requires_grad_(True))
+        return self.made[key][3]
+
+    def leaves(self) -> list:
+        return [m[3] for m in self.made.values()]
+
+
+class GradFold:
+    """A placed tree's gradient, reduced in a fixed order: one float32
+    sum per piece of each leaf (on the first device holding it), to which
+    every group run adds its gradients of that piece in run order
+    (:func:`_fold`'s arithmetic, accumulated in place) — the
+    reduce-scatter of a placed step, with the data replicas' runs summed
+    in too. Each run's backward runs on the calling thread, so every sum
+    inside it has one order too, over distinct cards as on one."""
+
+    def __init__(self, params: dict):
+        self.params = params
+        self.sums: dict = {}  # (id(leaf), key) -> float32 piece sum
+
+    def run(self, fn, extra: list = ()):
+        """One group run: ``fn(take)`` returns ``(outputs, cotangents)``
+        (``cotangents`` None for a scalar objective); its gradients are
+        folded in and those of ``extra`` (inputs that require grad)
+        returned."""
+        take = _Pieces()
+        with torch.enable_grad():
+            outs, cots = fn(take)
+            leaves = take.leaves()
+            # the backward on this thread: autograd's per-device threads
+            # would sum an activation's gradient copies in arrival order,
+            # and two of them can recompute one checkpointed block at once
+            with torch.autograd.set_multithreading_enabled(False):
+                grads = torch.autograd.grad(outs, leaves + list(extra),
+                                            cots, allow_unused=True)
+        with torch.no_grad():
+            for (leaf, j, layer, _), g in zip(take.made.values(),
+                                              grads[:len(leaves)]):
+                if g is None:
+                    continue
+                key = leaf.keys()[j]
+                acc = self.sums.get((id(leaf), key))
+                if acc is None:
+                    src = leaf.shards[leaf.first_of_keys()[key]]
+                    acc = torch.zeros(src.shape, dtype=torch.float32,
+                                      device=src.device)
+                    self.sums[(id(leaf), key)] = acc
+                dst = acc if layer is None else acc[layer]
+                dst.add_(_mesh.to_device(g, dst.device).float())
+        return grads[len(leaves):]
+
+    def result(self, scale=None) -> dict:
+        """The gradient placed like the params, in their dtypes: each
+        piece's sum (zeros where no run read it), times ``scale`` (a
+        scalar tensor) when given."""
+        def leaf_grad(p):
+            def make(key, dev):
+                acc = self.sums.get((id(p), key))
+                if acc is None:
+                    shape = p.shards[p.first_of_keys()[key]].shape
+                    return torch.zeros(shape, dtype=p.dtype, device=dev)
+                acc = _mesh.to_device(acc, dev)
+                if scale is not None:
+                    acc = acc * _mesh.to_device(scale, dev)
+                return acc.to(p.dtype)
+
+            return _mesh.placed(p.mesh, p.spec, tuple(p.shape), make)
+
+        return optim.tree_map(leaf_grad, self.params)
+
+
+def _group_rows(B: int, n_micro: int, n_groups: int) -> list:
+    """The runs of a placed step in order, ``(micro, group, rows)``: group
+    ``g`` holds the contiguous block ``[g·B/G, (g+1)·B/G)`` of the batch's
+    rows (floored: a batch the groups do not divide leaves some a row
+    fewer, or none) and runs it micro by micro (its block's overlap with
+    each micro-batch); every row runs once."""
+    if B % n_micro:
+        raise ValueError(f"batch {B} not divisible by n_micro={n_micro}")
+    mb = B // n_micro
+    out = []
+    for m in range(n_micro):
+        for g in range(n_groups):
+            lo = max(m * mb, g * B // n_groups)
+            hi = min((m + 1) * mb, (g + 1) * B // n_groups)
+            if lo < hi:
+                out.append((m, g, slice(lo, hi)))
+    return out
+
+
+def placed_grads(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 loss_mask: torch.Tensor | None = None, *, n_micro: int = 1,
+                 remat: bool = True) -> tuple:
+    """The token-mean gradient of the causal-LM loss over a placed tree,
+    placed like it: each (micro, group) run of :func:`_group_rows` through
+    ``models/sharded.py::stage(group=)`` differentiates its token-sum
+    objective, the runs fold per piece in order (:class:`GradFold`) and
+    the sums divide once by the batch's token count. Returns ``(grads,
+    loss)``, the loss on the mesh's first device."""
+    from ..models import sharded
+
+    mesh = _mesh.tree_mesh(params)
+    runs = _group_rows(tokens.shape[0], n_micro, sharded.n_groups(params))
+    dev0 = mesh.flat()[0]
+    fold = GradFold(params)
+    nll_acc = tok_acc = None
+    for _m, g, rows in runs:
+        sums: dict = {}
+
+        def objective(take, g=g, rows=rows, sums=sums):
+            out, _ = sharded.stage(params, cfg, tokens=tokens[rows],
+                                   first=True, last=True, remat=remat,
+                                   group=g, take=take)
+            lm = None if loss_mask is None else loss_mask[rows].to(
+                out.device)
+            nll, n = _nll_sum(out, tokens[rows].to(out.device), lm)
+            sums.update(nll=nll.detach(), n=n)
+            return nll, None
+
+        fold.run(objective)
+        nll_acc = _fold(nll_acc, sums["nll"], dev0)
+        tok_acc = _fold(tok_acc, sums["n"].float(), dev0)
+    tok_sum = torch.clamp(tok_acc, min=1.0)
+    with torch.no_grad():
+        return fold.result(1.0 / tok_sum), nll_acc / tok_sum
+
+
+def _make_placed_step(cfg, optimizer, *, mesh, n_micro, remat) -> TrainStep:
+    """The step over a tree placed on ``mesh`` (the module docstring):
+    :func:`placed_grads`, then :func:`sharded_update` on each device's
+    pieces."""
+
+    def step(params, opt_state, batch):
+        if _mesh.tree_mesh(params) is not mesh:
+            raise ValueError("the params are not placed on the step's mesh")
+        grads, loss = placed_grads(params, cfg, batch["tokens"],
+                                   batch.get("loss_mask"), n_micro=n_micro,
+                                   remat=remat)
+        with torch.no_grad():
+            gnorm = optim.global_norm(grads)
+            new_params, new_state = sharded_update(
+                optimizer, grads, opt_state, params, _specs_of(params), mesh)
+        return new_params, new_state, {"loss": loss, "grad_norm": gnorm}
+
+    return TrainStep(step_fn=step, optimizer=optimizer, mode="placed",
+                     mesh=mesh)
 
 
 def _make_zero1_step(optimizer, sum_grads, *, mesh, dp_axis, n_micro,
@@ -400,9 +651,9 @@ def _make_zero1_step(optimizer, sum_grads, *, mesh, dp_axis, n_micro,
             partial.append(_accum_micro_grads(sum_grads, p_d, toks, lm))
 
         def ordered(*xs):
-            acc = _mesh.to_device(xs[0], dev0)
-            for x in xs[1:]:
-                acc = acc + _mesh.to_device(x, dev0)
+            acc = None
+            for x in xs:
+                acc = _fold(acc, x, dev0)
             return acc
 
         with torch.no_grad():
@@ -432,13 +683,13 @@ def dp_extended(spec: Split, shape: tuple, dp_axis, dp_size: int) -> Split:
     spec leaves it whole; anything else as it is."""
     if not dp_axis or dp_size <= 1 or not _dp_shardable(shape, dp_size):
         return spec
-    if spec.dim == 0 or spec.data_dim == 0:
+    if 0 in (spec.dim, spec.data_dim, spec.fsdp_dim):
         return spec  # dim 0 already split — never compose
-    if spec.dim is None:
+    if spec.dim is None and spec.fsdp_dim is None:
         return Split(0, dp_axis)
     if dp_axis != "data" or spec.data_dim is not None:
         return spec
-    return Split(spec.dim, spec.axis, 0)
+    return replace(spec, data_dim=0)
 
 
 def optimizer_state_specs(optimizer, params: dict, param_specs: dict, *,
@@ -511,11 +762,14 @@ def optimizer_state_specs(optimizer, params: dict, param_specs: dict, *,
 
 __all__ = [
     "ChainedOptimizer",
+    "GradFold",
     "TrainStep",
     "causal_lm_loss",
     "make_optimizer",
     "make_train_step",
     "dp_extended",
     "optimizer_state_specs",
+    "placed_grads",
+    "placed_state",
     "sharded_update",
 ]

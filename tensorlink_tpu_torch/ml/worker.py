@@ -89,12 +89,9 @@ class StageRuntime:
     model_spec: dict = field(default_factory=dict)
     params: Any = None  # the stage's tree (QTensor leaves when quantized)
     engine: Any = None  # GenerationEngine (whole-model stages only)
-    # the stage's planned {data, tensor} mesh (params placed on it by
-    # stage_param_specs), else None
+    # the stage's planned {data, fsdp, tensor} mesh (params placed on it
+    # by stage_param_specs), else None
     mesh: Any = None
-    # a placed job's tree joined whole for training (None until a
-    # training op needs it; dropped when the params change)
-    whole: Any = None
     # decode sessions: session id -> this stage's KVCache (its layers)
     sessions: dict[str, Any] = field(default_factory=dict)
     # per-session [B, V] context counts for presence/frequency penalties
@@ -507,24 +504,31 @@ class DistributedWorker:
 
     def _advertised_devices(self) -> list:
         """The devices a plan may mesh over: ``MLConfig.mesh_devices`` of
-        them from this worker's own (:meth:`_mesh_devices`)."""
-        n = int(getattr(self.node.config.ml, "mesh_devices", 1) or 1)
-        return self._mesh_devices(n)
+        them from this worker's own, or the devices it names
+        (:meth:`_mesh_devices`)."""
+        named = getattr(self.node.config.ml, "mesh_devices", 1) or 1
+        return self._mesh_devices(named if isinstance(named, int)
+                                  else len(named))
 
     def _mesh_devices(self, n: int) -> list:
-        """``n`` devices from this worker's on: ``n`` times a CPU worker's
-        host, else ``n`` distinct cards from this worker's card on
-        (ValueError when there are fewer)."""
+        """``n`` devices from this worker's on: the first ``n`` that
+        ``MLConfig.mesh_devices`` names (one card may repeat), else ``n``
+        times a CPU worker's host, else ``n`` distinct cards from this
+        worker's card on (ValueError when there are fewer)."""
+        import torch
+
         from tensorlink_tpu_torch.parallel.mesh import local_devices
 
-        if self.device.type == "cpu":
+        named = getattr(self.node.config.ml, "mesh_devices", 1)
+        if isinstance(named, (list, tuple)):
+            devs = [torch.device(d) for d in named]
+        elif self.device.type == "cpu":
             return [self.device] * n
-        first = self.device.index
-        if first is None:
-            import torch
-
-            first = torch.cuda.current_device()
-        devs = local_devices()[first:]
+        else:
+            first = self.device.index
+            if first is None:
+                first = torch.cuda.current_device()
+            devs = local_devices()[first:]
         if n > len(devs):
             raise ValueError(f"mesh needs {n} devices, have {len(devs)}")
         return devs[:n]
@@ -2019,9 +2023,7 @@ class DistributedWorker:
         if op == "head" or (op == "chain" and p.get("head_hop")):
             hidden = device_tensor(p["hidden"], self.device)
             with torch.no_grad():
-                logits = head_forward(
-                    self._train_params(rt) if train else rt.params, hidden,
-                    rt.cfg)
+                logits = head_forward(rt.params, hidden, rt.cfg)
             if train:
                 rt.saved[tag + ".head"] = ("head", hidden, None, False, True)
                 self._respond(p["peer"], proto.FORWARD_RESP, p["rid"],
@@ -2046,9 +2048,8 @@ class DistributedWorker:
         kw = {"tokens": x_in} if first else {"hidden": x_in}
         if train:
             with torch.no_grad():
-                out, _ = stage_forward(self._train_params(rt), rt.cfg,
-                                       attn_mask=mask, first=first,
-                                       last=apply_head, **kw)
+                out, _ = stage_forward(rt.params, rt.cfg, attn_mask=mask,
+                                       first=first, last=apply_head, **kw)
             # no KV cache in training: the backward recomputes the forward
             # from these inputs when the cotangent arrives
             rt.saved[tag] = ("stage", x_in, mask, first, apply_head)
@@ -2363,6 +2364,7 @@ class DistributedWorker:
             head_forward,
             stage_forward,
         )
+        from tensorlink_tpu_torch.parallel.mesh import is_sharded
 
         rt = self._runtime(p["job_id"])
         tag = p.get("tag", "")
@@ -2374,43 +2376,97 @@ class DistributedWorker:
         kind, x_in, mask, first, apply_head = entry
         # the cotangent in the stage's dtype, as the JAX worker casts it
         g = device_tensor(p["grad"], self.device).to(rt.cfg.dtype)
-        whole = self._train_params(rt)
-        tree, leaves = _trainable(whole)
         # a stage that is not first (and the head hop) also answers the
         # gradient of its input, which the driver passes one stage back
         wrt_input = kind == "head" or not first
-        h = x_in.detach().requires_grad_(True) if wrt_input else x_in
-        with torch.enable_grad():
-            if kind == "head":
-                out = head_forward(tree, h, rt.cfg)
-            else:
-                kw = {"hidden": h} if wrt_input else {"tokens": h}
-                out, _ = stage_forward(tree, rt.cfg, attn_mask=mask,
-                                       first=first, last=apply_head,
-                                       remat=True, **kw)
-            grads = torch.autograd.grad(
-                out, leaves + ([h] if wrt_input else []), g,
-                allow_unused=True)
-        grad_input = None
-        if wrt_input:
-            *grads, grad_input = grads
+        if is_sharded(rt.params):
+            grads, grad_input = self._placed_backward(
+                rt, kind, x_in, mask, first, apply_head, g, wrt_input)
+        else:
+            tree, leaves = _trainable(rt.params)
+            h = x_in.detach().requires_grad_(True) if wrt_input else x_in
+            with torch.enable_grad():
+                if kind == "head":
+                    out = head_forward(tree, h, rt.cfg)
+                else:
+                    kw = {"hidden": h} if wrt_input else {"tokens": h}
+                    out, _ = stage_forward(tree, rt.cfg, attn_mask=mask,
+                                           first=first, last=apply_head,
+                                           remat=True, **kw)
+                grads = torch.autograd.grad(
+                    out, leaves + ([h] if wrt_input else []), g,
+                    allow_unused=True)
+            grad_input = None
+            if wrt_input:
+                *grads, grad_input = grads
+            grads = _grads_like(rt.params, leaves, grads)
         # a tied head's stage 0 sums two gradients of the embedding per
         # micro-batch (the head hop's, then the token lookup's) in the
         # order their BACKWARDs arrive
-        self._accumulate(rt, _grads_like(whole, leaves, grads))
+        self._accumulate(rt, grads)
         body: dict = {"ok": True}
         if grad_input is not None:
             body["grad"] = _host(grad_input)
         self._respond(p["peer"], proto.BACKWARD_RESP, p["rid"], body)
 
+    @staticmethod
+    def _placed_backward(rt: StageRuntime, kind, x_in, mask, first,
+                         apply_head, g, wrt_input) -> tuple:
+        """BACKWARD over a placed tree: each (data × fsdp) group recomputes
+        its block of the rows (``models/sharded.py``, remat with the fsdp
+        gathers inside) and differentiates it against the cotangent's
+        rows; the gradients reduce per piece in group order
+        (``engine/training.py::GradFold``) and stay placed. Returns the
+        placed gradients and the input's gradient (rows in order) or
+        None."""
+        import torch
+
+        from tensorlink_tpu_torch.engine.training import GradFold, \
+            _group_rows
+        from tensorlink_tpu_torch.models import sharded
+        from tensorlink_tpu_torch.parallel.mesh import to_device
+
+        fold = GradFold(rt.params)
+        parts = []
+        for _m, grp, rows in _group_rows(x_in.shape[0], 1,
+                                         sharded.n_groups(rt.params)):
+            h = (x_in[rows].detach().requires_grad_(True) if wrt_input
+                 else x_in[rows])
+
+            def fn(take, grp=grp, rows=rows, h=h):
+                if kind == "head":
+                    out = sharded.head(rt.params, h, rt.cfg, group=grp,
+                                       take=take)
+                else:
+                    kw = {"hidden": h} if wrt_input else {"tokens": h}
+                    out, _ = sharded.stage(
+                        rt.params, rt.cfg, first=first, last=apply_head,
+                        attn_mask=None if mask is None else mask[rows],
+                        remat=True, group=grp, take=take, **kw)
+                return out, g[rows].to(out.device)
+
+            got = fold.run(fn, [h] if wrt_input else [])
+            if wrt_input:
+                parts.append(to_device(got[0], x_in.device))
+        grad_input = torch.cat(parts, dim=0) if wrt_input else None
+        return fold.result(), grad_input
+
     def _accumulate(self, rt: StageRuntime, grads) -> None:
+        """Add a BACKWARD's gradients onto the accumulated ones (a placed
+        job's piece onto piece)."""
+        import torch
+
         from tensorlink_tpu_torch.engine.optimizers import tree_map
+        from tensorlink_tpu_torch.parallel.mesh import Sharded, map_pieces
+
+        def add(a, b):
+            return (map_pieces(torch.add, a, b) if isinstance(a, Sharded)
+                    else a + b)
 
         if rt.grad_accum is None:
             rt.grad_accum = grads
         else:
-            rt.grad_accum = tree_map(lambda a, b: a + b, rt.grad_accum,
-                                     grads)
+            rt.grad_accum = tree_map(add, rt.grad_accum, grads)
         rt.n_accum += 1
 
     # -- optimizer -------------------------------------------------------
@@ -2420,17 +2476,32 @@ class DistributedWorker:
         from tensorlink_tpu_torch.engine import optimizers as optim
         from tensorlink_tpu_torch.engine.training import (
             make_optimizer,
+            placed_state,
             sharded_update,
+        )
+        from tensorlink_tpu_torch.parallel.mesh import (
+            Sharded,
+            is_sharded,
+            map_pieces,
+            tree_mesh,
         )
 
         rt = self._runtime(p["job_id"])
         op = p.get("op")
+        placed = is_sharded(rt.params)
         if op == "init":
             spec = dict(p.get("spec", {}))
             name = spec.pop("name", "adamw")
             rt.opt = make_optimizer(name, **spec)
-            rt.opt_state = rt.opt.init(self._train_params(rt))
-            self._maybe_shard_opt_state(rt)
+            if placed:
+                # piece by piece on the params' devices (over data too
+                # on a ZeRO-1 plan)
+                dp = self._zero1_dp(rt)
+                rt.opt_state = placed_state(
+                    rt.opt, rt.params, self._update_slices(rt),
+                    dp_axis="data" if dp > 1 else None, dp_size=dp)
+            else:
+                rt.opt_state = rt.opt.init(rt.params)
             body = {"ok": True, "op": op}
         elif op == "zero":
             rt.grad_accum = None
@@ -2456,19 +2527,20 @@ class DistributedWorker:
                 if scale != 1.0:
                     # the driver's 1/total_tokens: the accumulated sum-NLL
                     # gradients become the token-mean gradient
-                    rt.grad_accum = optim.tree_map(lambda g: g * scale,
-                                                   rt.grad_accum)
-                whole = self._train_params(rt)
-                if self._zero1_dp(rt) > 1:
-                    # ZeRO-1: the inner update on each replica's slice of
-                    # the gradient against its resident state piece
+                    rt.grad_accum = optim.tree_map(
+                        lambda g: map_pieces(lambda x: x * scale, g)
+                        if isinstance(g, Sharded) else g * scale,
+                        rt.grad_accum)
+                if placed:
+                    # the inner update on each device's pieces against
+                    # its resident state (its slice over data on ZeRO-1)
                     params, rt.opt_state = sharded_update(
-                        rt.opt, rt.grad_accum, rt.opt_state, whole,
-                        self._zero1_slices(rt, whole), rt.mesh)
+                        rt.opt, rt.grad_accum, rt.opt_state, rt.params,
+                        self._update_slices(rt), tree_mesh(rt.params))
                 else:
                     updates, rt.opt_state = rt.opt.update(
-                        rt.grad_accum, rt.opt_state, whole)
-                    params = optim.apply_updates(whole, updates)
+                        rt.grad_accum, rt.opt_state, rt.params)
+                    params = optim.apply_updates(rt.params, updates)
                 gnorm = float(optim.global_norm(rt.grad_accum))
             self._set_params(rt, params)
             self._record_proof(rt, gnorm)
@@ -2479,24 +2551,13 @@ class DistributedWorker:
             raise ValueError(f"unknown optimizer op {op!r}")
         self._respond(p["peer"], proto.OPTIMIZER_RESP, p["rid"], body)
 
-    def _train_params(self, rt: StageRuntime):
-        """The tree a training op runs: a placed job's joined whole on this
-        worker's device (kept until the params change), so its step is
-        the whole tree's, as GSPMD trains the placed tree in JAX."""
-        from tensorlink_tpu_torch.models.sharded import whole
+    def _set_params(self, rt: StageRuntime, params) -> None:
+        """Make ``params`` the job's weights: a whole tree placed on a
+        planned mesh (a placed one as it is), published through a tp
+        job's slot engine."""
         from tensorlink_tpu_torch.parallel.mesh import is_sharded
 
-        if not is_sharded(rt.params):
-            return rt.params
-        if rt.whole is None:
-            rt.whole = whole(rt.params, self.device)
-        return rt.whole
-
-    def _set_params(self, rt: StageRuntime, params) -> None:
-        """Make the whole tree ``params`` the job's weights: placed again
-        on a planned mesh, published through a tp job's slot engine."""
-        rt.whole = None
-        if rt.mesh is not None:
+        if rt.mesh is not None and not is_sharded(params):
             params = self._shard_params(params, rt.cfg, rt.stage, rt.mesh)
         _set_params(rt, params)
 
@@ -2515,45 +2576,39 @@ class DistributedWorker:
             return 0
         return int(axes.get("data", 1))
 
-    def _zero1_slices(self, rt: StageRuntime, whole: dict) -> dict:
-        """Each param's update slice: its stage spec, its leading dim also
-        over ``data`` where the dp degree divides it — the spec its
-        optimizer-state twins are placed by."""
+    def _update_slices(self, rt: StageRuntime) -> dict:
+        """Each placed param's update slice: its own spec, its leading dim
+        also over ``data`` where the ZeRO-1 degree divides it — the spec
+        its optimizer-state twins are placed by."""
         from tensorlink_tpu_torch.engine.optimizers import tree_map
         from tensorlink_tpu_torch.engine.training import dp_extended
-        from tensorlink_tpu_torch.parallel.planner import (
-            StagePlan,
-            stage_param_specs,
-        )
 
         dp = self._zero1_dp(rt)
-        pspecs = stage_param_specs(rt.cfg, StagePlan(**rt.stage))
-        return tree_map(lambda sp, p: dp_extended(sp, tuple(p.shape),
-                                                  "data", dp), pspecs, whole)
+        return tree_map(lambda p: dp_extended(p.spec, tuple(p.shape),
+                                              "data", dp), rt.params)
 
-    def _maybe_shard_opt_state(self, rt: StageRuntime) -> None:
-        """ZeRO-1 on the RPC training path: on a stage mesh with a data
-        axis the optimizer state is placed 1/dp per replica
-        (``optimizer_state_specs`` over the stage specs); the params stay
-        in their stage specs."""
-        dp = self._zero1_dp(rt)
-        if dp <= 1 or rt.opt_state is None:
-            return
+    def _place_opt_state(self, rt: StageRuntime) -> None:
+        """A placed job's optimizer state (a restored one from the host, or
+        one a TRAIN_MODE switch re-lays over data) placed by its params'
+        specs, over ``data`` too on a ZeRO-1 plan
+        (``optimizer_state_specs``)."""
         from tensorlink_tpu_torch.engine.training import (
+            _specs_of,
             optimizer_state_specs,
         )
-        from tensorlink_tpu_torch.parallel.mesh import put
-        from tensorlink_tpu_torch.parallel.planner import (
-            StagePlan,
-            stage_param_specs,
+        from tensorlink_tpu_torch.parallel.mesh import (
+            is_sharded,
+            put,
+            tree_mesh,
         )
 
+        if rt.opt_state is None or not is_sharded(rt.params):
+            return
+        dp = self._zero1_dp(rt)
         sspecs = optimizer_state_specs(
-            rt.opt, self._train_params(rt),
-            stage_param_specs(rt.cfg, StagePlan(**rt.stage)),
-            dp_axis="data", dp_size=dp)
-        # a placed leaf (a state already split, restored) is joined first
-        rt.opt_state = put(rt.mesh, rt.opt_state, sspecs)
+            rt.opt, rt.params, _specs_of(rt.params),
+            dp_axis="data" if dp > 1 else None, dp_size=dp)
+        rt.opt_state = put(tree_mesh(rt.params), rt.opt_state, sspecs)
 
     # -- proof of learning (platform/proofs.py) ---------------------------
     MAX_PROOF_LOG = 256
@@ -2596,6 +2651,7 @@ class DistributedWorker:
         from tensorlink_tpu_torch.core import serialization as ser
         from tensorlink_tpu_torch.engine import optimizers as optim
         from tensorlink_tpu_torch.engine.paged import device_tensor
+        from tensorlink_tpu_torch.parallel.mesh import is_sharded
 
         rt = self._runtime(p["job_id"])
         op = p.get("op", "save")
@@ -2608,20 +2664,25 @@ class DistributedWorker:
             if rt.opt_state is not None:
                 from tensorlink_tpu_torch.parallel.mesh import full_tree
 
-                state["opt_state"] = _host_tree(full_tree(rt.opt_state))
+                # a placed state joined on the host
+                state["opt_state"] = _host_tree(full_tree(rt.opt_state,
+                                                          "cpu"))
             ser.encode_to_file(state, path)
             body = {"ok": True, "path": str(path)}
         elif op == "restore":
             state = ser.decode_from_file(path)
-            params = optim.tree_map(
-                lambda a: device_tensor(a, self.device), state["params"])
+            # a placed job's trees stay on the host until each device's
+            # piece is cut from them
+            dev = "cpu" if is_sharded(rt.params) else self.device
+            params = optim.tree_map(lambda a: device_tensor(a, dev),
+                                    state["params"])
             restored_opt = False
             if "opt_state" in state and rt.opt is not None:
                 # the saved leaves, laid into a fresh state of this
                 # optimizer (its structure and devices)
                 tmpl = rt.opt.init(params)
                 rt.opt_state = optim.tree_unflatten(tmpl, [
-                    device_tensor(a, self.device)
+                    device_tensor(a, dev)
                     for a in optim.tree_leaves(state["opt_state"])
                 ])
                 restored_opt = True
@@ -2629,7 +2690,7 @@ class DistributedWorker:
             # optimizer state) there
             self._set_params(rt, params)
             if restored_opt:
-                self._maybe_shard_opt_state(rt)
+                self._place_opt_state(rt)
             body = {"ok": True, "restored_opt": restored_opt,
                     "opt_in_checkpoint": "opt_state" in state}
         else:
@@ -2671,7 +2732,7 @@ class DistributedWorker:
             )
         rt.training = bool(p.get("training", True))
         if rt.training and rt.opt_state is not None:
-            self._maybe_shard_opt_state(rt)
+            self._place_opt_state(rt)
         self._respond(
             p["peer"], proto.TRAIN_MODE_ACK, p["rid"],
             {"job_id": rt.job_id, "training": rt.training},

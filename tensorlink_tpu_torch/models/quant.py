@@ -20,7 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..parallel.mesh import REPLICATED, Sharded, put
+from ..parallel.mesh import REPLICATED, Sharded, Split, put
 
 
 @dataclass
@@ -129,13 +129,15 @@ _QUANT_LEAF_NAMES = frozenset(
 def _quantize_placed(w: Sharded) -> QTensor:
     """A weight placed on a mesh quantized as the whole weight (its
     scale's maximum runs over the whole contraction axis): the codes
-    placed like the weight, the scales split with the output columns or,
-    for a weight split along its input rows, whole."""
+    placed like the weight, the scales split with the output columns over
+    the tensor axis or, for a weight split along its input rows, whole
+    (whole over fsdp: the forward joins the codes' fsdp pieces)."""
     qt = quantize_tensor(w.full())
     out_split = w.grid[0] > 1 and w.spec.dim == len(w.shape) - 1
     return QTensor(q=put(w.mesh, qt.q, w.spec),
                    scale=put(w.mesh, qt.scale,
-                             w.spec if out_split else REPLICATED))
+                             Split(w.spec.dim, w.spec.axis) if out_split
+                             else REPLICATED))
 
 
 def quantize_params(params: dict, *, min_size: int = 1 << 16) -> dict:

@@ -1,21 +1,24 @@
-"""The dense forward over a tree placed on a ``{data, tensor}`` mesh —
-the port's counterpart of the JAX package's GSPMD path (``forward`` /
-``stage_forward`` over a ``put`` tree, with the flash prefill run per
-shard inside ``shard_map``).
+"""The dense forward over a tree placed on a ``{data, fsdp, tensor}``
+mesh — the port's counterpart of the JAX package's GSPMD path
+(``forward`` / ``stage_forward`` over a ``put`` tree, with the flash
+prefill run per shard inside ``shard_map``), differentiable, so that the
+train step and the worker's BACKWARD run on the placed tree itself.
 
 One controller process runs every shard, as in ``engine/paged.py``'s
-tensor-parallel step. The mesh's data groups each take their rows of
-the batch — a contiguous block when the cache (or, without one, the
-batch) splits over ``data``, else every row, once per distinct device
-set — and within a group shard ``t`` runs its heads: its q/k/v columns,
-its kv heads of the cache, its attention (``flash_attention`` over its
-``B/dp`` rows and ``Hq/tp`` query heads when the flash gate passes; no
-collective: attention is independent per row and head). Where the
-tensor axis cannot split the heads (a head count it does not divide, or
-qk_norm_full's norm over the whole projection), each device joins the
-shards' q/k/v columns and attends over every head with the cache whole
-over tensor, as GSPMD reshards. Every other product follows its
-weight's placement:
+tensor-parallel step. The mesh's (data × fsdp) groups each take a block
+of the batch's rows — over data × fsdp without a cache when the groups
+divide the batch (JAX's activations split over both under GSPMD), over
+data alone when the cache splits its batch over ``data`` (the cache does
+not split over fsdp, so each fsdp group on its own devices writes its
+copy), else every row, once per block and distinct device set — and
+within a group shard ``t`` runs its heads: its q/k/v columns, its kv
+heads of the cache, its attention (``flash_attention`` over its rows and
+``Hq/tp`` query heads when the flash gate passes; no collective:
+attention is independent per row and head). Where the tensor axis cannot
+split the heads (a head count it does not divide, or qk_norm_full's norm
+over the whole projection), each device joins the shards' q/k/v columns
+and attends over every head with the cache whole over tensor, as GSPMD
+reshards. Every other product follows its weight's placement:
 
 - a weight split along its output columns (the serving specs'
   ``wo``/``w_down``, any ``wq``/``w_gate``, an ``lm_head``) makes each
@@ -29,26 +32,36 @@ weight's placement:
   partial outputs, summed in shard order;
 - a replicated leaf runs once per distinct device.
 
+A leaf split over ``fsdp`` (ZeRO-3, ``partition_specs(fsdp_axis=)``) is
+gathered just before its use: each shard joins its fsdp peers' pieces
+(the same data and tensor index) with ``to_device`` and a fixed-order
+concatenation, one layer at a time, and drops the joined weight after
+the block. Under ``remat`` the gather runs inside the checkpointed block
+(``torch.utils.checkpoint``, non-reentrant), so autograd saves the
+pieces, never a joined weight, and the backward gathers again; the LM
+head's gather is checkpointed too.
+
 The products after attention are the tensor-parallel epilogue the paged
 serving step runs too (``models/transformer.py::_tp_residual`` and
-``_tp_logits`` over one :class:`~.transformer.TPLayout` per data group);
-this module adds the per-shard attention over the dense cache and the
-vocabulary-split embedding lookup. Norms, residual adds, rope and the
-masks run once per distinct device of a group, on the whole ``d_model``.
-The logits or hidden states come back whole on the mesh's first device;
-the cache is written in place, piece by piece, and its ``length`` (a
-``[B]`` tensor the host loops read and rewrite) comes back in the form
-it came in.
+``_tp_logits`` over one :class:`~.transformer.TPLayout` per group); this
+module adds the per-shard attention over the dense cache, the
+vocabulary-split embedding lookup and the fsdp gathers. Norms, residual
+adds, rope and the masks run once per distinct device of a group, on the
+whole ``d_model``. The logits or hidden states come back whole on the
+mesh's first device (or, for one group's run, on the group's first
+device); the cache is written in place, piece by piece, and its
+``length`` (a ``[B]`` tensor the host loops read and rewrite) comes back
+in the form it came in.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import (
     Sharded,
     full_tree,
-    shard_tree,
     to_device,
     tree_mesh,
 )
@@ -58,7 +71,6 @@ from .transformer import (
     TPLayout,
     _attend,
     _embed_tokens,
-    _layers,
     _mask_bias,
     _norm,
     _qkv,
@@ -87,7 +99,8 @@ def _kind(leaf, ndim_stacked: int, tensor_axis: str | None) -> str:
             (leaf.spec.axis,) if isinstance(leaf.spec.axis, str)
             else leaf.spec.axis):
         raise ValueError(f"a leaf split over {leaf.spec.axis!r}: the dense "
-                         f"forward splits leaves over the tensor axis only")
+                         f"forward splits leaves over the tensor axis (and "
+                         f"fsdp_dim over fsdp) only")
     if leaf.spec.dim == ndim_stacked - 1:
         return "col"
     if leaf.spec.dim == ndim_stacked - 2:
@@ -96,34 +109,49 @@ def _kind(leaf, ndim_stacked: int, tensor_axis: str | None) -> str:
                      f"{tuple(leaf.shape)}")
 
 
-class _Placed:
-    """A placed tree read for one forward: the mesh's data groups, each a
-    :class:`~.transformer.TPLayout` over its tensor shards (with how every
-    weight lies) and its shards' trees."""
+def _view(leaf, j: int | None, layer: int | None) -> torch.Tensor:
+    t = leaf if j is None else leaf.shards[j]
+    return t if layer is None else t[layer]
 
-    def __init__(self, params: dict, cfg: ModelConfig):
+
+class _Placed:
+    """A placed tree read for one forward: the mesh's (data × fsdp)
+    groups, each a :class:`~.transformer.TPLayout` over its tensor shards
+    (with how every weight lies), and each shard's fsdp peers. ``take(leaf,
+    j, layer)`` reads flattened device ``j``'s piece of a placed leaf
+    (layer ``layer`` of a stacked one; ``j`` None for a plain tensor): a
+    view by default; the train step passes one that makes each piece a
+    leaf of its own for autograd."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, take=None):
         mesh = tree_mesh(params)
         self.mesh = mesh
+        self.params = params
+        self.take = take or _view
         sizes = mesh.shape
         self.tensor_axis = next(
             (a for a in ("tensor", "tp") if sizes.get(a, 1) > 1), None)
         self.tp = sizes.get(self.tensor_axis, 1) if self.tensor_axis else 1
         self.dp = sizes.get("data", 1)
+        self.nf = sizes.get("fsdp", 1)
         flat = mesh.flat()
-        d_idx = mesh.axis_index("data")
+        d_idx, f_idx = mesh.axis_index("data"), mesh.axis_index("fsdp")
         t_idx = (mesh.axis_index(self.tensor_axis) if self.tensor_axis
                  else [0] * mesh.size)
-        # group g's shard t is flattened device groups[g][t]
-        self.groups = [[0] * self.tp for _ in range(self.dp)]
+        # group g = data * nf + fsdp; its shard t is flattened device
+        # groups[g][t], and that shard's fsdp peers (the same data and
+        # tensor index, fsdp 0 first) are peers[g][t]
+        self.groups = [[0] * self.tp for _ in range(self.dp * self.nf)]
         for j in range(mesh.size):
-            self.groups[d_idx[j]][t_idx[j]] = j
+            self.groups[d_idx[j] * self.nf + f_idx[j]][t_idx[j]] = j
+        self.peers = [[[self.groups[(g // self.nf) * self.nf + f][t]
+                        for f in range(self.nf)] for t in range(self.tp)]
+                      for g in range(len(self.groups))]
         self.primary = flat[0]
-        shards = [shard_tree(params, j) for j in range(mesh.size)]
-        layers = ([_layers(t) for t in shards] if "layers" in params
-                  else None)
         ax = self.tensor_axis
         lay = params.get("layers", {})
         attn, mlp = lay.get("attn", {}), lay.get("mlp", {})
+        self.n_layers = (_leaf(attn["wq"]).shape[0] if "wq" in attn else 0)
         self.qkv = _kind(attn["wq"], 3, ax) if "wq" in attn else "rep"
         up = mlp.get("w_up", mlp.get("w_gate"))
         nd = 4 if cfg.moe else 3
@@ -151,9 +179,42 @@ class _Placed:
                              "the head its vocabulary columns only")
         self.lays = [TPLayout([flat[j] for j in grp], **kinds)
                      for grp in self.groups]
-        self.shards = [[shards[j] for j in grp] for grp in self.groups]
-        self.layers = (None if layers is None else
-                       [[layers[j] for j in grp] for grp in self.groups])
+
+    def _gather(self, leaf, g: int, t: int, layer: int | None):
+        """Group ``g`` shard ``t``'s tensor of ``leaf`` (layer ``layer``
+        of a stacked one): its own piece, or, for a leaf split over
+        fsdp, its peers' pieces joined in fsdp order on its device."""
+        if isinstance(leaf, QTensor):
+            return QTensor(q=self._gather(leaf.q, g, t, layer),
+                           scale=self._gather(leaf.scale, g, t, layer))
+        j = self.groups[g][t]
+        if not isinstance(leaf, Sharded):
+            return self.take(leaf, None, layer)
+        if leaf.n_fsdp == 1:
+            return self.take(leaf, j, layer)
+        dev = leaf.shards[j].device
+        parts = [to_device(self.take(leaf, p, layer), dev)
+                 for p in self.peers[g][t]]
+        dim = leaf.spec.fsdp_dim - (0 if layer is None else 1)
+        return torch.cat(parts, dim=dim)
+
+    def _tree(self, node, g: int, t: int, layer: int | None):
+        if isinstance(node, dict):
+            return {k: self._tree(v, g, t, layer) for k, v in node.items()}
+        return self._gather(node, g, t, layer)
+
+    def layer(self, g: int, i: int) -> list:
+        """Group ``g``'s layer ``i``: each shard's parameter dict, joined
+        over fsdp."""
+        return [self._tree(self.params["layers"], g, t, i)
+                for t in range(self.tp)]
+
+    def top(self, g: int, names) -> list:
+        """Group ``g``'s leaves outside the layers among ``names``
+        (embed, final_norm, lm_head): each shard's dict, joined over
+        fsdp."""
+        sub = {k: self.params[k] for k in names if k in self.params}
+        return [self._tree(sub, g, t, None) for t in range(self.tp)]
 
 
 def _splits_heads(qkv: str, cfg: ModelConfig, tp: int) -> bool:
@@ -188,17 +249,18 @@ def _joined_attn(pl: _Placed, lps: list, lay: TPLayout, device) -> dict:
     return out
 
 
-def _rows_split(cache: KVCache | None, B: int, dp: int) -> bool:
-    """Whether the data groups take a block of rows each: when the cache
-    splits its batch over ``data``, or, without a cache, when ``data``
-    divides the batch (JAX's rule: a batch it does not divide replicates
-    over ``data``, and nothing raises)."""
-    if dp <= 1:
-        return False
+def _row_blocks(pl: _Placed, cache: KVCache | None, B: int) -> int:
+    """How many blocks of rows the groups split the batch into: the data
+    blocks of a cache that splits its batch over ``data``; without a
+    cache one block per group when the groups divide the batch, else per
+    data group when ``data`` divides it (JAX's rule: a batch it does not
+    divide replicates, and nothing raises); else 1."""
     if cache is not None:
         k = cache.k
-        return isinstance(k, Sharded) and k.grid[1] > 1
-    return B % dp == 0
+        return pl.dp if isinstance(k, Sharded) and k.grid[1] > 1 else 1
+    if B % (pl.dp * pl.nf) == 0:
+        return pl.dp * pl.nf
+    return pl.dp if pl.dp > 1 and B % pl.dp == 0 else 1
 
 
 def _cache_piece(cache: KVCache, j: int, i: int) -> tuple:
@@ -211,11 +273,13 @@ def _cache_piece(cache: KVCache, j: int, i: int) -> tuple:
     return tuple(out)
 
 
-def _check_cache(cache: KVCache, pl: _Placed, rows_split: bool) -> None:
+def _check_cache(cache: KVCache, pl: _Placed, blocks: int) -> None:
     k = cache.k
     if not isinstance(k, Sharded):
         raise ValueError("a placed tree runs over a placed cache "
                          "(models/transformer.py::cache_specs)")
+    if k.n_fsdp > 1:
+        raise ValueError("the cache does not split over fsdp")
     heads = k.grid[0] > 1
     if heads != pl.split_heads:
         raise ValueError(f"the cache splits its kv heads {heads}, the "
@@ -223,7 +287,7 @@ def _check_cache(cache: KVCache, pl: _Placed, rows_split: bool) -> None:
     if heads and (k.spec.dim != 3 or k.grid[0] != pl.tp):
         raise ValueError(f"the cache splits dim {k.spec.dim} "
                          f"{k.grid[0]} ways")
-    if rows_split and k.spec.data_dim != 1:
+    if blocks > 1 and k.spec.data_dim != 1:
         raise ValueError(f"the cache splits dim {k.spec.data_dim} over data")
 
 
@@ -231,7 +295,8 @@ def _embed(pl: _Placed, tokens: torch.Tensor, cfg: ModelConfig,
            positions: torch.Tensor, g: int) -> dict:
     """Each distinct device's embedding of ``tokens``: a vocabulary-split
     table looks each token up in the shard holding its row."""
-    lay, shards = pl.lays[g], pl.shards[g]
+    lay = pl.lays[g]
+    shards = pl.top(g, ("embed",))
     looked = []
     if lay.tok != "rep":
         # each shard looks up the tokens its vocabulary rows hold, on its
@@ -264,14 +329,16 @@ def _embed(pl: _Placed, tokens: torch.Tensor, cfg: ModelConfig,
     return out
 
 
-def _block(pl: _Placed, x: dict, lps: list, cfg: ModelConfig, g: int,
-           rope: dict, bias: dict, cache: KVCache | None, write_at: dict,
-           attn_fn, kv_upto, i: int) -> dict:
-    """One decoder block over group ``g`` (``lps[t]``: shard ``t``'s
-    layer ``i``): each shard's heads — or, where the heads do not split,
-    all of them once per distinct device from the joined q/k/v columns,
-    each device writing its own copy of the cache — then the shared
-    tensor-parallel epilogue (:func:`~.transformer._tp_residual`)."""
+def _block(pl: _Placed, x: dict, cfg: ModelConfig, g: int, rope: dict,
+           bias: dict, cache: KVCache | None, write_at: dict, attn_fn,
+           kv_upto, i: int) -> dict:
+    """Decoder block ``i`` over group ``g``: its weights gathered (each
+    shard's, joined over fsdp), each shard's heads — or, where the heads
+    do not split, all of them once per distinct device from the joined
+    q/k/v columns, each device writing its own copy of the cache — then
+    the shared tensor-parallel epilogue
+    (:func:`~.transformer._tp_residual`)."""
+    lps = pl.layer(g, i)
     lay, group = pl.lays[g], pl.groups[g]
     h = x if cfg.norm_position == "post" else {
         d: _norm(x[d], lps[t]["ln1"], cfg) for d, t in lay.first.items()}
@@ -290,19 +357,58 @@ def _block(pl: _Placed, x: dict, lps: list, cfg: ModelConfig, g: int,
     return _tp_residual(x, attn, lps, cfg, lay)
 
 
-def _groups_to_run(pl: _Placed, rows_split: bool) -> list[int]:
-    """Every group when the rows split; else one per distinct device set
-    (a group on the same devices would repeat the same work into the
-    same cache pieces)."""
-    if rows_split:
-        return list(range(pl.dp))
-    seen, out = set(), []
-    for g, lay in enumerate(pl.lays):
-        key = tuple(lay.devices)
-        if key not in seen:
-            seen.add(key)
-            out.append(g)
-    return out
+def _head_names(cfg: ModelConfig) -> tuple:
+    return ("embed",) if cfg.tie_embeddings else ("lm_head",)
+
+
+def _head(pl: _Placed, x: dict, cfg: ModelConfig, g: int) -> torch.Tensor:
+    """Group ``g``'s final norm and LM head over the residual ``x``."""
+    lay = pl.lays[g]
+    shards = pl.top(g, ("final_norm",) + _head_names(cfg))
+    xn = {d: _norm(x[d], shards[t]["final_norm"], cfg)
+          for d, t in lay.first.items()}
+    return _tp_logits(shards, xn, cfg, lay)
+
+
+def _run_group(pl: _Placed, g: int, cfg: ModelConfig, x_in, positions,
+               attn_mask, offset, new_len, cache, *, first: bool,
+               last: bool, final_norm: bool, remat: bool, use_flash: bool,
+               attn_fn, kv_upto):
+    """Group ``g`` over the rows it was given: the output on its first
+    device."""
+    lay = pl.lays[g]
+    rope, bias, write_at = {}, {}, {}
+    for d in lay.distinct:
+        pos = to_device(positions, d)
+        rope[d] = (rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
+                   if cfg.pos == "rope" else (None, None))
+        write_at[d] = to_device(offset, d)
+        if use_flash:
+            bias[d] = None
+            continue
+        if cache is not None:
+            kv_idx = torch.arange(cache.max_len, device=d)[None, :]
+            valid_kv = kv_idx < to_device(new_len, d)[:, None]
+        else:
+            valid_kv = to_device(attn_mask, d)
+        bias[d] = _mask_bias(pos, valid_kv.shape[-1], valid_kv,
+                             cfg.sliding_window)
+    if first:
+        x = _embed(pl, x_in, cfg, positions, g)
+    else:
+        x = {d: to_device(x_in, d).to(cfg.dtype) for d in lay.distinct}
+    for i in range(pl.n_layers):
+        args = (pl, x, cfg, g, rope, bias, cache, write_at, attn_fn, kv_upto,
+                i)
+        x = (checkpoint(_block, *args, use_reentrant=False) if remat
+             else _block(*args))
+    if last:
+        return (checkpoint(_head, pl, x, cfg, g, use_reentrant=False)
+                if remat else _head(pl, x, cfg, g))
+    if final_norm:
+        fn = pl.top(g, ("final_norm",))[0]["final_norm"]
+        return _norm(x[lay.primary], fn, cfg)
+    return x[lay.primary]
 
 
 def stage(
@@ -318,22 +424,31 @@ def stage(
     last: bool,
     flash_prefill: bool = False,
     final_norm: bool = False,
+    remat: bool = False,
+    group: int | None = None,
+    take=None,
 ):
     """``models/transformer.py::_stage_impl`` over a placed tree (see the
     module docstring): ``(out, new_cache)``, ``out`` the logits when
     ``last``, else the hidden states (final-normed when ``final_norm``),
-    whole on the mesh's first device."""
-    pl = _Placed(params, cfg)
+    whole on the mesh's first device. ``remat`` checkpoints each block
+    with its gathers. ``group`` runs that (data × fsdp) group alone over
+    every given row, without a cache, and returns its output on the
+    group's first device (the train step's per-group backward); ``take``
+    reads the pieces (:class:`_Placed`)."""
+    pl = _Placed(params, cfg, take)
     x_in = tokens if first else hidden
     if x_in is None:
         raise ValueError("first stage requires tokens" if first
                          else "non-first stage requires hidden")
     B, T = x_in.shape[:2]
-    dev0 = pl.primary
+    dev0 = pl.primary if group is None else pl.lays[group].primary
     if attn_mask is None:
         attn_mask = torch.ones((B, T), dtype=torch.bool, device=dev0)
     length_in = None
     if cache is not None:
+        if group is not None:
+            raise ValueError("a single group's run takes no cache")
         length_in = cache.length
         offset = (length_in.full(dev0) if isinstance(length_in, Sharded)
                   else to_device(length_in, dev0))
@@ -343,10 +458,7 @@ def stage(
     if positions is None:
         positions = offset.long()[:, None] + torch.arange(
             T, device=dev0)[None]
-    rows_split = _rows_split(cache, B, pl.dp)
-    if cache is not None:
-        _check_cache(cache, pl, rows_split)
-    b = B // pl.dp if rows_split else B
+    positions = to_device(positions, dev0)
 
     attn_fn, kv_upto = None, None
     use_flash = flash_gate(cfg, T, cache is not None, flash_prefill)
@@ -361,51 +473,37 @@ def stage(
 
         kv_upto = T
     new_len = offset + attn_mask.sum(-1).to(torch.int32)
+    kw = dict(first=first, last=last, final_norm=final_norm, remat=remat,
+              use_flash=use_flash, attn_fn=attn_fn, kv_upto=kv_upto)
 
-    outs = []
-    for g in _groups_to_run(pl, rows_split):
-        rows = slice(g * b, (g + 1) * b) if rows_split else slice(0, B)
-        lay = pl.lays[g]
-        rope, bias, write_at = {}, {}, {}
-        for d in lay.distinct:
-            pos = to_device(positions[rows], d)
-            rope[d] = (rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
-                       if cfg.pos == "rope" else (None, None))
-            write_at[d] = to_device(offset[rows], d)
-            if use_flash:
-                bias[d] = None
-                continue
-            if cache is not None:
-                S = cache.max_len
-                kv_idx = torch.arange(S, device=d)[None, :]
-                valid_kv = kv_idx < to_device(new_len[rows], d)[:, None]
-            else:
-                valid_kv = to_device(attn_mask[rows], d)
-            bias[d] = _mask_bias(pos, valid_kv.shape[-1], valid_kv,
-                                 cfg.sliding_window)
-        if first:
-            x = _embed(pl, x_in[rows], cfg, positions[rows], g)
-        else:
-            x = {d: to_device(x_in[rows], d).to(cfg.dtype)
-                 for d in lay.distinct}
-        if pl.layers is not None:
-            for i in range(len(pl.layers[g][0])):
-                lps = [layers[i] for layers in pl.layers[g]]
-                x = _block(pl, x, lps, cfg, g, rope, bias, cache, write_at,
-                           attn_fn, kv_upto, i)
-        shards = pl.shards[g]
-        if last:
-            xn = {d: _norm(x[d], shards[t]["final_norm"], cfg)
-                  for d, t in lay.first.items()}
-            outs.append(_tp_logits(shards, xn, cfg, lay))
-        elif final_norm:
-            outs.append(_norm(x[lay.primary], shards[0]["final_norm"], cfg))
-        else:
-            outs.append(x[lay.primary])
-    out = (torch.cat([to_device(o, dev0) for o in outs], dim=0)
-           if rows_split else to_device(outs[0], dev0))
+    if group is not None:
+        out = _run_group(pl, group, cfg, x_in, positions, attn_mask, offset,
+                         new_len, None, **kw)
+        return out, None
+    blocks = _row_blocks(pl, cache, B)
+    if cache is not None:
+        _check_cache(cache, pl, blocks)
+    b = B // blocks
+    per_block = len(pl.groups) // blocks  # groups sharing a block
+    outs: dict = {}
+    seen: set = set()
+    for g in range(len(pl.groups)):
+        k = g // per_block
+        # a group whose block another group on the same devices ran (or,
+        # without a cache to keep a copy of, any group) repeats its work
+        key = (k, tuple(pl.lays[g].devices) if cache is not None else ())
+        if key in seen:
+            continue
+        seen.add(key)
+        rows = slice(k * b, (k + 1) * b)
+        out = _run_group(pl, g, cfg, x_in[rows], positions[rows],
+                         attn_mask[rows], offset[rows], new_len[rows], cache,
+                         **kw)
+        outs.setdefault(k, out)
+    out = (torch.cat([to_device(outs[k], dev0) for k in range(blocks)],
+                     dim=0) if blocks > 1 else to_device(outs[0], dev0))
     new_cache = cache
-    if cache is not None and pl.layers is not None:
+    if cache is not None and pl.n_layers:
         if isinstance(length_in, Sharded):
             from ..parallel.mesh import put
 
@@ -422,23 +520,30 @@ def logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     (whole), on the mesh's first device."""
     pl = _Placed(params, cfg)
     lay = pl.lays[0]
-    return _tp_logits(pl.shards[0], {d: to_device(x, d) for d in lay.distinct},
+    shards = pl.top(0, _head_names(cfg))
+    return _tp_logits(shards, {d: to_device(x, d) for d in lay.distinct},
                       cfg, lay)
 
 
-def head(params: dict, hidden: torch.Tensor,
-         cfg: ModelConfig) -> torch.Tensor:
-    """``head_forward`` over a placed tree: final norm and LM head."""
-    pl = _Placed(params, cfg)
-    lay, shards = pl.lays[0], pl.shards[0]
-    x = {d: _norm(to_device(hidden, d).to(cfg.dtype),
-                  shards[t]["final_norm"], cfg) for d, t in lay.first.items()}
-    return _tp_logits(shards, x, cfg, lay)
+def head(params: dict, hidden: torch.Tensor, cfg: ModelConfig, *,
+         group: int = 0, take=None) -> torch.Tensor:
+    """``head_forward`` over a placed tree: final norm and LM head, by
+    ``group`` (default the first) on its first device."""
+    pl = _Placed(params, cfg, take)
+    lay = pl.lays[group]
+    return _head(pl, {d: to_device(hidden, d).to(cfg.dtype)
+                      for d in lay.distinct}, cfg, group)
+
+
+def n_groups(params: dict) -> int:
+    """How many (data × fsdp) groups a placed tree's mesh has."""
+    sizes = tree_mesh(params).shape
+    return sizes.get("data", 1) * sizes.get("fsdp", 1)
 
 
 def whole(params: dict, device=None) -> dict:
     """A placed tree joined whole (quantized leaves too) on ``device``:
-    what training takes, so a placed job's step is the whole tree's."""
+    what a checkpoint or a PARAMS_REQ writes, joined on the host."""
     def join(node):
         if isinstance(node, dict):
             return {k: join(v) for k, v in node.items()}
@@ -450,4 +555,4 @@ def whole(params: dict, device=None) -> dict:
     return join(params)
 
 
-__all__ = ["head", "head_axis", "logits", "stage", "whole"]
+__all__ = ["head", "head_axis", "logits", "n_groups", "stage", "whole"]

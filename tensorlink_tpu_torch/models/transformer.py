@@ -481,24 +481,29 @@ def partition_specs(
     GSPMD dense path): q/k/v, gate and up split their output columns over
     ``tensor_axis``, ``wo``/``w_down`` their input rows, the embedding
     its vocabulary rows and ``lm_head`` its vocabulary columns; norms,
-    the output biases and the router replicate. ``models/sharded.py`` runs
-    the forward over a tree placed by it. The fsdp and expert axes are
-    not ported."""
-    if fsdp_axis is not None:
-        raise unported("the fsdp axis (ZeRO-3 parameter sharding, "
-                       "partition_specs(fsdp_axis=))", 3)
+    the output biases and the router replicate. ``fsdp_axis`` also splits
+    each large weight's other dimension over ``fsdp`` (ZeRO-3):
+    ``wq`` is ``P(None, "fsdp", "tensor")``, ``wo`` ``P(None, "tensor",
+    "fsdp")``, the embedding ``P("tensor", "fsdp")``. ``models/sharded.py``
+    runs the forward over a tree placed by it. The expert axis is not
+    ported."""
     if expert_axis is not None:
         raise unported("the expert axis (partition_specs(expert_axis=))", 4)
-    t = tensor_axis
+    if fsdp_axis not in (None, "fsdp"):
+        raise ValueError(f"the fsdp dimension splits over 'fsdp', not "
+                         f"{fsdp_axis!r}")
+    t, fs = tensor_axis, fsdp_axis
 
-    def sp(dim: int) -> Split:
-        return REPLICATED if t is None else Split(dim, t)
+    def sp(dim: int | None, fdim: int | None = None) -> Split:
+        dim = dim if t is not None else None
+        return Split(dim, "tp" if dim is None else t,
+                     fsdp_dim=fdim if fs is not None else None)
 
     rep = REPLICATED
     ln = {"scale": rep}
     if cfg.norm == "layernorm":
         ln["bias"] = rep
-    attn = {"wq": sp(2), "wk": sp(2), "wv": sp(2), "wo": sp(1)}
+    attn = {"wq": sp(2, 1), "wk": sp(2, 1), "wv": sp(2, 1), "wo": sp(1, 2)}
     if cfg.attn_bias:
         attn |= {"bq": sp(1), "bk": sp(1), "bv": sp(1)}
     if cfg.attn_out_bias or cfg.family == "gpt2":  # must match init_params
@@ -508,25 +513,25 @@ def partition_specs(
     if cfg.qk_norm_full:  # the scales align with the split projections
         attn |= {"q_norm": sp(1), "k_norm": sp(1)}
     if cfg.moe:
-        mlp = {"router": rep, "w_gate": sp(3), "w_up": sp(3),
-               "w_down": sp(2)}
+        mlp = {"router": rep, "w_gate": sp(3, 2), "w_up": sp(3, 2),
+               "w_down": sp(2, 3)}
     elif cfg.mlp == "gated":
-        mlp = {"w_gate": sp(2), "w_up": sp(2), "w_down": sp(1)}
+        mlp = {"w_gate": sp(2, 1), "w_up": sp(2, 1), "w_down": sp(1, 2)}
         if cfg.mlp_bias:
             mlp |= {"b_gate": sp(1), "b_up": sp(1), "b_down": rep}
     else:
-        mlp = {"w_up": sp(2), "b_up": sp(1), "w_down": sp(1),
+        mlp = {"w_up": sp(2, 1), "b_up": sp(1), "w_down": sp(1, 2),
                "b_down": rep}
     specs = {
-        "embed": {"tok": sp(0)},
+        "embed": {"tok": sp(0, 1)},
         "layers": {"ln1": ln, "attn": attn, "ln2": dict(ln), "mlp": mlp},
         "final_norm": {"scale": rep}
         | ({"bias": rep} if cfg.norm == "layernorm" else {}),
     }
     if cfg.pos == "learned":
-        specs["embed"]["pos"] = rep
+        specs["embed"]["pos"] = sp(None, 1)
     if not cfg.tie_embeddings:
-        specs["lm_head"] = sp(1)
+        specs["lm_head"] = sp(1, 0)
     return specs
 
 

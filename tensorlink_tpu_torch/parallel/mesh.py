@@ -23,13 +23,15 @@ JAX's tiled ``all_gather`` computes.
 
 A tensor placed on a mesh is a :class:`Sharded`: one tensor per device
 of the mesh, in mesh order — its piece of the whole by a :class:`Split`
-spec (one dimension over ``tensor``/``tp``, the batch dimension over
-``data``, or both), one tensor shared by every shard on the same device
-that holds the same piece. :func:`put` places a tree by a spec tree, as
-JAX's ``put`` does with ``NamedSharding``; :meth:`Sharded.full` joins a
-leaf exactly and :func:`take_rows` is the cross-shard row gather (the
-beam reorder over a ``data``-split cache). Axes other than ``data``,
-``tensor`` and ``tp`` above 1 raise, naming their ROADMAP queue 1 item.
+spec (a dimension per axis: one over ``tensor``/``tp``, one over
+``data``, one over ``fsdp``, in any combination), one tensor shared by
+every shard on the same device that holds the same piece. :func:`put`
+places a tree by a spec tree, as JAX's ``put`` does with
+``NamedSharding``; :meth:`Sharded.full` joins a leaf exactly,
+:func:`map_pieces` runs an elementwise function piece by piece and
+:func:`take_rows` is the cross-shard row gather (the beam reorder over a
+``data``-split cache). The ``expert``, ``stage`` and ``seq`` axes above 1
+raise, naming their ROADMAP queue 1 item.
 
 The default devices are the distinct local CUDA cards. A device repeats
 in a mesh only when the caller names the devices: the tests lay N shards
@@ -168,10 +170,9 @@ def serving_mesh(
 
 # axes a tree may be placed over, and the ROADMAP queue 1 item that
 # brings each of the others
-_PLACED_AXES = ("data", "tensor", "tp")
+_PLACED_AXES = ("data", "fsdp", "tensor", "tp")
 # tlint: disable=TL006(read-only constant table — never mutated)
 _UNPORTED_AXES = {
-    "fsdp": ("the fsdp axis (ZeRO-3 parameter sharding)", 3),
     "expert": ("the expert axis (expert parallelism on a mesh)", 4),
     "stage": ("the stage axis (in-mesh pipeline stages)", 4),
     "seq": ("the seq axis (sequence-parallel ring attention)", 5),
@@ -185,15 +186,18 @@ def _axes(axis) -> tuple[str, ...]:
 @dataclass(frozen=True)
 class Split:
     """A spec leaf — JAX's ``PartitionSpec`` for the layouts the port
-    places: dimension ``dim`` split over mesh axis ``axis`` (a tuple of
-    axes splits it over their flattened grid, ``data_idx * tp +
-    tp_idx``), and/or dimension ``data_dim`` split over ``data``. A spec
-    naming an axis the mesh lacks (or has at size 1) leaves that
-    dimension whole. ``Split()`` replicates."""
+    places, a dimension per axis: dimension ``dim`` split over mesh axis
+    ``axis`` (a tuple of axes splits it over their flattened grid,
+    ``data_idx * tp + tp_idx``), dimension ``data_dim`` over ``data`` and
+    dimension ``fsdp_dim`` over ``fsdp`` (JAX's ``P(None, "fsdp",
+    "tensor")`` is ``Split(2, "tensor", fsdp_dim=1)``). A spec naming an
+    axis the mesh lacks (or has at size 1) leaves that dimension whole.
+    ``Split()`` replicates."""
 
     dim: int | None = None
     axis: str | tuple = "tp"
     data_dim: int | None = None
+    fsdp_dim: int | None = None
 
     def parts(self, ndim: int) -> tuple:
         """The spec as JAX writes it: one entry per dimension — an axis
@@ -201,6 +205,8 @@ class Split:
         out: list = [None] * ndim
         if self.data_dim is not None:
             out[self.data_dim] = "data"
+        if self.fsdp_dim is not None:
+            out[self.fsdp_dim] = "fsdp"
         if self.dim is not None:
             out[self.dim] = self.axis
         return tuple(out)
@@ -229,22 +235,24 @@ def _check_axes(mesh: Mesh) -> None:
             raise ValueError(f"unknown mesh axis {a!r}")
 
 
-def _grid(mesh: Mesh, spec: Split) -> tuple[int, int]:
-    """How many pieces ``spec`` cuts along ``dim`` and along
-    ``data_dim`` on ``mesh``."""
+def _grid(mesh: Mesh, spec: Split) -> tuple[int, int, int]:
+    """How many pieces ``spec`` cuts along ``dim``, ``data_dim`` and
+    ``fsdp_dim`` on ``mesh``."""
     sizes = mesh.shape
     n_a = 1
     if spec.dim is not None:
         for a in _axes(spec.axis):
             n_a *= sizes.get(a, 1)
     n_d = sizes.get("data", 1) if spec.data_dim is not None else 1
-    return n_a, n_d
+    n_f = sizes.get("fsdp", 1) if spec.fsdp_dim is not None else 1
+    return n_a, n_d, n_f
 
 
-def _keys(mesh: Mesh, spec: Split) -> list[tuple[int, int]]:
+def _keys(mesh: Mesh, spec: Split) -> list[tuple[int, int, int]]:
     """Each flattened device's piece: its index along ``dim`` (over the
-    flattened grid of the spec's axes) and along ``data_dim``."""
-    n_a, n_d = _grid(mesh, spec)
+    flattened grid of the spec's axes), along ``data_dim`` and along
+    ``fsdp_dim``."""
+    n_a, n_d, n_f = _grid(mesh, spec)
     shape = mesh.devices.shape
     out = []
     for j in range(mesh.size):
@@ -253,36 +261,52 @@ def _keys(mesh: Mesh, spec: Split) -> list[tuple[int, int]]:
         for ax in _axes(spec.axis):
             a = a * mesh.shape.get(ax, 1) + int(c.get(ax, 0))
         out.append((a if n_a > 1 else 0,
-                    int(c.get("data", 0)) if n_d > 1 else 0))
+                    int(c.get("data", 0)) if n_d > 1 else 0,
+                    int(c.get("fsdp", 0)) if n_f > 1 else 0))
     return out
+
+
+def _cuts(spec: Split, grid: tuple, key: tuple):
+    """``(dim, pieces, index)`` of each dimension ``spec`` splits."""
+    return [(d, n, i) for d, n, i in zip(
+        (spec.dim, spec.data_dim, spec.fsdp_dim), grid, key) if n > 1]
 
 
 def _cut(x, spec: Split, grid: tuple, key: tuple, lead: int = 0):
     """Piece ``key`` of the whole array ``x`` (a view of a tensor or a
     numpy array); ``lead`` shifts the spec's dimensions (``-1``: ``x``
     lacks the leading layer axis)."""
-    (n_a, n_d), (a, d) = grid, key
     idx = [slice(None)] * len(x.shape)
-    for dim, n, i in ((spec.data_dim, n_d, d), (spec.dim, n_a, a)):
-        if n > 1:
-            size = x.shape[dim + lead] // n
-            idx[dim + lead] = slice(i * size, (i + 1) * size)
+    for dim, n, i in _cuts(spec, grid, key):
+        size = x.shape[dim + lead] // n
+        idx[dim + lead] = slice(i * size, (i + 1) * size)
     return x[tuple(idx)]
 
 
 def _check_split(shape, spec: Split, grid: tuple) -> None:
-    for dim, n in ((spec.dim, grid[0]), (spec.data_dim, grid[1])):
-        if n > 1 and shape[dim] % n:
+    dims = [d for d, n, _ in _cuts(spec, grid, (0, 0, 0))]
+    if len(set(dims)) < len(dims):
+        raise ValueError(f"{spec} splits one dimension over two axes")
+    for dim, n, _ in _cuts(spec, grid, (0, 0, 0)):
+        if shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
                              f"{n} ways")
 
 
+def _piece_shape(shape, spec: Split, grid: tuple) -> list:
+    out = list(shape)
+    for dim, n, _ in _cuts(spec, grid, (0, 0, 0)):
+        out[dim] //= n
+    return out
+
+
 class Sharded:
     """One leaf placed on a mesh: ``shards[j]`` is flattened device
-    ``j``'s tensor — its piece of the whole along ``spec.dim`` and
-    ``spec.data_dim`` (:func:`_keys`), one tensor shared by every shard
-    on the same device that holds the same piece (a replicated leaf is
-    the whole tensor). ``shape`` and ``dtype`` are the whole tensor's."""
+    ``j``'s tensor — its piece of the whole along ``spec.dim``,
+    ``spec.data_dim`` and ``spec.fsdp_dim`` (:func:`_keys`), one tensor
+    shared by every shard on the same device that holds the same piece (a
+    replicated leaf is the whole tensor). ``shape`` and ``dtype`` are the
+    whole tensor's."""
 
     def __init__(self, shards: list, spec: Split, shape: tuple, mesh: Mesh):
         self.shards = list(shards)
@@ -300,9 +324,15 @@ class Sharded:
 
     @property
     def grid(self) -> tuple[int, int]:
-        return _grid(self.mesh, self.spec)
+        """The pieces along ``spec.dim`` and along ``spec.data_dim``."""
+        return _grid(self.mesh, self.spec)[:2]
 
-    def keys(self) -> list[tuple[int, int]]:
+    @property
+    def n_fsdp(self) -> int:
+        """The pieces along ``spec.fsdp_dim``."""
+        return _grid(self.mesh, self.spec)[2]
+
+    def keys(self) -> list[tuple[int, int, int]]:
         return _keys(self.mesh, self.spec)
 
     def numel(self) -> int:
@@ -321,11 +351,18 @@ class Sharded:
                 out.append(j)
         return out
 
+    def first_of_keys(self) -> dict:
+        """Each piece's first shard in mesh order: ``{key: j}``."""
+        first: dict = {}
+        for j, key in enumerate(self.keys()):
+            first.setdefault(key, j)
+        return first
+
     def copy_(self, t: torch.Tensor, layer: int | None = None) -> None:
         """Copy the whole tensor ``t`` into this leaf's pieces, in place —
         into layer ``layer`` of each piece when ``t`` lacks the leading
         layer axis (the loader fills a stacked leaf layer by layer)."""
-        grid, keys = self.grid, self.keys()
+        grid, keys = _grid(self.mesh, self.spec), self.keys()
         lead = 0 if layer is None else -1
         for j in self.distinct():
             x = self.shards[j] if layer is None else self.shards[j][layer]
@@ -337,27 +374,56 @@ class Sharded:
         was placed."""
         device = torch.device(device) if device is not None \
             else self.shards[0].device
-        n_a, n_d = self.grid
-        if n_a == n_d == 1:
+        n_a, n_d, n_f = _grid(self.mesh, self.spec)
+        if n_a == n_d == n_f == 1:
             return to_device(self.shards[0], device)
-        first: dict = {}
-        for j, key in enumerate(self.keys()):
-            first.setdefault(key, j)
-        rows = []
-        for d in range(n_d):
-            parts = [to_device(self.shards[first[(a, d)]], device)
-                     for a in range(n_a)]
-            rows.append(torch.cat(parts, dim=self.spec.dim)
-                        if n_a > 1 else parts[0])
-        return (torch.cat(rows, dim=self.spec.data_dim) if n_d > 1
-                else rows[0])
+        first = self.first_of_keys()
+        sp = self.spec
+
+        def cat(parts, dim):
+            return torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
+
+        return cat([cat([cat([
+            to_device(self.shards[first[(a, d, f)]], device)
+            for a in range(n_a)], sp.dim) for f in range(n_f)], sp.fsdp_dim)
+            for d in range(n_d)], sp.data_dim)
+
+    def take_flat(self, idx) -> torch.Tensor:
+        """The whole tensor's elements at the flat indices ``idx`` (a
+        numpy int array), each read from the piece that holds it, on the
+        first shard's device — a few coordinates without joining the
+        whole."""
+        idx = np.asarray(idx, dtype=np.int64)
+        grid = _grid(self.mesh, self.spec)
+        pshape = _piece_shape(self.shape, self.spec, grid)
+        multi = np.unravel_index(idx, tuple(self.shape))
+        key = [np.zeros(len(idx), np.int64) for _ in range(3)]
+        local = [m.copy() for m in multi]
+        for k, (dim, n) in enumerate(zip(
+                (self.spec.dim, self.spec.data_dim, self.spec.fsdp_dim),
+                grid)):
+            if n > 1:
+                key[k] = multi[dim] // pshape[dim]
+                local[dim] = multi[dim] % pshape[dim]
+        flat_local = np.ravel_multi_index(tuple(local), tuple(pshape))
+        dev0 = self.shards[0].device
+        out = torch.empty(len(idx), dtype=self.dtype, device=dev0)
+        first = self.first_of_keys()
+        keys = list(zip(*(k.tolist() for k in key)))
+        for kk in sorted(set(keys)):
+            pos = [i for i, x in enumerate(keys) if x == kk]
+            t = self.shards[first[kk]]
+            at = torch.as_tensor(flat_local[pos], device=t.device)
+            out[torch.as_tensor(pos, device=dev0)] = to_device(
+                t.detach().reshape(-1)[at], dev0)
+        return out
 
     def __repr__(self) -> str:
         return (f"Sharded({tuple(self.shape)}, {self.dtype}, {self.spec}, "
                 f"{[str(d) for d in self.devices]})")
 
 
-def _placed(mesh: Mesh, spec: Split, shape, make) -> Sharded:
+def placed(mesh: Mesh, spec: Split, shape, make) -> Sharded:
     """A leaf of the whole ``shape`` laid out by ``spec``: ``make(key,
     device)`` builds piece ``key`` on ``device`` once per (device, key)."""
     _check_axes(mesh)
@@ -374,9 +440,9 @@ def _placed(mesh: Mesh, spec: Split, shape, make) -> Sharded:
 def _place(mesh: Mesh, x: torch.Tensor, spec: Split | None) -> Sharded:
     spec = spec or REPLICATED
     grid = _grid(mesh, spec)
-    if grid == (1, 1):
-        return _placed(mesh, spec, x.shape, lambda _k, d: to_device(x, d))
-    return _placed(mesh, spec, x.shape, lambda k, d: _cut(
+    if grid == (1, 1, 1):
+        return placed(mesh, spec, x.shape, lambda _k, d: to_device(x, d))
+    return placed(mesh, spec, x.shape, lambda k, d: _cut(
         x, spec, grid, k).to(d, copy=True).contiguous())
 
 
@@ -386,8 +452,8 @@ def put(mesh: Mesh, tree, specs):
     a :class:`Sharded` whose pieces are contiguous copies on their devices
     (a replicated leaf already on a device is shared there, not copied).
     A tuple node (a ``KVCache`` field list, an optimizer state) places
-    element by element. Axes other than ``data``, ``tensor`` and ``tp``
-    above 1 raise, naming their ROADMAP queue 1 item."""
+    element by element. The ``expert``, ``stage`` and ``seq`` axes above
+    1 raise, naming their ROADMAP queue 1 item."""
     if isinstance(tree, dict):
         if not isinstance(specs, dict) or set(tree) != set(specs):
             raise ValueError(
@@ -400,8 +466,34 @@ def put(mesh: Mesh, tree, specs):
     if tree is None:
         return None
     if isinstance(tree, Sharded):
-        tree = tree.full()
+        return _relayout(tree, mesh, specs or REPLICATED)
     return _place(mesh, tree, specs)
+
+
+def _relayout(x: Sharded, mesh: Mesh, spec: Split) -> Sharded:
+    """A placed leaf laid out by ``spec`` on ``mesh``: as it is when
+    nothing changes; on its own mesh cut finer (:func:`reslice`) or joined
+    along one dimension (:func:`respec`) piece by piece; else joined whole
+    and placed again."""
+    if x.mesh is mesh and x.spec == spec:
+        return x
+    if x.mesh is mesh:
+        keys, flat = _keys(mesh, spec), mesh.flat()
+        made: dict = {}
+        try:
+            for j in range(mesh.size):
+                if (flat[j], keys[j]) not in made:
+                    made[(flat[j], keys[j])] = reslice(x, spec, j).clone()
+            return from_pieces([made[(flat[j], keys[j])]
+                                for j in range(mesh.size)],
+                               spec, x.shape, mesh)
+        except ValueError:
+            pass
+        try:
+            return respec(x, spec)
+        except ValueError:
+            pass
+    return _place(mesh, x.full(), spec)
 
 
 def zeros(mesh: Mesh, shape, dtype, spec: Split) -> Sharded:
@@ -410,12 +502,8 @@ def zeros(mesh: Mesh, shape, dtype, spec: Split) -> Sharded:
     shape = tuple(shape)
     grid = _grid(mesh, spec)
     _check_split(shape, spec, grid)
-    piece = list(shape)
-    if grid[0] > 1:
-        piece[spec.dim] //= grid[0]
-    if grid[1] > 1:
-        piece[spec.data_dim] //= grid[1]
-    return _placed(mesh, spec, shape, lambda _k, d: torch.zeros(
+    piece = _piece_shape(shape, spec, grid)
+    return placed(mesh, spec, shape, lambda _k, d: torch.zeros(
         piece, dtype=dtype, device=d))
 
 
@@ -449,6 +537,9 @@ def take_rows(x: Sharded, idx, dim: int, spec: Split) -> Sharded:
     shape = list(x.shape)
     shape[dim] = len(idx)
     dst_grid = _grid(mesh, spec)
+    if x.n_fsdp > 1 or dst_grid[2] > 1:
+        raise ValueError("take_rows gathers rows of a leaf not split over "
+                         "fsdp")
     if dst_grid[0] != src_grid[0] or (
             spec.dim if dst_grid[0] > 1 else None) != (
             x.spec.dim if src_grid[0] > 1 else None):
@@ -459,12 +550,12 @@ def take_rows(x: Sharded, idx, dim: int, spec: Split) -> Sharded:
 
     def source(a: int, d_src: int, dev) -> torch.Tensor:
         """The source piece (a, d_src), preferably one on ``dev``."""
-        cands = [j for j, k in enumerate(src_keys) if k == (a, d_src)]
+        cands = [j for j, k in enumerate(src_keys) if k[:2] == (a, d_src)]
         on = [j for j in cands if flat[j] == dev]
         return x.shards[(on or cands)[0]]
 
     def make(key, dev):
-        a, d = key
+        a, d, _ = key
         rows = idx[d * dst_b:(d + 1) * dst_b] if dst_grid[1] > 1 else idx
         out = None
         for d_src in range(src_grid[1]):
@@ -484,7 +575,79 @@ def take_rows(x: Sharded, idx, dim: int, spec: Split) -> Sharded:
             out.index_copy_(dim, torch.tensor(pos, device=dev), got)
         return out
 
-    return _placed(mesh, spec, tuple(shape), make)
+    return placed(mesh, spec, tuple(shape), make)
+
+
+def map_pieces(fn, x: Sharded, *rest) -> Sharded:
+    """An elementwise ``fn`` over a placed leaf: ``fn(piece, *others)``
+    once per distinct piece of ``x``, where each of ``rest`` is a leaf
+    placed like ``x`` (its piece there) or a tensor (a scalar: moved to
+    the piece's device). The result is placed like ``x``."""
+    out: dict = {}
+    shards = []
+    for j, t in enumerate(x.shards):
+        if id(t) not in out:
+            args = [r.shards[j] if isinstance(r, Sharded)
+                    else to_device(r, t.device) for r in rest]
+            out[id(t)] = fn(t, *args)
+        shards.append(out[id(t)])
+    return Sharded(shards, x.spec, x.shape, x.mesh)
+
+
+def _region(shape, spec: Split, mesh: Mesh, j: int) -> list:
+    """Device ``j``'s piece under ``spec`` as ``(start, stop)`` of the
+    whole along each dimension."""
+    grid = _grid(mesh, spec)
+    out = [(0, n) for n in shape]
+    for dim, n, i in _cuts(spec, grid, _keys(mesh, spec)[j]):
+        size = shape[dim] // n
+        out[dim] = (i * size, (i + 1) * size)
+    return out
+
+
+def reslice(x: Sharded, spec: Split, j: int) -> torch.Tensor:
+    """Device ``j``'s piece of ``x`` under ``spec``, a layout that cuts
+    ``x``'s pieces finer (ZeRO-1 splits a param's dim 0 over ``data`` as
+    well): a view of ``x``'s piece there."""
+    have = _region(x.shape, x.spec, x.mesh, j)
+    want = _region(x.shape, spec, x.mesh, j)
+    idx = []
+    for (h0, h1), (w0, w1) in zip(have, want):
+        if w0 < h0 or w1 > h1:
+            raise ValueError(f"{spec} does not refine {x.spec}")
+        idx.append(slice(w0 - h0, w1 - h0))
+    return x.shards[j][tuple(idx)]
+
+
+def respec(x: Sharded, spec: Split) -> Sharded:
+    """``x`` laid out by ``spec``, a layout whose pieces join ``x``'s
+    along one dimension (the inverse of :func:`reslice`): each piece is
+    the fixed-order concatenation of ``x``'s pieces inside it — the
+    all-gather that re-replicates a ZeRO-1 update over ``data``."""
+    if spec == x.spec:
+        return x
+    mesh, shape = x.mesh, tuple(x.shape)
+    fine = [_region(shape, x.spec, mesh, j) for j in range(mesh.size)]
+    first = x.first_of_keys()
+    keys = x.keys()
+
+    def make(key, dev):
+        j = _keys(mesh, spec).index(key)
+        want = _region(shape, spec, mesh, j)
+        inside = sorted({keys[i]: i for i in range(mesh.size)
+                         if all(w0 <= f0 and f1 <= w1 for (f0, f1), (w0, w1)
+                                in zip(fine[i], want))}.items())
+        parts = [first[k] for k, _ in inside]
+        dims = {d for d, ((a0, a1), (w0, w1)) in enumerate(
+            zip(fine[parts[0]], want)) if (a0, a1) != (w0, w1)}
+        if len(dims) > 1:
+            raise ValueError(f"{x.spec} refines {spec} along {dims}")
+        pieces = sorted(((fine[i][next(iter(dims))][0] if dims else 0, i)
+                         for i in parts))
+        ts = [to_device(x.shards[i], dev) for _, i in pieces]
+        return torch.cat(ts, dim=next(iter(dims))) if len(ts) > 1 else ts[0]
+
+    return placed(mesh, spec, shape, make)
 
 
 def shard_tree(tree, j: int):
@@ -563,8 +726,12 @@ __all__ = [
     "is_sharded",
     "local_devices",
     "local_mesh",
+    "map_pieces",
     "piece",
+    "placed",
     "put",
+    "reslice",
+    "respec",
     "serving_mesh",
     "shard_bytes",
     "shard_tree",

@@ -8,10 +8,11 @@ pipeline stages, tied embeddings pinned to stage 0. The emitted
 so either package's worker reads it.
 
 ``stage_param_specs``/``stage_cache_specs`` give a stage's spec trees on
-its ``{data, tensor}`` mesh (``parallel/mesh.py::Split`` leaves); a port
-worker places the stage by them. It refuses a stage with an fsdp axis
-above 1 (item 3), an expert, stage or seq axis (items 4 and 5) or
-co-slice coworkers (item 4) at load.
+its ``{data, fsdp, tensor}`` mesh (``parallel/mesh.py::Split`` leaves); a
+port worker places the stage by them and trains the placed tree, so its
+memory count is the JAX planner's. It refuses a stage with an expert,
+stage or seq axis (items 4 and 5) or co-slice coworkers (item 4) at
+load.
 """
 
 from __future__ import annotations
@@ -341,14 +342,7 @@ def _per_device_bytes(
     divides it, and KV over tensor only when the kv heads divide it —
     mirroring the worker's runtime degrade rules
     (ml/worker.py::_cache_specs_for), which otherwise REPLICATE those
-    arrays per device.
-
-    Training differs from the JAX planner's count: the port trains a
-    stage's tree joined whole on its first device
-    (``ml/worker.py::_train_params``), so that device holds the whole
-    params, grads and activations beside its placed piece of the params
-    (1/tensor), and only a ZeRO-1 optimizer state splits (over data ×
-    tensor; else it is whole there too)."""
+    arrays per device."""
 
     def ax(name: str) -> int:
         return max(int(axes.get(name, 1)), 1)
@@ -358,30 +352,26 @@ def _per_device_bytes(
     tp_kv = ax("tensor")
     if cfg is not None and cfg.n_kv_heads % tp_kv:
         tp_kv = 1
-    shard_model = ax("tensor") * ax("fsdp") * ax("expert") * ax("stage")
-    zero1 = training_update_mode(axes, training) == "zero1"
-    shard_opt = shard_model * (dp if zero1 else 1)
+    shard_model = _model_shards(axes)
+    shard_opt = shard_model * (
+        dp if training_update_mode(axes, training) == "zero1" else 1
+    )
     shard_act = ax("fsdp") * dp_eff * ax("seq")
     shard_kv = dp_eff * tp_kv
     pg_bytes = max(
         est.params + est.grads - exclude_model_bytes, 0.0
     )
-    model = pg_bytes * frac / _model_shards(axes, training)
-    if training and shard_model > 1:  # the placed piece beside the whole
-        model += est.params * frac / shard_model
-    opt = est.optimizer * frac / (shard_opt if zero1 or not training else 1)
-    act = est.activations * frac / (1 if training else shard_act)
+    model = pg_bytes * frac / shard_model
+    opt = est.optimizer * frac / shard_opt
+    act = est.activations * frac / shard_act
     kv = est.kv_cache * frac / shard_kv
     return (model + opt + act + kv) * 1.1
 
 
-def _model_shards(axes: dict[str, int], training: bool) -> int:
-    """How many ways a stage's params and grads split per device in the
-    port: tensor × fsdp × expert × stage when serving, none when training
-    (the port trains the stage's tree joined whole on its first device;
-    ROADMAP queue 3)."""
-    if training:
-        return 1
+def _model_shards(axes: dict[str, int]) -> int:
+    """How many ways a stage's params and grads split per device:
+    tensor × fsdp × expert × stage (the port trains the placed tree, as
+    GSPMD does in JAX)."""
     n = 1
     for name in ("tensor", "fsdp", "expert", "stage"):
         n *= max(int(axes.get(name, 1)), 1)
@@ -521,7 +511,7 @@ def plan_sharding(
             cfg, w, training, seq_len=seq_len, stage_layers=0,
             mesh_hints=mesh_hints,
         )
-        shard_model = _model_shards(axes, training)
+        shard_model = _model_shards(axes)
         dev_budget = w.hbm_bytes / max(w.n_devices, 1)
         if i == 0:
             budget -= emb_bytes  # embeddings (tied → head too) pin to stage 0
@@ -602,19 +592,21 @@ def stage_param_specs(cfg: ModelConfig, stage: StagePlan) -> dict:
     ``stage_param_specs``): ``partition_specs`` over the stage's tensor
     axis, without the embedding a later stage does not hold (a tied head
     keeps it) and without the final norm and head a stage that does not
-    hold the head lacks. An fsdp, expert or stage axis above 1 raises,
-    naming its ROADMAP queue 1 item."""
+    hold the head lacks; an fsdp axis splits each large weight's other
+    dimension too. An expert or stage axis above 1 raises, naming its
+    ROADMAP queue 1 item."""
     from ..models.transformer import partition_specs
 
     axes = stage.mesh_axes or {}
-    for name, item in (("fsdp", 3), ("expert", 4), ("stage", 4)):
+    for name, item in (("expert", 4), ("stage", 4)):
         if int(axes.get(name, 1)) > 1:
             from .. import unported
             from .mesh import _UNPORTED_AXES
 
             raise unported(_UNPORTED_AXES[name][0], item)
     tp = "tensor" if int(axes.get("tensor", 1)) > 1 else None
-    specs = partition_specs(cfg, tensor_axis=tp)
+    fs = "fsdp" if int(axes.get("fsdp", 1)) > 1 else None
+    specs = partition_specs(cfg, tensor_axis=tp, fsdp_axis=fs)
     if not stage.first:
         specs["embed"].pop("pos", None)
         if not (stage.holds_head and cfg.tie_embeddings):

@@ -96,6 +96,11 @@ def gradient_sketch(grads, dim: int = SKETCH_DIM, seed: int = 0) -> np.ndarray:
         idx = np.sort(rng.choice(n, size=k, replace=False))
         if isinstance(leaf, np.ndarray):
             gathers.append(leaf.ravel()[idx].astype(np.float64))
+        elif hasattr(leaf, "take_flat"):
+            import torch
+
+            # a leaf placed on a mesh: each coordinate from its piece
+            gathers.append(leaf.take_flat(idx).to(torch.float64))
         else:
             import torch
 

@@ -161,30 +161,28 @@ def test_queue_1_items_1_and_2_left_no_refusal():
 
 
 def test_queue_1_item_3_refuses_only_gspmd_and_zero1():
-    """Tensor-parallel serving, the GSPMD half (the sharded
-    ``GenerationEngine``, the dense forward over a placed tree, the
-    worker's planned ``{data, tensor}`` mesh, a tp job's static requests
-    and training) and ZeRO-1 (with its ``tp_axis`` step and
-    optimizer-state sharding) are ported (tests/test_torch_tp.py,
-    tests/test_torch_mesh.py, tests/test_torch_zero1.py): the one refusal
-    left with item 3 is the fsdp axis — ``partition_specs(fsdp_axis=)``
-    and a mesh with an fsdp axis, whose table names the other unplaced
-    axes' items."""
+    """Tensor-parallel serving, the GSPMD half, ZeRO-1 (PRs 13–14) and the
+    fsdp axis (ZeRO-3 over a placed tree) are ported: no source refuses
+    with item 3 any more. The refusals that remain on a mesh name the
+    items still left: the unplaced axes' table (expert and stage with
+    item 4, seq with item 5) and ``partition_specs(expert_axis=)``."""
     from tensorlink_tpu_torch.parallel.mesh import _UNPORTED_AXES
 
     msgs = set()
+    left = []
     for p in _sources():
-        for m in re.finditer(r"unported\(\s*((?:\"[^\"]*\"\s*)+),\s*3\)",
-                             p.read_text()):
-            text = "".join(re.findall(r'"([^"]*)"', m.group(1)))
-            msgs.add((p.relative_to(REPO).as_posix(), text))
-    assert msgs == {
-        ("tensorlink_tpu_torch/models/transformer.py",
-         "the fsdp axis (ZeRO-3 parameter sharding, "
-         "partition_specs(fsdp_axis=))"),
-    }, msgs
+        text = p.read_text()
+        for m in re.finditer(r"unported\(\s*((?:\"[^\"]*\"\s*)+),\s*(\d)\)",
+                             text):
+            msg = "".join(re.findall(r'"([^"]*)"', m.group(1)))
+            if m.group(2) == "3":
+                left.append((p.relative_to(REPO).as_posix(), msg))
+            msgs.add((p.relative_to(REPO).as_posix(), msg, int(m.group(2))))
+    assert not left, left
+    assert ("tensorlink_tpu_torch/models/transformer.py",
+            "the expert axis (partition_specs(expert_axis=))", 4) in msgs
     assert {a: item for a, (_, item) in _UNPORTED_AXES.items()} == {
-        "fsdp": 3, "expert": 4, "stage": 4, "seq": 5}
+        "expert": 4, "stage": 4, "seq": 5}
     roadmap = (REPO / "ROADMAP.md").read_text()
     queue = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
     assert "fsdp" in queue

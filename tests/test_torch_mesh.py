@@ -192,10 +192,11 @@ def test_pieces_equal_jax_addressable_shards(spec):
         b.shape for b in by_dev.values()]
 
 
-@pytest.mark.parametrize("axis,item", [("fsdp", 3), ("expert", 4),
-                                       ("stage", 4), ("seq", 5)])
-def test_unplaced_axes_refuse_naming_their_item(axis, item):
-    mesh = tmesh.build_mesh({axis: 2, "tensor": 2}, [CPU] * 4)
+@pytest.mark.parametrize("axis,beside,item", [
+    ("expert", "tensor", 4), ("stage", "tensor", 4), ("seq", "tensor", 5),
+    ("stage", "fsdp", 4)])
+def test_unplaced_axes_refuse_naming_their_item(axis, beside, item):
+    mesh = tmesh.build_mesh({axis: 2, beside: 2}, [CPU] * 4)
     with pytest.raises(NotImplementedError,
                        match=f"{axis} axis.*queue 1 item {item}"):
         tmesh.put(mesh, torch.zeros(4, 4), tmesh.Split(1, "tensor"))
@@ -249,8 +250,8 @@ def test_partition_specs_match_jax(kw, tensor_axis):
     jp = jax.eval_shape(lambda: j_init_params(jcfg, jax.random.PRNGKey(0)))
     _walk_specs(partition_specs(cfg, tensor_axis=tensor_axis),
                 j_partition_specs(jcfg, tensor_axis=tensor_axis), jp)
-    with pytest.raises(NotImplementedError, match="fsdp.*queue 1 item 3"):
-        partition_specs(cfg, fsdp_axis="fsdp")
+    with pytest.raises(NotImplementedError, match="expert.*queue 1 item 4"):
+        partition_specs(cfg, expert_axis="expert")
 
 
 # tlint: disable=TL006(read-only test data)
@@ -281,9 +282,9 @@ def test_stage_specs_match_jax(stage, axes, tie):
     assert tc.k.parts(5) == _parts(jc.k, 5)
     assert tc.v.parts(5) == _parts(jc.v, 5)
     assert tc.length.parts(1) == _parts(jc.length, 1)
-    with pytest.raises(NotImplementedError, match="fsdp.*queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="stage.*queue 1 item 4"):
         tplanner.stage_param_specs(cfg, tplanner.StagePlan(
-            **dict(plan, mesh_axes={"fsdp": 2})))
+            **dict(plan, mesh_axes={"stage": 2})))
 
 
 def test_placed_tree_equals_jax_addressable_shards(trees):
@@ -583,11 +584,12 @@ def _params(w):
 
 def test_mesh_worker_trains_zero1_like_jax(checkpoint, tmp_path):
     """Two ZeRO-1 steps on the ``{data: 2, tensor: 2}`` plan: losses and
-    grad norms within rtol 1e-5 of the JAX worker's and each param leaf
-    within 2e-4 in its norm (GSPMD trains the placed tree there; the port
-    joins it whole, so its steps are bitwise the port's one-device
-    worker's); the optimizer state lives 1/dp per data replica; a saved
-    checkpoint restores re-placed on the mesh, state included."""
+    grad norms within rtol 1e-5 of the JAX worker's and of the port's
+    one-device worker's, each param leaf within 2e-4 of theirs in its norm
+    (both packages train the placed tree, whose row-split products and
+    input gradients sum partial products); the optimizer state lives 1/dp
+    per data replica; a saved checkpoint restores re-placed on the mesh,
+    state included."""
     port, jw, one = _worker("port"), _worker("jax"), _worker("port")
     for w, axes in ((port, PLAN_AXES), (jw, PLAN_AXES), (one, {})):
         assert _load(w, checkpoint, axes=axes, training=True)["ok"]
@@ -604,12 +606,12 @@ def test_mesh_worker_trains_zero1_like_jax(checkpoint, tmp_path):
         lp, gp = _train(port, toks, f"s{i}m0")
         lj, gj = _train(jw, toks, f"s{i}m0")
         lo, go = _train(one, toks, f"s{i}m0")
-        assert (lp, gp) == (lo, go)
+        np.testing.assert_allclose((lp, gp), (lo, go), rtol=1e-5)
         np.testing.assert_allclose(lp, lj, rtol=1e-5)
         np.testing.assert_allclose(gp, gj, rtol=1e-5)
     for a, b, c in zip(_params(port), _params(jw), _params(one),
                        strict=True):
-        assert np.array_equal(a, c)
+        assert np.linalg.norm(a - c) <= 2e-4 * np.linalg.norm(c)
         assert np.linalg.norm(a - b) <= 2e-4 * np.linalg.norm(b)
     assert tmesh.is_sharded(rt.params)
     _call(port, "ckpt", op="save", dir=str(tmp_path))

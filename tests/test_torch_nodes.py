@@ -433,7 +433,7 @@ class _Bridge:
 
 
 # tlint: disable=TL006(read-only test table — never mutated)
-_VERBS = {"fwd with a session": None, "load_stage with a mesh": 3,
+_VERBS = {"fwd with a session": None, "load_stage with a mesh": 4,
           "load_stage with coworkers": 4, "load_stage training a slice": None}
 
 
@@ -510,7 +510,7 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb, checkpoint):
     without applying again. So is training a layer slice: each half's
     train FORWARD, its BACKWARD's gradient of the input (answered by the
     later half only) equal the JAX worker's at 2e-5, and each leaf of its
-    accumulated parameter gradients within 2e-5 in its norm. A stage the port still refuses (an fsdp mesh
+    accumulated parameter gradients within 2e-5 in its norm. A stage the port still refuses (a stage mesh
     axis, co-slice coworkers) answers with an error naming its ROADMAP
     item."""
     if verb == "load_stage training a slice":
@@ -548,9 +548,10 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb, checkpoint):
 
     from tensorlink_tpu_torch.ml.worker import DistributedWorker
 
-    # a {data, tensor} mesh is ported (tests/test_torch_mesh.py); its
-    # fsdp axis is what still refuses with item 3
-    stage = {"load_stage with a mesh": _slice_stage(mesh_axes={"fsdp": 2}),
+    # a {data, fsdp, tensor} mesh is ported (tests/test_torch_mesh.py,
+    # tests/test_torch_fsdp.py); its in-mesh stage axis still refuses
+    # with item 4
+    stage = {"load_stage with a mesh": _slice_stage(mesh_axes={"stage": 2}),
              "load_stage with coworkers": _slice_stage(coworkers=["w1"])}[verb]
     bridge = _Bridge([("load_stage", {
         "rid": "r1", "peer": "p1", "job_id": "j", "stage": stage,

@@ -770,10 +770,12 @@ def _train_steps(w, job, n=2):
 @pytest.mark.parametrize("when", ["load", "train_mode"])
 def test_worker_tp_job_trains_like_tp1(models, when):
     """A tensor_parallel=2 job trains — loaded for training, or a serving
-    job switched to it: each step joins the placed tree whole, so two
-    AdamW steps are bitwise the tp=1 worker's (losses, grad norms,
-    params); the update is published onto the tp engine's mesh (the job
-    serves the trained weights, equal to the tp=1 engine on them)."""
+    job switched to it — on its placed tree: two AdamW steps within rtol
+    1e-5 of the tp=1 worker's losses and grad norms, each param leaf
+    within 2e-4 in its norm (the column splits' input gradients sum each
+    shard's partial product); the update is published onto the tp
+    engine's mesh, piece by piece (the job serves the trained weights,
+    equal to the tp=1 engine on them)."""
     from tensorlink_tpu_torch.parallel.mesh import is_sharded
 
     _, _, cfg, _ = models[2]
@@ -793,13 +795,13 @@ def test_worker_tp_job_trains_like_tp1(models, when):
             assert rt.cont.weights_version == version + 2
             served = _worker_streams(w, job, WORKER_PROMPTS[:2], "c")
     (l2, p2), (l1, p1) = got[2], got[1]
-    assert l2 == l1
+    np.testing.assert_allclose(l2, l1, rtol=1e-5)
     for a, b in zip(p2, p1, strict=True):
-        assert np.array_equal(a, b)
+        assert np.linalg.norm(a - b) <= 2e-4 * np.linalg.norm(b)
     from tensorlink_tpu_torch.engine.optimizers import tree_unflatten
 
     tree = tree_unflatten(init_params(cfg, device=CPU),
-                          [torch.as_tensor(a) for a in p1])
+                          [torch.as_tensor(a) for a in p2])
     gen = GenerationEngine(cfg, tree, max_seq_len=64, device="cpu")
     ml = _tp_worker().node.config.ml
     ref = ContinuousEngine(

@@ -443,20 +443,44 @@ def test_capacity_model_shards_optimizer_over_data_for_zero1():
     assert abs(zero1 - expected) < 1e-6 * replicated
 
 
-@pytest.mark.parametrize("axes", [{"tensor": 2}, {"data": 2, "tensor": 2}])
-def test_capacity_model_counts_the_port_s_whole_training_tree(axes):
-    """The port trains a stage's tree joined whole on its first device
-    (ml/worker.py::_train_params): the planner counts the whole params,
-    grads and activations there, the placed piece of the params beside
-    them, and splits only a ZeRO-1 optimizer state (over data x tensor);
-    serving keeps the split count."""
-    cfg = config_from_jax(dataclasses.asdict(JModelConfig(**PCFG)))
-    est = MemoryEstimate.build(cfg, batch=4, seq_len=32, training=True)
-    tp, dp = axes["tensor"], axes.get("data", 1)
-    opt = est.optimizer / (tp * dp) if dp > 1 else est.optimizer
-    want = (est.params + est.grads + est.params / tp + opt
-            + est.activations + est.kv_cache / tp) * 1.1
-    got = _per_device_bytes(est, axes, training=True)
-    assert abs(got - want) < 1e-9 * want
-    serve = _per_device_bytes(est, axes, training=False)
-    assert serve < got
+GB = 1 << 30
+# tlint: disable=TL006(read-only test data)
+TRAINING_PLANS = {
+    # tests/test_planner.py:125: a stage hint, the rest filled with fsdp
+    "stage-hint": ("gpt2-small", [(64, 8)], {"stage": 2}, 1, 1024),
+    # a tensor hint on four devices: {"tensor": 2, "fsdp": 2}
+    "tensor-hint": ("qwen3-0p6b", [(12, 4)], {"tensor": 2}, 4, 128),
+    "no-hint": ("qwen3-0p6b", [(12, 4)], None, 4, 128),
+    "zero1": ("qwen3-0p6b", [(12, 4)], {"data": 2, "tensor": 2}, 4, 128),
+    # too little memory for one worker: the stages split by the count
+    "stages": ("qwen3-0p6b", [(4, 4), (4, 4), (4, 4)], None, 4, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(TRAINING_PLANS))
+def test_training_plans_equal_the_jax_planner_s(case):
+    """The port trains the placed tree (params, grads and optimizer state
+    split over tensor x fsdp x expert x stage, the state over data too on
+    ZeRO-1), so its planner counts training bytes as JAX's does and plans
+    the same stages, mesh axes, update mode and micro count, hints or
+    none, where memory is tight too."""
+    from tensorlink_tpu.models.registry import config_presets as j_presets
+    from tensorlink_tpu.parallel import planner as jplanner
+    from tensorlink_tpu_torch.models.registry import config_presets
+
+    name, caps, hints, batch, seq = TRAINING_PLANS[case]
+    kw = dict(training=True, batch=batch, seq_len=seq, mesh_hints=hints)
+    got = plan_sharding(config_presets()[name], [
+        WorkerCapacity(f"w{i}", g * GB, n) for i, (g, n) in enumerate(caps)],
+        **kw)
+    want = jplanner.plan_sharding(j_presets()[name], [
+        jplanner.WorkerCapacity(f"w{i}", g * GB, n)
+        for i, (g, n) in enumerate(caps)], **kw)
+    assert [dataclasses.asdict(s) for s in got.stages] == [
+        dataclasses.asdict(s) for s in want.stages]
+    assert (got.update_mode, got.n_micro) == (want.update_mode,
+                                              want.n_micro)
+    if case == "tensor-hint":
+        assert got.stages[0].mesh_axes == {"tensor": 2, "fsdp": 2}
+    if case == "stages":
+        assert len(got.stages) > 1
