@@ -317,6 +317,28 @@ Phases (any failure raises and exits non-zero):
    the unsharded step traced by torch.profiler (device launches, the
    card's busy share). fsdp_cards() runs (1) over four distinct cards
    and reads each card's peak memory against the unsharded step's.
+18. Mixtral-8x7B at full width with its experts split over an expert
+   mesh axis whose four devices are cuda:0 (expert_phase). (1) bf16, 2
+   of its 32 layers, flash on, placed by partition_specs(
+   expert_axis="expert") on {expert: 4} and {expert: 2, tensor: 2}: the
+   GenerationEngine's dense dispatch (each expert shard's experts over
+   every token, summed in shard order) over 8 prompts of 64–512 tokens x
+   32 greedy tokens and a beam of 4 over 2 of them, held as phase 16
+   holds its mesh engine against the unsharded engine on the same tree;
+   with the counts zeroed, exactly layers x tensor shards flash launches
+   a prefill (the expert shards on one card run attention once), no
+   plain attention (launches_expert on the kernels line). (2) f32, 1
+   layer, B 4, T 128, AdamW, two steps of the capacity-factor sparse
+   dispatch on {expert: 4} against the unsharded sparse step: losses,
+   gradients and params within phase 17's bounds, each device's params,
+   gradients and optimizer state a quarter of the expert leaves plus the
+   replicated rest, two placed runs bitwise, the sparse gradients at
+   capacity factor E/K the dense dispatch's. (3) Readings, not claims:
+   tokens/s and step ms, sharded and unsharded. expert_cards() runs (1)
+   and (2) over four distinct cards with each card's peak memory, then a
+   worker with MLConfig(mesh_devices=4) whose Mixtral jobs get the
+   default {expert: 4} plan: static and beam requests and two training
+   steps through a DistributedModel.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -3454,17 +3476,18 @@ def _timed_step(ts, params, state, batch):
         time.perf_counter() - t0
 
 
-def _keeping_grads(opt):
+def _keeping_grads(opt, device=None):
     """``opt`` with its update wrapped to keep a copy of each step's
-    gradients (the token-mean gradients, before the clip), and the list
-    they are kept in."""
+    gradients (the token-mean gradients, before the clip; on ``device``
+    when given, else where they are), and the list they are kept in."""
     from tensorlink_tpu_torch.engine.optimizers import tree_map
 
     kept = []
     update = opt.update
 
     def keep(grads, state, params):
-        kept.append(tree_map(lambda t: t.detach().clone(), grads))
+        kept.append(tree_map(lambda t: t.detach().to(
+            device or t.device, copy=True), grads))
         return update(grads, state, params)
 
     return opt._replace(update=keep), kept
@@ -6861,7 +6884,7 @@ def _placed_share(label: str, tree, n: int) -> dict:
     split = rep = 0
     for t in tree_leaves(tree):
         b = t.numel() * t.element_size()
-        pieces = t.grid[0] * t.grid[1] * t.n_fsdp
+        pieces = t.pieces()
         if pieces == n:
             split += b
         elif pieces == 1:
@@ -7263,6 +7286,669 @@ def fsdp_cards() -> dict:
     return res
 
 
+# -- phase 18 ----------------------------------------------------------
+# Mixtral-8x7B at full width, its experts split over an expert mesh axis
+EXPERT_LAYOUTS = {"expert4": {"expert": 4},
+                  "expert2-tensor2": {"expert": 2, "tensor": 2}}
+EXPERT_DEVICES = ("cuda:0",) * 4  # every shard on the one card
+EXPERT_PROMPT_LENS = (64, 96, 128, 200, 256, 320, 400, 512)
+EXPERT_SEQ_BUCKETS = (128, 256, 512, 1024)
+EXPERT_NEW = 32  # new tokens per request
+EXPERT_BEAM = (2, 4, 16)  # prompts, beams, new tokens
+EXPERT_SERVE_SEED = 1818
+EXPERT_TRAIN_LAYERS = 1  # of 32: a layer's tree, grads and AdamW state
+EXPERT_TRAIN_BT = (4, 128)  # are about 27.4 GB in f32
+EXPERT_TRAIN_SEED = 1819
+EXPERT_NODE_BT = (4, 128)
+EXPERT_NODE_SEED = 1820
+
+
+def _expert_cfg(n_layers: int, dtype):
+    return config_presets()["mixtral-8x7b"].with_(n_layers=n_layers,
+                                                  dtype=dtype)
+
+
+def _expert_specs(cfg, axes: dict):
+    return ttr.partition_specs(
+        cfg, tensor_axis="tensor" if axes.get("tensor", 1) > 1 else None,
+        expert_axis="expert")
+
+
+def _expert_sets(mesh) -> int:
+    """How many expert sub-groups of a mesh run attention: one per
+    distinct set of devices the tensor shards of an expert index lie on
+    (one on one card; ``expert`` of them on distinct cards)."""
+    ep = mesh.shape.get("expert", 1)
+    tp = mesh.size // ep
+    flat = mesh.flat()
+    return len({tuple(flat[e * tp:(e + 1) * tp]) for e in range(ep)})
+
+
+class _RouterRecord:
+    """Every router product of a MoE forward in call order (float32
+    ``[B, T, E]`` on the device), through ``models/transformer.py::
+    _moe_gates``: the dense dispatch's one routing call, once per layer
+    and distinct device."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        real = ttr._moe_gates
+
+        def gates(h, router, cfg):
+            self.calls.append(ttr._mm(h, router).float())
+            return real(h, router, cfg)
+
+        ttr._moe_gates = gates
+        try:
+            yield self
+        finally:
+            ttr._moe_gates = real
+
+    def at(self, step: int, layer: int, row: int, pos: int, n_layers: int,
+           per_layer: int = 1):
+        """Row ``row``'s router logits at position ``pos`` in layer
+        ``layer`` of forward ``step`` (0 the prefill, then one per decode
+        step); ``per_layer`` calls a layer (one per distinct device)."""
+        return self.calls[(step * n_layers + layer) * per_layer][row, pos]
+
+
+def _routing_flip(one: _RouterRecord, got: _RouterRecord, step: int, rows,
+                  positions, cfg, per_layer: int) -> dict | None:
+    """Whether the unsharded run ``one`` and the sharded run ``got`` sent
+    some row of ``rows`` at forward ``step`` to different top-k experts
+    in some layer: the layers, the unsharded router's k-th over (k+1)-th
+    logit gap there, the largest router-logit difference between the two
+    runs there and the unsharded router's largest logit, else None. A
+    flip needs the gap within twice that difference."""
+    K, L = cfg.n_experts_per_tok, cfg.n_layers
+    hits = []
+    for row, pos in zip(rows, positions):
+        for layer in range(L):
+            a = one.at(step, layer, row, pos, L)
+            b = got.at(step, layer, row, pos, L, per_layer)
+            ta, tb = ttr.top_k(a, K)[1], ttr.top_k(b, K)[1]
+            if set(ta.tolist()) == set(tb.tolist()):
+                continue
+            v = torch.sort(a, descending=True).values
+            hits.append(dict(row=row, layer=layer,
+                             gap=float(v[K - 1] - v[K]),
+                             delta=float((a - b).abs().max()),
+                             scale=float(a.abs().max())))
+    if not hits:
+        return None
+    return min(hits, key=lambda h: h["gap"])
+
+
+def _moe_held(label, ref, prompts, got, want, parted: list, flip) -> None:
+    """``_mesh_held`` for a MoE model: a stream may also part where the
+    two runs routed the parting token's forward to different experts
+    (``flip(i, at)``, :func:`_routing_flip`) with the router logits
+    within MESH_LOGITS_OF_ONE of the unsharded router's largest logit of
+    each other (a routing near-tie: the experts' outputs differ by far
+    more than the final top-two gap can show). Logged in ``parted``."""
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        at = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                  None)
+        if at is None:
+            if len(a) != len(b):
+                raise AssertionError(f"{label} {i}: {len(a)} vs {len(b)} "
+                                     "tokens")
+            continue
+        gap = _top_two_gap(ref, p + b[:at])
+        f = flip(i, at)
+        log(f"{label} request {i}: parts at token {at}, unsharded top-two "
+            f"gap {gap:.6g}, routing {f}")
+        routed = f is not None and f["delta"] <= MESH_LOGITS_OF_ONE * \
+            f["scale"]
+        if gap > MESH_TIE and not routed:
+            raise AssertionError(f"{label} {i}: parts at token {at} at a "
+                                 f"top-two gap {gap} > {MESH_TIE}, routing "
+                                 f"{f}")
+        parted.append(dict(label=label, request=i, at=at, gap=gap,
+                           routing=f if gap > MESH_TIE else None))
+
+
+def _moe_beam_held(label, got, got_rec, want, want_rec, parted: list, flip,
+                   phase: str) -> None:
+    """``_held_beam`` for a MoE model: the frontiers may also part at a
+    step whose forward the two runs routed to different experts for some
+    beam (``flip(step)``), under :func:`_moe_held`'s bound."""
+    try:
+        _held_beam(label, got, got_rec, want, want_rec, parted,
+                   tie=MESH_TIE, phase=phase)
+        return
+    except AssertionError:
+        at = next((s for s, (f, g) in enumerate(zip(got_rec.frontiers,
+                                                    want_rec.frontiers))
+                   if sorted(map(tuple, f)) != sorted(map(tuple, g))), None)
+        f = flip(at) if at is not None else None
+        log(f"{phase} {label}: the frontiers part at step {at}, routing {f}")
+        if f is None or f["delta"] > MESH_LOGITS_OF_ONE * f["scale"]:
+            raise
+        parted.append(dict(stream=label, at=at, routing=f))
+
+
+def _peaks(cards) -> list:
+    torch.cuda.synchronize()
+    return [torch.cuda.max_memory_allocated(c) for c in cards]
+
+
+def expert_serving(devices=EXPERT_DEVICES, cards=None) -> dict:
+    """Phase 18 step 1: mixtral-8x7b bf16 at full width, MIXTRAL_LAYERS of
+    its 32 layers, flash on, served by the unsharded GenerationEngine and
+    by one over each layout of EXPERT_LAYOUTS on ``devices`` (placed by
+    partition_specs(expert_axis="expert"), the dense dispatch: each expert
+    shard's experts over every token, summed in shard order): 8 prompts
+    of 64–512 tokens x EXPERT_NEW greedy tokens through generate_compiled
+    and a beam over 2 of them, held as phase 16 holds its mesh engine
+    (prefill logits MESH_LOGITS_OF_ONE of the unsharded engine's and
+    within MESH_LOGITS_OF_BF16 x its distance from a float32 engine;
+    streams and beams equal or parted at a logged near-tie, MESH_TIE).
+    With the counts zeroed before each sharded engine runs: exactly
+    layers x tensor shards x distinct device sets flash launches a
+    prefill, no plain attention. ``cards`` (distinct cards): each card's
+    peak memory over the sharded engine's run beside card 0's over the
+    unsharded engine's."""
+    cfg = _expert_cfg(MIXTRAL_LAYERS, torch.bfloat16).with_(
+        flash_attention=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(EXPERT_SERVE_SEED)
+    params = init_params(cfg, g, device="cuda")
+    rng = np.random.default_rng(EXPERT_SERVE_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in EXPERT_PROMPT_LENS]
+    n_beam, beams_k, beam_new = EXPERT_BEAM
+    L, V = cfg.n_layers, cfg.vocab_size
+    kw = dict(max_seq_len=EXPERT_SEQ_BUCKETS[-1] + 2 * EXPERT_NEW,
+              seq_buckets=EXPERT_SEQ_BUCKETS, batch_buckets=(1, 2, 4, 8))
+    whole = sum(t.numel() * t.element_size() for t in
+                _leaves_of(params))
+    res: dict = dict(card=_smi(), layers=L, tree_bytes=whole)
+    f32 = GenerationEngine(cfg.with_(dtype=torch.float32),
+                           _cast_tree(params), device="cuda", **kw)
+    lg32 = f32.prefill(prompts)[0].float()
+    del f32
+    torch.cuda.empty_cache()
+    if cards:
+        torch.cuda.reset_peak_memory_stats(cards[0])
+    one = GenerationEngine(cfg, params, device="cuda", **kw)
+    one.generate_compiled([prompts[0]], max_new_tokens=2)
+    with _RouterRecord().recording() as route_one:
+        want, t_one = _sync_s(lambda: one.generate_compiled(
+            prompts, max_new_tokens=EXPERT_NEW))
+    lg_one = one.prefill(prompts)[0].float()
+    want_beams = []
+    for p in prompts[:n_beam]:
+        with _BeamRecord(beams_k).recording() as rec, \
+                _RouterRecord().recording() as route:
+            want_beams.append((one.generate_beam(
+                [p], num_beams=beams_k, max_new_tokens=beam_new)
+                .sequences[0], rec, route))
+    if cards:
+        res["unsharded_peak_bytes_card0"] = _peaks(cards[:1])[0]
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().amax(-1, keepdim=True)).max())
+
+    err_one = rel(lg_one, lg32)
+    gen = sum(len(s) for s in want.sequences)
+    res["unsharded"] = dict(tokens_per_s=gen / t_one, compiled_s=t_one,
+                            logits_of_f32=err_one)
+    parted: list = []
+    for name, axes in EXPERT_LAYOUTS.items():
+        mesh = tmesh.build_mesh(axes, list(devices) if devices else None)
+        placed = tmesh.put(mesh, params, _expert_specs(cfg, axes))
+        tp = axes.get("tensor", 1)
+        if cards:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+        sharded = GenerationEngine(
+            cfg, placed, mesh=mesh, cache_specs=ttr.cache_specs(
+                cfg, data_axis=None, tensor_axis="tensor" if tp > 1 else None),
+            **kw)
+        if sharded._fmesh is not mesh:
+            raise AssertionError(f"expert {name}: the flash prefill is not "
+                                 "per shard")
+        w_gate = sharded.params["layers"]["mlp"]["w_gate"]
+        if w_gate.n_expert != axes["expert"]:
+            raise AssertionError(f"expert {name}: w_gate {w_gate}")
+        sharded.generate_compiled([prompts[0]], max_new_tokens=2)
+        torch.cuda.synchronize()
+        att.reset_counts()
+        sharded.flash_prefills = 0
+        with _RouterRecord().recording() as route_mesh:
+            got, t_mesh = _sync_s(lambda: sharded.generate_compiled(
+                prompts, max_new_tokens=EXPERT_NEW))
+        n8 = att.flash_attention.launches
+        lg = sharded.prefill(prompts)[0].float()
+        n_prefill = att.flash_attention.launches - n8
+        beams = []
+        for p in prompts[:n_beam]:
+            with _BeamRecord(beams_k).recording() as rec, \
+                    _RouterRecord().recording() as route:
+                beams.append((sharded.generate_beam(
+                    [p], num_beams=beams_k, max_new_tokens=beam_new)
+                    .sequences[0], rec, route))
+        launches = att.flash_attention.launches
+        plain = {f.__name__: f.calls for f in att._REFS if f.calls}
+        paged_runs = {n: getattr(att, n).launches for n in REPLACES
+                      if getattr(att, n).launches}
+        if plain or paged_runs:
+            raise AssertionError(f"expert {name}: plain attention ran "
+                                 f"{plain}, paged kernels {paged_runs}")
+        per = L * tp * _expert_sets(mesh)
+        prefills = 2 + n_beam  # compiled, prefill, each beam's
+        if n8 != per or n_prefill != per or launches != prefills * per \
+                or sharded.flash_prefills != prefills:
+            raise AssertionError(f"expert {name}: {n8}, {n_prefill} and "
+                                 f"{launches} flash launches, {per} a "
+                                 f"prefill wanted")
+        err_mesh, of_one = rel(lg, lg32), rel(lg, lg_one)
+        log(f"expert {name}: prefill logits from the float32 engine's: "
+            f"unsharded {err_one:.6g}, sharded {err_mesh:.6g} of the row's "
+            f"max; sharded from unsharded {of_one:.6g} (bound "
+            f"{MESH_LOGITS_OF_ONE}), {float((lg - lg_one).abs().max()):.6g}"
+            f" at most")
+        if not torch.isfinite(lg).all() or of_one > MESH_LOGITS_OF_ONE \
+                or err_mesh > MESH_LOGITS_OF_BF16 * err_one:
+            raise AssertionError(f"expert {name}: prefill logits {of_one} "
+                                 f"of the row's max from the unsharded "
+                                 f"engine's; {err_mesh} from float32's, the "
+                                 f"unsharded engine's {err_one}")
+        for s in got.sequences:
+            if len(s) != EXPERT_NEW or not all(0 <= t < V for t in s):
+                raise AssertionError(f"expert {name}: bad output {len(s)} "
+                                     "tokens")
+        # the dense dispatch routes once per layer and distinct device
+        per_layer = len(set(mesh.flat()))
+        _moe_held(f"expert {name} compiled", one, prompts, got.sequences,
+                  want.sequences, parted,
+                  lambda i, at: _routing_flip(
+                      route_one, route_mesh, at, [i],
+                      [len(prompts[i]) - 1 if at == 0 else 0], cfg,
+                      per_layer))
+        for i, ((a, ra, qa), (b, rb, qb)) in enumerate(zip(beams,
+                                                            want_beams)):
+            _moe_beam_held(
+                f"beam {i}", a, ra, b, rb, parted,
+                lambda at, qa=qa, qb=qb, i=i: _routing_flip(
+                    qb, qa, at, range(1 if at == 0 else beams_k),
+                    [len(prompts[i]) - 1] if at == 0 else [0] * beams_k,
+                    cfg, per_layer),
+                phase=f"expert {name}")
+        out = dict(axes=axes, tokens_per_s=gen / t_mesh, compiled_s=t_mesh,
+                   flash_launches=launches, flash_launches_per_prefill=per,
+                   logits_of_f32=err_mesh, logits_of_unsharded=of_one,
+                   logits_abs_max=float((lg - lg_one).abs().max()),
+                   bytes_per_device=[tmesh.shard_bytes(placed, j)
+                                     for j in range(mesh.size)])
+        if cards:
+            out["peak_bytes"] = _peaks(cards)
+        res[name] = out
+        del sharded, placed
+        torch.cuda.empty_cache()
+    res["parted"] = parted
+    res["largest_gap"] = max((p["gap"] for p in parted if p.get("gap")
+                              is not None and not p.get("routing")),
+                             default=0.0)
+    res["launches"] = sum(res[n]["flash_launches"] for n in EXPERT_LAYOUTS)
+    return res
+
+
+def _leaves_of(tree) -> list:
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def expert_training(devices=EXPERT_DEVICES, cards=None) -> dict:
+    """Phase 18 step 2: mixtral-8x7b f32 at full width, EXPERT_TRAIN_LAYERS
+    of its layers, B 4, T 128, AdamW, two steps of the capacity-factor
+    sparse dispatch (the worker's training dispatch on an expert axis),
+    unsharded and placed on {expert: 4} over ``devices``: the losses
+    within FSDP_LOSS_RTOL, each leaf's gradient within FSDP_GRAD_RTOL and
+    the params after both steps within FSDP_PARAM_RTOL of the unsharded
+    step's (in its norm); each device's params, gradients and AdamW state
+    exactly a quarter of the expert leaves plus the replicated rest; two
+    placed runs bitwise; at moe_capacity_factor = E/K the placed sparse
+    gradients equal the dense dispatch's within the first step's bounds.
+    No attention kernel runs (0 launches, asserted). The card holds one
+    tree with its gradients and AdamW state at a time: the seeded tree,
+    the unsharded run's gradients and params and the first placed run's
+    pieces wait on the host. Readings: step ms of a first unsharded run
+    that keeps nothing and of the second placed run, and their peak
+    memory (``cards``: each card's over the placed steps, card 0's over
+    the unsharded ones)."""
+    from tensorlink_tpu_torch.engine import training as tt
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+
+    cfg = _expert_cfg(EXPERT_TRAIN_LAYERS, torch.float32).with_(
+        moe_dispatch="sparse")
+    B, T = EXPERT_TRAIN_BT
+    rng = np.random.default_rng(EXPERT_TRAIN_SEED)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32), device="cuda")}
+        for _ in range(2)]
+    opt = tt.make_optimizer("adamw", lr=1e-3, grad_clip=1.0)
+    p_host = tree_map(lambda t: t.cpu(),
+                      _seeded(cfg, "cuda", EXPERT_TRAIN_SEED))
+    torch.cuda.empty_cache()
+    res: dict = dict(card=_smi(), layers=cfg.n_layers,
+                     capacity_factor=cfg.moe_capacity_factor)
+    att.reset_counts()
+
+    def unsharded(ts):
+        """The seeded tree on the card and its fresh state; nothing else
+        holds them, so a step's input is freed once the step returns."""
+        p = tree_map(lambda t: t.to("cuda"), p_host)
+        return p, ts.init_state(p)
+
+    def run(ts, start, ms: list):
+        params, state = start()
+        losses = []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, m = ts.step_fn(params, state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        return params, state, losses
+
+    def host(tree):
+        return tree_map(lambda t: t.cpu(), tree)
+
+    # the unsharded step alone first, keeping nothing: its ms and peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = tt.make_train_step(cfg, opt)
+    ms_one: list = []
+    p, st, _ = run(plain, lambda: unsharded(plain), ms_one)
+    res["unsharded"] = dict(step_ms=ms_one, peak_bytes=_peaks(
+        [torch.cuda.current_device()])[0])
+    del p, st, plain
+    torch.cuda.empty_cache()
+    kopt, kept = _keeping_grads(opt, "cpu")
+    base = tt.make_train_step(cfg, kopt)
+    ref_p, st, ref_losses = run(base, lambda: unsharded(base), [])
+    del st, base
+    ref_p = host(ref_p)
+    torch.cuda.empty_cache()
+    mesh = tmesh.build_mesh({"expert": 4}, list(devices))
+    placed = tmesh.put(mesh, p_host, _expert_specs(cfg, {"expert": 4}))
+    res["params"] = _placed_share("expert params", placed, mesh.size)
+    inner = tt.sharded_update
+    grads_err, shares = [], []
+
+    def spy(optimizer, grads, state, params, specs, m):
+        want = _named(kept[len(grads_err)])
+        grads_err.append(max(_leaf_rel(g, want[k]) for k, g in
+                             _named(grads).items()))
+        shares.append(_placed_share("expert gradients", grads, m.size))
+        return inner(optimizer, grads, state, params, specs, m)
+
+    ts = tt.make_train_step(cfg, opt, mesh=mesh)
+
+    def start():
+        state = ts.init_state(placed)
+        res["optimizer_state"] = _placed_share("expert optimizer state",
+                                               state, mesh.size)
+        return placed, state
+
+    ms_checked: list = []
+    tt.sharded_update = spy
+    try:
+        p1, s1, losses = run(ts, start, ms_checked)
+    finally:
+        tt.sharded_update = inner
+    for (lg, _), (lw, _) in zip(losses, ref_losses):
+        if _rel(lg, lw) > FSDP_LOSS_RTOL:
+            raise AssertionError(f"expert training: losses {losses} vs "
+                                 f"{ref_losses}")
+    if any(e > b for e, b in zip(grads_err, FSDP_GRAD_RTOL)):
+        raise AssertionError(f"expert training: a gradient leaf {grads_err}"
+                             " from the unsharded one")
+    want = _named(ref_p)
+    perr = max(_leaf_rel(g, want[k]) for k, g in _named(p1).items())
+    if perr > FSDP_PARAM_RTOL:
+        raise AssertionError(f"expert training: a param leaf {perr} from "
+                             "the unsharded one")
+    del ref_p, want
+    kept.clear()
+    res.update(losses=losses, unsharded_losses=ref_losses, grads=shares[0],
+               grad_leaf_rel_max=grads_err, param_leaf_rel_max=perr,
+               loss_rel=[_rel(a[0], b[0]) for a, b in
+                         zip(losses, ref_losses)],
+               step_ms_with_checks=ms_checked)
+    # the first run's pieces wait on the host for the second
+    first = [{j: t.shards[j].cpu() for j in t.distinct()}
+             for t in _leaves_of((p1, s1))]
+    del p1, s1
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for c in cards or [torch.cuda.current_device()]:
+        torch.cuda.reset_peak_memory_stats(c)
+    ms: list = []
+    p2, s2, losses2 = run(ts, lambda: (placed, ts.init_state(placed)), ms)
+    res.update(step_ms=ms, peak_bytes=_peaks(
+        cards or [torch.cuda.current_device()]))
+    same = losses2 == losses and all(
+        t.distinct() == list(f) and all(
+            torch.equal(t.shards[j].cpu(), x) for j, x in f.items())
+        for t, f in zip(_leaves_of((p2, s2)), first, strict=True))
+    if not same:
+        raise AssertionError(f"expert training: two runs differ ({losses} "
+                             f"vs {losses2})")
+    res["repeat_bitwise"] = True
+    del p2, s2, first
+    torch.cuda.empty_cache()
+    # no token drops at E/K: the sparse dispatch is the dense one
+    E_K = cfg.n_experts / cfg.n_experts_per_tok
+    toks = batches[0]["tokens"]
+    gs, ls = tt.placed_grads(placed, cfg.with_(moe_capacity_factor=E_K), toks)
+    gd, ld = tt.placed_grads(placed, cfg.with_(moe_dispatch="dense"), toks)
+    dense_err = max(_leaf_rel(a, b.full()) for a, b in zip(
+        _leaves_of(gs), _leaves_of(gd), strict=True))
+    if _rel(float(ls), float(ld)) > FSDP_LOSS_RTOL \
+            or dense_err > FSDP_GRAD_RTOL[0]:
+        raise AssertionError(f"expert training: sparse at E/K {float(ls)}, "
+                             f"dense {float(ld)}; a gradient leaf "
+                             f"{dense_err} apart")
+    res.update(dense_loss_rel=_rel(float(ls), float(ld)),
+               dense_grad_leaf_rel_max=dense_err)
+    del gs, gd, placed
+    torch.cuda.empty_cache()
+    launches = {n: getattr(att, n).launches for n in REPLACES}
+    launches["flash_attention"] = att.flash_attention.launches
+    if any(launches.values()):
+        raise AssertionError(f"expert training: kernels launched "
+                             f"{launches}; the training path has none")
+    del p_host
+    torch.cuda.empty_cache()
+    # what the phase leaves allocated on each card (a leak would show)
+    res["left_bytes"] = [torch.cuda.memory_allocated(c)
+                         for c in cards or [torch.cuda.current_device()]]
+    return res
+
+
+def expert_phase() -> dict:
+    """Phase 18: Mixtral-8x7B at full width with its experts split over an
+    expert mesh axis whose four devices are cuda:0 — bf16 serving through
+    the dense dispatch on {expert: 4} and {expert: 2, tensor: 2}
+    (expert_serving), f32 training through the sparse dispatch on
+    {expert: 4} (expert_training). The speeds are readings, not claims:
+    four shards on one card run each expert block's launches in turn."""
+    t0 = time.monotonic()
+    res = dict(card=_smi(), serving=expert_serving())
+    res["seconds_serving"] = time.monotonic() - t0
+    res["training"] = expert_training()
+    res["seconds"] = time.monotonic() - t0
+    log(f"expert (mixtral-8x7b at full width, {MIXTRAL_LAYERS} layers "
+        f"serving and {EXPERT_TRAIN_LAYERS} training, shards on one card; "
+        f"readings, not claims; {res['card']}): {json.dumps(res)}")
+    log(f"phase 18 took {res['seconds']:.1f} s ({res['card']})")
+    return res
+
+
+def expert_node(cards) -> dict:
+    """A port validator, a worker advertising four cards
+    (MLConfig(mesh_devices=4)) and a user on 127.0.0.1: a 2-layer
+    Mixtral-8x7B job the planner gives its default plan, {expert: 4},
+    answers a static and a beam request over the port's P2P frames, each
+    equal to the in-process unsharded engine up to a logged near-tie;
+    then an f32 training job on the same default plan takes 2 AdamW steps
+    through a DistributedModel (the worker trains with the sparse
+    dispatch), each loss within TRAIN_NODE_LOSS_RTOL of the same placed
+    step in process over the same cards."""
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        UserConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+    from tensorlink_tpu_torch.nodes.runners import (
+        UserNode,
+        ValidatorNode,
+        WorkerNode,
+    )
+
+    root = Path(__file__).resolve().parent / "build" / "expert_cards"
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(local_test=True, log_dir=str(root / "logs"),
+                  env_file=str(root / ".env"))
+    cfg = _expert_cfg(MIXTRAL_LAYERS, torch.bfloat16)
+    res: dict = {}
+    nodes = []
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=False, key_dir=str(root / "vkeys"), ml=MLConfig(),
+                **common)).start()
+            nodes.append(v)
+            seeds = [["127.0.0.1", v.port]]
+            w = WorkerNode(WorkerConfig(
+                seed_validators=seeds, key_dir=str(root / "wkeys"),
+                ml=MLConfig(mesh_devices=4), **common)).start()
+            nodes.append(w)
+            u = UserNode(UserConfig(
+                seed_validators=seeds, key_dir=str(root / "ukeys"),
+                ml=MLConfig(), **common)).start()
+            nodes.append(u)
+        deadline = time.monotonic() + 60
+        while len(v.status()["peers"]) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("expert_cards: the nodes never met")
+            time.sleep(0.1)
+        model = DistributedModel(cfg, node=u, seed=EXPERT_NODE_SEED,
+                                 seq_len=1024)
+        rt = w.executor.jobs[model.job_id]
+        axes = {k: v for k, v in rt.stage["mesh_axes"].items() if v > 1}
+        if axes != {"expert": 4} or rt.mesh.flat() != list(cards):
+            raise AssertionError(f"expert_cards: the worker's plan {axes} "
+                                 f"on {rt.mesh}")
+        res["plan"] = axes
+        g = torch.Generator(device="cuda")
+        g.manual_seed(EXPERT_NODE_SEED)
+        ref = GenerationEngine(cfg, init_params(cfg, g, device="cuda"),
+                               max_seq_len=1024, device="cuda")
+        rng = np.random.default_rng(EXPERT_NODE_SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (200, 300)]
+        parted: list = []
+        # the worker's executor runs in this process: its routing records
+        # here, once per layer and card
+        per_layer = len(set(rt.mesh.flat()))
+        with _RouterRecord().recording() as route_got:
+            got = model.generate(prompts, max_new_tokens=EXPERT_NEW)
+        with _RouterRecord().recording() as route_want:
+            want = ref.generate_compiled(prompts, max_new_tokens=EXPERT_NEW)
+        _moe_held("expert_cards static", ref, prompts,
+                  [list(s) for s in got], want.sequences, parted,
+                  lambda i, at: _routing_flip(
+                      route_want, route_got, at, [i],
+                      [len(prompts[i]) - 1 if at == 0 else 0], cfg,
+                      per_layer))
+        with _BeamRecord(4).recording() as got_rec, \
+                _RouterRecord().recording() as q_got:
+            beam = model.generate(prompts[:1], max_new_tokens=16,
+                                  num_beams=4)
+        with _BeamRecord(4).recording() as want_rec, \
+                _RouterRecord().recording() as q_want:
+            want_b = ref.generate_beam(prompts[:1], num_beams=4,
+                                       max_new_tokens=16)
+        _moe_beam_held(
+            "beam", list(beam[0]), got_rec, want_b.sequences[0], want_rec,
+            parted, lambda at: _routing_flip(
+                q_want, q_got, at, range(1 if at == 0 else 4),
+                [len(prompts[0]) - 1] if at == 0 else [0] * 4, cfg,
+                per_layer),
+            phase="expert_cards")
+        res["parted"] = parted
+        del ref
+        model.shutdown()
+        torch.cuda.empty_cache()
+        tcfg = _expert_cfg(MIXTRAL_LAYERS, torch.float32)
+        B, T = EXPERT_NODE_BT
+        tm = DistributedModel(tcfg, node=u, seed=EXPERT_NODE_SEED + 1,
+                              training=True, batch=B, seq_len=T, n_micro=1)
+        trt = w.executor.jobs[tm.job_id]
+        taxes = {k: v for k, v in trt.stage["mesh_axes"].items() if v > 1}
+        if taxes != {"expert": 4}:
+            raise AssertionError(f"expert_cards: the training plan {taxes}")
+        tm.init_optimizer("adamw", lr=1e-3)
+        mesh = tmesh.build_mesh({"expert": 4}, list(cards))
+        local = tmesh.put(mesh, _seeded(tcfg, "cuda", EXPERT_NODE_SEED + 1),
+                          _expert_specs(tcfg, {"expert": 4}))
+        ts = make_train_step(tcfg.with_(moe_dispatch="sparse"),
+                             make_optimizer("adamw", lr=1e-3,
+                                            grad_clip=1.0), mesh=mesh)
+        state = ts.init_state(local)
+        losses = []
+        for _ in range(2):
+            toks = rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int32)
+            r = tm.train_step(toks)
+            local, state, m = ts.step_fn(local, state, {
+                "tokens": torch.as_tensor(toks, device="cuda")})
+            losses.append((r["loss"], float(m["loss"])))
+            if _rel(r["loss"], float(m["loss"])) > TRAIN_NODE_LOSS_RTOL:
+                raise AssertionError(f"expert_cards: losses {losses}")
+        res["train_losses"] = losses
+        tm.shutdown()
+    finally:
+        for nd in reversed(nodes):
+            nd.stop()
+    return res
+
+
+def expert_cards() -> dict:
+    """Not a phase of ``main()``: it needs four cards on one host. Phase
+    18's serving and training with the mesh's four devices on four
+    distinct cards, each card's peak memory beside the unsharded
+    reference's on card 0, then expert_node over the same cards."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"expert_cards: needs 4 cards, have {n}")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    res: dict = dict(card=_smi(), cards=n)
+    res["serving"] = expert_serving(devices=cards, cards=cards)
+    torch.cuda.empty_cache()
+    res["training"] = expert_training(devices=cards, cards=cards)
+    torch.cuda.empty_cache()
+    res["node"] = expert_node(cards)
+    log(f"expert_cards (mixtral-8x7b at full width on four cards; "
+        f"readings, not claims; {res['card']} x {n}): {json.dumps(res)}")
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -7321,6 +8007,7 @@ def main() -> None:
     reference: dict = {}
     mesh = _phase("mesh", mesh_phase, reference)
     fsdp = _phase("fsdp", fsdp_phase, reference)
+    expert = _phase("expert", expert_phase)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -7393,9 +8080,16 @@ def main() -> None:
         "launches_mesh_per_b8_prefill": mesh["serving"][
             "launches_per_b8_prefill"]["bf16"],
         "mesh_shard_max_abs_err": mesh["flash"]["max_abs_err"],
+        # phase 18: the expert-mesh engines' prefills, each running
+        # sub-group's tensor shard counted (2 layers x 1 on {expert: 4},
+        # x 2 on {expert: 2, tensor: 2} a prefill, on the one card)
+        "launches_expert": expert["serving"]["launches"],
+        "launches_expert_per_prefill": {
+            n: expert["serving"][n]["flash_launches_per_prefill"]
+            for n in EXPERT_LAYOUTS},
         "design": DESIGN["flash_attention"],
     })
-    log(f"chip_smoke: all 17 phases in {time.monotonic() - t_start:.1f} s "
+    log(f"chip_smoke: all 18 phases in {time.monotonic() - t_start:.1f} s "
         f"({_smi()})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

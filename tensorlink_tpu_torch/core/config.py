@@ -272,15 +272,15 @@ class MLConfig:
     # JAX_PLATFORMS): None is the CUDA card, and a worker with no card
     # refuses to start; "cpu" runs the kernels' plain versions on the host
     device: str | None = None
-    # the devices a worker advertises for a planned {data, fsdp, tensor}
-    # mesh (port-only; the JAX worker advertises every local device): N
-    # distinct cards from the worker's own on (a card worker with fewer
-    # fails to start), or the host N times, or a list of device names (a
-    # card may repeat: one card holds every shard); 1 keeps every job on
-    # the worker's one device and its continuous slot engine. It stays
-    # while the expert and seq axes are unported: a worker advertising
-    # every card would get the JAX planner's default expert axis for MoE
-    # models and its seq axis for training at seq_len >= 8192
+    # the devices a worker advertises for a planned {data, fsdp, expert,
+    # tensor} mesh (port-only; the JAX worker advertises every local
+    # device): N distinct cards from the worker's own on (a card worker
+    # with fewer fails to start), or the host N times, or a list of device
+    # names (a card may repeat: one card holds every shard); 1 keeps every
+    # job on the worker's one device and its continuous slot engine. It
+    # stays while the seq axis is unported: a worker advertising every
+    # card would get the JAX planner's seq axis for training at seq_len
+    # >= 8192 (a MoE job gets its default expert axis, which runs)
     mesh_devices: int | list = 1
 
 

@@ -34,7 +34,9 @@ reads ``cfg``, ``device``, ``params``, ``max_seq_len``, ``cache_dtype``,
 On a mesh (``mesh=`` with a tree placed by ``models/transformer.py::
 partition_specs`` or ``tp_partition_specs``, ``cache_specs=``) the engine
 runs the same loops over the placed tree: the forward runs per shard
-(``models/sharded.py``, flash per (data, tensor) shard), the cache's
+(``models/sharded.py``, flash per (data, tensor) shard, once per distinct
+device set of the expert shards; a MoE layer in the dense dispatch over
+its expert shards), the cache's
 payload is placed by the specs — its batch on ``data`` only when
 ``data`` divides it, else replicated over ``data`` — and its ``length``
 stays whole on the engine's device for the host loops. The beam reorder

@@ -28,7 +28,8 @@ ignored: the step returns new tensors either way.
 
 ``make_train_step(mesh=)`` without ``zero1`` is the step over a placed
 tree, the GSPMD step of JAX written out: params placed by
-``partition_specs(tensor_axis=, fsdp_axis=)`` stay placed. Each (data ×
+``partition_specs(tensor_axis=, expert_axis=, fsdp_axis=)`` stay placed,
+an expert leaf's gradient on its own expert shards. Each (data ×
 fsdp) group runs its block of every micro-batch's rows through
 ``models/sharded.py`` (each layer's weights gathered from their fsdp
 pieces inside the checkpointed block) and differentiates its own
@@ -355,11 +356,13 @@ def sharded_update(optimizer, grads: dict, state, params: dict,
     mesh order), then its inner stages on each device's piece of the
     gradient and params — its piece by ``slice_specs``, the spec its
     state twins are placed by — against that device's state. Elementwise
-    stages give each piece the whole update's bits. ``grads``/``params``
-    are whole trees, or trees placed on ``mesh`` (``slice_specs`` their
-    specs, or finer ones: ZeRO-1 over ``data``); returns ``(new_params,
-    new_state)``, the params whole on the params' device or placed as
-    they came."""
+    stages give each piece the whole update's bits. A piece that an
+    earlier device of the mesh holds on the same device (a replicated
+    leaf of shards sharing a card) is updated once, there. ``grads``/
+    ``params`` are whole trees, or trees placed on ``mesh``
+    (``slice_specs`` their specs, or finer ones: ZeRO-1 over ``data``);
+    returns ``(new_params, new_state)``, the params whole on the params'
+    device or placed as they came."""
     grad_clip = getattr(optimizer, "grad_clip", None)
     inner = getattr(optimizer, "inner", optimizer)
     if grad_clip is not None:
@@ -368,32 +371,88 @@ def sharded_update(optimizer, grads: dict, state, params: dict,
         clip_state, inner_state = state[0], state[1]
     else:
         clip_state, inner_state = None, state
-    new_p, new_s = [], []
+    flat = mesh.flat()
+
+    def owners(spec: Split) -> list:
+        """Each device's owner under ``spec``: the first device of the
+        mesh on the same device holding the same piece."""
+        seen: dict = {}
+        return [seen.setdefault((flat[j], k), j)
+                for j, k in enumerate(_mesh._keys(mesh, spec))]
+
+    pdef = _structure(params)
+
+    def prune(node, specs, j):
+        """``node`` (structured like the params) without the leaves whose
+        piece device ``j`` does not own; None when nothing is left."""
+        if isinstance(node, dict):
+            out = {k: prune(v, specs[k], j) for k, v in node.items()}
+            out = {k: v for k, v in out.items() if v is not None}
+            return out or None
+        return node if owners(specs)[j] == j else None
+
+    def prune_state(node, j):
+        if isinstance(node, dict) and _structure(node) == pdef:
+            return prune(node, slice_specs, j) or {}
+        if isinstance(node, dict):
+            return {k: prune_state(v, j) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(prune_state(v, j) for v in node)
+        return node
+
+    new_p, new_s = {}, {}
     for j in range(mesh.size):
         def cut(x, sp, j=j):
             return _piece_of(x, sp, mesh, j)
 
-        g_j = optim.tree_map(cut, grads, slice_specs)
-        p_j = optim.tree_map(cut, params, slice_specs)
-        s_j = _tmap(lambda t, j=j: t.shards[j], inner_state)
+        p_j = prune(optim.tree_map(cut, params, slice_specs), slice_specs, j)
+        if p_j is None:
+            continue
+        g_j = prune(optim.tree_map(cut, grads, slice_specs), slice_specs, j)
+        s_j = prune_state(_tmap(lambda t, j=j: t.shards[j], inner_state), j)
         u_j, ns_j = inner.update(g_j, s_j, p_j)
-        new_p.append(optim.apply_updates(p_j, u_j))
-        new_s.append(ns_j)
+        new_p[j] = optim.apply_updates(p_j, u_j)
+        new_s[j] = ns_j
 
-    def join_param(p, sp, *pieces):
-        x = _mesh.from_pieces(list(pieces), sp, p.shape, mesh)
+    def at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def join_param(p, sp, path=()):
+        if isinstance(p, dict):
+            return {k: join_param(v, sp[k], path + (k,))
+                    for k, v in p.items()}
+        x = _mesh.from_pieces([at(new_p[o], path) for o in owners(sp)], sp,
+                              p.shape, mesh)
         if isinstance(p, _mesh.Sharded):
             return _mesh.respec(x, p.spec)
         return x.full(p.device)
 
-    def join_state(old, *pieces):
-        return _mesh.from_pieces(list(pieces), old.spec, old.shape, mesh)
+    def join_state(old, path=()):
+        if isinstance(old, dict):
+            return {k: join_state(v, path + (k,)) for k, v in old.items()}
+        if isinstance(old, tuple):
+            return tuple(join_state(v, path + (i,))
+                         for i, v in enumerate(old))
+        if old is None:
+            return None
+        return _mesh.from_pieces([at(new_s[o], path)
+                                  for o in owners(old.spec)], old.spec,
+                                 old.shape, mesh)
 
-    params = optim.tree_map(join_param, params, slice_specs, *new_p)
-    inner_state = _tmap(join_state, inner_state, *new_s)
+    params = join_param(params, slice_specs)
+    inner_state = join_state(inner_state)
     state = (clip_state, inner_state) if grad_clip is not None \
         else inner_state
     return params, state
+
+
+def _structure(t):
+    """A tree's dict structure, its leaves (None kept) as markers."""
+    if isinstance(t, dict):
+        return {k: _structure(v) for k, v in t.items()}
+    return None if t is None else "leaf"
 
 
 def placed_state(optimizer, params: dict, slice_specs: dict, *,
@@ -683,9 +742,10 @@ def dp_extended(spec: Split, shape: tuple, dp_axis, dp_size: int) -> Split:
     spec leaves it whole; anything else as it is."""
     if not dp_axis or dp_size <= 1 or not _dp_shardable(shape, dp_size):
         return spec
-    if 0 in (spec.dim, spec.data_dim, spec.fsdp_dim):
+    if 0 in spec.dims():
         return spec  # dim 0 already split — never compose
-    if spec.dim is None and spec.fsdp_dim is None:
+    if spec.dim is None and spec.fsdp_dim is None \
+            and spec.expert_dim is None:
         return Split(0, dp_axis)
     if dp_axis != "data" or spec.data_dim is not None:
         return spec
@@ -713,13 +773,7 @@ def optimizer_state_specs(optimizer, params: dict, param_specs: dict, *,
         lambda p: torch.empty(tuple(p.shape), dtype=p.dtype, device="meta"),
         params)
     state = optimizer.init(meta)
-
-    def structure(t):
-        if isinstance(t, dict):
-            return {k: structure(v) for k, v in t.items()}
-        return None if t is None else "leaf"
-
-    pdef = structure(params)
+    pdef = _structure(params)
 
     def with_dp(spec: Split, shape: tuple) -> Split:
         return dp_extended(spec, shape, dp_axis, dp_size)
@@ -746,7 +800,7 @@ def optimizer_state_specs(optimizer, params: dict, param_specs: dict, *,
         return REPLICATED
 
     def walk(node):
-        if isinstance(node, dict) and structure(node) == pdef:
+        if isinstance(node, dict) and _structure(node) == pdef:
             return optim.tree_map(lambda sp, leaf: with_dp(
                 sp, tuple(leaf.shape)), param_specs, node)
         if isinstance(node, dict):

@@ -392,7 +392,20 @@ class DistributedWorker:
         # takes its place
         tp_devices = (self._mesh_devices(tp)
                       if whole and tp > 1 and mesh is None else None)
-        if model.get("ckpt"):
+        placed = False
+        if model.get("ckpt") and mesh is not None:
+            # straight onto the stage's mesh: the whole tree never sits on
+            # one device
+            from tensorlink_tpu_torch.engine.loader import load_params
+
+            _, full = load_params(model["ckpt"], cfg, layer_range=(lo, hi),
+                                  mesh=mesh, specs=self._load_specs(cfg,
+                                                                    stage))
+            params = slice_stage_params(full, 0, 0, first=first,
+                                        holds_head=holds_head)
+            params["layers"] = full["layers"]
+            placed = True
+        elif model.get("ckpt"):
             from tensorlink_tpu_torch.engine.loader import load_params
 
             _, full = load_params(model["ckpt"], cfg, layer_range=(lo, hi),
@@ -415,7 +428,7 @@ class DistributedWorker:
                 params["layers"] = tree_map(lambda t: t.clone(),
                                             params["layers"])
         del full
-        if mesh is not None:
+        if mesh is not None and not placed:
             params = self._shard_params(params, cfg, stage, mesh)
         quant = model.get("quant")
         if model.get("flash"):
@@ -557,6 +570,19 @@ class DistributedWorker:
         )
 
         return put(mesh, params, stage_param_specs(cfg, StagePlan(**stage)))
+
+    @staticmethod
+    def _load_specs(cfg, stage: dict) -> dict:
+        """The spec tree a checkpoint loads by onto a stage's mesh: the
+        stage's specs over every leaf the loader reads (the embedding,
+        final norm and head included; the stage keeps what it owns)."""
+        from tensorlink_tpu_torch.parallel.planner import (
+            StagePlan,
+            stage_param_specs,
+        )
+
+        return stage_param_specs(cfg, StagePlan(**dict(
+            stage, first=True, holds_head=True)))
 
     def _cache_specs_for(self, rt: StageRuntime, batch: int):
         """The dense cache's spec on this stage's mesh: kv heads on
@@ -2048,8 +2074,9 @@ class DistributedWorker:
         kw = {"tokens": x_in} if first else {"hidden": x_in}
         if train:
             with torch.no_grad():
-                out, _ = stage_forward(rt.params, rt.cfg, attn_mask=mask,
-                                       first=first, last=apply_head, **kw)
+                out, _ = stage_forward(rt.params, _train_cfg(rt),
+                                       attn_mask=mask, first=first,
+                                       last=apply_head, **kw)
             # no KV cache in training: the backward recomputes the forward
             # from these inputs when the cotangent arrives
             rt.saved[tag] = ("stage", x_in, mask, first, apply_head)
@@ -2390,9 +2417,9 @@ class DistributedWorker:
                     out = head_forward(tree, h, rt.cfg)
                 else:
                     kw = {"hidden": h} if wrt_input else {"tokens": h}
-                    out, _ = stage_forward(tree, rt.cfg, attn_mask=mask,
-                                           first=first, last=apply_head,
-                                           remat=True, **kw)
+                    out, _ = stage_forward(tree, _train_cfg(rt),
+                                           attn_mask=mask, first=first,
+                                           last=apply_head, remat=True, **kw)
                 grads = torch.autograd.grad(
                     out, leaves + ([h] if wrt_input else []), g,
                     allow_unused=True)
@@ -2428,6 +2455,7 @@ class DistributedWorker:
 
         fold = GradFold(rt.params)
         parts = []
+        cfg = _train_cfg(rt)
         for _m, grp, rows in _group_rows(x_in.shape[0], 1,
                                          sharded.n_groups(rt.params)):
             h = (x_in[rows].detach().requires_grad_(True) if wrt_input
@@ -2440,7 +2468,7 @@ class DistributedWorker:
                 else:
                     kw = {"hidden": h} if wrt_input else {"tokens": h}
                     out, _ = sharded.stage(
-                        rt.params, rt.cfg, first=first, last=apply_head,
+                        rt.params, cfg, first=first, last=apply_head,
                         attn_mask=None if mask is None else mask[rows],
                         remat=True, group=grp, take=take, **kw)
                 return out, g[rows].to(out.device)
@@ -2788,6 +2816,19 @@ def _clear_empty_rows(cache, new_cache, mask) -> None:
             d = keys[j][1]
             clear(t.shards[j], empty[d * b:(d + 1) * b].to(
                 t.shards[j].device))
+
+
+def _train_cfg(rt: StageRuntime):
+    """The config a stage's TRAINING forwards and their BACKWARD
+    recompute run: a MoE stage with an expert axis takes the
+    capacity-factor sparse dispatch (``parallel/expert.py``), as the JAX
+    worker does; eval forwards, decode sessions and the engine keep the
+    exact dense dispatch, since a dropped token must never change served
+    logits."""
+    axes = rt.stage.get("mesh_axes") or {}
+    if rt.cfg.moe and int(axes.get("expert", 1)) > 1:
+        return rt.cfg.with_(moe_dispatch="sparse")
+    return rt.cfg
 
 
 def _host(t):

@@ -1,5 +1,5 @@
-"""The dense forward over a tree placed on a ``{data, fsdp, tensor}``
-mesh — the port's counterpart of the JAX package's GSPMD path
+"""The dense forward over a tree placed on a ``{data, fsdp, expert,
+tensor}`` mesh — the port's counterpart of the JAX package's GSPMD path
 (``forward`` / ``stage_forward`` over a ``put`` tree, with the flash
 prefill run per shard inside ``shard_map``), differentiable, so that the
 train step and the worker's BACKWARD run on the placed tree itself.
@@ -28,9 +28,22 @@ reshards. Every other product follows its weight's placement:
   fixed-order sum, shard 0 first; its whole bias is added once after;
 - a tied embedding split along the vocabulary looks each token up in the
   shard that holds its row and makes each shard's logit columns;
-- a MoE layer's experts split their hidden dim: each shard's gated
-  partial outputs, summed in shard order;
+- a MoE layer's experts split over ``expert`` (each expert shard holds a
+  block of them) and/or their hidden dim over the tensor axis:
+  ``parallel/expert.py::placed_moe_mlp`` runs each shard's experts, in
+  the dense dispatch each shard's gated outputs for every token summed in
+  shard order, in the sparse one (training) each shard's block of the
+  dispatched tokens, its hidden-column partials summed in shard order;
 - a replicated leaf runs once per distinct device.
+
+Within a (data × fsdp) group each index along ``expert`` is a sub-group
+of tensor shards holding the same replicated leaves. Attention, norms,
+the router and the residual stream run once per distinct device: a
+sub-group whose devices an earlier sub-group of the group already runs
+on (every expert shard on one card) reuses that sub-group's activations
+and cache, and only its MoE experts run; on distinct cards each
+sub-group runs them on its own devices and writes its own copy of the
+cache, as GSPMD replicates them.
 
 A leaf split over ``fsdp`` (ZeRO-3, ``partition_specs(fsdp_axis=)``) is
 gathered just before its use: each shard joins its fsdp peers' pieces
@@ -42,10 +55,11 @@ pieces, never a joined weight, and the backward gathers again; the LM
 head's gather is checkpointed too.
 
 The products after attention are the tensor-parallel epilogue the paged
-serving step runs too (``models/transformer.py::_tp_residual`` and
-``_tp_logits`` over one :class:`~.transformer.TPLayout` per group); this
-module adds the per-shard attention over the dense cache, the
-vocabulary-split embedding lookup and the fsdp gathers. Norms, residual
+serving step runs too (``models/transformer.py::_tp_residual``'s parts
+``_tp_pre_mlp`` and ``_tp_mlp``, and ``_tp_logits``, over one
+:class:`~.transformer.TPLayout` per sub-group); this module adds the
+per-shard attention over the dense cache, the vocabulary-split embedding
+lookup, the fsdp gathers and the MoE over the expert shards. Norms, residual
 adds, rope and the masks run once per distinct device of a group, on the
 whole ``d_model``. The logits or hidden states come back whole on the
 mesh's first device (or, for one group's run, on the group's first
@@ -77,7 +91,8 @@ from .transformer import (
     _rope_dim,
     _tp_gather,
     _tp_logits,
-    _tp_residual,
+    _tp_mlp,
+    _tp_pre_mlp,
     flash_gate,
     rope_tables,
 )
@@ -116,12 +131,14 @@ def _view(leaf, j: int | None, layer: int | None) -> torch.Tensor:
 
 class _Placed:
     """A placed tree read for one forward: the mesh's (data × fsdp)
-    groups, each a :class:`~.transformer.TPLayout` over its tensor shards
-    (with how every weight lies), and each shard's fsdp peers. ``take(leaf,
-    j, layer)`` reads flattened device ``j``'s piece of a placed leaf
-    (layer ``layer`` of a stacked one; ``j`` None for a plain tensor): a
-    view by default; the train step passes one that makes each piece a
-    leaf of its own for autograd."""
+    groups, each of ``ep`` sub-groups (one per index along ``expert``),
+    each sub-group a :class:`~.transformer.TPLayout` over its tensor
+    shards (with how every weight lies), and each shard's fsdp peers.
+    Sub-group ``s = g * ep + e`` is group ``g``'s expert index ``e``.
+    ``take(leaf, j, layer)`` reads flattened device ``j``'s piece of a
+    placed leaf (layer ``layer`` of a stacked one; ``j`` None for a plain
+    tensor): a view by default; the train step passes one that makes each
+    piece a leaf of its own for autograd."""
 
     def __init__(self, params: dict, cfg: ModelConfig, take=None):
         mesh = tree_mesh(params)
@@ -134,19 +151,25 @@ class _Placed:
         self.tp = sizes.get(self.tensor_axis, 1) if self.tensor_axis else 1
         self.dp = sizes.get("data", 1)
         self.nf = sizes.get("fsdp", 1)
+        self.ep = sizes.get("expert", 1)
         flat = mesh.flat()
         d_idx, f_idx = mesh.axis_index("data"), mesh.axis_index("fsdp")
+        e_idx = mesh.axis_index("expert")
         t_idx = (mesh.axis_index(self.tensor_axis) if self.tensor_axis
                  else [0] * mesh.size)
-        # group g = data * nf + fsdp; its shard t is flattened device
-        # groups[g][t], and that shard's fsdp peers (the same data and
-        # tensor index, fsdp 0 first) are peers[g][t]
-        self.groups = [[0] * self.tp for _ in range(self.dp * self.nf)]
+        # sub-group s = (data * nf + fsdp) * ep + expert; its shard t is
+        # flattened device groups[s][t], and that shard's fsdp peers (the
+        # same data, expert and tensor index, fsdp 0 first) are
+        # peers[s][t]
+        nf, ep = self.nf, self.ep
+        self.groups = [[0] * self.tp for _ in range(self.dp * nf * ep)]
         for j in range(mesh.size):
-            self.groups[d_idx[j] * self.nf + f_idx[j]][t_idx[j]] = j
-        self.peers = [[[self.groups[(g // self.nf) * self.nf + f][t]
-                        for f in range(self.nf)] for t in range(self.tp)]
-                      for g in range(len(self.groups))]
+            self.groups[(d_idx[j] * nf + f_idx[j]) * ep + e_idx[j]][
+                t_idx[j]] = j
+        self.peers = [[[self.groups[((s // ep // nf) * nf + f) * ep
+                                    + s % ep][t] for f in range(nf)]
+                       for t in range(self.tp)]
+                      for s in range(len(self.groups))]
         self.primary = flat[0]
         ax = self.tensor_axis
         lay = params.get("layers", {})
@@ -177,44 +200,101 @@ class _Placed:
         if kinds["tok"] == "col" or kinds["head"] == "row":
             raise ValueError("the embedding splits its vocabulary rows and "
                              "the head its vocabulary columns only")
+        # a MoE layer split over expert or tensor runs over its shards
+        self.moe_split = cfg.moe and (_check_experts(params, cfg, ep)
+                                      or kinds["up"] != "rep")
         self.lays = [TPLayout([flat[j] for j in grp], **kinds)
                      for grp in self.groups]
+        # each sub-group's runner: the first sub-group of its group on
+        # the same devices, whose activations it shares
+        self.runner = []
+        for s in range(len(self.groups)):
+            first = s - s % ep
+            self.runner.append(next(
+                r for r in range(first, s + 1)
+                if self.lays[r].devices == self.lays[s].devices))
 
-    def _gather(self, leaf, g: int, t: int, layer: int | None):
-        """Group ``g`` shard ``t``'s tensor of ``leaf`` (layer ``layer``
-        of a stacked one): its own piece, or, for a leaf split over
-        fsdp, its peers' pieces joined in fsdp order on its device."""
+    @property
+    def n_groups(self) -> int:
+        return self.dp * self.nf
+
+    def subgroups(self, g: int) -> range:
+        """Group ``g``'s sub-groups, expert index 0 first."""
+        return range(g * self.ep, (g + 1) * self.ep)
+
+    def runners(self, g: int) -> list:
+        """The sub-groups of group ``g`` that run the replicated work."""
+        return [s for s in self.subgroups(g) if self.runner[s] == s]
+
+    def _gather(self, leaf, s: int, t: int, layer: int | None):
+        """Sub-group ``s`` shard ``t``'s tensor of ``leaf`` (layer
+        ``layer`` of a stacked one): its own piece, or, for a leaf split
+        over fsdp, its peers' pieces joined in fsdp order on its device."""
         if isinstance(leaf, QTensor):
-            return QTensor(q=self._gather(leaf.q, g, t, layer),
-                           scale=self._gather(leaf.scale, g, t, layer))
-        j = self.groups[g][t]
+            return QTensor(q=self._gather(leaf.q, s, t, layer),
+                           scale=self._gather(leaf.scale, s, t, layer))
+        j = self.groups[s][t]
         if not isinstance(leaf, Sharded):
             return self.take(leaf, None, layer)
         if leaf.n_fsdp == 1:
             return self.take(leaf, j, layer)
         dev = leaf.shards[j].device
         parts = [to_device(self.take(leaf, p, layer), dev)
-                 for p in self.peers[g][t]]
+                 for p in self.peers[s][t]]
         dim = leaf.spec.fsdp_dim - (0 if layer is None else 1)
         return torch.cat(parts, dim=dim)
 
-    def _tree(self, node, g: int, t: int, layer: int | None):
+    def _tree(self, node, s: int, t: int, layer: int | None):
         if isinstance(node, dict):
-            return {k: self._tree(v, g, t, layer) for k, v in node.items()}
-        return self._gather(node, g, t, layer)
+            return {k: self._tree(v, s, t, layer) for k, v in node.items()}
+        return self._gather(node, s, t, layer)
 
-    def layer(self, g: int, i: int) -> list:
-        """Group ``g``'s layer ``i``: each shard's parameter dict, joined
+    def layer(self, s: int, i: int, part: str | None = None) -> list:
+        """Sub-group ``s``'s layer ``i`` (its ``part`` sub-tree alone,
+        e.g. ``"mlp"``, when given): each shard's parameter dict, joined
         over fsdp."""
-        return [self._tree(self.params["layers"], g, t, i)
-                for t in range(self.tp)]
+        node = self.params["layers"]
+        node = node if part is None else node[part]
+        return [self._tree(node, s, t, i) for t in range(self.tp)]
 
-    def top(self, g: int, names) -> list:
-        """Group ``g``'s leaves outside the layers among ``names``
+    def top(self, s: int, names) -> list:
+        """Sub-group ``s``'s leaves outside the layers among ``names``
         (embed, final_norm, lm_head): each shard's dict, joined over
         fsdp."""
         sub = {k: self.params[k] for k in names if k in self.params}
-        return [self._tree(sub, g, t, None) for t in range(self.tp)]
+        return [self._tree(sub, s, t, None) for t in range(self.tp)]
+
+
+def _check_experts(params: dict, cfg: ModelConfig, ep: int) -> bool:
+    """Whether the tree splits its MoE experts over ``expert``: only the
+    experts' ``w_gate``/``w_up``/``w_down`` may split over it, along
+    their expert dimension, and then all three ``ep`` ways (a tree the
+    axis leaves whole replicates over it)."""
+    split = {}
+    for path, leaf in _leaves(params):
+        leaf = _leaf(leaf)
+        if not isinstance(leaf, Sharded) or leaf.n_expert == 1:
+            continue
+        name = path[-1]
+        if not (cfg.moe and path[:2] == ("layers", "mlp")
+                and name in ("w_gate", "w_up", "w_down")
+                and leaf.spec.expert_dim == 1):
+            raise ValueError(f"{'/'.join(path)} splits over expert: only "
+                             f"the MoE experts split, along their expert "
+                             f"dimension")
+        split[name] = leaf.n_expert
+    if split and (set(split) != {"w_gate", "w_up", "w_down"}
+                  or set(split.values()) != {ep}):
+        raise ValueError(f"the experts split {split} over expert={ep}")
+    return bool(split)
+
+
+def _leaves(node, path=()):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, node
 
 
 def _splits_heads(qkv: str, cfg: ModelConfig, tp: int) -> bool:
@@ -329,32 +409,71 @@ def _embed(pl: _Placed, tokens: torch.Tensor, cfg: ModelConfig,
     return out
 
 
-def _block(pl: _Placed, x: dict, cfg: ModelConfig, g: int, rope: dict,
+def _block(pl: _Placed, xs: dict, cfg: ModelConfig, g: int, rope: dict,
            bias: dict, cache: KVCache | None, write_at: dict, attn_fn,
            kv_upto, i: int) -> dict:
-    """Decoder block ``i`` over group ``g``: its weights gathered (each
-    shard's, joined over fsdp), each shard's heads — or, where the heads
-    do not split, all of them once per distinct device from the joined
-    q/k/v columns, each device writing its own copy of the cache — then
-    the shared tensor-parallel epilogue
-    (:func:`~.transformer._tp_residual`)."""
-    lps = pl.layer(g, i)
-    lay, group = pl.lays[g], pl.groups[g]
-    h = x if cfg.norm_position == "post" else {
-        d: _norm(x[d], lps[t]["ln1"], cfg) for d, t in lay.first.items()}
-    split = pl.split_heads
-    outs = {}
-    for t in (range(lay.tp) if split else lay.first.values()):
-        d = lay.devices[t]
-        lp = lps[t] if split or pl.qkv == "rep" else {
-            "attn": _joined_attn(pl, lps, lay, d)}
-        q, k, v = _qkv(h[d], lp, cfg, *rope[d])
-        kv = _cache_piece(cache, group[t], i) if cache is not None else None
-        outs[t] = _attend(q, k, v, cfg, bias[d], kv, write_at[d], attn_fn,
-                          kv_upto)
-    attn = ([outs[t] for t in range(lay.tp)] if split
-            else {lay.devices[t]: a for t, a in outs.items()})
-    return _tp_residual(x, attn, lps, cfg, lay)
+    """Decoder block ``i`` over group ``g``. ``xs`` holds the residual
+    stream of each sub-group that runs (``{s: {device: x}}``). Each runs
+    its weights gathered (each shard's, joined over fsdp), each shard's
+    heads — or, where the heads do not split, all of them once per
+    distinct device from the joined q/k/v columns, each device writing
+    its own copy of the cache — and the tensor-parallel epilogue up to the
+    MLP (:func:`~.transformer._tp_pre_mlp`). A split MoE layer then runs
+    over every sub-group's shards (:func:`_expert_mlp`), any other MLP per
+    sub-group (:func:`~.transformer._tp_mlp`)."""
+    pre, lps_of = {}, {}
+    for s in pl.runners(g):
+        x = xs[s]
+        lps = lps_of[s] = pl.layer(s, i)
+        lay, group = pl.lays[s], pl.groups[s]
+        h = x if cfg.norm_position == "post" else {
+            d: _norm(x[d], lps[t]["ln1"], cfg) for d, t in lay.first.items()}
+        split = pl.split_heads
+        outs = {}
+        for t in (range(lay.tp) if split else lay.first.values()):
+            d = lay.devices[t]
+            lp = lps[t] if split or pl.qkv == "rep" else {
+                "attn": _joined_attn(pl, lps, lay, d)}
+            q, k, v = _qkv(h[d], lp, cfg, *rope[d])
+            kv = (_cache_piece(cache, group[t], i) if cache is not None
+                  else None)
+            outs[t] = _attend(q, k, v, cfg, bias[d], kv, write_at[d],
+                              attn_fn, kv_upto)
+        attn = ([outs[t] for t in range(lay.tp)] if split
+                else {lay.devices[t]: a for t, a in outs.items()})
+        pre[s] = _tp_pre_mlp(x, attn, lps, cfg, lay)
+    hs = {s: h for s, (h, _) in pre.items()}
+    if pl.moe_split:
+        m = _expert_mlp(pl, g, i, hs, lps_of, cfg)
+    else:
+        m = {s: _tp_mlp(h, [lp["mlp"] for lp in lps_of[s]], cfg, pl.lays[s])
+             for s, h in hs.items()}
+    return {s: finish(m[s]) for s, (_, finish) in pre.items()}
+
+
+def _expert_mlp(pl: _Placed, g: int, i: int, hs: dict, lps_of: dict,
+                cfg: ModelConfig) -> dict:
+    """Layer ``i``'s MoE over group ``g``'s expert and tensor shards
+    (``parallel/expert.py::placed_moe_mlp``): the MLP input and the
+    router of each distinct device of the running sub-groups, and every
+    sub-group's shards in mesh order (a sub-group that does not run reads
+    its experts alone). Returns each running sub-group's output on its
+    devices."""
+    from ..parallel.expert import placed_moe_mlp
+
+    h, routers = {}, {}
+    for s, hd in hs.items():
+        for d, t in pl.lays[s].first.items():
+            if d not in h:
+                h[d] = hd[d]
+                routers[d] = lps_of[s][t]["mlp"]["router"]
+    shards = []
+    for s in pl.subgroups(g):
+        mlps = ([lp["mlp"] for lp in lps_of[s]] if s in lps_of
+                else pl.layer(s, i, "mlp"))
+        shards += list(zip(pl.lays[s].devices, mlps))
+    out = placed_moe_mlp(h, routers, shards, cfg, n_tensor=pl.tp)
+    return {s: {d: out[d] for d in pl.lays[s].distinct} for s in hs}
 
 
 def _head_names(cfg: ModelConfig) -> tuple:
@@ -376,9 +495,9 @@ def _run_group(pl: _Placed, g: int, cfg: ModelConfig, x_in, positions,
                attn_fn, kv_upto):
     """Group ``g`` over the rows it was given: the output on its first
     device."""
-    lay = pl.lays[g]
+    runs = pl.runners(g)
     rope, bias, write_at = {}, {}, {}
-    for d in lay.distinct:
+    for d in dict.fromkeys(d for s in runs for d in pl.lays[s].distinct):
         pos = to_device(positions, d)
         rope[d] = (rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
                    if cfg.pos == "rope" else (None, None))
@@ -394,21 +513,23 @@ def _run_group(pl: _Placed, g: int, cfg: ModelConfig, x_in, positions,
         bias[d] = _mask_bias(pos, valid_kv.shape[-1], valid_kv,
                              cfg.sliding_window)
     if first:
-        x = _embed(pl, x_in, cfg, positions, g)
+        x = {s: _embed(pl, x_in, cfg, positions, s) for s in runs}
     else:
-        x = {d: to_device(x_in, d).to(cfg.dtype) for d in lay.distinct}
+        x = {s: {d: to_device(x_in, d).to(cfg.dtype)
+                 for d in pl.lays[s].distinct} for s in runs}
     for i in range(pl.n_layers):
         args = (pl, x, cfg, g, rope, bias, cache, write_at, attn_fn, kv_upto,
                 i)
         x = (checkpoint(_block, *args, use_reentrant=False) if remat
              else _block(*args))
+    s0 = runs[0]
     if last:
-        return (checkpoint(_head, pl, x, cfg, g, use_reentrant=False)
-                if remat else _head(pl, x, cfg, g))
+        return (checkpoint(_head, pl, x[s0], cfg, s0, use_reentrant=False)
+                if remat else _head(pl, x[s0], cfg, s0))
     if final_norm:
-        fn = pl.top(g, ("final_norm",))[0]["final_norm"]
-        return _norm(x[lay.primary], fn, cfg)
-    return x[lay.primary]
+        fn = pl.top(s0, ("final_norm",))[0]["final_norm"]
+        return _norm(x[s0][pl.lays[s0].primary], fn, cfg)
+    return x[s0][pl.lays[s0].primary]
 
 
 def stage(
@@ -442,7 +563,8 @@ def stage(
         raise ValueError("first stage requires tokens" if first
                          else "non-first stage requires hidden")
     B, T = x_in.shape[:2]
-    dev0 = pl.primary if group is None else pl.lays[group].primary
+    dev0 = (pl.primary if group is None
+            else pl.lays[pl.subgroups(group)[0]].primary)
     if attn_mask is None:
         attn_mask = torch.ones((B, T), dtype=torch.bool, device=dev0)
     length_in = None
@@ -484,14 +606,16 @@ def stage(
     if cache is not None:
         _check_cache(cache, pl, blocks)
     b = B // blocks
-    per_block = len(pl.groups) // blocks  # groups sharing a block
+    per_block = pl.n_groups // blocks  # groups sharing a block
     outs: dict = {}
     seen: set = set()
-    for g in range(len(pl.groups)):
+    for g in range(pl.n_groups):
         k = g // per_block
         # a group whose block another group on the same devices ran (or,
         # without a cache to keep a copy of, any group) repeats its work
-        key = (k, tuple(pl.lays[g].devices) if cache is not None else ())
+        key = (k, tuple(d for s in pl.subgroups(g)
+                        for d in pl.lays[s].devices)
+               if cache is not None else ())
         if key in seen:
             continue
         seen.add(key)
@@ -530,9 +654,9 @@ def head(params: dict, hidden: torch.Tensor, cfg: ModelConfig, *,
     """``head_forward`` over a placed tree: final norm and LM head, by
     ``group`` (default the first) on its first device."""
     pl = _Placed(params, cfg, take)
-    lay = pl.lays[group]
+    s = pl.subgroups(group)[0]
     return _head(pl, {d: to_device(hidden, d).to(cfg.dtype)
-                      for d in lay.distinct}, cfg, group)
+                      for d in pl.lays[s].distinct}, cfg, s)
 
 
 def n_groups(params: dict) -> int:

@@ -38,12 +38,12 @@ sharded block epilogue (:func:`_tp_residual`, :func:`_tp_mlp`,
 :func:`_tp_gather`, row-split partial products by the fixed-order
 :func:`_tp_sum`). ``engine/paged.py::make_tp_ragged_step`` runs it over
 per-shard trees, and ``models/sharded.py`` runs the dense forward over a
-tree placed on a ``{data, tensor}`` mesh (JAX's GSPMD path; its cache by
-:func:`cache_specs`) with it, each shard's attention through
-:func:`_attend`.
+tree placed on a ``{data, fsdp, expert, tensor}`` mesh (JAX's GSPMD path;
+its cache by :func:`cache_specs`) with it, each shard's attention through
+:func:`_attend` and each expert shard's block of experts through
+:func:`_moe_block`.
 
-Not ported: ring attention (``seq_mesh``, ROADMAP queue 1 item 5) and
-the fsdp axis of :func:`partition_specs` (item 3).
+Not ported: ring attention (``seq_mesh``, ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -264,24 +264,39 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _moe_gates(h: torch.Tensor, router, cfg: ModelConfig) -> torch.Tensor:
+    """The dense dispatch's float32 gates ``[..., E]``: the softmax over
+    the top-k router logits at the chosen experts, zero elsewhere."""
+    router_logits = _mm(h, router).float()  # [..., E]
+    topw, topi = top_k(router_logits, cfg.n_experts_per_tok)
+    return torch.zeros_like(router_logits).scatter(
+        -1, topi, torch.softmax(topw, dim=-1))
+
+
+def _moe_block(h: torch.Tensor, p: dict, gates: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Every token through the experts ``p`` holds, each output weighted
+    by its gate (``gates``: those experts' columns) and summed."""
+    g = torch.einsum("btd,edf->btef", h, p["w_gate"])
+    u = torch.einsum("btd,edf->btef", h, p["w_up"])
+    y = torch.einsum("btef,efd->bted", _act(g, cfg.act) * u, p["w_down"])
+    return torch.einsum("bted,bte->btd", y, gates.to(h.dtype))
+
+
 def _moe_mlp(h: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     """Mixtral-style top-k MoE, dense dispatch: every expert sees every
     token and the outputs combine with the top-k gates (the softmax over
     the chosen experts' float32 router logits, zero elsewhere), as the
     JAX ``_moe_mlp``. ``cfg.moe_dispatch == "sparse"`` routes to the
-    capacity-limited dispatch (``parallel/expert.py``)."""
+    capacity-limited dispatch (``parallel/expert.py``). Over expert
+    shards, ``parallel/expert.py::placed_moe_mlp`` runs the same two
+    halves: the whole router's gates, and each shard's block of experts
+    weighted by its own gates."""
     if cfg.moe_dispatch == "sparse":
         from ..parallel.expert import sparse_moe_mlp
 
         return sparse_moe_mlp(h, p, cfg)
-    router_logits = _mm(h, p["router"]).float()  # [..., E]
-    topw, topi = top_k(router_logits, cfg.n_experts_per_tok)
-    gates = torch.zeros_like(router_logits).scatter(
-        -1, topi, torch.softmax(topw, dim=-1))
-    g = torch.einsum("btd,edf->btef", h, p["w_gate"])
-    u = torch.einsum("btd,edf->btef", h, p["w_up"])
-    y = torch.einsum("btef,efd->bted", _act(g, cfg.act) * u, p["w_down"])
-    return torch.einsum("bted,bte->btd", y, gates.to(h.dtype))
+    return _moe_block(h, p, _moe_gates(h, p["router"], cfg), cfg)
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -484,20 +499,22 @@ def partition_specs(
     the output biases and the router replicate. ``fsdp_axis`` also splits
     each large weight's other dimension over ``fsdp`` (ZeRO-3):
     ``wq`` is ``P(None, "fsdp", "tensor")``, ``wo`` ``P(None, "tensor",
-    "fsdp")``, the embedding ``P("tensor", "fsdp")``. ``models/sharded.py``
-    runs the forward over a tree placed by it. The expert axis is not
-    ported."""
-    if expert_axis is not None:
-        raise unported("the expert axis (partition_specs(expert_axis=))", 4)
-    if fsdp_axis not in (None, "fsdp"):
-        raise ValueError(f"the fsdp dimension splits over 'fsdp', not "
-                         f"{fsdp_axis!r}")
-    t, fs = tensor_axis, fsdp_axis
+    "fsdp")``, the embedding ``P("tensor", "fsdp")``. ``expert_axis``
+    splits the MoE experts' leading dimension over ``expert``: ``w_gate``
+    is ``P(None, "expert", "fsdp", "tensor")``, the router replicates.
+    ``models/sharded.py`` runs the forward over a tree placed by it."""
+    for name, axis in (("fsdp", fsdp_axis), ("expert", expert_axis)):
+        if axis not in (None, name):
+            raise ValueError(f"the {name} dimension splits over "
+                             f"{name!r}, not {axis!r}")
+    t, fs, e = tensor_axis, fsdp_axis, expert_axis
 
-    def sp(dim: int | None, fdim: int | None = None) -> Split:
+    def sp(dim: int | None, fdim: int | None = None,
+           edim: int | None = None) -> Split:
         dim = dim if t is not None else None
         return Split(dim, "tp" if dim is None else t,
-                     fsdp_dim=fdim if fs is not None else None)
+                     fsdp_dim=fdim if fs is not None else None,
+                     expert_dim=edim if e is not None else None)
 
     rep = REPLICATED
     ln = {"scale": rep}
@@ -513,8 +530,8 @@ def partition_specs(
     if cfg.qk_norm_full:  # the scales align with the split projections
         attn |= {"q_norm": sp(1), "k_norm": sp(1)}
     if cfg.moe:
-        mlp = {"router": rep, "w_gate": sp(3, 2), "w_up": sp(3, 2),
-               "w_down": sp(2, 3)}
+        mlp = {"router": rep, "w_gate": sp(3, 2, 1), "w_up": sp(3, 2, 1),
+               "w_down": sp(2, 3, 1)}
     elif cfg.mlp == "gated":
         mlp = {"w_gate": sp(2, 1), "w_up": sp(2, 1), "w_down": sp(1, 2)}
         if cfg.mlp_bias:
@@ -645,14 +662,11 @@ def _tp_project(lay: TPLayout, kind: str, x, weight, bias) -> dict:
 def _tp_mlp(h: dict, mlps: list, cfg: ModelConfig, lay: TPLayout) -> dict:
     """The MLP over shards — JAX's ``_mlp`` with ``tp_axis``: each
     shard's gate/up columns, then ``w_down`` by :func:`_tp_project`. A
-    replicated MLP runs whole once per distinct device; a MoE layer whose
-    experts split their hidden dim sums each shard's gated partial
-    output, shard 0 first."""
+    replicated MLP (a whole MoE layer too) runs whole once per distinct
+    device; a split MoE layer runs over its shards in
+    ``parallel/expert.py::placed_moe_mlp``."""
     if lay.up == "rep":
         return {d: _mlp(x, mlps[lay.first[d]], cfg) for d, x in h.items()}
-    if cfg.moe:
-        parts = [_mlp(h[d], p, cfg) for p, d in zip(mlps, lay.devices)]
-        return {d: _tp_sum(parts, d) for d in lay.distinct}
     mids = []
     for p, d in zip(mlps, lay.devices):
         if cfg.mlp == "gated":
@@ -670,12 +684,22 @@ def _tp_mlp(h: dict, mlps: list, cfg: ModelConfig, lay: TPLayout) -> dict:
 
 def _tp_residual(x: dict, attn, lps: list, cfg: ModelConfig,
                  lay: TPLayout) -> dict:
-    """:func:`_residual` over shards. ``attn`` is each shard's attention
-    output over its own heads (a list of ``[B, T, Hq/tp, hd]``) or the
-    whole output on each distinct device (a dict of ``[B, T, Hq, hd]``);
-    ``wo`` projects it by :func:`_tp_project`. The residual stream ``x``
-    is whole on every device, so the norms and adds are the unsharded
-    ones."""
+    """:func:`_residual` over shards: :func:`_tp_pre_mlp`, then
+    :func:`_tp_mlp` and the residual add."""
+    h, finish = _tp_pre_mlp(x, attn, lps, cfg, lay)
+    return finish(_tp_mlp(h, [lp["mlp"] for lp in lps], cfg, lay))
+
+
+def _tp_pre_mlp(x: dict, attn, lps: list, cfg: ModelConfig,
+                lay: TPLayout) -> tuple:
+    """:func:`_residual` over shards up to the MLP: ``(h, finish)``, the
+    MLP's input on each distinct device and the function that takes the
+    MLP's output there (a dict) to the block's output. ``attn`` is each
+    shard's attention output over its own heads (a list of ``[B, T,
+    Hq/tp, hd]``) or the whole output on each distinct device (a dict of
+    ``[B, T, Hq, hd]``); ``wo`` projects it by :func:`_tp_project`. The
+    residual stream ``x`` is whole on every device, so the norms and adds
+    are the unsharded ones."""
     def flat(a):
         return a.reshape(a.shape[0], a.shape[1], -1)
 
@@ -685,19 +709,16 @@ def _tp_residual(x: dict, attn, lps: list, cfg: ModelConfig,
                            lambda i: lps[i]["attn"]["wo"],
                            lambda i: lps[i]["attn"].get("bo"))
     rep = lay.rep(lps)
-    mlps = [lp["mlp"] for lp in lps]
     if cfg.norm_position == "post":
         x = {d: x[d] + _norm(attn_out[d], rep[d]["ln1"], cfg) for d in x}
-        m = _tp_mlp(x, mlps, cfg, lay)
-        return {d: x[d] + _norm(m[d], rep[d]["ln2"], cfg) for d in x}
+        return x, lambda m: {d: x[d] + _norm(m[d], rep[d]["ln2"], cfg)
+                             for d in x}
     if cfg.parallel_residual:
-        m = _tp_mlp({d: _norm(x[d], rep[d]["ln2"], cfg) for d in x}, mlps,
-                    cfg, lay)
-        return {d: x[d] + attn_out[d] + m[d] for d in x}
+        return ({d: _norm(x[d], rep[d]["ln2"], cfg) for d in x},
+                lambda m: {d: x[d] + attn_out[d] + m[d] for d in x})
     x = {d: x[d] + attn_out[d] for d in x}
-    m = _tp_mlp({d: _norm(x[d], rep[d]["ln2"], cfg) for d in x}, mlps, cfg,
-                lay)
-    return {d: x[d] + m[d] for d in x}
+    return ({d: _norm(x[d], rep[d]["ln2"], cfg) for d in x},
+            lambda m: {d: x[d] + m[d] for d in x})
 
 
 def _tp_logits(shards: list, x: dict, cfg: ModelConfig,

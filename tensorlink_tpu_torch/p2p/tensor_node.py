@@ -77,7 +77,11 @@ class TensorNode(P2PNode):
     async def tensor_request(
         self, conn: Connection, tag: str, body: dict, timeout: float | None = None
     ) -> dict:
-        """Correlated array-carrying request; reply may be control or bulk."""
+        """Correlated array-carrying request; reply may be control or bulk.
+        A peer that drops while the request is still being written fails
+        it as one that drops while it waits for the reply does (the
+        "no connection" ``ConnectionError`` of ``_on_disconnect``), so
+        the caller's repair path sees a lost worker either way."""
         import secrets
 
         rid = secrets.token_hex(8)
@@ -85,7 +89,12 @@ class TensorNode(P2PNode):
         self._pending[rid] = fut
         self._pending_conn[rid] = conn
         try:
-            await self.send_tensor(conn, tag, {**body, "_rid": rid})
+            try:
+                await self.send_tensor(conn, tag, {**body, "_rid": rid})
+            except (ConnectionError, OSError) as e:
+                nid = conn.node_id[:12] if conn.node_id else "?"
+                raise ConnectionError(f"no connection to {nid} (peer "
+                                      f"dropped mid-send: {e!r})") from e
             return await asyncio.wait_for(fut, timeout or self.request_timeout)
         finally:
             self._pending.pop(rid, None)

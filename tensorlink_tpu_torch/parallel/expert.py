@@ -1,8 +1,8 @@
-"""Sparse MoE dispatch: capacity-factor top-k routing on one device (port
-of ``tensorlink_tpu/parallel/expert.py``).
+"""Sparse MoE dispatch: capacity-factor top-k routing, on one device or
+over an ``expert`` mesh axis (port of ``tensorlink_tpu/parallel/expert.py``).
 
-The dense dispatch (``models/transformer.py::_moe_mlp``) runs every token
-through every expert. This is the GShard/Switch formulation: tokens
+The dense dispatch (``models/transformer.py::_moe_mlp``) runs every
+token through every expert. This is the GShard/Switch formulation: tokens
 scatter into per-expert capacity buffers ``[E, C, d]`` with one-hot
 dispatch einsums, each expert runs its FFN on its buffer, and the results
 combine back weighted by the router.
@@ -13,8 +13,17 @@ tokens, and an overflowing slot is dropped (its combine weight is lost,
 no renormalisation). With ``capacity_factor = E/K`` nothing can drop and
 the result equals the dense dispatch.
 
-Placing the experts over an ``expert`` mesh axis (the all-to-alls of the
-JAX package's GSPMD lowering) waits for the tensor-parallel slice.
+Over an ``expert`` mesh axis (:func:`placed_moe_mlp`, run by
+``models/sharded.py`` for a tree placed by ``partition_specs(
+expert_axis="expert")``) each expert shard holds a block of ``E/ep``
+experts. The router is replicated, so every distinct device routes the
+tokens it holds with the same capacity and drop order; each expert shard
+takes its ``[G, E/ep, C, d]`` block of the dispatched tokens with
+``to_device``, runs its FFN there, and the blocks come back for the
+combine in expert order — the all-to-alls of the JAX package's GSPMD
+lowering, written out. The dense dispatch runs over the same shards:
+each computes its own experts' outputs for every token, and the parts sum
+in a fixed shard order.
 """
 
 from __future__ import annotations
@@ -23,7 +32,10 @@ import math
 
 import torch
 
-__all__ = ["expert_capacity", "sparse_moe_mlp", "topk_capacity_dispatch"]
+from .mesh import to_device
+
+__all__ = ["expert_capacity", "placed_moe_mlp", "sparse_moe_mlp",
+           "topk_capacity_dispatch"]
 
 
 def expert_capacity(
@@ -86,6 +98,45 @@ def _n_groups(S: int, group_size: int) -> int:
     return g
 
 
+def _route(h: torch.Tensor, router, cfg, capacity_factor=None) -> tuple:
+    """The tokens ``h`` ``[B, T, d]`` routed in dispatch groups:
+    ``(combine [G, gs, E, C], xe [G, E, C, d])``, ``xe`` each expert's
+    capacity buffer."""
+    from ..models.quant import matmul
+
+    B, T, d = h.shape
+    E, K = cfg.n_experts, cfg.n_experts_per_tok
+    S = B * T
+    cf = (capacity_factor if capacity_factor is not None
+          else cfg.moe_capacity_factor)
+    G = _n_groups(S, cfg.moe_group_size)
+    gs = S // G  # tokens per dispatch group
+    C = expert_capacity(gs, E, K, cf)
+
+    x = h.reshape(G, gs, d)
+    router_logits = matmul(x, router).float()  # [G, gs, E]
+    dispatch, combine = topk_capacity_dispatch(router_logits, K, C)
+    # scatter tokens to per-group expert buffers
+    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), x)
+    return combine, xe
+
+
+def _expert_ffn(xe: torch.Tensor, p: dict, cfg) -> torch.Tensor:
+    """The FFN of the experts ``p`` holds over their buffers ``xe``
+    ``[G, n, C, d]``."""
+    from ..models.transformer import _act
+
+    g = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
+    u = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
+    return torch.einsum("gecf,efd->gecd", _act(g, cfg.act) * u, p["w_down"])
+
+
+def _combine(combine: torch.Tensor, y: torch.Tensor, shape) -> torch.Tensor:
+    """Gather the experts' outputs back, weighted by the router."""
+    out = torch.einsum("gsec,gecd->gsd", combine.to(y.dtype), y)
+    return out.reshape(shape)
+
+
 def sparse_moe_mlp(
     h: torch.Tensor,  # [B, T, d]
     p: dict,  # router [d, E], w_gate/w_up [E, d, f], w_down [E, f, d]
@@ -98,26 +149,50 @@ def sparse_moe_mlp(
     in groups of about ``cfg.moe_group_size`` (GShard's grouping: the
     one-hot einsums grow with the group, not the whole batch), with the
     capacity per group."""
-    from ..models.quant import matmul
-    from ..models.transformer import _act
+    combine, xe = _route(h, p["router"], cfg, capacity_factor)
+    return _combine(combine, _expert_ffn(xe, p, cfg), h.shape)
 
-    B, T, d = h.shape
-    E, K = cfg.n_experts, cfg.n_experts_per_tok
-    S = B * T
-    cf = (capacity_factor if capacity_factor is not None
-          else cfg.moe_capacity_factor)
-    G = _n_groups(S, cfg.moe_group_size)
-    gs = S // G  # tokens per dispatch group
-    C = expert_capacity(gs, E, K, cf)
 
-    x = h.reshape(G, gs, d)
-    router_logits = matmul(x, p["router"]).float()  # [G, gs, E]
-    dispatch, combine = topk_capacity_dispatch(router_logits, K, C)
-    # scatter tokens to per-group expert buffers
-    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), x)
-    g = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
-    u = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    y = torch.einsum("gecf,efd->gecd", _act(g, cfg.act) * u, p["w_down"])
-    # gather back, weighted by the router
-    out = torch.einsum("gsec,gecd->gsd", combine.to(y.dtype), y)
-    return out.reshape(B, T, d)
+def placed_moe_mlp(h: dict, routers: dict, shards: list, cfg, *,
+                   n_tensor: int = 1) -> dict:
+    """A MoE layer over its expert (and tensor) shards, in
+    ``cfg.moe_dispatch``'s form, the output whole on every device of
+    ``h``.
+
+    ``h`` holds the layer's input whole on each distinct device
+    (``{device: [B, T, d]}``) and ``routers`` the replicated router
+    there. ``shards`` is ``[(device, p), …]`` in mesh order, expert-major
+    and tensor-minor: shard ``k`` holds the experts of block ``k //
+    n_tensor`` (``p["w_gate"]`` ``[E/ep, d, f/tp]``), its hidden columns
+    ``k % n_tensor``.
+
+    Dense: each device's gates (once per device), each shard's gated
+    output over every token from its own device's input, the parts summed
+    in shard order onto every device. Sparse: each device routes (once
+    per device) with the capacity of the whole layer, each shard takes
+    its block of the buffers, runs its FFN and the tensor shards' partial
+    outputs sum in order; the expert blocks join in expert order on every
+    device for the combine."""
+    from ..models.transformer import _moe_block, _moe_gates, _tp_sum
+
+    n_local = shards[0][1]["w_gate"].shape[0]
+
+    def block(k: int) -> slice:
+        e0 = (k // n_tensor) * n_local
+        return slice(e0, e0 + n_local)
+
+    if cfg.moe_dispatch != "sparse":
+        gates = {d: _moe_gates(x, routers[d], cfg) for d, x in h.items()}
+        parts = [_moe_block(h[d], p, gates[d][..., block(k)], cfg)
+                 for k, (d, p) in enumerate(shards)]
+        return {d: _tp_sum(parts, d) for d in h}
+    routed = {d: _route(x, routers[d], cfg) for d, x in h.items()}
+    ys = [_expert_ffn(to_device(routed[d][1][:, block(k)], d), p, cfg)
+          for k, (d, p) in enumerate(shards)]
+    n_blocks = len(shards) // n_tensor
+    out = {}
+    for d, x in h.items():
+        y = torch.cat([_tp_sum(ys[b * n_tensor:(b + 1) * n_tensor], d)
+                       for b in range(n_blocks)], dim=1)
+        out[d] = _combine(routed[d][0], y, x.shape)
+    return out

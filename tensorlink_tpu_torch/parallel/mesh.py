@@ -24,14 +24,15 @@ JAX's tiled ``all_gather`` computes.
 A tensor placed on a mesh is a :class:`Sharded`: one tensor per device
 of the mesh, in mesh order — its piece of the whole by a :class:`Split`
 spec (a dimension per axis: one over ``tensor``/``tp``, one over
-``data``, one over ``fsdp``, in any combination), one tensor shared by
+``data``, one over ``fsdp``, one over ``expert``, in any combination),
+one tensor shared by
 every shard on the same device that holds the same piece. :func:`put`
 places a tree by a spec tree, as JAX's ``put`` does with
 ``NamedSharding``; :meth:`Sharded.full` joins a leaf exactly,
 :func:`map_pieces` runs an elementwise function piece by piece and
 :func:`take_rows` is the cross-shard row gather (the beam reorder over a
-``data``-split cache). The ``expert``, ``stage`` and ``seq`` axes above 1
-raise, naming their ROADMAP queue 1 item.
+``data``-split cache). The ``stage`` and ``seq`` axes above 1 raise,
+naming their ROADMAP queue 1 item.
 
 The default devices are the distinct local CUDA cards. A device repeats
 in a mesh only when the caller names the devices: the tests lay N shards
@@ -170,10 +171,9 @@ def serving_mesh(
 
 # axes a tree may be placed over, and the ROADMAP queue 1 item that
 # brings each of the others
-_PLACED_AXES = ("data", "fsdp", "tensor", "tp")
+_PLACED_AXES = ("data", "fsdp", "expert", "tensor", "tp")
 # tlint: disable=TL006(read-only constant table — never mutated)
 _UNPORTED_AXES = {
-    "expert": ("the expert axis (expert parallelism on a mesh)", 4),
     "stage": ("the stage axis (in-mesh pipeline stages)", 4),
     "seq": ("the seq axis (sequence-parallel ring attention)", 5),
 }
@@ -188,9 +188,11 @@ class Split:
     """A spec leaf — JAX's ``PartitionSpec`` for the layouts the port
     places, a dimension per axis: dimension ``dim`` split over mesh axis
     ``axis`` (a tuple of axes splits it over their flattened grid,
-    ``data_idx * tp + tp_idx``), dimension ``data_dim`` over ``data`` and
-    dimension ``fsdp_dim`` over ``fsdp`` (JAX's ``P(None, "fsdp",
-    "tensor")`` is ``Split(2, "tensor", fsdp_dim=1)``). A spec naming an
+    ``data_idx * tp + tp_idx``), dimension ``data_dim`` over ``data``,
+    dimension ``fsdp_dim`` over ``fsdp`` and dimension ``expert_dim`` over
+    ``expert`` (JAX's ``P(None, "fsdp", "tensor")`` is ``Split(2,
+    "tensor", fsdp_dim=1)``, its ``P(None, "expert", "fsdp", "tensor")``
+    ``Split(3, "tensor", fsdp_dim=2, expert_dim=1)``). A spec naming an
     axis the mesh lacks (or has at size 1) leaves that dimension whole.
     ``Split()`` replicates."""
 
@@ -198,6 +200,12 @@ class Split:
     axis: str | tuple = "tp"
     data_dim: int | None = None
     fsdp_dim: int | None = None
+    expert_dim: int | None = None
+
+    def dims(self) -> tuple:
+        """The dimensions each axis splits, in :func:`_grid`'s order:
+        ``(dim, data_dim, fsdp_dim, expert_dim)``."""
+        return (self.dim, self.data_dim, self.fsdp_dim, self.expert_dim)
 
     def parts(self, ndim: int) -> tuple:
         """The spec as JAX writes it: one entry per dimension — an axis
@@ -207,6 +215,8 @@ class Split:
             out[self.data_dim] = "data"
         if self.fsdp_dim is not None:
             out[self.fsdp_dim] = "fsdp"
+        if self.expert_dim is not None:
+            out[self.expert_dim] = "expert"
         if self.dim is not None:
             out[self.dim] = self.axis
         return tuple(out)
@@ -235,9 +245,9 @@ def _check_axes(mesh: Mesh) -> None:
             raise ValueError(f"unknown mesh axis {a!r}")
 
 
-def _grid(mesh: Mesh, spec: Split) -> tuple[int, int, int]:
-    """How many pieces ``spec`` cuts along ``dim``, ``data_dim`` and
-    ``fsdp_dim`` on ``mesh``."""
+def _grid(mesh: Mesh, spec: Split) -> tuple[int, int, int, int]:
+    """How many pieces ``spec`` cuts along ``dim``, ``data_dim``,
+    ``fsdp_dim`` and ``expert_dim`` on ``mesh``."""
     sizes = mesh.shape
     n_a = 1
     if spec.dim is not None:
@@ -245,14 +255,19 @@ def _grid(mesh: Mesh, spec: Split) -> tuple[int, int, int]:
             n_a *= sizes.get(a, 1)
     n_d = sizes.get("data", 1) if spec.data_dim is not None else 1
     n_f = sizes.get("fsdp", 1) if spec.fsdp_dim is not None else 1
-    return n_a, n_d, n_f
+    n_e = sizes.get("expert", 1) if spec.expert_dim is not None else 1
+    return n_a, n_d, n_f, n_e
 
 
-def _keys(mesh: Mesh, spec: Split) -> list[tuple[int, int, int]]:
+_WHOLE = (1, 1, 1, 1)  # the grid of a leaf no axis cuts
+_FIRST = (0, 0, 0, 0)  # the first piece's key
+
+
+def _keys(mesh: Mesh, spec: Split) -> list[tuple[int, int, int, int]]:
     """Each flattened device's piece: its index along ``dim`` (over the
-    flattened grid of the spec's axes), along ``data_dim`` and along
-    ``fsdp_dim``."""
-    n_a, n_d, n_f = _grid(mesh, spec)
+    flattened grid of the spec's axes), along ``data_dim``, along
+    ``fsdp_dim`` and along ``expert_dim``."""
+    n_a, n_d, n_f, n_e = _grid(mesh, spec)
     shape = mesh.devices.shape
     out = []
     for j in range(mesh.size):
@@ -262,14 +277,14 @@ def _keys(mesh: Mesh, spec: Split) -> list[tuple[int, int, int]]:
             a = a * mesh.shape.get(ax, 1) + int(c.get(ax, 0))
         out.append((a if n_a > 1 else 0,
                     int(c.get("data", 0)) if n_d > 1 else 0,
-                    int(c.get("fsdp", 0)) if n_f > 1 else 0))
+                    int(c.get("fsdp", 0)) if n_f > 1 else 0,
+                    int(c.get("expert", 0)) if n_e > 1 else 0))
     return out
 
 
 def _cuts(spec: Split, grid: tuple, key: tuple):
     """``(dim, pieces, index)`` of each dimension ``spec`` splits."""
-    return [(d, n, i) for d, n, i in zip(
-        (spec.dim, spec.data_dim, spec.fsdp_dim), grid, key) if n > 1]
+    return [(d, n, i) for d, n, i in zip(spec.dims(), grid, key) if n > 1]
 
 
 def _cut(x, spec: Split, grid: tuple, key: tuple, lead: int = 0):
@@ -284,10 +299,10 @@ def _cut(x, spec: Split, grid: tuple, key: tuple, lead: int = 0):
 
 
 def _check_split(shape, spec: Split, grid: tuple) -> None:
-    dims = [d for d, n, _ in _cuts(spec, grid, (0, 0, 0))]
+    dims = [d for d, n, _ in _cuts(spec, grid, _FIRST)]
     if len(set(dims)) < len(dims):
         raise ValueError(f"{spec} splits one dimension over two axes")
-    for dim, n, _ in _cuts(spec, grid, (0, 0, 0)):
+    for dim, n, _ in _cuts(spec, grid, _FIRST):
         if shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
                              f"{n} ways")
@@ -295,7 +310,7 @@ def _check_split(shape, spec: Split, grid: tuple) -> None:
 
 def _piece_shape(shape, spec: Split, grid: tuple) -> list:
     out = list(shape)
-    for dim, n, _ in _cuts(spec, grid, (0, 0, 0)):
+    for dim, n, _ in _cuts(spec, grid, _FIRST):
         out[dim] //= n
     return out
 
@@ -303,7 +318,8 @@ def _piece_shape(shape, spec: Split, grid: tuple) -> list:
 class Sharded:
     """One leaf placed on a mesh: ``shards[j]`` is flattened device
     ``j``'s tensor — its piece of the whole along ``spec.dim``,
-    ``spec.data_dim`` and ``spec.fsdp_dim`` (:func:`_keys`), one tensor
+    ``spec.data_dim``, ``spec.fsdp_dim`` and ``spec.expert_dim``
+    (:func:`_keys`), one tensor
     shared by every shard on the same device that holds the same piece (a
     replicated leaf is the whole tensor). ``shape`` and ``dtype`` are the
     whole tensor's."""
@@ -332,7 +348,16 @@ class Sharded:
         """The pieces along ``spec.fsdp_dim``."""
         return _grid(self.mesh, self.spec)[2]
 
-    def keys(self) -> list[tuple[int, int, int]]:
+    @property
+    def n_expert(self) -> int:
+        """The pieces along ``spec.expert_dim``."""
+        return _grid(self.mesh, self.spec)[3]
+
+    def pieces(self) -> int:
+        """How many distinct pieces the spec cuts the whole into."""
+        return int(np.prod(_grid(self.mesh, self.spec)))
+
+    def keys(self) -> list[tuple[int, int, int, int]]:
         return _keys(self.mesh, self.spec)
 
     def numel(self) -> int:
@@ -374,8 +399,8 @@ class Sharded:
         was placed."""
         device = torch.device(device) if device is not None \
             else self.shards[0].device
-        n_a, n_d, n_f = _grid(self.mesh, self.spec)
-        if n_a == n_d == n_f == 1:
+        n_a, n_d, n_f, n_e = _grid(self.mesh, self.spec)
+        if (n_a, n_d, n_f, n_e) == _WHOLE:
             return to_device(self.shards[0], device)
         first = self.first_of_keys()
         sp = self.spec
@@ -383,9 +408,10 @@ class Sharded:
         def cat(parts, dim):
             return torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
 
-        return cat([cat([cat([
-            to_device(self.shards[first[(a, d, f)]], device)
+        return cat([cat([cat([cat([
+            to_device(self.shards[first[(a, d, f, e)]], device)
             for a in range(n_a)], sp.dim) for f in range(n_f)], sp.fsdp_dim)
+            for e in range(n_e)], sp.expert_dim)
             for d in range(n_d)], sp.data_dim)
 
     def take_flat(self, idx) -> torch.Tensor:
@@ -397,11 +423,9 @@ class Sharded:
         grid = _grid(self.mesh, self.spec)
         pshape = _piece_shape(self.shape, self.spec, grid)
         multi = np.unravel_index(idx, tuple(self.shape))
-        key = [np.zeros(len(idx), np.int64) for _ in range(3)]
+        key = [np.zeros(len(idx), np.int64) for _ in range(4)]
         local = [m.copy() for m in multi]
-        for k, (dim, n) in enumerate(zip(
-                (self.spec.dim, self.spec.data_dim, self.spec.fsdp_dim),
-                grid)):
+        for k, (dim, n) in enumerate(zip(self.spec.dims(), grid)):
             if n > 1:
                 key[k] = multi[dim] // pshape[dim]
                 local[dim] = multi[dim] % pshape[dim]
@@ -440,7 +464,7 @@ def placed(mesh: Mesh, spec: Split, shape, make) -> Sharded:
 def _place(mesh: Mesh, x: torch.Tensor, spec: Split | None) -> Sharded:
     spec = spec or REPLICATED
     grid = _grid(mesh, spec)
-    if grid == (1, 1, 1):
+    if grid == _WHOLE:
         return placed(mesh, spec, x.shape, lambda _k, d: to_device(x, d))
     return placed(mesh, spec, x.shape, lambda k, d: _cut(
         x, spec, grid, k).to(d, copy=True).contiguous())
@@ -452,8 +476,8 @@ def put(mesh: Mesh, tree, specs):
     a :class:`Sharded` whose pieces are contiguous copies on their devices
     (a replicated leaf already on a device is shared there, not copied).
     A tuple node (a ``KVCache`` field list, an optimizer state) places
-    element by element. The ``expert``, ``stage`` and ``seq`` axes above
-    1 raise, naming their ROADMAP queue 1 item."""
+    element by element. The ``stage`` and ``seq`` axes above 1 raise,
+    naming their ROADMAP queue 1 item."""
     if isinstance(tree, dict):
         if not isinstance(specs, dict) or set(tree) != set(specs):
             raise ValueError(
@@ -537,9 +561,9 @@ def take_rows(x: Sharded, idx, dim: int, spec: Split) -> Sharded:
     shape = list(x.shape)
     shape[dim] = len(idx)
     dst_grid = _grid(mesh, spec)
-    if x.n_fsdp > 1 or dst_grid[2] > 1:
+    if x.n_fsdp > 1 or x.n_expert > 1 or dst_grid[2:] != (1, 1):
         raise ValueError("take_rows gathers rows of a leaf not split over "
-                         "fsdp")
+                         "fsdp or expert")
     if dst_grid[0] != src_grid[0] or (
             spec.dim if dst_grid[0] > 1 else None) != (
             x.spec.dim if src_grid[0] > 1 else None):
@@ -555,7 +579,7 @@ def take_rows(x: Sharded, idx, dim: int, spec: Split) -> Sharded:
         return x.shards[(on or cands)[0]]
 
     def make(key, dev):
-        a, d, _ = key
+        a, d = key[:2]
         rows = idx[d * dst_b:(d + 1) * dst_b] if dst_grid[1] > 1 else idx
         out = None
         for d_src in range(src_grid[1]):

@@ -8,10 +8,10 @@ pipeline stages, tied embeddings pinned to stage 0. The emitted
 so either package's worker reads it.
 
 ``stage_param_specs``/``stage_cache_specs`` give a stage's spec trees on
-its ``{data, fsdp, tensor}`` mesh (``parallel/mesh.py::Split`` leaves); a
-port worker places the stage by them and trains the placed tree, so its
-memory count is the JAX planner's. It refuses a stage with an expert,
-stage or seq axis (items 4 and 5) or co-slice coworkers (item 4) at
+its ``{data, fsdp, expert, tensor}`` mesh (``parallel/mesh.py::Split``
+leaves); a port worker places the stage by them and trains the placed
+tree, so its memory count is the JAX planner's. It refuses a stage with
+a stage or seq axis (items 4 and 5) or co-slice coworkers (item 4) at
 load.
 """
 
@@ -593,20 +593,21 @@ def stage_param_specs(cfg: ModelConfig, stage: StagePlan) -> dict:
     axis, without the embedding a later stage does not hold (a tied head
     keeps it) and without the final norm and head a stage that does not
     hold the head lacks; an fsdp axis splits each large weight's other
-    dimension too. An expert or stage axis above 1 raises, naming its
-    ROADMAP queue 1 item."""
+    dimension too, an expert axis the MoE experts. A stage axis above 1
+    raises, naming its ROADMAP queue 1 item."""
     from ..models.transformer import partition_specs
 
     axes = stage.mesh_axes or {}
-    for name, item in (("expert", 4), ("stage", 4)):
-        if int(axes.get(name, 1)) > 1:
-            from .. import unported
-            from .mesh import _UNPORTED_AXES
+    if int(axes.get("stage", 1)) > 1:
+        from .. import unported
+        from .mesh import _UNPORTED_AXES
 
-            raise unported(_UNPORTED_AXES[name][0], item)
+        raise unported(*_UNPORTED_AXES["stage"])
     tp = "tensor" if int(axes.get("tensor", 1)) > 1 else None
     fs = "fsdp" if int(axes.get("fsdp", 1)) > 1 else None
-    specs = partition_specs(cfg, tensor_axis=tp, fsdp_axis=fs)
+    ep = "expert" if int(axes.get("expert", 1)) > 1 else None
+    specs = partition_specs(cfg, tensor_axis=tp, expert_axis=ep,
+                            fsdp_axis=fs)
     if not stage.first:
         specs["embed"].pop("pos", None)
         if not (stage.holds_head and cfg.tie_embeddings):

@@ -161,12 +161,13 @@ def test_queue_1_items_1_and_2_left_no_refusal():
 
 
 def test_queue_1_item_3_refuses_only_gspmd_and_zero1():
-    """Tensor-parallel serving, the GSPMD half, ZeRO-1 (PRs 13–14) and the
-    fsdp axis (ZeRO-3 over a placed tree) are ported: no source refuses
-    with item 3 any more. The refusals that remain on a mesh name the
-    items still left: the unplaced axes' table (expert and stage with
-    item 4, seq with item 5) and ``partition_specs(expert_axis=)``."""
-    from tensorlink_tpu_torch.parallel.mesh import _UNPORTED_AXES
+    """Tensor-parallel serving, the GSPMD half, ZeRO-1 (PRs 13–14), the
+    fsdp axis (item 3) and the expert axis (item 4.1) are ported: no
+    source refuses with item 3, and no refusal names the expert axis. The
+    unplaced axes' table keeps the stage axis (item 4) and the seq axis
+    (item 5), and queue 1's items still run from 1 without a gap."""
+    from tensorlink_tpu_torch.parallel.mesh import _PLACED_AXES, \
+        _UNPORTED_AXES
 
     msgs = set()
     left = []
@@ -179,13 +180,18 @@ def test_queue_1_item_3_refuses_only_gspmd_and_zero1():
                 left.append((p.relative_to(REPO).as_posix(), msg))
             msgs.add((p.relative_to(REPO).as_posix(), msg, int(m.group(2))))
     assert not left, left
-    assert ("tensorlink_tpu_torch/models/transformer.py",
-            "the expert axis (partition_specs(expert_axis=))", 4) in msgs
+    assert msgs
+    assert not [m for m in msgs if "expert" in m[1]], msgs
     assert {a: item for a, (_, item) in _UNPORTED_AXES.items()} == {
-        "expert": 4, "stage": 4, "seq": 5}
+        "stage": 4, "seq": 5}
+    assert not [a for a, (what, _) in _UNPORTED_AXES.items()
+                if "expert" in what]
+    assert "expert" in _PLACED_AXES
     roadmap = (REPO / "ROADMAP.md").read_text()
     queue = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
-    assert "fsdp" in queue
+    items = {int(n) for n in re.findall(r"^(\d+)\. \*\*", queue, re.M)}
+    assert items == set(range(1, len(items) + 1)), items
+    assert "fsdp" in queue and "expert" in queue
 
 
 def test_profiling_imports_torch_only():

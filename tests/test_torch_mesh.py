@@ -193,7 +193,7 @@ def test_pieces_equal_jax_addressable_shards(spec):
 
 
 @pytest.mark.parametrize("axis,beside,item", [
-    ("expert", "tensor", 4), ("stage", "tensor", 4), ("seq", "tensor", 5),
+    ("seq", "expert", 5), ("stage", "tensor", 4), ("seq", "tensor", 5),
     ("stage", "fsdp", 4)])
 def test_unplaced_axes_refuse_naming_their_item(axis, beside, item):
     mesh = tmesh.build_mesh({axis: 2, beside: 2}, [CPU] * 4)
@@ -250,8 +250,10 @@ def test_partition_specs_match_jax(kw, tensor_axis):
     jp = jax.eval_shape(lambda: j_init_params(jcfg, jax.random.PRNGKey(0)))
     _walk_specs(partition_specs(cfg, tensor_axis=tensor_axis),
                 j_partition_specs(jcfg, tensor_axis=tensor_axis), jp)
-    with pytest.raises(NotImplementedError, match="expert.*queue 1 item 4"):
-        partition_specs(cfg, expert_axis="expert")
+    _walk_specs(partition_specs(cfg, tensor_axis=tensor_axis,
+                                expert_axis="expert"),
+                j_partition_specs(jcfg, tensor_axis=tensor_axis,
+                                  expert_axis="expert"), jp)
 
 
 # tlint: disable=TL006(read-only test data)
