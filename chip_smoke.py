@@ -46,9 +46,8 @@ Phases (any failure raises and exits non-zero):
    pages and scales (fp pages within 2e-5); free running, fp pages within
    4 times that bound and quantized codes within 1 of each other.
 5. Serving: qwen3-0p6b at full width in bfloat16 behind a
-   ContinuousBatcher, three runs — fp pages (16 requests from 4
-   threads), int8 pages (the same 16), and int8 weights over int4 pages
-   (8 of them) — each with the kernels' launch counts checked against
+   ContinuousBatcher, three runs of the same 8 requests from 4 threads
+   — fp pages, int8 pages, and int8 weights over int4 pages — each with the kernels' launch counts checked against
    the chunks run and all in the run's page format, the plain versions
    never called, the prefix cache hit, pages conserved, and a greedy
    request re-run alone equal to its co-batched stream.
@@ -72,7 +71,8 @@ Phases (any failure raises and exits non-zero):
    prefills the engines counted, and no plain attention runs.
 
 8. The rest of the single-card engine, qwen3-0p6b in bfloat16 at full
-   width, every engine on the CUDA kernels (each phase resets the
+   width and MODEL_LAYERS (14) of its 28 layers (spec serving at all
+   28), every engine on the CUDA kernels (each phase resets the
    counts, then checks one ragged launch a layer per chunk and
    chunk_steps - 1 decode launches, and no plain version): speculative
    serving over fp and int8 pages (16 requests, half repetitive, spec on
@@ -116,7 +116,8 @@ Phases (any failure raises and exits non-zero):
    on 127.0.0.1 (keys and logs under build/node/), the worker on the
    card. POST /request-model hosts qwen3-0p6b at full width (seeded
    bf16 weights, the default int8 KV pages) and 8 concurrent greedy
-   /v1/generate requests (prompts of 64 to 1536 bytes, 64 new tokens), a
+   /v1/generate requests (prompts of 64 to 1536 bytes, NODE_NEW (32) new
+   tokens), a
    streamed /v1/chat/completions and a sampled request flow through the
    validator's remote ContinuousBatcher, GENERATE and TOKEN frames, and
    the worker's ContinuousEngine. Held: every request finishes; the
@@ -133,7 +134,7 @@ Phases (any failure raises and exits non-zero):
    with the card's name and power limit, not claims.
 11. Training, every step on the card in float32 with TF32 off unless
    named: one make_train_step(adamw, grad clip 1.0, remat) step of a
-   seeded 2-layer tree at qwen3-0p6b's widths (B 2, T 128) on the card
+   seeded 2-layer tree at qwen3-0p6b's widths (B 2, T 64) on the card
    and on the host — loss within 1e-5 relative, grad_norm within 1e-4,
    each leaf's gradient within 1e-4 relative in its norm, and a
    gradient with one layer's wq gradient zeroed reading far above that;
@@ -143,7 +144,7 @@ Phases (any failure raises and exits non-zero):
    whose accumulated gradients are float32 (step ms, tokens/s and MFU
    against the datasheet peak as readings); a port validator, worker and
    user on 127.0.0.1 train DistributedModels of qwen3-0p6b's widths at
-   4 layers three steps each (the downloaded tree bitwise the seeded one
+   4 layers, B 2, T 64, three steps each (the downloaded tree bitwise the seeded one
    before, losses within 1e-4 of make_train_step; after, under SGD with
    momentum every param within rtol 2e-4, atol 2e-5, and under AdamW
    each leaf within 2e-4 in its norm; the validator's proof verdict over
@@ -163,7 +164,7 @@ Phases (any failure raises and exits non-zero):
    depend on its neighbours), port validators and workers on 127.0.0.1,
    every worker's engine on the one card with a 16 GB share advertised
    (build/fleet/). A validator with fleet_replicas 2 and three workers:
-   16 greedy /v1/generate requests route over both replicas (/fleet
+   8 greedy /v1/generate requests route over both replicas (/fleet
    counts each); a POST /fleet/deploy of r0 under 8 live streams drains
    r0's worker onto r1's (at least one stream page-shipped) and rehosts
    r0 on the third worker, no stream dropped; then the validator crashes
@@ -219,12 +220,12 @@ Phases (any failure raises and exits non-zero):
    token after it and the training rollback's seconds: readings with
    the card's name and power limit, not claims.
 14. Pipelined training and its repair (build/stages_train/): qwen3-0p6b
-   at full width and STAGES_TRAIN_DEPTH (14) of its 28 layers, seeded
+   at full width and STAGES_TRAIN_DEPTH (8) of its 28 layers, seeded
    f32, every worker on the one card. A
    port validator, four workers and a user; capacities pinned (checked
    with the training planner, which counts gradients and optimizer
-   state) so the job splits 7/7 over two workers with the tied head on
-   stage 0, n_micro 2, B 4, T 128. (1) Three AdamW steps with the
+   state) so the job splits 4/4 over two workers with the tied head on
+   stage 0, n_micro 2, B 2, T 64. (1) Three AdamW steps with the
    micro-batches overlapped: each loss within 1e-4 (relative) of
    make_train_step's in process on the same tree, each leaf of the
    merged tree (the tied embedding, which both of stage 0's gradients
@@ -246,8 +247,8 @@ Phases (any failure raises and exits non-zero):
    gradient shipped per step, the rollbacks' seconds, and the whole
    script's seconds, with the card's name and power limit: readings, not
    claims.
-15. Tensor-parallel serving: qwen3-0p6b bf16 at full width and depth
-   (phase 8's seeded tree) served at tensor_parallel=2 with both shards
+15. Tensor-parallel serving: qwen3-0p6b bf16 at full width and
+   MODEL_LAYERS layers (phase 8's seeded tree) served at tensor_parallel=2 with both shards
    named on the one card (tp_devices=["cuda:0", "cuda:0"]; 8 query and 4
    kv heads a shard). (1) For fp, int8 and int4 pages, one ragged chunk
    over MAIN's block and one decode step after it through the tp step's
@@ -256,7 +257,7 @@ Phases (any failure raises and exits non-zero):
    inputs, and within the bf16 bound (1.6e-2 of each row's max) of its
    plain version; over fp pages each layer's output at tp=2 against the
    tp=1 forward's, a reading. (2) fp and then int8 pages: 8 requests of
-   64 to 1024 tokens, 32 new tokens each (2 speculating, 3 greedy, 3
+   64 to 1024 tokens, TP_NEW (16) new tokens each (2 speculating, 3 greedy, 3
    sampled), on a tp=1 and a tp=2 engine of 8 slots: greedy streams
    equal or parted only where the tp=1 top-two gap is within SPEC_TIE
    (logged); per chunk exactly twice tp=1's launches of each kernel
@@ -264,7 +265,7 @@ Phases (any failure raises and exits non-zero):
    for the same tokens within 1.6e-2 of each layer's max (dequantized
    for int8); page conservation; tensor_parallel 2 in the snapshot; each
    shard's pages contiguous with n_kv / 2 heads and 57,344 (fp) or
-   29,568 (int8) KV bytes per token; a tp=2 migration export with a
+   29,568 (int8) KV bytes per token at 28 layers (n_layers / 28 of it); a tp=2 migration export with a
    tp=1 export's shapes and dtypes. (3) Readings, not claims (both
    shards share one card, so tp=2 doubles the launches for no gain):
    tokens/s and ms per chunk at tp=2 and tp=1, and the card's busy share
@@ -274,8 +275,8 @@ Phases (any failure raises and exits non-zero):
    each (data, tensor) shard's flash_attention launch (B 2, Hq 8, Hkv
    4, contiguous pieces as the placed cache holds them) bitwise the same
    block of one launch over the whole, and within the bf16 bound of the
-   plain version. (2) qwen3-0p6b bf16 at full width and depth, flash
-   on, placed by the Megatron partition_specs: 8 prompts of 256–2000
+   plain version. (2) qwen3-0p6b bf16 at full width and
+   MESH_SERVE_LAYERS (14) layers, flash on, placed by the Megatron partition_specs: 8 prompts of 256–2000
    tokens x 32 greedy tokens through generate_compiled, a beam of 4 over
    2 of them and lookahead over 2 repetitive prompts, then both engines
    at quant="int8+kv", against the unsharded GenerationEngine on the
@@ -284,10 +285,11 @@ Phases (any failure raises and exits non-zero):
    of the row's max); greedy streams and
    beams equal or parted only where the unsharded run's top-two (beam:
    selection) gap is within MESH_TIE (logged); with the counts zeroed
-   before the sharded engines, exactly 28 x 4 flash launches a B=8
-   prefill and 28 x 2 a B=1 one (rows replicated over data run once on
+   before the sharded engines, exactly L x 4 flash launches a B=8
+   prefill and L x 2 a B=1 one (rows replicated over data run once on
    the one card), no plain attention (launches_mesh on the kernels
-   line). (3) qwen3-0p6b f32 at full width and depth, B 4, T 128, AdamW,
+   line). (3) qwen3-0p6b f32 at full width and MESH_TRAIN_LAYERS (8)
+   layers, B 4, T 128, AdamW,
    two steps each of the unsharded n_micro=2 step, zero1 on {data: 2}
    and zero1 x tp on {data: 2, tp: 2}: loss, grad norm and every param
    bitwise equal, and each replica's optimizer bytes exactly what the
@@ -298,7 +300,8 @@ Phases (any failure raises and exits non-zero):
    DistributedModel).
 17. ZeRO-3 training of a placed tree on an {fsdp, tensor} mesh whose
    four devices are cuda:0 (fsdp_phase). (1) Phase 16's qwen3-0p6b f32
-   tree (full width and depth, B 4, T 128, n_micro 2, AdamW) placed by
+   tree (full width, MESH_TRAIN_LAYERS layers, B 4, T 128, n_micro 2,
+   AdamW) placed by
    partition_specs(fsdp_axis="fsdp") on {fsdp: 2, tensor: 2} and on
    {fsdp: 4}: two make_train_step(mesh=) steps each, the losses within
    FSDP_LOSS_RTOL, each leaf's gradient within FSDP_GRAD_RTOL and its
@@ -339,6 +342,36 @@ Phases (any failure raises and exits non-zero):
    worker with MLConfig(mesh_devices=4) whose Mixtral jobs get the
    default {expert: 4} plan: static and beam requests and two training
    steps through a DistributedModel.
+19. The stage and seq mesh axes and the quantized collectives
+   (product_phase), qwen3-0p6b at full width, every mesh device cuda:0.
+   (1) f32, AdamW, B 4, T 256, 28 layers placed by stage_param_specs on
+   {stage: 4} (7 layers a stage device; the embedding, norm and head
+   replicated): two make_train_step(mesh=) steps, each batch through the
+   in-mesh GPipe (parallel/pipeline.py) in pp_n_micro micro-batches,
+   against the unsharded step within phase 17's bounds (loss, each
+   gradient leaf, the params); each device's params, gradients and
+   optimizer state exactly a quarter of the layers beside the replicated
+   rest; two runs bitwise. (2) f32, B 1, T 8192, SP_LAYERS layers: the
+   unsharded stage_forward and the same stage over {seq: 4} (ring
+   attention, parallel/ring.py), forward and gradients within
+   SP_LOGITS_RTOL, SP_LOSS_RTOL and SP_GRAD_RTOL, two ring runs bitwise;
+   layer 0's attention through the int8 ring within 0.06 of the exact
+   ring's (tests/test_ring.py's bound), twice bitwise; each run's peak
+   bytes. (3) A validator, a worker with MLConfig(mesh_devices=
+   ["cuda:0"] * 2) and a user: DistributedModels at 4 layers asking
+   parallelism {stage: 2} and then {seq: 2}, planned so; each one's
+   forward equal to the in-process placed forward and two AdamW steps
+   within TRAIN_NODE_LOSS_RTOL of the in-process placed step. No
+   attention kernel runs on these training paths (0 launches, asserted;
+   launches_product_training on the kernels line). (4) bf16, QTP_LAYERS
+   layers, phase 15's requests over fp pages: a tp=2
+   ContinuousEngine whose config sets collective_quant beside tp=1:
+   every gather of a split activation int8 (counted), greedy streams
+   equal or parted only where tp=1's top two lie within QTP_TIE
+   (logged), twice tp=1's paged launches a chunk, no plain attention
+   (launches_tp_quant on the kernels line). pipeline_cards() and
+   seq_cards() run (1) and (2) over four distinct cards with each card's
+   peak memory.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -356,6 +389,8 @@ import sys
 import threading
 import time
 from pathlib import Path
+
+_T_START = time.monotonic()  # before numpy, torch and the port are imported
 
 import numpy as np
 import torch
@@ -390,6 +425,7 @@ FREE_RUNNING_X = 4.0
 # tokens, per page format: H100 readings 3.2e-5, 1.5e-3 and 1.1e-2 (the
 # int4 slot that parts does so at a plain top-two gap of 3.8e-4)
 FREE_RUNNING_LOGITS = {"fp": 1e-4, "int8": 5e-3, "int4": 3e-2}
+# at qwen3-0p6b's 28 layers; a shallower engine holds n_layers / 28 of it
 KV_BYTES_PER_TOKEN = {"fp": 114_688, "int8": 59_136, "int4": 30_464}
 MAIN = dict(S=8, C=128, Hq=16, Hkv=8, hd=128, page=16, n_pp=256)
 MAIN_STARTS = [0, 896, 1536, 3071, 2000, 57, 4000, 0]
@@ -444,10 +480,11 @@ DENSE_LOGITS = 2e-5
 # causal mask), must read above it
 BF16_ATTN_TOL = 1.6e-2
 DENSE_SEQ_BUCKETS = (128, 256, 512, 1024, 2048)
-DENSE_NEW = 64  # new tokens per request in the dense serving run
-SERVE_RUNS = (  # (page format, weight quant, requests)
-    ("none", None, 16),
-    ("int8", None, 16),
+DENSE_NEW = 32  # new tokens per request in the dense serving run
+SERVE_NEW = 32  # new tokens per request of the serving runs
+SERVE_RUNS = (  # (page format, weight quant, requests): 8 of _requests'
+    ("none", None, 8),  # 16, cut for the script's time limit
+    ("int8", None, 8),
     ("int4", "int8", 8),
 )
 
@@ -1591,7 +1628,8 @@ def serving_phase(kv_quant: str = "none", quant: str | None = None,
                     if not first:
                         first.append(time.monotonic() - t_sub)
 
-                results[i] = b.generate(ids, max_new_tokens=64, stream_cb=cb,
+                results[i] = b.generate(ids, max_new_tokens=SERVE_NEW,
+                                        stream_cb=cb,
                                         timeout=600, **knobs)
                 ttft[i] = first[0]
         except Exception as e:  # noqa: BLE001 — re-raised on the main thread
@@ -1614,7 +1652,7 @@ def serving_phase(kv_quant: str = "none", quant: str | None = None,
                  for n in REPLACES}
     plain_calls = sum(getattr(att, n + "_ref").calls for n in REPLACES)
     for i, toks in results.items():
-        if len(toks) != 64 or not all(0 <= t < V for t in toks):
+        if len(toks) != SERVE_NEW or not all(0 <= t < V for t in toks):
             raise AssertionError(f"request {i}: bad output {len(toks)} tokens")
     L = cfg.n_layers
     # paged_prefill_attention has no engine caller: the run launches it 0
@@ -1634,7 +1672,7 @@ def serving_phase(kv_quant: str = "none", quant: str | None = None,
         raise AssertionError("serving: the prefix cache was never hit")
     cont.check_page_conservation()
     # determinism on the card: a greedy request re-run alone
-    solo = b.generate(reqs[0][0], max_new_tokens=64)
+    solo = b.generate(reqs[0][0], max_new_tokens=SERVE_NEW)
     if solo != results[0]:
         raise AssertionError("serving: a greedy re-run alone differs from "
                              "its co-batched stream")
@@ -1658,7 +1696,8 @@ def serving_phase(kv_quant: str = "none", quant: str | None = None,
         kv_page_bytes=snap["kv_page_bytes"],
     )
     log(f"serving (qwen3-0p6b bf16, {fmt} pages, weights "
-        f"{quant or 'bf16'}, 8 slots, {n_req} requests x 64 tokens): "
+        f"{quant or 'bf16'}, 8 slots, {n_req} requests x {SERVE_NEW} "
+        "tokens): "
         f"{json.dumps(res)}")
     del eng, b, cont
     torch.cuda.empty_cache()
@@ -2108,6 +2147,11 @@ NEW_PATHS = ("ragged_paged_attention", "paged_attention")
 SPEC_TIE = 0.0625
 GEMM_ROWS_M = (8, 72, 1024)  # decode slots, 8 verify slots of 9, a block
 _MODEL: dict = {}
+# the depth of _model()'s tree (phases 8-9, 11's serve-and-train, 15 and
+# 19's tp serving): cut from 28 so that the whole script stays well inside
+# its time limit; phases 5-7 serve at full depth
+MODEL_LAYERS = 14
+SPEC_LAYERS = 28  # spec serving's depth (spec_serving says why)
 
 
 def gemm_rows(device: str = "cuda") -> dict:
@@ -2172,19 +2216,27 @@ def gemm_rows(device: str = "cuda") -> dict:
     return out
 
 
-def _model():
+def _model(n_layers: int = MODEL_LAYERS):
     """qwen3-0p6b in bf16 at full width, random weights from a seed (one
-    copy for every engine of phase 8)."""
+    copy for every engine of phase 8), cut to its first ``n_layers`` of
+    28 layers (a copy of those layers, made once)."""
     if not _MODEL:
         cfg = config_presets()["qwen3-0p6b"]
         g = torch.Generator(device="cuda")
         g.manual_seed(4321)
-        _MODEL.update(cfg=cfg, params=init_params(cfg, g, device="cuda"))
-    return _MODEL["cfg"], _MODEL["params"]
+        _MODEL[cfg.n_layers] = cfg, init_params(cfg, g, device="cuda")
+    if n_layers not in _MODEL:
+        from tensorlink_tpu_torch.engine.optimizers import tree_map
+
+        cfg, params = _MODEL[config_presets()["qwen3-0p6b"].n_layers]
+        _MODEL[n_layers] = cfg.with_(n_layers=n_layers), dict(
+            params, layers=tree_map(lambda t: t[:n_layers].clone(),
+                                    params["layers"]))
+    return _MODEL[n_layers]
 
 
-def _gen(max_seq_len=4096, quant=None):
-    cfg, params = _model()
+def _gen(max_seq_len=4096, quant=None, n_layers=MODEL_LAYERS):
+    cfg, params = _model(n_layers)
     return GenerationEngine(cfg, params, max_seq_len=max_seq_len,
                             quant=quant, device="cuda")
 
@@ -2312,9 +2364,11 @@ def spec_serving(kv_quant: str) -> dict:
     |spec - plain| top logit over the draws made from equal tokens);
     spec_drafted > 0, more than one token per verify pass, and ragged
     launches whose verify slots carry 8 drafts (9 positions, 18 rows at
-    G = 2)."""
-    cfg, _ = _model()
-    gen = _gen()
+    G = 2). At full depth: the widest verify slot rests on the model's
+    greedy continuations repeating the prompt's cycles (at 14 layers the
+    widest held 3 drafts)."""
+    cfg, _ = _model(SPEC_LAYERS)
+    gen = _gen(n_layers=SPEC_LAYERS)
     prompts = _spec_prompts(cfg)
     runs = {}
     for spec in (True, False):
@@ -3063,7 +3117,7 @@ def checkpoint_phase() -> dict:
 # -- phase 10 ----------------------------------------------------------
 NODE_ROOT = Path(__file__).resolve().parent / "build" / "node"
 NODE_MODEL = "qwen3-0p6b"
-NODE_NEW = 64  # new tokens per request
+NODE_NEW = 32  # new tokens per request
 NODE_GREEDY = 8  # concurrent greedy /v1/generate requests
 
 
@@ -3399,9 +3453,13 @@ def node_phase() -> dict:
 TRAIN_MODEL = "qwen3-0p6b"
 TRAIN_SEED = 777
 TRAIN_HOST_LAYERS = 2  # the card-against-host step, at full width
+TRAIN_HOST_BT = (2, 64)  # its batch rows x tokens
 # the node path at full width and 4 of 28 layers: each parameters()
 # download ships the whole float32 tree through the P2P frames
 TRAIN_NODE_LAYERS = 4
+# the node path's batch rows x tokens: each step's f32 logits cross the
+# user (T 128 shipped 311 MB a step), so T is cut to 64
+TRAIN_NODE_BT = (2, 64)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GNORM_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-4  # each leaf's gradient, relative in its norm
@@ -3562,7 +3620,7 @@ def _proof_check(verdict: dict, log: list, kept: list, job_id: str) -> dict:
 
 def train_card_vs_host() -> dict:
     """One make_train_step(adamw, grad clip 1.0, remat) step of a seeded
-    2-layer tree at qwen3-0p6b's widths in float32, B 2, T 128, on the
+    2-layer tree at qwen3-0p6b's widths in float32, B, T TRAIN_HOST_BT, on the
     card and on the host: loss, grad_norm and every leaf's gradient held,
     and a gradient with one layer's wq gradient zeroed read against the
     same bound."""
@@ -3575,7 +3633,7 @@ def train_card_vs_host() -> dict:
     cfg = _train_cfg(TRAIN_HOST_LAYERS, torch.float32)
     host = _seeded(cfg, "cpu")
     toks = np.random.default_rng(TRAIN_SEED).integers(
-        0, cfg.vocab_size, (2, 128)).astype(np.int32)
+        0, cfg.vocab_size, TRAIN_HOST_BT).astype(np.int32)
     runs = {}
     for dev in ("cuda", "cpu"):
         params = host if dev == "cpu" else tree_map(lambda t: t.to(dev), host)
@@ -3605,7 +3663,7 @@ def train_card_vs_host() -> dict:
         fault_rel=fault, step_s_card=card["s"], step_s_host=cpu["s"],
     )
     log(f"training card vs host (qwen3-0p6b widths, {TRAIN_HOST_LAYERS} "
-        f"layers, f32, B 2, T 128): {json.dumps(res)}")
+        f"layers, f32, B, T {TRAIN_HOST_BT}): {json.dumps(res)}")
     if res["loss_rel"] > TRAIN_LOSS_RTOL \
             or res["grad_norm_rel"] > TRAIN_GNORM_RTOL \
             or res["grad_leaf_rel_max"] > TRAIN_GRAD_RTOL:
@@ -3741,7 +3799,7 @@ def train_node_phase() -> dict:
     root = NODE_ROOT / "train"
     shutil.rmtree(root, ignore_errors=True)
     cfg = _train_cfg(TRAIN_NODE_LAYERS, torch.float32)
-    B, T = 2, 128
+    B, T = TRAIN_NODE_BT
     rng = np.random.default_rng(TRAIN_SEED + 2)
     batches = [rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
                for _ in range(4)]
@@ -4061,11 +4119,11 @@ def training_phase() -> dict:
 
 # -- phase 12 ----------------------------------------------------------
 FLEET_ROOT = Path(__file__).resolve().parent / "build" / "fleet"
-FLEET_ROUTED = 16  # greedy requests routed over the two replicas
+FLEET_ROUTED = 8  # greedy requests routed over the two replicas
 FLEET_LIVE = 8  # streams live through the rolling deploy
-FLEET_HANDOFF = 8  # streams through the prefill → decode pools
+FLEET_HANDOFF = 4  # streams through the prefill → decode pools
 FLEET_RESTART = 4  # streams live when the validator crashes
-FLEET_NEW = 48  # new tokens per routed or handed-off request
+FLEET_NEW = 32  # new tokens per routed or handed-off request
 FLEET_LIVE_NEW = 160  # new tokens per stream live through an action
 FLEET_MEM_GB = 16.0  # each worker's advertised share of the one card
 
@@ -5359,7 +5417,7 @@ def stages_repair() -> dict:
         # 5b: training, its worker crashed at the 4th optimizer step
         tcfg = _train_cfg(STAGES_TRAIN_LAYERS, torch.float32)
         _pin(ws[1:], (8e9, 1e6))
-        B, T = 2, 128
+        B, T = 2, 64
         rng = np.random.default_rng(TRAIN_SEED + 5)
         batches = [rng.integers(0, tcfg.vocab_size, (B, T)).astype(np.int32)
                    for _ in range(STAGES_TRAIN_STEPS)]
@@ -5451,10 +5509,12 @@ def stages_phase() -> dict:
 
 # -- phase 14 ----------------------------------------------------------
 STAGES_TRAIN_ROOT = Path(__file__).resolve().parent / "build" / "stages_train"
-STAGES_TRAIN_BT = (4, 128)  # batch rows x tokens of every split step
+# batch rows x tokens of every split step: cut from (4, 128), whose f32
+# logits (622 MB a step through the user) made the phase 143 s on the H100
+STAGES_TRAIN_BT = (2, 64)
 # of qwen3-0p6b's 28 layers: cut from full depth (163.1 s for the phase
 # on the H100) so the whole script stays well inside its time limit
-STAGES_TRAIN_DEPTH = 14
+STAGES_TRAIN_DEPTH = 8
 STAGES_TRAIN_MICRO = 2
 STAGES_TRAIN_PARITY = 3  # AdamW steps held against the in-process step
 STAGES_TRAIN_SERIAL = 2  # of those, repeated serially from the checkpoint
@@ -5805,11 +5865,18 @@ def stages_training_phase() -> dict:
 # -- phase 15 ----------------------------------------------------------
 TP_DEGREE = 2
 TP_DEVICES = ("cuda:0", "cuda:0")  # both shards on the one card
-TP_NEW = 32  # new tokens per request
+TP_NEW = 16  # new tokens per request
 TP_PROFILE_CHUNKS = 2  # traced chunks per engine for the busy share
 TP_ROOT = Path(__file__).resolve().parent / "build" / "tp"
-# one shard's KV bytes per token: half of KV_BYTES_PER_TOKEN's
+# one shard's KV bytes per token: half of KV_BYTES_PER_TOKEN's (at 28
+# layers, as that table)
 KV_BYTES_PER_TOKEN_SHARD = {"fp": 57_344, "int8": 29_568}
+
+
+def _at_depth(table: dict, fmt: str, n_layers: int) -> int:
+    """A KV-bytes-per-token table's entry (read at 28 layers) for an
+    engine of ``n_layers`` layers."""
+    return table[fmt] * n_layers // 28
 
 
 def _tp_prompts(cfg) -> list:
@@ -5830,21 +5897,22 @@ def _tp_prompts(cfg) -> list:
     return out
 
 
-def _tp_engine(tp: int, devices=TP_DEVICES, **kw):
-    """A phase-15 engine; ``devices=None`` lays the shards on the distinct
-    local cards."""
+def _tp_engine(tp: int, devices=TP_DEVICES, gen=None, **kw):
+    """A phase-15 engine (over ``gen``, default phase 8's tree);
+    ``devices=None`` lays the shards on the distinct local cards."""
     kw = dict(spec_decode=True, spec_draft=8) | kw
     if tp > 1:
         kw.update(tensor_parallel=tp,
                   tp_devices=None if devices is None else list(devices))
-    return _cont(_gen(), **kw)
+    return _cont(gen or _gen(), **kw)
 
 
-def _tp_serve(tp: int, kv_quant: str, prompts, devices=TP_DEVICES) -> tuple:
+def _tp_serve(tp: int, kv_quant: str, prompts, devices=TP_DEVICES,
+              gen=None) -> tuple:
     """The 8 requests on one engine, every draw's top two recorded; the
     kernels' launches checked per chunk (``_Launches``: tp launches of
     each a layer)."""
-    ce = _tp_engine(tp, devices, kv_quant=kv_quant)
+    ce = _tp_engine(tp, devices, gen, kv_quant=kv_quant)
     lc = _Launches(f"tp serving {kv_quant} tp={tp}")
     lc.add(ce)
     store: list = []
@@ -5877,9 +5945,9 @@ def _tp_serve(tp: int, kv_quant: str, prompts, devices=TP_DEVICES) -> tuple:
     )
 
 
-def _held_greedy(label, prompts, got, want) -> list:
+def _held_greedy(label, prompts, got, want, tie=SPEC_TIE) -> list:
     """Greedy streams of ``got`` equal ``want``'s, or parted only where
-    ``want``'s top-two gap at the parting draw is within SPEC_TIE
+    ``want``'s top-two gap at the parting draw is within ``tie``
     (logged). Returns the partings."""
     parted = []
     for i, ((_ids, knobs, _s), a, b) in enumerate(zip(
@@ -5898,9 +5966,9 @@ def _held_greedy(label, prompts, got, want) -> list:
         gap = vw[0] - vw[1]
         log(f"{label} request {i}: parts at token {at} of {TP_NEW}, tp=1 "
             f"top-two gap {gap:.6g}")
-        if gap > SPEC_TIE:
+        if gap > tie:
             raise AssertionError(f"{label}: request {i} parts at token {at} "
-                                 f"at a top-two gap {gap} > {SPEC_TIE}")
+                                 f"at a top-two gap {gap} > {tie}")
         parted.append(dict(request=i, at=at, gap=gap))
     return parted
 
@@ -5969,9 +6037,10 @@ def _tp_layout(ce, fmt) -> dict:
                                      f"{s.device}")
         per_token += f.shards[0].numel() * f.shards[0].element_size()
     per_token //= c.n_pages * c.page_size
-    if per_token != KV_BYTES_PER_TOKEN_SHARD[fmt]:
+    want = _at_depth(KV_BYTES_PER_TOKEN_SHARD, fmt, cfg.n_layers)
+    if per_token != want:
         raise AssertionError(f"tp: {per_token} KV bytes per token a shard, "
-                             f"not {KV_BYTES_PER_TOKEN_SHARD[fmt]}")
+                             f"not {want}")
     if isinstance(c.block_tables, tmesh.Sharded) \
             or isinstance(c.lengths, tmesh.Sharded):
         raise AssertionError("tp: control state was sharded")
@@ -5980,9 +6049,9 @@ def _tp_layout(ce, fmt) -> dict:
         raise AssertionError(f"tp: snapshot says tensor_parallel "
                              f"{snap['tensor_parallel']}")
     whole = snap["kv_page_bytes"] // c.page_size
-    if whole != KV_BYTES_PER_TOKEN[fmt]:
-        raise AssertionError(f"tp: {whole} KV bytes per token, not "
-                             f"{KV_BYTES_PER_TOKEN[fmt]}")
+    want = _at_depth(KV_BYTES_PER_TOKEN, fmt, cfg.n_layers)
+    if whole != want:
+        raise AssertionError(f"tp: {whole} KV bytes per token, not {want}")
     return dict(kv_bytes_per_token_shard=per_token,
                 kv_bytes_per_token=whole)
 
@@ -5993,7 +6062,8 @@ def _tp_export_layout(one, tp, prompt) -> dict:
     both thaw and finish."""
     blobs = []
     for ce in (one, tp):
-        r = ce.submit(prompt, max_new_tokens=TP_NEW, seed=7)
+        # room to be frozen mid-decode after a chunk
+        r = ce.submit(prompt, max_new_tokens=32, seed=7)
         for _ in range(8):
             ce.step_chunk()
             if r.slot >= 0 and r.slot not in ce._prefilling \
@@ -6023,7 +6093,7 @@ def _traced_busy(ce, prompts, root: Path) -> dict:
     from tensorlink_tpu_torch.utils import profiling
 
     for i, (ids, _knobs, _spec) in enumerate(prompts):
-        ce.submit(ids, max_new_tokens=TP_NEW, seed=i)
+        ce.submit(ids, max_new_tokens=32, seed=i)  # live in the window
     for _ in range(2):
         ce.step_chunk()
     torch.cuda.synchronize()
@@ -6091,7 +6161,8 @@ def _shard_checker(real, plain, whole_call, n_shards, readings: dict):
 def tp_kernel_check(fmt: str) -> dict:
     """One ragged chunk over MAIN's block (2 prefills, 5 decodes, an idle
     slot) and one decode step of its slots after it, through the tp=2
-    step's forward on qwen3-0p6b bf16 at full width and depth, pages of
+    step's forward on qwen3-0p6b bf16 at full width and MODEL_LAYERS
+    layers, pages of
     seeded random context in ``fmt``: every shard's launch of each kernel
     (n_kv / 2 = 4 kv heads, 8 query heads) bitwise equal to the same
     heads of one launch over both shards' heads joined on the same
@@ -6341,7 +6412,10 @@ MESH_TIE = 0.140625
 # multiple of the unsharded engine's, the error bf16 itself brings
 MESH_LOGITS_OF_ONE = 0.05
 MESH_LOGITS_OF_BF16 = 2.0
-MESH_TRAIN_LAYERS = 28  # full depth
+# phase 16's serving and phases 16-17's training depth, of 28: cut so
+# that the whole script stays well inside its time limit
+MESH_SERVE_LAYERS = 14
+MESH_TRAIN_LAYERS = 8
 MESH_TRAIN_BT = (4, 128)
 MESH_TRAIN_SEED = 1414
 
@@ -6438,18 +6512,20 @@ def _mesh_engines(cfg, params, mesh, quant=None):
 
 
 def mesh_serving(devices=MESH_DEVICES) -> dict:
-    """Phase 16 step 1: qwen3-0p6b bf16 at full width and depth, flash on,
+    """Phase 16 step 1: qwen3-0p6b bf16 at full width and
+    MESH_SERVE_LAYERS layers, flash on,
     served by the unsharded GenerationEngine and by one on a {data: 2,
     tensor: 2} mesh over ``devices``: 8 prompts of 256–2000 tokens (one
     B=8 prefill at T 2048) x MESH_NEW greedy tokens through
     generate_compiled, a beam of 4 over 2 of them, lookahead over 2, then
     both engines at quant="int8+kv". The counts are zeroed before the
-    sharded engines run and read after: 28 x 4 flash launches for a B=8
-    prefill (rows split over data, heads over tensor), 28 x 2 for a B=1
+    sharded engines run and read after: L x 4 flash launches for a B=8
+    prefill (rows split over data, heads over tensor), L x 2 for a B=1
     one on the one card (its rows replicated over data: one data group
-    runs per distinct device set; 28 x 4 on four cards), no plain
+    runs per distinct device set; L x 4 on four cards), no plain
     attention."""
-    cfg = config_presets()["qwen3-0p6b"].with_(flash_attention=True)
+    cfg = config_presets()["qwen3-0p6b"].with_(flash_attention=True,
+                                               n_layers=MESH_SERVE_LAYERS)
     mesh = tmesh.build_mesh(MESH_AXES, list(devices) if devices else None)
     g = torch.Generator(device="cuda")
     g.manual_seed(1618)
@@ -6844,7 +6920,7 @@ FSDP_LAYOUTS = {"fsdp2-tensor2": {"fsdp": 2, "tensor": 2},
 FSDP_DEVICES = ("cuda:0",) * 4  # every shard on the one card
 FSDP_REPEAT = "fsdp2-tensor2"  # the layout whose two runs must be bitwise
 FSDP_NODE_LAYERS = 4  # the node path's depth: its logits cross the user
-FSDP_NODE_BT = (2, 128)  # batch rows x tokens of the node path's steps
+FSDP_NODE_BT = (2, 64)  # batch rows x tokens of the node path's steps
 FSDP_NODE_HINT = {"tensor": 2}  # the planner fills the rest with fsdp
 FSDP_NODE_SEED = 1717
 FSDP_ROOT = Path(__file__).resolve().parent / "build" / "fsdp"
@@ -7949,6 +8025,624 @@ def expert_cards() -> dict:
     return res
 
 
+# -- phase 19: the stage and seq mesh axes, and the quantized collectives --
+# qwen3-0p6b at full width: an in-mesh GPipe over {stage: 4}, ring
+# attention over {seq: 4} at T 8192, and tp=2 serving whose gathers move
+# int8 (collective_quant)
+# tlint: disable=TL006(read-only constant table — never mutated)
+PP_AXES = {"stage": 4}
+PP_DEVICES = ("cuda:0",) * 4  # every stage on the one card
+PP_LAYERS = 28  # full depth: 7 layers a stage device
+PP_BT = (4, 256)
+PP_SEED = 1919
+# tlint: disable=TL006(read-only constant table — never mutated)
+SP_AXES = {"seq": 4}
+SP_DEVICES = ("cuda:0",) * 4  # every ring device on the one card
+SP_LAYERS = 8  # of 28: the depth the time budget allows at T 8192
+SP_T = 8192
+SP_SEED = 1920
+PRODUCT_NODE_LAYERS = 4  # the worker jobs' depth: logits cross the user
+PRODUCT_NODE_BT = (2, 64)  # small: each step's f32 logits cross the user
+PRODUCT_NODE_SEED = 1921
+PRODUCT_NODE_DEVICES = ("cuda:0",) * 2  # the worker's two mesh devices
+PRODUCT_ROOT = Path(__file__).resolve().parent / "build" / "product"
+QTP_LAYERS = 14  # of 28: the quantized tp serving's depth (time budget)
+# the pipelined steps against the unsharded step: phase 17's bounds, as
+# the differences have phase 17's causes (each micro-batch's products at
+# another GEMM height, per-piece gradient sums; AdamW's first update
+# moves entries whose gradient cancels to about eps by up to lr)
+PP_LOSS_RTOL = FSDP_LOSS_RTOL
+PP_GRAD_RTOL = FSDP_GRAD_RTOL
+PP_PARAM_RTOL = FSDP_PARAM_RTOL
+# the ring against the unsharded einsum attention at T 8192 (float32),
+# about 5x an H100's readings (logits 4.7e-6 of the largest logit, loss
+# 7.9e-8, the worst gradient leaf 9.4e-6 in its norm; PERF.md §6): the
+# blockwise softmax sums the same terms in another order
+SP_LOGITS_RTOL = 2.5e-5
+SP_LOSS_RTOL = 5e-7
+SP_GRAD_RTOL = 5e-5
+# tests/test_ring.py: the int8 ring's attention output within 0.06 of the
+# exact ring's (N(0,1) K/V measured ~0.012)
+RING_QUANT_BOUND = 0.06
+# a quantized-gather tp=2 greedy stream may part from tp=1's only where
+# tp=1's top two logits lie within this of each other: the int8 gathers
+# moved the top logit of draws from equal tokens by up to 0.3125 at 28
+# layers on an H100 (every parting there at a gap of 0.03125 or less)
+QTP_TIE = 0.5
+
+
+def _pp_reference(n_layers: int | None = None, peak: bool = False) -> dict:
+    """The unsharded float32 AdamW step (``make_train_step``, n_micro 1,
+    remat) on the seeded tree, two steps over PP_BT batches, each step's
+    gradients kept; with ``peak``, first the card's peak bytes over a
+    run that keeps nothing."""
+    from tensorlink_tpu_torch.engine.training import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = _train_cfg(n_layers or PP_LAYERS, torch.float32)
+    B, T = PP_BT
+    rng = np.random.default_rng(PP_SEED)
+    batches = [{"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32), device="cuda")}
+        for _ in range(2)]
+    opt = make_optimizer("adamw", lr=1e-3, grad_clip=1.0)
+    p0 = _seeded(cfg, "cuda", PP_SEED)
+    peak_bytes = None
+    if peak:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = make_train_step(cfg, opt)
+        p, st = p0, base.init_state(p0)
+        for b in batches:
+            p, st, _ = base.step_fn(p, st, b)
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        del p, st
+    kopt, kept = _keeping_grads(opt)
+    keeping = make_train_step(cfg, kopt)
+    p, st, losses, ms = p0, keeping.init_state(p0), [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        p, st, m = keeping.step_fn(p, st, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+    return dict(cfg=cfg, p0=p0, batches=batches, opt=opt, grads=kept,
+                params=p, losses=losses, step_ms=ms, peak_bytes=peak_bytes)
+
+
+def _stage_share(label: str, tree, mesh) -> dict:
+    """Each stage device's bytes of a tree placed by the stage specs:
+    exactly 1/n_stage of the layer leaves, plus the replicated rest
+    (asserted)."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+
+    layers = tree["layers"]
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(layers))
+    rest = sum(t.numel() * t.element_size() for k, v in tree.items()
+               if k != "layers" for t in tree_leaves(v))
+    n = mesh.shape["stage"]
+    got = [tmesh.shard_bytes(layers, j) for j in range(mesh.size)]
+    if any(g * n != whole for g in got):
+        raise AssertionError(f"stage {label}: {got} layer bytes a device "
+                             f"of {whole}")
+    if any(tmesh.shard_bytes({k: v for k, v in tree.items()
+                              if k != "layers"}, j) != rest
+           for j in range(mesh.size)):
+        raise AssertionError(f"stage {label}: the replicated leaves")
+    return dict(layer_bytes_per_device=got[0], layer_bytes=whole,
+                of_layers=got[0] / whole, replicated_bytes=rest)
+
+
+def pipeline_steps(ref: dict, devices=PP_DEVICES) -> dict:
+    """Phase 19 step 1: the reference's tree placed by
+    ``stage_param_specs`` on ``{stage: 4}`` over ``devices`` (each stage
+    device holds its 7 layers; the embedding, norm and head replicate),
+    two ``make_train_step(mesh=)`` AdamW steps, each batch through the
+    in-mesh GPipe in ``pp_n_micro`` micro-batches: each step's loss within
+    PP_LOSS_RTOL, each leaf's gradient within PP_GRAD_RTOL and the params
+    after both steps within PP_PARAM_RTOL of the unsharded step's; the
+    params, gradients and optimizer state 1/4 of the layers a device; the
+    two steps run twice, bitwise equal."""
+    from tensorlink_tpu_torch.engine import training as tt
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves
+    from tensorlink_tpu_torch.parallel.pipeline import pp_n_micro
+    from tensorlink_tpu_torch.parallel.planner import (
+        StagePlan,
+        stage_param_specs,
+    )
+
+    cfg, p0, batches, opt = (ref["cfg"], ref["p0"], ref["batches"],
+                             ref["opt"])
+    mesh = tmesh.build_mesh(PP_AXES, list(devices))
+    specs = stage_param_specs(cfg, StagePlan(
+        worker_id="w0", layer_lo=0, layer_hi=cfg.n_layers, first=True,
+        last=True, holds_head=True, mesh_axes=dict(PP_AXES)))
+    placed = tmesh.put(mesh, p0, specs)
+    ts = tt.make_train_step(cfg, opt, mesh=mesh)
+    res: dict = dict(axes=PP_AXES, layers=cfg.n_layers,
+                     n_micro=pp_n_micro(PP_AXES["stage"], PP_BT[0]),
+                     params=_stage_share("params", placed, mesh))
+    inner = tt.sharded_update
+    grads_err, shares = [], []
+
+    def spy(optimizer, grads, state, params, sp, m):
+        want = _named(ref["grads"][len(grads_err)])
+        grads_err.append(max(_leaf_rel(g, want[k])
+                             for k, g in _named(grads).items()))
+        shares.append(_stage_share("gradients", grads, m))
+        return inner(optimizer, grads, state, params, sp, m)
+
+    def run(step_ms: list, first: bool):
+        p, st = placed, ts.init_state(placed)
+        if first:
+            res["optimizer_state"] = [_stage_share("optimizer state", s, mesh)
+                                      for s in _state_trees(st)]
+        losses = []
+        for b in batches:
+            t0 = time.perf_counter()
+            p, st, m = ts.step_fn(p, st, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+        return p, st, losses
+
+    ms: list = []
+    tt.sharded_update = spy
+    try:
+        p, st, losses = run(ms, True)
+    finally:
+        tt.sharded_update = inner
+    for (lg, _), (lw, _) in zip(losses, ref["losses"]):
+        if _rel(lg, lw) > PP_LOSS_RTOL:
+            raise AssertionError(f"stage: losses {losses} vs "
+                                 f"{ref['losses']}")
+    if any(e > b for e, b in zip(grads_err, PP_GRAD_RTOL)):
+        raise AssertionError(f"stage: a gradient leaf {grads_err} from the "
+                             "unsharded one")
+    want = _named(ref["params"])
+    perr = max(_leaf_rel(g, want[k]) for k, g in _named(p).items())
+    if perr > PP_PARAM_RTOL:
+        raise AssertionError(f"stage: a param leaf {perr} from the "
+                             "unsharded one")
+    ms2: list = []
+    p2, st2, losses2 = run(ms2, False)
+    same = losses2 == losses and all(
+        torch.equal(x, y)
+        for a, b in zip(tree_leaves((p, st)), tree_leaves((p2, st2)),
+                        strict=True)
+        for x, y in zip(a.shards, b.shards))
+    if not same:
+        raise AssertionError(f"stage: two runs differ ({losses} vs "
+                             f"{losses2})")
+    res.update(step_ms=ms, repeat_step_ms=ms2, losses=losses,
+               unsharded_losses=ref["losses"],
+               unsharded_step_ms=ref["step_ms"], grads=shares[0],
+               grad_leaf_rel_max=grads_err, param_leaf_rel_max=perr,
+               loss_rel=[_rel(a[0], b[0]) for a, b in
+                         zip(losses, ref["losses"])],
+               repeat_bitwise=True)
+    del p, st, p2, st2, placed
+    return res
+
+
+def _state_trees(state) -> list:
+    """The param-shaped trees of an optimizer state (AdamW's moments)."""
+    if isinstance(state, dict):
+        return [state] if "layers" in state else []
+    if isinstance(state, tuple):
+        return [t for s in state for t in _state_trees(s)]
+    return []
+
+
+def _seq_run(params, cfg, toks, mesh, cards) -> dict:
+    """One float32 forward and backward of the causal-LM loss over
+    ``toks`` (remat), unsharded or sequence parallel over ``mesh``: the
+    logits, loss, gradients, ms and each of ``cards``' peak bytes."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_leaves, tree_map
+    from tensorlink_tpu_torch.engine.training import _nll_sum
+
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        logits, _ = ttr.stage_forward(leaves, cfg, tokens=toks, first=True,
+                                      last=True, remat=True, seq_mesh=mesh)
+        nll, n = _nll_sum(logits, toks, None)
+        loss = nll / n
+        # one thread, as GradFold's: over cards a block checkpointed
+        # across the ring's devices would be recomputed by two at once
+        with torch.autograd.set_multithreading_enabled(False):
+            grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(logits=logits.detach(), loss=float(loss.detach()),
+                grads=grads, ms=ms,
+                peak_bytes=[torch.cuda.max_memory_allocated(c)
+                            for c in cards])
+
+
+def seq_steps(devices=SP_DEVICES) -> dict:
+    """Phase 19 step 2: qwen3-0p6b f32 at SP_LAYERS layers, B 1, T 8192:
+    the unsharded ``stage_forward`` (einsum attention over the whole
+    sequence) and the same stage over ``{seq: 4}`` (each ring device's
+    2048 rows, ring attention), forward and gradients: the logits within
+    SP_LOGITS_RTOL of the largest logit, the loss within SP_LOSS_RTOL,
+    each gradient leaf within SP_GRAD_RTOL in its norm; the ring run
+    twice, bitwise. Layer 0's attention through the int8 ring within
+    RING_QUANT_BOUND of the exact ring's, twice bitwise. Readings: ms
+    and each card's peak bytes of each run (on one card the ring's four
+    devices share it)."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+    from tensorlink_tpu_torch.parallel.ring import ring_attention
+
+    cfg = _train_cfg(SP_LAYERS, torch.float32)
+    params = _seeded(cfg, "cuda", SP_SEED)
+    rng = np.random.default_rng(SP_SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, SP_T)).astype(
+        np.int32), device="cuda")
+    mesh = tmesh.build_mesh(SP_AXES, list(devices))
+    cards = list(dict.fromkeys(mesh.flat()))
+    ref = _seq_run(params, cfg, toks, None, cards)
+    ring = _seq_run(params, cfg, toks, mesh, cards)
+    scale = float(ref["logits"].abs().max())
+    logits_rel = float((ring["logits"] - ref["logits"]).abs().max()) / scale
+    names = list(_named(params))
+    grad_rel = {k: float(torch.linalg.vector_norm((a - b).double())
+                         / torch.linalg.vector_norm(b.double()))
+                for k, a, b in zip(names, ring["grads"], ref["grads"])}
+    res = dict(axes=SP_AXES, layers=SP_LAYERS, T=SP_T,
+               logits_rel=logits_rel, loss=ring["loss"],
+               unsharded_loss=ref["loss"],
+               loss_rel=_rel(ring["loss"], ref["loss"]),
+               grad_leaf_rel_max=max(grad_rel.values()),
+               grad_leaf_rel_worst=max(grad_rel, key=grad_rel.get),
+               ms=ring["ms"], unsharded_ms=ref["ms"],
+               peak_bytes=ring["peak_bytes"],
+               unsharded_peak_bytes=ref["peak_bytes"])
+    if (logits_rel > SP_LOGITS_RTOL or res["loss_rel"] > SP_LOSS_RTOL
+            or res["grad_leaf_rel_max"] > SP_GRAD_RTOL):
+        raise AssertionError(f"seq: the ring against the unsharded stage "
+                             f"{json.dumps(res)}")
+    del ref
+    again = _seq_run(params, cfg, toks, mesh, cards)
+    if not (torch.equal(again["logits"], ring["logits"]) and all(
+            torch.equal(a, b) for a, b in zip(again["grads"],
+                                              ring["grads"]))):
+        raise AssertionError("seq: two ring runs differ")
+    res.update(repeat_bitwise=True, repeat_ms=again["ms"])
+    del again, ring
+    # layer 0's q/k/v at T 8192 through the exact and the int8 ring
+    with torch.no_grad():
+        lp = tree_map(lambda t: t[0], params["layers"])
+        pos = torch.arange(SP_T, device="cuda")[None]
+        cos, sin = ttr.rope_tables(pos, ttr._rope_dim(cfg), cfg.rope_theta)
+        x = ttr._embed_tokens(params, toks.long(), cfg)
+        q, k, v = ttr._qkv(ttr._norm(x, lp["ln1"], cfg), lp, cfg, cos, sin)
+        exact = ring_attention(q, k, v, mesh)
+        quant = [ring_attention(q, k, v, mesh, quantized=True)
+                 for _ in range(2)]
+    qerr = float((quant[0] - exact).abs().max())
+    if qerr >= RING_QUANT_BOUND or not torch.equal(quant[0], quant[1]):
+        raise AssertionError(f"seq: the int8 ring {qerr} from the exact "
+                             "ring, or two runs differ")
+    res.update(ring_quant_max_abs=qerr, ring_quant_bitwise=True)
+    del params, quant, exact
+    torch.cuda.empty_cache()
+    return res
+
+
+def product_node(devices=PRODUCT_NODE_DEVICES) -> dict:
+    """Phase 19 step 3: a port validator, a worker advertising
+    ``devices`` (``MLConfig(mesh_devices=[...])``) and a user on
+    127.0.0.1; DistributedModels of qwen3-0p6b's widths at
+    PRODUCT_NODE_LAYERS layers, f32, asking parallelism ``{stage: 2}``
+    and then ``{seq: 2}``: each is planned with that axis, its worker
+    runs its slice through the in-mesh GPipe or the ring, its eval
+    forward's logits equal the in-process placed forward's, and two
+    AdamW steps' losses stay within TRAIN_NODE_LOSS_RTOL of the same
+    placed step in process."""
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        UserConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.engine import training as tt
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+    from tensorlink_tpu_torch.nodes.runners import (
+        UserNode,
+        ValidatorNode,
+        WorkerNode,
+    )
+    from tensorlink_tpu_torch.parallel.planner import (
+        StagePlan,
+        stage_param_specs,
+    )
+
+    root = PRODUCT_ROOT / "node"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = _train_cfg(PRODUCT_NODE_LAYERS, torch.float32)
+    B, T = PRODUCT_NODE_BT
+    rng = np.random.default_rng(PRODUCT_NODE_SEED)
+    batches = [rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+               for _ in range(2)]
+    common = dict(local_test=True, log_dir=str(root / "logs"),
+                  env_file=str(root / ".env"))
+    nodes = []
+    res: dict = dict(layers=PRODUCT_NODE_LAYERS)
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=False, key_dir=str(root / "vkeys"), ml=MLConfig(),
+                **common)).start()
+            nodes.append(v)
+            seeds = [["127.0.0.1", v.port]]
+            w = WorkerNode(WorkerConfig(
+                seed_validators=seeds, key_dir=str(root / "wkeys"),
+                ml=MLConfig(mesh_devices=list(devices)), **common)).start()
+            nodes.append(w)
+            u = UserNode(UserConfig(
+                seed_validators=seeds, key_dir=str(root / "ukeys"),
+                ml=MLConfig(), **common)).start()
+            nodes.append(u)
+        deadline = time.monotonic() + 60
+        while len(v.status()["peers"]) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("product node: the nodes never met")
+            time.sleep(0.1)
+        for hint in ({"stage": 2}, {"seq": 2}):
+            label = "stage" if "stage" in hint else "seq"
+            model = DistributedModel(cfg, node=u, seed=PRODUCT_NODE_SEED,
+                                     training=True, parallelism=hint,
+                                     batch=B, seq_len=T)
+            axes = model.plan.stages[0].mesh_axes
+            if axes != hint:
+                raise AssertionError(f"product node {label}: planned {axes}")
+            rt = w.executor.jobs[model.job_id]
+            if rt.mesh is None or dict(rt.mesh.shape) != hint:
+                raise AssertionError(f"product node {label}: the job's mesh "
+                                     f"{rt.mesh}")
+            mesh = tmesh.build_mesh(hint, list(devices))
+            local = tmesh.put(mesh, _seeded(cfg, "cuda", PRODUCT_NODE_SEED),
+                              stage_param_specs(cfg, StagePlan(
+                                  worker_id="w0", layer_lo=0,
+                                  layer_hi=cfg.n_layers, first=True,
+                                  last=True, holds_head=True,
+                                  mesh_axes=dict(hint))))
+            toks0 = torch.as_tensor(batches[0], device="cuda")
+            got = torch.as_tensor(model(batches[0]), device="cuda")
+            with torch.no_grad():
+                want, _ = (ttr.stage_forward(
+                    local, cfg, tokens=toks0, first=True, last=True,
+                    seq_mesh=mesh) if label == "seq" else
+                    _pipelined(local, cfg, mesh, toks0))
+            fwd_rel = float((got - want).abs().max()
+                            / want.abs().max())
+            if fwd_rel > TRAIN_NODE_LOSS_RTOL:
+                raise AssertionError(f"product node {label}: the forward "
+                                     f"{fwd_rel} from in process")
+            model.init_optimizer("adamw", lr=1e-3)
+            ts = tt.make_train_step(cfg, tt.make_optimizer(
+                "adamw", lr=1e-3, grad_clip=1.0), mesh=mesh)
+            state = ts.init_state(local)
+            losses, node_s = [], []
+            for toks in batches:
+                t0 = time.perf_counter()
+                r = model.train_step(toks)
+                node_s.append(time.perf_counter() - t0)
+                local, state, m = ts.step_fn(local, state, {
+                    "tokens": torch.as_tensor(toks, device="cuda")})
+                losses.append((r["loss"], float(m["loss"])))
+                if _rel(r["loss"], float(m["loss"])) > TRAIN_NODE_LOSS_RTOL:
+                    raise AssertionError(f"product node {label}: losses "
+                                         f"{losses}")
+            res[label] = dict(axes=axes, forward_rel=fwd_rel, losses=losses,
+                              node_step_s=node_s)
+            model.shutdown()
+            del local, state, rt
+    finally:
+        for nd in reversed(nodes):
+            nd.stop()
+        nodes = v = w = u = None
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def _pipelined(params, cfg, mesh, toks):
+    from tensorlink_tpu_torch.parallel.pipeline import (
+        pipelined_stage_forward,
+        pp_n_micro,
+    )
+
+    return pipelined_stage_forward(
+        params, cfg, mesh, tokens=toks,
+        n_micro=pp_n_micro(mesh.shape["stage"], toks.shape[0]), first=True,
+        last=True)
+
+
+def quant_tp_serving() -> dict:
+    """Phase 19 step 4: qwen3-0p6b bf16 (phase 8's seeded tree at
+    QTP_LAYERS layers), phase 15's 8 requests over fp pages on a tp=1
+    engine and on a ``ContinuousEngine(tensor_parallel=2)`` whose config
+    sets ``collective_quant`` (both shards on the one card): every gather
+    of a split activation through ``quantized_all_gather`` (4 a layer per
+    forward, counted; qwen3's tied head gathers nothing), greedy streams
+    equal or
+    parted only where tp=1's top two lie within QTP_TIE (logged), each
+    chunk twice tp=1's launches of both paged kernels, no plain
+    attention (``_Launches``)."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+    from tensorlink_tpu_torch.parallel import ring as tring
+
+    cfg, params = _model()
+    L = QTP_LAYERS
+    cfg = cfg.with_(n_layers=L)
+    params = dict(params, layers=tree_map(lambda t: t[:L], params["layers"]))
+    prompts = _tp_prompts(cfg)
+
+    def gen(c):
+        return GenerationEngine(c, params, max_seq_len=4096, device="cuda")
+
+    one, r1 = _tp_serve(1, "none", prompts, gen=gen(cfg))
+    calls = []
+    real = tring.quantized_all_gather
+
+    def counted(parts, device, **kw):
+        calls.append(len(parts))
+        return real(parts, device, **kw)
+
+    tring.quantized_all_gather = counted
+    try:
+        tp, r2 = _tp_serve(TP_DEGREE, "none", prompts,
+                           gen=gen(cfg.with_(collective_quant=True)))
+    finally:
+        tring.quantized_all_gather = real
+    # an untied head's vocabulary columns gather too; qwen3's tied head
+    # makes the whole vocabulary on each shard
+    want = r2["chunks"] * tp.chunk_steps * (4 * L + (not cfg.tie_embeddings))
+    if len(calls) != want or set(calls) != {TP_DEGREE}:
+        raise AssertionError(f"quant tp: {len(calls)} quantized gathers, "
+                             f"{want} wanted")
+    label = "quant tp serving fp"
+    parted = _held_greedy(label, prompts, r2, r1, tie=QTP_TIE)
+    for name in NEW_PATHS:
+        if r2["per_chunk"][name] != TP_DEGREE * r1["per_chunk"][name]:
+            raise AssertionError(f"{label}: {name} launches per chunk "
+                                 f"{r2['per_chunk'][name]} vs tp=1's "
+                                 f"{r1['per_chunk'][name]}")
+    tp.check_page_conservation()
+    top1 = [abs(a[0][0] - b[0][0]) for key, a in r2["draws"].items()
+            for b in [r1["draws"].get(key)] if b and a[1][0] == b[1][0]]
+    sampled = [a == b for (_i, k, _s), a, b in zip(
+        prompts, r2["streams"], r1["streams"]) if k]
+    one.close()
+    tp.close()
+    res = dict(layers=L, quantized_gathers=len(calls),
+               greedy_parted=parted,
+               sampled_equal=f"{sum(sampled)} of {len(sampled)}",
+               top1_logit_diff_max=max(top1) if top1 else 0.0,
+               tokens_per_s_tp2=r2["tokens_per_s"],
+               tokens_per_s_tp1=r1["tokens_per_s"],
+               ms_per_chunk_tp2=r2["ms_per_chunk"],
+               ms_per_chunk_tp1=r1["ms_per_chunk"],
+               launches_tp_quant=r2["launches"])
+    del one, tp
+    torch.cuda.empty_cache()
+    return res
+
+
+def product_phase() -> dict:
+    """Phase 19: the stage and seq mesh axes and the quantized
+    collectives (pipeline_steps, seq_steps, product_node,
+    quant_tp_serving). No attention kernel runs on the training paths
+    (the GPipe and the ring keep the einsum attention): 0 launches,
+    asserted. The speeds are readings, not claims: the mesh's devices
+    share one card."""
+    t0 = time.monotonic()
+    res: dict = dict(card=_smi())
+    att.reset_counts()
+    ref = _pp_reference()
+    res["stage"] = pipeline_steps(ref)
+    ref.clear()
+    torch.cuda.empty_cache()
+    res["seconds_stage"] = time.monotonic() - t0
+    log(f"product stage: {json.dumps(res['stage'])}")
+    res["seq"] = seq_steps()
+    res["seconds_seq"] = time.monotonic() - t0 - res["seconds_stage"]
+    log(f"product seq: {json.dumps(res['seq'])}")
+    t1 = time.monotonic()
+    res["node"] = product_node()
+    res["seconds_node"] = time.monotonic() - t1
+    launches = {n: getattr(att, n).launches for n in REPLACES}
+    launches["flash_attention"] = att.flash_attention.launches
+    if any(launches.values()):
+        raise AssertionError(f"product: kernels launched {launches}; the "
+                             "training paths have none")
+    res["launches_training"] = launches
+    t1 = time.monotonic()
+    res["tp_quant"] = quant_tp_serving()
+    res["seconds_tp_quant"] = time.monotonic() - t1
+    res["seconds"] = time.monotonic() - t0
+    st, sq = res["stage"], res["seq"]
+    log(f"product readings ({res['card']}): stage {PP_AXES} step ms "
+        f"{st['step_ms']} against unsharded {st['unsharded_step_ms']}; seq "
+        f"{SP_AXES} T {SP_T} fwd+bwd ms {sq['ms']} against unsharded "
+        f"{sq['unsharded_ms']}, peak bytes {sq['peak_bytes']} against "
+        f"{sq['unsharded_peak_bytes']}; quant tp tokens/s "
+        f"{res['tp_quant']['tokens_per_s_tp2']} against tp=1 "
+        f"{res['tp_quant']['tokens_per_s_tp1']}")
+    log(f"product (qwen3-0p6b: {PP_AXES} f32 {PP_LAYERS} layers B, T "
+        f"{PP_BT}; "
+        f"{SP_AXES} f32 {SP_LAYERS} layers B 1 T {SP_T}; tp=2 "
+        f"collective_quant bf16 {QTP_LAYERS} layers; devices on one card; "
+        f"readings, not claims; {res['card']}): {json.dumps(res)}")
+    log(f"phase 19 took {res['seconds']:.1f} s ({res['card']})")
+    return res
+
+
+def pipeline_cards() -> dict:
+    """Not a phase of ``main()``: it needs four cards on one host. Phase
+    19 step 1 with the four stages on four distinct cards: each card's
+    peak memory through the placed tree, its state and two steps beside
+    the unsharded step's peak on card 0, and the step time with real
+    peer copies; the losses, gradients and params held as in phase
+    19."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"pipeline_cards: needs 4 cards, have {n}")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    ref = _pp_reference(peak=True)
+    res: dict = dict(card=_smi(), cards=n,
+                     unsharded_peak_bytes_card0=ref["peak_bytes"],
+                     unsharded_step_ms=ref["step_ms"])
+
+    def host(tree):
+        return tree_map(lambda t: t.cpu(), tree)
+
+    ref["p0"], ref["params"] = host(ref["p0"]), host(ref["params"])
+    ref["grads"] = [host(g) for g in ref["grads"]]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    out = pipeline_steps(ref, cards)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = [torch.cuda.max_memory_allocated(c) for c in cards]
+    out["peak_of_unsharded_card0"] = [b / ref["peak_bytes"]
+                                      for b in out["peak_bytes"]]
+    res["stage"] = out
+    log(f"pipeline_cards (qwen3-0p6b f32 {PP_LAYERS} layers, {PP_AXES} on "
+        f"four cards; readings, not claims; {res['card']} x {n}): "
+        f"{json.dumps(res)}")
+    return res
+
+
+def seq_cards() -> dict:
+    """Not a phase of ``main()``: it needs four cards on one host. Phase
+    19 step 2 with the ring's four devices on four distinct cards: each
+    card's peak memory through the ring step beside the unsharded step's
+    (which runs on card 0), and the ring step's time with real peer
+    copies; the forward and gradients held as in phase 19."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"seq_cards: needs 4 cards, have {n}")
+    res = dict(card=_smi(), cards=n,
+               seq=seq_steps([torch.device("cuda", i) for i in range(4)]))
+    log(f"seq_cards (qwen3-0p6b f32 {SP_LAYERS} layers, T {SP_T}, {SP_AXES} "
+        f"on four cards; readings, not claims; {res['card']} x {n}): "
+        f"{json.dumps(res)}")
+    return res
+
+
 def _phase(name, fn, *args):
     t0 = time.monotonic()
     out = fn(*args)
@@ -8008,6 +8702,7 @@ def main() -> None:
     mesh = _phase("mesh", mesh_phase, reference)
     fsdp = _phase("fsdp", fsdp_phase, reference)
     expert = _phase("expert", expert_phase)
+    product = _phase("product parallel", product_phase)
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -8026,6 +8721,8 @@ def main() -> None:
             "library_device_ms": t["library_device_ms"],
             "launches_stages_training": train_launches[name],
             "launches_fsdp_training": fsdp["launches"][name],
+            # phase 19: the GPipe's and the ring's training steps
+            "launches_product_training": product["launches_training"][name],
             "design": DESIGN[name],
         }
         if fmt == "fp":
@@ -8048,6 +8745,10 @@ def main() -> None:
             served = tp["launches_tp"].get(fmt)
             entry["launches_tp"] = (served["by_format"][name].get(fmt, 0)
                                     if served else 0)
+            # phase 19's tp=2 serving with the int8 gathers (fp pages),
+            # each shard's launch counted
+            entry["launches_tp_quant"] = product["tp_quant"][
+                "launches_tp_quant"]["by_format"][name].get(fmt, 0)
             held = tp["kernels"][fmt]
             entry["tp_shard_of_bound"] = held[
                 "ragged_of_bound" if name == "ragged_paged_attention"
@@ -8074,8 +8775,10 @@ def main() -> None:
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
         "launches_stages_training": train_launches["flash_attention"],
         "launches_fsdp_training": fsdp["launches"]["flash_attention"],
+        "launches_product_training": product["launches_training"][
+            "flash_attention"],
         # phase 16: the sharded engines' prefills, each (data, tensor)
-        # shard's launch counted (28 x 4 a B=8 prefill)
+        # shard's launch counted (L x 4 a B=8 prefill)
         "launches_mesh": mesh["serving"]["launches"],
         "launches_mesh_per_b8_prefill": mesh["serving"][
             "launches_per_b8_prefill"]["bf16"],
@@ -8089,7 +8792,8 @@ def main() -> None:
             for n in EXPERT_LAYOUTS},
         "design": DESIGN["flash_attention"],
     })
-    log(f"chip_smoke: all 18 phases in {time.monotonic() - t_start:.1f} s "
+    log(f"chip_smoke: all 19 phases in {time.monotonic() - t_start:.1f} s, "
+        f"{time.monotonic() - _T_START:.1f} s since the script started "
         f"({_smi()})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -277,10 +277,12 @@ class MLConfig:
     # device): N distinct cards from the worker's own on (a card worker
     # with fewer fails to start), or the host N times, or a list of device
     # names (a card may repeat: one card holds every shard); 1 keeps every
-    # job on the worker's one device and its continuous slot engine. It
-    # stays while the seq axis is unported: a worker advertising every
-    # card would get the JAX planner's seq axis for training at seq_len
-    # >= 8192 (a MoE job gets its default expert axis, which runs)
+    # job on the worker's one device and its continuous slot engine. Every
+    # axis the JAX planner gives runs (the default seq axis of a training
+    # job at seq_len >= 8192 and a MoE job's expert axis too); it stays
+    # because ContinuousEngine refuses a tree placed on a planned mesh
+    # (engine/continuous.py), so a worker advertising every card would
+    # serve its jobs static
     mesh_devices: int | list = 1
 
 

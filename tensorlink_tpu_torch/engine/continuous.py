@@ -56,7 +56,6 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import unported
 from ..core import faults
 from ..core.metrics import MetricsRegistry
 from ..core.serialization import content_digest, dtype_name as np_dtype_name
@@ -416,6 +415,7 @@ class ContinuousEngine:
             self._step = make_tp_ragged_step(
                 self._tp_mesh, self.cfg, n_steps=self.chunk_steps,
                 spec_width=self.spec_width, kernel=self.use_kernel,
+                tp_quant=bool(self.cfg.collective_quant),
             )
         else:
             self._step = functools.partial(
@@ -2281,8 +2281,6 @@ def _tp_mesh(engine: GenerationEngine, tp: int, pool, devices):
             "weight-quantized engines cannot shard over a tp axis "
             "— QTensor scale layouts have no partition specs yet"
         )
-    if engine.cfg.collective_quant:
-        raise unported("the quantized tp gather (collective_quant)", 5)
     mesh = serving_mesh(tp, devices=devs)
     kinds = {d.type for d in mesh.flat()}
     if kinds != {engine.device.type}:

@@ -1296,7 +1296,8 @@ def paged_ragged_step(
 
 
 def make_tp_ragged_step(mesh: Mesh, cfg: ModelConfig, *, n_steps: int,
-                        spec_width: int = 1, kernel: bool):
+                        spec_width: int = 1, kernel: bool,
+                        tp_quant: bool = False):
     """The tensor-parallel serving step over ``mesh``'s ``tp`` axis: a
     callable with :func:`paged_ragged_step`'s positional arguments (the
     statics fixed here) and return tuple. ``params`` is a tree placed by
@@ -1304,11 +1305,16 @@ def make_tp_ragged_step(mesh: Mesh, cfg: ModelConfig, *, n_steps: int,
     other argument is whole, on the mesh's first device, as the returned
     control tensors are. Each shard launches the attention kernels over
     its own contiguous pages. The per-shard views of ``params`` are built
-    once and rebuilt only when another tree is passed (a publish)."""
+    once and rebuilt only when another tree is passed (a publish).
+    ``tp_quant`` (``ModelConfig.collective_quant``) makes every gather of
+    a split activation — the heads, ``wo``'s and the MLP's output
+    columns, the hidden columns and the logits — the int8 one
+    (``parallel/ring.py::quantized_all_gather``, tiled), as JAX's
+    ``_tp_gather`` does with ``tp_quant``."""
     if mesh.shape.get("data", 1) != 1:
         raise ValueError("the tensor-parallel serving step runs on a "
                          "(data=1, tp) mesh")
-    lay = TPLayout(mesh.flat())
+    lay = TPLayout(mesh.flat(), quant=tp_quant)
     fwd = None
 
     def step(params, blk, cache, starts, n_valid, n_spec, emit, seeds,

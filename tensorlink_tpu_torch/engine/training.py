@@ -41,7 +41,10 @@ into a shared leaf: each piece's gradient is the float32 sum of every
 clip sums each piece's squares in mesh order and the elementwise update
 runs on each device's piece against optimizer state placed by the same
 specs (:func:`sharded_update`), so no device ever holds the whole
-params, gradients or optimizer state.
+params, gradients or optimizer state. On a mesh with a ``stage`` axis
+(layers placed by ``Split(0, "stage")``) each micro-batch runs once
+through the in-mesh GPipe, on a ``seq`` axis through the ring, folded
+the same way (:func:`placed_grads`).
 """
 
 from __future__ import annotations
@@ -592,27 +595,48 @@ def placed_grads(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  remat: bool = True) -> tuple:
     """The token-mean gradient of the causal-LM loss over a placed tree,
     placed like it: each (micro, group) run of :func:`_group_rows` through
-    ``models/sharded.py::stage(group=)`` differentiates its token-sum
-    objective, the runs fold per piece in order (:class:`GradFold`) and
-    the sums divide once by the batch's token count. Returns ``(grads,
-    loss)``, the loss on the mesh's first device."""
+    ``models/sharded.py::stage(group=)`` — or, on a stage or seq mesh,
+    each micro-batch through the in-mesh GPipe (``parallel/pipeline.py``,
+    ``pp_n_micro`` micro-batches of its own) or the ring
+    (``models/transformer.py::_seq_stage``) — differentiates its
+    token-sum objective, the runs fold per piece in order
+    (:class:`GradFold`) and the sums divide once by the batch's token
+    count. Returns ``(grads, loss)``, the loss on the mesh's first
+    device."""
     from ..models import sharded
+    from ..models.transformer import _seq_stage
+    from ..parallel.pipeline import pipelined_stage_forward, pp_n_micro
 
     mesh = _mesh.tree_mesh(params)
-    runs = _group_rows(tokens.shape[0], n_micro, sharded.n_groups(params))
     dev0 = mesh.flat()[0]
     fold = GradFold(params)
     nll_acc = tok_acc = None
-    for _m, g, rows in runs:
+    kind = _in_mesh_axis(mesh)
+    if kind is None:
+        runs = _group_rows(tokens.shape[0], n_micro,
+                           sharded.n_groups(params))
+        plans = _dispatch_plans(params, cfg, runs, tokens=tokens, first=True)
+    else:  # every row of a micro-batch in one run
+        runs, plans = _group_rows(tokens.shape[0], n_micro, 1), {}
+    for m, g, rows in runs:
         sums: dict = {}
 
-        def objective(take, g=g, rows=rows, sums=sums):
-            out, _ = sharded.stage(params, cfg, tokens=tokens[rows],
-                                   first=True, last=True, remat=remat,
-                                   group=g, take=take)
+        def objective(take, m=m, g=g, rows=rows, sums=sums):
+            toks = tokens[rows]
+            kw = dict(tokens=toks, first=True, last=True, remat=remat,
+                      take=take)
+            if kind == "stage":
+                out, _ = pipelined_stage_forward(
+                    params, cfg, mesh, n_micro=pp_n_micro(
+                        mesh.shape["stage"], toks.shape[0]), **kw)
+            elif kind == "seq":
+                out, _ = _seq_stage(params, cfg, mesh, **kw)
+            else:
+                out, _ = sharded.stage(params, cfg, group=g,
+                                       dispatch=plans.get((m, g)), **kw)
             lm = None if loss_mask is None else loss_mask[rows].to(
                 out.device)
-            nll, n = _nll_sum(out, tokens[rows].to(out.device), lm)
+            nll, n = _nll_sum(out, toks.to(out.device), lm)
             sums.update(nll=nll.detach(), n=n)
             return nll, None
 
@@ -622,6 +646,39 @@ def placed_grads(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     tok_sum = torch.clamp(tok_acc, min=1.0)
     with torch.no_grad():
         return fold.result(1.0 / tok_sum), nll_acc / tok_sum
+
+
+def _dispatch_plans(params: dict, cfg: ModelConfig, runs: list, *,
+                    tokens=None, hidden=None, attn_mask=None,
+                    first: bool) -> dict:
+    """Each (micro, group) run's ``(dispatch, block)`` where a sparse MoE
+    micro-batch spans several groups' row blocks: the micro-batch's
+    whole-batch slots (``models/sharded.py::dispatch_plan``), as JAX's
+    step dispatches each micro-batch's tokens together."""
+    from ..models import sharded
+
+    out: dict = {}
+    for m in dict.fromkeys(r[0] for r in runs):
+        blocks = [(g, rows) for mm, g, rows in runs if mm == m]
+        plan = sharded.dispatch_plan(params, cfg, blocks, tokens=tokens,
+                                     hidden=hidden, attn_mask=attn_mask,
+                                     first=first)
+        if plan is not None:
+            for k, (g, _) in enumerate(blocks):
+                out[(m, g)] = (plan, k)
+    return out
+
+
+def _in_mesh_axis(mesh) -> str | None:
+    """The in-mesh program a placed step's forward runs: ``"stage"`` (the
+    GPipe) or ``"seq"`` (the ring) for such an axis above 1, else None
+    (the placed forward of ``models/sharded.py``)."""
+    sizes = mesh.shape
+    if sizes.get("stage", 1) > 1:
+        return "stage"
+    if sizes.get("seq", 1) > 1:
+        return "seq"
+    return None
 
 
 def _make_placed_step(cfg, optimizer, *, mesh, n_micro, remat) -> TrainStep:

@@ -55,9 +55,15 @@ serves and trains whole-model jobs, and serves pipeline stages:
   and so does the tied head's hop, so the driver passes each cotangent
   one stage back.
 
-A device mesh or tensor parallelism waits for ROADMAP queue 1 item 3 and
-co-slice coworkers for item 4: each raises, and the run loop's error
-reply carries the message to the peer.
+- a planned stage mesh: its tree placed by the plan's specs; a ``stage``
+  axis runs the slice's whole-sequence forwards through the in-mesh GPipe
+  (``parallel/pipeline.py``) and a ``seq`` axis through ring attention
+  (``parallel/ring.py``), training forwards and the BACKWARD's recompute
+  too; ``MLConfig.collective_quant`` makes a serving job's tp gathers
+  int8.
+
+Co-slice coworkers wait for ROADMAP queue 1 item 4: the load raises, and
+the run loop's error reply carries the message to the peer.
 """
 
 from __future__ import annotations
@@ -380,11 +386,15 @@ class DistributedWorker:
         # the planned mesh first: too few devices fail the load before any
         # weight is made
         mesh = self._build_stage_mesh(stage)
-        if ml.collective_quant:
-            raise unported("the quantized tp gather (collective_quant)", 5)
         if stage.get("coworkers"):
             raise unported("a co-slice merged stage (coworkers)", 4)
         training = bool(p.get("training", False))
+        if ml.collective_quant and not training:
+            # the quantized collectives (parallel/ring.py): the tp serving
+            # step's gathers and the seq ring move int8 with per-row
+            # scales. Serving only: quantize_kv's round() has a zero
+            # gradient, so a training job keeps exact collectives
+            cfg = cfg.with_(collective_quant=True)
         whole = bool(first and stage["last"] and holds_head)
         tp = int(getattr(ml, "tensor_parallel", 1) or 1)
         # a tp job's mesh from this worker's card on: too few cards fail
@@ -2073,10 +2083,10 @@ class DistributedWorker:
                                    device=self.device)
         kw = {"tokens": x_in} if first else {"hidden": x_in}
         if train:
+            fwd = _stage_fwd_fn(rt, _train_cfg(rt), mask, apply_head,
+                                     int(x_in.shape[0]))
             with torch.no_grad():
-                out, _ = stage_forward(rt.params, _train_cfg(rt),
-                                       attn_mask=mask, first=first,
-                                       last=apply_head, **kw)
+                out = fwd(rt.params, x_in, mask)
             # no KV cache in training: the backward recomputes the forward
             # from these inputs when the cotangent arrives
             rt.saved[tag] = ("stage", x_in, mask, first, apply_head)
@@ -2084,6 +2094,15 @@ class DistributedWorker:
                           {"out": _host(out), "is_logits": apply_head})
             return
         session = p.get("session")
+        if session is None and _in_mesh(rt, mask) is not None:
+            # a stage or seq axis: the in-mesh GPipe or the ring (neither
+            # has a KV cache path; the planner gives serving neither)
+            fwd = _stage_fwd_fn(rt, rt.cfg, mask, apply_head,
+                                     int(x_in.shape[0]))
+            with torch.no_grad():
+                out = fwd(rt.params, x_in, mask)
+            self._finish_fwd(rt, p, out, apply_head)
+            return
         cache = None
         if session is not None:
             cache = self._session_cache(rt, p, x_in.shape[0])
@@ -2443,25 +2462,45 @@ class DistributedWorker:
         its block of the rows (``models/sharded.py``, remat with the fsdp
         gathers inside) and differentiates it against the cotangent's
         rows; the gradients reduce per piece in group order
-        (``engine/training.py::GradFold``) and stay placed. Returns the
-        placed gradients and the input's gradient (rows in order) or
-        None."""
+        (``engine/training.py::GradFold``) and stay placed. A stage or
+        seq axis recomputes every row once through the in-mesh GPipe or
+        the ring (:func:`_stage_fwd_fn`). Returns the placed gradients
+        and the input's gradient (rows in order) or None."""
         import torch
 
         from tensorlink_tpu_torch.engine.training import GradFold, \
-            _group_rows
+            _dispatch_plans, _group_rows
         from tensorlink_tpu_torch.models import sharded
         from tensorlink_tpu_torch.parallel.mesh import to_device
 
         fold = GradFold(rt.params)
         parts = []
         cfg = _train_cfg(rt)
-        for _m, grp, rows in _group_rows(x_in.shape[0], 1,
-                                         sharded.n_groups(rt.params)):
+        if _in_mesh(rt, mask) is not None:
+            # the in-mesh GPipe or the ring: one run over every row
+            h = x_in.detach().requires_grad_(True) if wrt_input else x_in
+            fwd = _stage_fwd_fn(rt, cfg, mask, apply_head,
+                                     int(x_in.shape[0]), remat=True)
+
+            def fn(take):
+                if kind == "head":
+                    out = sharded.head(rt.params, h, rt.cfg, take=take)
+                else:
+                    out = fwd(rt.params, h, mask, take=take)
+                return out, g.to(out.device)
+
+            got = fold.run(fn, [h] if wrt_input else [])
+            return fold.result(), (to_device(got[0], x_in.device)
+                                   if wrt_input else None)
+        runs = _group_rows(x_in.shape[0], 1, sharded.n_groups(rt.params))
+        plans = ({} if kind == "head" else _dispatch_plans(
+            rt.params, cfg, runs, attn_mask=mask, first=first,
+            **({"hidden": x_in} if wrt_input else {"tokens": x_in})))
+        for _m, grp, rows in runs:
             h = (x_in[rows].detach().requires_grad_(True) if wrt_input
                  else x_in[rows])
 
-            def fn(take, grp=grp, rows=rows, h=h):
+            def fn(take, grp=grp, rows=rows, h=h, plan=plans.get((0, grp))):
                 if kind == "head":
                     out = sharded.head(rt.params, h, rt.cfg, group=grp,
                                        take=take)
@@ -2470,7 +2509,8 @@ class DistributedWorker:
                     out, _ = sharded.stage(
                         rt.params, cfg, first=first, last=apply_head,
                         attn_mask=None if mask is None else mask[rows],
-                        remat=True, group=grp, take=take, **kw)
+                        remat=True, group=grp, take=take, dispatch=plan,
+                        **kw)
                 return out, g[rows].to(out.device)
 
             got = fold.run(fn, [h] if wrt_input else [])
@@ -2816,6 +2856,64 @@ def _clear_empty_rows(cache, new_cache, mask) -> None:
             d = keys[j][1]
             clear(t.shards[j], empty[d * b:(d + 1) * b].to(
                 t.shards[j].device))
+
+
+def _in_mesh(rt: StageRuntime, mask) -> str | None:
+    """Which in-mesh program a whole-sequence forward of the stage runs:
+    ``"stage"`` (the GPipe over a stage axis above 1), ``"seq"`` (the
+    ring over a seq axis above 1, when no padding mask comes with the
+    op), or None."""
+    if rt.mesh is None:
+        return None
+    axes = rt.stage.get("mesh_axes") or {}
+    if int(axes.get("stage", 1)) > 1:
+        return "stage"
+    if int(axes.get("seq", 1)) > 1 and mask is None:
+        return "seq"
+    return None
+
+
+def _stage_fwd_fn(rt: StageRuntime, cfg, mask, apply_head: bool,
+                  batch: int, *, remat: bool = False):
+    """The ``(params, x, mask, take=None) -> out`` function of this
+    stage's layer slice (``x`` tokens on the first stage, else hidden
+    states), the JAX worker's ``_stage_fwd_fn``. Dispatch, in order: a
+    mesh with a ``stage`` axis runs the slice through the in-mesh GPipe
+    (``parallel/pipeline.py``, ``pp_n_micro`` micro-batches, sized to
+    this stage's mesh whatever the plan's ``n_micro``); a ``seq`` axis,
+    with no padding mask, runs it sequence parallel with ring attention;
+    else the plain stage forward. Each is differentiable; ``take`` reads
+    a placed tree's pieces (the BACKWARD's reader)."""
+    from tensorlink_tpu_torch.models.transformer import (
+        _seq_stage,
+        stage_forward,
+    )
+    from tensorlink_tpu_torch.parallel.pipeline import (
+        pipelined_stage_forward,
+        pp_n_micro,
+    )
+
+    first = bool(rt.stage["first"])
+    kind = _in_mesh(rt, mask)
+
+    def fwd(params, x, mask, take=None):
+        kw = {"tokens": x} if first else {"hidden": x}
+        if kind == "stage":
+            out, _ = pipelined_stage_forward(
+                params, cfg, rt.mesh, attn_mask=mask,
+                n_micro=pp_n_micro(int(rt.mesh.shape["stage"]), batch),
+                first=first, last=apply_head, remat=remat, take=take, **kw)
+        elif kind == "seq":
+            out, _ = _seq_stage(params, cfg, rt.mesh, first=first,
+                                last=apply_head, remat=remat, take=take,
+                                **kw)
+        else:
+            out, _ = stage_forward(params, cfg, attn_mask=mask,
+                                   first=first, last=apply_head,
+                                   remat=remat, **kw)
+        return out
+
+    return fwd
 
 
 def _train_cfg(rt: StageRuntime):

@@ -205,6 +205,10 @@ class _Placed:
                                       or kinds["up"] != "rep")
         self.lays = [TPLayout([flat[j] for j in grp], **kinds)
                      for grp in self.groups]
+        # a sparse MoE forward whose row blocks run apart takes the whole
+        # batch's slots: the dispatch and each group's block in it
+        self.dispatch = None
+        self.block_of: dict = {}
         # each sub-group's runner: the first sub-group of its group on
         # the same devices, whose activations it shares
         self.runner = []
@@ -418,9 +422,20 @@ def _block(pl: _Placed, xs: dict, cfg: ModelConfig, g: int, rope: dict,
     heads — or, where the heads do not split, all of them once per
     distinct device from the joined q/k/v columns, each device writing
     its own copy of the cache — and the tensor-parallel epilogue up to the
-    MLP (:func:`~.transformer._tp_pre_mlp`). A split MoE layer then runs
-    over every sub-group's shards (:func:`_expert_mlp`), any other MLP per
-    sub-group (:func:`~.transformer._tp_mlp`)."""
+    MLP (:func:`~.transformer._tp_pre_mlp`). A split MoE layer, or any
+    MoE layer with the whole batch's dispatch, then runs over every
+    sub-group's shards (:func:`_expert_mlp`), any other MLP per sub-group
+    (:func:`~.transformer._tp_mlp`)."""
+    return _block_post(pl, *_block_pre(pl, xs, cfg, g, rope, bias, cache,
+                                       write_at, attn_fn, kv_upto, i),
+                       cfg, g, i)
+
+
+def _block_pre(pl: _Placed, xs: dict, cfg: ModelConfig, g: int, rope: dict,
+               bias: dict, cache: KVCache | None, write_at: dict, attn_fn,
+               kv_upto, i: int) -> tuple:
+    """:func:`_block` up to the MLP: ``(pre, lps_of)``, each running
+    sub-group's ``(h, finish)`` and its layer's parameters."""
     pre, lps_of = {}, {}
     for s in pl.runners(g):
         x = xs[s]
@@ -442,13 +457,30 @@ def _block(pl: _Placed, xs: dict, cfg: ModelConfig, g: int, rope: dict,
         attn = ([outs[t] for t in range(lay.tp)] if split
                 else {lay.devices[t]: a for t, a in outs.items()})
         pre[s] = _tp_pre_mlp(x, attn, lps, cfg, lay)
+    return pre, lps_of
+
+
+def _block_post(pl: _Placed, pre: dict, lps_of: dict, cfg: ModelConfig,
+                g: int, i: int) -> dict:
+    """:func:`_block` from the MLP on."""
     hs = {s: h for s, (h, _) in pre.items()}
-    if pl.moe_split:
+    if pl.moe_split or (cfg.moe and pl.dispatch is not None):
         m = _expert_mlp(pl, g, i, hs, lps_of, cfg)
     else:
         m = {s: _tp_mlp(h, [lp["mlp"] for lp in lps_of[s]], cfg, pl.lays[s])
              for s, h in hs.items()}
     return {s: finish(m[s]) for s, (_, finish) in pre.items()}
+
+
+def _choose(pl: _Placed, pre: dict, lps_of: dict, g: int, i: int) -> None:
+    """Record group ``g``'s block's top-k choices at layer ``i`` in the
+    whole batch's dispatch (from its first running sub-group's MLP input
+    on its primary device)."""
+    s = next(iter(pre))
+    lay = pl.lays[s]
+    d = lay.primary
+    pl.dispatch.choose(i, pl.block_of[g], pre[s][0][d],
+                       lps_of[s][lay.first[d]]["mlp"]["router"])
 
 
 def _expert_mlp(pl: _Placed, g: int, i: int, hs: dict, lps_of: dict,
@@ -467,12 +499,25 @@ def _expert_mlp(pl: _Placed, g: int, i: int, hs: dict, lps_of: dict,
             if d not in h:
                 h[d] = hd[d]
                 routers[d] = lps_of[s][t]["mlp"]["router"]
-    shards = []
-    for s in pl.subgroups(g):
-        mlps = ([lp["mlp"] for lp in lps_of[s]] if s in lps_of
-                else pl.layer(s, i, "mlp"))
-        shards += list(zip(pl.lays[s].devices, mlps))
-    out = placed_moe_mlp(h, routers, shards, cfg, n_tensor=pl.tp)
+    if pl.moe_split:
+        shards = []
+        for s in pl.subgroups(g):
+            mlps = ([lp["mlp"] for lp in lps_of[s]] if s in lps_of
+                    else pl.layer(s, i, "mlp"))
+            shards += list(zip(pl.lays[s].devices, mlps))
+        n_tensor = pl.tp
+    else:  # whole experts on every shard: the first running one's
+        s0 = next(iter(hs))
+        shards, n_tensor = [(pl.lays[s0].primary, lps_of[s0][0]["mlp"])], 1
+    route = None
+    if pl.dispatch is not None:
+        k = pl.block_of[g]
+
+        def route(x, router):
+            return pl.dispatch.route(i, k, x, router)
+
+    out = placed_moe_mlp(h, routers, shards, cfg, n_tensor=n_tensor,
+                         route=route)
     return {s: {d: out[d] for d in pl.lays[s].distinct} for s in hs}
 
 
@@ -489,47 +534,99 @@ def _head(pl: _Placed, x: dict, cfg: ModelConfig, g: int) -> torch.Tensor:
     return _tp_logits(shards, xn, cfg, lay)
 
 
-def _run_group(pl: _Placed, g: int, cfg: ModelConfig, x_in, positions,
-               attn_mask, offset, new_len, cache, *, first: bool,
-               last: bool, final_norm: bool, remat: bool, use_flash: bool,
-               attn_fn, kv_upto):
+class _GroupRun:
+    """Group ``g`` over the rows it was given, a layer at a time: the
+    rope tables, masks and embedding at construction, :meth:`layer` per
+    block, :meth:`out` the output on its first device."""
+
+    def __init__(self, pl: _Placed, g: int, cfg: ModelConfig, x_in,
+                 positions, attn_mask, offset, new_len, cache, *,
+                 first: bool, last: bool, final_norm: bool, remat: bool,
+                 use_flash: bool, attn_fn, kv_upto):
+        self.pl, self.g, self.cfg, self.cache = pl, g, cfg, cache
+        self.last, self.final_norm, self.remat = last, final_norm, remat
+        self.attn_fn, self.kv_upto = attn_fn, kv_upto
+        runs = self.runs = pl.runners(g)
+        rope, bias, write_at = self.rope, self.bias, self.write_at = \
+            {}, {}, {}
+        for d in dict.fromkeys(d for s in runs for d in pl.lays[s].distinct):
+            pos = to_device(positions, d)
+            rope[d] = (rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
+                       if cfg.pos == "rope" else (None, None))
+            write_at[d] = to_device(offset, d)
+            if use_flash:
+                bias[d] = None
+                continue
+            if cache is not None:
+                kv_idx = torch.arange(cache.max_len, device=d)[None, :]
+                valid_kv = kv_idx < to_device(new_len, d)[:, None]
+            else:
+                valid_kv = to_device(attn_mask, d)
+            bias[d] = _mask_bias(pos, valid_kv.shape[-1], valid_kv,
+                                 cfg.sliding_window)
+        if first:
+            self.x = {s: _embed(pl, x_in, cfg, positions, s) for s in runs}
+        else:
+            self.x = {s: {d: to_device(x_in, d).to(cfg.dtype)
+                          for d in pl.lays[s].distinct} for s in runs}
+
+    def _args(self, i: int) -> tuple:
+        return (self.pl, self.x, self.cfg, self.g, self.rope, self.bias,
+                self.cache, self.write_at, self.attn_fn, self.kv_upto, i)
+
+    def layer(self, i: int) -> None:
+        args = self._args(i)
+        self.x = (checkpoint(_block, *args, use_reentrant=False)
+                  if self.remat else _block(*args))
+
+    def pre(self, i: int) -> tuple:
+        """Layer ``i`` up to the MLP (a lockstep run's first half)."""
+        return _block_pre(*self._args(i))
+
+    def post(self, i: int, pre: tuple) -> None:
+        self.x = _block_post(self.pl, *pre, self.cfg, self.g, i)
+
+    def out(self):
+        pl, x, cfg, s0 = self.pl, self.x, self.cfg, self.runs[0]
+        if self.last:
+            return (checkpoint(_head, pl, x[s0], cfg, s0,
+                               use_reentrant=False)
+                    if self.remat else _head(pl, x[s0], cfg, s0))
+        if self.final_norm:
+            fn = pl.top(s0, ("final_norm",))[0]["final_norm"]
+            return _norm(x[s0][pl.lays[s0].primary], fn, cfg)
+        return x[s0][pl.lays[s0].primary]
+
+
+def _run_group(pl: _Placed, g: int, cfg: ModelConfig, *args, **kw):
     """Group ``g`` over the rows it was given: the output on its first
     device."""
-    runs = pl.runners(g)
-    rope, bias, write_at = {}, {}, {}
-    for d in dict.fromkeys(d for s in runs for d in pl.lays[s].distinct):
-        pos = to_device(positions, d)
-        rope[d] = (rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
-                   if cfg.pos == "rope" else (None, None))
-        write_at[d] = to_device(offset, d)
-        if use_flash:
-            bias[d] = None
-            continue
-        if cache is not None:
-            kv_idx = torch.arange(cache.max_len, device=d)[None, :]
-            valid_kv = kv_idx < to_device(new_len, d)[:, None]
-        else:
-            valid_kv = to_device(attn_mask, d)
-        bias[d] = _mask_bias(pos, valid_kv.shape[-1], valid_kv,
-                             cfg.sliding_window)
-    if first:
-        x = {s: _embed(pl, x_in, cfg, positions, s) for s in runs}
-    else:
-        x = {s: {d: to_device(x_in, d).to(cfg.dtype)
-                 for d in pl.lays[s].distinct} for s in runs}
+    run = _GroupRun(pl, g, cfg, *args, **kw)
     for i in range(pl.n_layers):
-        args = (pl, x, cfg, g, rope, bias, cache, write_at, attn_fn, kv_upto,
-                i)
-        x = (checkpoint(_block, *args, use_reentrant=False) if remat
-             else _block(*args))
-    s0 = runs[0]
-    if last:
-        return (checkpoint(_head, pl, x[s0], cfg, s0, use_reentrant=False)
-                if remat else _head(pl, x[s0], cfg, s0))
-    if final_norm:
-        fn = pl.top(s0, ("final_norm",))[0]["final_norm"]
-        return _norm(x[s0][pl.lays[s0].primary], fn, cfg)
-    return x[s0][pl.lays[s0].primary]
+        run.layer(i)
+    return run.out()
+
+
+def _lockstep(pl: _Placed, runs: dict) -> dict:
+    """The row blocks' runs (``{group: _GroupRun}``) a layer at a time:
+    each block to its MLP, the whole batch's slots settled from every
+    block's choices (unless settled already), then each block's MLP.
+    Returns each group's output."""
+    for i in range(pl.n_layers):
+        pres = {g: r.pre(i) for g, r in runs.items()}
+        if not pl.dispatch.settled(i):
+            for g, pre in pres.items():
+                _choose(pl, *pre, g, i)
+            pl.dispatch.settle(i)
+        for g, r in runs.items():
+            r.post(i, pres[g])
+    return {g: r.out() for g, r in runs.items()}
+
+
+def _sparse_blocks(cfg: ModelConfig, blocks: int) -> bool:
+    """Whether a forward over ``blocks`` row blocks takes the whole
+    batch's sparse dispatch."""
+    return bool(cfg.moe and cfg.moe_dispatch == "sparse" and blocks > 1)
 
 
 def stage(
@@ -548,6 +645,7 @@ def stage(
     remat: bool = False,
     group: int | None = None,
     take=None,
+    dispatch: tuple | None = None,
 ):
     """``models/transformer.py::_stage_impl`` over a placed tree (see the
     module docstring): ``(out, new_cache)``, ``out`` the logits when
@@ -556,7 +654,11 @@ def stage(
     with its gathers. ``group`` runs that (data × fsdp) group alone over
     every given row, without a cache, and returns its output on the
     group's first device (the train step's per-group backward); ``take``
-    reads the pieces (:class:`_Placed`)."""
+    reads the pieces (:class:`_Placed`). A sparse MoE forward over
+    several row blocks dispatches over the whole batch
+    (``parallel/expert.py::WholeBatchDispatch``): the blocks run in
+    lockstep, a layer at a time; a single group's run takes ``dispatch``,
+    ``(the settled dispatch of :func:`dispatch_plan`, its block)``."""
     pl = _Placed(params, cfg, take)
     x_in = tokens if first else hidden
     if x_in is None:
@@ -599,6 +701,8 @@ def stage(
               use_flash=use_flash, attn_fn=attn_fn, kv_upto=kv_upto)
 
     if group is not None:
+        if dispatch is not None:
+            pl.dispatch, pl.block_of = dispatch[0], {group: dispatch[1]}
         out = _run_group(pl, group, cfg, x_in, positions, attn_mask, offset,
                          new_len, None, **kw)
         return out, None
@@ -607,7 +711,7 @@ def stage(
         _check_cache(cache, pl, blocks)
     b = B // blocks
     per_block = pl.n_groups // blocks  # groups sharing a block
-    outs: dict = {}
+    runs: dict = {}
     seen: set = set()
     for g in range(pl.n_groups):
         k = g // per_block
@@ -619,11 +723,37 @@ def stage(
         if key in seen:
             continue
         seen.add(key)
-        rows = slice(k * b, (k + 1) * b)
-        out = _run_group(pl, g, cfg, x_in[rows], positions[rows],
+        runs[g] = k
+    if _sparse_blocks(cfg, blocks):
+        from ..parallel.expert import WholeBatchDispatch
+
+        pl.dispatch, pl.block_of = WholeBatchDispatch(cfg, T,
+                                                      [b] * blocks), runs
+    outs: dict = {}
+
+    def group_run(g):
+        rows = slice(runs[g] * b, (runs[g] + 1) * b)
+        return _GroupRun(pl, g, cfg, x_in[rows], positions[rows],
                          attn_mask[rows], offset[rows], new_len[rows], cache,
                          **kw)
-        outs.setdefault(k, out)
+
+    if pl.dispatch is not None:
+        firsts = {}
+        for g, k in runs.items():
+            firsts.setdefault(k, g)
+        # blocks in lockstep: a repeated block runs after the first, on
+        # the settled slots
+        got = _lockstep(pl, {g: group_run(g) for g in firsts.values()})
+        outs = {runs[g]: o for g, o in got.items()}
+        for g in runs:
+            if g not in firsts.values():
+                _lockstep(pl, {g: group_run(g)})
+    else:
+        for g, k in runs.items():
+            run = group_run(g)
+            for i in range(pl.n_layers):
+                run.layer(i)
+            outs.setdefault(k, run.out())
     out = (torch.cat([to_device(outs[k], dev0) for k in range(blocks)],
                      dim=0) if blocks > 1 else to_device(outs[0], dev0))
     new_cache = cache
@@ -642,7 +772,7 @@ def stage(
 def logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The LM head of a placed tree over already final-normed ``x``
     (whole), on the mesh's first device."""
-    pl = _Placed(params, cfg)
+    pl = _Placed(_outside_layers(params), cfg)
     lay = pl.lays[0]
     shards = pl.top(0, _head_names(cfg))
     return _tp_logits(shards, {d: to_device(x, d) for d in lay.distinct},
@@ -653,10 +783,54 @@ def head(params: dict, hidden: torch.Tensor, cfg: ModelConfig, *,
          group: int = 0, take=None) -> torch.Tensor:
     """``head_forward`` over a placed tree: final norm and LM head, by
     ``group`` (default the first) on its first device."""
-    pl = _Placed(params, cfg, take)
+    pl = _Placed(_outside_layers(params), cfg, take)
     s = pl.subgroups(group)[0]
     return _head(pl, {d: to_device(hidden, d).to(cfg.dtype)
                       for d in pl.lays[s].distinct}, cfg, s)
+
+
+def dispatch_plan(params: dict, cfg: ModelConfig, blocks: list, *,
+                  tokens: torch.Tensor | None = None,
+                  hidden: torch.Tensor | None = None,
+                  attn_mask: torch.Tensor | None = None, first: bool):
+    """The whole batch's sparse dispatch of a forward whose row blocks run
+    apart: ``blocks`` is ``[(group, rows), …]`` in row order, each
+    group's block of the batch (``tokens``/``hidden``). The blocks run in
+    lockstep without gradients, and every MoE layer's slots settle;
+    returns the :class:`~..parallel.expert.WholeBatchDispatch` (block
+    ``k`` is ``blocks[k]``), or None when the forward needs none."""
+    from ..parallel.expert import WholeBatchDispatch
+
+    if not _sparse_blocks(cfg, len(blocks)):
+        return None
+    x_in = tokens if first else hidden
+    T = x_in.shape[1]
+    pl = _Placed(params, cfg)
+    pl.dispatch = WholeBatchDispatch(
+        cfg, T, [len(range(*r.indices(x_in.shape[0]))) for _, r in blocks])
+    pl.block_of = {g: k for k, (g, _) in enumerate(blocks)}
+    runs = {}
+    with torch.no_grad():
+        for g, rows in blocks:
+            dev = pl.lays[pl.subgroups(g)[0]].primary
+            n = x_in[rows].shape[0]
+            mask = (torch.ones((n, T), dtype=torch.bool, device=dev)
+                    if attn_mask is None else to_device(attn_mask[rows], dev))
+            zero = torch.zeros((n,), dtype=torch.int32, device=dev)
+            pos = torch.arange(T, device=dev)[None].expand(n, T)
+            runs[g] = _GroupRun(
+                pl, g, cfg, x_in[rows], pos, mask, zero,
+                mask.sum(-1).to(torch.int32), None, first=first, last=False,
+                final_norm=False, remat=False, use_flash=False, attn_fn=None,
+                kv_upto=None)
+        _lockstep(pl, runs)
+    return pl.dispatch
+
+
+def _outside_layers(params: dict) -> dict:
+    """The tree without its layers: all the head reads (a tree whose
+    layers split over ``stage`` runs its head here too)."""
+    return {k: v for k, v in params.items() if k != "layers"}
 
 
 def n_groups(params: dict) -> int:
@@ -679,4 +853,5 @@ def whole(params: dict, device=None) -> dict:
     return join(params)
 
 
-__all__ = ["head", "head_axis", "logits", "n_groups", "stage", "whole"]
+__all__ = ["dispatch_plan", "head", "head_axis", "logits", "n_groups",
+           "stage", "whole"]

@@ -43,7 +43,11 @@ its cache by :func:`cache_specs`) with it, each shard's attention through
 :func:`_attend` and each expert shard's block of experts through
 :func:`_moe_block`.
 
-Not ported: ring attention (``seq_mesh``, ROADMAP queue 1 item 5).
+Sequence parallelism (``seq_mesh``): each device of the mesh's ``seq``
+axis runs its ``T/n`` rows through the row-local work — the embedding,
+norms, projections, rope at the global positions, the MLP and the head —
+and attention alone crosses blocks, through
+``parallel/ring.py::ring_attention`` (:func:`_seq_stage`).
 """
 
 from __future__ import annotations
@@ -52,7 +56,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .. import unported
 from ..core.devices import resolve_device
 from ..parallel.mesh import REPLICATED, Split, is_sharded, to_device
 from .base import KVCache, ModelConfig
@@ -398,6 +401,13 @@ def _residual(x, attn_raw, lp, cfg: ModelConfig):
     """The blocks' epilogue: output projection (+bias) and the
     norm-position / parallel-residual wiring. ``attn_raw`` is
     ``[B, T, Hq, hd]``."""
+    h, finish = _pre_mlp(x, attn_raw, lp, cfg)
+    return finish(_mlp(h, lp["mlp"], cfg))
+
+
+def _pre_mlp(x, attn_raw, lp, cfg: ModelConfig) -> tuple:
+    """:func:`_residual` up to the MLP: ``(h, finish)``, the MLP's input
+    and the function that takes the MLP's output to the block's."""
     B, T = attn_raw.shape[:2]
     ap = lp["attn"]
     attn_out = _mm(attn_raw.reshape(B, T, -1), ap["wo"])
@@ -405,13 +415,11 @@ def _residual(x, attn_raw, lp, cfg: ModelConfig):
         attn_out = attn_out + ap["bo"]
     if cfg.norm_position == "post":  # OLMo-2: ln1/ln2 norm sublayer outputs
         x = x + _norm(attn_out, lp["ln1"], cfg)
-        x = x + _norm(_mlp(x, lp["mlp"], cfg), lp["ln2"], cfg)
-    elif cfg.parallel_residual:  # GPT-NeoX: both branches read the input
-        x = x + attn_out + _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
-    else:
-        x = x + attn_out
-        x = x + _mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
-    return x
+        return x, lambda m: x + _norm(m, lp["ln2"], cfg)
+    if cfg.parallel_residual:  # GPT-NeoX: both branches read the input
+        return _norm(x, lp["ln2"], cfg), lambda m: x + attn_out + m
+    x = x + attn_out
+    return _norm(x, lp["ln2"], cfg), lambda m: x + m
 
 
 # ---------------------------------------------------------------------------
@@ -608,10 +616,17 @@ class TPLayout:
     every shard, ``"col"`` split along its output columns, ``"row"``
     along its input rows (the embedding: its vocabulary rows). The
     defaults are :func:`tp_partition_specs`' (every product by column);
-    ``models/sharded.py`` reads them off a placed tree."""
+    ``models/sharded.py`` reads them off a placed tree.
+
+    ``quant`` (``ModelConfig.collective_quant``) makes every gather of a
+    split activation the int8 one
+    (``parallel/ring.py::quantized_all_gather``, tiled): each shard
+    quantized once, dequantized with its own scales on every reader, in
+    the same mesh order."""
 
     def __init__(self, devices, *, wo: str = "col", up: str = "col",
-                 down: str = "col", tok: str = "rep", head: str = "col"):
+                 down: str = "col", tok: str = "rep", head: str = "col",
+                 quant: bool = False):
         self.devices = [torch.device(d) for d in devices]
         self.first: dict[torch.device, int] = {}
         for i, d in enumerate(self.devices):
@@ -620,14 +635,23 @@ class TPLayout:
         self.primary = self.devices[0]
         self.wo, self.up, self.down = wo, up, down
         self.tok, self.head = tok, head
+        self.quant = bool(quant)
 
     @property
     def tp(self) -> int:
         return len(self.devices)
 
-    def gather(self, parts: list) -> dict:
-        """Each distinct device's copy of the reassembled activation."""
-        return {d: _tp_gather(parts, d) for d in self.distinct}
+    def gather(self, parts: list, devices=None) -> dict:
+        """Each distinct device's copy (or each of ``devices``') of the
+        reassembled activation."""
+        devices = self.distinct if devices is None else devices
+        if not self.quant or len(parts) == 1:
+            return {d: _tp_gather(parts, d) for d in devices}
+        from ..parallel.ring import quantize_shards, quantized_all_gather
+
+        wire = quantize_shards(parts)
+        return {d: quantized_all_gather(parts, d, axis=-1, tiled=True,
+                                        quantized=wire) for d in devices}
 
     def rep(self, per_shard: list) -> dict:
         """``{device: the first shard's value there}``."""
@@ -734,7 +758,7 @@ def _tp_logits(shards: list, x: dict, cfg: ModelConfig,
                  for p, d in zip(shards, lay.devices)]
     else:
         parts = [_mm(x[d], p["lm_head"]) for p, d in zip(shards, lay.devices)]
-    logits = _tp_gather(parts, lay.primary)
+    logits = lay.gather(parts, [lay.primary])[lay.primary]
     if cfg.logit_cap is not None:
         logits = cfg.logit_cap * torch.tanh(logits / cfg.logit_cap)
     return logits
@@ -870,9 +894,18 @@ def forward(
     ``remat`` recomputes each block in the backward pass instead of
     keeping its activations (``torch.utils.checkpoint``, non-reentrant).
 
+    ``seq_mesh`` (a mesh with a ``seq`` axis) runs the forward sequence
+    parallel (:func:`_seq_stage`).
+
     The single-stage case of :func:`_stage_impl`, as in JAX."""
     if seq_mesh is not None:
-        raise unported("sequence-parallel ring attention (seq_mesh)", 5)
+        out, new_cache = _seq_stage(
+            params, cfg, seq_mesh, tokens=tokens, cache=cache,
+            attn_mask=attn_mask, positions=positions, first=True,
+            last=not return_hidden, remat=remat)
+        if return_hidden:
+            out = _norm(out, params["final_norm"], cfg)
+        return out, new_cache
     if is_sharded(params):
         from . import sharded
 
@@ -1023,9 +1056,13 @@ def stage_forward(
     stage 0: the final stage returns hidden states and the caller
     finishes with :func:`head_forward` there. A session cache is sized to
     the slice (``KVCache.init(cfg.with_(n_layers=hi - lo), ...)``).
-    Ring attention (``seq_mesh``) raises (ROADMAP queue 1 item 5)."""
+    ``seq_mesh`` runs the stage sequence parallel over its ``seq_axis``
+    (:func:`_seq_stage`)."""
     if seq_mesh is not None:
-        raise unported("sequence-parallel ring attention (seq_mesh)", 5)
+        return _seq_stage(
+            params, cfg, seq_mesh, seq_axis=seq_axis, tokens=tokens,
+            hidden=hidden, cache=cache, attn_mask=attn_mask,
+            positions=positions, first=first, last=last, remat=remat)
     if is_sharded(params):
         from . import sharded
 
@@ -1038,6 +1075,131 @@ def stage_forward(
         attn_mask=attn_mask, positions=positions, first=first, last=last,
         remat=remat,
     )
+
+
+def _seq_stage(
+    params: dict,
+    cfg: ModelConfig,
+    mesh,
+    *,
+    seq_axis: str = "seq",
+    tokens: torch.Tensor | None = None,
+    hidden: torch.Tensor | None = None,
+    cache: KVCache | None = None,
+    attn_mask: torch.Tensor | None = None,
+    positions: torch.Tensor | None = None,
+    first: bool,
+    last: bool,
+    remat: bool = False,
+    take=None,
+):
+    """A stage sequence parallel over ``mesh[seq_axis]``: ``(out, None)``,
+    ``out`` whole on the mesh's first device. Device ``i`` of the axis
+    runs rows ``[i·T/n, (i+1)·T/n)`` of every sequence through the
+    row-local work with its own copy of the params (a placed leaf's piece
+    there, joined when an axis splits it; a whole leaf moved there), and
+    attention runs as the ring (``parallel/ring.py``), quantized when
+    ``cfg.collective_quant``. A sparse MoE dispatch groups tokens over the
+    whole batch, so its MLP runs over the blocks joined on the first
+    device. The JAX refusals hold: no KV cache, no padding mask, no
+    sliding window. ``take`` reads a placed tree's pieces (the train
+    step's reader); ``remat`` checkpoints each block over every device,
+    so over distinct cards its backward runs on one thread
+    (``torch.autograd.set_multithreading_enabled(False)``, as
+    ``engine/training.py::GradFold`` runs it): autograd's device threads
+    would recompute one checkpointed block at once."""
+    from ..parallel.mesh import Sharded
+    from ..parallel.ring import ring_blocks
+
+    if cache is not None:
+        raise ValueError("sequence-parallel attention has no KV cache path")
+    if attn_mask is not None:
+        raise ValueError(
+            "sequence-parallel attention does not support padding masks")
+    if cfg.sliding_window is not None:
+        raise ValueError(
+            "sequence-parallel attention does not support sliding windows")
+    x_in = tokens if first else hidden
+    if x_in is None:
+        raise ValueError("first stage requires tokens" if first
+                         else "non-first stage requires hidden")
+    B, T = x_in.shape[:2]
+    flat = mesh.flat()
+    members = mesh.axis_members(seq_axis)
+    n = len(members)
+    if T % n:
+        raise ValueError(f"sequence length {T} does not split over the "
+                         f"{seq_axis} axis of {n}")
+    b = T // n
+    devs = [flat[j] for j in members]
+    dev0 = flat[0]
+
+    def on(leaf, i):
+        """Device ``i``'s copy of a leaf."""
+        if isinstance(leaf, dict):
+            return {k: on(v, i) for k, v in leaf.items()}
+        if isinstance(leaf, QTensor):
+            return QTensor(q=on(leaf.q, i), scale=on(leaf.scale, i))
+        if isinstance(leaf, Sharded):
+            read = ((lambda j: take(leaf, j, None)) if take is not None
+                    else leaf.shards.__getitem__)
+            if leaf.pieces() == 1:  # the piece that lies there
+                return read(members[i])
+            return leaf.full(devs[i], read)
+        return to_device(leaf, devs[i])
+
+    ps = [on(params, i) for i in range(n)]
+    layers = [_layers(p) if "layers" in p else [] for p in ps]
+    if positions is None:
+        positions = torch.arange(T, device=x_in.device)[None, :].expand(B, T)
+    xs, ropes = [], []
+    for i, d in enumerate(devs):
+        rows = slice(i * b, (i + 1) * b)
+        pos = to_device(positions[:, rows], d)
+        if first:
+            x = _embed_tokens(ps[i], to_device(tokens[:, rows], d).long(),
+                              cfg)
+            if cfg.pos == "learned":
+                pos_idx = torch.clamp(pos.long(), 0, cfg.max_seq_len - 1)
+                x = x + ps[i]["embed"]["pos"][pos_idx].to(cfg.dtype)
+        else:
+            x = to_device(hidden[:, rows], d).to(cfg.dtype)
+        xs.append(x)
+        ropes.append(rope_tables(pos, _rope_dim(cfg), cfg.rope_theta)
+                     if cfg.pos == "rope" else (None, None))
+    quant = bool(cfg.collective_quant)
+    joined_mlp = cfg.moe and cfg.moe_dispatch == "sparse" and n > 1
+
+    def block(i, *xs):
+        lps = [ls[i] for ls in layers]
+        qs, ks, vs = [], [], []
+        for x, lp, (cos, sin) in zip(xs, lps, ropes):
+            h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
+            q, k, v = _qkv(h, lp, cfg, cos, sin)
+            qs.append(q)
+            ks.append(k)
+            vs.append(v)
+        attn = ring_blocks(qs, ks, vs, scale=_attn_scale(cfg), causal=True,
+                           quantized=quant)
+        pre = [_pre_mlp(x, a, lp, cfg) for x, a, lp in zip(xs, attn, lps)]
+        if joined_mlp:  # on the first device (the ring's first)
+            h = torch.cat([to_device(h, dev0) for h, _ in pre], dim=1)
+            m = _mlp(h, lps[0]["mlp"], cfg)
+            ms = [to_device(m[:, k * b:(k + 1) * b], d)
+                  for k, d in enumerate(devs)]
+        else:
+            ms = [_mlp(h, lp["mlp"], cfg) for (h, _), lp in zip(pre, lps)]
+        return tuple(fin(m) for (_, fin), m in zip(pre, ms))
+
+    for i in range(len(layers[0])):
+        xs = (checkpoint(block, i, *xs, use_reentrant=False) if remat
+              else block(i, *xs))
+    if last:
+        outs = [_logits(p, _norm(x, p["final_norm"], cfg), cfg)
+                for p, x in zip(ps, xs)]
+    else:
+        outs = list(xs)
+    return torch.cat([to_device(o, dev0) for o in outs], dim=1), None
 
 
 def slice_stage_params(params: dict, lo: int, hi: int, *, first: bool,

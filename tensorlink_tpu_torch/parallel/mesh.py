@@ -19,20 +19,26 @@ mesh. JAX's ``shard_map`` (and with it ``get_shard_map`` and
 (``engine/paged.py::make_tp_ragged_step``) writes its loop over the
 shards itself and reassembles each split activation with a fixed-order
 concatenation (``models/transformer.py::_tp_gather``), which is what
-JAX's tiled ``all_gather`` computes.
+JAX's tiled ``all_gather`` computes; the GPipe schedule
+(``parallel/pipeline.py``) and the ring (``parallel/ring.py``) loop over
+their axis's devices the same way, moving activations with
+:func:`to_device` where JAX's ``ppermute`` moves them.
 
 A tensor placed on a mesh is a :class:`Sharded`: one tensor per device
 of the mesh, in mesh order — its piece of the whole by a :class:`Split`
 spec (a dimension per axis: one over ``tensor``/``tp``, one over
 ``data``, one over ``fsdp``, one over ``expert``, in any combination),
 one tensor shared by
-every shard on the same device that holds the same piece. :func:`put`
+every shard on the same device that holds the same piece. The ``dim``
+axis may be any axis of the mesh: ``Split(0, "stage")`` splits a stacked
+layer leaf's leading dimension over the in-mesh pipeline stages (JAX's
+``P("stage", ...)``), ``Split(1, "seq")`` an activation's sequence
+dimension over the ring. :func:`put`
 places a tree by a spec tree, as JAX's ``put`` does with
 ``NamedSharding``; :meth:`Sharded.full` joins a leaf exactly,
 :func:`map_pieces` runs an elementwise function piece by piece and
 :func:`take_rows` is the cross-shard row gather (the beam reorder over a
-``data``-split cache). The ``stage`` and ``seq`` axes above 1 raise,
-naming their ROADMAP queue 1 item.
+``data``-split cache).
 
 The default devices are the distinct local CUDA cards. A device repeats
 in a mesh only when the caller names the devices: the tests lay N shards
@@ -104,6 +110,20 @@ class Mesh:
         return [int(np.unravel_index(j, self.devices.shape)[dim])
                 for j in range(self.size)]
 
+    def axis_members(self, axis: str) -> list[int]:
+        """The flattened devices along ``axis`` with every other axis at
+        index 0, in axis order: the devices a loop over that axis runs
+        on (the pipeline's stages, the ring's blocks)."""
+        if axis not in self.axis_names:
+            return [0]
+        dim = self.axis_names.index(axis)
+        out = []
+        for i in range(self.devices.shape[dim]):
+            idx = [0] * self.devices.ndim
+            idx[dim] = i
+            out.append(int(np.ravel_multi_index(idx, self.devices.shape)))
+        return out
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {[str(d) for d in self.flat()]})"
 
@@ -169,14 +189,8 @@ def serving_mesh(
     return build_mesh({"data": int(dp), "tp": int(tp)}, devices)
 
 
-# axes a tree may be placed over, and the ROADMAP queue 1 item that
-# brings each of the others
-_PLACED_AXES = ("data", "fsdp", "expert", "tensor", "tp")
-# tlint: disable=TL006(read-only constant table — never mutated)
-_UNPORTED_AXES = {
-    "stage": ("the stage axis (in-mesh pipeline stages)", 4),
-    "seq": ("the seq axis (sequence-parallel ring attention)", 5),
-}
+# axes a tree may be placed over
+_PLACED_AXES = AXIS_ORDER
 
 
 def _axes(axis) -> tuple[str, ...]:
@@ -238,10 +252,6 @@ def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 def _check_axes(mesh: Mesh) -> None:
     for a, n in mesh.shape.items():
         if n > 1 and a not in _PLACED_AXES:
-            if a in _UNPORTED_AXES:
-                from .. import unported
-
-                raise unported(*_UNPORTED_AXES[a])
             raise ValueError(f"unknown mesh axis {a!r}")
 
 
@@ -293,6 +303,8 @@ def _cut(x, spec: Split, grid: tuple, key: tuple, lead: int = 0):
     lacks the leading layer axis)."""
     idx = [slice(None)] * len(x.shape)
     for dim, n, i in _cuts(spec, grid, key):
+        if dim + lead < 0:  # the layer axis ``x`` lacks
+            continue
         size = x.shape[dim + lead] // n
         idx[dim + lead] = slice(i * size, (i + 1) * size)
     return x[tuple(idx)]
@@ -386,22 +398,37 @@ class Sharded:
     def copy_(self, t: torch.Tensor, layer: int | None = None) -> None:
         """Copy the whole tensor ``t`` into this leaf's pieces, in place —
         into layer ``layer`` of each piece when ``t`` lacks the leading
-        layer axis (the loader fills a stacked leaf layer by layer)."""
+        layer axis (the loader fills a stacked leaf layer by layer; a leaf
+        split along its layers over ``stage`` takes the layer in the piece
+        that holds it)."""
         grid, keys = _grid(self.mesh, self.spec), self.keys()
         lead = 0 if layer is None else -1
         for j in self.distinct():
-            x = self.shards[j] if layer is None else self.shards[j][layer]
+            if layer is None:
+                x = self.shards[j]
+            else:
+                per = self.shards[j].shape[0]
+                at = [i for d, _, i in _cuts(self.spec, grid, keys[j])
+                      if d == 0]
+                if at and layer // per != at[0]:
+                    continue
+                x = self.shards[j][layer % per]
             x.copy_(_cut(t, self.spec, grid, keys[j], lead))
 
-    def full(self, device=None) -> torch.Tensor:
+    def full(self, device=None, read=None) -> torch.Tensor:
         """The whole tensor on ``device`` (default the first shard's):
         the pieces concatenated in mesh order — exactly the tensor that
-        was placed."""
+        was placed. ``read(j)`` reads flattened device ``j``'s piece
+        (default ``shards[j]``; a train step's reader makes each piece a
+        leaf of its own); a leaf no axis cuts reads the piece on
+        ``device`` when there is one."""
         device = torch.device(device) if device is not None \
             else self.shards[0].device
+        read = read or self.shards.__getitem__
         n_a, n_d, n_f, n_e = _grid(self.mesh, self.spec)
         if (n_a, n_d, n_f, n_e) == _WHOLE:
-            return to_device(self.shards[0], device)
+            on = [j for j, t in enumerate(self.shards) if t.device == device]
+            return to_device(read(on[0] if on else 0), device)
         first = self.first_of_keys()
         sp = self.spec
 
@@ -409,7 +436,7 @@ class Sharded:
             return torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
 
         return cat([cat([cat([cat([
-            to_device(self.shards[first[(a, d, f, e)]], device)
+            to_device(read(first[(a, d, f, e)]), device)
             for a in range(n_a)], sp.dim) for f in range(n_f)], sp.fsdp_dim)
             for e in range(n_e)], sp.expert_dim)
             for d in range(n_d)], sp.data_dim)
@@ -476,8 +503,7 @@ def put(mesh: Mesh, tree, specs):
     a :class:`Sharded` whose pieces are contiguous copies on their devices
     (a replicated leaf already on a device is shared there, not copied).
     A tuple node (a ``KVCache`` field list, an optimizer state) places
-    element by element. The ``stage`` and ``seq`` axes above 1 raise,
-    naming their ROADMAP queue 1 item."""
+    element by element."""
     if isinstance(tree, dict):
         if not isinstance(specs, dict) or set(tree) != set(specs):
             raise ValueError(

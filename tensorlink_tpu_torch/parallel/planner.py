@@ -8,11 +8,11 @@ pipeline stages, tied embeddings pinned to stage 0. The emitted
 so either package's worker reads it.
 
 ``stage_param_specs``/``stage_cache_specs`` give a stage's spec trees on
-its ``{data, fsdp, expert, tensor}`` mesh (``parallel/mesh.py::Split``
-leaves); a port worker places the stage by them and trains the placed
-tree, so its memory count is the JAX planner's. It refuses a stage with
-a stage or seq axis (items 4 and 5) or co-slice coworkers (item 4) at
-load.
+its ``{stage, data, fsdp, expert, seq, tensor}`` mesh
+(``parallel/mesh.py::Split`` leaves: a stage axis splits the layers, a
+seq axis replicates the params); a port worker places the stage by them
+and trains the placed tree, so its memory count is the JAX planner's. It
+refuses co-slice coworkers (ROADMAP queue 1 item 4) at load.
 """
 
 from __future__ import annotations
@@ -593,21 +593,30 @@ def stage_param_specs(cfg: ModelConfig, stage: StagePlan) -> dict:
     axis, without the embedding a later stage does not hold (a tied head
     keeps it) and without the final norm and head a stage that does not
     hold the head lacks; an fsdp axis splits each large weight's other
-    dimension too, an expert axis the MoE experts. A stage axis above 1
-    raises, naming its ROADMAP queue 1 item."""
+    dimension too, an expert axis the MoE experts. A ``stage`` axis (the
+    in-mesh GPipe, ``parallel/pipeline.py``) splits the leading layer
+    dimension of every layer leaf over ``stage`` and mixes in no tensor,
+    fsdp or expert split: the embedding and head stay replicated and run
+    outside the pipelined region."""
     from ..models.transformer import partition_specs
+    from .mesh import Split
 
     axes = stage.mesh_axes or {}
-    if int(axes.get("stage", 1)) > 1:
-        from .. import unported
-        from .mesh import _UNPORTED_AXES
-
-        raise unported(*_UNPORTED_AXES["stage"])
     tp = "tensor" if int(axes.get("tensor", 1)) > 1 else None
     fs = "fsdp" if int(axes.get("fsdp", 1)) > 1 else None
     ep = "expert" if int(axes.get("expert", 1)) > 1 else None
+    pp = int(axes.get("stage", 1)) > 1
+    if pp:
+        tp = fs = ep = None
     specs = partition_specs(cfg, tensor_axis=tp, expert_axis=ep,
                             fsdp_axis=fs)
+    if pp:
+        def staged(node):
+            if isinstance(node, dict):
+                return {k: staged(v) for k, v in node.items()}
+            return Split(0, "stage")
+
+        specs["layers"] = staged(specs["layers"])
     if not stage.first:
         specs["embed"].pop("pos", None)
         if not (stage.holds_head and cfg.tie_embeddings):

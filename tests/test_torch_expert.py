@@ -23,6 +23,8 @@ conftest's virtual host devices. Held here:
   norm under AdamW, elementwise under SGD), each expert leaf's gradient
   on its own shard; each distinct piece updated once; two placed runs
   bitwise equal;
+- the sparse dispatch over (data × fsdp) row blocks, with tokens
+  dropped, grouped over the whole batch as JAX's step groups it;
 - a worker on four CPU shards that gets JAX's default ``{expert: 4}``
   plan for a Mixtral job, serves it (dense dispatch) and trains it
   (sparse dispatch, with tokens dropped) as the JAX worker does.
@@ -529,6 +531,61 @@ def test_expert_sparse_step_with_drops_matches_jax(trees):
     got = dict(zip([w], [grads["layers"]["mlp"]["w_gate"].full()]))
     assert not torch.allclose(got[w], dense["layers"]["mlp"]["w_gate"]
                               .full(), rtol=1e-3, atol=0)  # tokens dropped
+
+
+# tlint: disable=TL006(read-only test data)
+ROW_BLOCK_MESHES = {"d2e2": {"data": 2, "expert": 2},
+                    "e2f2": {"expert": 2, "fsdp": 2},
+                    "d2": {"data": 2, "expert": 1}}
+
+
+@pytest.mark.parametrize("group_size", [64, 16])
+@pytest.mark.parametrize("case", list(ROW_BLOCK_MESHES))
+def test_sparse_dispatch_over_row_blocks_groups_the_whole_batch(
+        trees, case, group_size):
+    """At capacity factor 1, where tokens drop, on a mesh whose (data ×
+    fsdp) groups each take a block of the batch's rows, the placed sparse
+    dispatch groups the whole batch's tokens as JAX's GSPMD step does
+    (``parallel/expert.py::WholeBatchDispatch``; on ``{data: 2}`` the
+    experts are whole on every shard): with dispatch groups of 64 tokens,
+    one group over both row blocks of 32, and of 16, groups
+    inside a block, the forward's logits, the loss and each gradient leaf
+    are within 2e-5 of JAX's over the whole batch, and one AdamW step's
+    params within 2e-5 per leaf in norm."""
+    jcfg = JCFG.with_(moe_dispatch="sparse", moe_capacity_factor=1.0,
+                      moe_group_size=group_size)
+    cfg = CFG.with_(moe_dispatch="sparse", moe_capacity_factor=1.0,
+                    moe_group_size=group_size)
+    mesh, _, placed, jput = _placed(trees, ROW_BLOCK_MESHES[case], jcfg, cfg)
+    toks = _batch(7, B=4, T=16)
+    got, _ = forward(placed, torch.as_tensor(toks), cfg)
+    want = np.asarray(j_forward(jput, jnp.asarray(toks), jcfg)[0])
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    grads, loss = ttrain.placed_grads(placed, cfg, torch.as_tensor(toks))
+    jloss = jtrain.causal_lm_loss(jput, jcfg, jnp.asarray(toks), None)[0]
+    assert abs(float(loss) - float(jloss)) <= TOL * abs(float(jloss))
+    for a, b in zip(topt.tree_leaves(tmesh.full_tree(grads)),
+                    jax.tree.leaves(_jax_grads(jput, toks, jcfg)),
+                    strict=True):
+        b = np.asarray(b)
+        assert np.linalg.norm(a.numpy() - b) <= TOL * np.linalg.norm(b)
+    # tokens did drop: capacity factor E/K routes every one
+    full, _ = ttrain.placed_grads(placed, cfg.with_(
+        moe_capacity_factor=E_OVER_K), torch.as_tensor(toks))
+    assert not torch.allclose(grads["layers"]["mlp"]["w_gate"].full(),
+                              full["layers"]["mlp"]["w_gate"].full(),
+                              rtol=1e-3, atol=0)
+    opt = ttrain.make_optimizer("adamw", grad_clip=1.0, lr=1e-3)
+    jopt = jtrain.make_optimizer("adamw", grad_clip=1.0, lr=1e-3)
+    ts = ttrain.make_train_step(cfg, opt, mesh=mesh)
+    jts = jtrain.make_train_step(jcfg, jopt, remat=True, donate=False)
+    p1, _, _ = ts.step_fn(placed, ts.init_state(placed),
+                          {"tokens": torch.as_tensor(toks)})
+    jp1, _, _ = jts.step_fn(jput, jts.init_state(jput),
+                            {"tokens": jnp.asarray(toks)})
+    for a, b in zip(topt.tree_leaves(p1), jax.tree.leaves(jp1), strict=True):
+        a, b = a.full().numpy(), np.asarray(b)
+        assert np.linalg.norm(a - b) <= TOL * np.linalg.norm(b)
 
 
 def test_each_distinct_piece_is_updated_once(trees):

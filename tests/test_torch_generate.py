@@ -471,13 +471,21 @@ def test_unported_paths_are_refused(trees):
     jcfg, _, tp = trees["qwen3"]
     cfg = config_from_jax(dataclasses.asdict(jcfg))
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    # remat and pipeline stages are ported (tests/test_torch_training.py,
-    # tests/test_torch_stages.py); ring attention waits for item 5
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttr.forward(tp, toks, cfg, seq_mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # remat, pipeline stages and ring attention are ported
+    # (tests/test_torch_training.py, tests/test_torch_stages.py,
+    # tests/test_torch_product_parallel.py): a seq mesh of two host
+    # devices gives the unsharded logits, and refuses a padding mask as
+    # JAX does
+    from tensorlink_tpu_torch.parallel.mesh import build_mesh
+
+    seq = build_mesh({"seq": 2}, ["cpu"] * 2)
+    whole, _ = ttr.forward(tp, toks, cfg)
+    ring, _ = ttr.forward(tp, toks, cfg, seq_mesh=seq)
+    np.testing.assert_allclose(ring.numpy(), whole.numpy(), **TOL)
+    with pytest.raises(ValueError, match="padding masks"):
         ttr.stage_forward(tp, cfg, tokens=toks, first=True, last=True,
-                          seq_mesh=object())
+                          attn_mask=torch.ones(toks.shape, dtype=torch.bool),
+                          seq_mesh=seq)
     # a layer slice is a stage: the two one-layer halves, chained, give
     # the whole forward's logits
     want, _ = ttr.forward(tp, toks, cfg)

@@ -162,12 +162,15 @@ def test_queue_1_items_1_and_2_left_no_refusal():
 
 def test_queue_1_item_3_refuses_only_gspmd_and_zero1():
     """Tensor-parallel serving, the GSPMD half, ZeRO-1 (PRs 13–14), the
-    fsdp axis (item 3) and the expert axis (item 4.1) are ported: no
-    source refuses with item 3, and no refusal names the expert axis. The
-    unplaced axes' table keeps the stage axis (item 4) and the seq axis
-    (item 5), and queue 1's items still run from 1 without a gap."""
-    from tensorlink_tpu_torch.parallel.mesh import _PLACED_AXES, \
-        _UNPORTED_AXES
+    fsdp axis (item 3), the expert axis (item 4.1), the stage axis (item
+    4.2) and ring attention with the quantized collectives (item 5) are
+    ported: no source refuses with item 3 or item 5, no refusal names the
+    expert, stage or seq axis, ring attention or the quantized gather, and
+    the only refusals left are the two co-slice coworker sites, citing
+    item 4. Every axis of the mesh places, and queue 1's items still run
+    from 1 without a gap."""
+    from tensorlink_tpu_torch.parallel import mesh as tmesh
+    from tensorlink_tpu_torch.parallel.mesh import _PLACED_AXES
 
     msgs = set()
     left = []
@@ -181,12 +184,16 @@ def test_queue_1_item_3_refuses_only_gspmd_and_zero1():
             msgs.add((p.relative_to(REPO).as_posix(), msg, int(m.group(2))))
     assert not left, left
     assert msgs
-    assert not [m for m in msgs if "expert" in m[1]], msgs
-    assert {a: item for a, (_, item) in _UNPORTED_AXES.items()} == {
-        "stage": 4, "seq": 5}
-    assert not [a for a, (what, _) in _UNPORTED_AXES.items()
-                if "expert" in what]
-    assert "expert" in _PLACED_AXES
+    for word in ("expert", "stage axis", "seq", "ring", "collective_quant"):
+        assert not [m for m in msgs if word in m[1]], (word, msgs)
+    assert not [m for m in msgs if m[2] == 5], msgs
+    assert sorted((path, item) for path, _, item in msgs) == [
+        ("tensorlink_tpu_torch/ml/module.py", 4),
+        ("tensorlink_tpu_torch/ml/worker.py", 4)], msgs
+    assert all("coworkers" in what for _, what, _ in msgs), msgs
+    assert not hasattr(tmesh, "_UNPORTED_AXES")
+    assert set(_PLACED_AXES) >= {"stage", "data", "fsdp", "expert", "seq",
+                                 "tensor", "tp"}
     roadmap = (REPO / "ROADMAP.md").read_text()
     queue = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
     items = {int(n) for n in re.findall(r"^(\d+)\. \*\*", queue, re.M)}

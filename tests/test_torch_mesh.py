@@ -196,10 +196,24 @@ def test_pieces_equal_jax_addressable_shards(spec):
     ("seq", "expert", 5), ("stage", "tensor", 4), ("seq", "tensor", 5),
     ("stage", "fsdp", 4)])
 def test_unplaced_axes_refuse_naming_their_item(axis, beside, item):
-    mesh = tmesh.build_mesh({axis: 2, beside: 2}, [CPU] * 4)
-    with pytest.raises(NotImplementedError,
-                       match=f"{axis} axis.*queue 1 item {item}"):
-        tmesh.put(mesh, torch.zeros(4, 4), tmesh.Split(1, "tensor"))
+    """The stage axis (ROADMAP queue 1 item 4) and the seq axis (item 5)
+    are placed now: a leaf splits over either beside another axis, each
+    device holding its piece, as JAX's ``addressable_shards`` do, and no
+    refusal names either item."""
+    mesh, jm = _mesh({axis: 2, beside: 2})
+    x = np.arange(4 * 4 * 4, dtype=np.float32).reshape(4, 4, 4)
+    spec = {"tensor": tmesh.Split(0, (axis, "tensor")),
+            "expert": tmesh.Split(0, axis, expert_dim=1),
+            "fsdp": tmesh.Split(0, axis, fsdp_dim=1)}[beside]
+    placed = tmesh.put(mesh, torch.as_tensor(x), spec)
+    jplaced = jax.device_put(jnp.asarray(x), NamedSharding(
+        jm, P(*spec.parts(3))))
+    by_dev = {s.device: np.asarray(s.data) for s in jplaced.addressable_shards}
+    for j, d in enumerate(jm.devices.reshape(-1)):
+        np.testing.assert_array_equal(placed.shards[j].numpy(), by_dev[d])
+    assert torch.equal(placed.full(), torch.as_tensor(x))
+    assert not hasattr(tmesh, "_UNPORTED_AXES")
+    assert item in (4, 5)
 
 
 @pytest.mark.parametrize("dest", ["data", "whole"])
@@ -284,9 +298,12 @@ def test_stage_specs_match_jax(stage, axes, tie):
     assert tc.k.parts(5) == _parts(jc.k, 5)
     assert tc.v.parts(5) == _parts(jc.v, 5)
     assert tc.length.parts(1) == _parts(jc.length, 1)
-    with pytest.raises(NotImplementedError, match="stage.*queue 1 item 4"):
-        tplanner.stage_param_specs(cfg, tplanner.StagePlan(
-            **dict(plan, mesh_axes={"stage": 2})))
+    # a stage axis splits every layer leaf's leading dim over stage, and
+    # mixes in no tensor split, as JAX's P("stage", ...)
+    staged = dict(plan, mesh_axes={"stage": 2, **axes})
+    jspecs = jplanner.stage_param_specs(jcfg, jplanner.StagePlan(**staged))
+    specs = tplanner.stage_param_specs(cfg, tplanner.StagePlan(**staged))
+    _walk_specs(specs, jspecs, {k: jp[k] for k in jspecs})
 
 
 def test_placed_tree_equals_jax_addressable_shards(trees):

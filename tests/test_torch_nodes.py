@@ -445,6 +445,20 @@ def _slice_stage(**kw):
             "mesh_axes": {}, "coworkers": [], **kw}
 
 
+def _mesh_slice_fwd(pkg, ckpt):
+    """A bare worker of ``pkg`` holding the first half of a tiny model
+    over a ``{stage: 2}`` mesh: one FORWARD of two rows, no session."""
+    from test_torch_train_nodes import JCFG, bare_worker, call
+
+    w = bare_worker(pkg)
+    call(w, "load_stage", stage=_slice_stage(mesh_axes={"stage": 2}),
+         training=False, model={"name": "tiny", "config": JCFG.to_json(),
+                                "ckpt": ckpt, "seed": 0})
+    toks = np.array([[5, 9, 2, 77, 31], [1, 2, 3, 4, 0]], np.int32)
+    _, body = call(w, "fwd", op="stage", tokens=toks)
+    return np.asarray(body["out"])
+
+
 def _session_ops(pkg, ckpt):
     """A bare worker of ``pkg`` holding the first half of a tiny model:
     a session prefill, one decode op, and the decode op's duplicate."""
@@ -512,7 +526,15 @@ def test_unported_worker_verb_answers_with_its_roadmap_item(verb, checkpoint):
     later half only) equal the JAX worker's at 2e-5, and each leaf of its
     accumulated parameter gradients within 2e-5 in its norm. A stage the port still refuses (a stage mesh
     axis, co-slice coworkers) answers with an error naming its ROADMAP
-    item."""
+    item. A stage mesh axis is ported (ROADMAP queue 1 item 4.2): the
+    slice loads over ``{stage: 2}`` and a whole-sequence FORWARD runs
+    through the in-mesh GPipe, equal to the JAX worker's at 2e-5."""
+    if verb == "load_stage with a mesh":
+        ckpt, _ = checkpoint
+        got, want = _mesh_slice_fwd("port", ckpt), _mesh_slice_fwd("jax",
+                                                                   ckpt)
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+        return
     if verb == "load_stage training a slice":
         ckpt, _ = checkpoint
         got = _slice_train_ops("port", ckpt)

@@ -12,7 +12,7 @@ The scenarios are tests/test_stages.py's:
   every step's logits, the greedy tokens, and the caches' rows and
   lengths;
 - a middle stage of three, fed hidden states and giving hidden states;
-- ring attention (``seq_mesh``) still raises, naming its ROADMAP item.
+- ring attention (``seq_mesh``) runs, and what JAX refuses with it raises.
 """
 
 import dataclasses
@@ -177,9 +177,31 @@ def test_stage_chain_decode_with_session_cache(quantized):
 
 
 def test_ring_attention_still_raises():
-    _, cfg = _cfgs()
-    _, tp = _trees(_cfgs()[0])
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttr.stage_forward(tp, cfg, tokens=toks, first=True, last=True,
-                          seq_mesh=object())
+    """Ring attention is ported (ROADMAP queue 1 item 5): a stage's
+    ``seq_mesh`` forward equals JAX's unsharded stage within 3e-5
+    (tests/test_product_parallel.py's bound), and what JAX refuses — a
+    KV cache, a padding mask, a sliding window — still raises, as a
+    ValueError."""
+    from tensorlink_tpu_torch.parallel.mesh import build_mesh
+
+    jcfg, cfg = _cfgs()
+    jp, tp = _trees(jcfg)
+    toks = _tokens((2, 8), jcfg.vocab_size, seed=5)
+    seq = build_mesh({"seq": 2}, ["cpu"] * 2)
+    want, _ = jtr.stage_forward(jp, jcfg, tokens=jnp.asarray(toks),
+                                first=True, last=True)
+    got, _ = ttr.stage_forward(tp, cfg, tokens=torch.as_tensor(toks),
+                               first=True, last=True, seq_mesh=seq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5,
+                               atol=3e-5)
+    t = torch.as_tensor(toks)
+    cache = KVCache.init(cfg, 2, max_len=16, device="cpu")
+    for kw, words in ((dict(cache=cache), "KV cache"),
+                      (dict(attn_mask=torch.ones(2, 8, dtype=torch.bool)),
+                       "padding masks")):
+        with pytest.raises(ValueError, match=words):
+            ttr.stage_forward(tp, cfg, tokens=t, first=True, last=True,
+                              seq_mesh=seq, **kw)
+    with pytest.raises(ValueError, match="sliding windows"):
+        ttr.stage_forward(tp, cfg.with_(sliding_window=4), tokens=t,
+                          first=True, last=True, seq_mesh=seq)

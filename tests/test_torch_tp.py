@@ -570,10 +570,13 @@ def test_tp_refusals_of_the_port(models):
             make(tensor_parallel=2)
     with pytest.raises(ValueError, match="needs as many devices, have 1"):
         make(tensor_parallel=2, tp_devices=[CPU])
-    # the quantized gather is ROADMAP queue 1 item 5
-    with pytest.raises(NotImplementedError, match="collective_quant.*item 5"):
-        make(cfg.with_(collective_quant=True), tensor_parallel=2,
-             tp_devices=[CPU, CPU])
+    # the quantized gather (ROADMAP queue 1 item 5) is ported
+    # (tests/test_torch_product_parallel.py holds its streams against
+    # JAX's): a collective_quant engine builds over the same shards, its
+    # step's gathers int8
+    cq = make(cfg.with_(collective_quant=True), tensor_parallel=2,
+              tp_devices=[CPU, CPU])
+    assert cq.tensor_parallel == 2 and cq.cfg.collective_quant
     # the dense forward over the placed tree is ported (the GSPMD path,
     # tests/test_torch_mesh.py): the tp engine's own generation engine
     # runs it, with the whole tree's tokens
