@@ -392,6 +392,48 @@ Phases (any failure raises and exits non-zero):
    ("co-slice"). No attention kernel runs (0 launches, asserted).
    coslice_cards() runs (1) over two processes x two cards (NCCL) with
    each card's peak memory.
+21. The slot engine over a tree placed on a planned mesh (placed_phase;
+   engine/paged.py make_placed_ragged_step), every position cuda:0. (1)
+   qwen3-0p6b bf16, MODEL_LAYERS layers placed by stage_param_specs on
+   {tensor: 4}: one ragged chunk over MAIN's block and one decode step
+   through the placed forward, each shard's launch of each kernel (2 kv
+   heads, 4 query heads) bitwise the same heads of one launch over the
+   joined shards and within the bf16 bound of its plain version. (2)
+   qwen3-0p6b bf16 at full width and 28 layers through ContinuousEngine
+   over the tree placed on {tensor: 4} (fp pages, int8 pages, fp with
+   spec decoding) and on {fsdp: 2, tensor: 2} (fp), phase 15's 8
+   requests x 32 tokens, each held against the unsharded slot engine in
+   its page format: greedy streams equal or parted only at a logged
+   near-tie (MESH_TIE, the Megatron rows), per chunk tensor x its
+   launches of each kernel, no plain version, the pages both tries hold
+   per layer within PLACED_PAGE_OF_BF16 x the unsharded engine's distance
+   from a float32 engine's, the pages split by kv head over the first group's
+   tensor shards with each position's KV bytes per token (0 off that
+   group). (3) mixtral-8x7b bf16 at full width, 2 of 32 layers, on
+   {expert: 4} through the slot engine (the dense dispatch) beside the
+   unsharded one: 8 greedy prompts x 32, streams parted only at a logged
+   near-tie or routing flip. (4) A validator, a worker with
+   MLConfig(mesh_devices=["cuda:0"] * 4) and a user: a 4-layer job
+   asking parallelism {tensor: 2, fsdp: 2}, its continuous GENERATEs
+   answered by the job's slot engine (its chunks move, the dense engine
+   is never called), the kernels once a shard a layer per chunk, tokens
+   equal to an in-process placed slot engine with the worker's knobs.
+   Readings: tokens/s and ms per chunk beside the unsharded engine's
+   (launches_placed on the kernels line). placed_cards() runs (2)'s fp
+   runs over four distinct cards with each card's peak memory.
+
+Every phase that means a one-device worker sets MLConfig(mesh_devices=1):
+by default a worker advertises every local card.
+
+Phases 1-3 run alone (their timings are the kernels line's), then
+phase 18 (its training step alone holds about 45 GiB). Then the parent
+runs phases 4-10 and 12 while two worker processes (LANES) run 11 and
+13-15, and 16-17 and 19-21, in that order, beside it on the same card:
+every phase is host-bound, so the three share the card and the host's
+cores; each lane's log is printed when it ends, and a failed lane fails
+the run. Only the speeds, which are readings, see the other lanes. Each
+phase's line gives its seconds and the memory its process reserved at
+most.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -400,6 +442,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import re
 import shutil
@@ -2295,8 +2338,9 @@ class _Launches:
             raise AssertionError(f"{self.label}: engines of depths {depths}")
         L = depths.pop()
         chunks = sum(e.chunks - e._chunks0 for e in self.engines)
-        # a tensor-parallel engine launches each kernel once a shard
-        launched = sum(e.tensor_parallel * (e.chunks - e._chunks0)
+        # a sharded engine (tensor-parallel, or over a placed tree)
+        # launches each kernel once a shard of its pages
+        launched = sum(e.cache.tp * (e.chunks - e._chunks0)
                        for e in self.engines)
         steps = {e.chunk_steps for e in self.engines}
         if chunks == 0 or len(steps) != 1:
@@ -3266,7 +3310,7 @@ def node_phase() -> dict:
     from tensorlink_tpu_torch.nodes.runners import ValidatorNode, WorkerNode
 
     shutil.rmtree(NODE_ROOT, ignore_errors=True)
-    ml = MLConfig()  # device None: the card
+    ml = MLConfig(mesh_devices=1)  # device None: the card
     common = dict(local_test=True, log_dir=str(NODE_ROOT / "logs"),
                   env_file=str(NODE_ROOT / ".env"), ml=ml)
     nodes = []
@@ -3816,7 +3860,8 @@ def train_node_phase() -> dict:
         WorkerNode,
     )
 
-    root = NODE_ROOT / "train"
+    # its own root: phase 10, in another process, clears NODE_ROOT
+    root = NODE_ROOT.parent / "train_node"
     shutil.rmtree(root, ignore_errors=True)
     cfg = _train_cfg(TRAIN_NODE_LAYERS, torch.float32)
     B, T = TRAIN_NODE_BT
@@ -3824,7 +3869,7 @@ def train_node_phase() -> dict:
     batches = [rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
                for _ in range(4)]
     common = dict(local_test=True, log_dir=str(root / "logs"),
-                  env_file=str(root / ".env"), ml=MLConfig())
+                  env_file=str(root / ".env"), ml=MLConfig(mesh_devices=1))
     nodes = []
     res = {"card": _smi(), "layers": TRAIN_NODE_LAYERS}
     try:
@@ -4273,7 +4318,8 @@ def _fleet_nodes(root: Path, n_workers: int, vml, roles=None):
             nodes.append(v)
             for i in range(n_workers):
                 ml = MLConfig(spec_decode=False, max_memory_gb=FLEET_MEM_GB,
-                              worker_role=(roles or {}).get(i, "mixed"))
+                              worker_role=(roles or {}).get(i, "mixed"),
+                              mesh_devices=1)
                 nodes.append(WorkerNode(WorkerConfig(
                     seed_validators=[["127.0.0.1", v.port]],
                     key_dir=str(root / f"w{i}keys"), ml=ml,
@@ -4974,6 +5020,12 @@ def _two_stage_caps(cfg, seq_len: int, *, batch: int = 1,
     return caps
 
 
+def _one_card(ml_cls):
+    """A worker config factory whose workers advertise their one card
+    (``mesh_devices=1``; the default advertises every local card)."""
+    return lambda: ml_cls(mesh_devices=1)
+
+
 def _stages_nodes(root: Path, n_workers: int, ml_fn, endpoint: bool):
     """A port validator, ``n_workers`` workers on the card and a user on
     127.0.0.1."""
@@ -5141,7 +5193,8 @@ def stages_serving() -> dict:
     cfg = config_presets()[NODE_MODEL]
     caps = _two_stage_caps(cfg, STAGES_SEQ)
     ref = _Reference(cfg, STAGES_SEED, STAGES_SEQ)
-    v, ws, user = _stages_nodes(root, 3, MLConfig, endpoint=True)
+    v, ws, user = _stages_nodes(root, 3, _one_card(MLConfig),
+                                endpoint=True)
     res: dict = {"card": _smi(), "capacities": list(caps)}
     parted: list = []
     nodes = [user, *ws, v]
@@ -5367,7 +5420,8 @@ def stages_repair() -> dict:
     root = STAGES_ROOT / "repair"
 
     def wml():
-        return MLConfig(spec_decode=False, max_memory_gb=FLEET_MEM_GB)
+        return MLConfig(spec_decode=False, max_memory_gb=FLEET_MEM_GB,
+                        mesh_devices=1)
 
     cfg = config_presets()[NODE_MODEL]
     v, ws, user = _stages_nodes(root, 3, wml, endpoint=False)
@@ -5696,7 +5750,8 @@ def stages_training() -> dict:
                                   STAGES_TRAIN_CRASH_STEPS))]
     root = STAGES_TRAIN_ROOT
     t_sec = time.monotonic()
-    v, ws, user = _stages_nodes(root, 4, MLConfig, endpoint=False)
+    v, ws, user = _stages_nodes(root, 4, _one_card(MLConfig),
+                                endpoint=False)
     res: dict = {"card": _smi(), "layers": cfg.n_layers, "batch": B,
                  "tokens": T, "n_micro": STAGES_TRAIN_MICRO}
     secs = res["seconds"] = {"nodes": time.monotonic() - t_sec}
@@ -5933,13 +5988,22 @@ def _tp_serve(tp: int, kv_quant: str, prompts, devices=TP_DEVICES,
     kernels' launches checked per chunk (``_Launches``: tp launches of
     each a layer)."""
     ce = _tp_engine(tp, devices, gen, kv_quant=kv_quant)
-    lc = _Launches(f"tp serving {kv_quant} tp={tp}")
+    return ce, _drawn_serve(ce, f"tp serving {kv_quant} tp={tp}", prompts,
+                            TP_NEW)
+
+
+def _drawn_serve(ce, label: str, prompts, n_new: int) -> dict:
+    """``prompts`` (``(ids, knobs, speculative)``) x ``n_new`` tokens on
+    ``ce``, every draw's top two recorded; the kernels' launches checked
+    per chunk (``_Launches``: a launch of each a layer and shard of the
+    pages)."""
+    lc = _Launches(label)
     lc.add(ce)
     store: list = []
     real_fns = paged._row_keys, paged._sample_rows
     paged._row_keys, paged._sample_rows = _draw_recorder(store)
     try:
-        reqs = [ce.submit(ids, max_new_tokens=TP_NEW, seed=300 + i,
+        reqs = [ce.submit(ids, max_new_tokens=n_new, seed=300 + i,
                           sampling=SamplingParams.make(**knobs),
                           speculative=spec)
                 for i, (ids, knobs, spec) in enumerate(prompts)]
@@ -5950,15 +6014,14 @@ def _tp_serve(tp: int, kv_quant: str, prompts, devices=TP_DEVICES,
         wall = time.monotonic() - t0
     finally:
         paged._row_keys, paged._sample_rows = real_fns
-    if not all(r.finished and len(r.tokens) == TP_NEW for r in reqs):
-        raise AssertionError(f"tp serving {kv_quant} tp={tp}: a request "
-                             "did not finish")
+    if not all(r.finished and len(r.tokens) == n_new for r in reqs):
+        raise AssertionError(f"{label}: a request did not finish")
     launches = lc.check()
     ce.check_page_conservation()
     chunks = launches["chunks"]
-    return ce, dict(
+    return dict(
         streams=[list(r.tokens) for r in reqs], draws=_draws(store),
-        wall_s=wall, tokens_per_s=TP_NEW * len(reqs) / wall, chunks=chunks,
+        wall_s=wall, tokens_per_s=n_new * len(reqs) / wall, chunks=chunks,
         ms_per_chunk=wall * 1e3 / chunks, launches=launches,
         per_chunk={n: c / chunks for n, c in launches["launches"].items()},
         snap=ce.serving_snapshot(),
@@ -5984,8 +6047,8 @@ def _held_greedy(label, prompts, got, want, tie=SPEC_TIE) -> list:
             raise AssertionError(f"{label}: draw {at} of request {i} not "
                                  "recorded")
         gap = vw[0] - vw[1]
-        log(f"{label} request {i}: parts at token {at} of {TP_NEW}, tp=1 "
-            f"top-two gap {gap:.6g}")
+        log(f"{label} request {i}: parts at token {at} of {len(b)}, the "
+            f"reference's top-two gap {gap:.6g}")
         if gap > tie:
             raise AssertionError(f"{label}: request {i} parts at token {at} "
                                  f"at a top-two gap {gap} > {tie}")
@@ -5998,8 +6061,9 @@ def _dequantized(fields, page: int, head_dim: int) -> list:
     hd]`` (quantized codes times their scales), for a whole cache's
     fields or a tp cache's (shards joined by kv head)."""
     def rows(t):
-        if isinstance(t, tmesh.Sharded):
-            return torch.cat([x[:, page] for x in t.shards], dim=1)
+        if isinstance(t, tmesh.Sharded):  # on its first shard's card
+            dev = t.shards[0].device
+            return torch.cat([x[:, page].to(dev) for x in t.shards], dim=1)
         return t[:, page]
 
     k, v = rows(fields[0]), rows(fields[1])
@@ -9258,11 +9322,720 @@ def coslice_cards() -> dict:
     return res
 
 
+# -- phase 21: the slot engine over a tree placed on a planned mesh -------
+# tlint: disable=TL006(read-only constant table — never mutated)
+PLACED_LAYOUTS = {"tensor4": {"tensor": 4},
+                  "fsdp2-tensor2": {"fsdp": 2, "tensor": 2}}
+PLACED_DEVICES = ("cuda:0",) * 4  # every position on the one card
+PLACED_LAYERS = 28  # qwen3-0p6b at full depth
+PLACED_NEW = 32  # new tokens per request
+PLACED_SEQ = 2048  # the engines' positions: phase 15's prompts fit
+# (layout, page format, spec decoding): fp, int8 and spec on {tensor: 4},
+# fp on {fsdp: 2, tensor: 2}; the unsharded reference runs once a format,
+# spec off
+PLACED_RUNS = (("tensor4", "none", False), ("tensor4", "int8", False),
+               ("tensor4", "none", True), ("fsdp2-tensor2", "none", False))
+# the placed engine's pages against the unsharded engine's, per layer
+# (the largest |diff| over the pages both tries hold for one token chain,
+# over the layer's largest |value|): at most this multiple of the
+# unsharded bf16 engine's distance from a float32 engine's on the same
+# tree, plus one int8 level over int8 pages. The Megatron rows (wo,
+# w_down) sum partial products in another order than the whole product,
+# which moves the residual stream and every later layer's K and V by
+# bf16 rounding, as bf16 itself moves them from float32 (phase 16's rule
+# for the same layout's logits is 2x; a CPU rehearsal at tiny widths read
+# up to 2.09x with four partial sums, so 3x)
+PLACED_PAGE_OF_BF16 = 3.0
+# tlint: disable=TL006(read-only constant table — never mutated)
+PLACED_MOE_AXES = {"expert": 4}
+PLACED_MOE_SEED = 2122
+PLACED_NODE_LAYERS = 4  # the node job's depth: its start-up is the cost
+# tlint: disable=TL006(read-only constant table — never mutated)
+PLACED_NODE_HINT = {"tensor": 2, "fsdp": 2}
+PLACED_NODE_SEED = 2121
+PLACED_NODE_REQUESTS = 3  # continuous GENERATEs, one after another
+PLACED_ROOT = Path(__file__).resolve().parent / "build" / "placed"
+
+
+def _page_drift(got, want) -> dict:
+    """Per layer, the largest |diff| between the pages of engine ``got``
+    and engine ``want`` over every token chain both tries hold
+    (dequantized; a sharded cache's shards joined by kv head), over the
+    largest |value| of ``want``'s pages of that layer."""
+    by_hash = {n.key_hash: n for n in got.prefix._by_page.values()}
+    hd = want.cfg.head_dim
+    diff = torch.zeros(want.cfg.n_layers, dtype=torch.float64)
+    scale = torch.zeros_like(diff)
+    n, same = 0, 0
+    for node in want.prefix._by_page.values():
+        other = by_hash.get(node.key_hash)
+        if other is None or other.depth != node.depth:
+            continue
+        a = _dequantized(got.cache.fields(), other.page, hd)
+        b = _dequantized(want.cache.fields(), node.page, hd)
+        for x, y in zip(a, b):
+            d = (x.double() - y.double().to(x.device)).abs().flatten(1)
+            diff = torch.maximum(diff, d.amax(1).cpu())
+            scale = torch.maximum(scale, y.double().abs().flatten(1)
+                                  .amax(1).cpu())
+        n += 1
+        same += all(torch.equal(x, y.to(x.device)) for x, y in zip(a, b))
+    if n == 0:
+        raise AssertionError("placed: the two engines share no trie chain")
+    return dict(chains=n, chains_bitwise=same,
+                by_layer=(diff / scale.clamp_min(1e-30)).tolist())
+
+
+def _placed_tree(cfg, params, axes: dict, devices):
+    """``params`` placed by ``stage_param_specs`` on ``axes`` over
+    ``devices`` (None: the distinct local cards), as a worker places a
+    one-stage job on its planned mesh."""
+    from tensorlink_tpu_torch.parallel.planner import (
+        StagePlan,
+        stage_param_specs,
+    )
+
+    mesh = tmesh.build_mesh(axes, list(devices) if devices else None)
+    stage = StagePlan(worker_id="w0", layer_lo=0, layer_hi=cfg.n_layers,
+                      first=True, last=True, holds_head=True,
+                      mesh_axes=dict(axes))
+    return mesh, tmesh.put(mesh, params, stage_param_specs(cfg, stage))
+
+
+def _placed_gen(cfg, params, axes: dict, devices, **kw):
+    """A GenerationEngine over the placed tree, built as the worker
+    builds a planned-mesh job's (its dense cache over the same mesh)."""
+    mesh, placed = _placed_tree(cfg, params, axes, devices)
+    tp = axes.get("tensor", 1)
+    return GenerationEngine(
+        cfg, placed, mesh=mesh, device="cuda",
+        cache_specs=ttr.cache_specs(
+            cfg, data_axis=None, tensor_axis="tensor" if tp > 1 else None),
+        **kw)
+
+
+def _position_kv_bytes(ce) -> list:
+    """KV bytes per token each position of the placed mesh holds: its
+    shard of the pages (the first group's tensor positions), else 0."""
+    from tensorlink_tpu_torch.models.sharded import _Placed
+
+    pl = _Placed(ce.engine.params, ce.cfg)
+    c = ce.cache
+    per = [0] * pl.mesh.size
+    for s, j in enumerate(pl.groups[0] if c.tp > 1 else [0]):
+        for f in c.fields():
+            x = f.shards[s] if isinstance(f, tmesh.Sharded) else f
+            per[j] += x.numel() * x.element_size()
+    return [b // (c.n_pages * c.page_size) for b in per]
+
+
+def _placed_layout(ce, axes: dict, fmt: str) -> dict:
+    """The placed engine's pages: split in ``tensor`` contiguous shards of
+    n_kv / tensor kv heads on the first group's devices, the control
+    tensors whole on the mesh's first device; each position's KV bytes
+    per token the whole's over ``tensor`` (0 off the first group), and
+    the snapshot's page bytes the whole engine's."""
+    from tensorlink_tpu_torch.models.sharded import _Placed
+
+    c, cfg = ce.cache, ce.cfg
+    tp = axes.get("tensor", 1)
+    pl = _Placed(ce.engine.params, cfg)
+    group = pl.lays[0].devices
+    if c.tp != tp:
+        raise AssertionError(f"placed: pages split {c.tp} ways on {axes}")
+    for f in c.fields():
+        shards = f.shards if isinstance(f, tmesh.Sharded) else [f]
+        if [s.device for s in shards] != group[:len(shards)]:
+            raise AssertionError(f"placed: pages on "
+                                 f"{[str(s.device) for s in shards]}")
+        for s in shards:
+            if s.shape[2] != cfg.n_kv_heads // tp or not s.is_contiguous():
+                raise AssertionError(f"placed: shard {tuple(s.shape)}")
+    if isinstance(c.block_tables, tmesh.Sharded) \
+            or c.block_tables.device != group[0]:
+        raise AssertionError("placed: control state is not whole on the "
+                             "mesh's first device")
+    whole = _at_depth(KV_BYTES_PER_TOKEN, fmt, cfg.n_layers)
+    per = _position_kv_bytes(ce)
+    want = [whole // tp if j in pl.groups[0] else 0
+            for j in range(len(per))]
+    if per != want:
+        raise AssertionError(f"placed: KV bytes per token by position "
+                             f"{per}, not {want}")
+    snap = ce.serving_snapshot()
+    if snap["kv_page_bytes"] // c.page_size != whole:
+        raise AssertionError(f"placed: {snap['kv_page_bytes']} page bytes")
+    return dict(kv_bytes_per_token_by_position=per,
+                kv_bytes_per_token=whole)
+
+
+def placed_kernel_check() -> dict:
+    """One ragged chunk over MAIN's block and one decode step after it,
+    through the placed step's forward (``paged._PlacedFwd``) over
+    qwen3-0p6b bf16 at full width and MODEL_LAYERS layers placed on
+    {tensor: 4} over cuda:0, fp pages of seeded random context: every
+    shard's launch of each kernel (n_kv / 4 = 2 kv heads, 4 query heads,
+    a shape no other phase launches) bitwise equal to the same heads of
+    one launch over the four shards' heads joined on the same inputs, and
+    within the bf16 bound of its plain version."""
+    cfg, params = _model()
+    dev = torch.device("cuda")
+    S, C, page = MAIN["S"], MAIN["C"], MAIN["page"]
+    whole = PagedKVCache.init(cfg, S, page_size=page,
+                              max_len=MAIN["n_pp"] * page, device=dev)
+    n_pp = whole.pages_per_slot
+    rng = np.random.default_rng(21)
+    perm = rng.permutation(np.arange(1, whole.n_pages))[: S * n_pp]
+    whole.block_tables.copy_(torch.from_numpy(
+        perm.reshape(S, n_pp).astype(np.int32)))
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(211)
+    whole.k.normal_(generator=gk)
+    whole.v.normal_(generator=gk)
+    _, placed = _placed_tree(cfg, params, PLACED_LAYOUTS["tensor4"],
+                             PLACED_DEVICES)
+    fwd = paged._PlacedFwd(placed, cfg, True)
+    _, cmesh = paged.placed_cache_mesh(placed, cfg)
+    split = tmesh.Split(2)
+    pc = PagedKVCache(
+        k=tmesh.put(cmesh, whole.k, split), v=tmesh.put(cmesh, whole.v, split),
+        block_tables=whole.block_tables.clone(),
+        lengths=whole.lengths.clone())
+    del whole
+    tp = pc.tp
+    blk = torch.tensor(rng.integers(0, cfg.vocab_size, size=(S, C)),
+                       dtype=torch.int32, device=dev)
+    starts, nv = (torch.tensor(a, dtype=torch.int32, device=dev)
+                  for a in (MAIN_STARTS, MAIN_NVALID))
+    wp, wo, pos, _ = paged._ragged_write_indices(pc.block_tables, starts,
+                                                 nv, page, n_pp, C)
+    ragged_r, decode_r = {}, {}
+    real_r, real_d = paged.ragged_paged_attention, paged.paged_attention
+    paged.ragged_paged_attention = _shard_checker(
+        real_r, att.ragged_paged_attention_ref, att.ragged_paged_attention,
+        tp, ragged_r)
+    paged.paged_attention = _shard_checker(
+        real_d, att.paged_attention_ref, att.paged_attention, tp, decode_r)
+    try:
+        x = fwd.ragged(blk, pc, starts, nv, wp, wo, pos)
+        lens = [st + n for st, n in zip(MAIN_STARTS, MAIN_NVALID)]
+        pc.lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        tok = torch.tensor(rng.integers(0, cfg.vocab_size, size=S),
+                           dtype=torch.int32, device=dev)
+        logits, _ = fwd.decode(tok, pc, pc.lengths > 0)
+    finally:
+        paged.ragged_paged_attention = real_r
+        paged.paged_attention = real_d
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    for name, r in (("ragged", ragged_r), ("decode", decode_r)):
+        if r.get("layers") != L or r.get("unequal") or r["plain"] > 1.0:
+            raise AssertionError(f"placed kernels: {name} over {tp} shards: "
+                                 f"{r}")
+    if not torch.isfinite(logits).all() or not all(
+            torch.isfinite(t).all() for t in x.values()):
+        raise AssertionError("placed kernels: not finite")
+    del pc, placed, fwd
+    torch.cuda.empty_cache()
+    return dict(shards=tp, layers=L, ragged_of_bound=ragged_r["plain"],
+                decode_of_bound=decode_r["plain"],
+                ragged_shard_bitwise=True, decode_shard_bitwise=True)
+
+
+def placed_serving(devices=PLACED_DEVICES, runs=PLACED_RUNS) -> dict:
+    """qwen3-0p6b bf16 at full width and PLACED_LAYERS layers through the
+    slot engine over a tree placed by stage_param_specs (``runs``),
+    each run held against the unsharded slot engine over the same weights
+    and page format (spec off): phase 15's 8 requests x PLACED_NEW tokens
+    (3 sampled, 2 repetitive ones that speculate where spec is on),
+    greedy streams equal or parted only where the unsharded run's top-two
+    gap is within MESH_TIE (logged); per chunk, tensor x the unsharded
+    engine's launches of each kernel (each shard's launch counted), no
+    plain version; the pages both engines' tries hold, per layer, within
+    PLACED_PAGE_OF_BF16 x the unsharded engine's distance from a float32
+    engine's (fp pages, the same requests; one int8 level more over int8
+    pages); the pages' layout and each position's KV bytes per token.
+    Readings: tokens/s and ms per chunk beside the unsharded engine's."""
+    cfg, params = _model(PLACED_LAYERS)
+    prompts = _tp_prompts(cfg)
+    refs = {}
+    for kv_quant in sorted({kv for _l, kv, _s in runs} | {"none"}):
+        one = _cont(GenerationEngine(cfg, params, max_seq_len=PLACED_SEQ,
+                                     device="cuda"), kv_quant=kv_quant)
+        refs[kv_quant] = one, _drawn_serve(
+            one, f"placed reference {_fmt(kv_quant)}", prompts, PLACED_NEW)
+    f32 = _cont(GenerationEngine(cfg.with_(dtype=torch.float32),
+                                 _cast_tree(params), max_seq_len=PLACED_SEQ,
+                                 device="cuda"))
+    f32_run = _drawn_serve(f32, "placed reference f32", prompts, PLACED_NEW)
+    bf16_drift = _page_drift(refs["none"][0], f32)
+    f32.close()
+    del f32
+    torch.cuda.empty_cache()
+    res: dict = dict(card=_smi(), layers=cfg.n_layers, requests=len(prompts),
+                     new_tokens=PLACED_NEW, unsharded={
+                         _fmt(kv): dict(tokens_per_s=r["tokens_per_s"],
+                                        ms_per_chunk=r["ms_per_chunk"],
+                                        chunks=r["chunks"],
+                                        launches_per_chunk=r["per_chunk"])
+                         for kv, (_o, r) in refs.items()})
+    launches = {}
+    for name, kv_quant, spec in runs:
+        axes = PLACED_LAYOUTS[name]
+        fmt = _fmt(kv_quant)
+        label = f"placed {name} {fmt}" + (" spec" if spec else "")
+        gen = _placed_gen(cfg, params, axes, devices,
+                          max_seq_len=PLACED_SEQ)
+        ce = _cont(gen, kv_quant=kv_quant, spec_decode=spec, spec_draft=8)
+        if ce._mesh is None or ce._mesh.shape != axes:
+            raise AssertionError(f"{label}: not the placed step")
+        r = _drawn_serve(ce, label, prompts, PLACED_NEW)
+        one, r1 = refs[kv_quant]
+        parted = _held_greedy(label, prompts, r, r1, tie=MESH_TIE)
+        tp = ce.cache.tp
+        for n in NEW_PATHS:
+            if r["per_chunk"][n] != tp * r1["per_chunk"][n]:
+                raise AssertionError(f"{label}: {n} launches per chunk "
+                                     f"{r['per_chunk'][n]}, the unsharded "
+                                     f"engine's {r1['per_chunk'][n]}")
+        pages = _page_drift(ce, one)
+        level = 1.0 / 127 if kv_quant == "int8" else 0.0
+        of_bound = [d / (PLACED_PAGE_OF_BF16 * b + level) for d, b in zip(
+            pages["by_layer"], bf16_drift["by_layer"])]
+        pages["of_bound"] = max(of_bound)
+        if pages["of_bound"] > 1.0:
+            raise AssertionError(f"{label}: pages {pages}, the bf16 "
+                                 f"engine's from float32 {bf16_drift}")
+        sampled = [a == b for (_i, k, _s), a, b in zip(
+            prompts, r["streams"], r1["streams"]) if k]
+        out = dict(axes=axes, layout=_placed_layout(ce, axes, fmt),
+                   tokens_per_s=r["tokens_per_s"],
+                   ms_per_chunk=r["ms_per_chunk"], chunks=r["chunks"],
+                   launches_per_chunk=r["per_chunk"], greedy_parted=parted,
+                   sampled_equal=f"{sum(sampled)} of {len(sampled)}",
+                   trie_pages=pages)
+        if spec:
+            snap = r["snap"]
+            if snap["spec_drafted"] <= 0 \
+                    or snap["spec_tokens_per_pass"] <= 1.0:
+                raise AssertionError(f"{label}: drafted "
+                                     f"{snap['spec_drafted']}, "
+                                     f"{snap['spec_tokens_per_pass']} "
+                                     "tokens a verify pass")
+            out["spec_tokens_per_pass"] = snap["spec_tokens_per_pass"]
+        res[label.removeprefix("placed ")] = out
+        launches[label] = r["launches"]
+        ce.close()
+        del ce, gen
+        torch.cuda.empty_cache()
+    for one, _r in refs.values():
+        one.close()
+    res["bf16_page_drift_from_f32"] = bf16_drift
+    res["f32_tokens_per_s"] = f32_run["tokens_per_s"]
+    res["launches"] = launches
+    return res
+
+
+def _prefill_flip(one, sharded, ids, cfg, per_layer: int):
+    """:func:`_routing_flip` over every position of one prefill of
+    ``ids`` through the unsharded dense engine and the placed one: a slot
+    engine's stream can part well after a position whose experts flipped
+    (that position's K and V moved, not its token), so the whole context
+    up to the parting token is searched."""
+    with _RouterRecord().recording() as a:
+        one.prefill([ids])
+    with _RouterRecord().recording() as b:
+        sharded.prefill([ids])
+    return _routing_flip(a, b, 0, [0] * len(ids), range(len(ids)), cfg,
+                         per_layer)
+
+
+def placed_moe_serving(devices=PLACED_DEVICES) -> dict:
+    """mixtral-8x7b bf16 at full width and MIXTRAL_LAYERS of its 32
+    layers through the slot engine over a tree placed on {expert: 4}
+    (placed_moe_mlp's dense dispatch: each expert shard's experts over
+    every token, summed in shard order) beside the unsharded slot engine
+    on the same weights: 8 greedy prompts of 64–512 tokens x PLACED_NEW
+    tokens, fp pages. Streams equal or parted at a logged near-tie or a
+    routing flip (``_moe_held``: the flip read from one dense prefill of
+    the parting context through the unsharded and the placed engine);
+    per chunk one launch of each kernel a layer, as unsharded (the pages
+    live on the first expert shard, whose attention runs once), no plain
+    version."""
+    cfg = _expert_cfg(MIXTRAL_LAYERS, torch.bfloat16)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(PLACED_MOE_SEED)
+    params = init_params(cfg, g, device="cuda")
+    rng = np.random.default_rng(PLACED_MOE_SEED)
+    prompts = [(rng.integers(0, cfg.vocab_size, n).tolist(), {}, False)
+               for n in EXPERT_PROMPT_LENS]
+    kw = dict(max_seq_len=EXPERT_SEQ_BUCKETS[-1] + 2 * PLACED_NEW,
+              seq_buckets=EXPERT_SEQ_BUCKETS, batch_buckets=(1,))
+    dense = GenerationEngine(cfg, params, device="cuda", **kw)
+    one = _cont(dense)
+    r1 = _drawn_serve(one, "placed moe reference", prompts, PLACED_NEW)
+    one.close()
+    gen = _placed_gen(cfg, params, PLACED_MOE_AXES, devices, **kw)
+    ce = _cont(gen)
+    if ce._mesh is None or ce.cache.tp != 1:
+        raise AssertionError("placed moe: not the placed step")
+    r = _drawn_serve(ce, "placed moe expert4", prompts, PLACED_NEW)
+    for n in NEW_PATHS:
+        if r["per_chunk"][n] != r1["per_chunk"][n]:
+            raise AssertionError(f"placed moe: {n} launches per chunk "
+                                 f"{r['per_chunk'][n]} vs "
+                                 f"{r1['per_chunk'][n]}")
+    parted: list = []
+    per_layer = len(set(gen.mesh.flat()))
+    ids = [p for p, _k, _s in prompts]
+    _moe_held("placed moe expert4", dense, ids, r["streams"], r1["streams"],
+              parted, lambda i, at: _prefill_flip(
+                  dense, gen, ids[i] + r1["streams"][i][:at], cfg,
+                  per_layer))
+    ce.close()
+    res = dict(card=_smi(), layers=cfg.n_layers, axes=PLACED_MOE_AXES,
+               tokens_per_s=r["tokens_per_s"], ms_per_chunk=r["ms_per_chunk"],
+               chunks=r["chunks"], launches_per_chunk=r["per_chunk"],
+               unsharded=dict(tokens_per_s=r1["tokens_per_s"],
+                              ms_per_chunk=r1["ms_per_chunk"],
+                              chunks=r1["chunks"]),
+               parted=parted, launches=r["launches"])
+    del ce, gen, one, dense, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def placed_node(devices=PLACED_DEVICES) -> dict:
+    """A port validator, a worker advertising ``devices``
+    (``MLConfig(mesh_devices=[...])``) and a user on 127.0.0.1: a
+    DistributedModel of qwen3-0p6b bf16 at full width and
+    PLACED_NODE_LAYERS layers asking parallelism PLACED_NODE_HINT is
+    planned {tensor: 2, fsdp: 2}; its continuous GENERATEs are answered
+    by the job's slot engine over the placed tree (its chunks move, the
+    dense engine's generate and prefill calls do not), each kernel
+    launched once a shard a layer per chunk, the tokens equal to an
+    in-process slot engine with the worker's knobs over the same seeded
+    tree placed the same way."""
+    from tensorlink_tpu_torch.core.config import (
+        MLConfig,
+        UserConfig,
+        ValidatorConfig,
+        WorkerConfig,
+    )
+    from tensorlink_tpu_torch.ml.module import DistributedModel
+    from tensorlink_tpu_torch.nodes.runners import (
+        UserNode,
+        ValidatorNode,
+        WorkerNode,
+    )
+
+    root = PLACED_ROOT / "node"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = config_presets()["qwen3-0p6b"].with_(n_layers=PLACED_NODE_LAYERS)
+    rng = np.random.default_rng(PLACED_NODE_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (40, 300, 700)[:PLACED_NODE_REQUESTS]]
+    common = dict(local_test=True, log_dir=str(root / "logs"),
+                  env_file=str(root / ".env"))
+    nodes = []
+    res: dict = dict(card=_smi(), layers=PLACED_NODE_LAYERS,
+                     hint=PLACED_NODE_HINT)
+    try:
+        with _clean_spawn():
+            v = ValidatorNode(ValidatorConfig(
+                endpoint=False, key_dir=str(root / "vkeys"), ml=MLConfig(),
+                **common)).start()
+            nodes.append(v)
+            seeds = [["127.0.0.1", v.port]]
+            w = WorkerNode(WorkerConfig(
+                seed_validators=seeds, key_dir=str(root / "wkeys"),
+                ml=MLConfig(mesh_devices=list(devices)), **common)).start()
+            nodes.append(w)
+            u = UserNode(UserConfig(
+                seed_validators=seeds, key_dir=str(root / "ukeys"),
+                ml=MLConfig(), **common)).start()
+            nodes.append(u)
+        deadline = time.monotonic() + 60
+        while len(v.status()["peers"]) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("placed node: the nodes never met")
+            time.sleep(0.1)
+        model = DistributedModel(cfg, node=u, seed=PLACED_NODE_SEED,
+                                 parallelism=PLACED_NODE_HINT)
+        axes = model.plan.stages[0].mesh_axes
+        if axes != PLACED_NODE_HINT:
+            raise AssertionError(f"placed node: planned {axes}")
+        rt = w.executor.jobs[model.job_id]
+        if rt.mesh is None or not tmesh.is_sharded(rt.params):
+            raise AssertionError(f"placed node: the job's mesh {rt.mesh}")
+        static: dict = {}
+
+        def counted(name):
+            real = getattr(rt.engine, name)
+
+            def call(*a, **k):
+                static[name] = static.get(name, 0) + 1
+                return real(*a, **k)
+
+            return call
+
+        for name in ("generate", "generate_compiled", "generate_chunked",
+                     "generate_beam", "generate_lookahead", "prefill"):
+            setattr(rt.engine, name, counted(name))
+        # the first request builds the job's slot engine
+        model.generate([prompts[0]], max_new_tokens=4, continuous=True)
+        cont = rt.cont
+        if cont is None or cont._mesh is not rt.mesh or cont.cache.tp != 2:
+            raise AssertionError(f"placed node: the slot engine {cont}")
+        lc = _Launches("placed node")
+        lc.add(cont)
+        t0 = time.monotonic()
+        got = [model.generate([p], max_new_tokens=PLACED_NEW, seed=i,
+                              continuous=True)[0]
+               for i, p in enumerate(prompts)]
+        wall = time.monotonic() - t0
+        launches = lc.check()
+        if static:
+            raise AssertionError(f"placed node: the dense engine ran "
+                                 f"{static}")
+        # the reference: the worker's knobs, the same requests in the
+        # same order (the warm one first: its pages are in the trie)
+        ml = w.executor.node.config.ml
+        g = torch.Generator(device="cuda")
+        g.manual_seed(PLACED_NODE_SEED)
+        ref_gen = _placed_gen(cfg, init_params(cfg, g, device="cuda"),
+                              axes, devices, max_seq_len=min(
+                                  cfg.max_seq_len, ml.max_seq_len))
+        ref = _cont(ref_gen, max_slots=ml.cont_max_slots,
+                    page_size=ml.cont_page_size,
+                    chunk_steps=ml.cont_chunk_steps,
+                    prefill_chunk=ml.prefill_chunk,
+                    prefix_cache=ml.prefix_cache,
+                    kv_quant=str(ml.kv_quant or "none"),
+                    spec_decode=bool(ml.spec_decode),
+                    spec_draft=int(ml.spec_draft))
+        ref.submit(prompts[0], max_new_tokens=4, seed=0)
+        ref.run_until_idle()
+        for i, p in enumerate(prompts):
+            req = ref.submit(p, max_new_tokens=PLACED_NEW, seed=i)
+            ref.run_until_idle()
+            _equal_stream(f"placed node request {i}", got[i], req.tokens)
+        ref.close()
+        res.update(planned=axes, chunks=launches["chunks"],
+                   launches=launches, wall_s=wall,
+                   tokens_per_s=PLACED_NEW * len(prompts) / wall,
+                   dense_calls=static)
+        model.shutdown()
+    finally:
+        for nd in reversed(nodes):
+            nd.stop()
+        nodes = v = w = u = rt = None
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def placed_phase() -> dict:
+    """Phase 21: the slot engine over a tree placed on a planned mesh,
+    every position on cuda:0. The per-shard kernel check, qwen3-0p6b's
+    runs, mixtral-8x7b on {expert: 4}, the node path, and readings."""
+    t0 = time.monotonic()
+    res = dict(kernels=placed_kernel_check(), serving=placed_serving(),
+               moe=placed_moe_serving(), node=placed_node())
+    res["seconds"] = time.monotonic() - t0
+    log(f"placed (qwen3-0p6b bf16 at {PLACED_LAYERS} layers on "
+        f"{list(PLACED_LAYOUTS.values())}, mixtral-8x7b at {MIXTRAL_LAYERS} "
+        f"layers on {PLACED_MOE_AXES}, every position on cuda:0; one card: "
+        f"a correctness run, the speeds are readings, not claims; "
+        f"{_smi()}): {json.dumps(res)}")
+    log(f"phase 21 took {res['seconds']:.1f} s ({_smi()})")
+    return res
+
+
+def placed_cards() -> dict:
+    """Not a phase of ``main()``: it needs four cards on one host. Phase
+    21's fp runs of qwen3-0p6b on {tensor: 4} and {fsdp: 2, tensor: 2}
+    with the positions on the distinct local cards, against the
+    unsharded slot engine on card 0: greedy streams equal up to a logged
+    near-tie, per chunk tensor x the unsharded launches of each kernel,
+    each shard's pages on its own card; each card's peak memory.
+    Tokens/s and ms per chunk are readings."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"placed_cards: needs 4 cards, have {n}")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    for c in cards:
+        torch.empty(1, device=c)  # a card's stats exist once it is used
+        torch.cuda.reset_peak_memory_stats(c)
+    res = placed_serving(devices=None, runs=tuple(
+        (name, "none", False) for name in PLACED_LAYOUTS))
+    res["peak_bytes"] = _peaks(cards)
+    res["cards"] = n
+    log(f"placed_cards (qwen3-0p6b bf16 at {PLACED_LAYERS} layers, "
+        f"positions on distinct cards; readings, not claims; "
+        f"{res['card']} x {n}): {json.dumps(res)}")
+    return res
+
+
+# a phase starts once the card has this much memory free, or after
+# PHASE_FREE_WAIT_S: the lanes' processes share the card
+PHASE_FREE_GIB = 24.0
+PHASE_FREE_WAIT_S = 180.0
+
+
+def _await_memory(name: str) -> None:
+    t0 = time.monotonic()
+    while torch.cuda.mem_get_info()[0] < PHASE_FREE_GIB * 2**30 \
+            and time.monotonic() - t0 < PHASE_FREE_WAIT_S:
+        time.sleep(1.0)
+    waited = time.monotonic() - t0
+    if waited >= 1.0:
+        log(f"phase {name}: waited {waited:.0f}s for {PHASE_FREE_GIB} GiB "
+            f"of the card free ({torch.cuda.mem_get_info()[0] / 2**30:.1f})")
+
+
 def _phase(name, fn, *args):
+    if torch.cuda.is_available():  # phase 1 fails without a card
+        _await_memory(name)
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     out = fn(*args)
-    log(f"phase {name}: {time.monotonic() - t0:.1f}s")
+    # the reserved memory this process's phase peaked at; what it frees
+    # goes back to the card for the other processes: an engine's metrics
+    # gauges refer back to it, so its pages go only at a collection
+    peak = torch.cuda.max_memory_reserved() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    live = torch.cuda.memory_allocated() / 2**30
+    log(f"phase {name}: {time.monotonic() - t0:.1f}s, peak {peak:.1f} GiB "
+        f"reserved, {live:.1f} GiB live after")
     return out
+
+
+# phases 11, 13-17 and 19-21 run in two worker processes ("lanes")
+# beside the parent's phases 4-10 and 12, once the kernel timings (which
+# must run alone on the card) and phase 18 (its expert training step
+# alone holds about 45 GiB) are done: each phase is host-bound (one thread
+# issues its launches; the card is busy a tenth to a third of the time),
+# so three processes share the card and the host's cores. Each lane runs
+# its phases in order (phase 17 holds against phase 16's unsharded run,
+# in the same lane) and writes their results as JSON; the parent prints
+# its log and fails if a lane fails. Nothing about a check changes: only
+# the speeds, which are readings, see the other lanes' load.
+# tlint: disable=TL006(read-only constant table — never mutated)
+LANES = {
+    "lane1": ("training", "stages", "stages training", "tensor parallel"),
+    "lane2": ("mesh", "fsdp", "product parallel", "coslice",
+              "placed serving"),
+}
+LANE_ROOT = Path(__file__).resolve().parent / "build" / "lanes"
+
+
+def _watch_parent() -> None:
+    """End this lane (through its phases' clean-up) if the process that
+    started it is gone."""
+    import _thread
+    import os
+
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        _thread.interrupt_main()
+        time.sleep(60.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def run_lane(lane: str) -> None:
+    """One lane's phases, in a process of its own (the device set up as
+    phase 1 does); their results to ``LANE_ROOT/<lane>.json``."""
+    _watch_parent()
+    device_phase()
+    reference: dict = {}  # phase 16's unsharded training run, for 17
+    fns = {
+        "training": training_phase, "stages": stages_phase,
+        "stages training": stages_training_phase,
+        "tensor parallel": tp_phase,
+        "mesh": lambda: mesh_phase(reference),
+        "fsdp": lambda: fsdp_phase(reference),
+        "product parallel": product_phase,
+        "coslice": coslice_phase, "placed serving": placed_phase,
+    }
+    out = {}
+    for name in LANES[lane]:
+        out[name] = _jsonable(_phase(name, fns[name]))
+    (LANE_ROOT / f"{lane}.json").write_text(json.dumps(out))
+
+
+def _jsonable(x):
+    """A phase's result as JSON takes it: string keys, lists for tuples,
+    numbers for tensors and numpy scalars, ``repr`` for anything else."""
+    if isinstance(x, dict):
+        return {k if isinstance(k, str) else str(k): _jsonable(v)
+                for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, (torch.Tensor, np.ndarray, np.generic)):
+        return x.tolist()
+    if x is None or isinstance(x, (str, int, float, bool)):
+        return x
+    return repr(x)
+
+
+def _start_lanes() -> dict:
+    """Start every lane's process; its output goes to
+    ``LANE_ROOT/<lane>.log``."""
+    shutil.rmtree(LANE_ROOT, ignore_errors=True)
+    LANE_ROOT.mkdir(parents=True)
+    repo = Path(__file__).resolve().parent
+    procs = {}
+    for lane in LANES:
+        out = open(LANE_ROOT / f"{lane}.log", "w")
+        procs[lane] = (subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke as c; c.run_lane({lane!r})"],
+            cwd=repo, stdout=out, stderr=subprocess.STDOUT), out)
+    return procs
+
+
+def _stop_lanes(procs: dict) -> None:
+    """Stop every lane still running (a failed parent leaves none) and
+    print the log of each the parent did not join."""
+    for lane, (p, out) in procs.items():
+        if p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        if not out.closed:
+            out.close()
+            log(f"-- {lane}, stopped (exit {p.returncode}):")
+            sys.stdout.write((LANE_ROOT / f"{lane}.log").read_text())
+            sys.stdout.flush()
+
+
+def _join_lanes(procs: dict) -> dict:
+    """Wait for every lane, print its log, and return its phases'
+    results; a lane that failed fails the run."""
+    results, failed = {}, []
+    for lane, (p, out) in procs.items():
+        rc = p.wait()
+        out.close()
+        log(f"-- {lane} ({', '.join(LANES[lane])}), exit {rc}:")
+        sys.stdout.write((LANE_ROOT / f"{lane}.log").read_text())
+        sys.stdout.flush()
+        if rc != 0:
+            failed.append(f"{lane} (exit {rc})")
+            continue
+        results.update(json.loads((LANE_ROOT / f"{lane}.json").read_text()))
+    if failed:
+        raise AssertionError(f"chip_smoke: {', '.join(failed)} failed")
+    return results
 
 
 def main() -> None:
@@ -9276,6 +10049,20 @@ def main() -> None:
     ferrs = _phase("flash kernel", flash_checks)
     times = _phase("kernel timings", kernel_timings)
     ftime = _phase("flash timing", flash_timing)
+    expert = _phase("expert", expert_phase)
+    lanes = _start_lanes()
+    try:
+        serving, dense, new_paths, node, fleet = _parent_phases()
+        done = _join_lanes(lanes)
+    finally:
+        _stop_lanes(lanes)
+    done["expert"] = expert
+    _report(t_start, errs, ferrs, times, ftime, serving, dense, new_paths,
+            node, fleet, done)
+
+
+def _parent_phases() -> tuple:
+    """Phases 4-10 and 12, in the parent while the lanes run."""
     for kv_quant in ("none", "int8", "int4"):
         _phase(f"step parity {kv_quant}", step_parity, kv_quant)
     _phase("dense parity", dense_parity)
@@ -9304,21 +10091,28 @@ def main() -> None:
         new_paths[f"checkpoint mixtral {fmt}"] = \
             ck["mixtral"][f"launches_{fmt}"]
     node = _phase("node", node_phase)
-    training = _phase("training", training_phase)
+    fleet = _phase("fleet", fleet_phase, node)
+    return serving, dense, new_paths, node, fleet
+
+
+def _report(t_start, errs, ferrs, times, ftime, serving, dense, new_paths,
+            node, fleet, done) -> None:
+    """The kernels line and the last line, from every phase's results
+    (the lanes' ``done``, by phase name)."""
+    training = done["training"]
     new_paths["serve-and-train"] = training["serve_train"]["launches"]
-    new_paths["fleet"] = _phase("fleet", fleet_phase, node)
-    new_paths["stages repair"] = _phase("stages", stages_phase)
+    new_paths["fleet"] = fleet
+    new_paths["stages repair"] = done["stages"]
     # the training path runs the einsum attention: 0 launches, asserted
-    train_launches = _phase("stages training",
-                            stages_training_phase)["training"]["launches"]
-    tp = _phase("tensor parallel", tp_phase)
-    # phase 16's unsharded training run, which phase 17 holds against
-    reference: dict = {}
-    mesh = _phase("mesh", mesh_phase, reference)
-    fsdp = _phase("fsdp", fsdp_phase, reference)
-    expert = _phase("expert", expert_phase)
-    product = _phase("product parallel", product_phase)
-    coslice = _phase("coslice", coslice_phase)
+    train_launches = done["stages training"]["training"]["launches"]
+    tp = done["tensor parallel"]
+    mesh, fsdp = done["mesh"], done["fsdp"]
+    expert, product = done["expert"], done["product parallel"]
+    coslice, placed = done["coslice"], done["placed serving"]
+    # phase 21's runs, each shard's launch counted
+    placed_runs = dict(placed["serving"]["launches"])
+    placed_runs["placed moe expert4"] = placed["moe"]["launches"]
+    placed_runs["placed node fsdp2-tensor2"] = placed["node"]["launches"]
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -9368,6 +10162,12 @@ def main() -> None:
             # each shard's launch counted
             entry["launches_tp_quant"] = product["tp_quant"][
                 "launches_tp_quant"]["by_format"][name].get(fmt, 0)
+            # phase 21: the slot engine over placed trees
+            entry["launches_placed"] = {
+                label.removeprefix("placed "): r["by_format"][name].get(
+                    fmt, 0)
+                for label, r in placed_runs.items()
+                if r["by_format"][name].get(fmt, 0)}
             held = tp["kernels"][fmt]
             entry["tp_shard_of_bound"] = held[
                 "ragged_of_bound" if name == "ragged_paged_attention"
@@ -9412,7 +10212,7 @@ def main() -> None:
             for n in EXPERT_LAYOUTS},
         "design": DESIGN["flash_attention"],
     })
-    log(f"chip_smoke: all 20 phases in {time.monotonic() - t_start:.1f} s, "
+    log(f"chip_smoke: all 21 phases in {time.monotonic() - t_start:.1f} s, "
         f"{time.monotonic() - _T_START:.1f} s since the script started "
         f"({_smi()})")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -273,17 +273,17 @@ class MLConfig:
     # refuses to start; "cpu" runs the kernels' plain versions on the host
     device: str | None = None
     # the devices a worker advertises for a planned {data, fsdp, expert,
-    # tensor} mesh (port-only; the JAX worker advertises every local
-    # device): N distinct cards from the worker's own on (a card worker
-    # with fewer fails to start), or the host N times, or a list of device
-    # names (a card may repeat: one card holds every shard); 1 keeps every
-    # job on the worker's one device and its continuous slot engine. Every
-    # axis the JAX planner gives runs (the default seq axis of a training
-    # job at seq_len >= 8192 and a MoE job's expert axis too); it stays
-    # because ContinuousEngine refuses a tree placed on a planned mesh
-    # (engine/continuous.py), so a worker advertising every card would
-    # serve its jobs static
-    mesh_devices: int | list = 1
+    # tensor} mesh (port-only: the JAX worker advertises every local
+    # device, core/devices.py acquire_devices). None, the default, is the
+    # JAX worker's choice: a card worker advertises every local card from
+    # its own on, a CPU worker its host once. An int N is N distinct cards
+    # from the worker's own on (a card worker with fewer fails to start)
+    # or the host N times; a list names the devices (a card may repeat:
+    # one card holds every shard, as tests and one-card runs do); 1 keeps
+    # every job on the worker's one device. A job planned over several
+    # devices serves through its slot engine on the planned mesh
+    # (engine/continuous.py), as on one device
+    mesh_devices: int | list | None = None
 
 
 @dataclass

@@ -41,6 +41,14 @@ the distinct local cards; ``tp_devices`` (an argument of the port alone:
 the JAX package gets its device list from ``XLA_FLAGS``) names them
 instead, and only there may a device repeat (the CPU, or both shards on
 one card).
+
+An engine whose params a worker placed on its planned mesh (``Sharded``
+leaves, ``stage_param_specs`` over ``data``, ``fsdp``, ``expert`` and
+``tensor``) serves on that mesh, as the JAX engine serves such a tree
+under GSPMD: the chunk runs ``engine/paged.py::make_placed_ragged_step``
+and the pages split by kv head over the first group's tensor shards
+(``placed_cache_mesh``); control state stays whole, and a published whole
+tree is placed leaf by leaf as the serving tree lies.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from ..parallel.mesh import (
     map_pieces,
     put,
     serving_mesh,
+    tree_mesh,
 )
 from .generate import GenerationEngine
 from .kvtier import HostPagePool
@@ -82,9 +91,11 @@ from .paged import (
     copy_page,
     dtype_name,
     gather_page,
+    make_placed_ragged_step,
     make_tp_ragged_step,
     paged_ragged_step,
     pages_needed,
+    placed_cache_mesh,
     scatter_page,
 )
 from .sampling import SamplingParams
@@ -334,20 +345,25 @@ class ContinuousEngine:
         # fallback, as any other refusal does
         self.tensor_parallel = max(int(tensor_parallel or 1), 1)
         self._tp_mesh = None
+        # a tree a worker placed on its planned mesh serves on that mesh
+        # (the tree's own), its pages where placed_cache_mesh says
+        self._mesh = self._cache_mesh = None
+        self.device = engine.device
         if self.tensor_parallel > 1:
-            self._tp_mesh = _tp_mesh(engine, self.tensor_parallel, pool,
-                                     tp_devices)
+            self._tp_mesh = self._cache_mesh = _tp_mesh(
+                engine, self.tensor_parallel, pool, tp_devices)
+            self.device = self._tp_mesh.flat()[0]
         elif is_sharded(engine.params):
-            # a tree on a planned {data, tensor} mesh serves through the
-            # dense engine's placed forward; the slot engine shards only
-            # by tensor_parallel
-            raise ValueError("the slot engine runs a tree placed on a "
-                             "planned mesh only through tensor_parallel")
+            if pool is not None:
+                raise ValueError("a shared page pool holds whole pages, "
+                                 "the slot engine over a planned mesh "
+                                 "takes none: ROADMAP queue 1 item 9")
+            self._mesh = tree_mesh(engine.params)
+            self.device, self._cache_mesh = placed_cache_mesh(
+                engine.params, engine.cfg)
         self.kv_quant = kv_quant
         self.engine = engine
         self.cfg = engine.cfg
-        self.device = (engine.device if self._tp_mesh is None
-                       else self._tp_mesh.flat()[0])
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
         self.chunk_steps = max(int(chunk_steps), 1)
@@ -377,7 +393,7 @@ class ContinuousEngine:
             self.cache = PagedKVCache.init(
                 self.cfg, self.max_slots, page_size=self.page_size,
                 max_len=self.max_seq_len, dtype=engine.cache_dtype,
-                kv_quant=kv_quant, device=self.device, mesh=self._tp_mesh,
+                kv_quant=kv_quant, device=self.device, mesh=self._cache_mesh,
             )
             self.alloc = PageAllocator(self.cache.n_pages)
         self.prefill_chunk = min(int(prefill_chunk), self.max_seq_len)
@@ -410,12 +426,18 @@ class ContinuousEngine:
         self.spec_draft = max(0, min(int(spec_draft), self.prefill_chunk - 1))
         self.spec_width = 1 + (self.spec_draft if self.spec_decode else 0)
         # the chunk's step: the sharded one over per-shard weights and
-        # pages with whole control state, or the whole-tree one
+        # pages with whole control state (a tp mesh, or the placed tree's
+        # planned mesh), or the whole-tree one
         if self._tp_mesh is not None:
             self._step = make_tp_ragged_step(
                 self._tp_mesh, self.cfg, n_steps=self.chunk_steps,
                 spec_width=self.spec_width, kernel=self.use_kernel,
                 tp_quant=bool(self.cfg.collective_quant),
+            )
+        elif self._mesh is not None:
+            self._step = make_placed_ragged_step(
+                self._mesh, self.cfg, n_steps=self.chunk_steps,
+                spec_width=self.spec_width, kernel=self.use_kernel,
             )
         else:
             self._step = functools.partial(
@@ -1511,6 +1533,9 @@ class ContinuousEngine:
         staged = _staged(params, self.device)
         if self._tp_mesh is not None:
             staged = put(self._tp_mesh, staged, tp_partition_specs(self.cfg))
+        elif self._mesh is not None and not is_sharded(staged):
+            # a whole tree placed as the serving tree lies, leaf by leaf
+            staged = put(self._mesh, staged, _leaf_specs(eng.params))
         if getattr(eng, "quant", None):
             from ..models.quant import quantize_params
 
@@ -2311,6 +2336,14 @@ def _placed(params, cfg, mesh):
 
     check(params, "")
     return params
+
+
+def _leaf_specs(tree):
+    """The spec of each placed leaf of ``tree`` (a quantized leaf's codes'
+    spec: the float weight places like its codes, then quantizes)."""
+    if isinstance(tree, dict):
+        return {k: _leaf_specs(v) for k, v in tree.items()}
+    return (tree.q if isinstance(tree, QTensor) else tree).spec
 
 
 def _staged(tree, device):

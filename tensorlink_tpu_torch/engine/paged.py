@@ -60,6 +60,15 @@ control update run once. The page operations work on such a cache too:
 ``gather_page`` joins a page's shards by kv head, so an exported page has
 the unsharded layout ``[L, n_kv, page, hd]``, and ``scatter_page`` splits
 it back.
+
+A tree a worker placed on its planned mesh (``stage_param_specs`` over
+``data``, ``fsdp``, ``expert`` and ``tensor``) runs the same step through
+:func:`make_placed_ragged_step`: the first (data × fsdp) group's tensor
+shards attend over their kv heads of pages split as above
+(:func:`placed_cache_mesh`), each layer's weights read through
+``models/sharded.py`` (joined over fsdp at each use), the Megatron rows
+summed in mesh order and a MoE layer split over ``expert`` run by
+``parallel/expert.py::placed_moe_mlp``.
 """
 
 from __future__ import annotations
@@ -75,6 +84,8 @@ import numpy as np
 from ..core.devices import resolve_device
 from ..core.serialization import BFLOAT16
 from ..models.base import ModelConfig, dtype_name
+from ..models.sharded import _Placed, _head_names
+from ..models.sharded import _embed as _placed_embed
 from ..models.quant import quantize_kv as _quant_kv
 from ..models.quant import quantize_kv4 as _quant_kv4
 from ..models.transformer import (
@@ -88,6 +99,8 @@ from ..models.transformer import (
     _residual,
     _rope_dim,
     _tp_logits,
+    _tp_mlp,
+    _tp_pre_mlp,
     _tp_residual,
     rope_tables,
 )
@@ -1140,7 +1153,9 @@ class _TP:
     the output columns and the MLP in mesh order. Index tensors, the
     embedding and the rope tables are made once per distinct device;
     the logits come out on the mesh's first device, where sampling and
-    every control update run once."""
+    every control update run once. :class:`_PlacedFwd` reads its weights
+    (``_layer``, ``top``), its embedding and its epilogue (``_block``)
+    off a planned mesh's tree instead."""
 
     def __init__(self, params, cfg: ModelConfig, lay: TPLayout,
                  kernel: bool):
@@ -1148,31 +1163,47 @@ class _TP:
                                                         kernel)
         self.shards = [shard_tree(params, j) for j in range(lay.tp)]
         self.layers = [_layers(p) for p in self.shards]
-        self.rep = lay.rep(self.shards)
+        self.n_layers = len(self.layers[0])
+
+    def _layer(self, i: int) -> tuple:
+        """Layer ``i``: each shard's parameter dict (and what the MLP
+        needs beside them)."""
+        return [layers[i] for layers in self.layers], None
+
+    def top(self) -> list:
+        """Each shard's final norm, embedding and LM head."""
+        return self.shards
+
+    def _block(self, x, parts, lps, extra):
+        return _tp_residual(x, parts, lps, self.cfg, self.lay)
 
     def _copies(self, *ts) -> dict:
         """``{device: (t, ...)}``: the control tensors on every device."""
         return {d: tuple(to_device(t, d) for t in ts)
                 for d in self.lay.distinct}
 
-    def _layers_pass(self, x, cos, sin, ctl, cache, attend):
+    def _layers_pass(self, x, cos, sin, ctl, cache, attend, top):
         cfg, lay = self.cfg, self.lay
-        for i in range(len(self.layers[0])):
-            lps = [layers[i] for layers in self.layers]
+        for i in range(self.n_layers):
+            lps, extra = self._layer(i)
             rep = lay.rep(lps)
             h = x if cfg.norm_position == "post" else {
                 d: _norm(x[d], rep[d]["ln1"], cfg) for d in x}
             parts = []
             for s, d in enumerate(lay.devices):
-                attn_raw, _ = attend(h[d], lps[s], cfg, cos[d], sin[d],
-                                     cache.shard_kv(s, i), *ctl[d],
+                kv = cache.shard_kv(s, i) if cache.tp > 1 \
+                    else cache.layer_kv(i)
+                attn_raw, _ = attend(lay.to_shard(h[d], d, s), lps[s], cfg,
+                                     cos[d], sin[d], kv, *ctl[d],
                                      self.kernel)
                 parts.append(attn_raw)
-            x = _tp_residual(x, parts, lps, cfg, lay)
-        return {d: _norm(x[d], self.rep[d]["final_norm"], cfg) for d in x}
+            x = self._block(x, parts, lps, extra)
+        rep = lay.rep(top)
+        return {d: _norm(x[d], rep[d]["final_norm"], cfg) for d in x}
 
     def _embed(self, tokens, pos):
-        out = {d: _embed(self.rep[d], t, p, self.cfg)
+        rep = self.lay.rep(self.shards)
+        out = {d: _embed(rep[d], t, p, self.cfg)
                for d, (t, p) in self._copies(tokens, pos).items()}
         return ({d: e[0] for d, e in out.items()},
                 {d: e[1] for d, e in out.items()},
@@ -1182,11 +1213,12 @@ class _TP:
         x, cos, sin = self._embed(blk.long(), pos)
         ctl = self._copies(write_pg, write_off, cache.block_tables, starts,
                            n_valid)
-        return self._layers_pass(x, cos, sin, ctl, cache, _ragged_attend)
+        return self._layers_pass(x, cos, sin, ctl, cache, _ragged_attend,
+                                 self.top())
 
     def head(self, x, rows, gather):
-        return _tp_logits(self.shards, {d: t[rows.to(d), gather.to(d)]
-                                        for d, t in x.items()},
+        return _tp_logits(self.top(), {d: t[rows.to(d), gather.to(d)]
+                                       for d, t in x.items()},
                           self.cfg, self.lay)
 
     def decode(self, tok, cache, active):
@@ -1194,11 +1226,124 @@ class _TP:
                                                                  active)
         x, cos, sin = self._embed(tok.long()[:, None], positions)
         ctl = self._copies(write_pg, write_off, att_len, cache.block_tables)
-        x = self._layers_pass(x, cos, sin, ctl, cache, _paged_attend)
-        logits = _tp_logits(self.shards, x, self.cfg, self.lay)[:, 0]
+        top = self.top()
+        x = self._layers_pass(x, cos, sin, ctl, cache, _paged_attend, top)
+        logits = _tp_logits(top, x, self.cfg, self.lay)[:, 0]
         lengths = cache.lengths
         return logits, replace(
             cache, lengths=torch.where(active, lengths + 1, lengths))
+
+
+class _PlacedFwd(_TP):
+    """The serving step's forward over a tree a worker placed on its
+    planned ``{data, fsdp, expert, tensor}`` mesh
+    (:func:`make_placed_ragged_step`), read through
+    ``models/sharded.py``'s ``_Placed``: :class:`_TP`'s pass over the
+    first (data × fsdp) group's first expert sub-group, whose tensor
+    shards each attend over their own kv heads of the pages with their
+    own kernel launches. Per layer each shard's weights are its pieces
+    joined over fsdp (read again per use when a leaf splits over fsdp,
+    so no joined weight outlives its layer, else kept as views), and the
+    epilogue is ``_tp_pre_mlp`` over the weights' own kinds (the Megatron
+    ``wo``/``w_down`` by row: partial sums in mesh order). A MoE layer
+    split over ``expert`` (and ``tensor``) runs over every sub-group's
+    shards of the group in ``parallel/expert.py::placed_moe_mlp``, its
+    input copied to each shard's device; any other MLP is ``_tp_mlp``.
+    Over ``data`` the replicas hold the same tree, and the other groups
+    stay idle. The logits and control tensors live on the mesh's first
+    device."""
+
+    def __init__(self, params, cfg: ModelConfig, kernel: bool):
+        self.pl = pl = _Placed(params, cfg)
+        _check_placed(pl)
+        self.params, self.cfg, self.kernel = params, cfg, kernel
+        self.lay = pl.lays[0]
+        self.n_layers = pl.n_layers
+        self.subs = list(pl.subgroups(0))
+        self.head_names = ("final_norm",) + _head_names(cfg)
+        # views stay; a leaf joined over fsdp is joined at each use
+        self.keep = pl.nf == 1
+        self._kept = ([self._read_layer(i) for i in range(pl.n_layers)]
+                      if self.keep else None)
+        self._top = pl.top(0, self.head_names) if self.keep else None
+
+    def _read_layer(self, i: int) -> tuple:
+        pl = self.pl
+        mlps = ({s: pl.layer(s, i, "mlp") for s in self.subs[1:]}
+                if pl.moe_split else {})
+        return pl.layer(0, i), mlps
+
+    def _layer(self, i: int) -> tuple:
+        """Layer ``i``: the first sub-group's shards' parameter dicts, and
+        each other expert sub-group's MLP dicts (a split MoE layer)."""
+        return self._kept[i] if self.keep else self._read_layer(i)
+
+    def top(self) -> list:
+        return self._top if self.keep else self.pl.top(0, self.head_names)
+
+    def _block(self, x, parts, lps, mlps):
+        h, finish = _tp_pre_mlp(x, parts, lps, self.cfg, self.lay)
+        return finish(self._mlp(h, lps, mlps))
+
+    def _embed(self, tokens, pos):
+        cfg = self.cfg
+        x = _placed_embed(self.pl, tokens, cfg, pos, 0)
+        cos = sin = {d: None for d in x}
+        if cfg.pos == "rope":
+            tabs = {d: rope_tables(to_device(pos, d), _rope_dim(cfg),
+                                   cfg.rope_theta) for d in x}
+            cos = {d: t[0] for d, t in tabs.items()}
+            sin = {d: t[1] for d, t in tabs.items()}
+        return x, cos, sin
+
+    def _mlp(self, h: dict, lps: list, mlps: dict) -> dict:
+        from ..parallel.expert import placed_moe_mlp
+
+        cfg, lay, pl = self.cfg, self.lay, self.pl
+        own = [lp["mlp"] for lp in lps]
+        if not pl.moe_split:
+            return _tp_mlp(h, own, cfg, lay)
+        shards = []
+        for s in self.subs:
+            shards += list(zip(pl.lays[s].devices,
+                               own if s == self.subs[0] else mlps[s]))
+        src = lay.primary
+        hs, routers = {}, {}
+        for d, p in shards:
+            if d not in hs:
+                hs[d] = h[d] if d in h else to_device(h[src], d)
+                routers[d] = p["router"]
+        out = placed_moe_mlp(hs, routers, shards, cfg, n_tensor=pl.tp)
+        return {d: out[d] for d in h}
+
+
+def _check_placed(pl) -> None:
+    """The placed slot engine's refusals, each naming its ROADMAP item."""
+    if pl.mesh.spans:
+        raise ValueError("the slot engine over a process-spanning mesh: "
+                         "ROADMAP queue 1 item 11")
+    if pl.tp > 1 and not pl.split_heads:
+        raise ValueError("the slot engine over a tensor axis that does "
+                         "not split the heads (qk_norm_full, or a head "
+                         "count it does not divide): "
+                         "ROADMAP queue 1 item 10")
+
+
+def placed_cache_mesh(params, cfg: ModelConfig) -> tuple:
+    """Where the pages of a slot engine over a tree placed on a planned
+    mesh live: ``(device, mesh)`` — split by kv head over the first
+    group's tensor shards (``mesh`` their ``(data=1, tp)`` mesh, for
+    :meth:`PagedKVCache.init`), or whole on the mesh's first device
+    (``mesh`` None) where the tensor axis is 1. Raises ValueError for a
+    tree the placed step refuses."""
+    from ..parallel.mesh import serving_mesh
+
+    pl = _Placed(params, cfg)
+    _check_placed(pl)
+    lay = pl.lays[0]
+    if pl.tp == 1:
+        return lay.primary, None
+    return lay.primary, serving_mesh(pl.tp, devices=lay.devices)
 
 
 def _ragged_step_impl(fwd, blk, cache, starts, n_valid, n_spec, emit, seeds,
@@ -1332,6 +1477,38 @@ def make_tp_ragged_step(mesh: Mesh, cfg: ModelConfig, *, n_steps: int,
     return step
 
 
+def make_placed_ragged_step(mesh: Mesh, cfg: ModelConfig, *, n_steps: int,
+                            spec_width: int = 1, kernel: bool):
+    """The serving step over a tree placed on a worker's planned ``mesh``
+    (``parallel/planner.py::stage_param_specs`` over any of ``data``,
+    ``fsdp``, ``expert`` and ``tensor``): a callable with
+    :func:`paged_ragged_step`'s positional arguments and return tuple,
+    running :class:`_PlacedFwd`. ``cache`` is one made where
+    :func:`placed_cache_mesh` says; every other argument is whole on the
+    mesh's first device, as the returned control tensors are. The
+    placed reads are built once and rebuilt only when another tree is
+    passed (a publish)."""
+    fwd = None
+
+    def step(params, blk, cache, starts, n_valid, n_spec, emit, seeds,
+             steps, temp, top_k, top_p, pres, freq, counts, remaining, eos):
+        nonlocal fwd
+        if fwd is None or fwd.params is not params:
+            fwd = _PlacedFwd(params, cfg, kernel)
+            if fwd.pl.mesh is not mesh:
+                raise ValueError("the published tree lies on another mesh")
+        if cache.tp != fwd.lay.tp:
+            raise ValueError(f"the pages split {cache.tp} ways, the heads "
+                             f"{fwd.lay.tp}")
+        return _ragged_step_impl(
+            fwd, blk, cache, starts, n_valid, n_spec, emit, seeds, steps,
+            temp, top_k, top_p, pres, freq, counts, remaining, eos, n_steps,
+            spec_width,
+        )
+
+    return step
+
+
 def _page_tensors(cache: PagedKVCache) -> list:
     """Every page tensor of the cache: its fields, each shard's own for a
     tensor-parallel cache."""
@@ -1453,10 +1630,12 @@ __all__ = [
     "dtype_name",
     "gather_page",
     "host_array",
+    "make_placed_ragged_step",
     "make_tp_ragged_step",
     "paged_decode_step",
     "paged_ragged_step",
     "pages_needed",
+    "placed_cache_mesh",
     "prompt_chain_hashes",
     "scatter_page",
     "tp_cache_specs",

@@ -547,10 +547,24 @@ class DistributedWorker:
     def _advertised_devices(self) -> list:
         """The devices a plan may mesh over: ``MLConfig.mesh_devices`` of
         them from this worker's own, or the devices it names
-        (:meth:`_mesh_devices`)."""
-        named = getattr(self.node.config.ml, "mesh_devices", 1) or 1
+        (:meth:`_mesh_devices`); by default (None) every local card from
+        this worker's own on, as the JAX worker advertises every local
+        device, or a CPU worker's host once."""
+        from tensorlink_tpu_torch.parallel.mesh import local_devices
+
+        named = getattr(self.node.config.ml, "mesh_devices", None)
+        if named is None:
+            if self.device.type == "cpu":
+                return [self.device]
+            return local_devices()[self._first_card():]
         return self._mesh_devices(named if isinstance(named, int)
                                   else len(named))
+
+    def _first_card(self) -> int:
+        import torch
+
+        first = self.device.index
+        return torch.cuda.current_device() if first is None else first
 
     def _mesh_devices(self, n: int) -> list:
         """``n`` devices from this worker's on: the first ``n`` that
@@ -561,16 +575,13 @@ class DistributedWorker:
 
         from tensorlink_tpu_torch.parallel.mesh import local_devices
 
-        named = getattr(self.node.config.ml, "mesh_devices", 1)
+        named = getattr(self.node.config.ml, "mesh_devices", None)
         if isinstance(named, (list, tuple)):
             devs = [torch.device(d) for d in named]
         elif self.device.type == "cpu":
             return [self.device] * n
         else:
-            first = self.device.index
-            if first is None:
-                first = torch.cuda.current_device()
-            devs = local_devices()[first:]
+            devs = local_devices()[self._first_card():]
         if n > len(devs):
             raise ValueError(f"mesh needs {n} devices, have {len(devs)}")
         return devs[:n]
@@ -1252,7 +1263,9 @@ class DistributedWorker:
                 # explicit TP: shard the hot path over the job's mesh
                 # (load_stage found its devices); engines that cannot
                 # (MoE, indivisible heads, a pool, quantized weights)
-                # refuse with ValueError into the fallback below
+                # refuse with ValueError into the fallback below. A tree
+                # placed on the job's planned mesh serves on that mesh
+                # (the engine reads it off the tree)
                 tensor_parallel=len(rt.tp_devices) if rt.tp_devices else 1,
                 tp_devices=rt.tp_devices,
             )

@@ -38,6 +38,7 @@ tests/test_multihost.py:68-72 in float32. Held here:
 
 import dataclasses
 import gc
+import queue
 import types
 
 import jax
@@ -341,6 +342,8 @@ JOB = "ab12cd40"
 class _Bridge:
     def __init__(self):
         self.sent = []
+        # a continuous request's workers queue their chunks here
+        self.q = types.SimpleNamespace(work=queue.Queue())
 
     def request(self, verb, payload, timeout=None):
         self.sent.append((verb, payload))
@@ -469,27 +472,56 @@ def test_worker_trains_a_placed_fsdp_job_like_jax(checkpoint, tmp_path,
 SERVE_REQUESTS = {
     "static": dict(prompts=[[7, 3, 9, 11, 2], [5, 1, 8]], max_new_tokens=8),
     "beam": dict(prompts=[[5, 9, 2, 7]], max_new_tokens=6, num_beams=3),
+    "continuous": dict(prompts=[[7, 3, 9, 11, 2]], max_new_tokens=8,
+                       continuous=True),
 }
+
+
+def _gen(w, rid: str, body: dict) -> dict:
+    """One GENERATE's reply body: at once for the static paths, after the
+    worker's slot-engine chunks (``cont_continue``) for a continuous
+    one."""
+    n = len(w.bridge.sent)
+    w._handle("gen", {"rid": rid, "peer": "p1", "job_id": JOB, "seed": 0,
+                      **body})
+    for _ in range(100):
+        out = [p["body"] for v, p in w.bridge.sent[n:]
+               if v == "respond" and p["rid"] == rid]
+        if out:
+            assert "error" not in out[-1], out[-1]
+            return out[-1]
+        w._handle("cont_continue", {"job_id": JOB})
+    raise AssertionError(f"no reply to {rid}")
 
 
 @pytest.mark.parametrize("kind", list(SERVE_REQUESTS))
 def test_fsdp_mesh_worker_serves_static_like_jax(checkpoint, kind):
-    """A serving job on an ``{fsdp: 2, tensor: 2}`` plan loads (static
-    serving, as in JAX; the slot engine refuses a planned mesh) and its
-    static and beam answers equal the JAX worker's on the same plan."""
+    """A serving job on an ``{fsdp: 2, tensor: 2}`` plan loads, and its
+    static, beam and continuous answers equal the JAX worker's on the same
+    plan. A continuous request is served by the job's slot engine over
+    the placed tree, as the JAX worker's ``ContinuousEngine`` serves it
+    under GSPMD; the static ones by the dense engine's placed forward."""
     stage = {"worker_id": "w0", "layer_lo": 0, "layer_hi": JCFG.n_layers,
              "first": True, "last": True, "holds_head": True,
              "mesh_axes": {"fsdp": 2, "tensor": 2}, "coworkers": []}
     answers = []
+    workers = []
     for pkg in ("port", "jax"):
         w = _worker(pkg)
         _call(w, "load_stage", stage=stage, training=False,
               model={"name": "tiny", "config": JCFG.to_json(),
                      "ckpt": checkpoint, "seed": 0})
-        answers.append(_call(w, "gen", seed=0, **SERVE_REQUESTS[kind]))
+        answers.append(_gen(w, "g1", SERVE_REQUESTS[kind]))
+        workers.append(w)
     got, want = answers
     assert got["sequences"] == [list(map(int, s))
                                 for s in want["sequences"]]
+    cont = workers[0].jobs[JOB].cont
+    if kind == "continuous":
+        assert cont.chunks > 0 and cont._mesh.shape == stage["mesh_axes"]
+        assert cont.cache.tp == 2 and "serving" in got
+    else:
+        assert cont is None
 
 
 @pytest.mark.parametrize("case", list(MESHES))

@@ -156,7 +156,7 @@ def _without_device(d: dict) -> dict:
     at its default."""
     d = dict(d, ml=dict(d["ml"]))
     assert d["ml"].pop("device", "absent") is None
-    assert d["ml"].pop("mesh_devices", "absent") == 1
+    assert d["ml"].pop("mesh_devices", "absent") is None
     return d
 
 

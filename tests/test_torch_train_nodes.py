@@ -36,6 +36,7 @@ from tensorlink_tpu.engine.loader import load_params as j_load_params
 from tensorlink_tpu.models import ModelConfig as JModelConfig
 from tensorlink_tpu.models import init_params as j_init_params
 from tensorlink_tpu.p2p import protocol as jproto
+from tensorlink_tpu.platform import proofs as jproofs
 from tensorlink_tpu_torch.convert import config_from_jax
 from tensorlink_tpu_torch.engine import optimizers as topt
 from tensorlink_tpu_torch.ml.module import _ce_sum_and_grad
@@ -123,22 +124,55 @@ def _batches(n, B=4, T=16, seed=123):
 
 
 def _local_reference(jp, batches, *, lr=1e-3):
-    """The JAX package's compiled single-program steps."""
+    """The JAX package's compiled single-program steps, and each step's
+    token-mean gradients at the params it starts from."""
     opt = jtrain.make_optimizer("adamw", lr=lr, grad_clip=1.0)
     ts = jtrain.make_train_step(JCFG, opt, n_micro=1, donate=False)
+    grad_fn = jax.jit(jax.grad(
+        lambda p, t: jtrain.causal_lm_loss(p, JCFG, t)[0]))
     params, state = jp, ts.init_state(jp)
-    losses = []
+    losses, grads = [], []
     for toks in batches:
+        grads.append(jax.device_get(grad_fn(params, toks)))
         params, state, m = ts.step_fn(params, state, {"tokens": toks,
                                                       "loss_mask": None})
         losses.append(float(m["loss"]))
-    return jax.device_get(params), losses
+    return jax.device_get(params), losses, grads
+
+
+# the proof of learning, as chip_smoke.py holds it: each logged gradient
+# sketch against the sketch of the reference's gradients at the job's
+# coordinates (cosine, so the worker's clipped sum-form gradients compare
+# with the token-mean ones), and the verdict's median cosine against the
+# reference log's
+PROOF_SKETCH_COS = 0.999
+PROOF_MEDIAN_ATOL = 0.02
+
+
+def _reference_proof_log(grads, job_id: str) -> list:
+    """The JAX package's proof log of ``grads`` at the job's coordinates
+    (the worker seeds the sketch with ``int(job_id[:8], 16)``)."""
+    log, prev = [], ""
+    for i, g in enumerate(grads):
+        norm = float(np.sqrt(sum(float(np.sum(np.square(x, dtype=np.float64)))
+                                 for x in jax.tree.leaves(g))))
+        e = jproofs.proof_entry(
+            i + 1, norm,
+            jproofs.gradient_sketch(g, seed=int(job_id[:8], 16)), prev)
+        log.append(e)
+        prev = e["hash"]
+    return log
+
+
+def _cos(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
 
 
 def test_single_stage_training_parity(cluster, checkpoint):
     ckpt, jp = checkpoint
     batches = _batches(5)
-    ref_params, ref_losses = _local_reference(jp, batches)
+    ref_params, ref_losses, ref_grads = _local_reference(jp, batches)
     with _model(cluster, ckpt, seed=21, training=True) as model:
         assert model.plan.n_stages == 1
         model.init_optimizer("adamw", lr=1e-3)
@@ -148,9 +182,25 @@ def test_single_stage_training_parity(cluster, checkpoint):
             "job_proofs", {"job_id": model.job_id}, timeout=TIMEOUT)
         verdicts = pol["verdicts"]
         assert verdicts, pol
+        # the verdict's ok is a draw over the job id's coordinates (on
+        # structureless tokens consecutive gradients share no direction):
+        # hold the logged sketches and the verdict to the reference's own
+        # at the same coordinates instead
+        log = cluster["worker"].executor.jobs[model.job_id].proof_log
+        ref_log = _reference_proof_log(ref_grads, model.job_id)
+        assert [e["step"] for e in log] == [e["step"] for e in ref_log]
+        cosines = [_cos(a["sketch"], b["sketch"])
+                   for a, b in zip(log, ref_log)]
+        assert min(cosines) >= PROOF_SKETCH_COS, cosines
+        ref_ok, ref_detail = jproofs.verify_proof_log(ref_log)
         for wid, v in verdicts.items():
-            assert v["ok"], (wid, v)
             assert v["total_steps"] == len(batches)
+            assert abs(v["median_cosine"] - ref_detail["median_cosine"]) \
+                <= PROOF_MEDIAN_ATOL, (wid, v, ref_detail)
+            if abs(ref_detail["median_cosine"] + 0.2) > PROOF_MEDIAN_ATOL:
+                # off the bar's edge the two verdicts agree
+                assert (v["ok"], v.get("reason")) == (
+                    ref_ok, ref_detail.get("reason")), (wid, v, ref_detail)
         got = model.parameters()[0]
     np.testing.assert_allclose(got["embed"]["tok"], ref_params["embed"]["tok"],
                                rtol=2e-4, atol=2e-5)
