@@ -421,14 +421,40 @@ Phases (any failure raises and exits non-zero):
    Readings: tokens/s and ms per chunk beside the unsharded engine's
    (launches_placed on the kernels line). placed_cards() runs (2)'s fp
    runs over four distinct cards with each card's peak memory.
+22. Placed co-hosting and OLMo-2 (olmo_phase for (1), placed_pool_phase
+   for (2) and (3)), every position cuda:0. (1) olmo2-7b bf16 at full width (32 heads and kv heads, hd
+   128, qk_norm_full, post norm), OLMO_LAYERS (8) of 32 layers placed by
+   stage_param_specs on {tensor: 4} (the JAX planner's axes for it on
+   four devices): placed_kernel_check's per-shard comparison at its
+   shard shape (8 query and 8 kv heads, a head group of 1; at 4 layers),
+   then fp and int8 pages through ContinuousEngine over the placed tree
+   (each shard's q and k columns gathered whole for the norm over the
+   whole projection, the pages split by kv head) against the unsharded
+   slot engine: phase 15's 8 requests x 32, held as phase 21 holds its
+   runs (near-ties within MESH_TIE, 4x the launches a chunk, the page
+   distance rule, the layout). (2) Two qwen3-0p6b tenants (bf16 trees of
+   seeds 0 and 1, POOLED_LAYERS (14) layers) on {tensor: 4}, on one
+   SharedPagePool made on their page mesh: 600 pages with quotas of 300,
+   then a pool of POOLED_SMALL_PAGES where the second tenant's
+   admissions reclaim the first's cached pages; phase 8's co-hosting
+   prompts x 32, each
+   tenant's streams bitwise its private placed engine's, the pool
+   conserved at every boundary and whole at close. (3) Phase 21's node
+   job planned {tensor: 2, fsdp: 2} on a worker with
+   cont_pool_pages=256: its continuous answers from a pool tenant, equal
+   to the in-process private placed engine's, the dense engine never
+   called (launches_placed_pool on the kernels line). placed_cards()
+   also runs (1)'s fp run at full depth over four cards with each card's
+   peak memory.
 
 Every phase that means a one-device worker sets MLConfig(mesh_devices=1):
 by default a worker advertises every local card.
 
 Phases 1-3 run alone (their timings are the kernels line's), then
 phase 18 (its training step alone holds about 45 GiB). Then the parent
-runs phases 4-10 and 12 while two worker processes (LANES) run 11 and
-13-15, and 16-17 and 19-21, in that order, beside it on the same card:
+runs phases 4-10 and 12 while two worker processes (LANES) run 11,
+13-15 and 22's OLMo-2 part, and 16-17, 19-21 and 22's pool part, in
+that order, beside it on the same card:
 every phase is host-bound, so the three share the card and the host's
 cores; each lane's log is printed when it ends, and a failed lane fails
 the run. Only the speeds, which are readings, see the other lanes. Each
@@ -9429,12 +9455,14 @@ def _position_kv_bytes(ce) -> list:
     return [b // (c.n_pages * c.page_size) for b in per]
 
 
-def _placed_layout(ce, axes: dict, fmt: str) -> dict:
+def _placed_layout(ce, axes: dict, fmt: str, whole: int | None = None
+                   ) -> dict:
     """The placed engine's pages: split in ``tensor`` contiguous shards of
     n_kv / tensor kv heads on the first group's devices, the control
     tensors whole on the mesh's first device; each position's KV bytes
-    per token the whole's over ``tensor`` (0 off the first group), and
-    the snapshot's page bytes the whole engine's."""
+    per token the whole's (``whole``, default qwen3-0p6b's from
+    KV_BYTES_PER_TOKEN) over ``tensor`` (0 off the first group), and the
+    snapshot's page bytes the whole engine's."""
     from tensorlink_tpu_torch.models.sharded import _Placed
 
     c, cfg = ce.cache, ce.cfg
@@ -9455,7 +9483,8 @@ def _placed_layout(ce, axes: dict, fmt: str) -> dict:
             or c.block_tables.device != group[0]:
         raise AssertionError("placed: control state is not whole on the "
                              "mesh's first device")
-    whole = _at_depth(KV_BYTES_PER_TOKEN, fmt, cfg.n_layers)
+    if whole is None:
+        whole = _at_depth(KV_BYTES_PER_TOKEN, fmt, cfg.n_layers)
     per = _position_kv_bytes(ce)
     want = [whole // tp if j in pl.groups[0] else 0
             for j in range(len(per))]
@@ -9469,16 +9498,17 @@ def _placed_layout(ce, axes: dict, fmt: str) -> dict:
                 kv_bytes_per_token=whole)
 
 
-def placed_kernel_check() -> dict:
+def placed_kernel_check(model=None, label: str = "placed kernels") -> dict:
     """One ragged chunk over MAIN's block and one decode step after it,
     through the placed step's forward (``paged._PlacedFwd``) over
-    qwen3-0p6b bf16 at full width and MODEL_LAYERS layers placed on
-    {tensor: 4} over cuda:0, fp pages of seeded random context: every
-    shard's launch of each kernel (n_kv / 4 = 2 kv heads, 4 query heads,
-    a shape no other phase launches) bitwise equal to the same heads of
-    one launch over the four shards' heads joined on the same inputs, and
-    within the bf16 bound of its plain version."""
-    cfg, params = _model()
+    qwen3-0p6b bf16 at full width and MODEL_LAYERS layers (or ``model``,
+    a ``(cfg, params)``) placed on {tensor: 4} over cuda:0, fp pages of
+    seeded random context: every shard's launch of each kernel (qwen3:
+    n_kv / 4 = 2 kv heads, 4 query heads, a shape no other phase
+    launches) bitwise equal to the same heads of one launch over the four
+    shards' heads joined on the same inputs, and within the bf16 bound of
+    its plain version."""
+    cfg, params = model or _model()
     dev = torch.device("cuda")
     S, C, page = MAIN["S"], MAIN["C"], MAIN["page"]
     whole = PagedKVCache.init(cfg, S, page_size=page,
@@ -9530,14 +9560,15 @@ def placed_kernel_check() -> dict:
     L = cfg.n_layers
     for name, r in (("ragged", ragged_r), ("decode", decode_r)):
         if r.get("layers") != L or r.get("unequal") or r["plain"] > 1.0:
-            raise AssertionError(f"placed kernels: {name} over {tp} shards: "
-                                 f"{r}")
+            raise AssertionError(f"{label}: {name} over {tp} shards: {r}")
     if not torch.isfinite(logits).all() or not all(
             torch.isfinite(t).all() for t in x.values()):
-        raise AssertionError("placed kernels: not finite")
+        raise AssertionError(f"{label}: not finite")
     del pc, placed, fwd
     torch.cuda.empty_cache()
-    return dict(shards=tp, layers=L, ragged_of_bound=ragged_r["plain"],
+    return dict(shards=tp, layers=L, kv_heads_per_shard=cfg.n_kv_heads // tp,
+                q_heads_per_shard=cfg.n_heads // tp,
+                ragged_of_bound=ragged_r["plain"],
                 decode_of_bound=decode_r["plain"],
                 ragged_shard_bitwise=True, decode_shard_bitwise=True)
 
@@ -9705,9 +9736,10 @@ def placed_moe_serving(devices=PLACED_DEVICES) -> dict:
     return res
 
 
-def placed_node(devices=PLACED_DEVICES) -> dict:
+def placed_node(devices=PLACED_DEVICES, pool_pages: int = 0) -> dict:
     """A port validator, a worker advertising ``devices``
-    (``MLConfig(mesh_devices=[...])``) and a user on 127.0.0.1: a
+    (``MLConfig(mesh_devices=[...])``, and ``cont_pool_pages=pool_pages``)
+    and a user on 127.0.0.1: a
     DistributedModel of qwen3-0p6b bf16 at full width and
     PLACED_NODE_LAYERS layers asking parallelism PLACED_NODE_HINT is
     planned {tensor: 2, fsdp: 2}; its continuous GENERATEs are answered
@@ -9715,7 +9747,10 @@ def placed_node(devices=PLACED_DEVICES) -> dict:
     dense engine's generate and prefill calls do not), each kernel
     launched once a shard a layer per chunk, the tokens equal to an
     in-process slot engine with the worker's knobs over the same seeded
-    tree placed the same way."""
+    tree placed the same way. With ``pool_pages`` the job's slot engine is
+    a tenant of the worker's shared pool, made on its page mesh (split by
+    kv head over the first group's two tensor positions), and the
+    reference is a private engine: pooled == private, bitwise."""
     from tensorlink_tpu_torch.core.config import (
         MLConfig,
         UserConfig,
@@ -9729,7 +9764,8 @@ def placed_node(devices=PLACED_DEVICES) -> dict:
         WorkerNode,
     )
 
-    root = PLACED_ROOT / "node"
+    label = "placed pool node" if pool_pages else "placed node"
+    root = PLACED_ROOT / label.replace(" ", "_")
     shutil.rmtree(root, ignore_errors=True)
     cfg = config_presets()["qwen3-0p6b"].with_(n_layers=PLACED_NODE_LAYERS)
     rng = np.random.default_rng(PLACED_NODE_SEED)
@@ -9749,7 +9785,8 @@ def placed_node(devices=PLACED_DEVICES) -> dict:
             seeds = [["127.0.0.1", v.port]]
             w = WorkerNode(WorkerConfig(
                 seed_validators=seeds, key_dir=str(root / "wkeys"),
-                ml=MLConfig(mesh_devices=list(devices)), **common)).start()
+                ml=MLConfig(mesh_devices=list(devices),
+                            cont_pool_pages=pool_pages), **common)).start()
             nodes.append(w)
             u = UserNode(UserConfig(
                 seed_validators=seeds, key_dir=str(root / "ukeys"),
@@ -9758,16 +9795,16 @@ def placed_node(devices=PLACED_DEVICES) -> dict:
         deadline = time.monotonic() + 60
         while len(v.status()["peers"]) < 2:
             if time.monotonic() > deadline:
-                raise AssertionError("placed node: the nodes never met")
+                raise AssertionError(f"{label}: the nodes never met")
             time.sleep(0.1)
         model = DistributedModel(cfg, node=u, seed=PLACED_NODE_SEED,
                                  parallelism=PLACED_NODE_HINT)
         axes = model.plan.stages[0].mesh_axes
         if axes != PLACED_NODE_HINT:
-            raise AssertionError(f"placed node: planned {axes}")
+            raise AssertionError(f"{label}: planned {axes}")
         rt = w.executor.jobs[model.job_id]
         if rt.mesh is None or not tmesh.is_sharded(rt.params):
-            raise AssertionError(f"placed node: the job's mesh {rt.mesh}")
+            raise AssertionError(f"{label}: the job's mesh {rt.mesh}")
         static: dict = {}
 
         def counted(name):
@@ -9786,8 +9823,12 @@ def placed_node(devices=PLACED_DEVICES) -> dict:
         model.generate([prompts[0]], max_new_tokens=4, continuous=True)
         cont = rt.cont
         if cont is None or cont._mesh is not rt.mesh or cont.cache.tp != 2:
-            raise AssertionError(f"placed node: the slot engine {cont}")
-        lc = _Launches("placed node")
+            raise AssertionError(f"{label}: the slot engine {cont}")
+        if bool(pool_pages) != (cont.pool is not None) or (
+                pool_pages and (cont.cache.k is not cont.pool.kv[0]
+                                or cont.pool.n_pages - 1 != pool_pages)):
+            raise AssertionError(f"{label}: the engine's pool {cont.pool}")
+        lc = _Launches(label)
         lc.add(cont)
         t0 = time.monotonic()
         got = [model.generate([p], max_new_tokens=PLACED_NEW, seed=i,
@@ -9796,7 +9837,7 @@ def placed_node(devices=PLACED_DEVICES) -> dict:
         wall = time.monotonic() - t0
         launches = lc.check()
         if static:
-            raise AssertionError(f"placed node: the dense engine ran "
+            raise AssertionError(f"{label}: the dense engine ran "
                                  f"{static}")
         # the reference: the worker's knobs, the same requests in the
         # same order (the warm one first: its pages are in the trie)
@@ -9819,8 +9860,12 @@ def placed_node(devices=PLACED_DEVICES) -> dict:
         for i, p in enumerate(prompts):
             req = ref.submit(p, max_new_tokens=PLACED_NEW, seed=i)
             ref.run_until_idle()
-            _equal_stream(f"placed node request {i}", got[i], req.tokens)
+            _equal_stream(f"{label} request {i}", got[i], req.tokens)
         ref.close()
+        if pool_pages:
+            res["pool"] = dict(pages=pool_pages,
+                               placement=list(cont.pool.placement),
+                               tenants=len(cont.pool.tenants))
         res.update(planned=axes, chunks=launches["chunks"],
                    launches=launches, wall_s=wall,
                    tokens_per_s=PLACED_NEW * len(prompts) / wall,
@@ -9858,8 +9903,11 @@ def placed_cards() -> dict:
     with the positions on the distinct local cards, against the
     unsharded slot engine on card 0: greedy streams equal up to a logged
     near-tie, per chunk tensor x the unsharded launches of each kernel,
-    each shard's pages on its own card; each card's peak memory.
-    Tokens/s and ms per chunk are readings."""
+    each shard's pages on its own card; each card's peak memory. Then
+    phase 22's olmo2-7b run over fp pages at full depth (32 layers, 14.6
+    GB in bf16) on {tensor: 4} over the four cards against the unsharded
+    engines on card 0, with each card's peak. Tokens/s and ms per chunk
+    are readings."""
     n = torch.cuda.device_count()
     if n < 4:
         raise SystemExit(f"placed_cards: needs 4 cards, have {n}")
@@ -9874,6 +9922,303 @@ def placed_cards() -> dict:
     log(f"placed_cards (qwen3-0p6b bf16 at {PLACED_LAYERS} layers, "
         f"positions on distinct cards; readings, not claims; "
         f"{res['card']} x {n}): {json.dumps(res)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    olmo = olmo_serving(_olmo(config_presets()[OLMO_MODEL].n_layers),
+                        devices=None, formats=("none",))
+    olmo["peak_bytes"] = _peaks(cards)
+    log(f"placed_cards (olmo2-7b bf16 at full depth on {OLMO_AXES}, "
+        f"positions on distinct cards, the unsharded engines on card 0; "
+        f"readings, not claims; {olmo['card']} x {n}): {json.dumps(olmo)}")
+    res["olmo"] = olmo
+    return res
+
+
+# -- phase 22: placed co-hosting and OLMo-2 -------------------------------
+OLMO_MODEL = "olmo2-7b"
+OLMO_LAYERS = 8  # of 32: a tree is about 4.9 GB in bf16 (14.6 GB at 32)
+OLMO_SEED = 2222
+# the JAX planner's axes for olmo2-7b on four devices (32 kv heads)
+# tlint: disable=TL006(read-only constant table — never mutated)
+OLMO_AXES = {"tensor": 4}
+OLMO_SEQ = 1088  # phase 15's prompts (64 to 1024 tokens) and 32 new ones
+OLMO_FORMATS = ("none", "int8")
+POOLED_LAYERS = MODEL_LAYERS  # 14 of 28, as phase 8's co-hosting (time)
+POOLED_SEEDS = (0, 1)  # the two tenants' trees
+# tlint: disable=TL006(read-only constant table — never mutated)
+POOLED_AXES = {"tensor": 4}
+POOLED_PROMPT_LENS = (300, 700, 150, 1000)  # phase 8's co-hosting prompts
+POOLED_NEW = 32
+POOLED_PAGES = 600
+POOLED_QUOTA = 300
+# a tenant's 4 requests take 144 pages and its trie keeps about 140 of
+# them after: the second tenant's admissions reclaim the first's
+POOLED_SMALL_PAGES = 200
+POOLED_NODE_PAGES = 256  # the node job's pool (its requests take 72)
+
+
+def _kv_bytes(cfg, fmt: str) -> int:
+    """KV bytes per token of a whole paged cache over ``cfg`` in page
+    format ``fmt`` (int8 and int4: one f32 scale a head and position)."""
+    hd = cfg.head_dim
+    per_head = {"fp": hd * torch.finfo(cfg.dtype).bits // 8,
+                "int8": hd + 4, "int4": hd // 2 + 4}[fmt]
+    return 2 * cfg.n_layers * cfg.n_kv_heads * per_head
+
+
+def _olmo(n_layers: int = OLMO_LAYERS):
+    """olmo2-7b in bf16 at full width (d_model 4096, 32 heads and kv
+    heads, hd 128, d_ff 11008, vocab 100,352, untied head, post norm,
+    qk_norm_full), random weights from OLMO_SEED, ``n_layers`` of 32."""
+    cfg = config_presets()[OLMO_MODEL].with_(n_layers=n_layers)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(OLMO_SEED)
+    return cfg, init_params(cfg, g, device="cuda")
+
+
+def olmo_serving(model=None, devices=PLACED_DEVICES,
+                 formats=OLMO_FORMATS) -> dict:
+    """olmo2-7b bf16 at full width (``model``, default OLMO_LAYERS layers)
+    through the slot engine over the tree placed by stage_param_specs on
+    {tensor: 4} (8 query and 8 kv heads a shard; each shard's q and k
+    columns gathered whole for the norm over the whole projection), each
+    page format of ``formats`` held against the unsharded slot engine
+    over the same weights: phase 15's 8 requests x PLACED_NEW tokens,
+    greedy streams equal or parted only where the unsharded run's
+    top-two gap is within MESH_TIE (logged); per chunk 4x the unsharded
+    engine's launches of each kernel, no plain version; the pages both
+    tries hold, per layer, within phase 21's rule (PLACED_PAGE_OF_BF16 x
+    the unsharded engine's distance from a float32 engine's, one int8
+    level more over int8 pages); the pages split by kv head, each
+    position's KV bytes per token a quarter of the whole's. Readings:
+    tokens/s and ms per chunk beside the unsharded engine's."""
+    cfg, params = model or _olmo()
+    prompts = _tp_prompts(cfg)
+    kw = dict(max_seq_len=OLMO_SEQ, device="cuda")
+    refs = {}
+    for kv_quant in formats:
+        one = _cont(GenerationEngine(cfg, params, **kw), kv_quant=kv_quant)
+        refs[kv_quant] = one, _drawn_serve(
+            one, f"olmo reference {_fmt(kv_quant)}", prompts, PLACED_NEW)
+    f32 = _cont(GenerationEngine(cfg.with_(dtype=torch.float32),
+                                 _cast_tree(params), **kw))
+    f32_run = _drawn_serve(f32, "olmo reference f32", prompts, PLACED_NEW)
+    bf16_drift = _page_drift(refs["none"][0], f32)
+    f32.close()
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    res: dict = dict(card=_smi(), layers=cfg.n_layers, axes=OLMO_AXES,
+                     requests=len(prompts), new_tokens=PLACED_NEW,
+                     unsharded={
+                         _fmt(kv): dict(tokens_per_s=r["tokens_per_s"],
+                                        ms_per_chunk=r["ms_per_chunk"],
+                                        chunks=r["chunks"])
+                         for kv, (_o, r) in refs.items()})
+    launches = {}
+    for kv_quant in formats:
+        fmt = _fmt(kv_quant)
+        label = f"olmo tensor4 {fmt}"
+        gen = _placed_gen(cfg, params, OLMO_AXES, devices,
+                          max_seq_len=OLMO_SEQ)
+        ce = _cont(gen, kv_quant=kv_quant)
+        tp = OLMO_AXES["tensor"]
+        if ce._mesh is None or ce._mesh.shape != OLMO_AXES \
+                or ce.cache.tp != tp:
+            raise AssertionError(f"{label}: not the placed step")
+        r = _drawn_serve(ce, label, prompts, PLACED_NEW)
+        one, r1 = refs[kv_quant]
+        parted = _held_greedy(label, prompts, r, r1, tie=MESH_TIE)
+        for n in NEW_PATHS:
+            if r["per_chunk"][n] != tp * r1["per_chunk"][n]:
+                raise AssertionError(f"{label}: {n} launches per chunk "
+                                     f"{r['per_chunk'][n]}, the unsharded "
+                                     f"engine's {r1['per_chunk'][n]}")
+        pages = _page_drift(ce, one)
+        level = 1.0 / 127 if kv_quant == "int8" else 0.0
+        pages["of_bound"] = max(d / (PLACED_PAGE_OF_BF16 * b + level)
+                                for d, b in zip(pages["by_layer"],
+                                                bf16_drift["by_layer"]))
+        if pages["of_bound"] > 1.0:
+            raise AssertionError(f"{label}: pages {pages}, the bf16 "
+                                 f"engine's from float32 {bf16_drift}")
+        sampled = [a == b for (_i, k, _s), a, b in zip(
+            prompts, r["streams"], r1["streams"]) if k]
+        res[fmt] = dict(
+            layout=_placed_layout(ce, OLMO_AXES, fmt, _kv_bytes(cfg, fmt)),
+            tokens_per_s=r["tokens_per_s"], ms_per_chunk=r["ms_per_chunk"],
+            chunks=r["chunks"], launches_per_chunk=r["per_chunk"],
+            greedy_parted=parted,
+            sampled_equal=f"{sum(sampled)} of {len(sampled)}",
+            trie_pages=pages)
+        launches[label] = r["launches"]
+        ce.close()
+        del ce, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+    for one, _r in refs.values():
+        one.close()
+    res["bf16_page_drift_from_f32"] = bf16_drift
+    res["f32_tokens_per_s"] = f32_run["tokens_per_s"]
+    res["launches"] = launches
+    return res
+
+
+def _pooled_run(label: str, tenants: dict, pool, prompts, want: dict,
+                sequential: bool) -> dict:
+    """Each tenant's requests (``prompts`` x POOLED_NEW, seed i), stepped
+    from one thread (together, or one tenant to the end after the
+    other): the pool conserved and every quota held at each chunk
+    boundary; each stream bitwise ``want``'s (its private engine's)."""
+    reqs: dict = {}
+    peak = {name: 0 for name in tenants}
+
+    def boundary():
+        pool.check_page_conservation()
+        for name, ce in tenants.items():
+            peak[name] = max(peak[name], ce.alloc.used)
+            if ce.alloc.used > ce.alloc.quota:
+                raise AssertionError(f"{label}: {name} over its quota")
+
+    def submit(name):
+        reqs[name] = [tenants[name].submit(p, max_new_tokens=POOLED_NEW,
+                                           seed=i)
+                      for i, p in enumerate(prompts)]
+
+    if sequential:
+        for name, ce in tenants.items():
+            submit(name)
+            while ce.step_chunk():
+                boundary()
+    else:
+        for name in tenants:
+            submit(name)
+        busy = True
+        while busy:
+            busy = False
+            for ce in tenants.values():
+                busy |= ce.step_chunk()
+            boundary()
+    for name, rs in reqs.items():
+        for i, r in enumerate(rs):
+            _equal_stream(f"{label} {name} request {i}", r.tokens,
+                          want[name][i])
+    return dict(peak_pages_used=peak, cache_reclaims=pool.cache_reclaims,
+                cross_preemptions=pool.cross_preemptions)
+
+
+def placed_pool_serving(devices=PLACED_DEVICES) -> dict:
+    """Two qwen3-0p6b tenants (bf16 trees from seeds 0 and 1,
+    POOLED_LAYERS layers at full width), both placed on {tensor: 4}, on
+    one SharedPagePool made on their page mesh (``mesh=``; the pages
+    split by kv head over the four positions): phase 8's co-hosting
+    prompts x POOLED_NEW on each. (1) 600 pages, quotas of 300, the two
+    stepped together; (2) POOLED_SMALL_PAGES pages, the first tenant's
+    requests to their end and then the second's, whose admissions
+    reclaim the first's cached pages. In both each tenant's streams are
+    bitwise its private placed engine's, the pool conserved and the
+    quotas held at every chunk boundary, both tenants reading the pool's
+    page tensors, and every page back at close; one launch of each
+    kernel a shard and layer per chunk, no plain version."""
+    from tensorlink_tpu_torch.engine.paged import SharedPagePool
+
+    cfg = config_presets()["qwen3-0p6b"].with_(n_layers=POOLED_LAYERS)
+    gens = {}
+    for seed in POOLED_SEEDS:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        gens[f"seed{seed}"] = _placed_gen(
+            cfg, init_params(cfg, g, device="cuda"), POOLED_AXES, devices,
+            max_seq_len=PLACED_SEQ)
+    rng = np.random.default_rng(77)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in POOLED_PROMPT_LENS]
+    lc = _Launches("placed pool")
+    private = {}
+    for name, gen in gens.items():
+        ce = lc.add(_cont(gen, max_slots=4))
+        rs = [ce.submit(p, max_new_tokens=POOLED_NEW, seed=i)
+              for i, p in enumerate(prompts)]
+        ce.run_until_idle()
+        private[name] = [list(r.tokens) for r in rs]
+        ce.close()
+    dev, cmesh = paged.placed_cache_mesh(next(iter(gens.values())).params,
+                                         cfg)
+    res: dict = dict(card=_smi(), layers=cfg.n_layers, axes=POOLED_AXES,
+                     prompts=list(POOLED_PROMPT_LENS), new_tokens=POOLED_NEW)
+    for run, (n_pages, quota, sequential) in (
+            ("shared", (POOLED_PAGES, POOLED_QUOTA, False)),
+            ("small", (POOLED_SMALL_PAGES, POOLED_SMALL_PAGES, True))):
+        label = f"placed pool {run}"
+        pool = SharedPagePool(cfg, n_pages, page_size=16, device=dev,
+                              mesh=cmesh)
+        tenants = {name: lc.add(_cont(gen, max_slots=4, pool=pool,
+                                      model_id=name, page_quota=quota))
+                   for name, gen in gens.items()}
+        for ce in tenants.values():
+            c = ce.cache
+            if c.k is not pool.kv[0] or c.tp != POOLED_AXES["tensor"] \
+                    or [t.device for t in c.k.shards] != list(cmesh.flat()):
+                raise AssertionError(f"{label}: a tenant's pages are not "
+                                     "the pool's split ones")
+        out = _pooled_run(label, tenants, pool, prompts, private, sequential)
+        for ce in tenants.values():
+            ce.close()
+        if pool.alloc.n_free != n_pages or pool.tenants:
+            raise AssertionError(f"{label}: pages not returned at close")
+        if run == "small" and (out["cache_reclaims"] <= 0
+                               or out["cross_preemptions"]):
+            raise AssertionError(f"{label}: reclaims {out}")
+        out.update(pages=n_pages, quota=quota,
+                   placement=list(pool.placement))
+        res[run] = out
+        del pool, tenants
+        gc.collect()
+    res["launches"] = lc.check()
+    del gens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def olmo_phase() -> dict:
+    """Phase 22, part 1: olmo2-7b on {tensor: 4}, every position on
+    cuda:0. Its per-shard kernel check at its shard shape (Hq 8, Hkv 8,
+    hd 128: a head group of 1), then its serving runs."""
+    from tensorlink_tpu_torch.engine.optimizers import tree_map
+
+    t0 = time.monotonic()
+    cfg, params = model = _olmo()
+    # the check at half the serving depth (a layer's launches are what it
+    # holds), as phase 21's: views of the first layers
+    res = dict(kernels=placed_kernel_check(
+        (cfg.with_(n_layers=OLMO_LAYERS // 2), dict(params, layers=tree_map(
+            lambda t: t[:OLMO_LAYERS // 2], params["layers"]))),
+        "olmo kernels"))
+    res["serving"] = olmo_serving(model)
+    del model, params
+    res["seconds"] = time.monotonic() - t0
+    log(f"olmo (olmo2-7b bf16 at {OLMO_LAYERS} layers on {OLMO_AXES}, every "
+        f"position on cuda:0; one card: a correctness run, the speeds are "
+        f"readings, not claims; {_smi()}): {json.dumps(res)}")
+    log(f"phase 22 (1) took {res['seconds']:.1f} s ({_smi()})")
+    return res
+
+
+def placed_pool_phase() -> dict:
+    """Phase 22, parts 2 and 3: the two tenants on one placed pool, and
+    the node job on a pool, every position on cuda:0."""
+    t0 = time.monotonic()
+    res = dict(pool=placed_pool_serving(),
+               node=placed_node(pool_pages=POOLED_NODE_PAGES))
+    res["seconds"] = time.monotonic() - t0
+    log(f"placed pool (two qwen3-0p6b tenants at {POOLED_LAYERS} layers on "
+        f"one pool on {POOLED_AXES}, a pooled node job, every position on "
+        f"cuda:0; one card: a correctness run, the speeds are readings, not "
+        f"claims; {_smi()}): {json.dumps(res)}")
+    log(f"phase 22 (2, 3) took {res['seconds']:.1f} s ({_smi()})")
     return res
 
 
@@ -9912,7 +10257,7 @@ def _phase(name, fn, *args):
     return out
 
 
-# phases 11, 13-17 and 19-21 run in two worker processes ("lanes")
+# phases 11, 13-17 and 19-22 run in two worker processes ("lanes")
 # beside the parent's phases 4-10 and 12, once the kernel timings (which
 # must run alone on the card) and phase 18 (its expert training step
 # alone holds about 45 GiB) are done: each phase is host-bound (one thread
@@ -9921,12 +10266,14 @@ def _phase(name, fn, *args):
 # its phases in order (phase 17 holds against phase 16's unsharded run,
 # in the same lane) and writes their results as JSON; the parent prints
 # its log and fails if a lane fails. Nothing about a check changes: only
-# the speeds, which are readings, see the other lanes' load.
+# the speeds, which are readings, see the other lanes' load. Phase 22's
+# two parts end one lane each, which keeps the lanes near even.
 # tlint: disable=TL006(read-only constant table — never mutated)
 LANES = {
-    "lane1": ("training", "stages", "stages training", "tensor parallel"),
+    "lane1": ("training", "stages", "stages training", "tensor parallel",
+              "olmo"),
     "lane2": ("mesh", "fsdp", "product parallel", "coslice",
-              "placed serving"),
+              "placed serving", "placed pool"),
 }
 LANE_ROOT = Path(__file__).resolve().parent / "build" / "lanes"
 
@@ -9963,6 +10310,7 @@ def run_lane(lane: str) -> None:
         "fsdp": lambda: fsdp_phase(reference),
         "product parallel": product_phase,
         "coslice": coslice_phase, "placed serving": placed_phase,
+        "olmo": olmo_phase, "placed pool": placed_pool_phase,
     }
     out = {}
     for name in LANES[lane]:
@@ -10113,6 +10461,12 @@ def _report(t_start, errs, ferrs, times, ftime, serving, dense, new_paths,
     placed_runs = dict(placed["serving"]["launches"])
     placed_runs["placed moe expert4"] = placed["moe"]["launches"]
     placed_runs["placed node fsdp2-tensor2"] = placed["node"]["launches"]
+    # phase 22: OLMo-2 on {tensor: 4}, the two pooled tenants (with their
+    # private runs) and the pooled node job, each shard's launch counted
+    pool_phase = done["placed pool"]
+    pool_runs = dict(done["olmo"]["serving"]["launches"])
+    pool_runs["pool tensor4"] = pool_phase["pool"]["launches"]
+    pool_runs["pool node fsdp2-tensor2"] = pool_phase["node"]["launches"]
     kernels = []
     for name, fmt in _variants():
         t = times[(name, fmt)]
@@ -10168,6 +10522,10 @@ def _report(t_start, errs, ferrs, times, ftime, serving, dense, new_paths,
                     fmt, 0)
                 for label, r in placed_runs.items()
                 if r["by_format"][name].get(fmt, 0)}
+            entry["launches_placed_pool"] = {
+                label: r["by_format"][name].get(fmt, 0)
+                for label, r in pool_runs.items()
+                if r["by_format"][name].get(fmt, 0)}
             held = tp["kernels"][fmt]
             entry["tp_shard_of_bound"] = held[
                 "ragged_of_bound" if name == "ragged_paged_attention"
@@ -10212,7 +10570,7 @@ def _report(t_start, errs, ferrs, times, ftime, serving, dense, new_paths,
             for n in EXPERT_LAYOUTS},
         "design": DESIGN["flash_attention"],
     })
-    log(f"chip_smoke: all 21 phases in {time.monotonic() - t_start:.1f} s, "
+    log(f"chip_smoke: all 22 phases in {time.monotonic() - t_start:.1f} s, "
         f"{time.monotonic() - _T_START:.1f} s since the script started "
         f"({_smi()})")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -47,8 +47,11 @@ leaves, ``stage_param_specs`` over ``data``, ``fsdp``, ``expert`` and
 ``tensor``) serves on that mesh, as the JAX engine serves such a tree
 under GSPMD: the chunk runs ``engine/paged.py::make_placed_ragged_step``
 and the pages split by kv head over the first group's tensor shards
-(``placed_cache_mesh``); control state stays whole, and a published whole
-tree is placed leaf by leaf as the serving tree lies.
+(``placed_cache_mesh``; whole on the mesh's first device where the axis
+does not divide the heads); control state stays whole, and a published
+whole tree is placed leaf by leaf as the serving tree lies. Such an
+engine may draw its pages from a ``SharedPagePool`` made on the same
+page mesh (``SharedPagePool(mesh=)``).
 """
 
 from __future__ import annotations
@@ -354,10 +357,8 @@ class ContinuousEngine:
                 engine, self.tensor_parallel, pool, tp_devices)
             self.device = self._tp_mesh.flat()[0]
         elif is_sharded(engine.params):
-            if pool is not None:
-                raise ValueError("a shared page pool holds whole pages, "
-                                 "the slot engine over a planned mesh "
-                                 "takes none: ROADMAP queue 1 item 9")
+            # a pool's pages must lie where this engine's would
+            # (SharedPagePool.attach holds the placement)
             self._mesh = tree_mesh(engine.params)
             self.device, self._cache_mesh = placed_cache_mesh(
                 engine.params, engine.cfg)

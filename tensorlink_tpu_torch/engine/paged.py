@@ -68,7 +68,12 @@ shards attend over their kv heads of pages split as above
 (:func:`placed_cache_mesh`), each layer's weights read through
 ``models/sharded.py`` (joined over fsdp at each use), the Megatron rows
 summed in mesh order and a MoE layer split over ``expert`` run by
-``parallel/expert.py::placed_moe_mlp``.
+``parallel/expert.py::placed_moe_mlp``. qk_norm_full normalizes the
+shards' q and k columns gathered whole; where the axis does not divide
+the heads, the pages lie whole on the group's first device and one
+attention there runs over every head. A :class:`SharedPagePool` made on
+such an engine's page mesh (``mesh=``) holds its pages split the same
+way.
 """
 
 from __future__ import annotations
@@ -95,7 +100,10 @@ from ..models.transformer import (
     _layers,
     _logits,
     _norm,
+    _qk_full_norm,
     _qkv,
+    _qkv_heads,
+    _qkv_proj,
     _residual,
     _rope_dim,
     _tp_logits,
@@ -365,7 +373,14 @@ class SharedPagePool:
     refcount-0 prefix pages LRU-first (:meth:`reclaim_cache`), then (2)
     preempt another tenant's strictly-lower-ranked running slot
     (:meth:`cross_model_victim`) through that engine's own preemption
-    path."""
+    path.
+
+    With ``mesh`` (a slot engine's page mesh over a placed tree,
+    :func:`placed_cache_mesh`) the pages split by kv head over its
+    devices, as that engine's own would, and ``device`` is its first;
+    only tenants whose pages lie there attach (:func:`page_placement`).
+    Pages leave and enter the pool in the whole reference layout
+    (:func:`gather_page`/:func:`scatter_page` join and split them)."""
 
     def __init__(
         self,
@@ -376,15 +391,17 @@ class SharedPagePool:
         dtype: torch.dtype | None = None,
         kv_quant: str = "none",
         device=None,
+        mesh: Mesh | None = None,
     ):
         self.page_size = int(page_size)
         self.kv_quant = str(kv_quant or "none")
         proto = PagedKVCache.init(
             cfg, 0, page_size=self.page_size, max_len=self.page_size,
             dtype=dtype, kv_quant=self.kv_quant, n_pages=1 + int(n_pages),
-            device=device,
+            device=device, mesh=mesh,
         )
-        self.device = proto.k.device
+        self.device = proto.block_tables.device
+        self.placement = page_placement(self.device, mesh)
         # the canonical layer-stacked page tensors: tenant engines read
         # them through their cache view and their steps write them in place
         self.kv: tuple = (
@@ -395,7 +412,7 @@ class SharedPagePool:
         self.tenants: dict[str, PoolTenant] = {}
         self.geometry = (
             cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, self.page_size,
-            self.kv_quant, dtype_name(proto.k.dtype),
+            self.kv_quant, dtype_name(proto.k.dtype), self.placement,
         )
         self.cross_preemptions = 0
         self.cache_reclaims = 0
@@ -409,8 +426,9 @@ class SharedPagePool:
         return self.alloc.n_free
 
     def attach(self, model_id: str, engine, *, quota: int = 0) -> PoolTenant:
-        """Register a tenant engine. Its geometry (and device) must match
-        the pool's — a mismatched model cannot share physical pages."""
+        """Register a tenant engine. Its geometry and its page placement
+        must match the pool's — a mismatched model cannot share physical
+        pages."""
         t_dtype = (
             "int8" if engine.kv_quant in ("int8", "int4")
             else dtype_name(engine.engine.cache_dtype)
@@ -420,17 +438,18 @@ class SharedPagePool:
             engine.cfg.head_dim, engine.page_size, engine.kv_quant,
             t_dtype,
         )
-        if geo != self.geometry:
+        if geo != self.geometry[:-1]:
             raise ValueError(
                 f"tenant {model_id!r} page geometry {geo} does not match "
-                f"the shared pool's {self.geometry} — co-hosted models "
-                "must share (layers, kv_heads, head_dim, page_size, "
-                "kv_quant, dtype)"
+                f"the shared pool's {self.geometry[:-1]} — co-hosted "
+                "models must share (layers, kv_heads, head_dim, "
+                "page_size, kv_quant, dtype)"
             )
-        if engine._counts.device != self.device:
+        placement = page_placement(engine._counts.device, engine._cache_mesh)
+        if placement != self.placement:
             raise ValueError(
-                f"tenant {model_id!r} runs on {engine._counts.device}, the "
-                f"shared pool's pages live on {self.device}"
+                f"tenant {model_id!r} places its pages on {placement}, the "
+                f"shared pool's pages lie on {self.placement}"
             )
         if model_id in self.tenants:
             raise ValueError(f"tenant {model_id!r} already attached")
@@ -935,13 +954,12 @@ def _attn_pages(kv: tuple, dtype) -> tuple:
     return kv[0].to(dtype), kv[1].to(dtype), {}
 
 
-def _paged_attend(h, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
-                  write_off, att_len, block_tables, kernel: bool):
-    """A decode block's attention over one set of pages: project ``h``
-    (whole heads, or one shard's column slice), write the new token's KV
-    through the one write path, then :func:`paged_attention` (``kernel``)
-    or its plain version. Returns ``(attn_raw [S, 1, H, hd], kv)``."""
-    q, k, v = _qkv(h, lp, cfg, cos, sin)  # [S, 1, H, hd]
+def _paged_kv(q, k, v, cfg: ModelConfig, cache_kv, write_pg, write_off,
+              att_len, block_tables, kernel: bool):
+    """A decode block's attention of projected ``q``/``k``/``v`` ``[S, 1,
+    H, hd]`` over one set of pages: write the new token's KV through the
+    one write path, then :func:`paged_attention` (``kernel``) or its
+    plain version. Returns ``(attn_raw [S, 1, H, hd], kv)``."""
     kv = _scatter_kv(cache_kv, write_pg, write_off, k[:, 0], v[:, 0])
     attn = paged_attention if kernel else paged_attention_ref
     kp, vp, sc = _attn_pages(kv, q.dtype)
@@ -958,8 +976,9 @@ def _paged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
     reading and writing KV through pages; attention is
     :func:`paged_attention` (``kernel``) or its plain version."""
     h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
-    attn_raw, kv = _paged_attend(h, lp, cfg, cos, sin, cache_kv, write_pg,
-                                 write_off, att_len, block_tables, kernel)
+    attn_raw, kv = _paged_kv(*_qkv(h, lp, cfg, cos, sin), cfg, cache_kv,
+                             write_pg, write_off, att_len, block_tables,
+                             kernel)
     return _residual(x, attn_raw, lp, cfg), kv
 
 
@@ -1087,14 +1106,13 @@ def _verify_emit(blk, logits_v, base, n_spec, emit, seeds, steps, temp,
 
 
 
-def _ragged_attend(h, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
-                   write_off, block_tables, starts, n_valid, kernel: bool):
-    """A ragged block's attention over one set of pages: project ``h``
-    (whole heads, or one shard's column slice), scatter the block's KV
-    through the one write path, then :func:`ragged_paged_attention`
-    (``kernel``) or its plain version over every slot's pages at once.
-    Returns ``(attn_raw [S, C, H, hd], kv)``."""
-    q, k, v = _qkv(h, lp, cfg, cos, sin)  # [S, C, H, hd]
+def _ragged_kv(q, k, v, cfg: ModelConfig, cache_kv, write_pg, write_off,
+               block_tables, starts, n_valid, kernel: bool):
+    """A ragged block's attention of projected ``q``/``k``/``v`` ``[S, C,
+    H, hd]`` over one set of pages: scatter the block's KV through the
+    one write path, then :func:`ragged_paged_attention` (``kernel``) or
+    its plain version over every slot's pages at once. Returns
+    ``(attn_raw [S, C, H, hd], kv)``."""
     kv = _scatter_kv(cache_kv, write_pg, write_off, k, v)
     attn = ragged_paged_attention if kernel else ragged_paged_attention_ref
     kp, vp, sc = _attn_pages(kv, q.dtype)
@@ -1112,9 +1130,9 @@ def _ragged_block(x, lp, cfg: ModelConfig, cos, sin, cache_kv, write_pg,
     :func:`ragged_paged_attention` (``kernel``) or its plain version over
     every slot's pages at once."""
     h = x if cfg.norm_position == "post" else _norm(x, lp["ln1"], cfg)
-    attn_raw, kv = _ragged_attend(h, lp, cfg, cos, sin, cache_kv, write_pg,
-                                  write_off, block_tables, starts, n_valid,
-                                  kernel)
+    attn_raw, kv = _ragged_kv(*_qkv(h, lp, cfg, cos, sin), cfg, cache_kv,
+                              write_pg, write_off, block_tables, starts,
+                              n_valid, kernel)
     return _residual(x, attn_raw, lp, cfg), kv
 
 
@@ -1189,17 +1207,24 @@ class _TP:
             rep = lay.rep(lps)
             h = x if cfg.norm_position == "post" else {
                 d: _norm(x[d], rep[d]["ln1"], cfg) for d in x}
-            parts = []
-            for s, d in enumerate(lay.devices):
-                kv = cache.shard_kv(s, i) if cache.tp > 1 \
-                    else cache.layer_kv(i)
-                attn_raw, _ = attend(lay.to_shard(h[d], d, s), lps[s], cfg,
-                                     cos[d], sin[d], kv, *ctl[d],
-                                     self.kernel)
-                parts.append(attn_raw)
+            parts = self._attention(i, h, lps, cos, sin, ctl, cache, attend)
             x = self._block(x, parts, lps, extra)
         rep = lay.rep(top)
         return {d: _norm(x[d], rep[d]["final_norm"], cfg) for d in x}
+
+    def _attention(self, i, h, lps, cos, sin, ctl, cache, attend) -> list:
+        """Layer ``i``'s attention: each shard projects its columns of
+        ``h``, writes its kv heads of the pages and attends over them
+        (``attend``: :func:`_ragged_kv` or :func:`_paged_kv`). Each
+        shard's output ``[B, T, Hq/tp, hd]``, in mesh order."""
+        cfg, lay = self.cfg, self.lay
+        parts = []
+        for s, d in enumerate(lay.devices):
+            kv = cache.shard_kv(s, i) if cache.tp > 1 else cache.layer_kv(i)
+            q, k, v = _qkv(lay.to_shard(h[d], d, s), lps[s], cfg, cos[d],
+                           sin[d])
+            parts.append(attend(q, k, v, cfg, kv, *ctl[d], self.kernel)[0])
+        return parts
 
     def _embed(self, tokens, pos):
         rep = self.lay.rep(self.shards)
@@ -1213,7 +1238,7 @@ class _TP:
         x, cos, sin = self._embed(blk.long(), pos)
         ctl = self._copies(write_pg, write_off, cache.block_tables, starts,
                            n_valid)
-        return self._layers_pass(x, cos, sin, ctl, cache, _ragged_attend,
+        return self._layers_pass(x, cos, sin, ctl, cache, _ragged_kv,
                                  self.top())
 
     def head(self, x, rows, gather):
@@ -1227,7 +1252,7 @@ class _TP:
         x, cos, sin = self._embed(tok.long()[:, None], positions)
         ctl = self._copies(write_pg, write_off, att_len, cache.block_tables)
         top = self.top()
-        x = self._layers_pass(x, cos, sin, ctl, cache, _paged_attend, top)
+        x = self._layers_pass(x, cos, sin, ctl, cache, _paged_kv, top)
         logits = _tp_logits(top, x, self.cfg, self.lay)[:, 0]
         lengths = cache.lengths
         return logits, replace(
@@ -1251,13 +1276,24 @@ class _PlacedFwd(_TP):
     input copied to each shard's device; any other MLP is ``_tp_mlp``.
     Over ``data`` the replicas hold the same tree, and the other groups
     stay idle. The logits and control tensors live on the mesh's first
-    device."""
+    device.
+
+    Where the tensor axis does not split the heads as the tp engine does
+    (:func:`_pages_split`), the attention differs and the rest stays:
+    qk_norm_full's norm over the whole projection gathers each shard's q
+    and k columns in mesh order onto every distinct device, normalizes
+    them whole with the whole scales, and each shard keeps its own heads
+    (the pages still split by kv head); a head count the axis does not
+    divide joins the shards' q/k/v columns on the first device, where the
+    pages lie whole and one launch of each kernel a layer attends over
+    every head, and each device reads the whole output."""
 
     def __init__(self, params, cfg: ModelConfig, kernel: bool):
         self.pl = pl = _Placed(params, cfg)
         _check_placed(pl)
         self.params, self.cfg, self.kernel = params, cfg, kernel
         self.lay = pl.lays[0]
+        self.split = _pages_split(pl, cfg)
         self.n_layers = pl.n_layers
         self.subs = list(pl.subgroups(0))
         self.head_names = ("final_norm",) + _head_names(cfg)
@@ -1296,6 +1332,53 @@ class _PlacedFwd(_TP):
             sin = {d: t[1] for d, t in tabs.items()}
         return x, cos, sin
 
+    def _attention(self, i, h, lps, cos, sin, ctl, cache, attend):
+        cfg, lay = self.cfg, self.lay
+        if lay.tp == 1 or (self.split and not cfg.qk_norm_full):
+            return super()._attention(i, h, lps, cos, sin, ctl, cache,
+                                      attend)
+        cols = [_qkv_proj(lay.to_shard(h[d], d, s), lps[s]["attn"])
+                for s, d in enumerate(lay.devices)]
+        if self.split:
+            # the norm over the whole projection, once per distinct
+            # device; then each shard its own heads of the pages
+            qs, ks = (lay.gather([c[j] for c in cols]) for j in (0, 1))
+            normed = {d: _qk_full_norm(qs[d], ks[d],
+                                       self._whole_norms(lps, d), cfg)
+                      for d in lay.distinct}
+            parts = []
+            for s, d in enumerate(lay.devices):
+                q_cols, k_cols, v = cols[s]
+                wq, wk = q_cols.shape[-1], k_cols.shape[-1]
+                q, k = normed[d]
+                q, k, v = _qkv_heads(
+                    lay.to_shard(q[..., s * wq:(s + 1) * wq], d, s),
+                    lay.to_shard(k[..., s * wk:(s + 1) * wk], d, s), v,
+                    lps[s]["attn"], cfg, cos[d], sin[d])
+                parts.append(attend(q, k, v, cfg, cache.shard_kv(s, i),
+                                    *ctl[d], self.kernel)[0])
+            return parts
+        # the heads do not divide: the whole q/k/v joined on the first
+        # device, one attention over every head there
+        p = lay.primary
+        q, k, v = (lay.join([c[j] for c in cols], p) for j in range(3))
+        ap = self._whole_norms(lps, p)
+        if cfg.qk_norm_full:
+            q, k = _qk_full_norm(q, k, ap, cfg)
+        q, k, v = _qkv_heads(q, k, v, ap, cfg, cos[p], sin[p])
+        out = attend(q, k, v, cfg, cache.layer_kv(i), *ctl[p],
+                     self.kernel)[0]
+        return {d: lay.to_rep(out, 0, d) for d in lay.distinct}
+
+    def _whole_norms(self, lps: list, d) -> dict:
+        """The qk-norm scales whole on device ``d``: a scale split with the
+        projections' columns (qk_norm_full) joined in mesh order."""
+        lay = self.lay
+        ap = lps[lay.first[d]]["attn"]
+        return {n: (lay.join([lp["attn"][n] for lp in lps], d)
+                    if n in self.pl.attn_cols else ap[n])
+                for n in ("q_norm", "k_norm") if n in ap}
+
     def _mlp(self, h: dict, lps: list, mlps: dict) -> dict:
         from ..parallel.expert import placed_moe_mlp
 
@@ -1318,32 +1401,50 @@ class _PlacedFwd(_TP):
 
 
 def _check_placed(pl) -> None:
-    """The placed slot engine's refusals, each naming its ROADMAP item."""
+    """The placed slot engine's refusal, naming its ROADMAP item."""
     if pl.mesh.spans:
         raise ValueError("the slot engine over a process-spanning mesh: "
                          "ROADMAP queue 1 item 11")
-    if pl.tp > 1 and not pl.split_heads:
-        raise ValueError("the slot engine over a tensor axis that does "
-                         "not split the heads (qk_norm_full, or a head "
-                         "count it does not divide): "
-                         "ROADMAP queue 1 item 10")
+
+
+def _pages_split(pl, cfg: ModelConfig) -> bool:
+    """Whether the placed slot engine's pages split by kv head over the
+    first group's tensor shards: q/k/v split by column over a tensor axis
+    that divides both head counts (with qk_norm_full or not). Else they
+    lie whole on the group's first device. The dense placed forward's
+    cache follows ``_Placed.split_heads`` instead."""
+    return (pl.tp > 1 and pl.qkv == "col" and not cfg.n_heads % pl.tp
+            and not cfg.n_kv_heads % pl.tp)
 
 
 def placed_cache_mesh(params, cfg: ModelConfig) -> tuple:
     """Where the pages of a slot engine over a tree placed on a planned
     mesh live: ``(device, mesh)`` — split by kv head over the first
     group's tensor shards (``mesh`` their ``(data=1, tp)`` mesh, for
-    :meth:`PagedKVCache.init`), or whole on the mesh's first device
-    (``mesh`` None) where the tensor axis is 1. Raises ValueError for a
-    tree the placed step refuses."""
+    :meth:`PagedKVCache.init`) where :func:`_pages_split`, else whole on
+    the mesh's first device (``mesh`` None). Raises ValueError for a tree
+    the placed step refuses."""
     from ..parallel.mesh import serving_mesh
 
     pl = _Placed(params, cfg)
     _check_placed(pl)
     lay = pl.lays[0]
-    if pl.tp == 1:
+    if not _pages_split(pl, cfg):
         return lay.primary, None
     return lay.primary, serving_mesh(pl.tp, devices=lay.devices)
+
+
+def page_placement(device, mesh: Mesh | None = None) -> tuple:
+    """Where a slot engine's pages lie, as a :class:`SharedPagePool`
+    compares them: the devices of the kv-head shards in mesh order (a
+    cache made with ``mesh``), or the one device."""
+    out = []
+    for d in (mesh.flat() if mesh is not None else [device]):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(str(d))
+    return tuple(out)
 
 
 def _ragged_step_impl(fwd, blk, cache, starts, n_valid, n_spec, emit, seeds,
@@ -1497,9 +1598,10 @@ def make_placed_ragged_step(mesh: Mesh, cfg: ModelConfig, *, n_steps: int,
             fwd = _PlacedFwd(params, cfg, kernel)
             if fwd.pl.mesh is not mesh:
                 raise ValueError("the published tree lies on another mesh")
-        if cache.tp != fwd.lay.tp:
-            raise ValueError(f"the pages split {cache.tp} ways, the heads "
-                             f"{fwd.lay.tp}")
+        want = fwd.lay.tp if fwd.split else 1
+        if cache.tp != want:
+            raise ValueError(f"the pages split {cache.tp} ways, the step "
+                             f"{want}")
         return _ragged_step_impl(
             fwd, blk, cache, starts, n_valid, n_spec, emit, seeds, steps,
             temp, top_k, top_p, pres, freq, counts, remaining, eos, n_steps,
@@ -1632,6 +1734,7 @@ __all__ = [
     "host_array",
     "make_placed_ragged_step",
     "make_tp_ragged_step",
+    "page_placement",
     "paged_decode_step",
     "paged_ragged_step",
     "pages_needed",

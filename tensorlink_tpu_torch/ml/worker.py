@@ -209,9 +209,10 @@ class DistributedWorker:
         self._handoff_preparing: set[tuple[str, str]] = set()
         self._handoff_prep_lock = threading.Lock()
         # shared multi-tenant KV page pools (engine/paged.py::
-        # SharedPagePool), keyed by page geometry — created lazily at the
-        # first continuous engine when MLConfig.cont_pool_pages > 0 and
-        # touched only from the serial run loop
+        # SharedPagePool), keyed by page geometry and placement — created
+        # lazily at the first continuous engine when
+        # MLConfig.cont_pool_pages > 0 and touched only from the serial
+        # run loop
         self._kv_pools: dict = {}
         # per-node fault plan (core/faults.py); None keeps the hot paths
         # free of fault-site calls
@@ -1223,14 +1224,14 @@ class DistributedWorker:
         ml = self.node.config.ml
         pool = None
         quota = 0
-        if int(getattr(ml, "cont_pool_pages", 0)) > 0:
-            pool = self._shared_kv_pool(rt, ml)
-            quota = int(
-                (rt.model_spec or {}).get("page_quota")
-                or getattr(ml, "cont_pool_quota", 0)
-            )
         role = str(getattr(ml, "worker_role", "mixed") or "mixed")
         try:
+            if int(getattr(ml, "cont_pool_pages", 0)) > 0:
+                pool = self._shared_kv_pool(rt, ml)
+                quota = int(
+                    (rt.model_spec or {}).get("page_quota")
+                    or getattr(ml, "cont_pool_quota", 0)
+                )
             rt.cont = cont = ContinuousEngine(
                 rt.engine,
                 # disaggregated prefill/decode: a prefill-role worker's
@@ -1238,8 +1239,9 @@ class DistributedWorker:
                 # boundary for _run_handoffs to ship
                 handoff_after_prefill=(role == "prefill"),
                 worker_role=role,
-                # co-hosting: jobs whose page geometry matches share ONE
-                # pool under a per-model quota; job_id keys the tenant
+                # co-hosting: jobs whose page geometry and placement
+                # match share ONE pool under a per-model quota; job_id
+                # keys the tenant
                 pool=pool, model_id=rt.job_id, page_quota=quota,
                 # spans this engine records carry the worker's identity
                 trace_site=str(self.node.node_id or ""),
@@ -1281,11 +1283,22 @@ class DistributedWorker:
 
     def _shared_kv_pool(self, rt: StageRuntime, ml):
         """Get-or-create the shared page pool this job's engine draws from
-        (MLConfig.cont_pool_pages > 0), keyed by page geometry so models
-        that cannot share pages get separate pools."""
-        from tensorlink_tpu_torch.engine.paged import SharedPagePool
+        (MLConfig.cont_pool_pages > 0), keyed by page geometry and page
+        placement so models that cannot share pages get separate pools: a
+        job placed on a planned mesh draws from a pool made where its
+        slot engine's pages lie (``placed_cache_mesh``; a ValueError for
+        a tree that engine refuses)."""
+        from tensorlink_tpu_torch.engine.paged import (
+            SharedPagePool,
+            page_placement,
+            placed_cache_mesh,
+        )
+        from tensorlink_tpu_torch.parallel.mesh import is_sharded
 
         cfg = rt.cfg
+        device, mesh = self.device, None
+        if is_sharded(rt.engine.params) and not rt.tp_devices:
+            device, mesh = placed_cache_mesh(rt.engine.params, cfg)
         kvq = str(ml.kv_quant or "none")
         if rt.cache_quant and kvq == "none":
             kvq = "int8"  # mirror of the engine's cache_quant forcing
@@ -1295,7 +1308,7 @@ class DistributedWorker:
         )
         key = (
             cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, page_size, kvq,
-            dtype_str,
+            dtype_str, page_placement(device, mesh),
         )
         self._gc_kv_pools(keep=key)
         pool = self._kv_pools.get(key)
@@ -1303,7 +1316,7 @@ class DistributedWorker:
             pool = SharedPagePool(
                 cfg, int(ml.cont_pool_pages), page_size=page_size,
                 dtype=rt.engine.cache_dtype, kv_quant=kvq,
-                device=self.device,
+                device=device, mesh=mesh,
             )
             self._kv_pools[key] = pool
             self.log.info(

@@ -368,16 +368,35 @@ def _qkv(h, lp, cfg: ModelConfig, cos, sin):
     """The blocks' projection prologue — q/k/v with biases, both qk-norm
     variants and (partial-dim) rope, over a ``[B, T, d]`` input; returns
     ``[B, T, H, hd]`` each."""
-    B, T = h.shape[:2]
     ap = lp["attn"]
+    q, k, v = _qkv_proj(h, ap)
+    if cfg.qk_norm_full:
+        q, k = _qk_full_norm(q, k, ap, cfg)
+    return _qkv_heads(q, k, v, ap, cfg, cos, sin)
+
+
+def _qkv_proj(h, ap: dict) -> tuple:
+    """:func:`_qkv`'s projections with their biases: ``[B, T, n]`` each
+    (whole, or a shard's columns)."""
     q = _mm(h, ap["wq"])
     k = _mm(h, ap["wk"])
     v = _mm(h, ap["wv"])
     if "bq" in ap:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    if cfg.qk_norm_full:  # OLMo-2: full-projection-dim RMSNorm pre-reshape
-        q = _rms_head_norm(q, ap["q_norm"], cfg.norm_eps)
-        k = _rms_head_norm(k, ap["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _qk_full_norm(q, k, ap: dict, cfg: ModelConfig) -> tuple:
+    """OLMo-2's RMSNorm over the whole q and k projections, before the
+    reshape into heads."""
+    return (_rms_head_norm(q, ap["q_norm"], cfg.norm_eps),
+            _rms_head_norm(k, ap["k_norm"], cfg.norm_eps))
+
+
+def _qkv_heads(q, k, v, ap: dict, cfg: ModelConfig, cos, sin) -> tuple:
+    """:func:`_qkv` after the projections (and the whole-projection norm):
+    the reshape into heads, the per-head qk-norm and rope."""
+    B, T = q.shape[:2]
     q = q.reshape(B, T, -1, cfg.head_dim)
     k = k.reshape(B, T, -1, cfg.head_dim)
     v = v.reshape(B, T, -1, cfg.head_dim)

@@ -239,3 +239,17 @@ def test_profiling_imports_torch_only():
     assert mods - {"torch", "__future__"} <= set(sys.stdlib_module_names), \
         mods
     assert "torch" in mods
+
+
+def test_queue_1_items_9_and_10_left_no_refusal():
+    """A shared page pool on a planned mesh (queue 1 item 9) and heads the
+    tensor axis does not split in the placed slot engine (item 10) are
+    ported: no source of the port cites either item any more."""
+    left = [
+        f"{p.relative_to(REPO)}: {m.group(0)}"
+        for p in _sources()
+        for m in re.finditer(r"unported\(\s*(?:\"[^\"]*\"\s*)+,\s*(?:9|10)\)"
+                             r"|queue 1\s+items?\s+(?:9|10)\b",
+                             p.read_text())
+    ]
+    assert not left, left

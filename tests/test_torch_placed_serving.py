@@ -8,7 +8,11 @@ The port's positions lie on the CPU (``[cpu] * n``); the model is the
 tiny float32 llama of tests/test_torch_tp.py and a tiny Mixtral of the
 same widths (4 experts, 2 a token). Held here, for ``{tensor: 2}``,
 ``{fsdp: 2, tensor: 2}``, ``{data: 2, tensor: 2}``, ``{expert: 2}`` and
-``{expert: 2, tensor: 2}``:
+``{expert: 2, tensor: 2}``, and for heads the tensor axis does not split
+as the tp engine does: a tiny OLMo-2 (qk_norm_full, post norm) on
+``{tensor: 2}`` and ``{fsdp: 2, tensor: 2}``, ``n_heads 4, n_kv_heads 1``
+on ``{tensor: 2}`` and ``n_heads 6, n_kv_heads 2`` on ``{tensor: 4}``
+(the pages whole):
 
 - greedy, sampled and speculative streams co-resident token-equal to
   JAX's (tests/test_tp.py's mixes), over fp pages on every mesh and int8
@@ -24,8 +28,14 @@ same widths (4 experts, 2 a token). Held here, for ``{tensor: 2}``,
   co-batched, prefix cache on == off, spec == plain, a migration blob
   round trip between two placed engines equal to the uninterrupted
   stream, a weight publish re-placed on the same mesh;
-- the refusals (a shared page pool, a tensor axis that does not split
-  the heads), each naming its ROADMAP queue 1 item.
+- a shared page pool and the unsplit heads now build, and the one
+  refusal left (a process-spanning mesh) names its ROADMAP queue 1 item;
+- a bare worker's planned-mesh job served continuous as the JAX
+  worker's, also as a tenant of a pool (``cont_pool_pages``) and for
+  OLMo-2.
+
+tests/test_torch_placed_pool.py holds the placed tenants of a
+``SharedPagePool``.
 """
 
 import dataclasses
@@ -84,12 +94,29 @@ MESHES = {
     "data2-tensor2": ("dense", {"data": 2, "tensor": 2}),
     "expert2": ("moe", {"expert": 2}),
     "expert2-tensor2": ("moe", {"expert": 2, "tensor": 2}),
+    # heads the tensor axis does not split as the tp engine does: OLMo-2's
+    # norm over the whole projection (the pages still split by kv head),
+    # and head counts the axis does not divide (the pages whole)
+    "olmo2-tensor2": ("olmo2", {"tensor": 2}),
+    "olmo2-fsdp2-tensor2": ("olmo2", {"fsdp": 2, "tensor": 2}),
+    "mqa-tensor2": ("mqa", {"tensor": 2}),
+    "heads6-tensor4": ("heads6", {"tensor": 4}),
 }
-# fp pages on every mesh, the quantized formats on one dense and one MoE
+# fp pages on every mesh, the quantized formats on one dense and one MoE,
+# int8 on OLMo-2 and on whole pages
 # tlint: disable=TL006(read-only test data)
 CASES = [(m, "none") for m in MESHES] + [
     (m, q) for m in ("fsdp2-tensor2", "expert2-tensor2")
-    for q in ("int8", "int4")]
+    for q in ("int8", "int4")] + [
+    ("olmo2-tensor2", "int8"), ("heads6-tensor4", "int8")]
+# tlint: disable=TL006(read-only test data)
+KINDS = {
+    "dense": {},
+    "moe": dict(family="mixtral", n_experts=4, n_experts_per_tok=2),
+    "olmo2": dict(family="olmo2", qk_norm_full=True, norm_position="post"),
+    "mqa": dict(n_heads=4, n_kv_heads=1),
+    "heads6": dict(n_heads=6, n_kv_heads=2, d_model=96),
+}
 
 
 def _jcfg(kind: str, **kw) -> JModelConfig:
@@ -98,17 +125,23 @@ def _jcfg(kind: str, **kw) -> JModelConfig:
         n_kv_heads=2, head_dim=16, d_ff=64, max_seq_len=64,
         dtype=jnp.float32, tie_embeddings=False,
     )
-    if kind == "moe":
-        base.update(family="mixtral", n_experts=4, n_experts_per_tok=2)
+    base.update(KINDS[kind])
     base.update(kw)
     return JModelConfig(**base)
+
+
+def _page_tp(cfg, axes: dict) -> int:
+    """How many ways the placed slot engine splits its pages: the tensor
+    axis where it divides both head counts, else 1 (whole)."""
+    tp = axes.get("tensor", 1)
+    return tp if not cfg.n_heads % tp and not cfg.n_kv_heads % tp else 1
 
 
 @pytest.fixture(scope="module")
 def models():
     """``kind -> (jax cfg, jax params on the host, port cfg)``."""
     out = {}
-    for seed, kind in enumerate(("dense", "moe")):
+    for seed, kind in enumerate(KINDS):
         jcfg = _jcfg(kind)
         out[kind] = (jcfg, jax.device_get(
             j_init_params(jcfg, jax.random.PRNGKey(seed))),
@@ -203,8 +236,7 @@ def test_placed_streams_and_pages_equal_jax(models, mesh, kv_quant):
     for key in ("spec_drafted", "spec_accepted", "prefill_tokens",
                 "decode_steps"):
         assert ce.stats[key] == jce.stats[key], key
-    tp = axes.get("tensor", 1)
-    assert ce.cache.tp == tp
+    assert ce.cache.tp == _page_tp(cfg, axes)
     got_p, want_p = _joined_pages(ce.cache), _jax_pages(jce.cache)
     assert [g.shape for g in got_p] == [w.shape for w in want_p]
     if kv_quant == "none":
@@ -261,7 +293,8 @@ def test_placed_teacher_forced_logits_equal_jax(models, mesh):
 
 
 # -- the port's own contracts on the placed engine ---------------------------
-@pytest.mark.parametrize("mesh", ["fsdp2-tensor2", "expert2-tensor2"])
+@pytest.mark.parametrize("mesh", ["fsdp2-tensor2", "expert2-tensor2",
+                                  "olmo2-tensor2", "heads6-tensor4"])
 def test_placed_solo_cobatched_prefix_and_spec_bitwise(models, mesh):
     together = _serve(_placed_engine(models, mesh), SamplingParams)
     for mix, want in zip(MIXES, together):
@@ -281,9 +314,10 @@ def test_placed_solo_cobatched_prefix_and_spec_bitwise(models, mesh):
         ce.check_page_conservation()
 
 
-@pytest.mark.parametrize("kv_quant", ["none", "int8"])
-def test_placed_migration_blob_round_trip(models, kv_quant):
-    mesh = "fsdp2-tensor2"
+@pytest.mark.parametrize("mesh,kv_quant", [
+    ("fsdp2-tensor2", "none"), ("fsdp2-tensor2", "int8"),
+    ("olmo2-fsdp2-tensor2", "none"), ("mqa-tensor2", "int8")])
+def test_placed_migration_blob_round_trip(models, mesh, kv_quant):
     sp = SamplingParams.make(temperature=0.9, top_k=5)
     prompt = [5, 6, 7, 8, 9, 10, 11]
     solo = _placed_engine(models, mesh, kv_quant=kv_quant)
@@ -300,7 +334,8 @@ def test_placed_migration_blob_round_trip(models, kv_quant):
     blob = src.export_slot(r.slot, n_skip=dst.resident_prefix_pages(chain,
                                                                     limit))
     # the blob holds the reference layout: every kv head of a page
-    assert np.asarray(blob["k"]).shape[2] == models["dense"][2].n_kv_heads
+    assert np.asarray(blob["k"]).shape[2] == \
+        models[MESHES[mesh][0]][2].n_kv_heads
     blob = tser.decode(tser.encode(blob), copy=True)
     assert dst.stage_migration("m", blob)
     moved = src.commit_migration(r.slot)
@@ -336,20 +371,36 @@ def test_placed_publish_replaces_on_the_mesh(models):
 
 
 def test_placed_refusals_name_their_items(models):
+    """A shared page pool on the engine's page mesh and trees whose heads
+    the tensor axis does not split as the tp engine does now build; the
+    one refusal left in ``_check_placed`` is a process-spanning mesh,
+    citing its ROADMAP item (queue 1 item 11)."""
+    import inspect
+    import re
+
     _, host, cfg = models["dense"]
     tree = _port_tree(cfg, host, {"fsdp": 2, "tensor": 2})
     gen = GenerationEngine(cfg, tree, max_seq_len=64, device="cpu")
-    pool = paged.SharedPagePool(cfg, 32, page_size=8, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
-        ContinuousEngine(gen, **ENGINE_KW, pool=pool)
-    # a tensor axis the kv heads do not divide
-    jcfg = _jcfg("dense", n_heads=4, n_kv_heads=1)
-    cfg1 = config_from_jax(dataclasses.asdict(jcfg))
-    host1 = jax.device_get(j_init_params(jcfg, jax.random.PRNGKey(2)))
-    gen1 = GenerationEngine(cfg1, _port_tree(cfg1, host1, {"tensor": 2}),
-                            max_seq_len=64, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 10"):
-        ContinuousEngine(gen1, **ENGINE_KW)
+    dev, cmesh = paged.placed_cache_mesh(tree, cfg)
+    pool = paged.SharedPagePool(cfg, 32, page_size=8, device=dev,
+                                mesh=cmesh)
+    ce = ContinuousEngine(gen, **ENGINE_KW, pool=pool, model_id="a")
+    assert ce.cache.k is pool.kv[0] and ce.cache.tp == 2
+    ce.close()
+    for mesh in ("olmo2-tensor2", "mqa-tensor2", "heads6-tensor4"):
+        kind, axes = MESHES[mesh]
+        _, host_m, cfg_m = models[kind]
+        gen_m = GenerationEngine(cfg_m, _port_tree(cfg_m, host_m, axes),
+                                 max_seq_len=64, device="cpu")
+        ce = ContinuousEngine(gen_m, **ENGINE_KW)
+        assert ce.cache.tp == _page_tp(cfg_m, axes)
+        ce.close()
+    body = inspect.getsource(paged._check_placed)
+    assert body.count("raise ") == 1
+    assert re.findall(r"queue 1 item (\d+)", body) == ["11"]
+    spanning = types.SimpleNamespace(mesh=types.SimpleNamespace(spans=True))
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 11"):
+        paged._check_placed(spanning)
 
 
 # -- a worker's planned-mesh job -------------------------------------------
@@ -365,18 +416,20 @@ class _Bridge:
     notify = request
 
 
-def _worker(pkg: str, **ml_kw):
+def _worker(pkg: str, mesh_devices=None, **ml_kw):
+    """A bare worker of either package; ``mesh_devices`` is the port's
+    alone (the JAX worker sees the conftest's host devices)."""
     if pkg == "port":
         from tensorlink_tpu_torch.core import config as C
         from tensorlink_tpu_torch.ml.worker import DistributedWorker
 
         ml = C.MLConfig(device="cpu", max_seq_len=64, warmup_tokens=0,
-                        **ml_kw)
+                        mesh_devices=mesh_devices, **ml_kw)
     else:
         from tensorlink_tpu.core import config as C
         from tensorlink_tpu.ml.worker import DistributedWorker
 
-        ml = C.MLConfig(max_seq_len=64, warmup_tokens=0)
+        ml = C.MLConfig(max_seq_len=64, warmup_tokens=0, **ml_kw)
     return DistributedWorker(types.SimpleNamespace(
         bridge=_Bridge(), node_id=f"{pkg}-w0", config=C.WorkerConfig(ml=ml),
         crash=lambda: None))
@@ -420,12 +473,16 @@ def _continuous(w, job: str, tag: str) -> list:
     return [got[f"{tag}{i}"] for i in range(len(WORKER_REQUESTS))]
 
 
-@pytest.mark.parametrize("mesh", ["expert2-tensor2", "data2-tensor2"])
+@pytest.mark.parametrize("mesh,pool_pages", [
+    ("expert2-tensor2", 0), ("data2-tensor2", 0), ("fsdp2-tensor2", 64),
+    ("olmo2-tensor2", 0)])
 def test_planned_mesh_job_serves_continuous_like_jax(models, checkpoints,
-                                                      mesh):
+                                                      mesh, pool_pages):
     """A job on a planned mesh answers its continuous GENERATEs from its
     slot engine over the placed tree (not the static paths), co-batched,
-    and each answer equals the JAX worker's on the same plan."""
+    and each answer equals the JAX worker's on the same plan — with
+    ``cont_pool_pages > 0`` as a tenant of a shared pool made on the
+    engine's page mesh, and for OLMo-2 (qk_norm_full)."""
     kind, axes = MESHES[mesh]
     jcfg, _, _ = models[kind]
     stage = {"worker_id": "w0", "layer_lo": 0, "layer_hi": jcfg.n_layers,
@@ -434,7 +491,7 @@ def test_planned_mesh_job_serves_continuous_like_jax(models, checkpoints,
     job = "cd34ab12"
     answers = []
     for pkg in ("port", "jax"):
-        w = _worker(pkg, mesh_devices=4) if pkg == "port" else _worker(pkg)
+        w = _worker(pkg, mesh_devices=4, cont_pool_pages=pool_pages)
         w._handle("load_stage", {
             "rid": "m", "peer": "p", "job_id": job, "training": False,
             "stage": stage, "model": {"name": "tiny",
@@ -446,6 +503,14 @@ def test_planned_mesh_job_serves_continuous_like_jax(models, checkpoints,
             assert rt.cont.engine is rt.engine
             assert rt.cont._mesh is rt.mesh and rt.cont.chunks > 0
             assert tmesh.is_sharded(rt.params)
+            if pool_pages:
+                pool = rt.cont.pool
+                assert pool is not None and rt.cont.alloc.pool is pool
+                assert list(w._kv_pools.values()) == [pool]
+                assert rt.cont.cache.k is pool.kv[0]
+                assert pool.placement == paged.page_placement(
+                    *paged.placed_cache_mesh(rt.params, rt.cfg))
+                assert pool.n_pages - 1 == pool_pages
     for got, want in zip(*answers):
         assert got["sequences"] == [list(map(int, s))
                                     for s in want["sequences"]]
